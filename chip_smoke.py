@@ -4,28 +4,47 @@
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--seed N] [--reps N]
+    python3 chip_smoke.py [--seed N] [--reps N] [--train-steps N]
 
 Phases, in order; any fault ends the run with a non-zero exit and no
 ``ok`` line:
 
 1. device — the card's name and power limit from nvidia-smi.
-2. build — compile the four hand-written kernels from
-   ``mxnet_tpu_torch/csrc`` into ``mxnet_tpu_torch/_build/``.
+2. build — compile every hand-written kernel from
+   ``mxnet_tpu_torch/csrc`` (one nvcc per source, all started together)
+   into ``mxnet_tpu_torch/_build/``.
 3. kernel parity — each kernel against its plain PyTorch version on the
-   card, in bf16, at the shapes BERT-base serving gives it.
-4. the slice — BERT-base (12 layers, 768 units, 12 heads, vocab 30522)
-   at full width with weights, biases, LayerNorm gamma and beta drawn
-   from ``--seed``, cast to bf16 and served through
-   ``InferenceSession``: the launch counts of all four kernels are reset
-   just before and read just after, and every output is held against
-   the same model run with the kernels swapped for their plain
-   versions. A control then serves one request with bias_residual's
-   bias dropped and requires that check to fail.
-5. times — median time of each kernel, its plain version and the one
+   card, in bf16: the forward kernels at the shapes BERT-base serving
+   gives them; the LayerNorm, bias+GeLU and attention backward kernels
+   (dgamma, dbeta, db and the packed dQKV included), attention at
+   dropout 0.1 and the dropout kernel at the shapes BERT-base training
+   gives them. The dropout masks of kernel and plain version must be
+   identical (zero patterns compared exactly), and the dropout keep rate
+   within 5 binomial sigma of 0.9.
+4. serving — BERT-base (12 layers, 768 units, 12 heads, vocab 30522) at
+   full width with weights, biases, LayerNorm gamma and beta drawn from
+   ``--seed``, cast to bf16 and served through ``InferenceSession``: the
+   launch counts are reset just before and read just after, and every
+   output is held against the same model run with the kernels swapped
+   for their plain versions. A control then serves one request with
+   bias_residual's bias dropped and requires that check to fail.
+5. training — the same model with dropout 0.1 and
+   ``BERTMLMLoss(mode="dense")``, batch 32 x seq 128, trained through
+   ``autograd.record()`` -> ``backward()`` -> ``gluon.Trainer`` (LAMB,
+   lr 1e-3, wd 0.01). One forward and backward is held against the same
+   step with every kernel swapped for its plain version (same seeds, so
+   the same masks): the loss and every parameter's gradient, with the
+   plain bf16 step's own distance from its f32 twin as the yardstick. A
+   control drops bias+GeLU's db (its kernel still launches) and must be
+   caught. Then the launch counts of one full step (counts reset just
+   before, read just after) must equal the expected table, and
+   ``--train-steps`` LAMB steps on one fixed batch must keep the loss
+   finite and end below where they began.
+6. times — median time of each kernel, its plain version and the one
    PyTorch call that computes the same function; per-request latency
-   and tokens/s of the slice; then one served forward under
-   torch.profiler, its device time by kernel group.
+   and tokens/s of serving; ms per training step and samples/s; then
+   one served forward and one training step under torch.profiler, the
+   device time by kernel group.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +71,12 @@ _PEAKS = {
 # One kernel against its plain version: the two differ only in the
 # order of f32 sums, so at most an ulp or two of bf16 (2^-8 relative).
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
+# The training kernels keep their plain versions' rounding points, so all
+# but a few elements come out bit-equal (sums in another order flip a
+# bf16 rounding now and then); a misplaced rounding point, such as the
+# attention's dV taken from a bf16 Pd, leaves about 86% equal (measured
+# against the reference on the CPU), which the tolerance above misses.
+KERNEL_EQUAL = 0.99
 # The served model against itself with the plain versions: one-ulp flips
 # in one layer's bf16 output are rounded again by every later layer. The
 # yardstick is what bf16 arithmetic itself costs: the same model (its
@@ -62,6 +87,26 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-2
 # 0.36-1.59 over seeds 0-4, and 15-56 with bias_residual's bias dropped
 # (the control); the limit is twice the largest correct reading.
 SLICE_RATIO = 3.2
+# The training step against itself with the plain versions, per
+# parameter gradient and for the loss, with the same yardstick: the plain
+# bf16 step's own distance from its f32 twin. On an H100 the largest of
+# the 156 ratios read 1.44, 1.79, 1.45, 1.28 and 1.30 for seeds 0-4
+# (medians 0.78-1.04), and 56-229 on the 12 ffn_1 biases with
+# bias+GeLU's db dropped (the control); the limit is twice the largest
+# correct reading.
+TRAIN_RATIO = 3.6
+# one training step of bert_12_768_12 at dropout 0.1 with BERTMLMLoss:
+# 12 layers x 2 LayerNorms + the embedding's + the MLM head's; proj
+# always fuses its residual, ffn_2 does not when dropout > 0; dropout
+# after the embedding and in each FFN, each forward and backward
+TRAIN_LAUNCHES = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
+                  "selfatt_fwd": 12, "selfatt_bwd": 12,
+                  "bias_gelu_fwd": 12, "bias_gelu_bwd": 12,
+                  "bias_residual_fwd": 12, "dropout": 26}
+TRAIN_FWD_DROPOUT = 13
+TRAIN_BATCH, TRAIN_SEQ, VOCAB = 32, 128, 30522
+UNITS, HIDDEN, HEADS, HEAD_DIM = 768, 3072, 12, 64
+DEV = "cuda"
 
 
 class SmokeFailure(Exception):
@@ -90,31 +135,41 @@ def _compare(what, got, ref, atol, rtol):
     return float(err.max()), l2, bool(bad)
 
 
-def _check_close(what, got, ref, atol, rtol):
+def _check_close(what, got, ref, atol, rtol, min_equal=None):
+    """Elementwise tolerance; with ``min_equal``, also the least share of
+    elements that must be bit-equal."""
     max_err, l2, fail = _compare(what, got, ref, atol, rtol)
-    print("[parity] %-44s max_abs_err=%.3g rel_l2=%.3g tol=%.3g+%g*|ref| %s"
-          % (what, max_err, l2, atol, rtol, "FAIL" if fail else "ok"))
+    equal = ""
+    if min_equal is not None:
+        share = float((got == ref).float().mean())
+        fail = fail or share < min_equal
+        equal = " equal=%.5f (>= %g)" % (share, min_equal)
+    print("[parity] %-44s max_abs_err=%.3g rel_l2=%.3g tol=%.3g+%g*|ref|%s %s"
+          % (what, max_err, l2, atol, rtol, equal, "FAIL" if fail else "ok"))
     if fail:
-        raise SmokeFailure("%s: beyond tolerance, max_abs_err %.3g"
-                           % (what, max_err))
+        raise SmokeFailure("%s: beyond tolerance, max_abs_err %.3g%s"
+                           % (what, max_err, equal))
     return max_err
 
 
-def _slice_check(tag, what, out, ref, anchor):
-    """Hold one served output against the plain path's, with the plain
-    path's distance from f32 as the yardstick; returns (ratio, fail)."""
+def _slice_check(tag, what, out, ref, anchor, limit=SLICE_RATIO,
+                 quiet=False):
+    """Hold one output of the kernel path against the plain path's, with
+    the plain path's distance from f32 as the yardstick; returns (ratio,
+    fail). Arrays may be numpy or torch."""
     import torch
-    o, r, a = (torch.from_numpy(x).float() for x in (out, ref, anchor))
+    o, r, a = (torch.as_tensor(x).float() for x in (out, ref, anchor))
     got_max, got_l2, _ = _compare(what, o, r, 0.0, 0.0)
     bf16_max, bf16_l2, _ = _compare(what + " (plain path)", r, a, 0.0, 0.0)
     ratio = max(got_max / max(bf16_max, 1e-30), got_l2 / max(bf16_l2, 1e-30))
-    fail = ratio > SLICE_RATIO
+    fail = ratio > limit
     verdict = (("caught" if fail else "MISSED") if tag == "control"
                else ("FAIL" if fail else "ok"))
-    print("[%s] %-34s max_abs_err=%.3g rel_l2=%.3g; plain bf16 vs f32: "
-          "max_abs_err=%.3g rel_l2=%.3g; ratio %.3g (limit %g) %s"
-          % (tag, what, got_max, got_l2, bf16_max, bf16_l2, ratio,
-             SLICE_RATIO, verdict))
+    if fail or not quiet:
+        print("[%s] %-34s max_abs_err=%.3g rel_l2=%.3g; plain bf16 vs f32: "
+              "max_abs_err=%.3g rel_l2=%.3g; ratio %.3g (limit %g) %s"
+              % (tag, what, got_max, got_l2, bf16_max, bf16_l2, ratio,
+                 limit, verdict))
     return ratio, fail
 
 
@@ -174,10 +229,10 @@ def phase_build():
 def _randn(seed):
     """A bf16 normal sampler on the card, seeded."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEV).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device="cuda")
+        return (torch.randn(shape, generator=g, device=DEV)
                 * scale).to(torch.bfloat16)
     return randn
 
@@ -216,23 +271,45 @@ def phase_parity(seed):
 
 
 @contextlib.contextmanager
-def _plain_kernels():
-    """Swap each kernel wrapper for its plain version (the slice's
-    reference run on the card)."""
+def _plain_kernels(f32_twin=False):
+    """Swap each kernel wrapper, forward and backward, for its plain
+    version (the slices' reference runs on the card). ``f32_twin`` also
+    sends f32 attention to the plain kernel functions with their bf16
+    rounding points dropped, so that the f32 yardstick draws the same
+    dropout masks (the op would run its composition for f32)."""
+    import functools
     from unittest import mock
-    from mxnet_tpu_torch.ops import cuda_attention, cuda_epilogue, cuda_norm
-    with mock.patch.object(cuda_norm, "layer_norm",
-                           cuda_norm.layer_norm_plain), \
-            mock.patch.object(cuda_attention, "selfatt",
-                              cuda_attention.selfatt_plain), \
-            mock.patch.object(cuda_epilogue, "bias_gelu",
-                              cuda_epilogue.bias_gelu_plain), \
-            mock.patch.object(cuda_epilogue, "bias_residual",
-                              cuda_epilogue.bias_residual_plain):
+    from mxnet_tpu_torch.ops import (cuda_attention, cuda_dropout,
+                                     cuda_epilogue, cuda_norm)
+    swaps = [(cuda_norm, "layer_norm", cuda_norm.layer_norm_plain),
+             (cuda_norm, "layer_norm_bwd", cuda_norm.layer_norm_bwd_plain),
+             (cuda_attention, "selfatt", cuda_attention.selfatt_plain),
+             (cuda_attention, "selfatt_bwd",
+              cuda_attention.selfatt_bwd_plain),
+             (cuda_epilogue, "bias_gelu", cuda_epilogue.bias_gelu_plain),
+             (cuda_epilogue, "bias_gelu_bwd",
+              cuda_epilogue.bias_gelu_bwd_plain),
+             (cuda_epilogue, "bias_residual",
+              cuda_epilogue.bias_residual_plain),
+             (cuda_dropout, "dropout", cuda_dropout.dropout_plain)]
+    if f32_twin:
+        swaps += [
+            (cuda_attention, "selfatt", functools.partial(
+                cuda_attention.selfatt_plain, rounding=False)),
+            (cuda_attention, "selfatt_bwd", functools.partial(
+                cuda_attention.selfatt_bwd_plain, rounding=False)),
+            (cuda_attention, "selfatt_available",
+             lambda L, heads, batch, dtype: True)]
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in swaps:
+            stack.enter_context(mock.patch.object(mod, name, fn))
         yield
 
 
 REQUESTS = ((8, 128), (1, 128), (3, 77))
+# the kernels of the serving path (the others are training's)
+SERVE_KERNELS = ("layer_norm_fwd", "selfatt_fwd", "bias_gelu_fwd",
+                 "bias_residual_fwd")
 AFFINE_SCALE = 0.1
 
 
@@ -241,7 +318,7 @@ def _draw_affine(net, seed):
     N(0, AFFINE_SCALE^2) (seeded), so that a kernel which mishandles one
     changes the outputs. The initializers leave them 0 and 1."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    g = torch.Generator(device=DEV).manual_seed(seed + 2)
     for name, p in net.collect_params().items():
         if name.endswith(("_bias", "_beta", "_gamma")):
             t = p.data().tensor()
@@ -287,7 +364,7 @@ def phase_slice(seed):
     print("[serve] %d parameters" % n_params)
     print("[serve] launches over %d forwards (session build + %d "
           "requests): %s" % (n_forwards, len(reqs), counts))
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
     if missing:
         raise SmokeFailure("kernels never launched on the main path: %s"
                            % missing)
@@ -447,28 +524,40 @@ def phase_profile(net, bucket=(8, 128)):
     from torch.profiler, and the card's busy share of the forward's wall
     time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     import mxnet_tpu_torch as mx
     padded = [mx.nd.zeros(bucket, ctx=mx.gpu(0), dtype="int32")
               for _ in range(2)]
-    with torch.no_grad():
-        net(*padded)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+    def forward():
+        with torch.no_grad():
             net(*padded)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    _profile("one forward at bucket %s" % (bucket,), forward)
+
+
+def _profile(what, fn, n_other=8):
+    """Run ``fn`` once warm, then once under torch.profiler; print the
+    wall time, the device's busy time and share, and device time by
+    kernel group (the port's kernels by name, cuBLAS, the largest other
+    kernels by name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.ops import cuda_build
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     groups, n_kernels = {}, 0
+    names = sorted(cuda_build.KERNELS, key=len, reverse=True)
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n_kernels += 1
         name = ev.name
-        group = next((k for k in ("layer_norm_fwd", "selfatt_fwd",
-                                  "bias_gelu_fwd", "bias_residual_fwd")
-                      if k in name), None)
+        group = next((k for k in names if k in name), None)
         if group is None:
             low = name.lower()
             group = ("matmul (cuBLAS)" if any(
@@ -482,12 +571,373 @@ def phase_profile(net, bucket=(8, 128)):
         print("[profile] the profiler saw no device kernels: device time "
               "not measured")
         return
-    print("[profile] one forward at bucket %s: wall %.2f ms (host clock, "
-          "profiler on), %d kernels, device busy %.2f ms (%.0f%% of wall)"
-          % (bucket, wall_ms, n_kernels, busy, 100 * busy / wall_ms))
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+    print("[profile] %s: wall %.2f ms (host clock, profiler on), %d "
+          "kernels, device busy %.2f ms (%.0f%% of wall)"
+          % (what, wall_ms, n_kernels, busy, 100 * busy / wall_ms))
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1])
+    others = [kv for kv in ranked if kv[0].startswith("other: ")]
+    rest = others[n_other:]
+    for g, ms in ranked:
+        if (g, ms) not in rest:
+            print("[profile]   %-48s %8.3f ms  %5.1f%% of device time"
+                  % (g, ms, 100 * ms / busy))
+    if rest:
+        ms = sum(v for _, v in rest)
         print("[profile]   %-48s %8.3f ms  %5.1f%% of device time"
-              % (g, ms, 100 * ms / busy))
+              % ("other: %d more kernel names" % len(rest), ms,
+                 100 * ms / busy))
+
+
+def _drop_pattern(what, got, ref):
+    """The zero patterns of two dropout outputs must be identical."""
+    import torch
+    torch.cuda.synchronize()
+    differ = int(((got == 0) != (ref == 0)).sum())
+    print("[parity] %-44s zero patterns differ at %d of %d elements %s"
+          % (what, differ, got.numel(), "FAIL" if differ else "ok"))
+    if differ:
+        raise SmokeFailure("%s: the kernel's dropout mask is not the plain "
+                           "version's" % what)
+
+
+def phase_parity_train(seed):
+    """The training kernels against their plain versions at the shapes
+    BERT-base training gives them; returns {kernel: max abs error}."""
+    import math
+    import torch
+    from mxnet_tpu_torch.ops import (cuda_attention, cuda_dropout,
+                                     cuda_epilogue, cuda_norm)
+    randn = _randn(seed + 3)
+    M, C, H = TRAIN_BATCH * TRAIN_SEQ, UNITS, HIDDEN
+    errs = {}
+    x, dy, g = randn(M, C, scale=2.0), randn(M, C), randn(C)
+    got = cuda_norm.layer_norm_bwd_cuda(dy, x, g, 1e-5)
+    ref = cuda_norm.layer_norm_bwd_plain(dy, x, g, 1e-5)
+    errs["layer_norm_bwd"] = max(
+        _check_close("layer_norm_bwd %s (%d, %d)" % (name, M, C), a, b,
+                     KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+        for name, a, b in zip(("dx", "dgamma", "dbeta"), got, ref))
+
+    x, dy, b = randn(M, H, scale=2.0), randn(M, H), randn(H)
+    got = cuda_epilogue.bias_gelu_bwd_cuda(dy, x, b)
+    ref = cuda_epilogue.bias_gelu_bwd_plain(dy, x, b)
+    errs["bias_gelu_bwd"] = max(
+        _check_close("bias_gelu_bwd %s (%d, %d)" % (name, M, H), a, b_,
+                     KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+        for name, a, b_ in zip(("dx", "db"), got, ref))
+
+    x = randn(M, C) + 3          # no zeros: a zero output is a drop
+    seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int32,
+                          device=DEV)
+    got = cuda_dropout.dropout_cuda(x, 0.1, seed_t)
+    ref = cuda_dropout.dropout_plain(x, 0.1, seed_t)
+    errs["dropout"] = _check_close("dropout p=0.1 (%d, %d)" % (M, C), got,
+                                   ref, KERNEL_ATOL, KERNEL_RTOL)
+    _drop_pattern("dropout mask (%d, %d)" % (M, C), got, ref)
+    keep = float((got != 0).float().mean())
+    sigma = math.sqrt(0.9 * 0.1 / got.numel())
+    print("[parity] dropout keep rate %.6f, 0.9 +- %.2g (5 sigma = %.2g) %s"
+          % (keep, sigma, 5 * sigma, "ok" if abs(keep - 0.9) <= 5 * sigma
+             else "FAIL"))
+    if abs(keep - 0.9) > 5 * sigma:
+        raise SmokeFailure("dropout keep rate %.6f beyond 5 sigma of 0.9"
+                           % keep)
+
+    L, N, heads, hd = TRAIN_SEQ, TRAIN_BATCH, HEADS, HEAD_DIM
+    plan = cuda_attention.selfatt_plan(L, heads, N)
+    seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
+                          generator=torch.Generator(device=DEV)
+                          .manual_seed(seed + 4), device=DEV,
+                          dtype=torch.int32)
+    args = (heads, 0.1, seeds, plan["bbh"])
+    qkv, dout = randn(L, N, heads * 3 * hd), randn(L, N, heads * hd)
+    _check_close("selfatt_fwd p=0.1 L=%d N=%d heads=%d" % (L, N, heads),
+                 cuda_attention.selfatt_cuda(qkv, *args),
+                 cuda_attention.selfatt_plain(qkv, *args),
+                 KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+    errs["selfatt_bwd"] = _check_close(
+        "selfatt_bwd dqkv p=0.1 L=%d N=%d heads=%d" % (L, N, heads),
+        cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
+        cuda_attention.selfatt_bwd_plain(qkv, dout, *args),
+        KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+    # the mask: q = 0 makes P uniform (1/L) and v one-hot per key makes
+    # the context the dropped probabilities themselves, so the context's
+    # zeros are the mask; keys [k0, k0 + hd) per run
+    want = cuda_attention.keep_mask(seeds, N, heads, L, 0.1, plan["bbh"])
+    for k0 in range(0, L, hd):
+        x = torch.zeros(L, N, heads, 3, hd, device=DEV)
+        x[k0:k0 + hd, :, :, 2] = torch.eye(hd, device=DEV)[:, None, None]
+        x = x.reshape(L, N, heads * 3 * hd).to(torch.bfloat16)
+        pattern = [(f(x, *args).reshape(L, N, heads, hd)
+                    .permute(1, 2, 0, 3) != 0) for f in (
+                        cuda_attention.selfatt_cuda,
+                        cuda_attention.selfatt_plain)]
+        for name, got in zip(("kernel", "plain"), pattern):
+            _drop_pattern("selfatt mask, %s, keys %d-%d" % (name, k0,
+                                                           k0 + hd - 1),
+                          got.to(torch.float32),
+                          want[..., k0:k0 + hd].to(torch.float32))
+    return errs
+
+
+def _train_batch(seed):
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(seed + 5)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    return [mx.nd.array(rng.randint(0, hi, shape).astype(np.int32))
+            for hi in (VOCAB, 2, VOCAB)]
+
+
+def _build_train(seed):
+    """bert_12_768_12 at dropout 0.1 and the dense MLM head, as a user
+    writes them: initialized on gpu(0) (the default context), biases,
+    beta and gamma - 1 drawn from the seed, cast to bf16."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTMLMLoss,
+                                                      bert_12_768_12)
+    mx.random.seed(seed)
+    net = bert_12_768_12(dropout=0.1, use_pooler=False, use_classifier=False,
+                         use_decoder=False)
+    mlm = BERTMLMLoss(vocab_size=VOCAB, units=net._units, mode="dense",
+                      prefix="decoder_")
+    net.initialize()
+    mlm.initialize()
+    ids, tok, _ = _train_batch(seed)
+    with torch.no_grad():
+        net(ids, tok)
+    for i, block in enumerate((net, mlm)):
+        _draw_affine(block, seed + 10 * i)
+    net.cast("bfloat16")
+    mlm.cast("bfloat16")
+    params = net.collect_params()
+    params.update(mlm.collect_params())
+    return net, mlm, params
+
+
+def _fwd_bwd(net, mlm, params, batch, seed):
+    """One forward and backward with the port's generator reseeded (the
+    same seeds, so the same dropout masks, in every run); returns the
+    loss and every gradient as f32 tensors."""
+    import mxnet_tpu_torch as mx
+    ids, tok, lab = batch
+    mx.random.seed(seed)
+    with mx.autograd.record():
+        loss = mlm(net(ids, tok)[0], lab).mean()
+    loss.backward()
+    return (loss.tensor().detach().float().clone(),
+            {n: p.grad().tensor().float().clone()
+             for n, p in params.items()})
+
+
+def _train_compare(tag, got, ref, anchor, quiet=True):
+    """Ratios of the loss and every gradient; returns [(ratio, fail)]."""
+    out = [_slice_check(tag, "loss", got[0], ref[0], anchor[0],
+                        TRAIN_RATIO, quiet=tag == "control")]
+    for n in ref[1]:
+        out.append(_slice_check(tag, "grad " + n, got[1][n], ref[1][n],
+                                anchor[1][n], TRAIN_RATIO, quiet))
+    return out
+
+
+def phase_train(seed, steps):
+    """Train BERT-base on the card; returns (launch counts of one step,
+    model, loss head, parameters, batch)."""
+    import math
+    import torch
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build, cuda_epilogue
+    t0 = time.perf_counter()
+    net, mlm, params = _build_train(seed)
+    batch = _train_batch(seed)
+    torch.cuda.synchronize()
+    print("[train] bert_12_768_12 (dropout 0.1) + BERTMLMLoss(dense), %d "
+          "parameters in %d arrays, bf16, built from seed %d in %.1f s"
+          % (sum(p.data().size for p in params.values()), len(params), seed,
+             time.perf_counter() - t0))
+
+    # one forward and backward: kernels, plain versions, f32 twin
+    kern = _fwd_bwd(net, mlm, params, batch, seed)
+    with _plain_kernels():
+        before = cuda_build.launch_counts()
+        plain = _fwd_bwd(net, mlm, params, batch, seed)
+        net.cast("float32")
+        mlm.cast("float32")
+        with _plain_kernels(f32_twin=True):
+            twin = _fwd_bwd(net, mlm, params, batch, seed)
+        net.cast("bfloat16")
+        mlm.cast("bfloat16")
+        if cuda_build.launch_counts() != before:
+            raise SmokeFailure("the plain runs launched a kernel")
+    if not math.isfinite(float(kern[0])):
+        raise SmokeFailure("training loss is not finite: %s" % float(kern[0]))
+    checks = _train_compare("parity", kern, plain, twin)
+    ratios = sorted(((r, n) for (r, _), n in
+                     zip(checks, ["loss"] + list(plain[1]))), reverse=True)
+    print("[train] loss: kernels %.6f, plain %.6f, f32 twin %.6f"
+          % (float(kern[0]), float(plain[0]), float(twin[0])))
+    print("[train] step vs plain step: %d ratios, largest %s (limit %g), "
+          "median %.3g" % (len(ratios), ", ".join(
+              "%s %.3g" % (n, r) for r, n in ratios[:4]), TRAIN_RATIO,
+              ratios[len(ratios) // 2][0]))
+    if any(fail for _, fail in checks):
+        raise SmokeFailure("the training step differs from the plain step "
+                           "by more than %g times bf16's own error"
+                           % TRAIN_RATIO)
+
+    # control: bias+GeLU's db dropped (its kernel still launches)
+    real = cuda_epilogue.bias_gelu_bwd
+
+    def db_dropped(dy, x, bias):
+        dx, db = real(dy, x, bias)
+        return dx, torch.zeros_like(db)
+    with mock.patch.object(cuda_epilogue, "bias_gelu_bwd", db_dropped):
+        bad = _fwd_bwd(net, mlm, params, batch, seed)
+    caught = [(n, r) for (r, fail), n in zip(
+        _train_compare("control", bad, plain, twin),
+        ["loss"] + list(plain[1])) if fail]
+    print("[control] bias_gelu_bwd db dropped: %d of %d checks fail (%s)"
+          % (len(caught), len(plain[1]) + 1, ", ".join(
+              "%s %.3g" % c for c in caught[:3])))
+    if not caught:
+        raise SmokeFailure("control: the training check passed a backward "
+                           "kernel that drops its db")
+
+    # launch counts of one full step, then LAMB on the fixed batch
+    trainer = mx.gluon.Trainer(params, "lamb",
+                               {"learning_rate": 1e-3, "wd": 0.01})
+    ids, tok, lab = batch
+    losses = []
+    for step in range(steps):
+        if step == 0:
+            cuda_build.reset_launch_counts()
+        with mx.autograd.record():
+            per_position = mlm(net(ids, tok)[0], lab)
+            loss = per_position.mean()
+        if step == 0:
+            fwd_counts = cuda_build.launch_counts()
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+        if step == 0:
+            torch.cuda.synchronize()
+            counts = cuda_build.launch_counts()
+            print("[train] launches in one step: %s (dropout %d in the "
+                  "forward)" % (counts, fwd_counts["dropout"]))
+            if counts != TRAIN_LAUNCHES or \
+                    fwd_counts["dropout"] != TRAIN_FWD_DROPOUT:
+                raise SmokeFailure("launch counts of one step %s, expected "
+                                   "%s with %d dropouts in the forward"
+                                   % (counts, TRAIN_LAUNCHES,
+                                      TRAIN_FWD_DROPOUT))
+        # the mean in f32: the bf16 mean that is differentiated has a
+        # resolution of 1/16 at BERT's initial loss
+        losses.append(float(per_position.tensor().detach().float().mean()))
+    print("[train] LAMB on one fixed batch, loss per step (f32 mean): %s"
+          % " ".join("%.4f" % v for v in losses))
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise SmokeFailure("training did not lower the loss: %s" % losses)
+    print("[train] loss %.4f at the first step, %.4f after %d steps"
+          % (losses[0], losses[-1], steps))
+    return counts, net, mlm, params, batch
+
+
+def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
+                      batch):
+    """Times of the training kernels, their plain versions and a PyTorch
+    call for each; the training step on the host clock. Returns the
+    kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import (cuda_attention, cuda_dropout,
+                                     cuda_epilogue, cuda_norm)
+    randn = _randn(seed + 6)
+    bw, bf16_peak, f32_peak = _peaks(card)
+    E = 2
+    rows = []
+
+    def row(name, source, replaces, fn, plain, lib, nbytes, flops, peak):
+        ms, plain_ms, lib_ms = (_gpu_ms(f, reps) for f in (fn, plain, lib))
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": counts[name],
+                     "launches_per_train_step": counts[name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+        print("[times] %-18s kernel %.4f ms  plain %.4f ms  library %.4f ms"
+              "  bound %.4f ms (%s)" % (name, ms, plain_ms, lib_ms, b_ms,
+                                        b_by))
+
+    M, C, H = TRAIN_BATCH * TRAIN_SEQ, UNITS, HIDDEN
+    x, dy, g, b = randn(M, C), randn(M, C), randn(C), randn(C)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], g, b, 1e-5)
+    row("layer_norm_bwd", "mxnet_tpu_torch/csrc/layer_norm.cu",
+        "mxnet_tpu/ops/pallas_norm.py:117",
+        lambda: cuda_norm.layer_norm_bwd_cuda(dy, x, g, 1e-5),
+        lambda: cuda_norm.layer_norm_bwd_plain(dy, x, g, 1e-5),
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [C], mean, rstd, g, b, [True, True, True]),
+        (3 * M * C + 3 * C) * E, 12 * M * C, f32_peak)
+
+    L, N, heads, hd = TRAIN_SEQ, TRAIN_BATCH, HEADS, HEAD_DIM
+    plan = cuda_attention.selfatt_plan(L, heads, N)
+    seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
+                          device=DEV, dtype=torch.int32)
+    qkv, dout = randn(L, N, heads * 3 * hd), randn(L, N, heads * hd)
+    q, k, v = (qkv.reshape(L, N, heads, 3, hd)[:, :, :, i]
+               .permute(1, 2, 0, 3).contiguous().requires_grad_()
+               for i in range(3))
+    o = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    do = dout.reshape(L, N, heads, hd).permute(1, 2, 0, 3).contiguous()
+    args = (heads, 0.1, seeds, plan["bbh"])
+    row("selfatt_bwd", "mxnet_tpu_torch/csrc/selfatt.cu",
+        "mxnet_tpu/ops/pallas_attention.py:302",
+        lambda: cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
+        lambda: cuda_attention.selfatt_bwd_plain(qkv, dout, *args),
+        lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+        (2 * L * N * heads * 3 * hd + L * N * heads * hd) * E,
+        6 * 2 * N * heads * L * L * hd, bf16_peak)
+
+    xg, dyg, bg = randn(M, H), randn(M, H), randn(H)
+    xl, bl = xg.clone().requires_grad_(), bg.clone().requires_grad_()
+    yl = F.gelu(xl + bl)
+    row("bias_gelu_bwd", "mxnet_tpu_torch/csrc/epilogue.cu",
+        "mxnet_tpu/ops/pallas_epilogue.py:151",
+        lambda: cuda_epilogue.bias_gelu_bwd_cuda(dyg, xg, bg),
+        lambda: cuda_epilogue.bias_gelu_bwd_plain(dyg, xg, bg),
+        lambda: torch.autograd.grad(yl, (xl, bl), dyg, retain_graph=True),
+        (3 * M * H + 2 * H) * E, 30 * M * H, f32_peak)
+
+    xd = randn(M, C)
+    sd = torch.tensor([7], dtype=torch.int32, device=DEV)
+    row("dropout", "mxnet_tpu_torch/csrc/dropout.cu",
+        "mxnet_tpu/ops/pallas_dropout.py:73",
+        lambda: cuda_dropout.dropout_cuda(xd, 0.1, sd),
+        lambda: cuda_dropout.dropout_plain(xd, 0.1, sd),
+        lambda: F.dropout(xd, 0.1, training=True),
+        2 * M * C * E, 20 * M * C, f32_peak)
+
+    # the whole step, host clock: forward, backward and the LAMB update
+    trainer = mx.gluon.Trainer(params, "lamb",
+                               {"learning_rate": 1e-3, "wd": 0.01})
+    ids, tok, lab = batch
+
+    def step():
+        with mx.autograd.record():
+            loss = mlm(net(ids, tok)[0], lab).mean()
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+    ms = _host_ms(step)
+    print("[times] training step (batch %d x seq %d, LAMB): %.2f ms per "
+          "step, %.1f samples/s (host clock, median of 5)"
+          % (TRAIN_BATCH, TRAIN_SEQ, ms, TRAIN_BATCH / ms * 1e3))
+    return rows, step
 
 
 def main(argv=None):
@@ -495,6 +945,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20,
                     help="calls per timing trial")
+    ap.add_argument("--train-steps", type=int, default=10,
+                    help="LAMB steps on one fixed batch")
     args = ap.parse_args(argv)
     import torch
     try:
@@ -508,10 +960,21 @@ def main(argv=None):
         card = torch.cuda.get_device_name(0)
         phase_build()
         errs = phase_parity(args.seed)
+        errs.update(phase_parity_train(args.seed))
         counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
+        train_counts, tnet, mlm, params, batch = phase_train(
+            args.seed, args.train_steps)
         rows = phase_times(args.seed, args.reps, counts, n_fwd, errs, sess,
                            reqs, net, card)
+        for r in rows:
+            r["launches_per_train_step"] = train_counts[r["name"]]
+        train_rows, step = phase_times_train(
+            args.seed, args.reps, train_counts, errs, card, tnet, mlm,
+            params, batch)
+        rows += train_rows
         phase_profile(net)
+        _profile("one training step (batch %d x seq %d, LAMB)"
+                 % (TRAIN_BATCH, TRAIN_SEQ), step)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)

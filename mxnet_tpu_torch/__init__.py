@@ -6,10 +6,12 @@ and runs on the card by default: ``current_context()`` is ``gpu(0)``,
 and building or serving on a machine without CUDA raises
 :class:`MXNetError` unless the caller passes ``ctx=mx.cpu()``. Every
 kernel the reference wrote in Pallas for the TPU becomes a kernel
-written by hand for Hopper (``csrc/``, built at first use); this first
+written by hand for Hopper (``csrc/``, built at first use). The first
 slice serves BERT through :class:`serve.InferenceSession` with the
 LayerNorm, packed self-attention, bias+GeLU and bias+residual forward
-kernels.
+kernels; the second trains it through ``autograd.record()``,
+``backward()`` and ``gluon.Trainer`` with the LayerNorm, attention and
+bias+GeLU backward kernels and the dropout kernel.
 
 Usage mirrors the reference::
 
@@ -20,6 +22,13 @@ Usage mirrors the reference::
     net.cast("bfloat16")
     sess = net.serve_session(ids, token_types, seq_axis=1)
     outs = sess.infer(ids_np, token_types_np)
+
+    mlm = BERTMLMLoss(vocab_size=30522, units=768, mode="dense")
+    trainer = mx.gluon.Trainer(params, "lamb", {"learning_rate": 1e-3})
+    with mx.autograd.record():
+        loss = mlm(net(ids, token_types)[0], labels).mean()
+    loss.backward()
+    trainer.step(batch_size)
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from . import autograd
 from . import random
 from . import initializer
 from . import initializer as init
+from . import optimizer
 from . import gluon
 from . import serve
 from .interop import params_from_numpy

@@ -62,3 +62,23 @@ define("MXNET_SERVE_BUCKETS", str, "",
        "Shape-bucket ladder for InferenceSession (serve/bucketing.py): "
        "'b1,b2,...' batch buckets, optionally ';s1,s2,...' sequence "
        "buckets. Empty = a power-of-two ladder up to max_batch/max_seq.")
+define("MXNET_TRAINER_FUSED_UPDATE", bool, True,
+       "The reference runs the optimizer inside its compiled step; its "
+       "results equal the separate update bit for bit, which the port "
+       "runs. Set explicitly, the Trainer raises: the compiled step is "
+       "ROADMAP.md queue 1, item 7.")
+define("MXNET_SCAN_STEPS", int, 1,
+       "K-step whole-loop compilation; above 1 the Trainer raises "
+       "(ROADMAP.md queue 1, item 7).")
+define("MXNET_ZERO", bool, False,
+       "ZeRO weight-update sharding; on, the Trainer raises (ROADMAP.md "
+       "queue 1, item 11).")
+define("MXNET_GUARD_NONFINITE", str, "off",
+       "GradGuard non-finite policy; anything but 'off' makes the Trainer "
+       "raise (ROADMAP.md queue 1, item 13).")
+define("MXNET_GUARD_CLIP_NORM", float, 0.0,
+       "GradGuard global-norm clip; above 0 the Trainer raises "
+       "(ROADMAP.md queue 1, item 13).")
+define("MXNET_MODELWATCH", bool, False,
+       "Training-dynamics statistics; on, the Trainer raises (ROADMAP.md "
+       "queue 1, item 13).")

@@ -2,5 +2,7 @@
 ``mxnet_tpu/gluon/``)."""
 from .parameter import Parameter, ParameterDict
 from .block import Block, HybridBlock
+from .trainer import Trainer
+from . import loss
 from . import nn
 from . import model_zoo

@@ -3,18 +3,24 @@ GluonNLP bert.py — BERTEncoder/BERTModel). Attention uses the
 reference's interleaved packed-QKV layout (src/operator/contrib/
 transformer.cc), sequence dimension first (TNC).
 
-On the card, one encoder layer runs four hand-written kernels: the fused
-self-attention, the bias+GeLU and bias+residual Dense epilogues and the
-LayerNorm (ops/cuda_*.py). ``BERTMLMLoss`` is training and comes with
-the training slice.
+On the card, one encoder layer runs four hand-written forward kernels —
+the fused self-attention, the bias+GeLU and bias+residual Dense
+epilogues and the LayerNorm — and in training the dropout kernel and
+the backward kernels of attention, bias+GeLU and LayerNorm
+(ops/cuda_*.py). ``BERTMLMLoss`` is the masked-LM head with its cross
+entropy, in the reference's dense mode.
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .. import nn
 
-__all__ = ["BERTEncoder", "BERTModel", "bert_12_768_12",
+__all__ = ["BERTEncoder", "BERTModel", "BERTMLMLoss", "bert_12_768_12",
            "PositionwiseFFN", "BERTEncoderCell"]
+
+CHUNKED_CE = ("BERTMLMLoss mode %r is not ported yet: the chunked and fused "
+              "LM-head cross entropies come in a later slice (ROADMAP.md "
+              "queue 1, item 6); pass mode='dense'")
 
 
 class PositionwiseFFN(HybridBlock):
@@ -161,6 +167,43 @@ class BERTModel(HybridBlock):
         if self.use_decoder:
             outputs.append(self.decoder(seq_out))
         return tuple(outputs)
+
+
+class BERTMLMLoss(HybridBlock):
+    """Parametric MLM head + cross entropy as one block (ref: bert.py ::
+    BERTMLMLoss): the transform Dense and LayerNorm, then the vocab
+    projection, log_softmax and the negative log-likelihood of each
+    label. Takes (seq_out, labels) with seq_out (..., units) and labels
+    of the matching leading shape; returns the per-position loss.
+
+    Only ``mode="dense"`` is ported. The reference's default (``"auto"``
+    with ``MXNET_CHUNKED_CE`` on) is the chunked LM-head CE, and
+    ``"fused"`` the flash-style one; both raise here rather than quietly
+    running the dense head. Parameter names equal the reference's."""
+
+    def __init__(self, vocab_size=30522, units=768, mode="auto",
+                 chunk_size=0, **kwargs):
+        super().__init__(**kwargs)
+        if mode != "dense":
+            raise NotImplementedError(CHUNKED_CE % (mode,))
+        self._vocab = vocab_size
+        self._mode = mode
+        self._chunk = int(chunk_size)
+        with self.name_scope():
+            self.transform = nn.Dense(units, flatten=False,
+                                      in_units=units, prefix="transform_")
+            self.layer_norm = nn.LayerNorm(in_channels=units)
+            self.head_weight = self.params.get(
+                "head_weight", shape=(vocab_size, units))
+            self.head_bias = self.params.get(
+                "head_bias", shape=(vocab_size,), init="zeros")
+
+    def hybrid_forward(self, F, seq_out, labels, head_weight, head_bias):
+        h = self.layer_norm(self.transform(seq_out))
+        logits = F.FullyConnected(h, head_weight, head_bias,
+                                  num_hidden=self._vocab, flatten=False)
+        logp = F.log_softmax(logits, axis=-1)
+        return F.negative(F.pick(logp, labels, axis=-1))
 
 
 def bert_12_768_12(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):

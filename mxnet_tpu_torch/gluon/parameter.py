@@ -1,18 +1,26 @@
-"""Gluon Parameter / ParameterDict, the subset serving needs
-(counterpart of ``mxnet_tpu/gluon/parameter.py``; ref:
+"""Gluon Parameter / ParameterDict, the subset serving and training
+need (counterpart of ``mxnet_tpu/gluon/parameter.py``; ref:
 python/mxnet/gluon/parameter.py).
 
 A Parameter holds one NDArray per context, with deferred shapes
 completed by the first forward, ``initialize``, ``set_data`` and
-``cast``. Gradients come with the training slice.
+``cast``. Unless ``grad_req`` is ``'null'`` each data array is an
+autograd variable (:func:`mxnet_tpu_torch.autograd.mark_variables`) with
+a gradient array of its shape and dtype, which ``backward`` writes
+(``'write'``) or adds into (``'add'``). Writes to the data
+(``set_data``, the optimizer) go into the same tensor under
+``torch.no_grad``, so the autograd leaf stays the same object.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import List, Optional
 
+import torch
+
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
+from .. import autograd
 from .. import initializer as init_mod
 from ..ndarray import NDArray, array, zeros
 
@@ -33,7 +41,7 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         self.name = name
-        self.grad_req = grad_req if differentiable else "null"
+        self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
@@ -43,11 +51,30 @@ class Parameter:
         self.init = init
         self._allow_deferred_init = allow_deferred_init
         self._data: Optional["OrderedDict[Context, NDArray]"] = None
+        self._grad: Optional["OrderedDict[Context, NDArray]"] = None
         self._deferred_init = None
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
                                                       self.dtype)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be write, add or null, got %r"
+                             % (req,))
+        self._grad_req = req
+        if self._data is None:
+            return
+        if self._grad is None or req == "null":
+            self._init_grad()
+        else:
+            autograd.mark_variables(list(self._data.values()),
+                                    list(self._grad.values()), req)
 
     @property
     def shape(self):
@@ -92,6 +119,21 @@ class Parameter:
         init_mod.create(init)(self.name, data)
         self._data = OrderedDict((c, data.as_in_context(c))
                                  for c in ctx_list)
+        self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient array per context, each data array marked as
+        a variable (none for ``grad_req='null'``)."""
+        if self._grad_req == "null":
+            self._grad = None
+            autograd.mark_variables(list(self._data.values()),
+                                    [None] * len(self._data), "null")
+            return
+        self._grad = OrderedDict(
+            (c, zeros(d.shape, ctx=c, dtype=d.dtype))
+            for c, d in self._data.items())
+        autograd.mark_variables(list(self._data.values()),
+                                list(self._grad.values()), self._grad_req)
 
     def _finish_deferred_init(self):
         if self._deferred_init is None:
@@ -124,6 +166,27 @@ class Parameter:
         self._check_initialized(ctx)
         return self._data[ctx]
 
+    def list_data(self) -> List[NDArray]:
+        self._check_initialized()
+        return list(self._data.values())
+
+    def grad(self, ctx: Optional[Context] = None) -> NDArray:
+        if self._grad is None:
+            raise RuntimeError("Parameter %s grad_req='null'" % self.name)
+        if ctx is None:
+            return next(iter(self._grad.values()))
+        return self._grad[ctx]
+
+    def list_grad(self) -> List[NDArray]:
+        if self._grad is None:
+            raise RuntimeError("Parameter %s grad_req='null'" % self.name)
+        return list(self._grad.values())
+
+    def zero_grad(self):
+        if self._grad is not None:
+            for g in self._grad.values():
+                g.tensor().zero_()
+
     def list_ctx(self) -> List[Context]:
         self._check_initialized()
         return list(self._data.keys())
@@ -137,9 +200,10 @@ class Parameter:
                 raise RuntimeError("Parameter %s not initialized" % self.name)
             self._shape = tuple(data.shape)
             self._finish_deferred_init()
-        for c, d in self._data.items():
-            src = array(data, ctx=c, dtype=self.dtype)
-            d.tensor().copy_(src.tensor())
+        with torch.no_grad():
+            for c, d in self._data.items():
+                src = array(data, ctx=c, dtype=self.dtype)
+                d.tensor().copy_(src.tensor())
 
     def _load(self, data, ctx_list: List[Context]):
         """Take ``data`` as this parameter's value on ``ctx_list``
@@ -148,14 +212,16 @@ class Parameter:
         self._deferred_init = None
         self._data = OrderedDict(
             (c, array(data, ctx=c, dtype=self.dtype)) for c in ctx_list)
+        self._init_grad()
 
     def cast(self, dtype):
         self.dtype = dtype
         if self._data is None:
             return
         td = torch_dtype(dtype)
-        self._data = OrderedDict((c, NDArray(d.tensor().to(td), c))
+        self._data = OrderedDict((c, NDArray(d.tensor().detach().to(td), c))
                                  for c, d in self._data.items())
+        self._init_grad()
 
 
 class ParameterDict:
@@ -240,4 +306,13 @@ class ParameterDict:
         init = init if init is not None else init_mod.Uniform()
         for _, v in self.items():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
+
+    def setattr(self, name, value):
+        """Set an attribute (e.g. ``grad_req``) on every parameter."""
+        for p in self.values():
+            setattr(p, name, value)
 

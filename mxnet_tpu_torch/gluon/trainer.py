@@ -1,0 +1,129 @@
+"""Gluon Trainer, the single-device path (counterpart of
+``mxnet_tpu/gluon/trainer.py``; ref: python/mxnet/gluon/trainer.py).
+
+``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
+``scale / batch_size`` and applies one update to every parameter whose
+``grad_req`` is not ``'null'``: through one ``update_multi`` call when
+there is more than one parameter (the reference's default aggregation),
+else through the one-tensor ``update``. With one context there is nothing to reduce, as in the reference,
+which then runs no kvstore either.
+
+The reference runs its update fused into the compiled step by default
+(``MXNET_TRAINER_FUSED_UPDATE``); its contract makes that bit-for-bit
+equal to the separate update this Trainer runs. What this slice does not
+port raises ``NotImplementedError`` naming its ROADMAP.md item: a
+kvstore, several contexts, gradient compression, ``update_on_kvstore``,
+ZeRO, the grad guard, modelwatch, the fused update or K-step scan when
+asked for.
+"""
+from __future__ import annotations
+
+import os
+from typing import List
+
+from .. import optimizer as opt_mod
+from ..config import get as _cfg
+from .parameter import Parameter, ParameterDict
+
+__all__ = ["Trainer"]
+
+
+def _not_ported(what, item):
+    return NotImplementedError("Trainer: %s is not ported yet (ROADMAP.md "
+                               "queue 1, item %d)" % (what, item))
+
+
+def _check_features():
+    """Raise for the reference's Trainer features this slice leaves out,
+    where the environment turns them on."""
+    if os.environ.get("MXNET_TRAINER_FUSED_UPDATE") is not None and \
+            _cfg("MXNET_TRAINER_FUSED_UPDATE"):
+        raise _not_ported("the fused update (MXNET_TRAINER_FUSED_UPDATE)", 7)
+    if _cfg("MXNET_SCAN_STEPS") > 1:
+        raise _not_ported("K-step scan (MXNET_SCAN_STEPS)", 7)
+    if _cfg("MXNET_ZERO"):
+        raise _not_ported("ZeRO (MXNET_ZERO)", 11)
+    if _cfg("MXNET_GUARD_NONFINITE") != "off" or \
+            _cfg("MXNET_GUARD_CLIP_NORM") > 0:
+        raise _not_ported("the grad guard (MXNET_GUARD_*)", 13)
+    if _cfg("MXNET_MODELWATCH"):
+        raise _not_ported("modelwatch (MXNET_MODELWATCH)", 13)
+
+
+class Trainer:
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
+        if isinstance(params, (dict, ParameterDict)):
+            params = [params[key] for key in sorted(list(params.keys()))]
+        if not isinstance(params, (list, tuple)):
+            raise ValueError("params must be a list/tuple/ParameterDict")
+        if not (kvstore is None or kvstore in ("device", "local")):
+            raise _not_ported("kvstore %r" % (kvstore,), 11)
+        if compression_params:
+            raise _not_ported("gradient compression", 11)
+        if update_on_kvstore:
+            raise _not_ported("update_on_kvstore", 11)
+        self._params: List[Parameter] = []
+        for param in params:
+            if not isinstance(param, Parameter):
+                raise ValueError("invalid parameter %r" % param)
+            self._params.append(param)
+        self._init_optimizer(optimizer, optimizer_params or {})
+        self._scale = self._optimizer.rescale_grad
+        self._updater = opt_mod.get_updater(self._optimizer)
+
+    def _init_optimizer(self, optimizer, optimizer_params):
+        param_dict = {i: param for i, param in enumerate(self._params)}
+        if isinstance(optimizer, opt_mod.Optimizer):
+            if optimizer_params:
+                raise ValueError("optimizer_params must be empty for a "
+                                 "pre-built Optimizer")
+            self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
+        else:
+            self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
+                                             **optimizer_params)
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.lr
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def allreduce_grads(self):
+        """Nothing to reduce on one context."""
+        self._check_contexts()
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """One update of every parameter, gradients scaled by
+        1 / batch_size inside the update (ref: trainer.py :: step)."""
+        self.update(batch_size, ignore_stale_grad)
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        _check_features()
+        self._check_contexts()
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update()
+
+    def _check_contexts(self):
+        ctxs = {tuple(p.list_ctx()) for p in self._params
+                if p._data is not None}
+        if any(len(c) > 1 for c in ctxs) or len(ctxs) > 1:
+            raise _not_ported("training on several contexts", 11)
+
+    def _update(self):
+        items = [(i, p.grad(), p.data()) for i, p in enumerate(self._params)
+                 if p.grad_req != "null" and p._data is not None]
+        if len(items) > 1:
+            self._updater.update_multi([i for i, _, _ in items],
+                                       [g for _, g, _ in items],
+                                       [w for _, _, w in items])
+        else:
+            for i, grad, arr in items:
+                self._updater(i, grad, arr)

@@ -6,6 +6,10 @@ dispatches through the op registry, as in the reference, so the ops a
 forward runs are the registered ones. ``dtype`` is the ``torch.dtype``;
 ``asnumpy()`` of a bfloat16 array returns float32 values (numpy has no
 bfloat16), which are exactly the bfloat16 values.
+
+Autograd (ref: NDArray AGInfo + attach_grad): ``attach_grad`` makes the
+tensor a torch leaf that requires grad and gives it a ``.grad`` array;
+:func:`mxnet_tpu_torch.autograd.backward` fills it by ``grad_req``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import autograd
 from ..base import torch_dtype
 from ..context import Context, context_of, current_context
 from ..ops import Operator, _note, get_op
@@ -26,7 +31,7 @@ __all__ = ["NDArray", "invoke", "array", "zeros", "to_tensor",
 class NDArray:
     """A device-resident array."""
 
-    __slots__ = ("_t", "_ctx")
+    __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "__weakref__")
 
     # higher than numpy's so ndarray.__add__(NDArray) defers to us
     __array_priority__ = 1000.0
@@ -34,6 +39,8 @@ class NDArray:
     def __init__(self, tensor: torch.Tensor, ctx: Optional[Context] = None):
         self._t = tensor
         self._ctx = ctx if ctx is not None else context_of(tensor.device)
+        self._grad: Optional["NDArray"] = None
+        self._grad_req = "null"
 
     # -- properties --------------------------------------------------------
     @property
@@ -64,9 +71,13 @@ class NDArray:
 
     # -- host transfer -----------------------------------------------------
     def asnumpy(self) -> np.ndarray:
+        """A copy of the values on the host, bf16 widened to f32 on the
+        device that holds them; one host copy on either device."""
         t = self._t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        elif t.device.type == "cpu":
+            t = t.clone()
         return t.cpu().numpy()
 
     def __repr__(self):
@@ -85,7 +96,39 @@ class NDArray:
             return self
         return NDArray(self._t.to(ctx.torch_device, copy=True), ctx)
 
+    # -- autograd ----------------------------------------------------------
+    @property
+    def grad(self) -> Optional["NDArray"]:
+        return self._grad
+
+    def attach_grad(self, grad_req: str = "write", stype=None):
+        """Make this array a variable with a zero ``.grad`` of its
+        shape and dtype."""
+        autograd.mark_variables(
+            [self], [NDArray(torch.zeros_like(self._t.detach()), self._ctx)],
+            grad_req)
+
+    def detach(self) -> "NDArray":
+        return NDArray(self._t.detach(), self._ctx)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad.tensor().zero_()
+
+    # -- reductions --------------------------------------------------------
+    def sum(self, axis=None, keepdims=False):
+        return invoke("sum", [self], {"axis": axis, "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        return invoke("mean", [self], {"axis": axis, "keepdims": keepdims})
+
     # -- arithmetic --------------------------------------------------------
+    def __neg__(self): return invoke("negative", [self], {})
+
     def _binop(self, other, op, scalar_op, reverse=False):
         if isinstance(other, NDArray):
             lhs, rhs = (other, self) if reverse else (self, other)
@@ -123,9 +166,15 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
     _note(op)
     tensors = [to_tensor(x) for x in inputs]
     if op.needs_train_flag:
-        from ..autograd import is_training
-        attrs = dict(attrs, _train=is_training())
-    out = op.impl(*tensors, **attrs)
+        attrs = dict(attrs, _train=autograd.is_training())
+    # a graph is built only inside autograd.record(); the grad mode is
+    # switched only where it differs (the switch costs host time per op)
+    recording = autograd.is_recording()
+    if torch.is_grad_enabled() == recording:
+        out = op.impl(*tensors, **attrs)
+    else:
+        with torch.set_grad_enabled(recording):
+            out = op.impl(*tensors, **attrs)
     if isinstance(out, (tuple, list)):
         return tuple(NDArray(o) for o in out)
     return NDArray(out)

@@ -7,7 +7,7 @@ eager ``mx.nd.*`` namespace and the ``F`` that ``hybrid_forward``
 receives; there is no Symbol tracing in the port yet, so ``F`` is
 always this op namespace. Ops that the reference backs with a Pallas
 kernel call the hand-written CUDA kernels of ``cuda_norm``,
-``cuda_attention`` and ``cuda_epilogue``.
+``cuda_attention``, ``cuda_epilogue`` and ``cuda_dropout``.
 """
 from __future__ import annotations
 
@@ -118,3 +118,5 @@ from . import elemwise      # noqa: E402,F401
 from . import matrix        # noqa: E402,F401
 from . import nn            # noqa: E402,F401
 from . import contrib_ops   # noqa: E402,F401
+from . import reduce_ops    # noqa: E402,F401
+from . import optimizer_ops  # noqa: E402,F401

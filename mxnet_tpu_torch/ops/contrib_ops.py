@@ -7,20 +7,24 @@ Packed QKV layout (matches the reference): (seq_len, batch,
 num_heads * 3 * head_dim), per-head interleaved [q | k | v].
 
 The dispatch mirrors the reference's: ``_contrib_sdp_selfatt`` runs the
-kernel of :mod:`.cuda_attention` where it is available (bf16/f16, L up
-to 1024) and the unfused composition otherwise, f32 included, because
-the kernel computes in bf16. The epilogues run the kernels of
-:mod:`.cuda_epilogue` unless the dtypes differ (the reference then
-runs the composition in the promoted dtype).
+kernels of :mod:`.cuda_attention` where they are available (bf16/f16, L
+up to 1024) and the unfused composition otherwise, f32 included,
+because the kernels compute in bf16. In train mode with dropout the
+kernels draw their mask from ``batch * head blocks`` int32 seeds taken
+from the context's generator (the composition draws a Bernoulli mask
+from it). The epilogues run the kernels of :mod:`.cuda_epilogue` unless
+the dtypes differ (the reference then runs the composition in the
+promoted dtype).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import random as _random
+from ..context import context_of
 from . import register
 from . import cuda_attention
 from . import cuda_epilogue
-from .nn import DROPOUT_TRAINING
 
 
 def _split_qkv(qkv, heads):
@@ -60,20 +64,27 @@ def interleaved_matmul_selfatt_valatt(queries_keys_values, attention, *,
 @register("_contrib_sdp_selfatt", needs_rng=True, needs_train_flag=True)
 def sdp_selfatt(queries_keys_values, *, heads, dropout=0.0, _train=False):
     """Fused scaled-dot-product self-attention over packed QKV: scores,
-    softmax and context in one kernel that reads and writes the packed
-    layout. Train-mode dropout is not ported yet and raises."""
-    L, N, _ = queries_keys_values.shape
-    if _train and float(dropout) > 0.0:
-        raise NotImplementedError(DROPOUT_TRAINING)
+    softmax, (train-mode) dropout and context in one kernel that reads
+    and writes the packed layout; the backward kernels recompute the
+    probabilities and the mask from the same seeds."""
+    qkv = queries_keys_values
+    L, N, _ = qkv.shape
+    p = float(dropout) if _train else 0.0
     heads_i = int(heads)
-    if cuda_attention.selfatt_available(L, heads_i, N,
-                                        queries_keys_values.dtype):
-        return cuda_attention.selfatt(queries_keys_values, heads_i)
-    scores = interleaved_matmul_selfatt_qk(queries_keys_values,
-                                           heads=heads_i)
+    ctx = context_of(qkv.device)
+    if cuda_attention.selfatt_available(L, heads_i, N, qkv.dtype):
+        plan = cuda_attention.selfatt_plan(L, heads_i, N)
+        seeds = _random.seeds(plan["n_blocks"], ctx) if p > 0.0 else None
+        return cuda_attention.selfatt_fn(qkv, heads_i, p, seeds,
+                                         plan["bbh"])
+    scores = interleaved_matmul_selfatt_qk(qkv, heads=heads_i)
     att = torch.softmax(scores, dim=-1)
-    return interleaved_matmul_selfatt_valatt(queries_keys_values, att,
-                                             heads=heads_i)
+    if p > 0.0:
+        keep = torch.bernoulli(torch.full(att.shape, 1.0 - p,
+                                          device=att.device),
+                               generator=_random.generator(ctx))
+        att = torch.where(keep.bool(), att / (1.0 - p), 0.0).to(att.dtype)
+    return interleaved_matmul_selfatt_valatt(qkv, att, heads=heads_i)
 
 
 @register("_contrib_bias_gelu")
@@ -82,8 +93,8 @@ def bias_gelu(data, bias):
     if cuda_epilogue.bias_gelu_available(tuple(data.shape), data.dtype,
                                          bias.dtype):
         C = data.shape[-1]
-        out = cuda_epilogue.bias_gelu(data.reshape(-1, C).contiguous(),
-                                      bias.contiguous())
+        out = cuda_epilogue.bias_gelu_fn(data.reshape(-1, C).contiguous(),
+                                         bias.contiguous())
         return out.reshape(data.shape)
     return cuda_epilogue.gelu_erf(data + bias)
 
@@ -95,7 +106,7 @@ def bias_add_residual(data, bias, residual):
     if data.shape == residual.shape and cuda_epilogue.bias_residual_available(
             tuple(data.shape), data.dtype, bias.dtype, residual.dtype):
         C = data.shape[-1]
-        out = cuda_epilogue.bias_residual(
+        out = cuda_epilogue.bias_residual_fn(
             data.reshape(-1, C).contiguous(), bias.contiguous(),
             residual.reshape(-1, C).contiguous())
         return out.reshape(data.shape)

@@ -8,10 +8,10 @@ reused. Each ``.cu`` file becomes its own shared library with a plain C
 interface, built by its own ``nvcc`` process; all of them start
 together. No PyTorch headers are compiled, so a build takes seconds.
 
-The wrappers in ``cuda_norm``, ``cuda_attention`` and ``cuda_epilogue``
-call the C launchers through ``ctypes`` with ``tensor.data_ptr()`` and
-PyTorch's current stream, so the kernels are stream-ordered with every
-other op. Each launcher returns the ``cudaError_t`` of its launch and
+The wrappers in ``cuda_norm``, ``cuda_attention``, ``cuda_epilogue``
+and ``cuda_dropout`` call the C launchers through ``ctypes`` with
+``tensor.data_ptr()`` and PyTorch's current stream, so the kernels are
+stream-ordered with every other op. Each launcher returns the ``cudaError_t`` of its launch and
 the wrapper raises :class:`MXNetError` on anything but success; nothing
 falls back to a plain version.
 
@@ -36,22 +36,27 @@ from ..base import MXNetError
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_info", "library",
            "launch_counts", "reset_launch_counts", "count_launch",
-           "check_launch", "check_cuda_tensor", "stream_of", "DTYPE_CODES"]
+           "check_launch", "check_cuda_tensor", "stream_of", "DTYPE_CODES",
+           "apply"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; headers are hashed but not compiled
-SOURCES = ("layer_norm.cu", "selfatt.cu", "epilogue.cu")
+SOURCES = ("layer_norm.cu", "selfatt.cu", "epilogue.cu", "dropout.cu")
 HEADERS = ("common.cuh",)
 
 # kernel name -> the source that holds it
 KERNELS = {
     "layer_norm_fwd": "layer_norm.cu",
+    "layer_norm_bwd": "layer_norm.cu",
     "selfatt_fwd": "selfatt.cu",
+    "selfatt_bwd": "selfatt.cu",
     "bias_gelu_fwd": "epilogue.cu",
+    "bias_gelu_bwd": "epilogue.cu",
     "bias_residual_fwd": "epilogue.cu",
+    "dropout": "dropout.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -192,3 +197,14 @@ def check_cuda_tensor(kernel: str, name: str, t: torch.Tensor,
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a raw handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def apply(fn, forward, *args):
+    """``fn.apply(*args)`` for a ``torch.autograd.Function`` ``fn`` while
+    a graph is being recorded, else ``forward(*args)``, the same kernel
+    or plain version without the Function: its bookkeeping costs host
+    time on every call, which a forward outside ``autograd.record()``
+    does not need."""
+    if torch.is_grad_enabled():
+        return fn.apply(*args)
+    return forward(*args)

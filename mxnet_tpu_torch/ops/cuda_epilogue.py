@@ -2,15 +2,23 @@
 kernels and their plain PyTorch versions (counterpart of
 ``mxnet_tpu/ops/pallas_epilogue.py``).
 
-``bias_gelu`` and ``bias_residual`` send CUDA tensors to the kernels of
-``csrc/epilogue.cu`` (which replace ``pallas_epilogue.py ::
-_bias_gelu_fwd_call -> pallas_bias_gelu_fwd`` and ``_residual_fwd_call
+``bias_gelu``, ``bias_gelu_bwd`` and ``bias_residual`` send CUDA tensors
+to the kernels of ``csrc/epilogue.cu`` (which replace
+``pallas_epilogue.py :: _bias_gelu_fwd_call -> pallas_bias_gelu_fwd``,
+``_bias_gelu_bwd_call -> pallas_bias_gelu_bwd`` and ``_residual_fwd_call
 -> pallas_residual_fwd``) and CPU tensors to the plain versions; they
 decide by the tensor's device alone. Arithmetic, f32 inside with the
 bias read as f32:
 
 * gelu: ``z = x + b; 0.5 * z * (1 + erf(z / sqrt(2)))``
-* residual: ``(x + b) + r``
+* gelu backward: ``dz = dy * (Phi(z) + z * phi(z))``; dx = dz in x's
+  dtype, db = sum(dz) in f32, then in the bias's dtype
+* residual: ``(x + b) + r``; its backward is the reference's
+  composition ``(dy, sum(dy) in f32 cast to dy's dtype, dy)`` — no
+  kernel, because the reference has none
+
+:func:`bias_gelu_fn` and :func:`bias_residual_fn` wrap each forward and
+its backward in one ``torch.autograd.Function``.
 
 The reference's row-block limits (``_pick_rows``, at least 8 rows) are
 TPU tiling limits, so the kernels serve every row count. A bias (or
@@ -29,13 +37,18 @@ from ..base import MXNetError
 from . import cuda_build as _cb
 
 __all__ = ["gelu_erf", "bias_gelu", "bias_gelu_cuda", "bias_gelu_plain",
-           "bias_gelu_available", "bias_residual", "bias_residual_cuda",
-           "bias_residual_plain", "bias_residual_available"]
+           "bias_gelu_bwd", "bias_gelu_bwd_cuda", "bias_gelu_bwd_plain",
+           "bias_gelu_fn", "bias_gelu_available", "bias_residual",
+           "bias_residual_cuda", "bias_residual_plain", "bias_residual_fn",
+           "bias_residual_available"]
 
 GELU_KERNEL = "bias_gelu_fwd"
+GELU_BWD_KERNEL = "bias_gelu_bwd"
 RESIDUAL_KERNEL = "bias_residual_fwd"
 SOURCE = "epilogue.cu"
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+_BWD_ROWS = 64      # rows per block strip of the backward kernel
 
 
 def _available(shape, dtype) -> bool:
@@ -69,6 +82,17 @@ def bias_gelu_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return gelu_erf(x.float() + bias.float()).to(x.dtype)
 
 
+def bias_gelu_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
+                        bias: torch.Tensor):
+    """The bias+GeLU backward kernel's arithmetic in PyTorch ops, over
+    the rows of 2-D ``x``: returns (dx, db)."""
+    z = x.float() + bias.float()
+    cdf = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * z * z) * _INV_SQRT2PI
+    dz = dy.float() * (cdf + z * pdf)
+    return dz.to(x.dtype), dz.sum(dim=0).to(bias.dtype)
+
+
 def bias_residual_plain(x: torch.Tensor, bias: torch.Tensor,
                         residual: torch.Tensor) -> torch.Tensor:
     """The bias+residual kernel's arithmetic in PyTorch ops."""
@@ -84,6 +108,9 @@ def _lib():
         lib.mxt_bias_residual_fwd.argtypes = [p, p, p, p, i64, i32, i32,
                                               i32, p]
         lib.mxt_bias_residual_fwd.restype = ctypes.c_int
+        lib.mxt_bias_gelu_bwd.argtypes = [p, p, p, p, p, p, i64, i32, i32,
+                                          i32, i32, p]
+        lib.mxt_bias_gelu_bwd.restype = ctypes.c_int
         lib._mxt_ready = True
     return lib
 
@@ -117,6 +144,32 @@ def bias_gelu_cuda(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
             _cb.stream_of(x))
     _cb.check_launch(lib, rc, GELU_KERNEL)
     return y
+
+
+def bias_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
+                       bias: torch.Tensor):
+    """Launch the bias+GeLU backward kernel on contiguous (M, C) CUDA
+    tensors; returns (dx, db)."""
+    _check(GELU_BWD_KERNEL, x, bias)
+    _cb.check_cuda_tensor(GELU_BWD_KERNEL, "dy", dy, (x.dtype,), x.device)
+    if x.dim() != 2 or dy.shape != x.shape:
+        raise MXNetError("%s: dy and x must be (M, C) of one shape, got %s "
+                         "and %s" % (GELU_BWD_KERNEL, tuple(dy.shape),
+                                     tuple(x.shape)))
+    M, C = x.shape
+    dx = torch.empty_like(x)
+    part = torch.empty((-(-M // _BWD_ROWS), C), dtype=torch.float32,
+                       device=x.device)
+    db = torch.empty_like(bias)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.mxt_bias_gelu_bwd(
+            dy.data_ptr(), x.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), db.data_ptr(), M, C, _BWD_ROWS,
+            _cb.DTYPE_CODES[x.dtype], _cb.DTYPE_CODES[bias.dtype],
+            _cb.stream_of(x))
+    _cb.check_launch(lib, rc, GELU_BWD_KERNEL)
+    return dx, db
 
 
 def bias_residual_cuda(x: torch.Tensor, bias: torch.Tensor,
@@ -155,3 +208,51 @@ def bias_residual(x: torch.Tensor, bias: torch.Tensor,
         return bias_residual_plain(x, bias, residual)
     raise MXNetError("%s: no kernel for device %s"
                      % (RESIDUAL_KERNEL, x.device))
+
+
+def bias_gelu_bwd(dy: torch.Tensor, x: torch.Tensor, bias: torch.Tensor):
+    """The bias+GeLU backward: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if x.is_cuda:
+        return bias_gelu_bwd_cuda(dy, x, bias)
+    if x.device.type == "cpu":
+        return bias_gelu_bwd_plain(dy, x, bias)
+    raise MXNetError("%s: no kernel for device %s"
+                     % (GELU_BWD_KERNEL, x.device))
+
+
+class _BiasGeluFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias):
+        ctx.save_for_backward(x, bias)
+        return bias_gelu(x, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bias = ctx.saved_tensors
+        return bias_gelu_bwd(dy.contiguous(), x, bias)
+
+
+class _BiasResidualFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias, residual):
+        return bias_residual(x, bias, residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the reference's composition (pallas_epilogue.py, bwd of
+        # _make_bias_residual): identity fan-out and one f32 reduction
+        return dy, dy.float().sum(dim=0).to(dy.dtype), dy
+
+
+def bias_gelu_fn(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """GeLU(x + bias) on 2-D ``x`` with its backward (bias of x's
+    dtype)."""
+    return _cb.apply(_BiasGeluFn, bias_gelu, x, bias)
+
+
+def bias_residual_fn(x: torch.Tensor, bias: torch.Tensor,
+                     residual: torch.Tensor) -> torch.Tensor:
+    """x + bias + residual on 2-D tensors of one dtype, with its
+    backward."""
+    return _cb.apply(_BiasResidualFn, bias_residual, x, bias, residual)

@@ -1,13 +1,19 @@
-"""LayerNorm over the last axis: the hand-written CUDA kernel and its
-plain PyTorch version (counterpart of ``mxnet_tpu/ops/pallas_norm.py``).
+"""LayerNorm over the last axis: the hand-written CUDA kernels, forward
+and backward, and their plain PyTorch versions (counterpart of
+``mxnet_tpu/ops/pallas_norm.py``).
 
-``layer_norm`` sends a CUDA tensor to the kernel
-(``csrc/layer_norm.cu``, which replaces ``pallas_norm.py :: _fwd_call ->
-pallas_layer_norm_fwd``) and a CPU tensor to ``layer_norm_plain``; it
-decides by the tensor's device alone. Both compute the reference's
-formula: f32 statistics, two-pass variance, ``rsqrt(var + eps)``, then
+``layer_norm`` and ``layer_norm_bwd`` send CUDA tensors to the kernels
+of ``csrc/layer_norm.cu`` (which replace ``pallas_norm.py :: _fwd_call
+-> pallas_layer_norm_fwd`` and ``_bwd_call -> pallas_layer_norm_bwd``)
+and CPU tensors to the plain versions; they decide by the tensor's
+device alone. :func:`layer_norm_fn` wraps the pair in one
+``torch.autograd.Function``, as the reference's ``custom_vjp`` does.
+Forward: f32 statistics, two-pass variance, ``rsqrt(var + eps)``, then
 ``((x - mean) * inv) * gamma + beta`` with gamma/beta in f32, rounded
-to x's dtype.
+to x's dtype. Backward: the statistics re-derived from x, ``dx = inv *
+(dy*gamma - mean(dy*gamma) - xhat * mean(dy*gamma*xhat))`` rounded to
+x's dtype, dgamma = sum(dy * xhat) and dbeta = sum(dy) in f32, rounded
+to gamma's dtype.
 
 The reference declines shapes whose row count does not split into
 whole TPU row blocks (``_pick_rows``) or is below 8; those are limits
@@ -24,9 +30,11 @@ from ..base import MXNetError
 from . import cuda_build as _cb
 
 __all__ = ["layer_norm", "layer_norm_cuda", "layer_norm_plain",
-           "ln_available", "ln_composition"]
+           "layer_norm_bwd", "layer_norm_bwd_cuda", "layer_norm_bwd_plain",
+           "layer_norm_fn", "ln_available", "ln_composition"]
 
 KERNEL = "layer_norm_fwd"
+BWD_KERNEL = "layer_norm_bwd"
 SOURCE = "layer_norm.cu"
 
 
@@ -60,15 +68,37 @@ def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return ln_composition(x, gamma, beta, x.dim() - 1, eps)[0]
 
 
+def layer_norm_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
+                         gamma: torch.Tensor, eps: float):
+    """The backward kernel's arithmetic in PyTorch ops, over the last
+    axis of 2-D ``x``: returns (dx, dgamma, dbeta)."""
+    xf, dyf = x.float(), dy.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    dyg = dyf * gamma.float()
+    m1 = dyg.mean(dim=-1, keepdim=True)
+    m2 = (dyg * xhat).mean(dim=-1, keepdim=True)
+    dx = (inv * (dyg - m1 - xhat * m2)).to(x.dtype)
+    return (dx, (dyf * xhat).sum(dim=0).to(gamma.dtype),
+            dyf.sum(dim=0).to(gamma.dtype))
+
+
 def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
+        p, i32 = ctypes.c_void_p, ctypes.c_int
         f = lib.mxt_layer_norm_fwd
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p]
-        f.restype = ctypes.c_int
+        f.argtypes = [p, p, p, p, ctypes.c_int64, i32, ctypes.c_float, i32,
+                      i32, p]
+        f.restype = i32
+        f = lib.mxt_layer_norm_bwd
+        f.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64, i32,
+                      ctypes.c_float, i32, i32, p]
+        f.restype = i32
+        lib.mxt_layer_norm_bwd_rows.argtypes = []
+        lib.mxt_layer_norm_bwd_rows.restype = i32
         lib._mxt_ready = True
     return lib
 
@@ -98,6 +128,36 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     return y
 
 
+def layer_norm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
+                        gamma: torch.Tensor, eps: float):
+    """Launch the backward kernel on (M, C) ``dy`` and ``x``; returns
+    (dx, dgamma, dbeta), the last two in gamma's dtype."""
+    dtypes = tuple(_cb.DTYPE_CODES)
+    _cb.check_cuda_tensor(BWD_KERNEL, "x", x, dtypes)
+    _cb.check_cuda_tensor(BWD_KERNEL, "dy", dy, (x.dtype,), x.device)
+    _cb.check_cuda_tensor(BWD_KERNEL, "gamma", gamma, dtypes, x.device)
+    if x.dim() != 2 or dy.shape != x.shape or \
+            tuple(gamma.shape) != (x.shape[-1],):
+        raise MXNetError("%s: dy and x must be (M, C) and gamma (C,), got "
+                         "%s, %s, %s" % (BWD_KERNEL, tuple(dy.shape),
+                                         tuple(x.shape), tuple(gamma.shape)))
+    M, C = x.shape
+    lib = _lib()
+    blocks = -(-M // lib.mxt_layer_norm_bwd_rows())
+    dx = torch.empty_like(x)
+    part = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(gamma)
+    with torch.cuda.device(x.device):
+        rc = lib.mxt_layer_norm_bwd(
+            dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), M, C,
+            float(eps), _cb.DTYPE_CODES[x.dtype],
+            _cb.DTYPE_CODES[gamma.dtype], _cb.stream_of(x))
+    _cb.check_launch(lib, rc, BWD_KERNEL)
+    return dx, dgamma, dbeta
+
+
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LayerNorm over the last axis: the kernel for a CUDA tensor, the
@@ -107,3 +167,37 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return layer_norm_plain(x, gamma, beta, eps)
     raise MXNetError("%s: no kernel for device %s" % (KERNEL, x.device))
+
+
+def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
+                   eps: float):
+    """LayerNorm backward: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if x.is_cuda:
+        return layer_norm_bwd_cuda(dy, x, gamma, eps)
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(dy, x, gamma, eps)
+    raise MXNetError("%s: no kernel for device %s" % (BWD_KERNEL, x.device))
+
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return layer_norm(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(dy.contiguous(), x, gamma,
+                                           ctx.eps)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm_fn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis of 2-D ``x`` with its backward
+    (gamma and beta of one dtype): forward and backward each go to the
+    kernel for a CUDA tensor and to the plain version for a CPU one."""
+    return _cb.apply(_LayerNormFn, layer_norm, x, gamma, beta, eps)

@@ -1,5 +1,5 @@
 """Elementwise, scalar and broadcast operators, the subset the serving
-slice runs (counterpart of ``mxnet_tpu/ops/elemwise.py``; ref:
+and training slices run (counterpart of ``mxnet_tpu/ops/elemwise.py``; ref:
 src/operator/tensor/elemwise_*).
 
 MXNet semantics kept: ``broadcast_*`` applies numpy broadcasting; a
@@ -38,6 +38,8 @@ for _n, _f, _r in [
 
 
 register("identity", aliases=["_copy"])(lambda data: data)
+register("negative")(torch.neg)
+register("square")(torch.square)
 
 
 @register("Cast", aliases=["cast"])

@@ -1,4 +1,5 @@
-"""Shape and indexing operators, the subset the serving slice runs
+"""Shape and indexing operators, the subset the serving and training
+slices run
 (counterpart of ``mxnet_tpu/ops/matrix.py``; ref:
 src/operator/tensor/matrix_op-inl.h, indexing_op.cc)."""
 from __future__ import annotations
@@ -58,6 +59,11 @@ def reshape(data, *, shape=None, reverse=False):
     return data.reshape(_reshape_target(data.shape, shape, reverse))
 
 
+@register("reshape_like")
+def reshape_like(lhs, rhs):
+    return lhs.reshape(rhs.shape)
+
+
 @register("transpose")
 def transpose(data, *, axes=None):
     if axes is None or tuple(axes) == ():
@@ -91,7 +97,18 @@ def slice_like(data, shape_like, *, axes=()):
 def embedding(data, weight, *, input_dim, output_dim, dtype="float32",
               sparse_grad=False):
     """Row gather (ref: indexing_op.cc :: Embedding); float ids are
-    truncated to integers as in the reference."""
+    truncated to integers as in the reference, and get no gradient. The
+    weight's gradient is the scatter-add of the rows' gradients."""
     idx = data.to(torch.int64)
     return weight.index_select(0, idx.reshape(-1)).reshape(
         tuple(idx.shape) + (weight.shape[1],))
+
+
+@register("pick")
+def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
+    """data[..., index, ...] along ``axis`` (ref: matrix.py :: pick);
+    out-of-range indices are clipped, as in the reference."""
+    ax = int(axis) % data.dim()
+    idx = index.to(torch.int64).clamp(0, data.shape[ax] - 1).unsqueeze(ax)
+    out = torch.gather(data, ax, idx)
+    return out if keepdims else out.squeeze(ax)

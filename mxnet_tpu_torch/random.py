@@ -5,7 +5,8 @@
 them. The device id is folded into the seed, so two cards draw
 independent streams. Nothing in the package draws from torch's global
 generator: initializers take their generator from here or from the
-caller.
+caller, and the dropout kernels take their int32 seeds from
+:func:`seeds`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from .context import Context, current_context
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "seeds"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -50,3 +51,12 @@ def generator(ctx: Optional[Context] = None) -> torch.Generator:
                            + ctx.device_id) % (1 << 63))
             _gens[ctx] = g
         return g
+
+
+def seeds(n: int, ctx: Optional[Context] = None) -> torch.Tensor:
+    """``n`` int32 seeds in [0, 2^31 - 1) drawn from ``ctx``'s generator,
+    on ``ctx``'s device (the reference draws its dropout kernels' seeds
+    with ``jax.random.randint`` over the same range)."""
+    ctx = Context(ctx or current_context())
+    return torch.randint(0, 2 ** 31 - 1, (int(n),), generator=generator(ctx),
+                         dtype=torch.int32, device=ctx.torch_device)

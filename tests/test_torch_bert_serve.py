@@ -98,13 +98,23 @@ def test_dropout_is_identity_in_eval(pallas_interpret):
     _assert_outputs_close(rs.infer(ids, tok), ps.infer(ids, tok), 1e-4)
 
 
-def test_training_mode_dropout_raises():
+def test_training_mode_dropout_drops_and_repeats_under_a_seed():
+    """In train mode dropout=0.1 drops (the outputs leave the eval
+    ones), and the same seed of the context's generator draws the same
+    masks."""
     _, port, (ids, tok) = _pair(dropout=0.1)
     args = [pt.nd.array(a, ctx=pt.cpu()) for a in (ids, tok)]
-    port(*args)                      # eval mode: fine
-    with pt.autograd.train_mode():
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port(*args)
+    evals = [o.asnumpy() for o in port(*args)]
+
+    def train():
+        pt.random.seed(11)
+        with pt.autograd.train_mode():
+            return [o.asnumpy() for o in port(*args)]
+    a, b = train(), train()
+    for x, y, e in zip(a, b, evals):
+        assert np.isfinite(x).all()
+        np.testing.assert_array_equal(x, y)
+        assert not np.allclose(x, e)
 
 
 @pytest.mark.parametrize("make,call", [

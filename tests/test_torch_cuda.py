@@ -7,16 +7,17 @@ where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: f32 within 1e-5 (abs + rel) — the kernel and the plain
-version differ only in the order of f32 sums; bf16 and f16 within 1e-2
-(abs + rel) or one ulp of the output.
+version differ only in the order of f32 sums; for a sum over rows
+(dgamma, dbeta, db) the absolute part is 1e-5 of the largest sum; bf16
+and f16 within 1e-2 (abs + rel) or one ulp of the output.
 """
 import numpy as np
 import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.ops import (cuda_attention, cuda_build, cuda_epilogue,
-                                 cuda_norm)
+from mxnet_tpu_torch.ops import (cuda_attention, cuda_build, cuda_dropout,
+                                 cuda_epilogue, cuda_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -32,14 +33,18 @@ def _randn(g, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-def _assert_close(got, ref):
+def _assert_close(got, ref, reduced=False):
+    """``reduced``: a sum over many rows (dgamma, dbeta, db), which the
+    kernel adds in another order; its f32 error scales with the largest
+    sum, not with each one."""
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype and got.shape == ref.shape
     g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
     assert np.isfinite(g).all()
     err = np.abs(g - r)
     if ref.dtype == torch.float32:
-        tol = 1e-5 + 1e-5 * np.abs(r)
+        scale = np.abs(r).max() if reduced else 1.0
+        tol = 1e-5 * scale + 1e-5 * np.abs(r)
     else:
         bits = 8 if ref.dtype == torch.bfloat16 else 11
         ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(r), 2.0 ** -24)))
@@ -129,9 +134,11 @@ def test_served_bert_runs_the_kernels(card):
                              max_batch=4, max_seq=16)
     outs = sess.infer(ids, tok)
     counts = cuda_build.launch_counts()
-    # 2 forwards (the session's first and the request), 2 layers each
-    assert counts == {"layer_norm_fwd": 2 * 6, "selfatt_fwd": 2 * 2,
-                      "bias_gelu_fwd": 2 * 2, "bias_residual_fwd": 2 * 4}
+    # 2 forwards (the session's first and the request), 2 layers each;
+    # serving launches no backward or dropout kernel
+    assert counts == dict({k: 0 for k in cuda_build.KERNELS},
+                          layer_norm_fwd=2 * 6, selfatt_fwd=2 * 2,
+                          bias_gelu_fwd=2 * 2, bias_residual_fwd=2 * 4)
     with mock.patch.object(cuda_norm, "layer_norm",
                            cuda_norm.layer_norm_plain), \
             mock.patch.object(cuda_attention, "selfatt",
@@ -145,3 +152,142 @@ def test_served_bert_runs_the_kernels(card):
     for o, r in zip(outs, refs):
         assert o.shape == r.shape and np.isfinite(o).all()
         np.testing.assert_allclose(o, r, rtol=5e-2, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# training: backward kernels, dropout
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("M,C", [(1, 768), (4096, 768), (33, 100),
+                                 (70, 1536)])
+def test_layer_norm_bwd_kernel(card, dtype, M, C):
+    x = _randn(card, (M, C), dtype, 3.0) + 1
+    dy = _randn(card, (M, C), dtype)
+    g = _randn(card, (C,), dtype)
+    got = cuda_norm.layer_norm_bwd_cuda(dy, x, g, 1e-5)
+    ref = cuda_norm.layer_norm_bwd_plain(dy, x, g, 1e-5)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        _assert_close(a, b, reduced=i > 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("M,C", [(4096, 3072), (5, 7), (129, 300)])
+def test_bias_gelu_bwd_kernel(card, dtype, M, C):
+    x, dy = _randn(card, (M, C), dtype, 2.0), _randn(card, (M, C), dtype)
+    b = _randn(card, (C,), dtype)
+    got = cuda_epilogue.bias_gelu_bwd_cuda(dy, x, b)
+    ref = cuda_epilogue.bias_gelu_bwd_plain(dy, x, b)
+    for i, (a, b_) in enumerate(zip(got, ref)):
+        _assert_close(a, b_, reduced=i > 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n", [1, 1000, 4096 * 768])
+def test_dropout_kernel_is_the_plain_version(card, dtype, n):
+    x = torch.rand(n, generator=card, device="cuda").to(dtype) + 1
+    seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
+    got = cuda_dropout.dropout_cuda(x, 0.1, seed)
+    ref = cuda_dropout.dropout_plain(x, 0.1, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("L,N,heads,hd", [
+    (1, 1, 1, 16), (127, 4, 5, 64), (128, 8, 12, 64), (33, 2, 3, 128),
+    (33, 2, 2, 256), (1024, 2, 2, 64)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_selfatt_fwd_bwd_kernels(card, L, N, heads, hd, p):
+    qkv = _randn(card, (L, N, heads * 3 * hd), torch.bfloat16, 2.0)
+    dout = _randn(card, (L, N, heads * hd), torch.bfloat16)
+    plan = cuda_attention.selfatt_plan(L, heads, N)
+    seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
+                          generator=card, device="cuda", dtype=torch.int32)
+    args = (heads, p, seeds, plan["bbh"])
+    _assert_close(cuda_attention.selfatt_cuda(qkv, *args),
+                  cuda_attention.selfatt_plain(qkv, *args))
+    _assert_close(cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
+                  cuda_attention.selfatt_bwd_plain(qkv, dout, *args))
+
+
+def test_selfatt_dropout_mask_is_the_plain_mask(card):
+    """q = 0 makes P uniform (1/64) and v one-hot per key makes the
+    context the dropped probabilities themselves, so its zeros are the
+    mask."""
+    L, N, heads, hd = 64, 2, 3, 64
+    qkv = torch.zeros(L, N, heads, 3, hd, device="cuda")
+    qkv[:, :, :, 2] = torch.eye(L, device="cuda")[:, None, None, :]
+    qkv = qkv.reshape(L, N, heads * 3 * hd).to(torch.bfloat16)
+    plan = cuda_attention.selfatt_plan(L, heads, N)
+    seeds = torch.arange(plan["n_blocks"], dtype=torch.int32,
+                         device="cuda") * 7919 + 3
+    out = cuda_attention.selfatt_cuda(qkv, heads, 0.25, seeds, plan["bbh"])
+    mask = cuda_attention.keep_mask(seeds, N, heads, L, 0.25, plan["bbh"])
+    got = out.reshape(L, N, heads, hd).permute(1, 2, 0, 3) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, mask)
+
+
+def test_training_step_runs_the_kernels(card):
+    """A 2-layer BERT + BERTMLMLoss step at dropout 0.1 launches every
+    kernel of the path the expected number of times, and its loss and
+    gradients match the same step with the plain versions (same seeds,
+    same masks)."""
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMLoss, BERTModel
+    net = BERTModel(num_layers=2, units=64, hidden_size=128, num_heads=4,
+                    max_length=32, vocab_size=100, prefix="bert_",
+                    dropout=0.1, use_pooler=False, use_classifier=False,
+                    use_decoder=False)
+    mlm = BERTMLMLoss(vocab_size=100, units=64, mode="dense", prefix="mlm_")
+    net.initialize(ctx=mx.gpu(0))
+    mlm.initialize(ctx=mx.gpu(0))
+    rng = np.random.RandomState(0)
+    ids, tok, lab = (mx.nd.array(rng.randint(0, hi, (4, 16)), ctx=mx.gpu(0))
+                     for hi in (100, 2, 100))
+    net(ids, tok)
+    net.cast("bfloat16")
+    mlm.cast("bfloat16")
+    params = net.collect_params()
+    params.update(mlm.collect_params())
+
+    def step():
+        mx.random.seed(1)
+        with mx.autograd.record():
+            loss = mlm(net(ids, tok)[0], lab).mean()
+        loss.backward()
+        return loss.asnumpy(), {n: p.grad().asnumpy()
+                                for n, p in params.items()}
+
+    cuda_build.reset_launch_counts()
+    loss, grads = step()
+    assert cuda_build.launch_counts() == {
+        "layer_norm_fwd": 6, "layer_norm_bwd": 6, "selfatt_fwd": 2,
+        "selfatt_bwd": 2, "bias_gelu_fwd": 2, "bias_gelu_bwd": 2,
+        "bias_residual_fwd": 2, "dropout": 6}
+    with mock.patch.object(cuda_norm, "layer_norm",
+                           cuda_norm.layer_norm_plain), \
+            mock.patch.object(cuda_norm, "layer_norm_bwd",
+                              cuda_norm.layer_norm_bwd_plain), \
+            mock.patch.object(cuda_attention, "selfatt",
+                              cuda_attention.selfatt_plain), \
+            mock.patch.object(cuda_attention, "selfatt_bwd",
+                              cuda_attention.selfatt_bwd_plain), \
+            mock.patch.object(cuda_epilogue, "bias_gelu",
+                              cuda_epilogue.bias_gelu_plain), \
+            mock.patch.object(cuda_epilogue, "bias_gelu_bwd",
+                              cuda_epilogue.bias_gelu_bwd_plain), \
+            mock.patch.object(cuda_epilogue, "bias_residual",
+                              cuda_epilogue.bias_residual_plain), \
+            mock.patch.object(cuda_dropout, "dropout",
+                              cuda_dropout.dropout_plain):
+        before = cuda_build.launch_counts()
+        ref_loss, ref_grads = step()
+        assert cuda_build.launch_counts() == before
+    # the kernels agree with their plain versions to a bf16 ulp or so
+    # per element, so each gradient tensor stays within 2e-2 relative L2
+    # (a zeroed gradient reads 1)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-2, atol=0)
+    for n, g in ref_grads.items():
+        err = np.linalg.norm(grads[n] - g) / np.linalg.norm(g)
+        assert err <= 2e-2, (n, err)

@@ -26,8 +26,8 @@ from mxnet_tpu.ops.pallas_epilogue import (pallas_bias_gelu,
 from mxnet_tpu.ops.pallas_norm import pallas_layer_norm
 
 from mxnet_tpu_torch.base import MXNetError, torch_dtype
-from mxnet_tpu_torch.ops import (cuda_attention, cuda_build, cuda_epilogue,
-                                 cuda_norm)
+from mxnet_tpu_torch.ops import (cuda_attention, cuda_build, cuda_dropout,
+                                 cuda_epilogue, cuda_norm)
 
 
 def _jax(a, dtype):
@@ -194,12 +194,19 @@ def _kernel_calls(device="cpu"):
     x = torch.zeros(4, 8, device=device)
     b = torch.zeros(8, device=device)
     qkv = torch.zeros(4, 2, 2 * 3 * 4, dtype=torch.bfloat16, device=device)
+    do = torch.zeros(4, 2, 2 * 4, dtype=torch.bfloat16, device=device)
+    seed = torch.zeros(1, dtype=torch.int32, device=device)
     return {
         "layer_norm_fwd": lambda: cuda_norm.layer_norm_cuda(x, b, b, 1e-5),
+        "layer_norm_bwd": lambda: cuda_norm.layer_norm_bwd_cuda(x, x, b,
+                                                                1e-5),
         "selfatt_fwd": lambda: cuda_attention.selfatt_cuda(qkv, 2),
+        "selfatt_bwd": lambda: cuda_attention.selfatt_bwd_cuda(qkv, do, 2),
         "bias_gelu_fwd": lambda: cuda_epilogue.bias_gelu_cuda(x, b),
+        "bias_gelu_bwd": lambda: cuda_epilogue.bias_gelu_bwd_cuda(x, x, b),
         "bias_residual_fwd": lambda: cuda_epilogue.bias_residual_cuda(x, b,
                                                                       x),
+        "dropout": lambda: cuda_dropout.dropout_cuda(x, 0.1, seed),
     }
 
 
@@ -218,7 +225,14 @@ def test_kernel_wrapper_raises_on_cpu_tensor(kernel):
     lambda x: cuda_attention.selfatt(x.reshape(2, 1, 6), 1),
     lambda x: cuda_epilogue.bias_gelu(x, x[0]),
     lambda x: cuda_epilogue.bias_residual(x, x[0], x),
-], ids=["layer_norm", "selfatt", "bias_gelu", "bias_residual"])
+    lambda x: cuda_norm.layer_norm_bwd(x, x, x[0], 1e-5)[0],
+    lambda x: cuda_attention.selfatt_bwd(x.reshape(2, 1, 6),
+                                         x.reshape(2, 1, 6)[..., :2], 1),
+    lambda x: cuda_epilogue.bias_gelu_bwd(x, x, x[0])[0],
+    lambda x: cuda_dropout.dropout(x, 0.5, torch.zeros(
+        1, dtype=torch.int32, device=x.device)),
+], ids=["layer_norm", "selfatt", "bias_gelu", "bias_residual",
+        "layer_norm_bwd", "selfatt_bwd", "bias_gelu_bwd", "dropout"])
 def test_dispatch_is_by_device(fn):
     x = torch.ones(2, 6)
     assert fn(x).device.type == "cpu"
@@ -255,3 +269,34 @@ def test_launch_counts_reset():
     assert cuda_build.launch_counts()["selfatt_fwd"] >= 1
     cuda_build.reset_launch_counts()
     assert cuda_build.launch_counts() == {k: 0 for k in cuda_build.KERNELS}
+
+
+@pytest.mark.parametrize("fn", [
+    lambda x: cuda_norm.layer_norm_fn(x, x[0], x[0], 1e-5),
+    lambda x: cuda_attention.selfatt_fn(x.reshape(2, 1, 6), 1),
+    lambda x: cuda_epilogue.bias_gelu_fn(x, x[0]),
+    lambda x: cuda_epilogue.bias_residual_fn(x, x[0], x),
+    lambda x: cuda_dropout.dropout_fn(x, 0.5, torch.zeros(1,
+                                                          dtype=torch.int32)),
+], ids=["layer_norm", "selfatt", "bias_gelu", "bias_residual", "dropout"])
+def test_autograd_function_only_while_a_graph_is_built(monkeypatch, fn):
+    """Each wrapper's torch.autograd.Function runs only while grad mode
+    is on (inside autograd.record()); outside it the same forward runs
+    without the Function's host cost and gives the same values."""
+    calls = []
+    apply = torch.autograd.Function.apply.__func__
+
+    def spy(cls, *args):
+        calls.append(cls.__name__)
+        return apply(cls, *args)
+
+    monkeypatch.setattr(torch.autograd.Function, "apply", classmethod(spy))
+    x = torch.randn(2, 6, generator=torch.Generator().manual_seed(0))
+    x.requires_grad_(True)
+    with torch.enable_grad():
+        y = fn(x)
+    assert len(calls) == 1 and y.grad_fn is not None
+    with torch.no_grad():
+        z = fn(x)
+    assert len(calls) == 1 and z.grad_fn is None
+    torch.testing.assert_close(z, y.detach(), rtol=0, atol=0)

@@ -34,12 +34,35 @@ def test_port_runs_without_jax_or_reference_in_a_subprocess():
         sess = net.serve_session(ids, ids, seq_axis=1)
         out = sess.infer(np.ones((1, 3)), np.zeros((1, 3)))
         assert out[0].shape == (1, 3, 16), out[0].shape
+        # one training step: autograd, the loss, dropout, the Trainer
+        from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMLoss
+        train = BERTModel(num_layers=1, units=16, hidden_size=32,
+                          num_heads=2, max_length=8, vocab_size=10,
+                          dropout=0.1, use_pooler=False,
+                          use_classifier=False, use_decoder=False,
+                          prefix="train_")
+        mlm = BERTMLMLoss(vocab_size=10, units=16, mode="dense",
+                          prefix="mlm_")
+        train.initialize(ctx=mx.cpu())
+        mlm.initialize(ctx=mx.cpu())
+        train(ids, ids)
+        params = train.collect_params()
+        params.update(mlm.collect_params())
+        trainer = mx.gluon.Trainer(params, "lamb", {"learning_rate": 1e-3})
+        with mx.autograd.record():
+            loss = mlm(train(ids, ids)[0], ids).mean()
+        loss.backward()
+        trainer.step(2)
+        assert np.isfinite(loss.asnumpy()).all()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
         print("LOADED", bad)
         assert not bad, bad
     """)
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    # MXNET_* variables left in os.environ by other test files (ZeRO,
+    # ...) would turn on Trainer features the port refuses
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MXNET_")}
+    env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           env=env, capture_output=True, text=True,
                           timeout=300)
