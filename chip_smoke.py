@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
     python3 chip_smoke.py [--seed N] [--reps N] [--train-steps N]
+                          [--resnet-steps N]
 
 Phases, in order; any fault ends the run with a non-zero exit and no
 ``ok`` line:
@@ -18,7 +19,8 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    gives them; the LayerNorm, bias+GeLU and attention backward kernels
    (dgamma, dbeta, db and the packed dQKV included), attention at
    dropout 0.1 and the dropout kernel at the shapes BERT-base training
-   gives them. The dropout masks of kernel and plain version must be
+   gives them; the dual backward (dx, dW, the masked jg and the
+   chaining sums) at every call shape of ResNet-50's fused stages. The dropout masks of kernel and plain version must be
    identical (zero patterns compared exactly), and the dropout keep rate
    within 5 binomial sigma of 0.9.
 4. serving — BERT-base (12 layers, 768 units, 12 heads, vocab 30522) at
@@ -40,11 +42,36 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    before, read just after) must equal the expected table, and
    ``--train-steps`` LAMB steps on one fixed batch must keep the loss
    finite and end below where they began.
-6. times — median time of each kernel, its plain version and the one
-   PyTorch call that computes the same function; per-request latency
-   and tokens/s of serving; ms per training step and samples/s; then
-   one served forward and one training step under torch.profiler, the
-   device time by kernel group.
+6. fused stages — ResNet-50 v1's four bottleneck stages at full width
+   (batch 32 at 224^2: 56^2, 28^2, 14^2 and 7^2, HWNC bf16), laid out
+   as tools/layout_exp.py mode hwnc5 runs them, forward and backward
+   through ``cuda_fused.fused_stage``: the launch counts (reset just
+   before, read just after) must be 27 ``dual_bwd`` and nothing else,
+   and the output and every gradient are held against the same stages
+   with the plain version, the plain bf16 stages' distance from their
+   f32 twin as the yardstick. A control drops the shortcut gradient
+   from the head kernels and must be caught. (The kernel is first held
+   against its plain version, every variant at every call shape of
+   these stages, in phase 3.)
+7. ResNet-50 — ``resnet50_v1`` initialized with MSRAPrelu from
+   ``--seed``, cast to bf16 with BatchNorm in f32, trained through
+   ``autograd.record()`` -> ``backward()`` -> ``gluon.Trainer`` (SGD lr
+   0.1, momentum 0.9) on a batch of 128 at 224^2 (bench.py's headline
+   loop without AMP or hybridize): the stem BatchNorm's moving
+   statistics after one step against the momentum update of its batch
+   statistics (a swapped momentum must be caught), every moving
+   statistic moved and finite, one step's gradients against the same
+   step's f32 twin (TF32 off; BatchNorm without its shift must be
+   caught), and ``--resnet-steps`` SGD steps on one fixed batch must
+   keep the loss finite and take it at least ``RESNET_FALL`` below the
+   first step's (lr 0.1 without warmup overshoots afterwards).
+8. times — median time of each kernel, its plain version and the one
+   PyTorch call (or, for ``dual_bwd``, composition) that computes the
+   same function; per-request latency and tokens/s of serving; ms per
+   training step and samples/s; the fused stages' forward and backward;
+   the ResNet-50 step and images/s; then one served forward, one BERT
+   training step, the fused stages and one ResNet-50 step under
+   torch.profiler, the device time by kernel group.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -102,10 +129,47 @@ TRAIN_RATIO = 3.6
 TRAIN_LAUNCHES = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                   "selfatt_fwd": 12, "selfatt_bwd": 12,
                   "bias_gelu_fwd": 12, "bias_gelu_bwd": 12,
-                  "bias_residual_fwd": 12, "dropout": 26}
+                  "bias_residual_fwd": 12, "dropout": 26, "dual_bwd": 0}
 TRAIN_FWD_DROPOUT = 13
 TRAIN_BATCH, TRAIN_SEQ, VOCAB = 32, 128, 30522
 UNITS, HIDDEN, HEADS, HEAD_DIM = 768, 3072, 12, 64
+# ResNet-50 v1's fused stages as tools/layout_exp.py mode hwnc5 runs them
+# (HWNC, bf16, batch 32 at 224^2): stage 1 fuses its three blocks, the
+# first with the downsample; stages 2-4 fuse the stride-1 blocks after
+# their stride-2 entry block. (blocks, input channels, bottleneck width,
+# output channels, side)
+STAGES = ((3, 64, 64, 256, 56), (3, 512, 128, 512, 28),
+          (5, 1024, 256, 1024, 14), (2, 2048, 512, 2048, 7))
+STAGE_BATCH = 32
+# dual_bwd per stage backward: tail and head of every block, and the
+# downsample of stage 1's first
+STAGE_LAUNCHES = 7 + 6 + 10 + 4
+# The fused stages with the kernel against the same stages with the plain
+# version, per output and gradient, with the plain bf16 stages' distance
+# from their f32 twin (no bf16 rounding, no TF32) as the yardstick. On
+# an H100 the largest of the 128 ratios read 0.0335, 0.0326, 0.0333,
+# 0.0396 and 0.0417 for seeds 0-4, and 3 or more on 80-83 of them with
+# the head kernels' shortcut gradient dropped (the control); the limit is
+# twice the largest correct reading.
+STAGE_RATIO = 0.084
+# ResNet-50 v1 trained through Gluon (bench.py's headline loop without
+# AMP or hybridize): batch 128 at 224^2, bf16 with BN in f32, SGD lr 0.1
+# momentum 0.9. One step's gradients against the same step's f32 twin,
+# per parameter, relative L2, and its loss. At MSRAPrelu init, 50 layers
+# of bf16 rounding leave the gradients far from f32 (on an H100 the
+# median array read 1.3 and the largest, the stem BatchNorm's beta,
+# 4.87, 4.46, 4.08, 4.69 and 4.63 for seeds 0-4), while the loss agrees
+# closely (relative differences 0.00173, 0.00231, 0.00314, 0.00232 and
+# 0.000727; 0.87-1.15 with BatchNorm's shift dropped, the control). Each
+# limit is twice the largest correct reading.
+RESNET_BATCH, RESNET_SIDE = 128, 224
+RESNET_REL_L2 = 9.74
+RESNET_LOSS_REL = 0.0063
+# SGD at lr 0.1 without warmup overshoots after a few steps on one
+# batch; the loss must fall by at least this much below the first step's
+# at some step (on an H100 it fell by 2.44-2.69 by the third step, seeds
+# 0-4)
+RESNET_FALL = 1.0
 DEV = "cuda"
 
 
@@ -276,11 +340,12 @@ def _plain_kernels(f32_twin=False):
     version (the slices' reference runs on the card). ``f32_twin`` also
     sends f32 attention to the plain kernel functions with their bf16
     rounding points dropped, so that the f32 yardstick draws the same
-    dropout masks (the op would run its composition for f32)."""
+    dropout masks (the op would run its composition for f32), and runs
+    the fused stages' dual backward in f32 without its bf16 roundings."""
     import functools
     from unittest import mock
     from mxnet_tpu_torch.ops import (cuda_attention, cuda_dropout,
-                                     cuda_epilogue, cuda_norm)
+                                     cuda_epilogue, cuda_fused, cuda_norm)
     swaps = [(cuda_norm, "layer_norm", cuda_norm.layer_norm_plain),
              (cuda_norm, "layer_norm_bwd", cuda_norm.layer_norm_bwd_plain),
              (cuda_attention, "selfatt", cuda_attention.selfatt_plain),
@@ -291,7 +356,8 @@ def _plain_kernels(f32_twin=False):
               cuda_epilogue.bias_gelu_bwd_plain),
              (cuda_epilogue, "bias_residual",
               cuda_epilogue.bias_residual_plain),
-             (cuda_dropout, "dropout", cuda_dropout.dropout_plain)]
+             (cuda_dropout, "dropout", cuda_dropout.dropout_plain),
+             (cuda_fused, "dual_bwd", cuda_fused.dual_bwd_plain)]
     if f32_twin:
         swaps += [
             (cuda_attention, "selfatt", functools.partial(
@@ -299,7 +365,9 @@ def _plain_kernels(f32_twin=False):
             (cuda_attention, "selfatt_bwd", functools.partial(
                 cuda_attention.selfatt_bwd_plain, rounding=False)),
             (cuda_attention, "selfatt_available",
-             lambda L, heads, batch, dtype: True)]
+             lambda L, heads, batch, dtype: True),
+            (cuda_fused, "_run_dual", functools.partial(
+                cuda_fused._run_dual, rounding=False))]
     with contextlib.ExitStack() as stack:
         for mod, name, fn in swaps:
             stack.enter_context(mock.patch.object(mod, name, fn))
@@ -560,7 +628,7 @@ def _profile(what, fn, n_other=8):
         group = next((k for k in names if k in name), None)
         if group is None:
             low = name.lower()
-            group = ("matmul (cuBLAS)" if any(
+            group = ("matmul, conv (cuBLAS, cuDNN)" if any(
                 k in low for k in ("gemm", "nvjet", "xmma", "cutlass"))
                 else "other: " + name[:40])
         us = ev.device_time_total if hasattr(ev, "device_time_total") \
@@ -940,6 +1008,509 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
     return rows, step
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50: the dual-backward kernel, the fused stages, Gluon training
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 matmuls and convolutions in full f32 (cuDNN's convolutions
+    take TF32 by default, which would make an f32 yardstick wrong)."""
+    import torch
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _dual_calls():
+    """The distinct dual_bwd calls of one backward of the fused stages:
+    (name, M, I, O, mask_mode, addend, emit_jg, emit_next, launches per
+    backward). In a stage of n blocks: the last block's tail masks by the
+    join and emits jg, the other tails take the pre-masked jg; block 0's
+    head adds the shortcut gradient (in stage 1 the downsample's kernel
+    does), the other heads add it and emit the chaining sums."""
+    calls = []
+    for st, (n, cin, c, cout, side) in enumerate(STAGES):
+        M, tag = side * side * STAGE_BATCH, "stage%d " % (st + 1)
+        calls += [(tag + "tail", M, c, cout, "out", False, True, False, 1),
+                  (tag + "chained tail", M, c, cout, "none", False, False,
+                   False, n - 1),
+                  (tag + "chained head", M, cout, c, "scale_shift", True,
+                   False, True, n - 1),
+                  (tag + "first head", M, cin, c, "scale_shift", st > 0,
+                   False, False, 1)]
+        if st == 0:
+            calls.append((tag + "downsample", M, cin, cout, "none", True,
+                          False, False, 1))
+    assert sum(c[-1] for c in calls) == STAGE_LAUNCHES
+    return calls
+
+
+def _dual_args(randn, M, I, O, mask_mode, addend, emit_next):
+    import torch
+    args = [randn(M, O), randn(M, O), randn(M, I), randn(I, O, scale=I ** -0.5),
+            torch.cat([randn(1, O).float(), randn(2, O).float() * 0.1,
+                       randn(1, O).float(), randn(1, O).float() * 0.5,
+                       torch.zeros(3, O, device=DEV)]), mask_mode]
+    kw = {}
+    if mask_mode == "out":
+        kw["mask"] = randn(M, O)
+    if addend:
+        kw["addend"] = randn(M, I)
+    if emit_next:
+        kw["y3p"] = randn(M, I)
+        kw["mprev"] = randn(I).float() * 0.1
+    return args, kw
+
+
+def phase_parity_resnet(seed):
+    """dual_bwd against its plain version for every variant of the
+    fused stages' backward at ResNet-50's stage shapes, plus every option
+    at once; returns the largest error."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_fused
+    randn = _randn(seed + 20)
+    worst = 0.0
+    calls = _dual_calls() + [("all options", 1568, 2048, 512, "out", True,
+                              True, True, 0)]
+    for name, M, I, O, mode, addend, emit_jg, emit_next, _ in calls:
+        args, kw = _dual_args(randn, M, I, O, mode, addend, emit_next)
+        got = cuda_fused.dual_bwd_cuda(*args, emit_jg=emit_jg, **kw)
+        ref = cuda_fused.dual_bwd_plain(*args, emit_jg=emit_jg, **kw)
+        what = "dual_bwd %s (%d, %d, %d) %s" % (name, M, I, O, mode)
+        worst = max(worst, _check_close(what + " dx", got[0], ref[0],
+                                        KERNEL_ATOL, KERNEL_RTOL,
+                                        KERNEL_EQUAL))
+        # an f32 sum over M rows: the tolerance scales with the largest
+        _check_close(what + " dW", got[1], ref[1],
+                     1e-5 * float(ref[1].abs().max()), 1e-5)
+        if emit_jg:
+            _check_close(what + " jg", got[2], ref[2], 0.0, 0.0, 1.0)
+        if emit_next:
+            # the sums are of the kernel's own rounded dx
+            dxf = got[0].float()
+            want = torch.stack([dxf.sum(0), (dxf * (kw["y3p"].float()
+                                                    - kw["mprev"])).sum(0)])
+            _check_close(what + " sums", got[3], want,
+                         1e-5 * float(want.abs().max()), 1e-5)
+    return worst
+
+
+def _stage_inputs(seed):
+    """Random weights and inputs of the four fused stages: per stage
+    (x, [block params], head cotangent), x post-relu HWNC bf16."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed + 30)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEV) * scale
+
+    def bn(c):
+        return [torch.rand(c, generator=g, device=DEV) + 0.5, rn(c, scale=0.1)]
+    stages = []
+    for st, (n, cin, c, cout, side) in enumerate(STAGES):
+        blocks = []
+        for b in range(n):
+            i = cin if b == 0 else cout
+            ps = [rn(i, c, scale=(2.0 / i) ** 0.5), *bn(c),
+                  rn(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5), *bn(c),
+                  rn(c, cout, scale=(2.0 / c) ** 0.5), *bn(cout)]
+            if st == 0 and b == 0:
+                ps += [rn(i, cout, scale=(2.0 / i) ** 0.5), *bn(cout)]
+            blocks.append(ps)
+        x = torch.relu(rn(side, side, STAGE_BATCH, cin)).to(torch.bfloat16)
+        head = rn(side, side, STAGE_BATCH, cout)
+        stages.append((x, blocks, head))
+    return stages
+
+
+def _run_stages(stages, dtype=None):
+    """Forward and backward of every fused stage: per stage [out, dx,
+    every parameter's gradient]; ``dtype`` recasts the inputs (the f32
+    twin)."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_fused
+    res = []
+    for st, (x, blocks, head) in enumerate(stages):
+        x = (x if dtype is None else x.to(dtype)).detach().requires_grad_()
+        ps = [[p.detach().requires_grad_() for p in b] for b in blocks]
+        out, _ = cuda_fused.fused_stage(x, ps, data_format="HWNC",
+                                        ds_first=st == 0)
+        grads = torch.autograd.grad((out.float() * head).sum(),
+                                    [x] + [p for b in ps for p in b])
+        res.append([out.detach()] + list(grads))
+    return res
+
+
+def phase_stages(seed):
+    """ResNet-50's four fused stages at full width with the kernel, held
+    against the plain version; returns (launch counts, the inputs)."""
+    import torch
+    from unittest import mock
+    from mxnet_tpu_torch.ops import cuda_build, cuda_fused
+    stages = _stage_inputs(seed)
+    cuda_build.reset_launch_counts()
+    kern = _run_stages(stages)
+    torch.cuda.synchronize()
+    counts = cuda_build.launch_counts()
+    print("[stages] launches of one forward and backward of the four "
+          "fused stages (batch %d, HWNC bf16): %s" % (STAGE_BATCH, counts))
+    want = dict({k: 0 for k in cuda_build.KERNELS}, dual_bwd=STAGE_LAUNCHES)
+    if counts != want:
+        raise SmokeFailure("fused stages: launch counts %s, expected %s"
+                           % (counts, want))
+    with _plain_kernels():
+        plain = _run_stages(stages)
+        with _no_tf32(), _plain_kernels(f32_twin=True):
+            twin = _run_stages(stages, torch.float32)
+    if cuda_build.launch_counts() != counts:
+        raise SmokeFailure("the plain stages launched a kernel")
+
+    def check(tag, got, quiet):
+        out = []
+        for st in range(len(STAGES)):
+            for i, (a, r, t) in enumerate(zip(got[st], plain[st], twin[st])):
+                what = "stage%d %s" % (st + 1, "out" if i == 0 else
+                                       "dx" if i == 1 else "grad %d" % (i - 2))
+                out.append((_slice_check(tag, what, a, r, t, STAGE_RATIO,
+                                         quiet), what))
+        return out
+    checks = check("parity", kern, True)
+    worst = max(checks, key=lambda c: c[0][0])
+    print("[stages] kernel vs plain: %d checks, largest ratio %.3g (%s), "
+          "limit %g" % (len(checks), worst[0][0], worst[1], STAGE_RATIO))
+    if any(c[0][1] for c in checks):
+        raise SmokeFailure("the fused stages differ from the plain stages "
+                           "by more than %g times bf16's own error"
+                           % STAGE_RATIO)
+
+    # control: the head kernel's residual-gradient addend dropped
+    real = cuda_fused.dual_bwd
+
+    def addend_dropped(*args, **kw):
+        if args[5] == "scale_shift":
+            kw["addend"] = None
+        return real(*args, **kw)
+    with mock.patch.object(cuda_fused, "dual_bwd", addend_dropped):
+        bad = _run_stages(stages)
+    caught = [w for (r, fail), w in check("control", bad, True) if fail]
+    print("[control] head addend dropped: %d of %d checks fail (%s)"
+          % (len(caught), len(checks), ", ".join(caught[:3])))
+    if not caught:
+        raise SmokeFailure("control: the stage check passed a head kernel "
+                           "that drops the shortcut gradient")
+    return counts, stages
+
+
+def _resnet_batch(seed):
+    import torch
+    import mxnet_tpu_torch as mx
+    g = torch.Generator(device=DEV).manual_seed(seed + 40)
+    x = torch.randn(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE, generator=g,
+                    device=DEV)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device=DEV)
+    return mx.nd.NDArray(x.to(torch.bfloat16)), mx.nd.NDArray(y.float())
+
+
+def _resnet_grads(net, loss_fn, params, x, y):
+    """One forward and backward; returns the f32 mean loss and every
+    gradient as f32."""
+    import mxnet_tpu_torch as mx
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return (float(loss.tensor().detach().float().mean()),
+            {n: p.grad().tensor().float().clone() for n, p in params.items()
+             if p.grad_req != "null"})
+
+
+def _stem_stats_check(tag, net, x, before):
+    """The stem BatchNorm's moving statistics after one training step
+    from ``before``, against the batch statistics of the stem
+    convolution computed here: mean' = m * mean + (1 - m) * batch mean,
+    likewise the variance, m = 0.9. Returns whether they are beyond a
+    1e-3 relative tolerance."""
+    import torch
+    import torch.nn.functional as F
+    conv, bn = net.features[0], net.features[1]
+    with torch.no_grad():
+        w = conv.weight.data().tensor()
+        y = F.conv2d(x.tensor().to(w.dtype), w, stride=2, padding=3).float()
+        mean = y.mean(dim=(0, 2, 3))
+        var = y.var(dim=(0, 2, 3), unbiased=False)
+    m0, v0 = before
+    want = [0.9 * m0 + 0.1 * mean, 0.9 * v0 + 0.1 * var]
+    got = [bn.running_mean.data().tensor(), bn.running_var.data().tensor()]
+    errs = [float(((a - b).abs() / (b.abs() + 1e-3)).max())
+            for a, b in zip(got, want)]
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    fail = not finite or max(errs) > 1e-3
+    print("[%s] stem BatchNorm moving mean/var after one step: relative "
+          "errors %.3g, %.3g (tol 1e-3) %s" % (
+              tag, errs[0], errs[1],
+              ("caught" if fail else "MISSED") if tag == "control"
+              else ("FAIL" if fail else "ok")))
+    return fail
+
+
+def phase_resnet(seed, steps):
+    """ResNet-50 v1 trained through Gluon on the card; returns (launch
+    counts of one step, the step function)."""
+    import math
+    import torch
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    t0 = time.perf_counter()
+    mx.random.seed(seed)
+    net = resnet50_v1(prefix="resnet50_")
+    net.initialize(init=mx.init.MSRAPrelu())
+    with torch.no_grad():
+        net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE)))
+    net.cast("bfloat16")
+    params = net.collect_params()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = _resnet_batch(seed)
+    stats = {n: p for n, p in params.items() if p._is_aux}
+    init_stats = {n: p.data().tensor().clone() for n, p in stats.items()}
+
+    def reset_stats():
+        for n, p in stats.items():
+            p.set_data(init_stats[n])
+    torch.cuda.synchronize()
+    print("[resnet] resnet50_v1 (MSRAPrelu from seed %d) cast to bf16 with "
+          "BatchNorm in f32: %d parameters in %d arrays (%d moving "
+          "statistics), built in %.1f s"
+          % (seed, sum(p.data().size for p in params.values()), len(params),
+             len(stats), time.perf_counter() - t0))
+
+    # one step: bf16, then its f32 twin on the same (bf16-valued) weights
+    stem = net.features[1]
+    stem_before = (stem.running_mean.data().tensor().clone(),
+                   stem.running_var.data().tensor().clone())
+    loss16, g16 = _resnet_grads(net, loss_fn, params, x, y)
+    if _stem_stats_check("resnet", net, x, stem_before):
+        raise SmokeFailure("the moving statistics of the stem BatchNorm are "
+                           "not the momentum-0.9 update of its batch "
+                           "statistics")
+    moved = [n for n, p in stats.items()
+             if not torch.equal(p.data().tensor(), init_stats[n])]
+    finite = all(bool(torch.isfinite(p.data().tensor()).all())
+                 for p in stats.values())
+    print("[resnet] one step moved %d of %d moving statistics, all finite: "
+          "%s" % (len(moved), len(stats), finite))
+    if len(moved) != len(stats) or not finite:
+        raise SmokeFailure("moving statistics did not all move, or are not "
+                           "finite")
+    # control: the moving-stat momentum swapped (0.1 for 0.9)
+    reset_stats()
+    bns = [b for b in _walk(net) if isinstance(b, mx.gluon.nn.BatchNorm)]
+    for b in bns:
+        b._kwargs["momentum"] = 0.1
+    try:
+        _resnet_grads(net, loss_fn, params, x, y)
+    finally:
+        for b in bns:
+            b._kwargs["momentum"] = 0.9
+    if not _stem_stats_check("control", net, x, stem_before):
+        raise SmokeFailure("control: the moving-statistics check passed a "
+                           "swapped momentum")
+
+    reset_stats()
+    net.cast("float32")
+    with _no_tf32():
+        loss32, g32 = _resnet_grads(net, loss_fn, params,
+                                    mx.nd.NDArray(x.tensor().float()), y)
+    net.cast("bfloat16")
+    reset_stats()
+
+    # the biases of the convolutions in front of a BatchNorm get a zero
+    # gradient up to rounding (the BatchNorm removes any shift): their
+    # f32 norm is rounding noise, and no yardstick
+    norms = {n: float(g.norm()) for n, g in g32.items()}
+    floor = 1e-4 * statistics.median(norms.values())
+    noise = sorted(n for n, v in norms.items() if v < floor)
+    held = [n for n in g32 if n not in noise]
+
+    def rel_l2(got, ref):
+        return {n: float((got[n] - ref[n]).norm() / norms[n]) for n in held}
+    errs = rel_l2(g16, g32)
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1])
+    print("[resnet] loss bf16 %.6f, f32 twin %.6f; %d gradient arrays at "
+          "rounding noise in f32 (norm below %.3g, e.g. %s) not held"
+          % (loss16, loss32, len(noise), floor, ", ".join(noise[:2])))
+    loss_rel = abs(loss16 - loss32) / abs(loss32)
+    print("[resnet] gradients vs the f32 twin, relative L2 over %d arrays: "
+          "largest %s, median %.3g (limit %g); loss relative difference "
+          "%.3g (limit %g)" % (len(errs), ", ".join(
+              "%s %.3g" % kv for kv in ranked[:3]),
+              ranked[len(ranked) // 2][1], RESNET_REL_L2, loss_rel,
+              RESNET_LOSS_REL))
+    if not math.isfinite(loss16) or ranked[0][1] > RESNET_REL_L2 or \
+            loss_rel > RESNET_LOSS_REL:
+        raise SmokeFailure("the ResNet-50 step is beyond its limits from "
+                           "its f32 twin")
+    # control: BatchNorm's shift dropped from the training forward
+    with mock.patch.object(nn_ops, "_bn_apply",
+                           lambda xx, scale, shift: xx * scale.to(xx.dtype)):
+        loss_bad, gbad = _resnet_grads(net, loss_fn, params, x, y)
+    reset_stats()
+    bad = sorted(rel_l2(gbad, g32).items(), key=lambda kv: -kv[1])
+    caught = [kv for kv in bad if kv[1] > RESNET_REL_L2]
+    bad_loss = abs(loss_bad - loss32) / abs(loss32)
+    print("[control] BatchNorm shift dropped: %d of %d gradients beyond the "
+          "limit (%s); loss relative difference %.3g" % (
+              len(caught), len(bad), ", ".join(
+                  "%s %.3g" % kv for kv in caught[:3]), bad_loss))
+    if not caught and not bad_loss > RESNET_LOSS_REL:
+        raise SmokeFailure("control: the gradient check passed a BatchNorm "
+                           "without its shift")
+
+    # SGD on the fixed batch: launch counts of the first step, the loss
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.1,
+                                               "momentum": 0.9})
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(RESNET_BATCH)
+        return loss
+    losses = []
+    for i in range(steps):
+        if i == 0:
+            cuda_build.reset_launch_counts()
+        losses.append(float(step().tensor().detach().float().mean()))
+        if i == 0:
+            torch.cuda.synchronize()
+            counts = cuda_build.launch_counts()
+    print("[resnet] launches of one Gluon step: %s" % counts)
+    print("[resnet] SGD (lr 0.1, momentum 0.9) on one fixed batch of %d, "
+          "loss per step (f32 mean): %s" % (RESNET_BATCH, " ".join(
+              "%.4f" % v for v in losses)))
+    if not all(math.isfinite(v) for v in losses) or \
+            not min(losses[1:]) < losses[0] - RESNET_FALL:
+        raise SmokeFailure("ResNet-50 training did not lower the loss by "
+                           "%g: %s" % (RESNET_FALL, losses))
+    print("[resnet] loss %.4f at the first step, lowest %.4f (step %d)"
+          % (losses[0], min(losses), losses.index(min(losses)) + 1))
+    return counts, step
+
+
+def _walk(block):
+    yield block
+    for child in block._children.values():
+        yield from _walk(child)
+
+
+def _dual_library(args, kw, emit_jg):
+    """The same function from PyTorch calls: the masked cdy, then two
+    bf16 matmuls (cuBLAS)."""
+    import torch
+    jg, y, x, w, coef, mode = args
+    jgf, yv = jg.float(), y.float()
+    if mode == "scale_shift":
+        jgf = torch.where(yv * coef[3] + coef[4] > 0, jgf, 0.0)
+    elif mode == "out":
+        jgf = torch.where(kw["mask"] > 0, jgf, 0.0)
+    jg_out = jgf.to(torch.bfloat16) if emit_jg else None
+    cdy = (jgf * coef[0] + yv * coef[1] + coef[2]).to(torch.bfloat16)
+    dx = torch.matmul(cdy, w.t())
+    if "addend" in kw:
+        dx = dx + kw["addend"]
+    sums = None
+    if "y3p" in kw:
+        dx = torch.where(x > 0, dx, 0.0)
+        dxf = dx.float()
+        sums = (dxf.sum(0), (dxf * (kw["y3p"].float() - kw["mprev"])).sum(0))
+    return dx, torch.matmul(x.t(), cdy), jg_out, sums
+
+
+def phase_times_resnet(seed, reps, counts, err, card, stages, resnet_step):
+    """Times of the dual backward per call shape (kernel, plain version,
+    the PyTorch composition, bound), the fused stages' backward, the
+    ResNet-50 step; returns the kernel's row."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_fused
+    randn = _randn(seed + 21)
+    bw, bf16_peak, _ = _peaks(card)
+    shapes = []
+    for (name, M, I, O, mode, addend, emit_jg, emit_next,
+         per_step) in _dual_calls():
+        args, kw = _dual_args(randn, M, I, O, mode, addend, emit_next)
+        ms = _gpu_ms(lambda: cuda_fused.dual_bwd_cuda(
+            *args, emit_jg=emit_jg, **kw), reps)
+        plain_ms = _gpu_ms(lambda: cuda_fused.dual_bwd_plain(
+            *args, emit_jg=emit_jg, **kw), reps)
+        lib_ms = _gpu_ms(lambda: _dual_library(args, kw, emit_jg), reps)
+        # each input read once, each output written once (bf16 2 B, f32 4)
+        mo, mi = M * O * 2, M * I * 2
+        nbytes = (2 * mo + mi + I * O * 2 + 8 * O * 4     # jg, y, x, w, coef
+                  + (mo if mode == "out" else 0) + (mi if addend else 0)
+                  + (mi + I * 4 if emit_next else 0)
+                  + mi + I * O * 4 + (mo if emit_jg else 0)   # dx, dW, jg
+                  + (2 * I * 4 if emit_next else 0))
+        flops = 2 * 2 * M * I * O
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        shapes.append({"call": name, "M": M, "I": I, "O": O,
+                       "mask_mode": mode, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                       "launches_per_step": per_step})
+        print("[times] dual_bwd %-20s (%6d, %4d, %4d) kernel %.4f ms  plain "
+              "%.4f ms  library %.4f ms  bound %.4f ms (%s; %.1f MB, %.2f "
+              "GFLOP)" % (name, M, I, O, ms, plain_ms, lib_ms, b_ms, b_by,
+                          nbytes / 1e6, flops / 1e9))
+    head = shapes[0]
+    row = {"name": "dual_bwd", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/dual_bwd.cu",
+           "replaces": "mxnet_tpu/ops/pallas_fused.py:64",
+           "launches": counts["dual_bwd"],
+           "launches_per_fused_step": counts["dual_bwd"],
+           "max_abs_err": err, "ms": head["ms"],
+           "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+           "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+           "timed_call": head["call"], "shapes": shapes}
+    print("[times] dual_bwd over one backward of the four stages (%d "
+          "launches at these shapes): kernel %.3f ms, plain %.3f ms, "
+          "library %.3f ms, bound %.3f ms" % ((STAGE_LAUNCHES,) + tuple(
+              sum(s[k] * s["launches_per_step"] for s in shapes)
+              for k in ("ms", "plain_ms", "library_ms", "bound_ms"))))
+
+    fwd_bwd = _host_ms(lambda: _run_stages(stages))
+    fwd = _host_ms(lambda: _stage_forwards(stages))
+    print("[times] the four fused stages (batch %d, HWNC bf16): forward and "
+          "backward %.2f ms, forward %.2f ms, backward %.2f ms (host clock, "
+          "median of 5)" % (STAGE_BATCH, fwd_bwd, fwd, fwd_bwd - fwd))
+    _profile("one forward and backward of the four fused stages",
+             lambda: _run_stages(stages))
+    ms = _host_ms(resnet_step)
+    print("[times] ResNet-50 v1 Gluon step (batch %d at 224^2, bf16, SGD "
+          "momentum): %.2f ms per step, %.1f images/s (host clock, median "
+          "of 5)" % (RESNET_BATCH, ms, RESNET_BATCH / ms * 1e3))
+    _profile("one ResNet-50 v1 Gluon step (batch %d, bf16, SGD)"
+             % RESNET_BATCH, resnet_step)
+    return row
+
+
+def _stage_forwards(stages):
+    import torch
+    from mxnet_tpu_torch.ops import cuda_fused
+    with torch.no_grad():
+        for st, (x, blocks, _) in enumerate(stages):
+            cuda_fused.fused_stage(x, blocks, data_format="HWNC",
+                                   ds_first=st == 0)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -947,6 +1518,8 @@ def main(argv=None):
                     help="calls per timing trial")
     ap.add_argument("--train-steps", type=int, default=10,
                     help="LAMB steps on one fixed batch")
+    ap.add_argument("--resnet-steps", type=int, default=10,
+                    help="ResNet-50 SGD steps on one fixed batch")
     args = ap.parse_args(argv)
     import torch
     try:
@@ -961,17 +1534,26 @@ def main(argv=None):
         phase_build()
         errs = phase_parity(args.seed)
         errs.update(phase_parity_train(args.seed))
+        errs["dual_bwd"] = phase_parity_resnet(args.seed)
         counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
         train_counts, tnet, mlm, params, batch = phase_train(
             args.seed, args.train_steps)
+        stage_counts, stages = phase_stages(args.seed)
+        resnet_counts, resnet_step = phase_resnet(args.seed,
+                                                  args.resnet_steps)
         rows = phase_times(args.seed, args.reps, counts, n_fwd, errs, sess,
                            reqs, net, card)
-        for r in rows:
-            r["launches_per_train_step"] = train_counts[r["name"]]
         train_rows, step = phase_times_train(
             args.seed, args.reps, train_counts, errs, card, tnet, mlm,
             params, batch)
         rows += train_rows
+        rows.append(phase_times_resnet(args.seed, args.reps, stage_counts,
+                                       errs["dual_bwd"], card, stages,
+                                       resnet_step))
+        for r in rows:
+            r["launches_per_train_step"] = train_counts[r["name"]]
+            r["launches_per_fused_step"] = stage_counts[r["name"]]
+            r["launches_per_resnet_step"] = resnet_counts[r["name"]]
         phase_profile(net)
         _profile("one training step (batch %d x seq %d, LAMB)"
                  % (TRAIN_BATCH, TRAIN_SEQ), step)

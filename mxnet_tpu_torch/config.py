@@ -8,7 +8,10 @@ packages. Reads are live: every :func:`get` consults the environment.
 The reference's kernel switches (``MXNET_PALLAS_LAYERNORM``,
 ``MXNET_FLASH_ATTENTION``, ``MXNET_PALLAS_EPILOGUE``) have no counterpart:
 the port decides kernel or plain version by the tensor's device and the
-kernel's domain alone.
+kernel's domain alone. Nor has ``MXNET_CONV_S2D``: the reference's
+space-to-depth rewrite of the 7x7/s2 ResNet stem is the same math
+re-expressed for the TPU's matrix unit, and the port leaves the choice
+of convolution algorithm to cuDNN.
 """
 from __future__ import annotations
 

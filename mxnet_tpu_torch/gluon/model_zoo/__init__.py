@@ -1,3 +1,5 @@
-"""Model zoo, the BERT family (counterpart of
+"""Model zoo, the BERT and ResNet families (counterpart of
 ``mxnet_tpu/gluon/model_zoo/``)."""
 from . import bert
+from . import vision
+from .vision import get_model

@@ -1,14 +1,15 @@
-"""Basic neural-net layers, the subset the serving slice uses
+"""Basic neural-net layers, the subset the BERT and ResNet slices use
 (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``; ref:
 python/mxnet/gluon/nn/basic_layers.py)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..block import HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding",
-           "Activation"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
+           "Embedding", "Flatten", "Activation"]
 
 
 class HybridSequential(HybridBlock):
@@ -144,6 +145,63 @@ class Dropout(HybridBlock):
         return "Dropout(p = {}, axes={})".format(self._rate, self._axes)
 
 
+class BatchNorm(HybridBlock):
+    """Batch norm with moving-statistic aux parameters (ref:
+    nn.BatchNorm). The BatchNorm op writes the moving statistics back
+    into ``running_mean`` and ``running_var`` in training mode."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                            "fix_gamma": not scale,
+                            "use_global_stats": use_global_stats}
+            self._axis = axis
+            self._in_channels = in_channels
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_mean._is_aux = True
+            self.running_var._is_aux = True
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p._shape = (c,)
+
+    def cast(self, dtype):
+        if str(dtype) in ("float16", "bfloat16") or dtype in (
+                torch.float16, torch.bfloat16):
+            dtype = "float32"  # BN parameters and statistics stay f32
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           **self._kwargs)
+
+    def __repr__(self):
+        return "BatchNorm(axis={}, eps={}, momentum={}, in_channels={})" \
+            .format(self._kwargs["axis"], self._kwargs["eps"],
+                    self._kwargs["momentum"], self.gamma.shape[0])
+
+
 class LayerNorm(HybridBlock):
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
@@ -169,6 +227,14 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
 
 
 class Embedding(HybridBlock):

@@ -41,7 +41,11 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         self.name = name
+        self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
+        # an auxiliary state (BatchNorm's moving statistics): updated by
+        # its op through mutate_aux, never by the Trainer
+        self._is_aux = False
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
@@ -67,6 +71,8 @@ class Parameter:
         if req not in ("write", "add", "null"):
             raise MXNetError("grad_req must be write, add or null, got %r"
                              % (req,))
+        if not self._differentiable:
+            req = "null"
         self._grad_req = req
         if self._data is None:
             return

@@ -1,4 +1,4 @@
-"""Weight initializers, the subset the serving slice's layers default to
+"""Weight initializers, the subset the serving and training slices use
 (counterpart of ``mxnet_tpu/initializer.py``; ref:
 python/mxnet/initializer.py).
 
@@ -9,6 +9,7 @@ global generator.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -16,8 +17,8 @@ import torch
 from .base import MXNetError
 from . import random as _random
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "create",
-           "register"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Xavier", "MSRAPrelu", "create", "register"]
 
 _REG: Dict[str, type] = {}
 
@@ -117,6 +118,68 @@ class Uniform(Initializer):
     def _init_weight(self, _, arr):
         arr.tensor().uniform_(-self.scale, self.scale,
                               generator=self._gen(arr))
+
+
+@register
+class Normal(Initializer):
+    """N(0, sigma^2) (ref: initializer.py :: Normal)."""
+
+    def __init__(self, sigma=0.01, generator=None):
+        super().__init__(generator, sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        arr.tensor().normal_(0.0, self.sigma, generator=self._gen(arr))
+
+
+@register
+class Xavier(Initializer):
+    """Xavier/Glorot (ref: initializer.py :: Xavier): scale
+    sqrt(magnitude / factor) from the fans of the weight's shape, drawn
+    uniform in [-scale, scale] or normal with that deviation."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3,
+                 generator=None):
+        super().__init__(generator, rnd_type=rnd_type,
+                         factor_type=factor_type, magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        if len(shape) < 2:
+            raise ValueError("Xavier requires ndim >= 2, got %s for %s"
+                             % (shape, name))
+        hw_scale = float(math.prod(shape[2:])) if len(shape) > 2 else 1.0
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        if self.factor_type == "avg":
+            factor = (fan_in + fan_out) / 2.0
+        elif self.factor_type == "in":
+            factor = fan_in
+        elif self.factor_type == "out":
+            factor = fan_out
+        else:
+            raise ValueError("Incorrect factor type")
+        scale = math.sqrt(self.magnitude / factor)
+        t = arr.tensor()
+        if self.rnd_type == "uniform":
+            t.uniform_(-scale, scale, generator=self._gen(arr))
+        elif self.rnd_type == "gaussian":
+            t.normal_(0.0, scale, generator=self._gen(arr))
+        else:
+            raise ValueError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialization for PReLU slope ``slope`` (ref: initializer.py
+    :: MSRAPrelu): gaussian Xavier with magnitude 2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25, generator=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         generator)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
 
 
 def create(name, **kwargs) -> Initializer:

@@ -175,6 +175,18 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
     else:
         with torch.set_grad_enabled(recording):
             out = op.impl(*tensors, **attrs)
+    if op.mutate_aux:
+        # FMutateInputs: the mutated outputs go back into their input
+        # arrays (in place, off the tape) and leave the visible outputs
+        outs = list(out)
+        with torch.no_grad():
+            for extra_idx, in_idx in op.mutate_aux.items():
+                new, dst = outs[extra_idx], tensors[in_idx]
+                if new is not dst:
+                    dst.copy_(new)
+        out = [o for i, o in enumerate(outs) if i not in op.mutate_aux]
+        if len(out) == 1:
+            out = out[0]
     if isinstance(out, (tuple, list)):
         return tuple(NDArray(o) for o in out)
     return NDArray(out)

@@ -7,13 +7,15 @@ eager ``mx.nd.*`` namespace and the ``F`` that ``hybrid_forward``
 receives; there is no Symbol tracing in the port yet, so ``F`` is
 always this op namespace. Ops that the reference backs with a Pallas
 kernel call the hand-written CUDA kernels of ``cuda_norm``,
-``cuda_attention``, ``cuda_epilogue`` and ``cuda_dropout``.
+``cuda_attention``, ``cuda_epilogue`` and ``cuda_dropout``; the fused
+ResNet bottleneck functions of ``cuda_fused`` are called directly, as
+the reference's ``pallas_fused`` is.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Dict, Sequence, Set
+from typing import Callable, Dict, Optional, Sequence, Set
 
 from ..base import MXNetError
 
@@ -31,14 +33,20 @@ class Operator:
         serving session's unpad rule reads it.
     needs_train_flag : impl takes a ``_train`` bool attr from
         :func:`mxnet_tpu_torch.autograd.is_training`.
+    mutate_aux : mapping extra-output-index -> input-index; ``invoke``
+        writes those outputs back into their input arrays and drops them
+        from the visible outputs (ref: FMutateInputs; BatchNorm's moving
+        statistics).
     """
 
     def __init__(self, name: str, impl: Callable, needs_rng: bool = False,
-                 needs_train_flag: bool = False):
+                 needs_train_flag: bool = False,
+                 mutate_aux: Optional[Dict[int, int]] = None):
         self.name = name
         self.impl = impl
         self.needs_rng = needs_rng
         self.needs_train_flag = needs_train_flag
+        self.mutate_aux = mutate_aux or {}
         self.__doc__ = impl.__doc__
 
     def __repr__(self):

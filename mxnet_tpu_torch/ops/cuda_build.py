@@ -8,8 +8,8 @@ reused. Each ``.cu`` file becomes its own shared library with a plain C
 interface, built by its own ``nvcc`` process; all of them start
 together. No PyTorch headers are compiled, so a build takes seconds.
 
-The wrappers in ``cuda_norm``, ``cuda_attention``, ``cuda_epilogue``
-and ``cuda_dropout`` call the C launchers through ``ctypes`` with
+The wrappers in ``cuda_norm``, ``cuda_attention``, ``cuda_epilogue``,
+``cuda_dropout`` and ``cuda_fused`` call the C launchers through ``ctypes`` with
 ``tensor.data_ptr()`` and PyTorch's current stream, so the kernels are
 stream-ordered with every other op. Each launcher returns the ``cudaError_t`` of its launch and
 the wrapper raises :class:`MXNetError` on anything but success; nothing
@@ -44,7 +44,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 
 # one shared library per source; headers are hashed but not compiled
-SOURCES = ("layer_norm.cu", "selfatt.cu", "epilogue.cu", "dropout.cu")
+SOURCES = ("layer_norm.cu", "selfatt.cu", "epilogue.cu", "dropout.cu",
+           "dual_bwd.cu")
 HEADERS = ("common.cuh",)
 
 # kernel name -> the source that holds it
@@ -57,6 +58,7 @@ KERNELS = {
     "bias_gelu_bwd": "epilogue.cu",
     "bias_residual_fwd": "epilogue.cu",
     "dropout": "dropout.cu",
+    "dual_bwd": "dual_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -59,6 +59,11 @@ def reshape(data, *, shape=None, reverse=False):
     return data.reshape(_reshape_target(data.shape, shape, reverse))
 
 
+@register("Flatten", aliases=["flatten"])
+def flatten_op(data):
+    return data.reshape(data.shape[0], -1)
+
+
 @register("reshape_like")
 def reshape_like(lhs, rhs):
     return lhs.reshape(rhs.shape)

@@ -1,8 +1,13 @@
 """Neural-network operators, the subset the serving and training slices
 run (counterpart of ``mxnet_tpu/ops/nn.py``; ref: src/operator/nn/).
 
-``FullyConnected`` is a ``torch.matmul``, as the reference leaves its
-matmul to XLA outside any kernel. ``LayerNorm`` over the last axis goes
+``FullyConnected`` is a ``torch.matmul`` and ``Convolution`` a
+``torch.nn.functional.conv{1,2,3}d``, as the reference leaves both to
+XLA outside any kernel. ``Pooling`` pads explicitly as the reference's
+``reduce_window`` does, then pools. ``BatchNorm`` keeps the reference's
+arithmetic (statistics shifted by the moving mean, the forward and its
+hand-derived backward in per-channel coefficients, the moving statistics
+written back through ``mutate_aux``). ``LayerNorm`` over the last axis goes
 to :mod:`.cuda_norm` (the hand-written kernels, forward and backward,
 for a CUDA tensor, their plain versions for a CPU one); another axis, or
 ``output_mean_var``, runs the composition with the same formulas (the
@@ -12,7 +17,10 @@ composition, its mask drawn from the context's generator.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from .. import random as _random
 from ..base import torch_dtype
@@ -59,7 +67,7 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
 @register("Activation", aliases=["activation"])
 def activation_op(data, *, act_type):
     """The activations the slices run: tanh (BERT's pooler) and relu
-    (the MLP)."""
+    (the MLP, ResNet)."""
     if act_type == "tanh":
         return torch.tanh(data)
     if act_type == "relu":
@@ -105,3 +113,216 @@ def dropout_op(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
         generator=_random.generator(ctx)).to(data.dtype)
     # keep is weakly typed in the reference: rounded to the data's dtype
     return data * (mask / torch.tensor(keep, dtype=data.dtype).item())
+
+
+# -- Convolution ------------------------------------------------------------
+def _tup(v, n):
+    if v is None:
+        return (0,) * n
+    if isinstance(v, (int, float)):
+        return (int(v),) * n
+    t = tuple(int(x) for x in v)
+    return t if len(t) == n else t + (t[-1],) * (n - len(t))
+
+
+def _channels_last(layout) -> bool:
+    return layout is not None and layout.startswith("N") \
+        and layout.endswith("C")
+
+
+def _to_nc(x, nhwc):
+    """N+spatial+C -> NC+spatial (a view)."""
+    return x.movedim(-1, 1) if nhwc else x
+
+
+def _from_nc(x, nhwc):
+    return x.movedim(1, -1) if nhwc else x
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", aliases=["convolution"])
+def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
+                dilate=None, pad=None, num_group=1, no_bias=False,
+                cudnn_tune=None, cudnn_off=False, workspace=1024, layout=None,
+                _kernel_layout=None):
+    """N-d convolution (ref: convolution.cc). Data NC+spatial (or
+    N+spatial+C with layout "NWC"/"NHWC"/"NDHWC"), weight OI+spatial
+    (or spatial+IO with ``_kernel_layout="HWIO"``). The reference's
+    space-to-depth rewrite of the 7x7/s2 stem is a choice for the TPU's
+    matrix unit with the same math; the port leaves the algorithm to
+    cuDNN (see config.py)."""
+    nsp = len(tuple(kernel))
+    if nsp not in _CONV:
+        raise ValueError("conv supports 1-3 spatial dims")
+    stride = _tup(stride, nsp) if stride else (1,) * nsp
+    dilate = _tup(dilate, nsp) if dilate else (1,) * nsp
+    pad = _tup(pad, nsp) if pad else (0,) * nsp
+    nhwc = _channels_last(layout)
+    if _kernel_layout == "HWIO":
+        weight = weight.movedim(-1, 0).movedim(-1, 1)
+    out = _CONV[nsp](_to_nc(data, nhwc), weight, None, stride, pad, dilate,
+                     int(num_group))
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return _from_nc(out, nhwc)
+
+
+# -- Pooling ----------------------------------------------------------------
+@register("Pooling", aliases=["pooling"])
+def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, cudnn_off=False, layout=None):
+    """Spatial pooling (ref: pooling.cc): max, avg or sum. The input is
+    padded as the reference's ``reduce_window`` pads it (-inf for max,
+    0 otherwise; ``pooling_convention="full"`` adds high-side padding so
+    every element is covered), then pooled without padding.
+    ``count_include_pad=False`` divides each average by the number of
+    real elements in its window."""
+    nsp = data.dim() - 2
+    nhwc = _channels_last(layout)
+    x = _to_nc(data, nhwc)
+    sp = tuple(range(2, 2 + nsp))
+    if global_pool:
+        if pool_type == "max":
+            out = x.amax(dim=sp, keepdim=True)
+        elif pool_type == "avg":
+            out = x.mean(dim=sp, keepdim=True)
+        elif pool_type == "sum":
+            out = x.sum(dim=sp, keepdim=True)
+        else:
+            raise ValueError(pool_type)
+        return _from_nc(out, nhwc)
+    k = _tup(kernel, nsp)
+    s = _tup(stride, nsp) if stride else k
+    p = _tup(pad, nsp) if pad else (0,) * nsp
+    pads = []
+    for i in range(nsp):
+        hi = p[i]
+        if pooling_convention == "full":
+            rem = (x.shape[2 + i] + 2 * p[i] - k[i]) % s[i]
+            hi += (s[i] - rem) % s[i] if rem else 0
+        pads.append((p[i], hi))
+    # F.pad takes (lo, hi) pairs from the last dim backwards
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    if pool_type == "max":
+        fill = -math.inf if x.is_floating_point() else \
+            torch.iinfo(x.dtype).min
+        out = _max_pool(F.pad(x, flat, value=fill), k, s)
+        return _from_nc(out, nhwc)
+    if pool_type not in ("avg", "sum"):
+        raise ValueError(pool_type)
+    summed = _sum_pool(F.pad(x, flat), k, s)
+    if pool_type == "sum":
+        return _from_nc(summed, nhwc)
+    if count_include_pad:
+        out = summed / math.prod(k)
+    else:
+        ones = F.pad(torch.ones_like(x[:1, :1]), flat)
+        out = summed / _sum_pool(ones, k, s)
+    return _from_nc(out, nhwc)
+
+
+def _max_pool(x, k, s):
+    if len(k) == 1:
+        return F.max_pool1d(x, k, s)
+    return (F.max_pool2d if len(k) == 2 else F.max_pool3d)(x, k, s)
+
+
+def _sum_pool(x, k, s):
+    """Window sums (no padding): avg pooling with divisor 1."""
+    if len(k) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + k, (1,) + s,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(k) == 2 else F.avg_pool3d
+    return pool(x, k, s, divisor_override=1)
+
+
+# -- BatchNorm --------------------------------------------------------------
+class _BNTrainFn(torch.autograd.Function):
+    """Training-mode batch norm with the reference's hand-derived
+    backward (``_bn_train_fn``): statistics in one pass shifted by the
+    moving mean, ``out = x * scale + shift`` with the per-channel vectors
+    rounded to x's dtype first, and ``dx = a·dy + b_c·x + c_c``."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, shift, ax, eps):
+        red = tuple(i for i in range(x.dim()) if i != ax)
+        bc = _bcast(ax, x.dim())
+        sh = shift.float()
+        d = x.float() - bc(sh)
+        n = x.numel() // max(x.shape[ax], 1)
+        s1 = d.sum(dim=red)
+        s2 = (d * d).sum(dim=red)
+        dmean = s1 / n
+        var = torch.clamp_min(s2 / n - dmean * dmean, 0.0)
+        mean = dmean + sh
+        inv = torch.rsqrt(var + eps)
+        scale = inv * g.float()
+        out = _bn_apply(x, bc(scale), bc(b.float() - mean * scale))
+        ctx.save_for_backward(x, g, mean, inv)
+        ctx.ax, ctx.n = ax, n
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, g, mean, inv = ctx.saved_tensors
+        red = tuple(i for i in range(x.dim()) if i != ctx.ax)
+        bc = _bcast(ctx.ax, x.dim())
+        n = ctx.n
+        dyf = dy.float()
+        dyf_sum = dyf.sum(dim=red)
+        dyx_sum = (dyf * x.float()).sum(dim=red)
+        # sum(dy * (x - mean)) = sum(dy*x) - mean * sum(dy)
+        dy_xmu = dyx_sum - mean * dyf_sum
+        dgamma = dy_xmu * inv
+        a = g.float() * inv
+        b_c = -a * inv * inv * dy_xmu / n
+        c_c = -a * dyf_sum / n - b_c * mean
+        dx = (dy * bc(a).to(dy.dtype) + x * bc(b_c).to(x.dtype)
+              + bc(c_c).to(x.dtype)).to(x.dtype)
+        return (dx, dgamma.to(g.dtype), dyf_sum.to(g.dtype), None, None,
+                None)
+
+
+def _bn_apply(x, scale, shift):
+    """x * scale + shift with the per-channel vectors rounded to x's
+    dtype first."""
+    return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+def _bcast(ax, ndim):
+    def bc(v):
+        shape = [1] * ndim
+        shape[ax] = v.shape[0]
+        return v.reshape(shape)
+    return bc
+
+
+@register("BatchNorm", aliases=["batch_norm"], mutate_aux={1: 3, 2: 4},
+          needs_train_flag=True)
+def batch_norm(data, gamma, beta, moving_mean, moving_var, *,
+               eps=1e-3, momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False, _train=False):
+    """Batch normalization (ref: batch_norm.cc). Returns (out,
+    new_moving_mean, new_moving_var); ``invoke`` writes the moving
+    statistics back into their inputs (FMutateInputs). The inference
+    form rounds its output to the data's dtype, where the reference
+    promotes a bf16 input to f32 (ROADMAP.md queue 3)."""
+    ax = int(axis) % data.dim()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if _train and not use_global_stats:
+        out, mean, var = _BNTrainFn.apply(data, g, beta, moving_mean.detach(),
+                                          ax, float(eps))
+        new_mean = moving_mean * momentum \
+            + mean.to(moving_mean.dtype) * (1 - momentum)
+        new_var = moving_var * momentum \
+            + var.to(moving_var.dtype) * (1 - momentum)
+        return out, new_mean, new_var
+    bc = _bcast(ax, data.dim())
+    inv = torch.rsqrt(moving_var + eps)
+    out = (data - bc(moving_mean)) * bc(inv * g) + bc(beta)
+    return out.to(data.dtype), moving_mean, moving_var
+

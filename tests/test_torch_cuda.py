@@ -17,7 +17,7 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import (cuda_attention, cuda_build, cuda_dropout,
-                                 cuda_epilogue, cuda_norm)
+                                 cuda_epilogue, cuda_fused, cuda_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -264,7 +264,7 @@ def test_training_step_runs_the_kernels(card):
     assert cuda_build.launch_counts() == {
         "layer_norm_fwd": 6, "layer_norm_bwd": 6, "selfatt_fwd": 2,
         "selfatt_bwd": 2, "bias_gelu_fwd": 2, "bias_gelu_bwd": 2,
-        "bias_residual_fwd": 2, "dropout": 6}
+        "bias_residual_fwd": 2, "dropout": 6, "dual_bwd": 0}
     with mock.patch.object(cuda_norm, "layer_norm",
                            cuda_norm.layer_norm_plain), \
             mock.patch.object(cuda_norm, "layer_norm_bwd",
@@ -291,3 +291,126 @@ def test_training_step_runs_the_kernels(card):
     for n, g in ref_grads.items():
         err = np.linalg.norm(grads[n] - g) / np.linalg.norm(g)
         assert err <= 2e-2, (n, err)
+
+
+# ---------------------------------------------------------------------------
+# ResNet: the fused BN-backward dual-matmul kernel
+# ---------------------------------------------------------------------------
+def _dual_inputs(g, M, I, O, mask_mode, has_addend, emit_next):
+    bf = torch.bfloat16
+    jg, y = _randn(g, (M, O), bf), _randn(g, (M, O), bf)
+    x = _randn(g, (M, I), bf)
+    w = _randn(g, (I, O), bf, I ** -0.5)
+    coef = torch.zeros(8, O, device="cuda")
+    coef[:5] = torch.randn(5, O, generator=g, device="cuda") * torch.tensor(
+        [[1.0], [0.1], [0.1], [1.0], [0.5]], device="cuda")
+    kw = {}
+    if mask_mode == "out":
+        kw["mask"] = _randn(g, (M, O), bf)
+    if has_addend:
+        kw["addend"] = _randn(g, (M, I), bf)
+    if emit_next:
+        kw["y3p"] = _randn(g, (M, I), bf)
+        kw["mprev"] = torch.randn(I, generator=g, device="cuda") * 0.1
+    return (jg, y, x, w, coef, mask_mode), kw
+
+
+@pytest.mark.parametrize("M,I,O", [(256, 32, 64), (1000, 64, 256),
+                                   (1568, 2048, 512), (333, 70, 130)])
+@pytest.mark.parametrize("emit_next", [False, True])
+@pytest.mark.parametrize("emit_jg", [False, True])
+@pytest.mark.parametrize("has_addend", [False, True])
+@pytest.mark.parametrize("mask_mode", ["none", "scale_shift", "out"])
+def test_dual_bwd_kernel(card, mask_mode, has_addend, emit_jg, emit_next,
+                         M, I, O):
+    """Every variant at ResNet-50's widest head shape, at a row count
+    that is a multiple of no tile, and at widths that are not multiples
+    of the kernel's tiles; the masked jg is a select and must be exact,
+    and at least 99% of dx's elements bit-equal (the kernel and cuBLAS
+    add the f32 products in another order)."""
+    args, kw = _dual_inputs(card, M, I, O, mask_mode, has_addend,
+                            emit_next)
+    got = cuda_fused.dual_bwd_cuda(*args, emit_jg=emit_jg, **kw)
+    ref = cuda_fused.dual_bwd_plain(*args, emit_jg=emit_jg, **kw)
+    _assert_close(got[0], ref[0])
+    assert float((got[0] == ref[0]).float().mean()) >= 0.99
+    _assert_close(got[1], ref[1], reduced=True)
+    if emit_jg:
+        assert torch.equal(got[2], ref[2])
+    else:
+        assert got[2] is None
+    if emit_next:
+        # the sums are of the kernel's own rounded dx, whose one-ulp flips
+        # against the plain dx they must carry
+        dxf = got[0].float()
+        want = torch.stack([dxf.sum(0), (dxf * (kw["y3p"].float()
+                                                - kw["mprev"])).sum(0)])
+        _assert_close(got[3], want, reduced=True)
+    else:
+        assert got[3] is None
+
+
+def test_dual_bwd_refuses_what_the_kernel_does_not_take(card):
+    args, kw = _dual_inputs(card, 64, 16, 32, "out", False, False)
+    with pytest.raises(MXNetError, match="mask is required"):
+        cuda_fused.dual_bwd_cuda(*args)
+    with pytest.raises(MXNetError, match="dtype"):
+        cuda_fused.dual_bwd_cuda(args[0].float(), *args[1:], **kw)
+    with pytest.raises(MXNetError, match="w must be"):
+        cuda_fused.dual_bwd_cuda(args[0], args[1], args[2], args[3][:8],
+                                 *args[4:], **kw)
+    with pytest.raises(MXNetError, match="unknown mask_mode"):
+        cuda_fused.dual_bwd_cuda(*args[:5], "relu")
+
+
+@pytest.mark.parametrize("fmt", ["NHWC", "HWNC"])
+def test_fused_stage_runs_the_kernel(card, fmt):
+    """A 3-block stage with a downsampling first block launches the
+    kernel 3 + 2 + 2 times per backward, and its outputs and gradients
+    match the same stage with the plain version."""
+    from unittest import mock
+    rng = np.random.RandomState(0)
+    I, C, O = 64, 16, 64
+
+    def w(i, o, k=1):
+        shape = (i, o) if k == 1 else (k, k, i, o)
+        return torch.tensor(rng.randn(*shape) * np.sqrt(2.0 / (i * k * k)),
+                            dtype=torch.float32, device="cuda",
+                            requires_grad=True)
+
+    def bn(c):
+        return [torch.tensor(rng.rand(c) + 0.5, dtype=torch.float32,
+                             device="cuda", requires_grad=True),
+                torch.tensor(rng.randn(c) * 0.1, dtype=torch.float32,
+                             device="cuda", requires_grad=True)]
+
+    blocks = []
+    for i in range(3):
+        b = [w(I if i == 0 else O, C), *bn(C), w(C, C, 3), *bn(C), w(C, O),
+             *bn(O)]
+        if i == 0:
+            b += [w(I, O), *bn(O)]
+        blocks.append(b)
+    shape = (4, 8, 8, I) if fmt == "NHWC" else (8, 8, 4, I)
+    x = torch.tensor(rng.randn(*shape), dtype=torch.bfloat16,
+                     device="cuda", requires_grad=True)
+    head = torch.randn(shape[:3] + (O,), generator=card, device="cuda")
+    leaves = [x] + [p for b in blocks for p in b]
+
+    def run():
+        out, _ = cuda_fused.fused_stage(x, blocks, data_format=fmt,
+                                        ds_first=True)
+        loss = (out.float() * head).sum()
+        return [out.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    cuda_build.reset_launch_counts()
+    got = run()
+    assert cuda_build.launch_counts()["dual_bwd"] == 7
+    with mock.patch.object(cuda_fused, "dual_bwd",
+                           cuda_fused.dual_bwd_plain):
+        ref = run()
+    assert cuda_build.launch_counts()["dual_bwd"] == 7
+    _assert_close(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        err = float((a.float() - b.float()).norm() / b.float().norm())
+        assert err <= 2e-2, err

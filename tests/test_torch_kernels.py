@@ -27,7 +27,7 @@ from mxnet_tpu.ops.pallas_norm import pallas_layer_norm
 
 from mxnet_tpu_torch.base import MXNetError, torch_dtype
 from mxnet_tpu_torch.ops import (cuda_attention, cuda_build, cuda_dropout,
-                                 cuda_epilogue, cuda_norm)
+                                 cuda_epilogue, cuda_fused, cuda_norm)
 
 
 def _jax(a, dtype):
@@ -207,6 +207,10 @@ def _kernel_calls(device="cpu"):
         "bias_residual_fwd": lambda: cuda_epilogue.bias_residual_cuda(x, b,
                                                                       x),
         "dropout": lambda: cuda_dropout.dropout_cuda(x, 0.1, seed),
+        "dual_bwd": lambda: cuda_fused.dual_bwd_cuda(
+            x.bfloat16(), x.bfloat16(), x.bfloat16(),
+            torch.zeros(8, 8, dtype=torch.bfloat16, device=device),
+            torch.zeros(8, 8, device=device), "none"),
     }
 
 
@@ -231,8 +235,11 @@ def test_kernel_wrapper_raises_on_cpu_tensor(kernel):
     lambda x: cuda_epilogue.bias_gelu_bwd(x, x, x[0])[0],
     lambda x: cuda_dropout.dropout(x, 0.5, torch.zeros(
         1, dtype=torch.int32, device=x.device)),
+    lambda x: cuda_fused.dual_bwd(x, x, x, x.t() @ x, torch.zeros(
+        8, 6, device=x.device), "none")[0],
 ], ids=["layer_norm", "selfatt", "bias_gelu", "bias_residual",
-        "layer_norm_bwd", "selfatt_bwd", "bias_gelu_bwd", "dropout"])
+        "layer_norm_bwd", "selfatt_bwd", "bias_gelu_bwd", "dropout",
+        "dual_bwd"])
 def test_dispatch_is_by_device(fn):
     x = torch.ones(2, 6)
     assert fn(x).device.type == "cpu"

@@ -54,6 +54,32 @@ def test_port_runs_without_jax_or_reference_in_a_subprocess():
         loss.backward()
         trainer.step(2)
         assert np.isfinite(loss.asnumpy()).all()
+        # a ResNet SGD step through Gluon, and a fused bottleneck stage
+        # with its dual backward
+        import torch
+        from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+        from mxnet_tpu_torch.ops import cuda_fused
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [4, 8, 16, 32, 64], classes=3, thumbnail=True,
+                              prefix="r_")
+        net.initialize(init=mx.init.MSRAPrelu(), ctx=mx.cpu())
+        img = mx.nd.array(np.ones((2, 3, 8, 8)), ctx=mx.cpu())
+        net(img)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9})
+        with mx.autograd.record():
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(img), mx.nd.array([0, 1], ctx=mx.cpu()))
+        loss.backward()
+        trainer.step(2)
+        assert np.isfinite(loss.asnumpy()).all()
+        x = torch.rand(4, 4, 2, 8, requires_grad=True)
+        w = [torch.rand(8, 4), torch.ones(4), torch.zeros(4),
+             torch.rand(3, 3, 4, 4), torch.ones(4), torch.zeros(4),
+             torch.rand(4, 8), torch.ones(8), torch.zeros(8)]
+        out, _ = cuda_fused.fused_stage(x, [w, w], data_format="HWNC")
+        out.sum().backward()
+        assert torch.isfinite(x.grad).all()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
         print("LOADED", bad)
@@ -89,6 +115,23 @@ def test_no_jax_or_reference_import_in_port_sources():
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
     assert bad == []
+
+
+def test_every_kernel_source_is_built_and_names_its_tpu_kernel():
+    """Each CUDA source under csrc/ is in the build and its header note
+    names the Pallas kernel it replaces; none includes anything of the
+    JAX package."""
+    from mxnet_tpu_torch.ops import cuda_build
+    sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
+    assert sources == sorted(cuda_build.SOURCES)
+    assert "dual_bwd.cu" in sources
+    for name in sources:
+        text = (PORT / "csrc" / name).read_text()
+        assert "replace" in text.lower() and "mxnet_tpu/ops/pallas_" in text, \
+            name
+        includes = [ln for ln in text.splitlines()
+                    if ln.startswith("#include")]
+        assert all("mxnet_tpu/" not in ln for ln in includes), name
 
 
 def test_chip_smoke_imports_no_jax():
