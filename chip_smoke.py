@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
     python3 chip_smoke.py [--seed N] [--reps N] [--train-steps N]
-                          [--resnet-steps N]
+                          [--resnet-steps N] [--mnist-epochs N]
 
 Phases, in order; any fault ends the run with a non-zero exit and no
 ``ok`` line:
@@ -65,13 +65,37 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    caught), and ``--resnet-steps`` SGD steps on one fixed batch must
    keep the loss finite and take it at least ``RESNET_FALL`` below the
    first step's (lr 0.1 without warmup overshoots afterwards).
-8. times — median time of each kernel, its plain version and the one
+8. rtc — the user module of ``RTC_SOURCE`` (CUDA C written as a user
+   of ``mx.rtc`` writes it: ``saxpy``, ``twoout``, ``relu_fwd``,
+   ``relu_bwd``) compiled at runtime by ``mx.rtc.CudaModule``, and a
+   second module with the same source, which must reuse the first's
+   build. Each kernel against its plain function at 2^24 f32 elements
+   and at the MLP's activation shapes: ``saxpy`` within 2^-23 of each
+   element (nvcc contracts it into an FMA), the others bit for bit. A
+   const output pointer, a wrong dtype and a wrong input count must be
+   refused before any launch; ``relu_bwd`` with ``>=`` for ``>`` must
+   fail on inputs with exact zeros (the control). Then the reference
+   docstring's launches through NDArrays, counted.
+9. MNIST MLP — ``train_mnist.py --synthetic``'s data (6000 examples, a
+   sixth held out) through ``gluon.data.ArrayDataset`` and
+   ``DataLoader(batch_size=64, shuffle=True)``; the 784-128-64-10 MLP
+   with Xavier init whose relus are ``F.Custom(op_type="rtc_relu")``, a
+   ``CustomOp`` launching ``relu_fwd`` and ``relu_bwd``, trained three
+   epochs with ``SoftmaxCrossEntropyLoss`` and SGD lr 0.1 beside its
+   twin with ``Dense(activation="relu")`` from the same weights on the
+   same batches (TF32 off for both): every loss and weight after every
+   step equal bit for bit, the last epoch's train accuracy above the
+   first's, the launch counts (reset just before, read just after) two
+   of each relu kernel per step and per validation forward; a custom op
+   whose backward passes dy through unmasked must be caught.
+10. times — median time of each kernel, its plain version and the one
    PyTorch call (or, for ``dual_bwd``, composition) that computes the
    same function; per-request latency and tokens/s of serving; ms per
    training step and samples/s; the fused stages' forward and backward;
-   the ResNet-50 step and images/s; then one served forward, one BERT
-   training step, the fused stages and one ResNet-50 step under
-   torch.profiler, the device time by kernel group.
+   the ResNet-50 step and images/s; the MLP step with the custom op and
+   its twin; then one served forward, one BERT training step, the fused
+   stages, one ResNet-50 step and one MLP step under torch.profiler, the
+   device time by kernel group.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -619,7 +643,8 @@ def _profile(what, fn, n_other=8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, n_kernels = {}, 0
-    names = sorted(cuda_build.KERNELS, key=len, reverse=True)
+    names = sorted(tuple(cuda_build.KERNELS) + RTC_KERNELS, key=len,
+                   reverse=True)
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1511,6 +1536,505 @@ def _stage_forwards(stages):
                                    ds_first=st == 0)
 
 
+# ---------------------------------------------------------------------------
+# mx.rtc: user CUDA C compiled at runtime, and the MNIST MLP whose relu is
+# a CustomOp launching two of its kernels
+# ---------------------------------------------------------------------------
+# The user module, as a user of mx.rtc writes it: saxpy and twoout are the
+# reference's rtc tests (tests/test_rtc.py), relu_fwd and relu_bwd the
+# MLP custom op's forward and backward.
+RTC_SOURCE = r"""
+// out = alpha * x + y
+__global__ void saxpy(const float* __restrict__ x, const float* __restrict__ y,
+                      float* __restrict__ out, float alpha, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = alpha * x[i] + y[i];
+}
+
+// a = 2 x, b = x + 1
+__global__ void twoout(const float* __restrict__ x, float* __restrict__ a,
+                       float* __restrict__ b, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) {
+    float v = x[i];
+    a[i] = v * 2.0f;
+    b[i] = v + 1.0f;
+  }
+}
+
+// y = max(x, 0)
+__global__ void relu_fwd(const float* __restrict__ x, float* __restrict__ y,
+                         long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) {
+    float v = x[i];
+    y[i] = v > 0.0f ? v : 0.0f;
+  }
+}
+
+// dx = dy where the forward's output is positive, else 0
+__global__ void relu_bwd(const float* __restrict__ dy,
+                         const float* __restrict__ y, float* __restrict__ dx,
+                         long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) dx[i] = y[i] > 0.0f ? dy[i] : 0.0f;
+}
+"""
+RTC_KERNELS = ("saxpy", "twoout", "relu_fwd", "relu_bwd")
+# elements of a timed launch, and the MLP's activation shapes
+RTC_N = 1 << 24
+MLP_SHAPES = ((64, 128), (64, 64))
+# nvcc contracts saxpy's alpha * x + y into one FMA, where the plain
+# version rounds twice; for non-negative inputs the two differ by at most
+# one ulp of the result, which is at most 2^-23 of it
+SAXPY_RTOL = 2.0 ** -23
+# example/image_classification/train_mnist.py --synthetic
+MNIST_EXAMPLES, MNIST_BATCH, MNIST_LR = 6000, 64, 0.1
+
+
+def rtc_plain():
+    """Each user kernel's plain function, in the reference's kernel
+    convention: inputs, then outputs written in place."""
+    import torch
+
+    def saxpy(x, y, out, *, alpha):
+        out[...] = alpha * x[...] + y[...]
+
+    def twoout(x, a, b):
+        a[...] = x[...] * 2.0
+        b[...] = x[...] + 1.0
+
+    def relu_fwd(x, y):
+        y[...] = torch.where(x[...] > 0, x[...], 0.0)
+
+    def relu_bwd(dy, y, dx):
+        dx[...] = torch.where(y[...] > 0, dy[...], 0.0)
+
+    return {"saxpy": saxpy, "twoout": twoout, "relu_fwd": relu_fwd,
+            "relu_bwd": relu_bwd}
+
+
+_RELU = {}
+
+
+def register_rtc_relu(mx, module):
+    """Register the custom op ``rtc_relu`` (once; a later call rebinds its
+    kernels to ``module``'s): a ``CustomOp`` whose forward launches
+    ``relu_fwd`` and whose backward launches ``relu_bwd`` on the forward's
+    output. ``leak_grad=True`` is the planted fault: the backward passes
+    dy through unmasked."""
+    _RELU["fwd"] = module.get_kernel("relu_fwd")
+    _RELU["bwd"] = module.get_kernel("relu_bwd")
+    if mx.operator.get_prop("rtc_relu") is not None:
+        return
+
+    class RtcRelu(mx.operator.CustomOp):
+        def __init__(self, leak_grad):
+            self._leak = leak_grad
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        _RELU["fwd"].launch([in_data[0]]))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            dx = out_grad[0] if self._leak else \
+                _RELU["bwd"].launch([out_grad[0], out_data[0]])
+            self.assign(in_grad[0], req[0], dx)
+
+    class RtcReluProp(mx.operator.CustomOpProp):
+        def __init__(self, leak_grad=False):
+            super().__init__(need_top_grad=True)
+            self._leak = bool(leak_grad)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return RtcRelu(self._leak)
+
+    mx.operator.register("rtc_relu")(RtcReluProp)
+
+
+def mnist_mlp(mx, custom, leak_grad=False):
+    """train_mnist.py's MLP, 784-128-64-10 with prefix ``mlp_``: its two
+    relus a HybridBlock calling ``F.Custom(op_type="rtc_relu")`` when
+    ``custom``, else ``Dense(activation="relu")``. Both have the same
+    parameter names."""
+    nn = mx.gluon.nn
+
+    class RtcRelu(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.Custom(x, op_type="rtc_relu", leak_grad=leak_grad)
+
+    net = nn.HybridSequential(prefix="mlp_")
+    with net.name_scope():
+        if custom:
+            net.add(nn.Dense(128), RtcRelu(), nn.Dense(64), RtcRelu(),
+                    nn.Dense(10))
+        else:
+            net.add(nn.Dense(128, activation="relu"),
+                    nn.Dense(64, activation="relu"), nn.Dense(10))
+    return net
+
+
+def mnist_synthetic(n=MNIST_EXAMPLES):
+    """``train_mnist.py --synthetic``'s data: (X, y) for training and for
+    validation, the last sixth held out."""
+    import numpy as np
+    rng = np.random.RandomState(42)
+    W = rng.rand(784, 10).astype(np.float32)
+    X = rng.rand(n, 1, 28, 28).astype(np.float32)
+    y = (X.reshape(len(X), -1) @ W).argmax(axis=1).astype(np.float32)
+    cut = -len(X) // 6
+    return X[:cut], y[:cut], X[cut:], y[cut:]
+
+
+def _rtc_counts():
+    from mxnet_tpu_torch.ops import cuda_build
+    counts = cuda_build.launch_counts()
+    return {k: counts.get(cuda_build.RTC_PREFIX + k, 0) for k in RTC_KERNELS}
+
+
+def _check_exact(what, got, ref):
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise SmokeFailure("%s: %s %s != %s %s" % (
+            what, tuple(got.shape), got.dtype, tuple(ref.shape), ref.dtype))
+    diff = int((got != ref).sum())
+    print("[parity] %-44s differing elements %d of %d (bit for bit) %s"
+          % (what, diff, ref.numel(), "FAIL" if diff else "ok"))
+    if diff:
+        raise SmokeFailure("%s: %d elements differ from the plain function"
+                           % (what, diff))
+
+
+def phase_rtc(seed):
+    """Build the user module, hold each kernel against its plain function,
+    check the refusals and the planted fault, then launch as the
+    reference's docstring does with the counts reset; returns (module,
+    the two-output module, {kernel: max abs error}, launch counts)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    plain = rtc_plain()
+    t0 = time.perf_counter()
+    mod = mx.rtc.CudaModule(RTC_SOURCE, plain=plain)
+    path = mod.build()
+    first = time.perf_counter() - t0
+    stamp = path.stat().st_mtime_ns
+    t0 = time.perf_counter()
+    mod2 = mx.rtc.CudaModule(RTC_SOURCE, num_outputs=2, plain=plain)
+    path2 = mod2.build()
+    second = time.perf_counter() - t0
+    print("[rtc] user module (%s) built in %.2f s into %s; a second "
+          "CudaModule with the same source in %.4f s"
+          % (", ".join(mod.exports), first, path.parent, second))
+    if path2 != path or path2.stat().st_mtime_ns != stamp:
+        raise SmokeFailure("a second CudaModule with the same source did not "
+                           "reuse the first's build")
+
+    g = torch.Generator(device=DEV).manual_seed(seed + 31)
+    nd = mx.nd.NDArray
+    kern = {"twoout": mod2.get_kernel("twoout"),
+            "relu_fwd": mod.get_kernel("relu_fwd"),
+            "relu_bwd": mod.get_kernel("relu_bwd")}
+
+    def plain_run(name, ins, n_out=1, **attrs):
+        outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
+        plain[name](*ins, *outs, **attrs)
+        return outs
+
+    errs = {k: 0.0 for k in RTC_KERNELS}
+    for shape in ((RTC_N,),) + MLP_SHAPES:
+        x = torch.rand(shape, generator=g, device=DEV)
+        y = torch.rand(shape, generator=g, device=DEV)
+        # alpha 2 as in the reference's test (2 x is exact, so the FMA
+        # changes nothing), and 0.7, whose products round
+        for alpha in (2.0, 0.7):
+            got = mod.get_kernel("saxpy", alpha=alpha).launch(
+                [nd(x), nd(y)]).tensor()
+            ref, = plain_run("saxpy", [x, y], alpha=alpha)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            bad = int((err > SAXPY_RTOL * ref.abs()).sum())
+            print("[parity] %-44s max_abs_err=%.3g bit-equal %.5f, beyond "
+                  "2^-23*|ref|: %d %s"
+                  % ("rtc saxpy %s alpha %g" % (shape, alpha),
+                     float(err.max()), float((got == ref).float().mean()),
+                     bad, "FAIL" if bad else "ok"))
+            if bad:
+                raise SmokeFailure("rtc saxpy %s: %d elements beyond 2^-23 "
+                                   "of the plain function" % (shape, bad))
+            errs["saxpy"] = max(errs["saxpy"], float(err.max()))
+        a, b = kern["twoout"].launch([nd(x)])
+        ra, rb = plain_run("twoout", [x], 2)
+        _check_exact("rtc twoout a %s" % (shape,), a.tensor(), ra)
+        _check_exact("rtc twoout b %s" % (shape,), b.tensor(), rb)
+        xs = torch.randn(shape, generator=g, device=DEV)
+        xs.view(-1)[::7] = 0.0                   # exact zeros
+        h = kern["relu_fwd"].launch([nd(xs)]).tensor()
+        rh, = plain_run("relu_fwd", [xs])
+        _check_exact("rtc relu_fwd %s" % (shape,), h, rh)
+        dy = torch.randn(shape, generator=g, device=DEV)
+        _check_exact("rtc relu_bwd %s" % (shape,),
+                     kern["relu_bwd"].launch([nd(dy), nd(rh)]).tensor(),
+                     plain_run("relu_bwd", [dy, rh])[0])
+
+    before = cuda_build.launch_counts()
+    refusals = [
+        ("a const output pointer",
+         lambda: mod2.get_kernel("saxpy", alpha=2.0)),
+        ("a const output in a given signature",
+         lambda: mod.get_kernel("relu_fwd", signature="const float* x, "
+                                "const float* y, long long n")),
+        ("a wrong dtype", lambda: kern["relu_fwd"].launch([nd(xs.half())])),
+        ("a wrong input count", lambda: kern["relu_bwd"].launch([nd(xs)]))]
+    for what, fn in refusals:
+        try:
+            fn()
+        except mx.MXNetError as e:
+            print("[rtc] %s refused: %s" % (what, e))
+            continue
+        raise SmokeFailure("rtc: %s was not refused" % what)
+    if cuda_build.launch_counts() != before:
+        raise SmokeFailure("rtc: a refused launch launched a kernel")
+
+    bad_src = RTC_SOURCE.replace("y[i] > 0.0f ? dy[i]", "y[i] >= 0.0f ? dy[i]")
+    if bad_src == RTC_SOURCE:
+        raise SmokeFailure("control: the planted fault changed nothing")
+    bad = mx.rtc.CudaModule(bad_src, exports=("relu_bwd",)).get_kernel(
+        "relu_bwd").launch([nd(dy), nd(rh)]).tensor()
+    torch.cuda.synchronize()
+    diff = int((bad != plain_run("relu_bwd", [dy, rh])[0]).sum())
+    print("[control] relu_bwd with >= for >: %d of %d elements differ from "
+          "the plain function, %s" % (diff, dy.numel(),
+                                      "caught" if diff else "MISSED"))
+    if not diff:
+        raise SmokeFailure("control: the rtc check passed relu_bwd with >=")
+
+    # the reference docstring's launches, through NDArrays, counted
+    rng = np.random.RandomState(seed)
+    xa = mx.nd.array(rng.rand(8, 128), ctx=mx.gpu(0))
+    ya = mx.nd.array(rng.rand(8, 128), ctx=mx.gpu(0))
+    xm = xa - 0.5
+    cuda_build.reset_launch_counts()
+    out = mod.get_kernel("saxpy", alpha=2.0).launch([xa, ya])
+    a, b = mod2.get_kernel("twoout").launch([xa])
+    h = mod.get_kernel("relu_fwd").launch([xm])
+    d = mod.get_kernel("relu_bwd").launch([ya, h])
+    torch.cuda.synchronize()
+    counts = _rtc_counts()
+    xn, yn, hn = xa.asnumpy(), ya.asnumpy(), np.maximum(xm.asnumpy(), 0)
+    for what, got, want in (("saxpy", out, 2 * xn + yn), ("twoout a", a, 2 * xn),
+                            ("twoout b", b, xn + 1), ("relu_fwd", h, hn),
+                            ("relu_bwd", d, np.where(hn > 0, yn, 0))):
+        if not np.allclose(got.asnumpy(), want, rtol=1e-6, atol=1e-6):
+            raise SmokeFailure("rtc user launch %s: wrong values" % what)
+    print("[rtc] user launches through NDArrays: %s" % counts)
+    if any(counts[k] != 1 for k in RTC_KERNELS):
+        raise SmokeFailure("rtc: expected one launch of each user kernel, "
+                           "got %s" % counts)
+    return mod, mod2, errs, counts
+
+
+def _mnist_step(net, trainer, loss_fn, data, label):
+    import mxnet_tpu_torch as mx
+    with mx.autograd.record():
+        out = net(data)
+        loss = loss_fn(out, label)
+    loss.backward()
+    trainer.step(data.shape[0])
+    return out, loss
+
+
+def _mnist_nets(mx, init, ctx, leak_grad=False):
+    """The custom-op MLP and its Dense(relu) twin from the weights
+    ``init``, each with its SGD trainer."""
+    nets = {"custom": mnist_mlp(mx, True, leak_grad),
+            "twin": mnist_mlp(mx, False)}
+    out = {}
+    for k, net in nets.items():
+        mx.params_from_numpy(net, init, ctx=ctx)
+        out[k] = (net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                        {"learning_rate": MNIST_LR}))
+    return out
+
+
+def _mnist_diff(nets, loss, tloss):
+    """(name, relative L2) of the first of the loss and the weights where
+    the custom-op net and its twin differ; None where all are equal."""
+    import torch
+    pairs = [("loss", loss.tensor(), tloss.tensor())]
+    twin = nets["twin"][0].collect_params()
+    pairs += [(n, p.data().tensor(), twin[n].data().tensor())
+              for n, p in nets["custom"][0].collect_params().items()]
+    with torch.no_grad():
+        for name, a, b in pairs:
+            if not torch.equal(a, b):
+                return name, float((a - b).norm() / b.norm().clamp_min(1e-30))
+    return None
+
+
+def phase_mnist(seed, mod, epochs):
+    """Train the MNIST MLP with the rtc custom op beside its twin; returns
+    (launch counts of the training run, launch counts of one step, the
+    nets, the loss, one batch)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    gdata = mx.gluon.data
+    ctx = mx.gpu(0)
+    X, y, Xv, yv = mnist_synthetic()
+    register_rtc_relu(mx, mod)
+    mx.random.seed(seed)
+    net = mnist_mlp(mx, True)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.zeros((1, 1, 28, 28), ctx=ctx))       # the deferred shapes
+    init = {n: p.data().asnumpy() for n, p in net.collect_params().items()}
+    nets = _mnist_nets(mx, init, ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    np.random.seed(seed)                            # the loader's shuffle
+    train = gdata.DataLoader(gdata.ArrayDataset(X, y),
+                             batch_size=MNIST_BATCH, shuffle=True)
+    val = gdata.DataLoader(gdata.ArrayDataset(Xv, yv),
+                           batch_size=MNIST_BATCH)
+    print("[mnist] %d training and %d validation examples, %d + %d batches "
+          "of %d; MLP 784-128-64-10 (%d parameters), Xavier from seed %d, "
+          "SGD lr %g" % (len(X), len(Xv), len(train), len(val), MNIST_BATCH,
+                         sum(v.size for v in init.values()), seed, MNIST_LR))
+    accs, steps = [], 0
+    with _no_tf32():
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for epoch in range(epochs):
+            metric = mx.metric.Accuracy()
+            for data, label in train:
+                out, loss = _mnist_step(*nets["custom"], loss_fn, data, label)
+                _, tloss = _mnist_step(*nets["twin"], loss_fn, data, label)
+                metric.update([label], [out])
+                steps += 1
+                diff = _mnist_diff(nets, loss, tloss)
+                if diff is not None:
+                    raise SmokeFailure(
+                        "MNIST step %d: %s differs from the Dense(relu) "
+                        "twin (relative L2 %.3g)" % ((steps,) + diff))
+            vm = mx.metric.Accuracy()
+            for data, label in val:
+                vm.update([label], [nets["custom"][0](data)])
+            accs.append(metric.get()[1])
+            print("[mnist] epoch %d: train accuracy %.4f, validation "
+                  "accuracy %.4f, loss of the last batch %.4f"
+                  % (epoch + 1, accs[-1], vm.get()[1],
+                     float(loss.asnumpy().mean())))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _rtc_counts()
+    fwd_want = 2 * (steps + epochs * len(val))
+    print("[mnist] %d steps of both nets in %.1f s, every loss and weight "
+          "bit-equal to the twin's; launches %s (expected relu_fwd %d, "
+          "relu_bwd %d)" % (steps, seconds, counts, fwd_want, 2 * steps))
+    if counts["relu_fwd"] != fwd_want or counts["relu_bwd"] != 2 * steps:
+        raise SmokeFailure("MNIST: the custom op launched %s" % counts)
+    if not accs[-1] > accs[0]:
+        raise SmokeFailure("MNIST: train accuracy did not rise: %s" % accs)
+
+    data, label = next(iter(train))
+    with _no_tf32():
+        cuda_build.reset_launch_counts()
+        _mnist_step(*nets["custom"], loss_fn, data, label)
+        torch.cuda.synchronize()
+        step_counts = {k: v for k, v in cuda_build.launch_counts().items()
+                       if v}
+    print("[mnist] launches of one custom-op step: %s" % step_counts)
+    if step_counts != {cuda_build.RTC_PREFIX + "relu_fwd": 2,
+                       cuda_build.RTC_PREFIX + "relu_bwd": 2}:
+        raise SmokeFailure("MNIST: one step launched %s" % step_counts)
+
+    bad = _mnist_nets(mx, init, ctx, leak_grad=True)
+    with _no_tf32():
+        _, loss = _mnist_step(*bad["custom"], loss_fn, data, label)
+        _, tloss = _mnist_step(*bad["twin"], loss_fn, data, label)
+        diff = _mnist_diff(bad, loss, tloss)
+    print("[control] custom op passing dy through unmasked: %s"
+          % ("%s differs (relative L2 %.3g), caught" % diff if diff
+             else "MISSED"))
+    if diff is None:
+        raise SmokeFailure("control: the MNIST check passed a relu backward "
+                           "that does not mask")
+    return counts, step_counts, nets, loss_fn, (data, label)
+
+
+def phase_times_rtc(seed, reps, card, errs, counts, mnist_counts, nets,
+                    loss_fn, batch, mod, mod2):
+    """Device times of the user kernels at 2^24 elements (kernel, plain
+    function, library call, bound), the MLP step on the host clock with
+    the custom op and with its twin, and one profiled step of each;
+    returns the kernels' rows."""
+    import torch
+    from mxnet_tpu_torch.ndarray import NDArray
+    g = torch.Generator(device=DEV).manual_seed(seed + 41)
+    bw, _, f32_peak = _peaks(card)
+    plain = rtc_plain()
+    x, y, xs, dy = (torch.rand(RTC_N, generator=g, device=DEV)
+                    for _ in range(4))
+    xs, dy = xs - 0.5, dy - 0.5
+    hs = torch.relu(xs)
+    X, Y, XS, DY, HS = (NDArray(t) for t in (x, y, xs, dy, hs))
+    outs = [torch.empty_like(x) for _ in range(2)]
+    k = {"saxpy": mod.get_kernel("saxpy", alpha=2.0),
+         "twoout": mod2.get_kernel("twoout"),
+         "relu_fwd": mod.get_kernel("relu_fwd"),
+         "relu_bwd": mod.get_kernel("relu_bwd")}
+    E = 4 * RTC_N       # bytes of one f32 array
+    table = [
+        ("saxpy", lambda: k["saxpy"].launch([X, Y]),
+         lambda: plain["saxpy"](x, y, outs[0], alpha=2.0),
+         lambda: torch.add(y, x, alpha=2.0), 3 * E, 2 * RTC_N),
+        ("twoout", lambda: k["twoout"].launch([X]),
+         lambda: plain["twoout"](x, *outs), lambda: (x * 2, x + 1),
+         3 * E, 2 * RTC_N),
+        ("relu_fwd", lambda: k["relu_fwd"].launch([XS]),
+         lambda: plain["relu_fwd"](xs, outs[0]), lambda: torch.relu(xs),
+         2 * E, RTC_N),
+        ("relu_bwd", lambda: k["relu_bwd"].launch([DY, HS]),
+         lambda: plain["relu_bwd"](dy, hs, outs[0]),
+         lambda: torch.where(hs > 0, dy, 0.0), 3 * E, RTC_N)]
+    rows = []
+    for name, fn, plain_fn, lib, nbytes, flops in table:
+        ms, plain_ms, lib_ms = (_gpu_ms(f, reps) for f in (fn, plain_fn, lib))
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        relu = name.startswith("relu")
+        rows.append({
+            "name": "rtc:" + name, "route": "cuda", "source": "chip_smoke.py",
+            "launcher": "mxnet_tpu_torch/rtc.py",
+            "replaces": "mxnet_tpu/rtc.py:53",
+            "launches": (mnist_counts if relu else counts)[name],
+            "launches_counted_in": ("the MNIST training run (phase 9)" if relu
+                                    else "the rtc user launches (phase 8)"),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "elements": RTC_N, "bytes": nbytes})
+        print("[times] rtc %-9s (2^24 f32) kernel %.4f ms  plain %.4f ms  "
+              "library %.4f ms  bound %.4f ms (%s, %.1f MB)"
+              % (name, ms, plain_ms, lib_ms, b_ms, b_by, nbytes / 1e6))
+    data, label = batch
+    with _no_tf32():
+        ms = {}
+        for key in ("custom", "twin", "custom", "twin"):
+            ms[key] = _host_ms(lambda: _mnist_step(*nets[key], loss_fn, data,
+                                                   label), reps=20)
+        print("[times] MNIST MLP step (batch %d, SGD): %.3f ms with the rtc "
+              "custom op, %.3f ms with Dense(relu) (host clock, median of 20; "
+              "run custom, twin, custom, twin, the later of each kept)"
+              % (MNIST_BATCH, ms["custom"], ms["twin"]))
+        for key in ("custom", "twin"):
+            _profile("one MNIST MLP step (%s)" % key,
+                     lambda: _mnist_step(*nets[key], loss_fn, data, label))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1520,6 +2044,8 @@ def main(argv=None):
                     help="LAMB steps on one fixed batch")
     ap.add_argument("--resnet-steps", type=int, default=10,
                     help="ResNet-50 SGD steps on one fixed batch")
+    ap.add_argument("--mnist-epochs", type=int, default=3,
+                    help="epochs of the MNIST MLP with the rtc custom op")
     args = ap.parse_args(argv)
     import torch
     try:
@@ -1541,6 +2067,9 @@ def main(argv=None):
         stage_counts, stages = phase_stages(args.seed)
         resnet_counts, resnet_step = phase_resnet(args.seed,
                                                   args.resnet_steps)
+        rtc_mod, rtc_mod2, rtc_errs, rtc_counts = phase_rtc(args.seed)
+        mnist_counts, mnist_step_counts, mnist_nets, mnist_loss, \
+            mnist_batch = phase_mnist(args.seed, rtc_mod, args.mnist_epochs)
         rows = phase_times(args.seed, args.reps, counts, n_fwd, errs, sess,
                            reqs, net, card)
         train_rows, step = phase_times_train(
@@ -1550,10 +2079,14 @@ def main(argv=None):
         rows.append(phase_times_resnet(args.seed, args.reps, stage_counts,
                                        errs["dual_bwd"], card, stages,
                                        resnet_step))
+        rows += phase_times_rtc(args.seed, args.reps, card, rtc_errs,
+                                rtc_counts, mnist_counts, mnist_nets,
+                                mnist_loss, mnist_batch, rtc_mod, rtc_mod2)
         for r in rows:
-            r["launches_per_train_step"] = train_counts[r["name"]]
-            r["launches_per_fused_step"] = stage_counts[r["name"]]
-            r["launches_per_resnet_step"] = resnet_counts[r["name"]]
+            r["launches_per_train_step"] = train_counts.get(r["name"], 0)
+            r["launches_per_fused_step"] = stage_counts.get(r["name"], 0)
+            r["launches_per_resnet_step"] = resnet_counts.get(r["name"], 0)
+            r["launches_per_mlp_step"] = mnist_step_counts.get(r["name"], 0)
         phase_profile(net)
         _profile("one training step (batch %d x seq %d, LAMB)"
                  % (TRAIN_BATCH, TRAIN_SEQ), step)

@@ -11,7 +11,14 @@ slice serves BERT through :class:`serve.InferenceSession` with the
 LayerNorm, packed self-attention, bias+GeLU and bias+residual forward
 kernels; the second trains it through ``autograd.record()``,
 ``backward()`` and ``gluon.Trainer`` with the LayerNorm, attention and
-bias+GeLU backward kernels and the dropout kernel.
+bias+GeLU backward kernels and the dropout kernel; the third trains
+ResNet-50 v1 and brings the fused bottleneck stages with their dual
+BN-backward kernel. The fourth opens the user-extension surface:
+``rtc.CudaModule`` compiles a user's CUDA C at runtime for the card
+(the reference's Pallas ``rtc`` launcher), used inside
+``operator.CustomOp`` (``nd.Custom``/``F.Custom``) and
+``autograd.Function``, with ``autograd.grad``, ``gluon.data`` and
+``metric``, in the Gluon MNIST MLP.
 
 Usage mirrors the reference::
 
@@ -29,6 +36,9 @@ Usage mirrors the reference::
         loss = mlm(net(ids, token_types)[0], labels).mean()
     loss.backward()
     trainer.step(batch_size)
+
+    mod = mx.rtc.CudaModule(cuda_source, plain={"relu": relu_plain})
+    y = mod.get_kernel("relu").launch([x])
 """
 from __future__ import annotations
 
@@ -46,4 +56,7 @@ from . import initializer as init
 from . import optimizer
 from . import gluon
 from . import serve
+from . import operator
+from . import rtc
+from . import metric
 from .interop import params_from_numpy

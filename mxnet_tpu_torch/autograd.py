@@ -16,8 +16,17 @@ A variable the heads do not reach keeps its ``.grad`` as it was.
 
 Ops whose reference backward is a Pallas kernel are
 ``torch.autograd.Function``s whose backward is the port's kernel
-(``ops/cuda_*.py``). ``grad(create_graph=True)`` and
-``autograd.Function`` wait for a later slice.
+(``ops/cuda_*.py``).
+
+:func:`grad` returns the gradients instead of writing ``.grad``; with
+``create_graph=True`` they are on the tape and can be differentiated
+again. A user's :class:`Function` (and a ``CustomOp``, through
+:func:`record_callback`) is a node whose backward calls Python: its
+forward runs under :func:`pause`, its backward is called with NDArrays
+over the incoming gradients, also under :func:`pause`. Such a node is
+first-order only, as in the reference: differentiating through it with
+``create_graph=True`` raises instead of returning a graph that lacks its
+second derivative.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "mark_variables"]
+           "mark_variables", "grad", "Function", "record_callback"]
 
 
 class _State(threading.local):
@@ -127,10 +136,9 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             _VARS.add(v)
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Gradients of ``heads`` into every reachable variable's ``.grad``
-    (ref: autograd.backward). A head gradient left out is ones of the
-    head's shape, as in MXNet, whatever the head's size."""
+def _heads(heads, head_grads):
+    """The head tensors and their cotangents: a head gradient left out
+    is ones of the head's shape, as in MXNet, whatever the head's size."""
     from .ndarray.ndarray import NDArray, to_tensor
     heads = [heads] if isinstance(heads, NDArray) else list(heads)
     if head_grads is None:
@@ -147,6 +155,14 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         outs.append(t)
         cots.append(torch.ones_like(t) if hg is None
                     else to_tensor(hg).to(t.dtype))
+    return outs, cots
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` into every reachable variable's ``.grad``
+    (ref: autograd.backward). A head gradient left out is ones of the
+    head's shape, as in MXNet, whatever the head's size."""
+    outs, cots = _heads(heads, head_grads)
     variables = [v for v in list(_VARS) if v._t.requires_grad]
     if not variables:
         return
@@ -160,3 +176,122 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                 v._grad.tensor().copy_(g)
             else:
                 v._grad.tensor().add_(g.to(v._grad.dtype))
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables``, returned
+    as NDArrays instead of written into ``.grad`` (ref: autograd.grad);
+    every variable's ``.grad`` and ``grad_req`` stay as they were. A
+    variable the heads do not reach gets zeros. With ``create_graph``
+    the gradients are recorded (when recording) and can be
+    differentiated again."""
+    from .ndarray.ndarray import NDArray
+    outs, cots = _heads(heads, head_grads)
+    variables = [variables] if isinstance(variables, NDArray) \
+        else list(variables)
+    if retain_graph is None:
+        retain_graph = create_graph
+    with torch.enable_grad() if create_graph else torch.no_grad():
+        grads = torch.autograd.grad(
+            outs, [v.tensor() for v in variables], cots,
+            retain_graph=retain_graph, create_graph=create_graph,
+            allow_unused=True)
+    res = []
+    for v, g in zip(variables, grads):
+        if g is None:
+            g = torch.zeros_like(v.tensor().detach())
+        elif not (create_graph and is_recording()):
+            g = g.detach()
+        res.append(NDArray(g, v.context))
+    return res
+
+
+class _Callback(torch.autograd.Function):
+    """A tape node whose forward and backward are Python callbacks:
+    ``run_forward()`` returns the output tensors, ``run_backward(grads,
+    outputs)`` one gradient tensor (or None) per input tensor. The
+    outputs reach the backward through ``save_for_backward``, so the
+    callbacks hold no reference to them (which would be a cycle through
+    the node)."""
+
+    @staticmethod
+    def forward(ctx, run_forward, run_backward, *inputs):
+        outs = tuple(run_forward())
+        ctx.run_backward = run_backward
+        ctx.save_for_backward(*outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise MXNetError(
+                "create_graph=True through a custom autograd.Function or "
+                "CustomOp node: its backward is first-order only")
+        return (None, None) + tuple(ctx.run_backward(grads,
+                                                     ctx.saved_tensors))
+
+
+def record_callback(inputs, run_forward, run_backward):
+    """Run ``run_forward()`` (output tensors) as one node of the tape
+    over the NDArrays ``inputs``, with ``run_backward(grads, outputs)``
+    as its backward; returns the output tensors. Outside ``record()``,
+    or when no input is in the graph, the forward runs alone."""
+    tensors = [a.tensor() for a in inputs]
+    if not (is_recording() and any(t.requires_grad for t in tensors)):
+        return tuple(run_forward())
+    with torch.enable_grad():
+        return _Callback.apply(run_forward, run_backward, *tensors)
+
+
+class Function:
+    """A differentiable function with a backward written by hand (ref:
+    autograd.py :: Function). Subclass it, define ``forward(self,
+    *inputs)`` and ``backward(self, *out_grads)`` on NDArrays, keep what
+    the backward needs with :meth:`save_for_backward`, and call the
+    instance."""
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *out_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        arrays = [i for i in inputs if isinstance(i, NDArray)]
+        meta = {}
+
+        def run_forward():
+            with pause():
+                outputs = self.forward(*inputs)
+            meta["single"] = isinstance(outputs, NDArray)
+            outs = [outputs] if meta["single"] else list(outputs)
+            meta["ctx"] = [o.context for o in outs]
+            return [o.tensor() for o in outs]
+
+        def run_backward(grads, outputs):
+            with pause():
+                in_grads = self.backward(
+                    *[NDArray(g, c) for g, c in zip(grads, meta["ctx"])])
+            if isinstance(in_grads, NDArray):
+                in_grads = (in_grads,)
+            if len(in_grads) != len(arrays):
+                raise MXNetError(
+                    "%s.backward returned %d gradients for %d inputs"
+                    % (type(self).__name__, len(in_grads), len(arrays)))
+            return [None if g is None else g.tensor() for g in in_grads]
+
+        outs = record_callback(arrays, run_forward, run_backward)
+        res = [NDArray(t, c) for t, c in zip(outs, meta["ctx"])]
+        return res[0] if meta["single"] else res

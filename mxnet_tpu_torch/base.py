@@ -1,12 +1,14 @@
-"""Base error type and dtype names of the PyTorch/CUDA port
-(counterpart of ``mxnet_tpu/base.py``; ref: include/mxnet/base.h ::
-dmlc::Error)."""
+"""Base error type and dtype names and the named registry of the
+PyTorch/CUDA port (counterpart of ``mxnet_tpu/base.py``; ref:
+include/mxnet/base.h :: dmlc::Error)."""
 from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype"]
+__all__ = ["MXNetError", "torch_dtype", "Registry"]
 
 
 class MXNetError(RuntimeError):
@@ -31,3 +33,46 @@ def torch_dtype(dtype) -> torch.dtype:
     if out is None:
         raise MXNetError("unsupported dtype %r" % (dtype,))
     return out
+
+
+class Registry:
+    """Named registry of factories (ref: dmlc::Registry /
+    MXNET_REGISTER_*); custom ops and metrics register through it."""
+
+    _registries: Dict[str, "Registry"] = {}
+
+    def __init__(self, name: str):
+        self.name = name
+        self._entries: Dict[str, Any] = {}
+        Registry._registries[name] = self
+
+    @classmethod
+    def get(cls, name: str) -> "Registry":
+        if name not in cls._registries:
+            Registry(name)
+        return cls._registries[name]
+
+    def register(self, name: Optional[str] = None,
+                 override: bool = False) -> Callable:
+        def _reg(obj):
+            key = (name or obj.__name__).lower()
+            if key in self._entries and not override:
+                raise ValueError("%s already registered in registry '%s'"
+                                 % (key, self.name))
+            self._entries[key] = obj
+            return obj
+        return _reg
+
+    def find(self, name: str):
+        return self._entries.get(name.lower())
+
+    def create(self, name: str, *args, **kwargs):
+        entry = self.find(name)
+        if entry is None:
+            raise MXNetError("Cannot find '%s' in registry '%s'. "
+                             "Registered: %s"
+                             % (name, self.name, sorted(self._entries)))
+        return entry(*args, **kwargs)
+
+    def keys(self):
+        return list(self._entries)

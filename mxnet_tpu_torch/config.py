@@ -85,3 +85,9 @@ define("MXNET_GUARD_CLIP_NORM", float, 0.0,
 define("MXNET_MODELWATCH", bool, False,
        "Training-dynamics statistics; on, the Trainer raises (ROADMAP.md "
        "queue 1, item 13).")
+define("MXNET_PREFETCH_DEPTH", int, 2,
+       "DataLoader read-ahead (gluon/data/dataloader.py): up to this many "
+       "upcoming batches are made on the host and staged onto the card by "
+       "non-blocking copies from pinned memory while the consumer "
+       "computes; 0 makes each batch on the loader's context when it is "
+       "asked for.")

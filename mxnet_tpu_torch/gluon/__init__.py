@@ -6,3 +6,4 @@ from .trainer import Trainer
 from . import loss
 from . import nn
 from . import model_zoo
+from . import data

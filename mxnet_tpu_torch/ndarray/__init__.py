@@ -6,10 +6,10 @@ Creation helpers live here; every registered op is reachable as
 """
 from __future__ import annotations
 
-from .ndarray import NDArray, array, host_tensor, invoke, zeros
+from .ndarray import NDArray, array, host_tensor, invoke, ones, zeros
 from ..ops import F as _F
 
-__all__ = ["NDArray", "array", "zeros", "invoke", "host_tensor"]
+__all__ = ["NDArray", "array", "zeros", "ones", "invoke", "host_tensor"]
 
 
 def __getattr__(name):

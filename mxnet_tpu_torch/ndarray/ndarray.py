@@ -20,11 +20,11 @@ import numpy as np
 import torch
 
 from .. import autograd
-from ..base import torch_dtype
+from ..base import MXNetError, torch_dtype
 from ..context import Context, context_of, current_context
 from ..ops import Operator, _note, get_op
 
-__all__ = ["NDArray", "invoke", "array", "zeros", "to_tensor",
+__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "to_tensor",
            "host_tensor"]
 
 
@@ -79,6 +79,27 @@ class NDArray:
         elif t.device.type == "cpu":
             t = t.clone()
         return t.cpu().numpy()
+
+    def wait_to_read(self):
+        """Block until the values are computed: a no-op on the host, a
+        sync of the array's stream on the card."""
+        if self._t.is_cuda:
+            torch.cuda.current_stream(self._t.device).synchronize()
+
+    def __len__(self):
+        if not self._t.dim():
+            raise TypeError("len() of unsized object")
+        return self._t.shape[0]
+
+    def __getitem__(self, key) -> "NDArray":
+        """Basic indexing (ints and slices): a view, recorded inside
+        ``autograd.record()``."""
+        parts = key if isinstance(key, tuple) else (key,)
+        if not all(isinstance(k, (numbers.Integral, slice)) for k in parts):
+            raise MXNetError("NDArray index %r: only ints and slices are "
+                             "ported" % (key,))
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return NDArray(self._t[key], self._ctx)
 
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
@@ -226,3 +247,10 @@ def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
                                device=ctx.torch_device), ctx)
+
+
+def ones(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    ctx = Context(ctx or current_context())
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return NDArray(torch.ones(shape, dtype=torch_dtype(dtype),
+                              device=ctx.torch_device), ctx)

@@ -5,7 +5,10 @@ Every op is a torch function ``impl(*tensors, **attrs) -> tensor |
 tuple`` registered under its MXNet name. One registration serves the
 eager ``mx.nd.*`` namespace and the ``F`` that ``hybrid_forward``
 receives; there is no Symbol tracing in the port yet, so ``F`` is
-always this op namespace. Ops that the reference backs with a Pallas
+always this op namespace. A few entries work on NDArrays and run Python
+rather than one torch function (``Custom``, from :mod:`..operator`):
+they are added with :func:`register_ndarray_fn` and reached through the
+same ``F``. Ops that the reference backs with a Pallas
 kernel call the hand-written CUDA kernels of ``cuda_norm``,
 ``cuda_attention``, ``cuda_epilogue`` and ``cuda_dropout``; the fused
 ResNet bottleneck functions of ``cuda_fused`` are called directly, as
@@ -19,10 +22,13 @@ from typing import Callable, Dict, Optional, Sequence, Set
 
 from ..base import MXNetError
 
-__all__ = ["Operator", "register", "get_op", "recording", "F"]
+__all__ = ["Operator", "register", "get_op", "recording", "F",
+           "register_ndarray_fn"]
 
 _OPS: Dict[str, "Operator"] = {}
 _ALIASES: Dict[str, str] = {}
+# F entries that take and return NDArrays themselves (nd.Custom)
+_ND_FNS: Dict[str, Callable] = {}
 
 
 class Operator:
@@ -102,11 +108,23 @@ def _note(op: Operator):
         seen.add(op)
 
 
+def register_ndarray_fn(name: str, fn: Callable):
+    """Expose ``fn``, which takes and returns NDArrays, as ``F.<name>``
+    and ``nd.<name>``."""
+    if name in _ND_FNS or name in _OPS or name in _ALIASES:
+        raise MXNetError("operator %r already registered" % name)
+    _ND_FNS[name] = fn
+
+
 class _OpNamespace:
     """``F.<op>(*inputs, **attrs)`` over NDArrays, for every registered
-    op (what ``hybrid_forward`` receives as ``F``)."""
+    op and NDArray-level entry (what ``hybrid_forward`` receives as
+    ``F``)."""
 
     def __getattr__(self, name):
+        fn = _ND_FNS.get(name)
+        if fn is not None:
+            return fn
         if name not in _OPS and name not in _ALIASES:
             raise AttributeError("no operator named %r" % name)
         op = get_op(name)

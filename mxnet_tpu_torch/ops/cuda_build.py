@@ -17,6 +17,14 @@ falls back to a plain version.
 
 Every wrapper adds one to its kernel's count in :func:`launch_counts`
 where it launches, and nowhere else.
+
+:func:`build_source` builds a source string instead of a file, for the
+user kernels of :mod:`mxnet_tpu_torch.rtc`: into
+``_build/rtc/<digest>/``, ``<digest>`` hashing the source, the extra
+options and the flags, so a second module with the same source reuses the
+first's library. A user kernel counts its launches under ``rtc:<name>``,
+an entry made at its first launch and dropped by
+:func:`reset_launch_counts`.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_info", "library",
+           "build_source", "load_library", "RTC_PREFIX",
            "launch_counts", "reset_launch_counts", "count_launch",
            "check_launch", "check_cuda_tensor", "stream_of", "DTYPE_CODES",
            "apply"]
@@ -64,6 +73,9 @@ KERNELS = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# launch-count prefix of the user kernels of mxnet_tpu_torch.rtc
+RTC_PREFIX = "rtc:"
+
 # element-type codes of csrc/common.cuh (MxtDType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -89,9 +101,9 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise MXNetError("nvcc not found: the CUDA kernels are built from "
-                     "mxnet_tpu_torch/csrc at first use and need the CUDA "
-                     "toolkit")
+    raise MXNetError("nvcc not found: the CUDA kernels (mxnet_tpu_torch/csrc "
+                     "and mx.rtc modules) are built at first use and need "
+                     "the CUDA toolkit")
 
 
 def build() -> Dict[str, Path]:
@@ -140,6 +152,14 @@ def build_info() -> Dict[str, object]:
     return dict(_build_info)
 
 
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a built library; every one exports ``mxt_error_string``."""
+    lib = ctypes.CDLL(str(path))
+    lib.mxt_error_string.argtypes = [ctypes.c_int]
+    lib.mxt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded shared library of one source (built on first use)."""
     lib = _libs.get(source)
@@ -148,11 +168,37 @@ def library(source: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(source)
             if lib is None:
-                lib = ctypes.CDLL(str(path))
-                lib.mxt_error_string.argtypes = [ctypes.c_int]
-                lib.mxt_error_string.restype = ctypes.c_char_p
-                _libs[source] = lib
+                lib = _libs[source] = load_library(path)
     return lib
+
+
+def build_source(source: str, options=()) -> Path:
+    """Compile a CUDA source string with ``nvcc`` (the flags of
+    :func:`build` and ``options``) into a shared library, or reuse the
+    one already built for the same source, options and flags; returns
+    its path. Raises MXNetError with the compiler's output when the
+    build fails, and when there is no ``nvcc``."""
+    options = tuple(str(o) for o in options)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("|",) + options).encode())
+    h.update(source.encode())
+    out_dir = BUILD_ROOT / "rtc" / h.hexdigest()[:16]
+    target = out_dir / "module.so"
+    with _lock:
+        if target.exists():
+            return target
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src = out_dir / "module.cu"
+        src.write_text(source)
+        tmp = out_dir / ("module.%d.tmp" % os.getpid())
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, *options, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise MXNetError("nvcc failed for a runtime-compiled module "
+                             "(%s):\n%s" % (src, proc.stdout))
+        os.replace(tmp, target)
+        return target
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, kernel: str):
@@ -165,7 +211,12 @@ def check_launch(lib: ctypes.CDLL, rc: int, kernel: str):
 
 
 def count_launch(kernel: str):
-    _launches[kernel] += 1
+    """One launch of ``kernel``: a name of :data:`KERNELS`, or
+    ``rtc:<name>`` for a user kernel (its entry made here)."""
+    if kernel.startswith(RTC_PREFIX):
+        _launches[kernel] = _launches.get(kernel, 0) + 1
+    else:
+        _launches[kernel] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -174,8 +225,11 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts():
-    for k in _launches:
-        _launches[k] = 0
+    for k in list(_launches):
+        if k.startswith(RTC_PREFIX):
+            del _launches[k]
+        else:
+            _launches[k] = 0
 
 
 def check_cuda_tensor(kernel: str, name: str, t: torch.Tensor,

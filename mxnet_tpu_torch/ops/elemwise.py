@@ -1,10 +1,11 @@
-"""Elementwise, scalar and broadcast operators, the subset the serving
-and training slices run (counterpart of ``mxnet_tpu/ops/elemwise.py``; ref:
-src/operator/tensor/elemwise_*).
+"""Elementwise, scalar and broadcast operators (counterpart of
+``mxnet_tpu/ops/elemwise.py``; ref: src/operator/tensor/elemwise_*).
 
 MXNet semantics kept: ``broadcast_*`` applies numpy broadcasting; a
 scalar operand takes the array's dtype before the op, as in the
-reference.
+reference. The unary family is the reference's table, one torch call
+each (``gamma`` as ``exp(lgamma)`` and ``logical_not`` in the input's
+dtype, as the reference computes them).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from . import register
 
 
 for _n, _f in {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
-               "div": torch.div}.items():
+               "div": torch.div, "maximum": torch.maximum,
+               "minimum": torch.minimum}.items():
     register("broadcast_" + _n)(_f)
 
 
@@ -33,13 +35,50 @@ for _n, _f, _r in [
         ("_rminus_scalar", torch.sub, True),
         ("_mul_scalar", torch.mul, False),
         ("_div_scalar", torch.div, False),
-        ("_rdiv_scalar", torch.div, True)]:
+        ("_rdiv_scalar", torch.div, True),
+        ("_maximum_scalar", torch.maximum, False),
+        ("_minimum_scalar", torch.minimum, False)]:
     register(_n)(_make_scalar(_n, _f, _r))
 
 
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+_UNARY = {
+    "abs": torch.abs, "sign": torch.sign, "rint": torch.round,
+    "ceil": torch.ceil, "floor": torch.floor, "trunc": torch.trunc,
+    "fix": torch.trunc, "round": torch.round,
+    "square": torch.square, "sqrt": torch.sqrt, "cbrt": _cbrt,
+    "exp": torch.exp, "log": torch.log, "log10": torch.log10,
+    "log2": torch.log2, "log1p": torch.log1p, "expm1": torch.expm1,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "negative": torch.neg, "reciprocal": lambda x: 1.0 / x,
+    "erf": torch.erf, "erfinv": torch.erfinv,
+    "gamma": lambda x: torch.exp(torch.lgamma(x)),
+    "gammaln": torch.lgamma,
+    "logical_not": lambda x: torch.logical_not(x).to(x.dtype),
+    "rsqrt": torch.rsqrt,
+    "relu": torch.relu, "sigmoid": torch.sigmoid,
+}
+
+
+def _make_unary(opname, fn):
+    def impl(data):
+        return fn(data)
+    impl.__name__ = opname
+    impl.__doc__ = "Elementwise %s." % opname
+    return impl
+
+
+for _n, _f in _UNARY.items():
+    register(_n)(_make_unary(_n, _f))
+
 register("identity", aliases=["_copy"])(lambda data: data)
-register("negative")(torch.neg)
-register("square")(torch.square)
 
 
 @register("Cast", aliases=["cast"])

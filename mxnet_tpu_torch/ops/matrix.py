@@ -117,3 +117,10 @@ def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
     idx = index.to(torch.int64).clamp(0, data.shape[ax] - 1).unsqueeze(ax)
     out = torch.gather(data, ax, idx)
     return out if keepdims else out.squeeze(ax)
+
+
+@register("stack")
+def stack(*data, axis=0):
+    """Join arrays of one shape along a new axis (ref: matrix.py ::
+    stack); the DataLoader's batchify stacks NDArray samples with it."""
+    return torch.stack(data, dim=int(axis))

@@ -414,3 +414,117 @@ def test_fused_stage_runs_the_kernel(card, fmt):
     for a, b in zip(got[1:], ref[1:]):
         err = float((a.float() - b.float()).norm() / b.float().norm())
         assert err <= 2e-2, err
+
+
+# ---------------------------------------------------------------------------
+# mx.rtc: the user module of chip_smoke.py, compiled at runtime
+# ---------------------------------------------------------------------------
+def _rtc_modules():
+    import chip_smoke
+    import mxnet_tpu_torch as mx
+    plain = chip_smoke.rtc_plain()
+    return (chip_smoke, mx.rtc.CudaModule(chip_smoke.RTC_SOURCE, plain=plain),
+            mx.rtc.CudaModule(chip_smoke.RTC_SOURCE, num_outputs=2,
+                              plain=plain), plain)
+
+
+@pytest.mark.parametrize("shape", [(1,), (257,), (64, 128), (64, 64),
+                                   (1 << 20,)])
+def test_rtc_user_kernels_match_their_plain_functions(card, shape):
+    """saxpy within 2^-23 of each element (an FMA against two roundings,
+    non-negative inputs); the others bit for bit; counted as rtc:<name>."""
+    from mxnet_tpu_torch.ndarray import NDArray
+    cs, mod, mod2, plain = _rtc_modules()
+    x = torch.rand(shape, generator=card, device="cuda")
+    y = torch.rand(shape, generator=card, device="cuda")
+    xs = torch.randn(shape, generator=card, device="cuda")
+    xs.view(-1)[::3] = 0.0
+    cuda_build.reset_launch_counts()
+    got = mod.get_kernel("saxpy", alpha=2.0).launch(
+        [NDArray(x), NDArray(y)]).tensor()
+    ref = torch.empty_like(x)
+    plain["saxpy"](x, y, ref, alpha=2.0)
+    torch.cuda.synchronize()
+    assert ((got - ref).abs() <= 2.0 ** -23 * ref.abs()).all()
+    a, b = mod2.get_kernel("twoout").launch([NDArray(x)])
+    assert torch.equal(a.tensor(), x * 2) and torch.equal(b.tensor(), x + 1)
+    h = mod.get_kernel("relu_fwd").launch([NDArray(xs)]).tensor()
+    rh = torch.empty_like(xs)
+    plain["relu_fwd"](xs, rh)
+    assert torch.equal(h, rh)
+    dx = mod.get_kernel("relu_bwd").launch([NDArray(y - 0.5), NDArray(h)])
+    rdx = torch.empty_like(xs)
+    plain["relu_bwd"](y - 0.5, h, rdx)
+    assert torch.equal(dx.tensor(), rdx)
+    assert cs._rtc_counts() == {k: 1 for k in cs.RTC_KERNELS}
+
+
+def test_rtc_module_reuse_and_launch_options(card):
+    from mxnet_tpu_torch.ndarray import NDArray
+    cs, mod, mod2, _ = _rtc_modules()
+    path = mod.build()
+    stamp = path.stat().st_mtime_ns
+    assert mod2.build() == path and path.stat().st_mtime_ns == stamp
+    # an explicit grid and block cover the array as the default does
+    x = torch.rand(1000, generator=card, device="cuda")
+    k = mod.get_kernel("relu_fwd")
+    got = k.launch([NDArray(x)], grid=(8,), block=128).tensor()
+    assert torch.equal(got, x)
+    # a launch that is refused raises with the CUDA error
+    with pytest.raises(MXNetError, match="CUDA launch failed"):
+        k.launch([NDArray(x)], shared_mem=1 << 30)
+    empty = k.launch([NDArray(x[:0])]).tensor()
+    assert empty.shape == (0,)
+
+
+def test_rtc_binding_errors_on_cuda_tensors(card):
+    from mxnet_tpu_torch.ndarray import NDArray
+    cs, mod, mod2, _ = _rtc_modules()
+    x = torch.rand(64, generator=card, device="cuda")
+    before = cuda_build.launch_counts()
+    cases = [
+        (lambda: mod2.get_kernel("saxpy", alpha=1.0), "points to const"),
+        (lambda: mod.get_kernel("relu_fwd").launch([NDArray(x.half())]),
+         "got dtype torch.float16"),
+        (lambda: mod.get_kernel("relu_bwd").launch([NDArray(x)]),
+         "takes 2 inputs"),
+        (lambda: mod.get_kernel("relu_bwd").launch(
+            [NDArray(x), NDArray(x.cpu())]), "several devices"),
+        (lambda: mod.get_kernel("relu_fwd").launch(
+            [NDArray(x)], out_dtypes=["float64"]), "got dtype torch.float64")]
+    for fn, match in cases:
+        with pytest.raises(MXNetError, match=match):
+            fn()
+    assert cuda_build.launch_counts() == before
+
+
+def test_mnist_custom_op_step_equals_its_twin_on_the_card(card):
+    """Two SGD steps of the MLP with the rtc custom op against the
+    Dense(relu) twin: bit for bit, two launches of each relu kernel per
+    step."""
+    import mxnet_tpu_torch as mx
+    cs, mod, _, _ = _rtc_modules()
+    cs.register_rtc_relu(mx, mod)
+    X, y, _, _ = cs.mnist_synthetic(256)
+    mx.random.seed(0)
+    net = cs.mnist_mlp(mx, True)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 1, 28, 28), ctx=mx.gpu(0)))
+    init = {n: p.data().asnumpy() for n, p in net.collect_params().items()}
+    nets = cs._mnist_nets(mx, init, mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loader = mx.gluon.data.DataLoader(mx.gluon.data.ArrayDataset(X, y),
+                                      batch_size=64)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for step, (data, label) in zip(range(2), loader):
+            assert data.context == mx.gpu(0)
+            cuda_build.reset_launch_counts()
+            _, loss = cs._mnist_step(*nets["custom"], loss_fn, data, label)
+            assert cs._rtc_counts()["relu_fwd"] == 2
+            assert cs._rtc_counts()["relu_bwd"] == 2
+            _, tloss = cs._mnist_step(*nets["twin"], loss_fn, data, label)
+            assert cs._mnist_diff(nets, loss, tloss) is None, step
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

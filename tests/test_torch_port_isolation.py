@@ -80,6 +80,26 @@ def test_port_runs_without_jax_or_reference_in_a_subprocess():
         out, _ = cuda_fused.fused_stage(x, [w, w], data_format="HWNC")
         out.sum().backward()
         assert torch.isfinite(x.grad).all()
+        # one step of the MNIST MLP whose relus are an rtc custom op, fed
+        # by the DataLoader, scored by the metric
+        import chip_smoke as cs
+        mod = mx.rtc.CudaModule(cs.RTC_SOURCE, plain=cs.rtc_plain())
+        cs.register_rtc_relu(mx, mod)
+        X, y, _, _ = cs.mnist_synthetic(128)
+        with mx.cpu():
+            mlp = cs.mnist_mlp(mx, True)
+            mlp.initialize(mx.init.Xavier(), ctx=mx.cpu())
+            trainer = mx.gluon.Trainer(mlp.collect_params(), "sgd",
+                                       {"learning_rate": 0.1})
+            loader = mx.gluon.data.DataLoader(
+                mx.gluon.data.ArrayDataset(X, y), batch_size=64, shuffle=True)
+            data, label = next(iter(loader))
+            out, loss = cs._mnist_step(
+                mlp, trainer, mx.gluon.loss.SoftmaxCrossEntropyLoss(), data,
+                label)
+            acc = mx.metric.Accuracy()
+            acc.update([label], [out])
+        assert np.isfinite(loss.asnumpy()).all() and 0 <= acc.get()[1] <= 1
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
         print("LOADED", bad)
