@@ -13,7 +13,9 @@ Phases, in order; any fault ends the run with a non-zero exit and no
 1. device — the card's name and power limit from nvidia-smi.
 2. build — compile every hand-written kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, all started together)
-   into ``mxnet_tpu_torch/_build/``.
+   into ``mxnet_tpu_torch/_build/``; print what ``-Xptxas -v`` reports
+   (each attention kernel by name with its registers, spills and dynamic
+   shared memory).
 3. kernel parity — each kernel against its plain PyTorch version on the
    card, in bf16: the forward kernels at the shapes BERT-base serving
    gives them; the LayerNorm, bias+GeLU and attention backward kernels
@@ -22,7 +24,11 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    gives them; the dual backward (dx, dW, the masked jg and the
    chaining sums) at every call shape of ResNet-50's fused stages. The dropout masks of kernel and plain version must be
    identical (zero patterns compared exactly), and the dropout keep rate
-   within 5 binomial sigma of 0.9.
+   within 5 binomial sigma of 0.9. Attention also at ``ATT_SHAPES`` (L
+   77, 512 and 1024, hd 64, 32 and 128; both backward routes), and a
+   control: the backward with dV from the bf16 Pd must fail the
+   bit-equal share. The kernels' division (``div_rn``) bit for bit with
+   '/' on 3 x 2^30 operand pairs, x * rcp(y) caught.
 4. serving — BERT-base (12 layers, 768 units, 12 heads, vocab 30522) at
    full width with weights, biases, LayerNorm gamma and beta drawn from
    ``--seed``, cast to bf16 and served through ``InferenceSession``: the
@@ -93,9 +99,11 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    same function; per-request latency and tokens/s of serving; ms per
    training step and samples/s; the fused stages' forward and backward;
    the ResNet-50 step and images/s; the MLP step with the custom op and
-   its twin; then one served forward, one BERT training step, the fused
-   stages, one ResNet-50 step and one MLP step under torch.profiler, the
-   device time by kernel group.
+   its twin; then one served forward, one BERT training step (with the
+   attention kernels' share), the fused stages, one ResNet-50 step and
+   one MLP step under torch.profiler, the device time by kernel group.
+   The attention forward is timed at the serving shape (``selfatt_fwd``)
+   and at the training shape (``selfatt_fwd_train``, p = 0.1).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -310,8 +318,44 @@ def phase_build():
              paths[cuda_build.SOURCES[0]].parent))
     for src, log in sorted(info.get("logs", {}).items()):
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if src != "selfatt.cu" and ("registers" in ln or "spill" in ln):
                 print("[build] %s: %s" % (src, ln.strip()))
+    if "selfatt.cu" in info.get("logs", {}):
+        from mxnet_tpu_torch.ops import cuda_attention
+        lib = cuda_attention._lib()
+        for name, args, regs, spills in _ptxas_kernels(
+                info["logs"]["selfatt.cu"]):
+            # mxt_selfatt_smem's kernel numbers
+            which = {"selfatt_fwd_kernel": 0, "selfatt_bwd_kv_kernel": 2}.get(
+                name, 3 if "true" in args else 1)
+            print("[build] attention %s<%s>: %s registers, spill stores/"
+                  "loads %s bytes, dynamic shared memory %d bytes"
+                  % (name, ", ".join(args), regs, "/".join(spills),
+                     lib.mxt_selfatt_smem(which, int(args[0]))))
+
+
+def _ptxas_kernels(log):
+    """[(kernel, template arguments, registers, [spill stores, spill
+    loads])] from the ``-Xptxas -v`` report of one source."""
+    import re
+    out, spills = [], ["?", "?"]
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(selfatt_(?:fwd|bwd_q|bwd_kv)_kernel)I"
+                      r"((?:L[ib]\d+E)+)E", ln)
+        if m:
+            args = [("true" if v == "1" else "false") if k == "b" else v
+                    for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+            out.append([m.group(1), args, "?", spills])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and out:
+            out[-1][3] = [m.group(1), m.group(2)]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1][2] = m.group(1)
+    return out
 
 
 def _randn(seed):
@@ -630,7 +674,8 @@ def _profile(what, fn, n_other=8):
     """Run ``fn`` once warm, then once under torch.profiler; print the
     wall time, the device's busy time and share, and device time by
     kernel group (the port's kernels by name, cuBLAS, the largest other
-    kernels by name)."""
+    kernels by name). Returns {group: device ms}, empty when the
+    profiler saw no device kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch.ops import cuda_build
@@ -663,7 +708,7 @@ def _profile(what, fn, n_other=8):
     if not n_kernels:
         print("[profile] the profiler saw no device kernels: device time "
               "not measured")
-        return
+        return {}
     print("[profile] %s: wall %.2f ms (host clock, profiler on), %d "
           "kernels, device busy %.2f ms (%.0f%% of wall)"
           % (what, wall_ms, n_kernels, busy, 100 * busy / wall_ms))
@@ -679,6 +724,7 @@ def _profile(what, fn, n_other=8):
         print("[profile]   %-48s %8.3f ms  %5.1f%% of device time"
               % ("other: %d more kernel names" % len(rest), ms,
                  100 * ms / busy))
+    return groups
 
 
 def _drop_pattern(what, got, ref):
@@ -744,10 +790,11 @@ def phase_parity_train(seed):
                           dtype=torch.int32)
     args = (heads, 0.1, seeds, plan["bbh"])
     qkv, dout = randn(L, N, heads * 3 * hd), randn(L, N, heads * hd)
-    _check_close("selfatt_fwd p=0.1 L=%d N=%d heads=%d" % (L, N, heads),
-                 cuda_attention.selfatt_cuda(qkv, *args),
-                 cuda_attention.selfatt_plain(qkv, *args),
-                 KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+    errs["selfatt_fwd_train"] = _check_close(
+        "selfatt_fwd p=0.1 L=%d N=%d heads=%d" % (L, N, heads),
+        cuda_attention.selfatt_cuda(qkv, *args),
+        cuda_attention.selfatt_plain(qkv, *args),
+        KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
     errs["selfatt_bwd"] = _check_close(
         "selfatt_bwd dqkv p=0.1 L=%d N=%d heads=%d" % (L, N, heads),
         cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
@@ -771,6 +818,171 @@ def phase_parity_train(seed):
                           got.to(torch.float32),
                           want[..., k0:k0 + hd].to(torch.float32))
     return errs
+
+
+# Attention beyond BERT's shapes, at dropout 0.1: a ragged L, and L
+# above the single-pass backward and the one-sweep softmax (csrc/
+# selfatt.cu), at (L, N, heads, hd). At hd = 64 (scale 2^-3) the kernels
+# keep every rounding point and are held to KERNEL_EQUAL; at hd = 32 and
+# 128 they scale the f32 sum of Q.K^T, not q, and are held to the
+# tolerance only.
+ATT_SHAPES = tuple((L, N, 12, hd) for hd in (64, 32, 128)
+                   for L, N in ((77, 8), (512, 4), (1024, 2)))
+
+
+def _att_inputs(randn, L, N, heads, hd, seed):
+    import torch
+    from mxnet_tpu_torch.ops import cuda_attention
+    plan = cuda_attention.selfatt_plan(L, heads, N)
+    seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
+                          generator=torch.Generator(device=DEV)
+                          .manual_seed(seed), device=DEV, dtype=torch.int32)
+    return (randn(L, N, heads * 3 * hd), randn(L, N, heads * hd),
+            (heads, 0.1, seeds, plan["bbh"]))
+
+
+# div_rn (csrc/common.cuh), the attention kernels' division, against the
+# compiler's '/' on operands drawn in-kernel from a counter hash: x with a
+# random sign, exponent in [-100, 100] and mantissa; y by mode: 0 the
+# dropout keep probabilities 1 - p, p in [0, 0.999]; 1 softmax sums in
+# [1, 1024]; 2 anything div_ok admits (magnitudes 2^-24 to 2^25). With
+# ``naive`` the quotient is x * rcp(y), which must differ (the control).
+DIV_CHECK_SOURCE = r"""
+#include "common.cuh"
+__global__ void div_check(unsigned long long* out, unsigned long long n,
+                          int mode, int naive) {
+  unsigned long long bad = 0, tested = 0;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const uint32_t h1 = mxt_hash((uint32_t)i, 0x2545F491u + mode);
+    const uint32_t h2 = mxt_hash(h1, 1u), h3 = mxt_hash(h2, 2u);
+    const float x = __uint_as_float((h2 & 0x80000000u) |
+                                    ((27u + h1 % 201u) << 23) |
+                                    (h3 & 0x7fffffu));
+    float y;
+    if (mode == 0) y = 1.f - (float)(h2 % 1000u) * 1e-3f;
+    else if (mode == 1) y = (float)(1u + h3 % 1023u) +
+        (__uint_as_float(0x3f800000u | (h1 & 0x7fffffu)) - 1.f);
+    else y = __uint_as_float(((103u + h3 % 49u) << 23) | (h2 & 0x7fffffu));
+    if (!div_ok(x, y)) continue;
+    const float q = naive ? x * __frcp_rn(y) : div_rn(x, y);
+    ++tested;
+    if (__float_as_uint(q) != __float_as_uint(x / y)) ++bad;
+  }
+  atomicAdd(out, bad);
+  atomicAdd(out + 1, tested);
+}
+MXT_EXPORT int mxt_div_check(void* out, unsigned long long n, int mode,
+                             int naive, cudaStream_t stream) {
+  div_check<<<1056, 256, 0, stream>>>(
+      static_cast<unsigned long long*>(out), n, mode, naive);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+DIV_CHECK_N = 1 << 30
+
+
+def _division_check():
+    """div_rn bit for bit with '/' on DIV_CHECK_N operand pairs per mode;
+    x * rcp(y) must be caught."""
+    import ctypes
+    import torch
+    from mxnet_tpu_torch.ops import cuda_build
+    # the header's text, not an include path, so that the build's digest
+    # covers it
+    header = (cuda_build.CSRC_DIR / "common.cuh").read_text()
+    lib = cuda_build.load_library(cuda_build.build_source(
+        DIV_CHECK_SOURCE.replace('#include "common.cuh"', header)))
+    lib.mxt_div_check.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    counts = {}
+    for naive in (0, 1):
+        for mode in (0, 1, 2):
+            out = torch.zeros(2, dtype=torch.int64, device=DEV)
+            rc = lib.mxt_div_check(out.data_ptr(), DIV_CHECK_N, mode, naive,
+                                   torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SmokeFailure("div_check launch failed (%d)" % rc)
+            counts[naive, mode] = [int(v) for v in out.cpu()]
+    bad = sum(counts[0, m][0] for m in range(3))
+    tested = sum(counts[0, m][1] for m in range(3))
+    control = sum(counts[1, m][0] for m in range(3))
+    print("[parity] div_rn against '/': %d of %d quotients differ (keep "
+          "probabilities, softmax sums, any divisor) %s; control x * rcp(y): "
+          "%d differ, %s" % (bad, tested, "FAIL" if bad else "ok", control,
+                             "caught" if control else "MISSED"))
+    if bad or not tested:
+        raise SmokeFailure("div_rn differs from '/' in %d quotients" % bad)
+    if not control:
+        raise SmokeFailure("control: the division check passed x * rcp(y)")
+
+
+def _selfatt_bwd_pd_terms(qkv, dout, heads, p, seeds, block_heads, terms):
+    """The attention backward through ``mxt_selfatt_bwd_pd_terms``: dV
+    from ``terms`` bf16 terms of the f32 Pd (3: the kernel's own; 1, the
+    bf16 Pd, and 2 only at 32 < hd <= 64) - a planted fault for the
+    checks, which the port never launches."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_attention as ca, cuda_build
+    L, N, hd, lib, drop = ca._check(ca.BWD_KERNEL, qkv, heads, p, seeds,
+                                    block_heads)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((N, heads, 3, -(-L // 64) * 64),
+                        dtype=torch.float32, device=qkv.device)
+    rc = lib.mxt_selfatt_bwd_pd_terms(
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        L, N, heads, hd, ca._scale(hd), *drop, cuda_build.stream_of(qkv),
+        terms)
+    if rc:
+        raise SmokeFailure("mxt_selfatt_bwd_pd_terms failed (%d)" % rc)
+    return dqkv
+
+
+def phase_parity_attention(seed):
+    """The attention kernels' division against '/'; the kernels against
+    their plain versions at ATT_SHAPES, every backward route among them;
+    then the control: dV from the bf16 Pd (one term, through
+    ``mxt_selfatt_bwd_pd_terms``) must fail the equal share at BERT's
+    training shape. Two terms are reported."""
+    from mxnet_tpu_torch.ops import cuda_attention as ca
+    _division_check()
+    randn = _randn(seed + 7)
+    single = ca._lib().mxt_selfatt_bwd_single_pass
+    routes = set()
+    for i, (L, N, heads, hd) in enumerate(ATT_SHAPES):
+        qkv, dout, args = _att_inputs(randn, L, N, heads, hd, seed + 8 + i)
+        route = "single pass" if single(L, hd) else "two passes"
+        routes.add(route)
+        equal = KERNEL_EQUAL if hd == 64 else None
+        tag = "p=0.1 L=%d N=%d heads=%d hd=%d" % (L, N, heads, hd)
+        _check_close("selfatt_fwd " + tag, ca.selfatt_cuda(qkv, *args),
+                     ca.selfatt_plain(qkv, *args), KERNEL_ATOL, KERNEL_RTOL,
+                     equal)
+        _check_close("selfatt_bwd %s (%s)" % (tag, route),
+                     ca.selfatt_bwd_cuda(qkv, dout, *args),
+                     ca.selfatt_bwd_plain(qkv, dout, *args), KERNEL_ATOL,
+                     KERNEL_RTOL, equal)
+    if routes != {"single pass", "two passes"}:
+        raise SmokeFailure("the attention checks ran the backward routes %s, "
+                           "not both" % sorted(routes))
+
+    L, N, heads, hd = TRAIN_SEQ, TRAIN_BATCH, HEADS, HEAD_DIM
+    qkv, dout, args = _att_inputs(randn, L, N, heads, hd, seed + 4)
+    ref = ca.selfatt_bwd_plain(qkv, dout, *args)
+    shares = {}
+    for terms in (3, 2, 1):
+        got = _selfatt_bwd_pd_terms(qkv, dout, *args, terms)
+        shares[terms] = float((got == ref).float().mean())
+    print("[control] selfatt_bwd dV from Pd in bf16 terms at L=%d N=%d: "
+          "bit-equal share of dqkv %s (>= %g needed): one term (the bf16 Pd) "
+          "%s" % (L, N, ", ".join("%d terms %.5f" % kv for kv in
+                                 sorted(shares.items(), reverse=True)),
+                  KERNEL_EQUAL, "caught" if shares[1] < KERNEL_EQUAL
+                  else "MISSED"))
+    if shares[1] >= KERNEL_EQUAL:
+        raise SmokeFailure("control: the attention backward check passed dV "
+                           "from a bf16 Pd")
 
 
 def _train_batch(seed):
@@ -952,14 +1164,17 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
     E = 2
     rows = []
 
-    def row(name, source, replaces, fn, plain, lib, nbytes, flops, peak):
+    def row(name, source, replaces, fn, plain, lib, nbytes, flops, peak,
+            kernel=None):
         ms, plain_ms, lib_ms = (_gpu_ms(f, reps) for f in (fn, plain, lib))
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
             (t_ops, "operations")
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
-                     "launches_per_train_step": counts[name],
+        kernel = kernel or name
+        rows.append({"name": name, "kernel": kernel, "route": "cuda",
+                     "source": source, "replaces": replaces,
+                     "launches": counts[kernel],
+                     "launches_per_train_step": counts[kernel],
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms})
@@ -989,6 +1204,14 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
     o = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
     do = dout.reshape(L, N, heads, hd).permute(1, 2, 0, 3).contiguous()
     args = (heads, 0.1, seeds, plan["bbh"])
+    with torch.no_grad():
+        row("selfatt_fwd_train", "mxnet_tpu_torch/csrc/selfatt.cu",
+            "mxnet_tpu/ops/pallas_attention.py:256",
+            lambda: cuda_attention.selfatt_cuda(qkv, *args),
+            lambda: cuda_attention.selfatt_plain(qkv, *args),
+            lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=0.1),
+            (L * N * heads * 3 * hd + L * N * heads * hd) * E,
+            4 * N * heads * L * L * hd, bf16_peak, kernel="selfatt_fwd")
     row("selfatt_bwd", "mxnet_tpu_torch/csrc/selfatt.cu",
         "mxnet_tpu/ops/pallas_attention.py:302",
         lambda: cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
@@ -2035,6 +2258,17 @@ def phase_times_rtc(seed, reps, card, errs, counts, mnist_counts, nets,
     return rows
 
 
+def _attention_share(groups):
+    """Print the attention kernels' share of a profiled step's device
+    time."""
+    if not groups:
+        return
+    att = sum(groups.get(k, 0.0) for k in ("selfatt_fwd", "selfatt_bwd"))
+    print("[profile]   attention kernels (selfatt_fwd + selfatt_bwd): "
+          "%.3f ms, %.1f%% of device time" % (att, 100 * att /
+                                               sum(groups.values())))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2060,6 +2294,7 @@ def main(argv=None):
         phase_build()
         errs = phase_parity(args.seed)
         errs.update(phase_parity_train(args.seed))
+        phase_parity_attention(args.seed)
         errs["dual_bwd"] = phase_parity_resnet(args.seed)
         counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
         train_counts, tnet, mlm, params, batch = phase_train(
@@ -2083,13 +2318,14 @@ def main(argv=None):
                                 rtc_counts, mnist_counts, mnist_nets,
                                 mnist_loss, mnist_batch, rtc_mod, rtc_mod2)
         for r in rows:
-            r["launches_per_train_step"] = train_counts.get(r["name"], 0)
-            r["launches_per_fused_step"] = stage_counts.get(r["name"], 0)
-            r["launches_per_resnet_step"] = resnet_counts.get(r["name"], 0)
-            r["launches_per_mlp_step"] = mnist_step_counts.get(r["name"], 0)
+            k = r.get("kernel", r["name"])
+            r["launches_per_train_step"] = train_counts.get(k, 0)
+            r["launches_per_fused_step"] = stage_counts.get(k, 0)
+            r["launches_per_resnet_step"] = resnet_counts.get(k, 0)
+            r["launches_per_mlp_step"] = mnist_step_counts.get(k, 0)
         phase_profile(net)
-        _profile("one training step (batch %d x seq %d, LAMB)"
-                 % (TRAIN_BATCH, TRAIN_SEQ), step)
+        _attention_share(_profile("one training step (batch %d x seq %d, "
+                                  "LAMB)" % (TRAIN_BATCH, TRAIN_SEQ), step))
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)

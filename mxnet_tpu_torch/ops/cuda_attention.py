@@ -27,7 +27,8 @@ unfused composition, as in the reference, because the kernels compute
 in bf16), 1 <= L <= 1024, any head count. The reference's further limits
 — its VMEM budget for the score block and the padding of L to 16 rows
 and heads to whole head blocks — are TPU limits, so these kernels serve
-the whole domain. The kernels take head dims up to 256.
+the whole domain. The kernels take head dims up to 256; their shared
+memory does not grow with L.
 """
 from __future__ import annotations
 
@@ -190,9 +191,14 @@ def _lib():
         lib.mxt_selfatt_fwd.argtypes = [p, p, i32, i32, i32, i32, f32, p, i32,
                                         i32, i32, u32, f32, i32, p]
         lib.mxt_selfatt_fwd.restype = i32
-        lib.mxt_selfatt_bwd.argtypes = [p, p, p, p, i32, i32, i32, i32, f32,
-                                        p, i32, i32, i32, u32, f32, i32, p]
+        bwd = [p, p, p, p, i32, i32, i32, i32, f32, p, i32, i32, i32, u32,
+               f32, i32, p]
+        lib.mxt_selfatt_bwd.argtypes = bwd
         lib.mxt_selfatt_bwd.restype = i32
+        lib.mxt_selfatt_bwd_pd_terms.argtypes = bwd + [i32]
+        lib.mxt_selfatt_bwd_pd_terms.restype = i32
+        lib.mxt_selfatt_smem.argtypes = [i32, i32]
+        lib.mxt_selfatt_smem.restype = i32
         lib.mxt_selfatt_max_hd.argtypes = []
         lib.mxt_selfatt_max_hd.restype = i32
         lib._mxt_ready = True
@@ -233,8 +239,6 @@ def selfatt_cuda(qkv: torch.Tensor, heads: int, p: float = 0.0,
     out = torch.empty((L, N, heads * hd), dtype=torch.bfloat16,
                       device=qkv.device)
     with torch.cuda.device(qkv.device):
-        # an L whose score rows exceed the device's shared memory is
-        # refused by the launcher (cudaFuncSetAttribute) and raises below
         rc = lib.mxt_selfatt_fwd(qkv.data_ptr(), out.data_ptr(), L, N,
                                  heads, hd, _scale(hd), *drop,
                                  _cb.stream_of(qkv))
@@ -256,8 +260,10 @@ def selfatt_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                          % (BWD_KERNEL, (L, N, heads * hd),
                             tuple(dout.shape)))
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((N, heads, L, 3), dtype=torch.float32,
-                        device=qkv.device)
+    # each row's max, sum and rowsum(dP * P), rows padded to the kernels'
+    # 64-row tiles
+    stats = torch.empty((N, heads, 3, -(-L // 64) * 64),
+                        dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         rc = lib.mxt_selfatt_bwd(qkv.data_ptr(), dout.data_ptr(),
                                  dqkv.data_ptr(), stats.data_ptr(), L, N,

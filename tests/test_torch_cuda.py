@@ -53,7 +53,21 @@ def _assert_close(got, ref, reduced=False):
     assert (err <= tol).all(), "max err %g" % err.max()
 
 
+def _assert_equal_share(got, ref, least=0.99):
+    """The attention kernels keep their plain versions' rounding points
+    at hd = 64 (scale 2^-3): all but a few elements come out bit-equal
+    (f32 sums in another order flip a bf16 rounding now and then)."""
+    torch.cuda.synchronize()
+    share = float((got == ref).float().mean())
+    assert share >= least, "bit-equal share %.5f < %g" % (share, least)
+
+
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+# attention shapes (L, N, heads, hd) that launch every tile edge and
+# template of csrc/selfatt.cu: ragged L, L past the single-pass backward
+# (128) and the one-sweep softmax chunk, hd 32 (its own template)
+ATT_EDGES = [(77, 4, 12, 64), (200, 2, 3, 64), (512, 2, 4, 64),
+             (77, 4, 6, 32), (200, 2, 3, 32), (512, 2, 2, 32)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -70,11 +84,14 @@ def test_layer_norm_kernel(card, dtype, M, C):
 
 @pytest.mark.parametrize("L,N,heads,hd", [
     (1, 1, 1, 16), (127, 4, 5, 64), (128, 8, 12, 64), (16, 3, 4, 24),
-    (64, 2, 3, 128), (33, 2, 2, 256), (1024, 2, 2, 64)])
+    (64, 2, 3, 128), (33, 2, 2, 256), (1024, 2, 2, 64)] + ATT_EDGES)
 def test_selfatt_kernel(card, L, N, heads, hd):
     qkv = _randn(card, (L, N, heads * 3 * hd), torch.bfloat16, 2.0)
-    _assert_close(cuda_attention.selfatt_cuda(qkv, heads),
-                  cuda_attention.selfatt_plain(qkv, heads))
+    got = cuda_attention.selfatt_cuda(qkv, heads)
+    ref = cuda_attention.selfatt_plain(qkv, heads)
+    _assert_close(got, ref)
+    if hd == 64:
+        _assert_equal_share(got, ref)
 
 
 def test_selfatt_dispatch_by_dtype(card):
@@ -194,7 +211,7 @@ def test_dropout_kernel_is_the_plain_version(card, dtype, n):
 
 @pytest.mark.parametrize("L,N,heads,hd", [
     (1, 1, 1, 16), (127, 4, 5, 64), (128, 8, 12, 64), (33, 2, 3, 128),
-    (33, 2, 2, 256), (1024, 2, 2, 64)])
+    (33, 2, 2, 256), (1024, 2, 2, 64)] + ATT_EDGES)
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_selfatt_fwd_bwd_kernels(card, L, N, heads, hd, p):
     qkv = _randn(card, (L, N, heads * 3 * hd), torch.bfloat16, 2.0)
@@ -203,10 +220,39 @@ def test_selfatt_fwd_bwd_kernels(card, L, N, heads, hd, p):
     seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
                           generator=card, device="cuda", dtype=torch.int32)
     args = (heads, p, seeds, plan["bbh"])
-    _assert_close(cuda_attention.selfatt_cuda(qkv, *args),
-                  cuda_attention.selfatt_plain(qkv, *args))
-    _assert_close(cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
-                  cuda_attention.selfatt_bwd_plain(qkv, dout, *args))
+    pairs = [(cuda_attention.selfatt_cuda(qkv, *args),
+              cuda_attention.selfatt_plain(qkv, *args)),
+             (cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
+              cuda_attention.selfatt_bwd_plain(qkv, dout, *args))]
+    for got, ref in pairs:
+        _assert_close(got, ref)
+        if hd == 64:
+            _assert_equal_share(got, ref)
+
+
+def test_selfatt_bwd_routes_and_pd_terms(card):
+    """L <= 128 at hd <= 64 takes the single-pass backward, longer L the
+    two passes; on both, dV from the bf16 Pd (one term, through the
+    debug entry mxt_selfatt_bwd_pd_terms) leaves too few elements
+    bit-equal, the kernel's three terms enough."""
+    import chip_smoke
+    single = cuda_attention._lib().mxt_selfatt_bwd_single_pass
+    assert single(128, 64) == 1 and single(77, 32) == 1
+    assert single(129, 64) == 0 and single(128, 128) == 0
+    for L in (128, 256):
+        qkv = _randn(card, (L, 8, 4 * 3 * 64), torch.bfloat16)
+        dout = _randn(card, (L, 8, 4 * 64), torch.bfloat16)
+        plan = cuda_attention.selfatt_plan(L, 4, 8)
+        seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
+                              generator=card, device="cuda",
+                              dtype=torch.int32)
+        args = (4, 0.1, seeds, plan["bbh"])
+        ref = cuda_attention.selfatt_bwd_plain(qkv, dout, *args)
+        _assert_equal_share(cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
+                            ref)
+        bad = chip_smoke._selfatt_bwd_pd_terms(qkv, dout, *args, 1)
+        torch.cuda.synchronize()
+        assert float((bad == ref).float().mean()) < 0.99
 
 
 def test_selfatt_dropout_mask_is_the_plain_mask(card):
