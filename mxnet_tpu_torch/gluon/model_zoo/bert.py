@@ -20,7 +20,7 @@ __all__ = ["BERTEncoder", "BERTModel", "BERTMLMLoss", "bert_12_768_12",
 
 CHUNKED_CE = ("BERTMLMLoss mode %r is not ported yet: the chunked and fused "
               "LM-head cross entropies come in a later slice (ROADMAP.md "
-              "queue 1, item 6); pass mode='dense'")
+              "queue 1, item 5); pass mode='dense'")
 
 
 class PositionwiseFFN(HybridBlock):

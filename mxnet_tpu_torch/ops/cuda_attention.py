@@ -119,10 +119,18 @@ def _bf16(t: torch.Tensor, rounding: bool) -> torch.Tensor:
     return t.to(torch.bfloat16).float() if rounding else t.float()
 
 
-def _probs(q, k):
+def _einsum(eq, a, b, sum_dtype):
+    """``torch.einsum(eq, a, b)`` on f32 operands, its products summed in
+    ``sum_dtype`` and rounded to f32 right after the sum."""
+    if sum_dtype == torch.float32:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.to(sum_dtype), b.to(sum_dtype)).float()
+
+
+def _probs(q, k, sum_dtype=torch.float32):
     """f32 softmax of q.k^T over keys, (N, heads, L, L), as the kernel
     computes it (max, exp, sum, divide)."""
-    s = torch.einsum("lnhd,mnhd->nhlm", q, k)
+    s = _einsum("lnhd,mnhd->nhlm", q, k, sum_dtype)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
 
@@ -136,18 +144,22 @@ def _unpack(qkv, heads, rounding):
 def selfatt_plain(qkv: torch.Tensor, heads: int, p: float = 0.0,
                   seeds: Optional[torch.Tensor] = None,
                   block_heads: Optional[int] = None,
-                  rounding: bool = True) -> torch.Tensor:
+                  rounding: bool = True,
+                  sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The forward kernel's arithmetic in PyTorch ops. ``rounding=False``
     drops the bf16 rounding points (input, Pd, output) and computes the
-    same function in f32."""
+    same function in f32. ``sum_dtype=torch.float64`` sums each product
+    (Q.K^T, Pd.V) in float64 and rounds it to f32 right after: to within
+    f32 rounding the correctly rounded sums, so a witness that depends on
+    no summation order; every other operation and rounding point stays."""
     L, N, hd = _split(qkv, heads)
     q, k, v = _unpack(qkv, heads, rounding)
-    pd = _probs(q, k)
+    pd = _probs(q, k, sum_dtype)
     if p > 0.0:
         keep = torch.full((), 1.0 - p, dtype=torch.float32, device=pd.device)
         pd = torch.where(keep_mask(seeds, N, heads, L, p, block_heads),
                          pd / keep, 0.0)
-    o = torch.einsum("nhlm,mnhd->lnhd", _bf16(pd, rounding), v)
+    o = _einsum("nhlm,mnhd->lnhd", _bf16(pd, rounding), v, sum_dtype)
     if rounding:
         o = o.to(torch.bfloat16)
     return o.reshape(L, N, heads * hd).to(qkv.dtype)
@@ -156,16 +168,19 @@ def selfatt_plain(qkv: torch.Tensor, heads: int, p: float = 0.0,
 def selfatt_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                       p: float = 0.0, seeds: Optional[torch.Tensor] = None,
                       block_heads: Optional[int] = None,
-                      rounding: bool = True) -> torch.Tensor:
+                      rounding: bool = True,
+                      sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The backward kernel's arithmetic in PyTorch ops: the reference's
     formula written out (not autograd through the forward), with its
     rounding points — dV from the f32 Pd, dQ and dK from bf16(dS), dK
-    from bf16(Q * scale). ``rounding=False`` drops them."""
+    from bf16(Q * scale). ``rounding=False`` drops them;
+    ``sum_dtype=torch.float64`` sums the products (Q.K^T, dO.V^T, dV, dQ,
+    dK) in float64, as :func:`selfatt_plain` does."""
     L, N, hd = _split(qkv, heads)
     q, k, v = _unpack(qkv, heads, rounding)
     do = _bf16(dout, rounding).reshape(L, N, heads, hd)
-    prob = _probs(q, k)
-    dp = torch.einsum("lnhd,mnhd->nhlm", do, v)
+    prob = _probs(q, k, sum_dtype)
+    dp = _einsum("lnhd,mnhd->nhlm", do, v, sum_dtype)
     pd = prob
     if p > 0.0:
         keep = torch.full((), 1.0 - p, dtype=torch.float32,
@@ -173,10 +188,11 @@ def selfatt_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         mask = keep_mask(seeds, N, heads, L, p, block_heads)
         pd = torch.where(mask, prob / keep, 0.0)
         dp = torch.where(mask, dp / keep, 0.0)
-    dv = torch.einsum("nhlm,lnhd->mnhd", pd, do)
+    dv = _einsum("nhlm,lnhd->mnhd", pd, do, sum_dtype)
     ds = _bf16(prob * (dp - (dp * prob).sum(dim=-1, keepdim=True)), rounding)
-    dq = torch.einsum("nhlm,mnhd->lnhd", ds, _bf16(k, rounding)) * _scale(hd)
-    dk = torch.einsum("nhlm,lnhd->mnhd", ds, _bf16(q, rounding))
+    dq = _einsum("nhlm,mnhd->lnhd", ds, _bf16(k, rounding),
+                 sum_dtype) * _scale(hd)
+    dk = _einsum("nhlm,lnhd->mnhd", ds, _bf16(q, rounding), sum_dtype)
     out = torch.stack([dq, dk, dv], dim=3).reshape(L, N, heads * 3 * hd)
     if rounding:
         out = out.to(torch.bfloat16)

@@ -29,6 +29,7 @@ an entry made at its first launch and dropped by
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,7 +46,8 @@ from ..base import MXNetError
 __all__ = ["SOURCES", "KERNELS", "build", "build_info", "library",
            "build_source", "load_library", "RTC_PREFIX",
            "launch_counts", "reset_launch_counts", "count_launch",
-           "check_launch", "check_cuda_tensor", "stream_of", "DTYPE_CODES",
+           "check_launch", "check_cuda_tensor", "sm_count", "stream_of",
+           "DTYPE_CODES",
            "apply"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -248,6 +250,13 @@ def check_cuda_tensor(kernel: str, name: str, t: torch.Tensor,
         raise MXNetError("%s: %s has dtype %s; the kernel takes %s"
                          % (kernel, name, t.dtype,
                             ", ".join(str(d) for d in dtypes)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device``'s card, from which the
+    persistent kernels size their grids."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

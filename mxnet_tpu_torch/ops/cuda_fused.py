@@ -48,9 +48,14 @@ __all__ = ["conv1x1_bn_act", "conv1x1_bn_act_ref", "bottleneck_v1_block",
 KERNEL = "dual_bwd"
 SOURCE = "dual_bwd.cu"
 MASK_MODES = {"none": 0, "scale_shift": 1, "out": 2}
-_ROWS_DX = 128          # rows of one dx tile of the kernel
-_COLS_DW = (64, 128)    # (I, O) of one dW tile
-_DW_BLOCKS = 264        # about two dW blocks per SM of an H100
+# the kernel's tiles (csrc/dual_bwd.cu)
+_DX_TILE = (128, 64)    # (rows, I) of one dx tile
+_DW_TILE = (64, 128)    # (I, O) of one dW tile
+_BK = 32                # depth of one step of either product
+_EPI_ROWS = 32          # rows of one block of the split dx's epilogue
+_FILL = 2               # blocks an SM that each grid aims for
+_MIN_SLICE = 256        # the least O depth of one dx slice
+_FUSE_I, _FUSE_O = 64, 256   # the widest call one block takes whole
 
 
 # ---------------------------------------------------------------------------
@@ -101,21 +106,58 @@ def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.mxt_dual_bwd.argtypes = [p] * 15 + [i64, i32, i32, i32, i32,
-                                                i64, p]
+        lib.mxt_dual_bwd.argtypes = [p] * 17 + [i64, i32, i32, i32, i32,
+                                                i64, i32, i32, i32, i32, p]
         lib.mxt_dual_bwd.restype = ctypes.c_int
         lib._mxt_ready = True
     return lib
 
 
-def _dw_split(M, I, O):
-    """Row splits of the dW pass: enough blocks to fill the card, each
-    split a multiple of 32 rows and at least 128; returns (splits, rows
-    per split)."""
-    tiles = -(-I // _COLS_DW[0]) * -(-O // _COLS_DW[1])
-    splits = max(1, min(-(-_DW_BLOCKS // tiles), -(-M // 128)))
-    rows = -(-(-(-M // splits)) // 32) * 32
-    return -(-M // rows), rows
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def dual_plan(M, I, O, sms, emit_next=False, aligned=True):
+    """How the kernel splits one call over a card of ``sms`` SMs, and the
+    scratch it needs:
+
+    - ``fused``: one block takes both products of its rows (I at most 64,
+      O above 128 and at most 256, no chaining sums, I and O multiples of
+      8, every operand 16-byte ``aligned``: stage 1's tails and
+      downsample; at O = 64, stage 1's first head, the cdy pass is as
+      fast), ``_FILL`` blocks an SM, no cdy scratch;
+    - ``splits_w``, ``rows_w``: the dW rows split so that the dW blocks
+      give about ``_FILL`` blocks an SM, each split a multiple of ``_BK``
+      rows and at least 128 where M allows (fused: the blocks above, a
+      multiple of ``_BK`` rows each);
+    - ``splits_x``, ``depth_x``: the O depth of dx split into slices
+      where the dx tiles alone give fewer than ``_FILL`` blocks an SM,
+      each slice a multiple of ``_BK`` and at least ``_MIN_SLICE`` deep
+      (one slice, ``depth_x >= O``, elsewhere);
+    - the shapes of the scratch tensors: ``cdy`` (bf16; None when fused),
+      ``part_dw``, ``part_dx`` (None for one slice) and ``part_sums``
+      (None without ``emit_next``), all f32 but cdy."""
+    fused = (I <= _FUSE_I and _FUSE_O // 2 < O <= _FUSE_O and not emit_next
+             and aligned and I % 8 == 0 and O % 8 == 0)
+    if fused:
+        splits = min(_FILL * sms, _cdiv(M, _BK))
+    else:
+        tiles_w = _cdiv(I, _DW_TILE[0]) * _cdiv(O, _DW_TILE[1])
+        splits = max(1, min(_cdiv(_FILL * sms, tiles_w), _cdiv(M, 128)))
+    rows_w = _cdiv(_cdiv(M, splits), _BK) * _BK
+    tiles_x = _cdiv(M, _DX_TILE[0]) * _cdiv(I, _DX_TILE[1])
+    splits_x = 1
+    if tiles_x < _FILL * sms and not fused:
+        splits_x = max(1, min(_cdiv(_FILL * sms, tiles_x), O // _MIN_SLICE))
+    depth_x = _cdiv(_cdiv(O, splits_x), _BK) * _BK
+    splits_x = _cdiv(O, depth_x)
+    sum_rows = _EPI_ROWS if splits_x > 1 else _DX_TILE[0]
+    return {"fused": fused, "splits_w": _cdiv(M, rows_w), "rows_w": rows_w,
+            "splits_x": splits_x, "depth_x": depth_x,
+            "cdy": None if fused else (M, O),
+            "part_dw": (_cdiv(M, rows_w), I, O),
+            "part_dx": (splits_x, M, I) if splits_x > 1 else None,
+            "part_sums": (_cdiv(M, sum_rows), 2, I) if emit_next else None}
 
 
 def dual_bwd_cuda(jg, y, x, w, coef, mask_mode, mask=None, addend=None,
@@ -153,17 +195,21 @@ def dual_bwd_cuda(jg, y, x, w, coef, mask_mode, mask=None, addend=None,
     if M < 1 or I < 1 or O < 1:
         raise MXNetError("%s: empty operand (M, I, O) = (%d, %d, %d)"
                          % (KERNEL, M, I, O))
+    operands = [t for t, _, _ in want.values()]
+    plan = dual_plan(M, I, O, _cb.sm_count(dev), emit_next,
+                     aligned=all(t.data_ptr() % 16 == 0
+                                 for t in operands + [x]))
+    # held until the launch is queued: a scratch tensor freed earlier
+    # could hand its memory to the next one
+    scratch = {key: None if plan[key] is None else torch.empty(
+        plan[key], dtype=torch.bfloat16 if key == "cdy" else torch.float32,
+        device=dev) for key in ("cdy", "part_dw", "part_dx", "part_sums")}
     dx = torch.empty((M, I), dtype=torch.bfloat16, device=dev)
     dw = torch.empty((I, O), dtype=torch.float32, device=dev)
     jg_out = torch.empty((M, O), dtype=torch.bfloat16, device=dev) \
         if emit_jg else None
-    splits, rows = _dw_split(M, I, O)
-    part_dw = torch.empty((splits, I, O), dtype=torch.float32, device=dev)
-    sums = part_sums = None
-    if emit_next:
-        sums = torch.empty((2, I), dtype=torch.float32, device=dev)
-        part_sums = torch.empty((-(-M // _ROWS_DX), 2, I),
-                                dtype=torch.float32, device=dev)
+    sums = torch.empty((2, I), dtype=torch.float32, device=dev) \
+        if emit_next else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -173,8 +219,11 @@ def dual_bwd_cuda(jg, y, x, w, coef, mask_mode, mask=None, addend=None,
             ptr(jg), ptr(y), ptr(x), ptr(w), ptr(coef),
             ptr(mask if mask_mode == "out" else None), ptr(addend),
             ptr(y3p), ptr(mprev), ptr(dx), ptr(dw), ptr(jg_out), ptr(sums),
-            ptr(part_dw), ptr(part_sums), M, I, O, MASK_MODES[mask_mode],
-            splits, rows, _cb.stream_of(x))
+            *(ptr(scratch[k]) for k in ("cdy", "part_dw", "part_dx",
+                                        "part_sums")), M, I, O,
+            MASK_MODES[mask_mode], plan["splits_w"], plan["rows_w"],
+            plan["splits_x"], plan["depth_x"], int(plan["fused"]),
+            _cb.sm_count(dev), _cb.stream_of(x))
     _cb.check_launch(lib, rc, KERNEL)
     return dx, dw, jg_out, sums
 

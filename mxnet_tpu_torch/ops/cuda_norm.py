@@ -36,6 +36,10 @@ __all__ = ["layer_norm", "layer_norm_cuda", "layer_norm_plain",
 KERNEL = "layer_norm_fwd"
 BWD_KERNEL = "layer_norm_bwd"
 SOURCE = "layer_norm.cu"
+# the backward kernel's grid and paths (csrc/layer_norm.cu)
+_BWD_WARPS = 8
+_BWD_BLOCKS_PER_SM = 2
+_REG_COLS = 1024
 
 
 def ln_available(shape, dtype, axis) -> bool:
@@ -85,6 +89,32 @@ def layer_norm_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
             dyf.sum(dim=0).to(gamma.dtype))
 
 
+def bwd_blocks(M: int, sms: int) -> int:
+    """The backward's persistent grid: ``_BWD_BLOCKS_PER_SM`` blocks of
+    ``_BWD_WARPS`` warps on each of the card's ``sms`` SMs, fewer where
+    the rows do not fill them (a warp takes a row at a time)."""
+    return max(1, min(-(-M // _BWD_WARPS), _BWD_BLOCKS_PER_SM * sms))
+
+
+def bwd_vectors(C: int, dtype: torch.dtype) -> int:
+    """16-byte vectors a lane holds on the backward kernel's register
+    path for rows of ``C`` elements, or 0 where its chunked path (element
+    loads, 1024 columns a sweep) takes them: rows that are not a
+    whole number of 16-byte vectors or are wider than ``_REG_COLS``
+    (``csrc/layer_norm.cu :: bwd_vectors``)."""
+    e = 16 // dtype.itemsize
+    if C % e or C > _REG_COLS:
+        return 0
+    nv = -(-C // (32 * e))
+    return nv if nv <= 4 else 6 if nv <= 6 else 8
+
+
+def bwd_scratch_shape(M: int, C: int, sms: int):
+    """The backward's f32 scratch: one dgamma and one dbeta partial row
+    per block."""
+    return (bwd_blocks(M, sms), 2, C)
+
+
 def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
@@ -95,10 +125,10 @@ def _lib():
         f.restype = i32
         f = lib.mxt_layer_norm_bwd
         f.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64, i32,
-                      ctypes.c_float, i32, i32, p]
+                      ctypes.c_float, i32, i32, i32, p]
         f.restype = i32
-        lib.mxt_layer_norm_bwd_rows.argtypes = []
-        lib.mxt_layer_norm_bwd_rows.restype = i32
+        lib.mxt_layer_norm_bwd_vectors.argtypes = [i32, i32]
+        lib.mxt_layer_norm_bwd_vectors.restype = i32
         lib._mxt_ready = True
     return lib
 
@@ -143,9 +173,9 @@ def layer_norm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
                                          tuple(x.shape), tuple(gamma.shape)))
     M, C = x.shape
     lib = _lib()
-    blocks = -(-M // lib.mxt_layer_norm_bwd_rows())
+    part = torch.empty(bwd_scratch_shape(M, C, _cb.sm_count(x.device)),
+                       dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    part = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(gamma)
     with torch.cuda.device(x.device):
@@ -153,7 +183,7 @@ def layer_norm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
             dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
             part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), M, C,
             float(eps), _cb.DTYPE_CODES[x.dtype],
-            _cb.DTYPE_CODES[gamma.dtype], _cb.stream_of(x))
+            _cb.DTYPE_CODES[gamma.dtype], part.shape[0], _cb.stream_of(x))
     _cb.check_launch(lib, rc, BWD_KERNEL)
     return dx, dgamma, dbeta
 

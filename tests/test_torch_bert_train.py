@@ -151,6 +151,13 @@ def test_mlm_loss_names_and_modes_match_reference():
             PortMLM(**dict(MLM, mode=mode))
 
 
+@pytest.mark.parametrize("mode", ["auto", "chunked", "fused"])
+def test_mlm_loss_refusal_names_the_lm_head_queue_item(mode):
+    """The LM-head cross entropies are ROADMAP.md queue 1 item 5."""
+    with pytest.raises(NotImplementedError, match=r"queue 1, item 5\)"):
+        PortMLM(**dict(MLM, mode=mode))
+
+
 def test_bert_training_with_dropout_runs_and_repeats():
     arrays = _arrays()
 

@@ -176,7 +176,7 @@ def test_served_bert_runs_the_kernels(card):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("M,C", [(1, 768), (4096, 768), (33, 100),
-                                 (70, 1536)])
+                                 (70, 1536), (4096, 1024), (5, 4100)])
 def test_layer_norm_bwd_kernel(card, dtype, M, C):
     x = _randn(card, (M, C), dtype, 3.0) + 1
     dy = _randn(card, (M, C), dtype)
@@ -185,6 +185,23 @@ def test_layer_norm_bwd_kernel(card, dtype, M, C):
     ref = cuda_norm.layer_norm_bwd_plain(dy, x, g, 1e-5)
     for i, (a, b) in enumerate(zip(got, ref)):
         _assert_close(a, b, reduced=i > 0)
+
+
+def test_layer_norm_bwd_paths(card):
+    """The launcher takes the register path and the chunked path where
+    the wrapper's bwd_vectors says: BERT's rows (768) and 1024 in
+    registers, rows of 1536 and 4100 and the unaligned bf16 rows of 100
+    chunked; and the grid is two blocks an SM."""
+    lib = cuda_norm._lib()
+    for C in (100, 768, 1024, 1536, 4100):
+        for dtype in DTYPES:
+            assert lib.mxt_layer_norm_bwd_vectors(
+                C, cuda_build.DTYPE_CODES[dtype]) == \
+                cuda_norm.bwd_vectors(C, dtype), (C, dtype)
+    assert cuda_norm.bwd_vectors(768, torch.bfloat16) == 3
+    assert cuda_norm.bwd_vectors(100, torch.bfloat16) == 0
+    sms = cuda_build.sm_count(torch.device("cuda"))
+    assert cuda_norm.bwd_blocks(4096, sms) == 2 * sms
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -214,18 +231,37 @@ def test_dropout_kernel_is_the_plain_version(card, dtype, n):
     (33, 2, 2, 256), (1024, 2, 2, 64)] + ATT_EDGES)
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_selfatt_fwd_bwd_kernels(card, L, N, heads, hd, p):
+    """Each output within tol(ref) + |ref - wit| of the plain version
+    ``ref`` at every element (chip_smoke.order_limit): tol is
+    _assert_close's bound and ``wit`` the plain version with its products
+    summed in float64, so the limit widens only where another f32
+    summation order moves the plain version itself. The tensor cores sum
+    Q.K^T and dO.V^T in another order than cuBLAS, which now and then
+    flips the bf16 rounding of a large dS that dQ and dK carry; where the
+    two plain orders agree the bound is _assert_close's."""
+    import chip_smoke
     qkv = _randn(card, (L, N, heads * 3 * hd), torch.bfloat16, 2.0)
     dout = _randn(card, (L, N, heads * hd), torch.bfloat16)
     plan = cuda_attention.selfatt_plan(L, heads, N)
     seeds = torch.randint(0, 2 ** 31 - 1, (plan["n_blocks"],),
                           generator=card, device="cuda", dtype=torch.int32)
     args = (heads, p, seeds, plan["bbh"])
-    pairs = [(cuda_attention.selfatt_cuda(qkv, *args),
-              cuda_attention.selfatt_plain(qkv, *args)),
-             (cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
-              cuda_attention.selfatt_bwd_plain(qkv, dout, *args))]
-    for got, ref in pairs:
-        _assert_close(got, ref)
+    f64 = {"sum_dtype": torch.float64}
+    triples = [("fwd", cuda_attention.selfatt_cuda(qkv, *args),
+                cuda_attention.selfatt_plain(qkv, *args),
+                cuda_attention.selfatt_plain(qkv, *args, **f64)),
+               ("bwd", cuda_attention.selfatt_bwd_cuda(qkv, dout, *args),
+                cuda_attention.selfatt_bwd_plain(qkv, dout, *args),
+                cuda_attention.selfatt_bwd_plain(qkv, dout, *args, **f64))]
+    for name, got, ref, wit in triples:
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        beyond, apart, there = chip_smoke.order_limit(got, ref, wit)
+        print("[order] %s L=%d N=%d heads=%d hd=%d p=%g: plain f32 and "
+              "float64-summed apart beyond tol at %d elements, |got - ref| "
+              "there up to %g; beyond the limit %d"
+              % (name, L, N, heads, hd, p, apart, there, beyond))
+        assert beyond == 0, "%d elements beyond the order limit" % beyond
         if hd == 64:
             _assert_equal_share(got, ref)
 
@@ -362,20 +398,33 @@ def _dual_inputs(g, M, I, O, mask_mode, has_addend, emit_next):
 
 
 @pytest.mark.parametrize("M,I,O", [(256, 32, 64), (1000, 64, 256),
-                                   (1568, 2048, 512), (333, 70, 130)])
+                                   (1568, 2048, 512), (333, 70, 130),
+                                   (6272, 256, 1024), (1568, 512, 2048),
+                                   (520, 48, 200)])
 @pytest.mark.parametrize("emit_next", [False, True])
 @pytest.mark.parametrize("emit_jg", [False, True])
 @pytest.mark.parametrize("has_addend", [False, True])
 @pytest.mark.parametrize("mask_mode", ["none", "scale_shift", "out"])
 def test_dual_bwd_kernel(card, mask_mode, has_addend, emit_jg, emit_next,
                          M, I, O):
-    """Every variant at ResNet-50's widest head shape, at a row count
-    that is a multiple of no tile, and at widths that are not multiples
-    of the kernel's tiles; the masked jg is a select and must be exact,
-    and at least 99% of dx's elements bit-equal (the kernel and cuBLAS
-    add the f32 products in another order)."""
+    """Every variant at ResNet-50's widest head shape and its stage 3
+    and 4 tails (whose dx depth the kernel splits into slices), at a row
+    count that is a multiple of no tile, at widths that are not
+    multiples of the kernel's tiles (element loads in place of 16-byte
+    ones), and where one block takes both products ((1000, 64, 256);
+    (520, 48, 200) with I and O short of that block's); the masked jg is
+    a select and must be exact, and at least 99% of dx's elements
+    bit-equal (the kernel and cuBLAS add the f32 products in another
+    order)."""
     args, kw = _dual_inputs(card, M, I, O, mask_mode, has_addend,
                             emit_next)
+    plan = cuda_fused.dual_plan(M, I, O,
+                                cuda_build.sm_count(torch.device("cuda")),
+                                emit_next)
+    if (M, I, O) in ((6272, 256, 1024), (1568, 512, 2048)):
+        assert plan["splits_x"] > 1
+    assert plan["fused"] == ((M, I, O) in ((1000, 64, 256), (520, 48, 200))
+                             and not emit_next)
     got = cuda_fused.dual_bwd_cuda(*args, emit_jg=emit_jg, **kw)
     ref = cuda_fused.dual_bwd_plain(*args, emit_jg=emit_jg, **kw)
     _assert_close(got[0], ref[0])

@@ -247,6 +247,106 @@ def test_dispatch_is_by_device(fn):
         fn(torch.ones(2, 6, device="meta"))
 
 
+@pytest.mark.parametrize("C,dtype,vectors", [
+    (768, "bfloat16", 3), (1024, "bfloat16", 4), (768, "float16", 3),
+    (8, "bfloat16", 1), (768, "float32", 6), (1024, "float32", 8),
+    (520, "float32", 6), (100, "float32", 1), (100, "bfloat16", 0),
+    (1536, "bfloat16", 0), (4100, "float32", 0), (4100, "bfloat16", 0)])
+def test_layer_norm_bwd_path_choice(C, dtype, vectors):
+    """Rows that are whole 16-byte vectors, at most 1024 wide, go to the
+    backward kernel's register path with that many vectors a lane (4, 6
+    or 8 past 3); the others (C = 100 in bf16 is not 16-byte aligned) to
+    its chunked path, 0."""
+    assert cuda_norm.bwd_vectors(C, torch_dtype(dtype)) == vectors
+
+
+@pytest.mark.parametrize("M,sms,blocks", [(4096, 132, 264), (4096, 114, 228),
+                                          (1, 132, 1), (33, 132, 5),
+                                          (2112, 132, 264)])
+def test_layer_norm_bwd_grid_and_scratch(M, sms, blocks):
+    """Two 8-warp blocks an SM, fewer where the rows run out; one dgamma
+    and one dbeta partial row of f32 per block."""
+    assert cuda_norm.bwd_blocks(M, sms) == blocks
+    assert cuda_norm.bwd_scratch_shape(M, 768, sms) == (blocks, 2, 768)
+
+
+DUAL_SHAPES = [(100352, 64, 256), (100352, 256, 64), (100352, 64, 64),
+               (25088, 128, 512), (25088, 512, 128), (6272, 256, 1024),
+               (6272, 1024, 256), (1568, 512, 2048), (1568, 2048, 512),
+               (333, 70, 130), (1, 8, 8), (100, 3000, 40)]
+
+
+@pytest.mark.parametrize("M,I,O", DUAL_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_dual_plan_covers_every_row_and_column(M, I, O, sms):
+    """dW's row splits and dx's depth slices are whole steps of the
+    kernel's depth (32) that cover M and O with none empty; the scratch
+    matches the launcher's layout."""
+    for emit_next in (False, True):
+        p = cuda_fused.dual_plan(M, I, O, sms, emit_next)
+        sw, rw, sx, dx = (p[k] for k in ("splits_w", "rows_w", "splits_x",
+                                         "depth_x"))
+        assert rw % 32 == 0 and (sw - 1) * rw < M <= sw * rw
+        assert p["fused"] or rw >= min(128, -(-M // 32) * 32)
+        assert dx % 32 == 0 and (sx - 1) * dx < O <= sx * dx
+        assert p["part_dw"] == (sw, I, O)
+        assert p["cdy"] == (None if p["fused"] else (M, O))
+        if sx > 1:
+            assert dx >= 256 and p["part_dx"] == (sx, M, I)
+        else:
+            assert p["part_dx"] is None
+        rows = 32 if sx > 1 else 128
+        assert p["part_sums"] == ((-(-M // rows), 2, I) if emit_next
+                                  else None)
+
+
+def test_dual_plan_fuses_the_narrow_calls():
+    """One block takes both products where I <= 64 and 128 < O <= 256
+    without the chaining sums (stage 1's tails and downsample), two blocks
+    an SM; never for unaligned operands, widths that are no multiple of
+    8, the chained heads, or O <= 128 (stage 1's first head)."""
+    fused = {s: cuda_fused.dual_plan(*s, 132)["fused"] for s in DUAL_SHAPES}
+    assert {s for s, f in fused.items() if f} == {(100352, 64, 256)}
+    assert cuda_fused.dual_plan(520, 48, 200, 132)["fused"]
+    assert cuda_fused.dual_plan(100352, 64, 256, 132)["splits_w"] == 262
+    assert not cuda_fused.dual_plan(100352, 64, 256, 132, True)["fused"]
+    assert not cuda_fused.dual_plan(100352, 64, 256, 132,
+                                    aligned=False)["fused"]
+
+
+def test_dual_plan_splits_the_short_dx_grids():
+    """On an H100 (132 SMs) the dx depth is split where the dx tiles give
+    fewer than 264 blocks: stage 3's tail into 2 slices, stage 4's into
+    3; the dW blocks (the fused calls' blocks) come to about two an SM."""
+    split = {s: cuda_fused.dual_plan(*s, 132)["splits_x"]
+             for s in DUAL_SHAPES[:9]}
+    assert split == {s: {(6272, 256, 1024): 2, (1568, 512, 2048): 3}.get(s, 1)
+                     for s in DUAL_SHAPES[:9]}
+    for M, I, O in DUAL_SHAPES[:9]:
+        p = cuda_fused.dual_plan(M, I, O, 132)
+        tiles = 1 if p["fused"] else -(-I // 64) * -(-O // 128)
+        blocks = tiles * p["splits_w"]
+        assert abs(blocks - 264) <= 2 * tiles
+
+
+def test_kernel_wrappers_refuse_bad_operands_before_building(monkeypatch):
+    """Shape refusals come before the kernel library is built or loaded
+    (meta tensors stand in for CUDA ones past the device check)."""
+    def no_build(*args):
+        raise AssertionError("the kernel library was reached")
+    monkeypatch.setattr(cuda_build, "library", no_build)
+    monkeypatch.setattr(cuda_build, "check_cuda_tensor", lambda *a, **k: None)
+    meta = torch.device("meta")
+    x = torch.empty(4, 8, dtype=torch.bfloat16, device=meta)
+    coef = torch.empty(8, 8, device=meta)
+    with pytest.raises(MXNetError, match="gamma"):
+        cuda_norm.layer_norm_bwd_cuda(x, x, x[0, :4], 1e-5)
+    with pytest.raises(MXNetError, match="w must be"):
+        cuda_fused.dual_bwd_cuda(x, x, x, x, coef, "none")
+    with pytest.raises(MXNetError, match="empty operand"):
+        cuda_fused.dual_bwd_cuda(x[:0], x[:0], x[:0], coef, coef, "none")
+
+
 def test_every_source_exists_and_is_built():
     csrc = cuda_build.CSRC_DIR
     on_disk = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))

@@ -266,6 +266,87 @@ def test_selfatt_plain_f32_twin_drops_only_the_roundings():
     np.testing.assert_allclose(da.numpy(), db.numpy(), rtol=5e-2, atol=5e-2)
 
 
+def _att_case(p=0.1, L=24, N=2, heads=3, hd=16, seed=18):
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(L, N, heads * 3 * hd).astype(np.float32)
+                           * 2).to(torch.bfloat16)
+    dout = torch.from_numpy(rng.randn(L, N, heads * hd).astype(
+        np.float32)).to(torch.bfloat16)
+    plan = cuda_attention.selfatt_plan(L, heads, N)
+    seeds = torch.from_numpy(rng.randint(0, 2 ** 31 - 1, (plan["n_blocks"],))
+                             .astype(np.int32))
+    return qkv, dout, (heads, p, seeds, plan["bbh"])
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_selfatt_float64_summed_witness_agrees_with_the_plain_version(p):
+    """``sum_dtype=torch.float64`` (the card test's witness) computes the
+    same function: within the bf16 bound of the f32-summed plain
+    version, forward and backward."""
+    qkv, dout, args = _att_case(p)
+    for fn, extra in ((cuda_attention.selfatt_plain, ()),
+                      (cuda_attention.selfatt_bwd_plain, (dout,))):
+        ref = fn(qkv, *extra, *args)
+        wit = fn(qkv, *extra, *args, sum_dtype=torch.float64)
+        assert wit.dtype == ref.dtype == torch.bfloat16
+        assert_close(wit, ref, "bfloat16")
+
+
+def test_selfatt_plain_default_sums_are_the_f32_einsums():
+    """The default ``sum_dtype`` leaves the plain versions bit for bit the
+    f32 einsums of their arithmetic written out."""
+    qkv, dout, args = _att_case()
+    heads, p, seeds, bbh = args
+    L, N, hd = qkv.shape[0], qkv.shape[1], qkv.shape[2] // (3 * heads)
+    bf = torch.bfloat16
+    x = qkv.float().reshape(L, N, heads, 3, hd)
+    q, k, v = x[:, :, :, 0] * hd ** -0.5, x[:, :, :, 1], x[:, :, :, 2]
+    s = torch.einsum("lnhd,mnhd->nhlm", q, k)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    prob = e / e.sum(dim=-1, keepdim=True)
+    mask = cuda_attention.keep_mask(seeds, N, heads, L, p, bbh)
+    keep = torch.full((), 1.0 - p, dtype=torch.float32)
+    pd = torch.where(mask, prob / keep, 0.0)
+    o = torch.einsum("nhlm,mnhd->lnhd", pd.to(bf).float(), v).to(bf)
+    assert torch.equal(cuda_attention.selfatt_plain(qkv, *args),
+                       o.reshape(L, N, heads * hd))
+    do = dout.float().reshape(L, N, heads, hd)
+    dp = torch.where(mask, torch.einsum("lnhd,mnhd->nhlm", do, v) / keep,
+                     0.0)
+    dv = torch.einsum("nhlm,lnhd->mnhd", pd, do)
+    ds = (prob * (dp - (dp * prob).sum(dim=-1, keepdim=True))).to(bf).float()
+    dq = torch.einsum("nhlm,mnhd->lnhd", ds, k) * hd ** -0.5
+    dk = torch.einsum("nhlm,lnhd->mnhd", ds, q.to(bf).float())
+    want = torch.stack([dq, dk, dv], dim=3).reshape(L, N, -1).to(bf)
+    assert torch.equal(cuda_attention.selfatt_bwd_plain(qkv, dout, *args),
+                       want)
+
+
+def test_order_limit_widens_only_where_the_plain_orders_differ():
+    """chip_smoke.order_limit, the card test's bound: an error within
+    tol + |ref - wit| passes; 2 tol where ref equals wit is caught, as is
+    a non-finite value; the readings count where the witness differs."""
+    import chip_smoke
+    ref = torch.tensor([1.0, 2.0, -4.0, 0.5, 8.0], dtype=torch.bfloat16)
+    wit = torch.tensor([1.0, 2.0, -4.0, 0.5625, 8.0], dtype=torch.bfloat16)
+    r, w = ref.float(), wit.float()
+    tol = 1e-2 + 1e-2 * r.abs()
+    sign = torch.tensor([1.0, -1.0, 1.0, -1.0, 1.0])
+    got = r + 0.9 * sign * (tol + (r - w).abs())
+    assert chip_smoke.order_limit(got, ref, wit) == \
+        (0, 1, pytest.approx(float(0.9 * (tol[3] + 0.0625))))
+    for i in (0, 2, 4):                      # where ref == wit
+        bad = got.clone()
+        bad[i] = r[i] + 2 * tol[i]
+        assert chip_smoke.order_limit(bad, ref, wit)[0] == 1
+    bad = got.clone()
+    bad[3] = r[3] - 2 * (tol[3] + 0.0625)    # beyond the widened limit
+    assert chip_smoke.order_limit(bad, ref, wit)[0] == 1
+    bad[3] = float("nan")
+    assert chip_smoke.order_limit(bad, ref, wit)[0] == 1
+    assert chip_smoke.order_limit(ref, ref, ref) == (0, 0, 0.0)
+
+
 # ---------------------------------------------------------------------------
 # dropout
 # ---------------------------------------------------------------------------
