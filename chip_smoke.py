@@ -30,7 +30,10 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    plain version's distance from its float64-summed twin), and a
    control: the backward with dV from the bf16 Pd must fail the
    bit-equal share. The kernels' division (``div_rn``) bit for bit with
-   '/' on 3 x 2^30 operand pairs, x * rcp(y) caught.
+   '/' on 3 x 2^30 operand pairs, x * rcp(y) caught. The forward
+   kernels also at the training step's shapes; bias+GeLU (forward and
+   backward) with its bias read one column off, the planted fault, must
+   fail its check.
 4. serving — BERT-base (12 layers, 768 units, 12 heads, vocab 30522) at
    full width with weights, biases, LayerNorm gamma and beta drawn from
    ``--seed``, cast to bf16 and served through ``InferenceSession``: the
@@ -104,11 +107,15 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    its twin; then one served forward, one BERT training step (with the
    attention kernels' share), the fused stages, one ResNet-50 step and
    one MLP step under torch.profiler, the device time by kernel group.
-   The attention forward is timed at the serving shape (``selfatt_fwd``)
-   and at the training shape (``selfatt_fwd_train``, p = 0.1). The
-   LayerNorm backward and every ``dual_bwd`` call also by launch
-   (``launch_ms``, profiler); where one block takes a whole ``dual_bwd``
-   call, the cdy pass's path is timed beside it in turns.
+   The attention, LayerNorm, bias+GeLU and bias+residual forwards are
+   timed at the serving shape and at the training shape (the ``*_train``
+   rows; attention at p = 0.1). The LayerNorm and bias+GeLU backwards
+   and every ``dual_bwd`` call also by launch (``launch_ms``, profiler);
+   where one block takes a whole ``dual_bwd`` call, the cdy pass's path
+   is timed beside it in turns. The bias+GeLU rows also carry an issue
+   floor (``issue_ms``): the SASS instructions an element of the kernel
+   (``cuobjdump -sass``) issued one a lane a cycle at the card's highest
+   SM clock.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -168,6 +175,11 @@ TRAIN_LAUNCHES = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                   "bias_gelu_fwd": 12, "bias_gelu_bwd": 12,
                   "bias_residual_fwd": 12, "dropout": 26, "dual_bwd": 0}
 TRAIN_FWD_DROPOUT = 13
+# the bias+GeLU kernels' bf16 vector instances (csrc/epilogue.cu), by
+# mangled name, and the elements one pass of each one's row loop takes:
+# 2 rows x 8 columns
+GELU_FWD_SASS, GELU_FWD_PASS = "bias_gelu_fwd_kernelI13__nv_bfloat16Li8EE", 16
+GELU_BWD_SASS, GELU_BWD_PASS = "bias_gelu_bwd_kernelI13__nv_bfloat16Li8EE", 16
 TRAIN_BATCH, TRAIN_SEQ, VOCAB = 32, 128, 30522
 UNITS, HIDDEN, HEADS, HEAD_DIM = 768, 3072, 12, 64
 # ResNet-50 v1's fused stages as tools/layout_exp.py mode hwnc5 runs them
@@ -257,11 +269,11 @@ def order_limit(got, ref, wit, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
     """The elementwise limit on a kernel that sums its products in
     another f32 order than its plain version ``ref``: |got - ref| <=
     tol(ref) + |ref - wit| at every element, with tol(ref) = atol + rtol *
-    |ref| and ``wit`` the same plain version with its products summed in
-    float64 (``sum_dtype=torch.float64``), which depends on no summation
-    order. Where the two plain versions agree the limit is tol itself;
-    where they differ it widens by exactly their difference, and nowhere
-    else. (For bf16, tol is tests/test_torch_cuda.py's bound: one ulp,
+    |ref| and ``wit`` the same plain version with its products and row
+    sums summed in float64 (``sum_dtype=torch.float64``), which depends
+    on no summation order. Where the two plain versions agree the limit
+    is tol itself; where they differ it widens by exactly their
+    difference, and nowhere else. (For bf16, tol is tests/test_torch_cuda.py's bound: one ulp,
     at most 2^-7 |ref|, never exceeds 1e-2 |ref|.) Returns (elements
     beyond the limit, a non-finite one among them; elements where |ref -
     wit| > tol; the largest |got - ref| at those elements, 0 where there
@@ -446,6 +458,130 @@ def _launch_ms(fn, reps):
     return out
 
 
+def _sass_per_element(lib_path, fragment, per_pass):
+    """Instructions an element costs in the kernel whose mangled name
+    holds ``fragment``, counted from ``cuobjdump -sass`` of the built
+    library ``lib_path``: those of its longest loop (of the whole kernel
+    where it has none) over ``per_pass``, the elements one pass of that
+    code takes; no-ops left out, both arms of a branch counted. None
+    where cuobjdump is not at hand or no kernel matches. The count is
+    static: it says what one pass issues, not how often a branch is
+    taken."""
+    import re
+    import shutil
+    from pathlib import Path
+    from mxnet_tpu_torch.ops import cuda_build
+    tool = shutil.which("cuobjdump") or str(
+        Path(cuda_build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if fragment not in func.split(None, 1)[0]:
+            continue
+        at, ins = {}, []         # branch target (label or address) -> index
+        for ln in func.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", ln)
+            if m:
+                at[m.group(1)] = len(ins)
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+            if m:
+                at["0x%x" % int(m.group(1), 16)] = len(ins)
+                ins.append(m.group(2).strip())
+        real = [0 if re.search(r"\bNOP\b", t) else 1 for t in ins]
+        loops = []
+        for i, t in enumerate(ins):
+            m = re.search(r"\bBRA\b\s*`?\(?(\.L_x_\d+|0x[0-9a-f]+)", t)
+            j = at.get("0x%x" % int(m.group(1), 16)
+                       if m and m.group(1).startswith("0x")
+                       else m and m.group(1))
+            if j == i:                          # the padding after EXIT
+                real[i] = 0
+            elif j is not None and j < i:
+                loops.append(sum(real[j:i + 1]))
+        return (max(loops) if loops else sum(real)) / per_pass
+    return None
+
+
+def _issue_ms(per_element, n, sms, clock_mhz):
+    """The least time ``n`` elements of ``per_element`` instructions take
+    to issue: one instruction a lane a cycle on the card's sms x 128
+    lanes at its highest SM clock."""
+    if per_element is None or not clock_mhz:
+        return None
+    return per_element * n / (sms * 128 * clock_mhz * 1e6) * 1e3
+
+
+def _max_sm_clock():
+    """The card's highest SM clock in MHz (nvidia-smi), None if unread."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        return float(out[0])
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        return None
+
+
+def _gelu_issue(row, fragment, per_pass, n):
+    """Add bias+GeLU's issue floor to its row of times, and print it."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_build, cuda_epilogue
+    per = _sass_per_element(cuda_build.build()[cuda_epilogue.SOURCE],
+                            fragment, per_pass)
+    clock = _max_sm_clock()
+    row["sass_per_element"] = per
+    row["issue_ms"] = _issue_ms(per, n, cuda_build.sm_count(
+        torch.device(DEV)), clock)
+    print("[times] %s issue floor: %s SASS instructions an element, %s ms at "
+          "%s MHz (bytes bound %.4f ms)" % (
+              row["name"], "not measured" if per is None else "%.2f" % per,
+              "not measured" if row["issue_ms"] is None
+              else "%.4f" % row["issue_ms"], clock, row["bound_ms"]))
+
+
+def _bias_shift(x, b, dy=None):
+    """The bias+GeLU kernel, forward (or backward, given ``dy``), with
+    the bias read one column off: the planted fault, through
+    ``mxt_bias_gelu_{fwd,bwd}_bias_shift``. Returns y, or (dx, db)."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_build as cb, cuda_epilogue as ce
+    lib = ce._lib()
+    M, C = x.shape
+    code = cb.DTYPE_CODES[x.dtype]
+    if dy is None:
+        out = torch.empty_like(x)
+        rc = lib.mxt_bias_gelu_fwd_bias_shift(
+            x.data_ptr(), b.data_ptr(), out.data_ptr(), M, C,
+            cb.sm_count(x.device), code, code, 1, cb.stream_of(x))
+    else:
+        out = (torch.empty_like(x), torch.empty_like(b))
+        sms = cb.sm_count(x.device)
+        part = torch.empty(ce.bwd_scratch_shape(M, C, x.dtype, True, sms),
+                           dtype=torch.float32, device=x.device)
+        rc = lib.mxt_bias_gelu_bwd_bias_shift(
+            dy.data_ptr(), x.data_ptr(), b.data_ptr(), out[0].data_ptr(),
+            part.data_ptr(), part.shape[0], out[1].data_ptr(), M, C, sms,
+            code, code, 1, cb.stream_of(x))
+    if rc:
+        raise SmokeFailure("bias-shift control: launch failed (%d)" % rc)
+    torch.cuda.synchronize()
+    return out
+
+
+def _must_fail(what, check):
+    """A control: ``check()`` must raise SmokeFailure."""
+    try:
+        check()
+    except SmokeFailure:
+        print("[control] %s: caught" % what)
+        return
+    raise SmokeFailure("control: the parity check passed %s" % what)
+
+
 def _selfatt_kernels(log):
     """[(kernel, template arguments, registers, [spill stores, spill
     loads])] of the attention kernels in the ``-Xptxas -v`` report of
@@ -485,9 +621,13 @@ def phase_parity(seed):
         cuda_norm.layer_norm_plain(x, g, b, 1e-5),
         KERNEL_ATOL, KERNEL_RTOL)
     x, b = randn(1024, 3072, scale=2.0), randn(3072)
+    ref = cuda_epilogue.bias_gelu_plain(x, b)
     errs["bias_gelu_fwd"] = _check_close(
         "bias_gelu_fwd (1024, 3072)", cuda_epilogue.bias_gelu_cuda(x, b),
-        cuda_epilogue.bias_gelu_plain(x, b), KERNEL_ATOL, KERNEL_RTOL)
+        ref, KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+    _must_fail("bias_gelu_fwd with its bias one column off", lambda: (
+        _check_close("control: bias_gelu_fwd, bias shifted", _bias_shift(x, b),
+                     ref, KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)))
     x, b, r = randn(1024, 768), randn(768), randn(1024, 768)
     errs["bias_residual_fwd"] = _check_close(
         "bias_residual_fwd (1024, 768)",
@@ -720,6 +860,7 @@ def phase_times(seed, reps, counts, n_forwards, errs, sess, reqs, net,
         lambda: cuda_epilogue.bias_gelu_plain(xg, bg),
         lambda: F.gelu(xg + bg),
         (2 * M * H + H) * E, 20 * M * H, f32_peak)
+    _gelu_issue(rows[-1], GELU_FWD_SASS, GELU_FWD_PASS, M * H)
 
     r = randn(M, C)
     row("bias_residual_fwd", "mxnet_tpu_torch/csrc/epilogue.cu",
@@ -868,6 +1009,11 @@ def phase_parity_train(seed):
         _check_close("bias_gelu_bwd %s (%d, %d)" % (name, M, H), a, b_,
                      KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
         for name, a, b_ in zip(("dx", "db"), got, ref))
+    bad = _bias_shift(x, b, dy)
+    _must_fail("bias_gelu_bwd with its bias one column off", lambda: [
+        _check_close("control: bias_gelu_bwd %s, bias shifted" % name, a, b_,
+                     KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+        for name, a, b_ in zip(("dx", "db"), bad, ref)])
 
     x = randn(M, C) + 3          # no zeros: a zero output is a drop
     seed_t = torch.tensor([seed * 7919 + 1], dtype=torch.int32,
@@ -921,6 +1067,23 @@ def phase_parity_train(seed):
                                                            k0 + hd - 1),
                           got.to(torch.float32),
                           want[..., k0:k0 + hd].to(torch.float32))
+
+    # the forward kernels at the training step's shapes
+    x, g, b = randn(M, C), randn(C), randn(C)
+    errs["layer_norm_fwd_train"] = _check_close(
+        "layer_norm_fwd (%d, %d)" % (M, C),
+        cuda_norm.layer_norm_cuda(x, g, b, 1e-5),
+        cuda_norm.layer_norm_plain(x, g, b, 1e-5), KERNEL_ATOL, KERNEL_RTOL)
+    r = randn(M, C)
+    errs["bias_residual_fwd_train"] = _check_close(
+        "bias_residual_fwd (%d, %d)" % (M, C),
+        cuda_epilogue.bias_residual_cuda(x, b, r),
+        cuda_epilogue.bias_residual_plain(x, b, r), KERNEL_ATOL, KERNEL_RTOL)
+    x, b = randn(M, H, scale=2.0), randn(H)
+    errs["bias_gelu_fwd_train"] = _check_close(
+        "bias_gelu_fwd (%d, %d)" % (M, H), cuda_epilogue.bias_gelu_cuda(x, b),
+        cuda_epilogue.bias_gelu_plain(x, b), KERNEL_ATOL, KERNEL_RTOL,
+        KERNEL_EQUAL)
     return errs
 
 
@@ -1047,9 +1210,9 @@ def phase_parity_attention(seed):
     """The attention kernels' division against '/'; the kernels against
     their plain versions at ATT_SHAPES, every backward route among them,
     under order_limit (the witness: the plain version summing its
-    products in float64); then the control: dV from the bf16 Pd (one
-    term, through ``mxt_selfatt_bwd_pd_terms``) must fail the equal share
-    at BERT's training shape. Two terms are reported."""
+    products and row sums in float64); then the control: dV from the
+    bf16 Pd (one term, through ``mxt_selfatt_bwd_pd_terms``) must fail
+    the equal share at BERT's training shape. Two terms are reported."""
     import torch
     from mxnet_tpu_torch.ops import cuda_attention as ca
     _division_check()
@@ -1341,6 +1504,36 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
         lambda: cuda_epilogue.bias_gelu_bwd_plain(dyg, xg, bg),
         lambda: torch.autograd.grad(yl, (xl, bl), dyg, retain_graph=True),
         (3 * M * H + 2 * H) * E, 30 * M * H, f32_peak)
+    rows[-1]["launch_ms"] = _launch_ms(
+        lambda: cuda_epilogue.bias_gelu_bwd_cuda(dyg, xg, bg), reps)
+    print("[times] bias_gelu_bwd by launch (profiler, ms a call): %s"
+          % ", ".join("%s %.4f" % kv for kv in rows[-1]["launch_ms"].items()))
+    _gelu_issue(rows[-1], GELU_BWD_SASS, GELU_BWD_PASS, M * H)
+
+    # the forward kernels at the training step's shapes
+    with torch.no_grad():
+        xf, gf, bf, rf = randn(M, C), randn(C), randn(C), randn(M, C)
+        row("layer_norm_fwd_train", "mxnet_tpu_torch/csrc/layer_norm.cu",
+            "mxnet_tpu/ops/pallas_norm.py:89",
+            lambda: cuda_norm.layer_norm_cuda(xf, gf, bf, 1e-5),
+            lambda: cuda_norm.layer_norm_plain(xf, gf, bf, 1e-5),
+            lambda: F.layer_norm(xf, (C,), gf, bf, 1e-5),
+            (2 * M * C + 2 * C) * E, 8 * M * C, f32_peak,
+            kernel="layer_norm_fwd")
+        row("bias_gelu_fwd_train", "mxnet_tpu_torch/csrc/epilogue.cu",
+            "mxnet_tpu/ops/pallas_epilogue.py:126",
+            lambda: cuda_epilogue.bias_gelu_cuda(xg, bg),
+            lambda: cuda_epilogue.bias_gelu_plain(xg, bg),
+            lambda: F.gelu(xg + bg),
+            (2 * M * H + H) * E, 20 * M * H, f32_peak, kernel="bias_gelu_fwd")
+        _gelu_issue(rows[-1], GELU_FWD_SASS, GELU_FWD_PASS, M * H)
+        row("bias_residual_fwd_train", "mxnet_tpu_torch/csrc/epilogue.cu",
+            "mxnet_tpu/ops/pallas_epilogue.py:267",
+            lambda: cuda_epilogue.bias_residual_cuda(xf, bf, rf),
+            lambda: cuda_epilogue.bias_residual_plain(xf, bf, rf),
+            lambda: xf + bf + rf,
+            (3 * M * C + C) * E, 2 * M * C, f32_peak,
+            kernel="bias_residual_fwd")
 
     xd = randn(M, C)
     sd = torch.tensor([7], dtype=torch.int32, device=DEV)

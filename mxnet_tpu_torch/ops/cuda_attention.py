@@ -127,12 +127,26 @@ def _einsum(eq, a, b, sum_dtype):
     return torch.einsum(eq, a.to(sum_dtype), b.to(sum_dtype)).float()
 
 
+def _row_sum(t, sum_dtype, other=None):
+    """The sum over the last axis of ``t`` (of ``t * other`` when given),
+    keeping that axis: with f32 ``sum_dtype`` the f32 sum of the f32
+    products, else each product formed and summed in ``sum_dtype`` and
+    the sum rounded to f32 right after, as :func:`_einsum` does."""
+    if sum_dtype == torch.float32:
+        return (t if other is None else t * other).sum(dim=-1, keepdim=True)
+    t = t.to(sum_dtype)
+    if other is not None:
+        t = t * other.to(sum_dtype)
+    return t.sum(dim=-1, keepdim=True).float()
+
+
 def _probs(q, k, sum_dtype=torch.float32):
     """f32 softmax of q.k^T over keys, (N, heads, L, L), as the kernel
-    computes it (max, exp, sum, divide)."""
+    computes it (max, exp, sum, divide); the denominator summed in
+    ``sum_dtype``."""
     s = _einsum("lnhd,mnhd->nhlm", q, k, sum_dtype)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
+    return e / _row_sum(e, sum_dtype)
 
 
 def _unpack(qkv, heads, rounding):
@@ -149,9 +163,10 @@ def selfatt_plain(qkv: torch.Tensor, heads: int, p: float = 0.0,
     """The forward kernel's arithmetic in PyTorch ops. ``rounding=False``
     drops the bf16 rounding points (input, Pd, output) and computes the
     same function in f32. ``sum_dtype=torch.float64`` sums each product
-    (Q.K^T, Pd.V) in float64 and rounds it to f32 right after: to within
-    f32 rounding the correctly rounded sums, so a witness that depends on
-    no summation order; every other operation and rounding point stays."""
+    (Q.K^T, Pd.V) and the softmax denominator in float64 and rounds each
+    sum to f32 right after: to within f32 rounding the correctly rounded
+    sums, so a witness that depends on no summation order; every other
+    operation and rounding point stays."""
     L, N, hd = _split(qkv, heads)
     q, k, v = _unpack(qkv, heads, rounding)
     pd = _probs(q, k, sum_dtype)
@@ -175,7 +190,8 @@ def selfatt_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     rounding points — dV from the f32 Pd, dQ and dK from bf16(dS), dK
     from bf16(Q * scale). ``rounding=False`` drops them;
     ``sum_dtype=torch.float64`` sums the products (Q.K^T, dO.V^T, dV, dQ,
-    dK) in float64, as :func:`selfatt_plain` does."""
+    dK), the softmax denominator and dS's row sum of dP * P in float64,
+    as :func:`selfatt_plain` does."""
     L, N, hd = _split(qkv, heads)
     q, k, v = _unpack(qkv, heads, rounding)
     do = _bf16(dout, rounding).reshape(L, N, heads, hd)
@@ -189,7 +205,7 @@ def selfatt_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         pd = torch.where(mask, prob / keep, 0.0)
         dp = torch.where(mask, dp / keep, 0.0)
     dv = _einsum("nhlm,lnhd->mnhd", pd, do, sum_dtype)
-    ds = _bf16(prob * (dp - (dp * prob).sum(dim=-1, keepdim=True)), rounding)
+    ds = _bf16(prob * (dp - _row_sum(dp, sum_dtype, prob)), rounding)
     dq = _einsum("nhlm,mnhd->lnhd", ds, _bf16(k, rounding),
                  sum_dtype) * _scale(hd)
     dk = _einsum("nhlm,lnhd->mnhd", ds, _bf16(q, rounding), sum_dtype)

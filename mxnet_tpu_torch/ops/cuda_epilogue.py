@@ -20,6 +20,14 @@ bias read as f32:
 :func:`bias_gelu_fn` and :func:`bias_residual_fn` wrap each forward and
 its backward in one ``torch.autograd.Function``.
 
+Both bias+GeLU kernels take a 16-byte vector of columns a thread where
+the rows hold a whole number of them and the pointers are 16-byte
+aligned, else one element a thread (:func:`gelu_vector`); the
+backward's f32 scratch holds one partial row of db per row strip
+(:func:`bwd_scratch_shape`, sized from the card's SM count). Both
+helpers have C twins in ``csrc/epilogue.cu``, and the launcher refuses a
+scratch of another shape.
+
 The reference's row-block limits (``_pick_rows``, at least 8 rows) are
 TPU tiling limits, so the kernels serve every row count. A bias (or
 residual) whose dtype differs from the data's is a numerics reason: the
@@ -40,7 +48,8 @@ __all__ = ["gelu_erf", "bias_gelu", "bias_gelu_cuda", "bias_gelu_plain",
            "bias_gelu_bwd", "bias_gelu_bwd_cuda", "bias_gelu_bwd_plain",
            "bias_gelu_fn", "bias_gelu_available", "bias_residual",
            "bias_residual_cuda", "bias_residual_plain", "bias_residual_fn",
-           "bias_residual_available"]
+           "bias_residual_available", "gelu_vector", "aligned16",
+           "bwd_scratch_shape"]
 
 GELU_KERNEL = "bias_gelu_fwd"
 GELU_BWD_KERNEL = "bias_gelu_bwd"
@@ -48,7 +57,13 @@ RESIDUAL_KERNEL = "bias_residual_fwd"
 SOURCE = "epilogue.cu"
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
-_BWD_ROWS = 64      # rows per block strip of the backward kernel
+# the bias+GeLU kernels' blocks (csrc/epilogue.cu): _VEC_COLS threads
+# along the row by _ROW_LANES down it; a backward thread holds _BWD_ROWS
+# rows at a time, _BWD_BLOCKS_PER_SM blocks an SM
+_VEC_COLS = 64
+_ROW_LANES = 4
+_BWD_ROWS = 2
+_BWD_BLOCKS_PER_SM = 2
 
 
 def _available(shape, dtype) -> bool:
@@ -93,6 +108,34 @@ def bias_gelu_bwd_plain(dy: torch.Tensor, x: torch.Tensor,
     return dz.to(x.dtype), dz.sum(dim=0).to(bias.dtype)
 
 
+def aligned16(*tensors) -> bool:
+    """True when every tensor's data pointer is 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def gelu_vector(C: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """Elements a bias+GeLU thread takes along a row of ``C`` elements: a
+    16-byte vector where the rows hold a whole number of them and the
+    pointers are aligned, else 1, the element path
+    (``csrc/epilogue.cu :: gelu_vector``)."""
+    e = 16 // dtype.itemsize
+    return e if aligned and C % e == 0 else 1
+
+
+def bwd_scratch_shape(M: int, C: int, dtype: torch.dtype, aligned: bool,
+                      sms: int):
+    """The backward's f32 scratch, one db partial row per row strip:
+    ``_BWD_BLOCKS_PER_SM`` blocks on each of the card's ``sms`` SMs over
+    the column tiles, at least ``_ROW_LANES * _BWD_ROWS`` rows a strip,
+    no strip empty (``csrc/epilogue.cu :: bwd_strips``)."""
+    vec = gelu_vector(C, dtype, aligned)
+    tiles = -(-(C // vec) // _VEC_COLS)
+    most = -(-M // (_ROW_LANES * _BWD_ROWS))
+    strips = max(1, min(_BWD_BLOCKS_PER_SM * sms // tiles, most))
+    rows = -(-M // strips)
+    return (-(-M // rows), C)
+
+
 def bias_residual_plain(x: torch.Tensor, bias: torch.Tensor,
                         residual: torch.Tensor) -> torch.Tensor:
     """The bias+residual kernel's arithmetic in PyTorch ops."""
@@ -103,14 +146,24 @@ def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.mxt_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, i32, p]
+        lib.mxt_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, i32, i32,
+                                          p]
         lib.mxt_bias_gelu_fwd.restype = ctypes.c_int
         lib.mxt_bias_residual_fwd.argtypes = [p, p, p, p, i64, i32, i32,
                                               i32, p]
         lib.mxt_bias_residual_fwd.restype = ctypes.c_int
-        lib.mxt_bias_gelu_bwd.argtypes = [p, p, p, p, p, p, i64, i32, i32,
-                                          i32, i32, p]
+        bwd = [p, p, p, p, p, i64, p, i64, i32, i32, i32, i32]
+        lib.mxt_bias_gelu_bwd.argtypes = bwd + [p]
         lib.mxt_bias_gelu_bwd.restype = ctypes.c_int
+        lib.mxt_bias_gelu_fwd_bias_shift.argtypes = [p, p, p, i64, i32, i32,
+                                                     i32, i32, i32, p]
+        lib.mxt_bias_gelu_fwd_bias_shift.restype = ctypes.c_int
+        lib.mxt_bias_gelu_bwd_bias_shift.argtypes = bwd + [i32, p]
+        lib.mxt_bias_gelu_bwd_bias_shift.restype = ctypes.c_int
+        lib.mxt_bias_gelu_vector.argtypes = [i32, i32]
+        lib.mxt_bias_gelu_vector.restype = i32
+        lib.mxt_bias_gelu_bwd_strips.argtypes = [i64, i32, i32, i32]
+        lib.mxt_bias_gelu_bwd_strips.restype = i64
         lib._mxt_ready = True
     return lib
 
@@ -140,8 +193,8 @@ def bias_gelu_cuda(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.mxt_bias_gelu_fwd(
             x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // C, C,
-            _cb.DTYPE_CODES[x.dtype], _cb.DTYPE_CODES[bias.dtype],
-            _cb.stream_of(x))
+            _cb.sm_count(x.device), _cb.DTYPE_CODES[x.dtype],
+            _cb.DTYPE_CODES[bias.dtype], _cb.stream_of(x))
     _cb.check_launch(lib, rc, GELU_KERNEL)
     return y
 
@@ -158,14 +211,16 @@ def bias_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
                                      tuple(x.shape)))
     M, C = x.shape
     dx = torch.empty_like(x)
-    part = torch.empty((-(-M // _BWD_ROWS), C), dtype=torch.float32,
-                       device=x.device)
+    sms = _cb.sm_count(x.device)
+    part = torch.empty(bwd_scratch_shape(M, C, x.dtype,
+                                         aligned16(dy, x, dx), sms),
+                       dtype=torch.float32, device=x.device)
     db = torch.empty_like(bias)
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.mxt_bias_gelu_bwd(
             dy.data_ptr(), x.data_ptr(), bias.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), db.data_ptr(), M, C, _BWD_ROWS,
+            part.data_ptr(), part.shape[0], db.data_ptr(), M, C, sms,
             _cb.DTYPE_CODES[x.dtype], _cb.DTYPE_CODES[bias.dtype],
             _cb.stream_of(x))
     _cb.check_launch(lib, rc, GELU_BWD_KERNEL)

@@ -108,15 +108,97 @@ def test_selfatt_dispatch_by_dtype(card):
     assert cuda_build.launch_counts()["selfatt_fwd"] == 1
 
 
+def _shifted(card, M, C, dtype, scale=1.0):
+    """An (M, C) view whose data pointer lies one element, 2 bytes in
+    bf16, past a 16-byte boundary: the element path's input."""
+    base = _randn(card, (M * C + 1,), dtype, scale)
+    t = base[1:].view(M, C)
+    assert t.data_ptr() % 16 != 0
+    return t
+
+
+def _gelu_equal_share(what, got, ref, dtype):
+    """In bf16, the share of elements bit-equal to the plain version
+    (printed), at least GELU_EQUAL."""
+    if dtype != torch.bfloat16:
+        return
+    torch.cuda.synchronize()
+    share = float((got == ref).float().mean())
+    print("[equal] %s: %.6f bit-equal (floor %g)" % (what, share,
+                                                      GELU_EQUAL))
+    assert share >= GELU_EQUAL, "%s: bit-equal share %.6f" % (what, share)
+
+
+# bias+GeLU: the least bf16 share of elements of y and dx bit-equal to the
+# plain version. chip_epilogue.py read 1 (every element) at every shape
+# below for seeds 0-4 on an H100: the kernels keep the plain version's
+# operations and their order, and erff/expf are the ones PyTorch calls.
+GELU_EQUAL = 1.0
+# shapes of the bias+GeLU kernels: BERT's (serving, training), ragged
+# rows on the element path (7 and 300 in bf16), and "shift", BERT's
+# serving shape as a view 2 bytes off 16-byte alignment (element path)
+GELU_SHAPES = [(1024, 3072), (5, 7), (4096, 3072), (129, 300), "shift"]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("M,C", [(1024, 3072), (5, 7)])
-def test_epilogue_kernels(card, dtype, M, C):
-    x, r = _randn(card, (M, C), dtype, 2.0), _randn(card, (M, C), dtype)
+@pytest.mark.parametrize("shape", GELU_SHAPES, ids=str)
+def test_epilogue_kernels(card, dtype, shape):
+    M, C = (1024, 3072) if shape == "shift" else shape
+    if shape == "shift":
+        x = _shifted(card, M, C, dtype, 2.0)
+    else:
+        x = _randn(card, (M, C), dtype, 2.0)
+    r = _randn(card, (M, C), dtype)
     b = _randn(card, (C,), dtype)
-    _assert_close(cuda_epilogue.bias_gelu_cuda(x, b),
-                  cuda_epilogue.bias_gelu_plain(x, b))
+    got = cuda_epilogue.bias_gelu_cuda(x, b)
+    ref = cuda_epilogue.bias_gelu_plain(x, b)
+    _assert_close(got, ref)
+    _gelu_equal_share("bias_gelu_fwd y %s %s" % (shape, dtype), got, ref,
+                      dtype)
     _assert_close(cuda_epilogue.bias_residual_cuda(x, b, r),
                   cuda_epilogue.bias_residual_plain(x, b, r))
+
+
+def test_bias_gelu_paths(card):
+    """The launchers' C twins agree with the wrappers' helpers: the
+    vector/element choice over C and dtype, the backward's scratch rows
+    over shapes, dtypes, alignment and SM counts; a misaligned view takes
+    the element path, and a scratch of another shape is refused before
+    any launch."""
+    lib = cuda_epilogue._lib()
+    for C in (1, 7, 8, 300, 768, 3072, 3076, 4100):
+        for dtype in DTYPES:
+            code = cuda_build.DTYPE_CODES[dtype]
+            assert lib.mxt_bias_gelu_vector(C, code) == \
+                cuda_epilogue.gelu_vector(C, dtype), (C, dtype)
+            for M in (1, 5, 129, 1024, 4096, 100000):
+                for aligned in (True, False):
+                    for sms in (1, 132):
+                        vec = cuda_epilogue.gelu_vector(C, dtype, aligned)
+                        assert lib.mxt_bias_gelu_bwd_strips(M, C, vec, sms) \
+                            == cuda_epilogue.bwd_scratch_shape(
+                                M, C, dtype, aligned, sms)[0], \
+                            (M, C, dtype, aligned, sms)
+    assert cuda_epilogue.gelu_vector(3072, torch.bfloat16) == 8
+    assert cuda_epilogue.gelu_vector(300, torch.bfloat16) == 1
+    x = _shifted(card, 64, 3072, torch.bfloat16)
+    assert not cuda_epilogue.aligned16(x)
+    assert cuda_epilogue.gelu_vector(3072, torch.bfloat16,
+                                     cuda_epilogue.aligned16(x)) == 1
+    dy = _randn(card, (64, 3072), torch.bfloat16)
+    b = _randn(card, (3072,), torch.bfloat16)
+    dx, db = torch.empty_like(dy), torch.empty_like(b)
+    sms = cuda_build.sm_count(dy.device)
+    strips = cuda_epilogue.bwd_scratch_shape(64, 3072, torch.bfloat16, True,
+                                             sms)[0]
+    part = torch.empty((strips + 1, 3072), dtype=torch.float32,
+                       device="cuda")
+    code = cuda_build.DTYPE_CODES[torch.bfloat16]
+    rc = lib.mxt_bias_gelu_bwd(dy.data_ptr(), dy.data_ptr(), b.data_ptr(),
+                               dx.data_ptr(), part.data_ptr(), strips + 1,
+                               db.data_ptr(), 64, 3072, sms, code, code,
+                               cuda_build.stream_of(dy))
+    assert rc != 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -205,14 +287,22 @@ def test_layer_norm_bwd_paths(card):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("M,C", [(4096, 3072), (5, 7), (129, 300)])
-def test_bias_gelu_bwd_kernel(card, dtype, M, C):
-    x, dy = _randn(card, (M, C), dtype, 2.0), _randn(card, (M, C), dtype)
+@pytest.mark.parametrize("shape", [(4096, 3072), (5, 7), (129, 300),
+                                   (1024, 3072), "shift"], ids=str)
+def test_bias_gelu_bwd_kernel(card, dtype, shape):
+    M, C = (1024, 3072) if shape == "shift" else shape
+    if shape == "shift":
+        x = _shifted(card, M, C, dtype, 2.0)
+    else:
+        x = _randn(card, (M, C), dtype, 2.0)
+    dy = _randn(card, (M, C), dtype)
     b = _randn(card, (C,), dtype)
     got = cuda_epilogue.bias_gelu_bwd_cuda(dy, x, b)
     ref = cuda_epilogue.bias_gelu_bwd_plain(dy, x, b)
     for i, (a, b_) in enumerate(zip(got, ref)):
         _assert_close(a, b_, reduced=i > 0)
+    _gelu_equal_share("bias_gelu_bwd dx %s %s" % (shape, dtype), got[0],
+                      ref[0], dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -233,9 +323,10 @@ def test_dropout_kernel_is_the_plain_version(card, dtype, n):
 def test_selfatt_fwd_bwd_kernels(card, L, N, heads, hd, p):
     """Each output within tol(ref) + |ref - wit| of the plain version
     ``ref`` at every element (chip_smoke.order_limit): tol is
-    _assert_close's bound and ``wit`` the plain version with its products
-    summed in float64, so the limit widens only where another f32
-    summation order moves the plain version itself. The tensor cores sum
+    _assert_close's bound and ``wit`` the plain version with its products,
+    softmax denominators and dS row sums summed in float64, so the limit
+    widens only where another f32 summation order moves the plain version
+    itself. The tensor cores sum
     Q.K^T and dO.V^T in another order than cuBLAS, which now and then
     flips the bf16 rounding of a large dS that dQ and dK carry; where the
     two plain orders agree the bound is _assert_close's."""

@@ -135,6 +135,66 @@ def test_bias_gelu_bwd_plain_matches_pallas_vjp(pallas_interpret, dtype,
     assert_close(db, rdb, dtype)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("C", [7, 300, 768, 3072, 3076])
+def test_bias_gelu_path_choice(C, dtype, aligned):
+    """A thread takes a 16-byte vector (8 elements of 2 bytes, 4 of f32)
+    where the rows hold a whole number of them and the pointers are
+    aligned, else one element: BERT's rows in every dtype, 300 and 3076
+    only in f32, 7 never."""
+    e = 16 // dtype.itemsize
+    want = e if aligned and C % e == 0 else 1
+    assert cuda_epilogue.gelu_vector(C, dtype, aligned) == want
+    if aligned and C in (768, 3072):
+        assert want > 1
+    if C == 7 or not aligned:
+        assert want == 1
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("M,C", [(1, 7), (5, 7), (129, 300), (1024, 3072),
+                                 (4096, 3072), (4096, 768), (100, 70000)])
+def test_bias_gelu_bwd_scratch_shape(M, C, dtype, sms):
+    """One f32 partial row of db per row strip: the strips cover the M
+    rows with none empty, at least 8 rows a strip (4 row lanes holding 2
+    rows each) where there are rows enough, about two blocks an SM over
+    the column tiles."""
+    for aligned in (True, False):
+        strips, width = cuda_epilogue.bwd_scratch_shape(M, C, dtype,
+                                                        aligned, sms)
+        assert width == C and 1 <= strips <= max(1, -(-M // 8))
+        rows = -(-M // strips)
+        assert (strips - 1) * rows < M <= strips * rows
+        vec = cuda_epilogue.gelu_vector(C, dtype, aligned)
+        tiles = -(-(C // vec) // 64)
+        assert strips * tiles <= max(2 * sms, tiles)
+    if (M, C, sms) == (4096, 3072, 132):
+        want = 44 if dtype == torch.bfloat16 else 22
+        assert cuda_epilogue.bwd_scratch_shape(M, C, dtype, True, sms) == \
+            (want, C)
+
+
+def test_bias_gelu_wrappers_pick_the_plain_version_on_the_cpu():
+    """A CPU tensor goes to the plain versions, whatever its alignment:
+    the path choice is the kernels' alone."""
+    rng = np.random.RandomState(14)
+    base = torch.from_numpy(rng.randn(9 * 300 + 1).astype(np.float32)
+                            ).to(torch.bfloat16)
+    x = base[1:].view(9, 300)          # 2 bytes off the allocation
+    dy = torch.from_numpy(rng.randn(9, 300).astype(np.float32)
+                          ).to(torch.bfloat16)
+    b = torch.from_numpy(rng.randn(300).astype(np.float32)
+                         ).to(torch.bfloat16)
+    assert torch.equal(cuda_epilogue.bias_gelu(x, b),
+                       cuda_epilogue.bias_gelu_plain(x, b))
+    for got, want in zip(cuda_epilogue.bias_gelu_bwd(dy, x, b),
+                         cuda_epilogue.bias_gelu_bwd_plain(dy, x, b)):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_epilogue_op_gradients_match_reference(pallas_interpret, dtype):
     """bias+GeLU and bias+residual through each package's autograd."""
@@ -322,6 +382,68 @@ def test_selfatt_plain_default_sums_are_the_f32_einsums():
                        want)
 
 
+def _witness_by_hand(qkv, dout, args, row_dtype):
+    """The backward without its bf16 rounding points, its products summed
+    in float64 and rounded to f32, its two row sums (the softmax
+    denominator, dS's sum of dP * P) in ``row_dtype``; with the softmax
+    probabilities."""
+    heads, p, seeds, bbh = args
+    L, N = qkv.shape[:2]
+    hd = qkv.shape[2] // (3 * heads)
+    f64 = torch.float64
+
+    def ein(eq, a, b):
+        return torch.einsum(eq, a.double(), b.double()).float()
+
+    def rows(t, other=None):
+        if row_dtype == torch.float32:
+            return (t if other is None else t * other).sum(-1, keepdim=True)
+        t = t.to(f64) if other is None else t.to(f64) * other.to(f64)
+        return t.sum(-1, keepdim=True).float()
+    x = qkv.float().reshape(L, N, heads, 3, hd)
+    q, k, v = x[:, :, :, 0] * hd ** -0.5, x[:, :, :, 1], x[:, :, :, 2]
+    s = ein("lnhd,mnhd->nhlm", q, k)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    prob = e / rows(e)
+    do = dout.float().reshape(L, N, heads, hd)
+    dp = ein("lnhd,mnhd->nhlm", do, v)
+    mask = cuda_attention.keep_mask(seeds, N, heads, L, p, bbh)
+    keep = torch.full((), 1.0 - p, dtype=torch.float32)
+    pd = torch.where(mask, prob / keep, 0.0)
+    dp = torch.where(mask, dp / keep, 0.0)
+    dv = ein("nhlm,lnhd->mnhd", pd, do)
+    ds = prob * (dp - rows(dp, prob))
+    dq = ein("nhlm,mnhd->lnhd", ds, k) * hd ** -0.5
+    dk = ein("nhlm,lnhd->mnhd", ds, q)
+    return torch.stack([dq, dk, dv], dim=3).reshape(L, N, -1), prob
+
+
+def test_selfatt_float64_witness_sums_its_row_sums_in_float64():
+    """``sum_dtype=torch.float64`` reaches the softmax denominator and
+    dS's row sum: the witness is, bit for bit, the backward with those
+    two sums in float64 too, and differs from the one that keeps them in
+    f32 on a case where the two denominators differ; the default stays
+    the f32 sums (test above)."""
+    qkv, dout, args = _att_case(L=40, heads=2, hd=32, seed=19)
+    qkv, dout = qkv.float(), dout.float()     # f32 out, no rounding
+    want, prob64 = _witness_by_hand(qkv, dout, args, torch.float64)
+    f32_rows, prob32 = _witness_by_hand(qkv, dout, args, torch.float32)
+    assert not torch.equal(prob64, prob32)
+    f64 = {"sum_dtype": torch.float64, "rounding": False}
+    wit = cuda_attention.selfatt_bwd_plain(qkv, dout, *args, **f64)
+    assert torch.equal(wit, want)
+    assert not torch.equal(wit, f32_rows)
+    heads, p, seeds, bbh = args
+    L, N = qkv.shape[:2]
+    o = cuda_attention.selfatt_plain(qkv, *args, **f64)
+    v = qkv.float().reshape(L, N, heads, 3, -1)[:, :, :, 2]
+    keep = torch.full((), 1.0 - p, dtype=torch.float32)
+    mask = cuda_attention.keep_mask(seeds, N, heads, L, p, bbh)
+    pd = torch.where(mask, prob64 / keep, 0.0)
+    assert torch.equal(o, torch.einsum("nhlm,mnhd->lnhd", pd.double(),
+                                       v.double()).float().reshape(L, N, -1))
+
+
 def test_order_limit_widens_only_where_the_plain_orders_differ():
     """chip_smoke.order_limit, the card test's bound: an error within
     tol + |ref - wit| passes; 2 tol where ref equals wit is caught, as is
@@ -345,6 +467,69 @@ def test_order_limit_widens_only_where_the_plain_orders_differ():
     bad[3] = float("nan")
     assert chip_smoke.order_limit(bad, ref, wit)[0] == 1
     assert chip_smoke.order_limit(ref, ref, ref) == (0, 0, 0.0)
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_120bias_gelu_bwd_kernelI13__nv_bfloat16Li8EEEvPKT_
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;       /* 0x0000000000007919 */
+.L_x_1:
+        /*0020*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0030*/                   FFMA R2, R3, R4, R5 ;
+        /*0040*/                   NOP ;
+        /*0050*/               @P0 BRA `(.L_x_1) ;
+        /*0060*/                   EXIT ;
+.L_x_2:
+        /*0070*/                   BRA `(.L_x_2);
+\t\tFunction : _ZN12_GLOBAL__N_120bias_gelu_fwd_kernelI13__nv_bfloat16Li8EEEvPKT_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.EX2 R0, R1 ;
+        /*0020*/                   EXIT ;
+.L_x_3:
+        /*0030*/                   BRA `(.L_x_3);
+\t\tFunction : _ZN12_GLOBAL__N_120bias_gelu_bwd_kernelIfLi4EEEvPKT_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/               @P0 BRA 0x60 ;               /* 0x0000000000007919 */
+        /*0020*/                   FFMA R2, R3, R4, R5 ;
+        /*0030*/                   FMUL R2, R3, R4 ;
+        /*0040*/                   MUFU.EX2 R0, R1 ;
+        /*0050*/              @!P1 BRA 0x20 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x70;
+"""
+
+
+def test_sass_count_takes_the_longest_loop_or_the_whole_kernel(monkeypatch):
+    """chip_smoke's issue floor: the instructions of a kernel's longest
+    loop (no-ops and the trailing self-jump left out) over the elements
+    a pass takes, the whole kernel where it has no loop; None without a
+    matching kernel or without cuobjdump."""
+    import shutil
+    import subprocess
+    import chip_smoke
+
+    class Done:
+        stdout = _SASS
+    monkeypatch.setattr(shutil, "which", lambda name: "/bin/true")
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: Done())
+    bwd = "bias_gelu_bwd_kernelI13__nv_bfloat16Li8EE"
+    fwd = "bias_gelu_fwd_kernelI13__nv_bfloat16Li8EE"
+    assert chip_smoke._sass_per_element("lib.so", bwd, 2) == 1.5
+    assert chip_smoke._sass_per_element("lib.so", fwd, 1) == 3
+    # targets given as addresses, as cuobjdump prints them for sm_90a
+    assert chip_smoke._sass_per_element(
+        "lib.so", "bias_gelu_bwd_kernelIfLi4EE", 4) == 1.0
+    assert chip_smoke._sass_per_element("lib.so", "other_kernel", 1) is None
+    assert chip_smoke._issue_ms(3.0, 132 * 128 * 1000, 132, 1000.0) == \
+        pytest.approx(3e-3)
+    assert chip_smoke._issue_ms(None, 1, 132, 1980.0) is None
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr("mxnet_tpu_torch.ops.cuda_build._nvcc",
+                        lambda: "/nonexistent/bin/nvcc")
+    assert chip_smoke._sass_per_element("lib.so", bwd, 2) is None
 
 
 # ---------------------------------------------------------------------------

@@ -160,6 +160,12 @@ def test_chip_smoke_imports_no_jax():
                 if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")}
 
 
+def test_chip_epilogue_imports_no_jax():
+    names = set(_imports(REPO / "chip_epilogue.py"))
+    assert not {n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")}
+
+
 def test_default_context_is_gpu_and_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pt.current_context() == pt.gpu(0)
