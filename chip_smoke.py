@@ -31,9 +31,12 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    control: the backward with dV from the bf16 Pd must fail the
    bit-equal share. The kernels' division (``div_rn``) bit for bit with
    '/' on 3 x 2^30 operand pairs, x * rcp(y) caught. The forward
-   kernels also at the training step's shapes; bias+GeLU (forward and
-   backward) with its bias read one column off, the planted fault, must
-   fail its check.
+   kernels also at the training step's shapes; the LayerNorm forward and
+   bias+GeLU held to the 0.99 bit-equal share, bias+residual to every
+   element bit for bit. Planted faults that must fail their checks:
+   bias+GeLU (forward and backward) and bias+residual with the bias read
+   one column off, the LayerNorm forward with gamma read one column
+   off.
 4. serving — BERT-base (12 layers, 768 units, 12 heads, vocab 30522) at
    full width with weights, biases, LayerNorm gamma and beta drawn from
    ``--seed``, cast to bf16 and served through ``InferenceSession``: the
@@ -112,10 +115,13 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    rows; attention at p = 0.1). The LayerNorm and bias+GeLU backwards
    and every ``dual_bwd`` call also by launch (``launch_ms``, profiler);
    where one block takes a whole ``dual_bwd`` call, the cdy pass's path
-   is timed beside it in turns. The bias+GeLU rows also carry an issue
-   floor (``issue_ms``): the SASS instructions an element of the kernel
-   (``cuobjdump -sass``) issued one a lane a cycle at the card's highest
-   SM clock.
+   is timed beside it in turns. The LayerNorm forward, bias+GeLU and
+   bias+residual rows also carry an issue floor (``issue_ms``): the SASS
+   instructions an element of the kernel's row loop (``cuobjdump
+   -sass``) issued one a lane a cycle at the card's highest SM clock;
+   the LayerNorm forward and bias+residual serving rows their fixed cost
+   (``fixed_ms``, ``fixed_library_ms``): kernel and library call on one
+   row, a launch and one row's latency.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -175,11 +181,19 @@ TRAIN_LAUNCHES = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
                   "bias_gelu_fwd": 12, "bias_gelu_bwd": 12,
                   "bias_residual_fwd": 12, "dropout": 26, "dual_bwd": 0}
 TRAIN_FWD_DROPOUT = 13
-# the bias+GeLU kernels' bf16 vector instances (csrc/epilogue.cu), by
-# mangled name, and the elements one pass of each one's row loop takes:
-# 2 rows x 8 columns
-GELU_FWD_SASS, GELU_FWD_PASS = "bias_gelu_fwd_kernelI13__nv_bfloat16Li8EE", 16
+# the redesigned kernels' bf16 vector instances, by a regular expression
+# over the mangled name, and the elements one pass of each one's row loop
+# takes: the epilogues (csrc/epilogue.cu) 2 rows x 8 columns a thread;
+# the LayerNorm forward's register path (csrc/layer_norm.cu) a row of 3 x
+# 8 columns a lane (its loop leaves out the set-up before it, gamma's and
+# beta's loads and the first row's, which a warp runs once for its one or
+# two rows)
+GELU_FWD_SASS, GELU_FWD_PASS = (
+    r"bias_fwd_kernelI13__nv_bfloat16Li8E.*13bias_gelu_fwdE", 16)
+RESIDUAL_SASS, RESIDUAL_PASS = (
+    r"bias_fwd_kernelI13__nv_bfloat16Li8E.*17bias_residual_fwdE", 16)
 GELU_BWD_SASS, GELU_BWD_PASS = "bias_gelu_bwd_kernelI13__nv_bfloat16Li8EE", 16
+LN_FWD_SASS, LN_FWD_PASS = "layer_norm_fwd_rowsI13__nv_bfloat16Li3EE", 24
 TRAIN_BATCH, TRAIN_SEQ, VOCAB = 32, 128, 30522
 UNITS, HIDDEN, HEADS, HEAD_DIM = 768, 3072, 12, 64
 # ResNet-50 v1's fused stages as tools/layout_exp.py mode hwnc5 runs them
@@ -460,13 +474,13 @@ def _launch_ms(fn, reps):
 
 def _sass_per_element(lib_path, fragment, per_pass):
     """Instructions an element costs in the kernel whose mangled name
-    holds ``fragment``, counted from ``cuobjdump -sass`` of the built
-    library ``lib_path``: those of its longest loop (of the whole kernel
-    where it has none) over ``per_pass``, the elements one pass of that
-    code takes; no-ops left out, both arms of a branch counted. None
-    where cuobjdump is not at hand or no kernel matches. The count is
-    static: it says what one pass issues, not how often a branch is
-    taken."""
+    matches the regular expression ``fragment``, counted from ``cuobjdump
+    -sass`` of the built library ``lib_path``: those of its longest loop
+    (of the whole kernel where it has none) over ``per_pass``, the
+    elements one pass of that code takes; no-ops left out, both arms of a
+    branch counted. None where cuobjdump is not at hand or no kernel
+    matches. The count is static: it says what one pass issues, not how
+    often a branch is taken."""
     import re
     import shutil
     from pathlib import Path
@@ -478,7 +492,7 @@ def _sass_per_element(lib_path, fragment, per_pass):
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300).stdout
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        if fragment not in func.split(None, 1)[0]:
+        if not re.search(fragment, func.split(None, 1)[0]):
             continue
         at, ins = {}, []         # branch target (label or address) -> index
         for ln in func.splitlines():
@@ -526,12 +540,12 @@ def _max_sm_clock():
         return None
 
 
-def _gelu_issue(row, fragment, per_pass, n):
-    """Add bias+GeLU's issue floor to its row of times, and print it."""
+def _issue_floor(row, source, fragment, per_pass, n):
+    """Add a redesigned kernel's issue floor to its row of times (the SASS
+    of ``fragment`` in the library of ``source``), and print it."""
     import torch
-    from mxnet_tpu_torch.ops import cuda_build, cuda_epilogue
-    per = _sass_per_element(cuda_build.build()[cuda_epilogue.SOURCE],
-                            fragment, per_pass)
+    from mxnet_tpu_torch.ops import cuda_build
+    per = _sass_per_element(cuda_build.build()[source], fragment, per_pass)
     clock = _max_sm_clock()
     row["sass_per_element"] = per
     row["issue_ms"] = _issue_ms(per, n, cuda_build.sm_count(
@@ -543,23 +557,29 @@ def _gelu_issue(row, fragment, per_pass, n):
               else "%.4f" % row["issue_ms"], clock, row["bound_ms"]))
 
 
-def _bias_shift(x, b, dy=None):
-    """The bias+GeLU kernel, forward (or backward, given ``dy``), with
-    the bias read one column off: the planted fault, through
-    ``mxt_bias_gelu_{fwd,bwd}_bias_shift``. Returns y, or (dx, db)."""
+def _bias_shift(x, b, dy=None, r=None):
+    """The bias+GeLU kernel, forward (or backward, given ``dy``), or the
+    bias+residual kernel (given ``r``), with the bias read one column
+    off: the planted fault, through ``mxt_bias_gelu_{fwd,bwd}_bias_shift``
+    and ``mxt_bias_residual_fwd_bias_shift``. Returns y, or (dx, db)."""
     import torch
     from mxnet_tpu_torch.ops import cuda_build as cb, cuda_epilogue as ce
     lib = ce._lib()
     M, C = x.shape
     code = cb.DTYPE_CODES[x.dtype]
-    if dy is None:
+    sms = cb.sm_count(x.device)
+    if r is not None:
+        out = torch.empty_like(x)
+        rc = lib.mxt_bias_residual_fwd_bias_shift(
+            x.data_ptr(), b.data_ptr(), r.data_ptr(), out.data_ptr(), M, C,
+            sms, code, code, 1, cb.stream_of(x))
+    elif dy is None:
         out = torch.empty_like(x)
         rc = lib.mxt_bias_gelu_fwd_bias_shift(
-            x.data_ptr(), b.data_ptr(), out.data_ptr(), M, C,
-            cb.sm_count(x.device), code, code, 1, cb.stream_of(x))
+            x.data_ptr(), b.data_ptr(), out.data_ptr(), M, C, sms, code,
+            code, 1, cb.stream_of(x))
     else:
         out = (torch.empty_like(x), torch.empty_like(b))
-        sms = cb.sm_count(x.device)
         part = torch.empty(ce.bwd_scratch_shape(M, C, x.dtype, True, sms),
                            dtype=torch.float32, device=x.device)
         rc = lib.mxt_bias_gelu_bwd_bias_shift(
@@ -570,6 +590,23 @@ def _bias_shift(x, b, dy=None):
         raise SmokeFailure("bias-shift control: launch failed (%d)" % rc)
     torch.cuda.synchronize()
     return out
+
+
+def _gamma_shift(x, g, b):
+    """The LayerNorm forward with gamma read one column off: the planted
+    fault, through ``mxt_layer_norm_fwd_gamma_shift``. Returns y."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_build as cb, cuda_norm
+    M, C = x.shape
+    y = torch.empty_like(x)
+    rc = cuda_norm._lib().mxt_layer_norm_fwd_gamma_shift(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), M, C, 1e-5,
+        cb.DTYPE_CODES[x.dtype], cb.DTYPE_CODES[g.dtype],
+        cb.sm_count(x.device), 1, cb.stream_of(x))
+    if rc:
+        raise SmokeFailure("gamma-shift control: launch failed (%d)" % rc)
+    torch.cuda.synchronize()
+    return y
 
 
 def _must_fail(what, check):
@@ -615,11 +652,15 @@ def phase_parity(seed):
     randn = _randn(seed)
     errs = {}
     x, g, b = randn(1024, 768), randn(768), randn(768)
+    ref = cuda_norm.layer_norm_plain(x, g, b, 1e-5)
     errs["layer_norm_fwd"] = _check_close(
         "layer_norm_fwd (1024, 768)",
-        cuda_norm.layer_norm_cuda(x, g, b, 1e-5),
-        cuda_norm.layer_norm_plain(x, g, b, 1e-5),
-        KERNEL_ATOL, KERNEL_RTOL)
+        cuda_norm.layer_norm_cuda(x, g, b, 1e-5), ref,
+        KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)
+    _must_fail("layer_norm_fwd with gamma one column off", lambda: (
+        _check_close("control: layer_norm_fwd, gamma shifted",
+                     _gamma_shift(x, g, b), ref, KERNEL_ATOL, KERNEL_RTOL,
+                     KERNEL_EQUAL)))
     x, b = randn(1024, 3072, scale=2.0), randn(3072)
     ref = cuda_epilogue.bias_gelu_plain(x, b)
     errs["bias_gelu_fwd"] = _check_close(
@@ -628,12 +669,18 @@ def phase_parity(seed):
     _must_fail("bias_gelu_fwd with its bias one column off", lambda: (
         _check_close("control: bias_gelu_fwd, bias shifted", _bias_shift(x, b),
                      ref, KERNEL_ATOL, KERNEL_RTOL, KERNEL_EQUAL)))
+    # bias+residual keeps the plain version's two adds in their order:
+    # every element bit for bit
     x, b, r = randn(1024, 768), randn(768), randn(1024, 768)
+    ref = cuda_epilogue.bias_residual_plain(x, b, r)
     errs["bias_residual_fwd"] = _check_close(
         "bias_residual_fwd (1024, 768)",
-        cuda_epilogue.bias_residual_cuda(x, b, r),
-        cuda_epilogue.bias_residual_plain(x, b, r),
-        KERNEL_ATOL, KERNEL_RTOL)
+        cuda_epilogue.bias_residual_cuda(x, b, r), ref,
+        KERNEL_ATOL, KERNEL_RTOL, 1.0)
+    _must_fail("bias_residual_fwd with its bias one column off", lambda: (
+        _check_close("control: bias_residual_fwd, bias shifted",
+                     _bias_shift(x, b, r=r), ref, KERNEL_ATOL, KERNEL_RTOL,
+                     1.0)))
     for L, N, heads in ((128, 8, 12), (127, 8, 12), (128, 8, 5)):
         qkv = randn(L, N, heads * 3 * 64)
         err = _check_close(
@@ -832,6 +879,17 @@ def phase_times(seed, reps, counts, n_forwards, errs, sess, reqs, net,
               "  bound %.4f ms (%s)" % (name, ms, plain_ms, lib_ms, b_ms,
                                         b_by))
 
+    def fixed(fn, lib):
+        """The last row's fixed cost: the kernel and the library call on
+        one row, a launch and one row's latency."""
+        r = rows[-1]
+        r["fixed_ms"], r["fixed_library_ms"] = (_gpu_ms(f, reps)
+                                                for f in (fn, lib))
+        print("[times] %s fixed cost (one row): kernel %.4f ms, library "
+              "%.4f ms; at (%d, %d) %.4f ms, bound %.4f ms" % (
+                  r["name"], r["fixed_ms"], r["fixed_library_ms"], M, C,
+                  r["ms"], r["bound_ms"]))
+
     M, C, H = 1024, 768, 3072
     x, g, b = randn(M, C), randn(C), randn(C)
     row("layer_norm_fwd", "mxnet_tpu_torch/csrc/layer_norm.cu",
@@ -840,6 +898,10 @@ def phase_times(seed, reps, counts, n_forwards, errs, sess, reqs, net,
         lambda: cuda_norm.layer_norm_plain(x, g, b, 1e-5),
         lambda: F.layer_norm(x, (C,), g, b, 1e-5),
         (2 * M * C + 2 * C) * E, 8 * M * C, f32_peak)
+    x1 = x[:1]
+    fixed(lambda: cuda_norm.layer_norm_cuda(x1, g, b, 1e-5),
+          lambda: F.layer_norm(x1, (C,), g, b, 1e-5))
+    _issue_floor(rows[-1], cuda_norm.SOURCE, LN_FWD_SASS, LN_FWD_PASS, M * C)
 
     L, N, heads, hd = 128, 8, 12, 64
     qkv = randn(L, N, heads * 3 * hd)
@@ -860,7 +922,8 @@ def phase_times(seed, reps, counts, n_forwards, errs, sess, reqs, net,
         lambda: cuda_epilogue.bias_gelu_plain(xg, bg),
         lambda: F.gelu(xg + bg),
         (2 * M * H + H) * E, 20 * M * H, f32_peak)
-    _gelu_issue(rows[-1], GELU_FWD_SASS, GELU_FWD_PASS, M * H)
+    _issue_floor(rows[-1], cuda_epilogue.SOURCE, GELU_FWD_SASS, GELU_FWD_PASS,
+                 M * H)
 
     r = randn(M, C)
     row("bias_residual_fwd", "mxnet_tpu_torch/csrc/epilogue.cu",
@@ -869,6 +932,11 @@ def phase_times(seed, reps, counts, n_forwards, errs, sess, reqs, net,
         lambda: cuda_epilogue.bias_residual_plain(x, b, r),
         lambda: x + b + r,
         (3 * M * C + C) * E, 2 * M * C, f32_peak)
+    r1 = r[:1]
+    fixed(lambda: cuda_epilogue.bias_residual_cuda(x1, b, r1),
+          lambda: x1 + b + r1)
+    _issue_floor(rows[-1], cuda_epilogue.SOURCE, RESIDUAL_SASS, RESIDUAL_PASS,
+                 M * C)
 
     import mxnet_tpu_torch as mx
     for ids, tok in reqs:
@@ -1073,12 +1141,14 @@ def phase_parity_train(seed):
     errs["layer_norm_fwd_train"] = _check_close(
         "layer_norm_fwd (%d, %d)" % (M, C),
         cuda_norm.layer_norm_cuda(x, g, b, 1e-5),
-        cuda_norm.layer_norm_plain(x, g, b, 1e-5), KERNEL_ATOL, KERNEL_RTOL)
+        cuda_norm.layer_norm_plain(x, g, b, 1e-5), KERNEL_ATOL, KERNEL_RTOL,
+        KERNEL_EQUAL)
     r = randn(M, C)
     errs["bias_residual_fwd_train"] = _check_close(
         "bias_residual_fwd (%d, %d)" % (M, C),
         cuda_epilogue.bias_residual_cuda(x, b, r),
-        cuda_epilogue.bias_residual_plain(x, b, r), KERNEL_ATOL, KERNEL_RTOL)
+        cuda_epilogue.bias_residual_plain(x, b, r), KERNEL_ATOL, KERNEL_RTOL,
+        1.0)
     x, b = randn(M, H, scale=2.0), randn(H)
     errs["bias_gelu_fwd_train"] = _check_close(
         "bias_gelu_fwd (%d, %d)" % (M, H), cuda_epilogue.bias_gelu_cuda(x, b),
@@ -1508,7 +1578,8 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
         lambda: cuda_epilogue.bias_gelu_bwd_cuda(dyg, xg, bg), reps)
     print("[times] bias_gelu_bwd by launch (profiler, ms a call): %s"
           % ", ".join("%s %.4f" % kv for kv in rows[-1]["launch_ms"].items()))
-    _gelu_issue(rows[-1], GELU_BWD_SASS, GELU_BWD_PASS, M * H)
+    _issue_floor(rows[-1], cuda_epilogue.SOURCE, GELU_BWD_SASS, GELU_BWD_PASS,
+                 M * H)
 
     # the forward kernels at the training step's shapes
     with torch.no_grad():
@@ -1520,13 +1591,16 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
             lambda: F.layer_norm(xf, (C,), gf, bf, 1e-5),
             (2 * M * C + 2 * C) * E, 8 * M * C, f32_peak,
             kernel="layer_norm_fwd")
+        _issue_floor(rows[-1], cuda_norm.SOURCE, LN_FWD_SASS, LN_FWD_PASS,
+                     M * C)
         row("bias_gelu_fwd_train", "mxnet_tpu_torch/csrc/epilogue.cu",
             "mxnet_tpu/ops/pallas_epilogue.py:126",
             lambda: cuda_epilogue.bias_gelu_cuda(xg, bg),
             lambda: cuda_epilogue.bias_gelu_plain(xg, bg),
             lambda: F.gelu(xg + bg),
             (2 * M * H + H) * E, 20 * M * H, f32_peak, kernel="bias_gelu_fwd")
-        _gelu_issue(rows[-1], GELU_FWD_SASS, GELU_FWD_PASS, M * H)
+        _issue_floor(rows[-1], cuda_epilogue.SOURCE, GELU_FWD_SASS,
+                     GELU_FWD_PASS, M * H)
         row("bias_residual_fwd_train", "mxnet_tpu_torch/csrc/epilogue.cu",
             "mxnet_tpu/ops/pallas_epilogue.py:267",
             lambda: cuda_epilogue.bias_residual_cuda(xf, bf, rf),
@@ -1534,6 +1608,8 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
             lambda: xf + bf + rf,
             (3 * M * C + C) * E, 2 * M * C, f32_peak,
             kernel="bias_residual_fwd")
+        _issue_floor(rows[-1], cuda_epilogue.SOURCE, RESIDUAL_SASS,
+                     RESIDUAL_PASS, M * C)
 
     xd = randn(M, C)
     sd = torch.tensor([7], dtype=torch.int32, device=DEV)

@@ -23,17 +23,20 @@
 // 48 (backward) instructions an element, issued over the card's 132 x
 // 128 lanes, take 77% and 80% as long as the bytes at BERT's shapes
 // (PERF.md), so every instruction that is not math comes off the time,
-// and the loads must stay in flight while the math issues. Design of both bias + GeLU kernels: a grid of a few blocks an
-// SM (from the SM count), each a strip of rows by a tile of columns; each
-// thread owns one 16-byte vector of columns (8 bf16 or f16, 4 f32) with
-// its slice of the bias in registers, read once, and walks the strip's
-// rows kRowLanes apart, holding a few rows at a time: it issues the
-// 16-byte loads of the next rows before the arithmetic of the rows it
-// holds, and writes 16-byte vectors. The row's offset is one 64-bit
-// product, the offset inside a row 32-bit. Rows that are not a whole
-// number of aligned 16-byte vectors (C % 8 in bf16, or a pointer off
-// 16-byte alignment) take the element path: the same kernels with one
-// element a thread.
+// and the loads must stay in flight while the math issues. bias +
+// residual moves three streams (x, r in; y out) for two adds an element.
+// Design of all three kernels: a grid of a few blocks an SM (from the SM
+// count), each a strip of rows by a tile of columns; each thread owns one
+// 16-byte vector of columns (8 bf16 or f16, 4 f32) with its slice of the
+// bias in registers, read once, and walks the strip's rows kRowLanes
+// apart, holding a few rows at a time: it issues the 16-byte loads of the
+// next rows before the arithmetic of the rows it holds, and writes
+// 16-byte vectors. The row's offset is one 64-bit product, the offset
+// inside a row 32-bit. Rows that are not a whole number of aligned
+// 16-byte vectors (C % 8 in bf16, or a pointer off 16-byte alignment)
+// take the element path: the same kernels with one element a thread.
+// The two forwards are one kernel, bias_fwd_kernel, over its epilogue
+// (bias_gelu_fwd on one input stream, bias_residual_fwd on two).
 //
 // The TPU kernel adds db across its sequential grid steps. Here a
 // backward thread keeps its columns' db in f32 registers over its rows,
@@ -41,8 +44,6 @@
 // row, and ordered_col_sum adds the partial rows in strip order.
 // Deterministic, no atomics. The scratch's row count is bwd_strips (twin:
 // ops/cuda_epilogue.py :: bwd_scratch_shape).
-//
-// bias + residual keeps its one grid-stride elementwise pass.
 #include <type_traits>
 
 #include "common.cuh"
@@ -50,13 +51,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 32;
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
 
-// bias + GeLU blocks: kVecCols threads along the row, each a 16-byte
-// vector of columns (or one column on the element path), by kRowLanes
-// threads down the rows
+// blocks: kVecCols threads along the row, each a 16-byte vector of
+// columns (or one column on the element path), by kRowLanes threads down
+// the rows
 constexpr int kVecCols = 64;
 constexpr int kRowLanes = kThreads / kVecCols;
 // rows a thread holds at once (it loads the next ones while it computes
@@ -141,14 +141,30 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ p, int64_t r,
   }
 }
 
+// the forward kernel's epilogues, y = op(x + b, r), each named for the
+// kernel it makes, so that a profile of bias_fwd_kernel shows whose it is
+struct bias_gelu_fwd {
+  static constexpr bool kResidual = false;
+  __device__ static float op(float z, float) {
+    return 0.5f * z * (1.0f + erff(z * kInvSqrt2));
+  }
+};
+
+struct bias_residual_fwd {
+  static constexpr bool kResidual = true;
+  __device__ static float op(float z, float r) { return z + r; }
+};
+
 // grid (row strips of `rows`, column tiles); a thread takes rows
-// kRowLanes apart
-template <typename T, int kV>
+// kRowLanes apart; res: the residual (Epi::kResidual), else unread. It
+// comes last: second, it cost the GeLU instance about 0.5% at BERT's
+// served shape on an H100 (PERF.md).
+template <typename T, int kV, typename Epi>
 __global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
-    bias_gelu_fwd_kernel(const T* __restrict__ x,
-                         const void* __restrict__ bias, int bias_dtype,
-                         T* __restrict__ y, int64_t M, int C, int64_t rows,
-                         int shift) {
+    bias_fwd_kernel(const T* __restrict__ x,
+                    const void* __restrict__ bias, int bias_dtype,
+                    T* __restrict__ y, int64_t M, int C, int64_t rows,
+                    int shift, const T* __restrict__ res) {
   constexpr int kStep = kRowLanes * kFwdRows;
   const int c = (blockIdx.y * kVecCols + threadIdx.x % kVecCols) * kV;
   if (c >= C) return;
@@ -157,25 +173,30 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
   const int64_t s0 = static_cast<int64_t>(blockIdx.x) * rows;
   const int64_t r1 = s0 + rows < M ? s0 + rows : M;
   const int64_t r0 = s0 + threadIdx.x / kVecCols;
-  Raw<T, kV> cur[kFwdRows], next[kFwdRows];
+  Raw<T, kV> cur[kFwdRows], next[kFwdRows], rcur[kFwdRows], rnext[kFwdRows];
   load_rows<T, kV, kFwdRows>(x, r0, r1, C, c, cur);
+  if constexpr (Epi::kResidual)
+    load_rows<T, kV, kFwdRows>(res, r0, r1, C, c, rcur);
   for (int64_t r = r0; r < r1; r += kStep) {
     load_rows<T, kV, kFwdRows>(x, r + kStep, r1, C, c, next);
+    if constexpr (Epi::kResidual)
+      load_rows<T, kV, kFwdRows>(res, r + kStep, r1, C, c, rnext);
 #pragma unroll
     for (int u = 0; u < kFwdRows; ++u) {
       const int64_t ru = r + u * kRowLanes;
       if (ru >= r1) break;
-      float f[kV];
+      float f[kV], q[kV] = {};
       unpack<T, kV>(cur[u], f);
+      if constexpr (Epi::kResidual) unpack<T, kV>(rcur[u], q);
 #pragma unroll
-      for (int k = 0; k < kV; ++k) {
-        const float z = f[k] + b[k];
-        f[k] = 0.5f * z * (1.0f + erff(z * kInvSqrt2));
-      }
+      for (int k = 0; k < kV; ++k) f[k] = Epi::op(f[k] + b[k], q[k]);
       *reinterpret_cast<Raw<T, kV>*>(y + ru * C + c) = pack<T, kV>(f);
     }
 #pragma unroll
-    for (int u = 0; u < kFwdRows; ++u) cur[u] = next[u];
+    for (int u = 0; u < kFwdRows; ++u) {
+      cur[u] = next[u];
+      if constexpr (Epi::kResidual) rcur[u] = rnext[u];
+    }
   }
 }
 
@@ -268,10 +289,10 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// elements a bias + GeLU thread takes along the row, the pointers aligned
-// to 16 bytes: a 16-byte vector where the rows hold a whole number of
-// them, else one (the element path)
-int gelu_vector(int C, int bytes) {
+// elements a thread of any of the three kernels takes along the row, the
+// pointers aligned to 16 bytes: a 16-byte vector where the rows hold a
+// whole number of them, else one (the element path)
+int col_vector(int C, int bytes) {
   const int e = 16 / bytes;
   return C % e == 0 ? e : 1;
 }
@@ -295,11 +316,14 @@ int64_t bwd_strips(int64_t M, int C, int vec, int sms) {
   return row_strips(M, C, vec, sms, kBwdBlocksPerSm, kBwdRows);
 }
 
-template <typename T>
-int launch_gelu(const void* x, const void* bias, int bias_dtype, void* y,
-                int64_t M, int C, int sms, int shift, cudaStream_t stream) {
-  const int vec = aligned16(x) && aligned16(y) ? gelu_vector(C, sizeof(T))
-                                               : 1;
+// res: the residual where Epi takes one, else nullptr
+template <typename T, typename Epi>
+int launch_fwd(const void* x, const void* res, const void* bias,
+               int bias_dtype, void* y, int64_t M, int C, int sms, int shift,
+               cudaStream_t stream) {
+  const bool aligned = aligned16(x) && aligned16(y) &&
+                       (!Epi::kResidual || aligned16(res));
+  const int vec = aligned ? col_vector(C, sizeof(T)) : 1;
   const int64_t tiles = col_tiles(C, vec);
   const int64_t strips = row_strips(M, C, vec, sms, kFwdBlocksPerSm,
                                     kFwdRows);
@@ -308,13 +332,14 @@ int launch_gelu(const void* x, const void* bias, int bias_dtype, void* y,
   const dim3 grid(static_cast<unsigned>(strips),
                   static_cast<unsigned>(tiles));
   const T* xs = static_cast<const T*>(x);
+  const T* rs = static_cast<const T*>(res);
   T* ys = static_cast<T*>(y);
   if (vec > 1)
-    bias_gelu_fwd_kernel<T, 16 / sizeof(T)><<<grid, kThreads, 0, stream>>>(
-        xs, bias, bias_dtype, ys, M, C, rows, shift);
+    bias_fwd_kernel<T, 16 / sizeof(T), Epi><<<grid, kThreads, 0, stream>>>(
+        xs, bias, bias_dtype, ys, M, C, rows, shift, rs);
   else
-    bias_gelu_fwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
-        xs, bias, bias_dtype, ys, M, C, rows, shift);
+    bias_fwd_kernel<T, 1, Epi><<<grid, kThreads, 0, stream>>>(
+        xs, bias, bias_dtype, ys, M, C, rows, shift, rs);
   return cudaSuccess;
 }
 
@@ -324,7 +349,7 @@ int launch_gelu_bwd(const void* dy, const void* x, const void* bias,
                     void* db, int64_t M, int C, int sms, int shift,
                     cudaStream_t stream) {
   const int vec = aligned16(dy) && aligned16(x) && aligned16(dx)
-                      ? gelu_vector(C, sizeof(T))
+                      ? col_vector(C, sizeof(T))
                       : 1;
   const int64_t tiles = col_tiles(C, vec);
   if (strips != bwd_strips(M, C, vec, sms) || tiles > 65535 ||
@@ -347,23 +372,24 @@ int launch_gelu_bwd(const void* dy, const void* x, const void* bias,
   return cudaSuccess;
 }
 
-int gelu_fwd(const void* x, const void* bias, void* y, int64_t M, int C,
-             int sms, int dtype, int bias_dtype, int shift,
-             cudaStream_t stream) {
+template <typename Epi>
+int fwd(const void* x, const void* res, const void* bias, void* y, int64_t M,
+        int C, int sms, int dtype, int bias_dtype, int shift,
+        cudaStream_t stream) {
   if (M < 1 || C < 1 || sms < 1) return cudaErrorInvalidValue;
   int rc;
   switch (dtype) {
     case kF32:
-      rc = launch_gelu<float>(x, bias, bias_dtype, y, M, C, sms, shift,
-                              stream);
+      rc = launch_fwd<float, Epi>(x, res, bias, bias_dtype, y, M, C, sms,
+                                  shift, stream);
       break;
     case kBF16:
-      rc = launch_gelu<__nv_bfloat16>(x, bias, bias_dtype, y, M, C, sms,
-                                      shift, stream);
+      rc = launch_fwd<__nv_bfloat16, Epi>(x, res, bias, bias_dtype, y, M, C,
+                                          sms, shift, stream);
       break;
     case kF16:
-      rc = launch_gelu<__half>(x, bias, bias_dtype, y, M, C, sms, shift,
-                               stream);
+      rc = launch_fwd<__half, Epi>(x, res, bias, bias_dtype, y, M, C, sms,
+                                   shift, stream);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -397,40 +423,14 @@ int gelu_bwd(const void* dy, const void* x, const void* bias, void* dx,
   return rc != cudaSuccess ? rc : static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bias_residual_fwd_kernel(const T* __restrict__ x,
-                             const void* __restrict__ bias, int bias_dtype,
-                             const T* __restrict__ r, T* __restrict__ y,
-                             int64_t n, int C) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const float z = to_f32(x[i]) + load_f32(bias, i % C, bias_dtype);
-    y[i] = from_f32<T>(z + to_f32(r[i]));
-  }
-}
-
-unsigned grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
-template <typename T>
-void launch_residual(const void* x, const void* bias, int bias_dtype,
-                     const void* r, void* y, int64_t n, int C,
-                     cudaStream_t stream) {
-  bias_residual_fwd_kernel<T><<<grid_for(n), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), bias, bias_dtype, static_cast<const T*>(r),
-      static_cast<T*>(y), n, C);
-}
-
 }  // namespace
 
-// Elements a bias + GeLU thread takes along a row of C elements of dtype
-// code `dtype` when the pointers are 16-byte aligned: 16 / element size,
-// or 1 for the element path (twin: cuda_epilogue.gelu_vector).
-MXT_EXPORT int mxt_bias_gelu_vector(int C, int dtype) {
-  return gelu_vector(C, dtype == kF32 ? 4 : 2);
+// Elements a thread of the three kernels takes along a row of C elements
+// of dtype code `dtype` when the pointers are 16-byte aligned: 16 /
+// element size, or 1 for the element path (twin:
+// cuda_epilogue.col_vector).
+MXT_EXPORT int mxt_bias_col_vector(int C, int dtype) {
+  return col_vector(C, dtype == kF32 ? 4 : 2);
 }
 
 // Row strips of the backward, the rows of its f32 scratch, for (M, C)
@@ -460,7 +460,8 @@ MXT_EXPORT int mxt_bias_gelu_bwd(const void* dy, const void* x,
 MXT_EXPORT int mxt_bias_gelu_fwd(const void* x, const void* bias, void* y,
                                  int64_t M, int C, int sms, int dtype,
                                  int bias_dtype, cudaStream_t stream) {
-  return gelu_fwd(x, bias, y, M, C, sms, dtype, bias_dtype, 0, stream);
+  return fwd<bias_gelu_fwd>(x, nullptr, bias, y, M, C, sms, dtype,
+                            bias_dtype, 0, stream);
 }
 
 // The two kernels with the bias read `shift` columns off: chip_smoke.py's
@@ -470,7 +471,8 @@ MXT_EXPORT int mxt_bias_gelu_fwd_bias_shift(const void* x, const void* bias,
                                             int sms, int dtype,
                                             int bias_dtype, int shift,
                                             cudaStream_t stream) {
-  return gelu_fwd(x, bias, y, M, C, sms, dtype, bias_dtype, shift, stream);
+  return fwd<bias_gelu_fwd>(x, nullptr, bias, y, M, C, sms, dtype,
+                            bias_dtype, shift, stream);
 }
 
 MXT_EXPORT int mxt_bias_gelu_bwd_bias_shift(
@@ -481,26 +483,22 @@ MXT_EXPORT int mxt_bias_gelu_bwd_bias_shift(
                   bias_dtype, shift, stream);
 }
 
-// x, r, y: (M, C) contiguous of dtype code `dtype`; bias: (C,).
+// x, r, y: (M, C) contiguous of dtype code `dtype`; bias: (C,) of dtype
+// code `bias_dtype`; sms: the card's SM count.
 MXT_EXPORT int mxt_bias_residual_fwd(const void* x, const void* bias,
                                      const void* r, void* y, int64_t M,
-                                     int C, int dtype, int bias_dtype,
-                                     cudaStream_t stream) {
-  if (M < 1 || C < 1) return cudaErrorInvalidValue;
-  const int64_t n = M * C;
-  switch (dtype) {
-    case kF32:
-      launch_residual<float>(x, bias, bias_dtype, r, y, n, C, stream);
-      break;
-    case kBF16:
-      launch_residual<__nv_bfloat16>(x, bias, bias_dtype, r, y, n, C,
-                                     stream);
-      break;
-    case kF16:
-      launch_residual<__half>(x, bias, bias_dtype, r, y, n, C, stream);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+                                     int C, int sms, int dtype,
+                                     int bias_dtype, cudaStream_t stream) {
+  return fwd<bias_residual_fwd>(x, r, bias, y, M, C, sms, dtype, bias_dtype,
+                                0, stream);
+}
+
+// bias + residual with the bias read `shift` columns off: chip_smoke.py's
+// planted fault, as for bias + GeLU above. Not for use.
+MXT_EXPORT int mxt_bias_residual_fwd_bias_shift(
+    const void* x, const void* bias, const void* r, void* y, int64_t M,
+    int C, int sms, int dtype, int bias_dtype, int shift,
+    cudaStream_t stream) {
+  return fwd<bias_residual_fwd>(x, r, bias, y, M, C, sms, dtype, bias_dtype,
+                                shift, stream);
 }

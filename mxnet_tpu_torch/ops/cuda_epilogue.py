@@ -20,13 +20,14 @@ bias read as f32:
 :func:`bias_gelu_fn` and :func:`bias_residual_fn` wrap each forward and
 its backward in one ``torch.autograd.Function``.
 
-Both bias+GeLU kernels take a 16-byte vector of columns a thread where
-the rows hold a whole number of them and the pointers are 16-byte
-aligned, else one element a thread (:func:`gelu_vector`); the
-backward's f32 scratch holds one partial row of db per row strip
-(:func:`bwd_scratch_shape`, sized from the card's SM count). Both
-helpers have C twins in ``csrc/epilogue.cu``, and the launcher refuses a
-scratch of another shape.
+The three kernels take a 16-byte vector of columns a thread where the
+rows hold a whole number of them and the pointers are 16-byte aligned,
+else one element a thread (:func:`col_vector`); the two forwards are one
+kernel over its epilogue. The bias+GeLU backward's f32 scratch holds one
+partial row of db per row strip (:func:`bwd_scratch_shape`, sized from
+the card's SM count). Both helpers have C twins in
+``csrc/epilogue.cu``, and the launcher refuses a scratch of another
+shape.
 
 The reference's row-block limits (``_pick_rows``, at least 8 rows) are
 TPU tiling limits, so the kernels serve every row count. A bias (or
@@ -48,7 +49,7 @@ __all__ = ["gelu_erf", "bias_gelu", "bias_gelu_cuda", "bias_gelu_plain",
            "bias_gelu_bwd", "bias_gelu_bwd_cuda", "bias_gelu_bwd_plain",
            "bias_gelu_fn", "bias_gelu_available", "bias_residual",
            "bias_residual_cuda", "bias_residual_plain", "bias_residual_fn",
-           "bias_residual_available", "gelu_vector", "aligned16",
+           "bias_residual_available", "col_vector", "aligned16",
            "bwd_scratch_shape"]
 
 GELU_KERNEL = "bias_gelu_fwd"
@@ -57,8 +58,8 @@ RESIDUAL_KERNEL = "bias_residual_fwd"
 SOURCE = "epilogue.cu"
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
-# the bias+GeLU kernels' blocks (csrc/epilogue.cu): _VEC_COLS threads
-# along the row by _ROW_LANES down it; a backward thread holds _BWD_ROWS
+# the kernels' blocks (csrc/epilogue.cu): _VEC_COLS threads along the
+# row by _ROW_LANES down it; a bias+GeLU backward thread holds _BWD_ROWS
 # rows at a time, _BWD_BLOCKS_PER_SM blocks an SM
 _VEC_COLS = 64
 _ROW_LANES = 4
@@ -113,11 +114,11 @@ def aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def gelu_vector(C: int, dtype: torch.dtype, aligned: bool = True) -> int:
-    """Elements a bias+GeLU thread takes along a row of ``C`` elements: a
-    16-byte vector where the rows hold a whole number of them and the
-    pointers are aligned, else 1, the element path
-    (``csrc/epilogue.cu :: gelu_vector``)."""
+def col_vector(C: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """Elements a thread of the bias+GeLU and bias+residual kernels takes
+    along a row of ``C`` elements: a 16-byte vector where the rows hold a
+    whole number of them and the pointers are aligned, else 1, the
+    element path (``csrc/epilogue.cu :: col_vector``)."""
     e = 16 // dtype.itemsize
     return e if aligned and C % e == 0 else 1
 
@@ -128,7 +129,7 @@ def bwd_scratch_shape(M: int, C: int, dtype: torch.dtype, aligned: bool,
     ``_BWD_BLOCKS_PER_SM`` blocks on each of the card's ``sms`` SMs over
     the column tiles, at least ``_ROW_LANES * _BWD_ROWS`` rows a strip,
     no strip empty (``csrc/epilogue.cu :: bwd_strips``)."""
-    vec = gelu_vector(C, dtype, aligned)
+    vec = col_vector(C, dtype, aligned)
     tiles = -(-(C // vec) // _VEC_COLS)
     most = -(-M // (_ROW_LANES * _BWD_ROWS))
     strips = max(1, min(_BWD_BLOCKS_PER_SM * sms // tiles, most))
@@ -149,9 +150,11 @@ def _lib():
         lib.mxt_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, i32, i32,
                                           p]
         lib.mxt_bias_gelu_fwd.restype = ctypes.c_int
-        lib.mxt_bias_residual_fwd.argtypes = [p, p, p, p, i64, i32, i32,
-                                              i32, p]
+        res = [p, p, p, p, i64, i32, i32, i32, i32]
+        lib.mxt_bias_residual_fwd.argtypes = res + [p]
         lib.mxt_bias_residual_fwd.restype = ctypes.c_int
+        lib.mxt_bias_residual_fwd_bias_shift.argtypes = res + [i32, p]
+        lib.mxt_bias_residual_fwd_bias_shift.restype = ctypes.c_int
         bwd = [p, p, p, p, p, i64, p, i64, i32, i32, i32, i32]
         lib.mxt_bias_gelu_bwd.argtypes = bwd + [p]
         lib.mxt_bias_gelu_bwd.restype = ctypes.c_int
@@ -160,8 +163,8 @@ def _lib():
         lib.mxt_bias_gelu_fwd_bias_shift.restype = ctypes.c_int
         lib.mxt_bias_gelu_bwd_bias_shift.argtypes = bwd + [i32, p]
         lib.mxt_bias_gelu_bwd_bias_shift.restype = ctypes.c_int
-        lib.mxt_bias_gelu_vector.argtypes = [i32, i32]
-        lib.mxt_bias_gelu_vector.restype = i32
+        lib.mxt_bias_col_vector.argtypes = [i32, i32]
+        lib.mxt_bias_col_vector.restype = i32
         lib.mxt_bias_gelu_bwd_strips.argtypes = [i64, i32, i32, i32]
         lib.mxt_bias_gelu_bwd_strips.restype = i64
         lib._mxt_ready = True
@@ -237,8 +240,9 @@ def bias_residual_cuda(x: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = lib.mxt_bias_residual_fwd(
             x.data_ptr(), bias.data_ptr(), residual.data_ptr(), y.data_ptr(),
-            x.numel() // C, C, _cb.DTYPE_CODES[x.dtype],
-            _cb.DTYPE_CODES[bias.dtype], _cb.stream_of(x))
+            x.numel() // C, C, _cb.sm_count(x.device),
+            _cb.DTYPE_CODES[x.dtype], _cb.DTYPE_CODES[bias.dtype],
+            _cb.stream_of(x))
     _cb.check_launch(lib, rc, RESIDUAL_KERNEL)
     return y
 

@@ -36,7 +36,10 @@ __all__ = ["layer_norm", "layer_norm_cuda", "layer_norm_plain",
 KERNEL = "layer_norm_fwd"
 BWD_KERNEL = "layer_norm_bwd"
 SOURCE = "layer_norm.cu"
-# the backward kernel's grid and paths (csrc/layer_norm.cu)
+# the kernels' grids and paths (csrc/layer_norm.cu)
+_FWD_WARPS = 4
+_FWD_BLOCKS_PER_SM = 4
+_CHUNK_WARPS = 8
 _BWD_WARPS = 8
 _BWD_BLOCKS_PER_SM = 2
 _REG_COLS = 1024
@@ -96,17 +99,30 @@ def bwd_blocks(M: int, sms: int) -> int:
     return max(1, min(-(-M // _BWD_WARPS), _BWD_BLOCKS_PER_SM * sms))
 
 
-def bwd_vectors(C: int, dtype: torch.dtype) -> int:
-    """16-byte vectors a lane holds on the backward kernel's register
-    path for rows of ``C`` elements, or 0 where its chunked path (element
-    loads, 1024 columns a sweep) takes them: rows that are not a
-    whole number of 16-byte vectors or are wider than ``_REG_COLS``
-    (``csrc/layer_norm.cu :: bwd_vectors``)."""
+def reg_vectors(C: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """16-byte vectors a lane holds on the register path of the forward
+    and backward kernels for rows of ``C`` elements, or 0 where their
+    chunked paths (element loads) take them: rows that are not a whole
+    number of 16-byte vectors, are wider than ``_REG_COLS`` or whose
+    pointers are not 16-byte aligned (``csrc/layer_norm.cu ::
+    reg_vectors``)."""
     e = 16 // dtype.itemsize
-    if C % e or C > _REG_COLS:
+    if not aligned or C % e or C > _REG_COLS:
         return 0
     nv = -(-C // (32 * e))
     return nv if nv <= 4 else 6 if nv <= 6 else 8
+
+
+def fwd_blocks(M: int, C: int, dtype: torch.dtype, aligned: bool,
+               sms: int) -> int:
+    """The forward's grid: on the register path ``_FWD_BLOCKS_PER_SM``
+    blocks of ``_FWD_WARPS`` warps on each of the card's ``sms`` SMs,
+    fewer where the rows do not fill them (a warp takes a row at a time);
+    on the chunked path a block of ``_CHUNK_WARPS`` rows
+    (``csrc/layer_norm.cu :: fwd_blocks``)."""
+    if not reg_vectors(C, dtype, aligned):
+        return -(-M // _CHUNK_WARPS)
+    return min(-(-M // _FWD_WARPS), _FWD_BLOCKS_PER_SM * sms)
 
 
 def bwd_scratch_shape(M: int, C: int, sms: int):
@@ -119,16 +135,21 @@ def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        f = lib.mxt_layer_norm_fwd
-        f.argtypes = [p, p, p, p, ctypes.c_int64, i32, ctypes.c_float, i32,
-                      i32, p]
-        f.restype = i32
+        fwd = [p, p, p, p, ctypes.c_int64, i32, ctypes.c_float, i32, i32,
+               i32]
+        lib.mxt_layer_norm_fwd.argtypes = fwd + [p]
+        lib.mxt_layer_norm_fwd.restype = i32
+        lib.mxt_layer_norm_fwd_gamma_shift.argtypes = fwd + [i32, p]
+        lib.mxt_layer_norm_fwd_gamma_shift.restype = i32
+        lib.mxt_layer_norm_fwd_blocks.argtypes = [ctypes.c_int64, i32, i32,
+                                                  i32, i32]
+        lib.mxt_layer_norm_fwd_blocks.restype = ctypes.c_int64
         f = lib.mxt_layer_norm_bwd
         f.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64, i32,
                       ctypes.c_float, i32, i32, i32, p]
         f.restype = i32
-        lib.mxt_layer_norm_bwd_vectors.argtypes = [i32, i32]
-        lib.mxt_layer_norm_bwd_vectors.restype = i32
+        lib.mxt_layer_norm_vectors.argtypes = [i32, i32]
+        lib.mxt_layer_norm_vectors.restype = i32
         lib._mxt_ready = True
     return lib
 
@@ -153,7 +174,8 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
         rc = lib.mxt_layer_norm_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             M, C, float(eps), _cb.DTYPE_CODES[x.dtype],
-            _cb.DTYPE_CODES[gamma.dtype], _cb.stream_of(x))
+            _cb.DTYPE_CODES[gamma.dtype], _cb.sm_count(x.device),
+            _cb.stream_of(x))
     _cb.check_launch(lib, rc, KERNEL)
     return y
 

@@ -254,10 +254,84 @@ def test_dispatch_is_by_device(fn):
     (1536, "bfloat16", 0), (4100, "float32", 0), (4100, "bfloat16", 0)])
 def test_layer_norm_bwd_path_choice(C, dtype, vectors):
     """Rows that are whole 16-byte vectors, at most 1024 wide, go to the
-    backward kernel's register path with that many vectors a lane (4, 6
-    or 8 past 3); the others (C = 100 in bf16 is not 16-byte aligned) to
-    its chunked path, 0."""
-    assert cuda_norm.bwd_vectors(C, torch_dtype(dtype)) == vectors
+    register path of the backward and forward kernels with that many
+    vectors a lane (4, 6 or 8 past 3); the others (C = 100 in bf16 is not
+    16-byte aligned) to their chunked paths, 0."""
+    assert cuda_norm.reg_vectors(C, torch_dtype(dtype)) == vectors
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("C", [8, 100, 768, 1024, 1028, 2048])
+def test_layer_norm_fwd_path_choice(C, dtype, aligned):
+    """The forward takes the register path, as the backward does, only
+    where the rows are whole 16-byte vectors at most 1024 wide and the
+    pointers 16-byte aligned; BERT's 768 always there when aligned,
+    2048 (and 1028) never, and an unaligned view never."""
+    dt = torch_dtype(dtype)
+    e = 16 // dt.itemsize
+    nv = cuda_norm.reg_vectors(C, dt, aligned)
+    if not aligned or C % e or C > 1024:
+        assert nv == 0
+    else:
+        assert nv >= -(-C // (32 * e)) and nv * 32 * e - C < 2 * 32 * e
+    if aligned and C == 768:
+        assert nv == (6 if dtype == "float32" else 3)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("M", [1, 33, 1024, 4096, 100000])
+def test_layer_norm_fwd_grid(M, sms):
+    """The register path: blocks of 4 warps, a warp a row, at most 4
+    blocks an SM (a warp then walks several rows: two of BERT's 4096 on
+    132 SMs); the chunked path: a block of 8 rows, every row its own
+    warp."""
+    reg = cuda_norm.fwd_blocks(M, 768, torch.bfloat16, True, sms)
+    assert reg == min(-(-M // 4), 4 * sms)
+    assert reg * 4 >= min(M, 16 * sms)
+    chunked = cuda_norm.fwd_blocks(M, 768, torch.bfloat16, False, sms)
+    assert chunked == cuda_norm.fwd_blocks(M, 2048, torch.bfloat16, True,
+                                           sms) == -(-M // 8)
+
+
+def test_layer_norm_fwd_takes_the_chunked_path_on_a_shifted_view():
+    """A view 2 bytes off 16-byte alignment is unaligned for the wrapper's
+    alignment test, so the kernel's path choice sends it to the chunked
+    path; on the CPU the plain version serves it whatever its alignment."""
+    base = torch.randn(64 * 768 + 1).to(torch.bfloat16)
+    x = base[1:].view(64, 768)
+    g, b = torch.ones(768, dtype=torch.bfloat16), torch.zeros(
+        768, dtype=torch.bfloat16)
+    assert not cuda_epilogue.aligned16(x)
+    assert cuda_norm.reg_vectors(768, x.dtype,
+                                 cuda_epilogue.aligned16(x, g, b)) == 0
+    assert torch.equal(cuda_norm.layer_norm(x, g, b, 1e-5),
+                       cuda_norm.layer_norm_plain(x.contiguous(), g, b,
+                                                  1e-5))
+
+
+@pytest.mark.parametrize("shift", ["none", "x", "residual"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("C", [7, 300, 768, 3072])
+def test_bias_residual_path_choice(C, dtype, shift):
+    """bias+residual runs on bias+GeLU's forward kernel and takes its
+    vector/element choice: a 16-byte vector of columns a thread where the
+    rows hold a whole number of them and x, the residual and y are all
+    16-byte aligned, else one element (a view one element off alignment,
+    in x or in the residual alone, sends the call to the element path)."""
+    def view(off):
+        return torch.zeros(4 * C + 8, dtype=dtype)[off:off + 4 * C].view(4, C)
+    x = view(1 if shift == "x" else 0)
+    r = view(1 if shift == "residual" else 0)
+    y = torch.empty_like(r)
+    aligned = cuda_epilogue.aligned16(x, r, y)
+    assert aligned == (shift == "none")
+    e = 16 // dtype.itemsize
+    want = e if aligned and C % e == 0 else 1
+    assert cuda_epilogue.col_vector(C, dtype, aligned) == want
+    if aligned and C in (768, 3072):
+        assert want > 1
 
 
 @pytest.mark.parametrize("M,sms,blocks", [(4096, 132, 264), (4096, 114, 228),

@@ -146,7 +146,7 @@ def test_bias_gelu_path_choice(C, dtype, aligned):
     only in f32, 7 never."""
     e = 16 // dtype.itemsize
     want = e if aligned and C % e == 0 else 1
-    assert cuda_epilogue.gelu_vector(C, dtype, aligned) == want
+    assert cuda_epilogue.col_vector(C, dtype, aligned) == want
     if aligned and C in (768, 3072):
         assert want > 1
     if C == 7 or not aligned:
@@ -168,7 +168,7 @@ def test_bias_gelu_bwd_scratch_shape(M, C, dtype, sms):
         assert width == C and 1 <= strips <= max(1, -(-M // 8))
         rows = -(-M // strips)
         assert (strips - 1) * rows < M <= strips * rows
-        vec = cuda_epilogue.gelu_vector(C, dtype, aligned)
+        vec = cuda_epilogue.col_vector(C, dtype, aligned)
         tiles = -(-(C // vec) // 64)
         assert strips * tiles <= max(2 * sms, tiles)
     if (M, C, sms) == (4096, 3072, 132):
@@ -519,6 +519,9 @@ def test_sass_count_takes_the_longest_loop_or_the_whole_kernel(monkeypatch):
     fwd = "bias_gelu_fwd_kernelI13__nv_bfloat16Li8EE"
     assert chip_smoke._sass_per_element("lib.so", bwd, 2) == 1.5
     assert chip_smoke._sass_per_element("lib.so", fwd, 1) == 3
+    # the fragment is a regular expression
+    assert chip_smoke._sass_per_element(
+        "lib.so", r"gelu_bwd_kernelI13__nv_bfloat16.*EEEv", 2) == 1.5
     # targets given as addresses, as cuobjdump prints them for sm_90a
     assert chip_smoke._sass_per_element(
         "lib.so", "bias_gelu_bwd_kernelIfLi4EE", 4) == 1.0
