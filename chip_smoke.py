@@ -56,6 +56,32 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    before, read just after) must equal the expected table, and
    ``--train-steps`` LAMB steps on one fixed batch must keep the loss
    finite and end below where they began.
+5a. AMP pretraining — BERT-base as the reference's flagship
+   configuration runs it: ``bert_12_768_12`` at dropout 0.1 with f32
+   parameters under ``amp.init(target_dtype="bfloat16")`` and the
+   default ``BERTMLMLoss()`` (auto: the chunked LM head, chunk 4096),
+   batch 32 x seq 128. First the kernels at the step's dtype mixes
+   against their plain versions: the LayerNorm forward and backward on
+   bf16 x with f32 gamma and on f32 x, dropout on f32. One forward and
+   backward is held against the same step with every kernel swapped
+   for its plain version, per gradient and for the loss, with the plain
+   AMP step's distance from the same step in f32 without AMP as the
+   yardstick (``AMP_RATIO``); a control drops the LayerNorm backward's
+   dgamma where x is bf16 and gamma f32 and must be caught. The launch
+   counts of one full step (reset just before, read just after) must
+   equal the training table, with the LayerNorm instances by dtype
+   (``AMP_LN_INSTANCES``); ``AMP_STEPS`` LAMB steps driven by a
+   ``PolyScheduler`` with warmup must lower the loss. The chunked head
+   is held against the full-vocab head on the step's hidden states
+   (loss, dh, dW, db; a control pads with 0 bias logits), and each
+   head's device time and peak memory are printed with the dense
+   mode's; then the AMP step on the host clock and under the profiler.
+5b. float16 — the same widths at ``FP16_LAYERS`` layers cast to
+   float16, LAMB with ``multi_precision=True`` (f32 masters),
+   ``amp.init("float16")``, ``init_trainer``, ``scale_loss`` and
+   ``unscale``: ``FP16_STEPS`` steps must keep the loss finite and
+   lower it, and a non-finite gradient planted halfway must halve the
+   loss scale and zero that step's gradients.
 6. fused stages — ResNet-50 v1's four bottleneck stages at full width
    (batch 32 at 224^2: 56^2, 28^2, 14^2 and 7^2, HWNC bf16), laid out
    as tools/layout_exp.py mode hwnc5 runs them, forward and backward
@@ -233,6 +259,34 @@ RESNET_LOSS_REL = 0.0063
 # at some step (on an H100 it fell by 2.44-2.69 by the third step, seeds
 # 0-4)
 RESNET_FALL = 1.0
+# The AMP step (bf16 compute over f32 parameters, the chunked head)
+# against itself with the plain versions, per parameter gradient and for
+# the loss, with the plain AMP step's own distance from the same step in
+# f32 without AMP (plain versions, TF32 off) as the yardstick. On an H100
+# (full runs, --seed 0 to 4) the largest of the 156 ratios read 0.893,
+# 0.86, 0.906, 0.829 and 0.975 (medians 0.475-0.528), and 34-129 on the
+# 25 LayerNorm gammas of bf16 x with the LayerNorm backward's dgamma
+# dropped there (the control); the limit is twice the largest correct
+# reading.
+AMP_RATIO = 1.95
+# The chunked head against the full-vocab head on the same bf16 hidden
+# states: tests/test_chunked_ce.py's bf16 tolerances, the loss within
+# 1e-5 (abs + rel) and each gradient's max abs error below 1e-2 of its
+# largest magnitude. On an H100 (seeds 0-4) the loss read at most 0.021
+# of its limit and dh 0.0065-0.0067 (one bf16 ulp of dh where it is
+# near the bottom of its binade, 2^-7 relative), dW 2e-5-4.2e-5, db
+# below 1.3e-6; with 0 pad logits (the control) the loss 573-599 times
+# its limit and dW, db 0.041-0.057.
+HEAD_LOSS_TOL, HEAD_GRAD_TOL = 1e-5, 1e-2
+# the LayerNorms of one AMP step by (x, gamma) dtype: the embedding's in
+# f32, the rest (two a layer and the MLM head's) on bf16 x, f32 gamma
+AMP_LN_INSTANCES = {"x float32, gamma float32": 1,
+                    "x bfloat16, gamma float32": 25}
+# BERT's linear warmup and decay (pwr 1), with LAMB at lr 1e-3
+AMP_POLY = {"max_update": 100, "warmup_steps": 2, "pwr": 1}
+AMP_STEPS = 10
+# the float16 run plants its inf at step FP16_STEPS // 2
+FP16_LAYERS, FP16_STEPS = 2, 6
 DEV = "cuda"
 
 
@@ -1377,13 +1431,13 @@ def _fwd_bwd(net, mlm, params, batch, seed):
              for n, p in params.items()})
 
 
-def _train_compare(tag, got, ref, anchor, quiet=True):
+def _train_compare(tag, got, ref, anchor, quiet=True, limit=TRAIN_RATIO):
     """Ratios of the loss and every gradient; returns [(ratio, fail)]."""
     out = [_slice_check(tag, "loss", got[0], ref[0], anchor[0],
-                        TRAIN_RATIO, quiet=tag == "control")]
+                        limit, quiet=tag == "control")]
     for n in ref[1]:
         out.append(_slice_check(tag, "grad " + n, got[1][n], ref[1][n],
-                                anchor[1][n], TRAIN_RATIO, quiet))
+                                anchor[1][n], limit, quiet))
     return out
 
 
@@ -1635,6 +1689,432 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
           "step, %.1f samples/s (host clock, median of 5)"
           % (TRAIN_BATCH, TRAIN_SEQ, ms, TRAIN_BATCH / ms * 1e3))
     return rows, step
+
+
+# ---------------------------------------------------------------------------
+# BERT-base pretrained as the reference's flagship configuration runs it:
+# bf16 AMP over f32 parameters, the default (chunked) LM head, LAMB with a
+# PolyScheduler; then float16 with master weights and loss scaling
+# ---------------------------------------------------------------------------
+def _build_amp(seed, num_layers=12, dtype=None):
+    """BERT-base's widths (``bert_12_768_12`` at 12 layers) at dropout
+    0.1 with the default ``BERTMLMLoss``, initialized on gpu(0), biases,
+    beta and gamma - 1 drawn from the seed, f32 unless ``dtype``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTMLMLoss,
+                                                      BERTModel,
+                                                      bert_12_768_12)
+    mx.random.seed(seed)
+    kw = dict(dropout=0.1, use_pooler=False, use_classifier=False,
+              use_decoder=False)
+    net = bert_12_768_12(**kw) if num_layers == 12 else BERTModel(
+        num_layers=num_layers, units=UNITS, hidden_size=HIDDEN,
+        num_heads=HEADS, vocab_size=VOCAB, **kw)
+    mlm = BERTMLMLoss(vocab_size=VOCAB, units=UNITS, prefix="decoder_")
+    net.initialize()
+    mlm.initialize()
+    ids, tok, _ = _train_batch(seed)
+    with torch.no_grad():
+        net(ids, tok)
+    for i, block in enumerate((net, mlm)):
+        _draw_affine(block, seed + 10 * i)
+    if dtype is not None:
+        net.cast(dtype)
+        mlm.cast(dtype)
+    params = net.collect_params()
+    params.update(mlm.collect_params())
+    return net, mlm, params
+
+
+@contextlib.contextmanager
+def _ln_instances():
+    """Count the LayerNorm kernels' launches by (x dtype, gamma dtype),
+    forward and backward, through their wrappers."""
+    from unittest import mock
+    from mxnet_tpu_torch.ops import cuda_norm
+    seen = {"fwd": {}, "bwd": {}}
+
+    def spy(kind, real):
+        def call(*a):
+            x, gamma = (a[0], a[1]) if kind == "fwd" else (a[1], a[2])
+            key = "x %s, gamma %s" % (str(x.dtype)[6:], str(gamma.dtype)[6:])
+            seen[kind][key] = seen[kind].get(key, 0) + 1
+            return real(*a)
+        return call
+    with mock.patch.object(cuda_norm, "layer_norm_cuda",
+                           spy("fwd", cuda_norm.layer_norm_cuda)), \
+            mock.patch.object(cuda_norm, "layer_norm_bwd_cuda",
+                              spy("bwd", cuda_norm.layer_norm_bwd_cuda)):
+        yield seen
+
+
+def _f32_check(what, got, ref, reduced=False):
+    """An f32 output within 1e-5 (abs + rel), the absolute part of a sum
+    over rows 1e-5 of its largest sum (tests/test_torch_cuda.py's f32
+    tolerance)."""
+    scale = float(ref.abs().max()) if reduced else 1.0
+    return _check_close(what, got, ref, 1e-5 * scale, 1e-5)
+
+
+def phase_parity_amp(seed):
+    """The kernels at the dtype mixes of the AMP step, against their
+    plain versions at its shapes: the LayerNorm forward and backward on
+    bf16 x with f32 gamma and beta (25 of the step's 26 LayerNorms) and
+    on f32 x (the embedding's), the dropout kernel on f32 (the
+    embedding's); returns {kernel instance: max abs error}."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_dropout, cuda_norm
+    randn = _randn(seed + 31)
+    M, C = TRAIN_BATCH * TRAIN_SEQ, UNITS
+    errs = {}
+    x, dy = randn(M, C, scale=2.0), randn(M, C)
+    g, b = randn(C).float() + 1, randn(C).float()
+    for xx, dyy in ((x, dy), (x.float(), dy.float())):
+        tag = "x %s, gamma f32" % str(xx.dtype)[6:]
+        f32 = xx.dtype == torch.float32
+        got = cuda_norm.layer_norm_cuda(xx, g, b, 1e-5)
+        ref = cuda_norm.layer_norm_plain(xx, g, b, 1e-5)
+        name = "layer_norm_fwd (%d, %d) %s" % (M, C, tag)
+        errs["layer_norm_fwd_amp " + tag] = _f32_check(name, got, ref) \
+            if f32 else _check_close(name, got, ref, KERNEL_ATOL,
+                                     KERNEL_RTOL, KERNEL_EQUAL)
+        got = cuda_norm.layer_norm_bwd_cuda(dyy, xx, g, 1e-5)
+        ref = cuda_norm.layer_norm_bwd_plain(dyy, xx, g, 1e-5)
+        if got[1].dtype != torch.float32 or got[2].dtype != torch.float32:
+            raise SmokeFailure("layer_norm_bwd %s: dgamma/dbeta in %s"
+                               % (tag, got[1].dtype))
+        out = []
+        for i, (n, a, r_) in enumerate(zip(("dx", "dgamma", "dbeta"), got,
+                                           ref)):
+            name = "layer_norm_bwd %s (%d, %d) %s" % (n, M, C, tag)
+            # dgamma and dbeta are f32 sums over rows in either case
+            out.append(_f32_check(name, a, r_, reduced=i > 0) if f32 or i
+                       else _check_close(name, a, r_, KERNEL_ATOL,
+                                         KERNEL_RTOL, KERNEL_EQUAL))
+        errs["layer_norm_bwd_amp " + tag] = max(out)
+    xd = randn(M, C).float() + 3
+    seed_t = torch.tensor([seed * 7919 + 5], dtype=torch.int32, device=DEV)
+    got = cuda_dropout.dropout_cuda(xd, 0.1, seed_t)
+    ref = cuda_dropout.dropout_plain(xd, 0.1, seed_t)
+    errs["dropout_amp f32"] = _f32_check("dropout p=0.1 (%d, %d) f32"
+                                         % (M, C), got, ref)
+    _drop_pattern("dropout mask (%d, %d) f32" % (M, C), got, ref)
+    return errs
+
+
+def _amp_step(net, mlm, trainer, batch):
+    """One training step; returns the per-position loss (f32)."""
+    import mxnet_tpu_torch as mx
+    ids, tok, lab = batch
+    with mx.autograd.record():
+        per_position = mlm(net(ids, tok)[0], lab)
+        loss = per_position.mean()
+    loss.backward()
+    trainer.step(TRAIN_BATCH)
+    return per_position
+
+
+def _peak_mb(fn):
+    """Device memory ``fn()`` allocates at its peak above what was
+    allocated before, in MB."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _head_check(net, mlm, batch):
+    """The chunked head against the full-vocab head on the step's hidden
+    states (bf16 under AMP) and f32 head weights: the loss and dh, dW
+    and db; a control pads the vocab with 0 bias logits. Then each
+    head's device time and peak memory, the dense mode's (Dense,
+    log_softmax, pick) beside them."""
+    import torch
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import contrib_ops
+    ids, tok, lab = batch
+    with torch.no_grad():
+        h = mlm.layer_norm(mlm.transform(net(ids, tok)[0]))
+    H = h.tensor().detach()
+    W = mlm.head_weight.data().tensor().detach()
+    B = mlm.head_bias.data().tensor().detach()
+    LAB = lab.tensor()
+    print("[amp] head inputs: hidden %s %s, weight %s %s, bias %s; chunk %d"
+          % (tuple(H.shape), str(H.dtype)[6:], tuple(W.shape),
+             str(W.dtype)[6:], str(B.dtype)[6:],
+             contrib_ops.ce_chunk_size(0, VOCAB)))
+
+    def head(op):
+        ts = [t.clone().requires_grad_() for t in (H, W, B)]
+        loss = op(*ts, LAB)
+        return [loss.detach()] + list(torch.autograd.grad(loss.mean(), ts))
+
+    def compare(tag, got, ref):
+        loss_err = float(((got[0] - ref[0]).abs()
+                          / (HEAD_LOSS_TOL + HEAD_LOSS_TOL
+                             * ref[0].abs())).max())
+        errs = [float((a.float() - r.float()).abs().max()
+                      / r.float().abs().max()) for a, r in zip(got[1:],
+                                                               ref[1:])]
+        fail = loss_err > 1 or max(errs) >= HEAD_GRAD_TOL or \
+            not torch.isfinite(got[0]).all()
+        verdict = ("caught" if fail else "MISSED") if tag == "control" \
+            else ("FAIL" if fail else "ok")
+        print("[%s] chunked vs full-vocab head: loss max |err| %.3g "
+              "(%.3g of %g + %g|ref|); max abs err / max |ref|: dh %.3g, "
+              "dW %.3g, db %.3g (limit %g) %s"
+              % (tag, float((got[0] - ref[0]).abs().max()), loss_err,
+                 HEAD_LOSS_TOL, HEAD_LOSS_TOL, *errs, HEAD_GRAD_TOL,
+                 verdict))
+        return fail
+
+    full = head(contrib_ops.fused_lm_head_ce)
+    chunked = head(contrib_ops.chunked_lm_head_ce)
+    if compare("amp", chunked, full):
+        raise SmokeFailure("the chunked LM head differs from the full-vocab "
+                           "head")
+    with mock.patch.object(contrib_ops, "_NEG_BIG", 0.0):
+        if not compare("control", head(contrib_ops.chunked_lm_head_ce),
+                       full):
+            raise SmokeFailure("control: the head check passed a chunked "
+                               "head that pads with 0 bias logits")
+    del full, chunked
+
+    arrs = [NDArray(t.clone()) for t in (H, W, B)]
+    for a in arrs:
+        a.attach_grad()
+
+    def op_head(name):
+        def run():
+            with mx.autograd.record():
+                loss = getattr(mx.nd, name)(*arrs, lab).mean()
+            loss.backward()
+        return run
+
+    def dense():
+        with mx.autograd.record():
+            logits = mx.nd.FullyConnected(*arrs, num_hidden=VOCAB,
+                                          flatten=False)
+            logp = mx.nd.log_softmax(logits, axis=-1)
+            loss = mx.nd.negative(mx.nd.pick(logp, lab, axis=-1)).mean()
+        loss.backward()
+    out = {}
+    for mode, fn in (("chunked", op_head("_contrib_chunked_lm_head_ce")),
+                     ("full-vocab (fused)",
+                      op_head("_contrib_fused_lm_head_ce")),
+                     ("dense", dense)):
+        peak = _peak_mb(fn)
+        ms = _gpu_ms(fn, reps=3, trials=5)
+        out[mode] = (ms, peak)
+        print("[amp] LM head forward + backward, %s: %.3f ms device time "
+              "(CUDA events, median of 5 x 3 calls), peak memory +%.1f MB"
+              % (mode, ms, peak))
+    for mode, fn in (("chunked", op_head("_contrib_chunked_lm_head_ce")),
+                     ("dense", dense)):
+        _profile("LM head forward + backward, %s" % mode, fn)
+    return out
+
+
+def phase_amp(seed):
+    """Train BERT-base under bf16 AMP with the default head; returns the
+    launch counts of one AMP step."""
+    import math
+    import torch
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import cuda_build, cuda_norm
+    t0 = time.perf_counter()
+    amp.init(target_dtype="bfloat16")
+    try:
+        net, mlm, params = _build_amp(seed)
+        batch = _train_batch(seed)
+        torch.cuda.synchronize()
+        print("[amp] bert_12_768_12 (dropout 0.1) + BERTMLMLoss() (mode %r), "
+              "%d parameters in %d arrays, f32 under amp.init('bfloat16'), "
+              "built from seed %d in %.1f s"
+              % (mlm._resolve_mode(), sum(p.data().size
+                                          for p in params.values()),
+                 len(params), seed, time.perf_counter() - t0))
+
+        # one forward and backward: kernels, plain versions, f32 twin
+        kern = _fwd_bwd(net, mlm, params, batch, seed)
+        with _plain_kernels():
+            before = cuda_build.launch_counts()
+            plain = _fwd_bwd(net, mlm, params, batch, seed)
+            amp.reset()
+            try:
+                with _plain_kernels(f32_twin=True), _no_tf32():
+                    twin = _fwd_bwd(net, mlm, params, batch, seed)
+            finally:
+                amp.init(target_dtype="bfloat16")
+            if cuda_build.launch_counts() != before:
+                raise SmokeFailure("the plain runs launched a kernel")
+        if not math.isfinite(float(kern[0])):
+            raise SmokeFailure("AMP loss is not finite: %s" % float(kern[0]))
+        checks = _train_compare("amp parity", kern, plain, twin,
+                                limit=AMP_RATIO)
+        ratios = sorted(((r, n) for (r, _), n in
+                         zip(checks, ["loss"] + list(plain[1]))),
+                        reverse=True)
+        print("[amp] loss: kernels %.6f, plain %.6f, f32 twin without AMP "
+              "%.6f" % (float(kern[0]), float(plain[0]), float(twin[0])))
+        print("[amp] step vs plain step: %d ratios, largest %s (limit %g), "
+              "median %.3g" % (len(ratios), ", ".join(
+                  "%s %.3g" % (n, r) for r, n in ratios[:4]), AMP_RATIO,
+                  ratios[len(ratios) // 2][0]))
+        if any(fail for _, fail in checks):
+            raise SmokeFailure("the AMP step differs from the plain step by "
+                               "more than %g times AMP's own error"
+                               % AMP_RATIO)
+
+        # control: the LayerNorm backward drops dgamma where x is bf16
+        # and gamma f32 (its kernel still launches)
+        real = cuda_norm.layer_norm_bwd
+
+        def dgamma_dropped(dy, x, gamma, eps):
+            dx, dg, db = real(dy, x, gamma, eps)
+            if x.dtype != gamma.dtype:
+                dg = torch.zeros_like(dg)
+            return dx, dg, db
+        with mock.patch.object(cuda_norm, "layer_norm_bwd", dgamma_dropped):
+            bad = _fwd_bwd(net, mlm, params, batch, seed)
+        caught = [(n, r) for (r, fail), n in zip(
+            _train_compare("control", bad, plain, twin, limit=AMP_RATIO),
+            ["loss"] + list(plain[1])) if fail]
+        print("[control] layer_norm_bwd dgamma dropped for bf16 x, f32 "
+              "gamma: %d of %d checks fail (%s)"
+              % (len(caught), len(plain[1]) + 1, ", ".join(
+                  "%s %.3g" % c for c in caught[:3])))
+        if not caught:
+            raise SmokeFailure("control: the AMP check passed a LayerNorm "
+                               "backward that drops dgamma")
+        del kern, plain, twin, bad
+
+        # the launches of one full step, then LAMB with the schedule
+        sched = mx.lr_scheduler.PolyScheduler(base_lr=1e-3, **AMP_POLY)
+        trainer = mx.gluon.Trainer(params, "lamb", {
+            "learning_rate": 1e-3, "wd": 0.01, "lr_scheduler": sched})
+        losses = []
+        for step in range(AMP_STEPS):
+            if step == 0:
+                cuda_build.reset_launch_counts()
+                with _ln_instances() as inst:
+                    per_position = _amp_step(net, mlm, trainer, batch)
+                    torch.cuda.synchronize()
+                counts = cuda_build.launch_counts()
+                print("[amp] launches in one step: %s; LayerNorm instances: "
+                      "forward %s, backward %s" % (counts, inst["fwd"],
+                                                   inst["bwd"]))
+                if counts != TRAIN_LAUNCHES or \
+                        inst["fwd"] != AMP_LN_INSTANCES or \
+                        inst["bwd"] != AMP_LN_INSTANCES:
+                    raise SmokeFailure(
+                        "launch counts of one AMP step %s with LayerNorm "
+                        "instances %s, expected %s and %s"
+                        % (counts, inst, TRAIN_LAUNCHES, AMP_LN_INSTANCES))
+            else:
+                per_position = _amp_step(net, mlm, trainer, batch)
+            losses.append(float(per_position.tensor().detach().mean()))
+        print("[amp] LAMB with PolyScheduler(%s) on one fixed batch, loss "
+              "per step: %s (lr at the last step %.3g)"
+              % (", ".join("%s=%s" % kv for kv in AMP_POLY.items()),
+                 " ".join("%.4f" % v for v in losses),
+                 trainer.learning_rate))
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise SmokeFailure("AMP training did not lower the loss: %s"
+                               % losses)
+
+        _head_check(net, mlm, batch)
+        ms = _host_ms(lambda: _amp_step(net, mlm, trainer, batch))
+        print("[times] AMP training step (batch %d x seq %d, LAMB, chunked "
+              "head): %.2f ms per step, %.1f samples/s (host clock, median "
+              "of 5)" % (TRAIN_BATCH, TRAIN_SEQ, ms, TRAIN_BATCH / ms * 1e3))
+        _attention_share(_profile(
+            "one AMP training step (batch %d x seq %d, LAMB)"
+            % (TRAIN_BATCH, TRAIN_SEQ),
+            lambda: _amp_step(net, mlm, trainer, batch)))
+    finally:
+        amp.reset()
+    return counts
+
+
+def phase_amp_fp16(seed):
+    """BERT at full width and FP16_LAYERS layers in float16: master
+    weights, amp.init('float16'), the dynamic loss scaler; a planted
+    non-finite gradient must halve the scale and zero the step."""
+    import math
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import cuda_build
+    amp.init(target_dtype="float16")
+    try:
+        net, mlm, params = _build_amp(seed, FP16_LAYERS, "float16")
+        batch = _train_batch(seed)
+        sched = mx.lr_scheduler.PolyScheduler(base_lr=1e-3, **AMP_POLY)
+        trainer = mx.gluon.Trainer(params, "lamb", {
+            "learning_rate": 1e-3, "wd": 0.01, "multi_precision": True,
+            "lr_scheduler": sched})
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        ids, tok, lab = batch
+        planted = FP16_STEPS // 2
+        losses, scales = [], []
+        cuda_build.reset_launch_counts()
+        for step in range(FP16_STEPS):
+            with mx.autograd.record():
+                per_position = mlm(net(ids, tok)[0], lab)
+                loss = per_position.mean()
+                with amp.scale_loss(loss, trainer) as scaled:
+                    pass
+            scaled.backward()
+            before = scaler.loss_scale
+            if step == planted:
+                next(iter(params.values())).grad().tensor().view(-1)[0] = \
+                    float("inf")
+            amp.unscale(trainer)
+            if step == planted:
+                zero = all(not bool(p.grad().tensor().any())
+                           for p in params.values())
+                print("[amp fp16] planted inf at step %d: loss scale %g -> "
+                      "%g, every gradient zero: %s"
+                      % (step, before, scaler.loss_scale, zero))
+                if scaler.loss_scale != before / 2 or not zero:
+                    raise SmokeFailure("a non-finite gradient did not halve "
+                                       "the loss scale and zero the step")
+            elif scaler.last_overflow:
+                print("[amp fp16] overflow at step %d: loss scale %g -> %g"
+                      % (step, before, scaler.loss_scale))
+            trainer.step(TRAIN_BATCH)
+            losses.append(float(per_position.tensor().detach().mean()))
+            scales.append(scaler.loss_scale)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_build.launch_counts().items() if v}
+        masters = {str(s[1].dtype)[6:] for s in
+                   trainer._updater.states.values()}
+        print("[amp fp16] %d layers, float16 with f32 masters (%s), LAMB "
+              "multi_precision, loss per step: %s; loss scale per step: %s; "
+              "launches in %d steps: %s"
+              % (FP16_LAYERS, ", ".join(sorted(masters)),
+                 " ".join("%.4f" % v for v in losses),
+                 " ".join("%g" % v for v in scales), FP16_STEPS, counts))
+        if masters != {"float32"}:
+            raise SmokeFailure("float16 weights without f32 masters: %s"
+                               % masters)
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise SmokeFailure("float16 training did not lower the loss: %s"
+                               % losses)
+    finally:
+        amp.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -2711,6 +3191,9 @@ def main(argv=None):
         counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
         train_counts, tnet, mlm, params, batch = phase_train(
             args.seed, args.train_steps)
+        amp_errs = phase_parity_amp(args.seed)
+        amp_counts = phase_amp(args.seed)
+        phase_amp_fp16(args.seed)
         stage_counts, stages = phase_stages(args.seed)
         resnet_counts, resnet_step = phase_resnet(args.seed,
                                                   args.resnet_steps)
@@ -2732,6 +3215,11 @@ def main(argv=None):
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_train_step"] = train_counts.get(k, 0)
+            r["launches_per_amp_step"] = amp_counts.get(k, 0)
+            amp_err = {n[len(k) + 5:]: e for n, e in amp_errs.items()
+                       if n.startswith(k + "_amp ")}
+            if amp_err:
+                r["max_abs_err_amp"] = amp_err
             r["launches_per_fused_step"] = stage_counts.get(k, 0)
             r["launches_per_resnet_step"] = resnet_counts.get(k, 0)
             r["launches_per_mlp_step"] = mnist_step_counts.get(k, 0)

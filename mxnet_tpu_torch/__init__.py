@@ -18,7 +18,11 @@ BN-backward kernel. The fourth opens the user-extension surface:
 (the reference's Pallas ``rtc`` launcher), used inside
 ``operator.CustomOp`` (``nd.Custom``/``F.Custom``) and
 ``autograd.Function``, with ``autograd.grad``, ``gluon.data`` and
-``metric``, in the Gluon MNIST MLP.
+``metric``, in the Gluon MNIST MLP. The ninth trains BERT-base as the
+reference's flagship configuration does: the chunked LM-head cross
+entropy (``BERTMLMLoss``'s default), ``contrib.amp`` with its loss
+scaler, multi-precision master weights, LAMB's phase ops, Adam/AdamW
+and ``lr_scheduler``.
 
 Usage mirrors the reference::
 
@@ -30,8 +34,12 @@ Usage mirrors the reference::
     sess = net.serve_session(ids, token_types, seq_axis=1)
     outs = sess.infer(ids_np, token_types_np)
 
-    mlm = BERTMLMLoss(vocab_size=30522, units=768, mode="dense")
-    trainer = mx.gluon.Trainer(params, "lamb", {"learning_rate": 1e-3})
+    mx.contrib.amp.init(target_dtype="bfloat16")
+    mlm = BERTMLMLoss(vocab_size=30522, units=768)     # chunked head
+    sched = mx.lr_scheduler.PolyScheduler(max_update=1000, base_lr=1e-3,
+                                          warmup_steps=100)
+    trainer = mx.gluon.Trainer(params, "lamb", {"learning_rate": 1e-3,
+                                                "lr_scheduler": sched})
     with mx.autograd.record():
         loss = mlm(net(ids, token_types)[0], labels).mean()
     loss.backward()
@@ -54,9 +62,12 @@ from . import random
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import lr_scheduler
 from . import gluon
 from . import serve
 from . import operator
 from . import rtc
 from . import metric
+from . import guardrails
+from . import contrib
 from .interop import params_from_numpy

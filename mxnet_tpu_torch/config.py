@@ -85,6 +85,19 @@ define("MXNET_GUARD_CLIP_NORM", float, 0.0,
 define("MXNET_MODELWATCH", bool, False,
        "Training-dynamics statistics; on, the Trainer raises (ROADMAP.md "
        "queue 1, item 13).")
+define("MXNET_CHUNKED_CE", bool, True,
+       "BERTMLMLoss(mode='auto') runs the chunked LM-head cross entropy "
+       "(_contrib_chunked_lm_head_ce: an online softmax over vocab "
+       "chunks, so the (positions, vocab) logits never exist whole); off, "
+       "the dense Dense + log_softmax + pick composition.")
+define("MXNET_CHUNKED_CE_CHUNK", int, 4096,
+       "Vocab chunk of _contrib_chunked_lm_head_ce when the caller passes "
+       "none (the vocab is padded to whole chunks with -1e30 bias "
+       "logits).")
+define("MXNET_AUTOTUNE", str, "off",
+       "Kernel auto-tuner mode; 'off' keeps every hand-picked constant "
+       "(the CE chunk above). Anything else raises where a tuned choice "
+       "would be read (ROADMAP.md queue 1, item 15).")
 define("MXNET_PREFETCH_DEPTH", int, 2,
        "DataLoader read-ahead (gluon/data/dataloader.py): up to this many "
        "upcoming batches are made on the host and staged onto the card by "

@@ -8,19 +8,17 @@ the fused self-attention, the bias+GeLU and bias+residual Dense
 epilogues and the LayerNorm — and in training the dropout kernel and
 the backward kernels of attention, bias+GeLU and LayerNorm
 (ops/cuda_*.py). ``BERTMLMLoss`` is the masked-LM head with its cross
-entropy, in the reference's dense mode.
+entropy: by default the chunked LM-head cross entropy, as in the
+reference.
 """
 from __future__ import annotations
 
+from ...config import get as _cfg
 from ..block import HybridBlock
 from .. import nn
 
 __all__ = ["BERTEncoder", "BERTModel", "BERTMLMLoss", "bert_12_768_12",
            "PositionwiseFFN", "BERTEncoderCell"]
-
-CHUNKED_CE = ("BERTMLMLoss mode %r is not ported yet: the chunked and fused "
-              "LM-head cross entropies come in a later slice (ROADMAP.md "
-              "queue 1, item 5); pass mode='dense'")
 
 
 class PositionwiseFFN(HybridBlock):
@@ -172,20 +170,23 @@ class BERTModel(HybridBlock):
 class BERTMLMLoss(HybridBlock):
     """Parametric MLM head + cross entropy as one block (ref: bert.py ::
     BERTMLMLoss): the transform Dense and LayerNorm, then the vocab
-    projection, log_softmax and the negative log-likelihood of each
-    label. Takes (seq_out, labels) with seq_out (..., units) and labels
-    of the matching leading shape; returns the per-position loss.
+    projection with the cross entropy of each label, by ``mode``:
 
-    Only ``mode="dense"`` is ported. The reference's default (``"auto"``
-    with ``MXNET_CHUNKED_CE`` on) is the chunked LM-head CE, and
-    ``"fused"`` the flash-style one; both raise here rather than quietly
-    running the dense head. Parameter names equal the reference's."""
+    * ``"auto"`` (default): ``"chunked"`` while ``MXNET_CHUNKED_CE`` is
+      on (its default), else ``"dense"``, read at every forward;
+    * ``"chunked"``: ``_contrib_chunked_lm_head_ce``, an online softmax
+      over vocab chunks of ``chunk_size`` (0: ``MXNET_CHUNKED_CE_CHUNK``);
+    * ``"fused"``: ``_contrib_fused_lm_head_ce``, the full-vocab logits
+      recomputed in the backward;
+    * ``"dense"``: Dense, log_softmax and pick.
+
+    Takes (seq_out, labels) with seq_out (..., units) and labels of the
+    matching leading shape; returns the per-position loss. Parameter
+    names equal the reference's, and every mode shares them."""
 
     def __init__(self, vocab_size=30522, units=768, mode="auto",
                  chunk_size=0, **kwargs):
         super().__init__(**kwargs)
-        if mode != "dense":
-            raise NotImplementedError(CHUNKED_CE % (mode,))
         self._vocab = vocab_size
         self._mode = mode
         self._chunk = int(chunk_size)
@@ -198,8 +199,20 @@ class BERTMLMLoss(HybridBlock):
             self.head_bias = self.params.get(
                 "head_bias", shape=(vocab_size,), init="zeros")
 
+    def _resolve_mode(self):
+        if self._mode != "auto":
+            return self._mode
+        return "chunked" if _cfg("MXNET_CHUNKED_CE") else "dense"
+
     def hybrid_forward(self, F, seq_out, labels, head_weight, head_bias):
         h = self.layer_norm(self.transform(seq_out))
+        mode = self._resolve_mode()
+        if mode == "chunked":
+            return F._contrib_chunked_lm_head_ce(
+                h, head_weight, head_bias, labels, chunk_size=self._chunk)
+        if mode == "fused":
+            return F._contrib_fused_lm_head_ce(h, head_weight, head_bias,
+                                               labels)
         logits = F.FullyConnected(h, head_weight, head_bias,
                                   num_hidden=self._vocab, flatten=False)
         logp = F.log_softmax(logits, axis=-1)

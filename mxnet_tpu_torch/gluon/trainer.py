@@ -14,7 +14,9 @@ equal to the separate update this Trainer runs. What this slice does not
 port raises ``NotImplementedError`` naming its ROADMAP.md item: a
 kvstore, several contexts, gradient compression, ``update_on_kvstore``,
 ZeRO, the grad guard, modelwatch, the fused update or K-step scan when
-asked for.
+asked for. Under AMP (``contrib.amp.init_trainer``) the Trainer carries
+the loss scaler, and ``amp.scale_loss`` folds ``1 / loss_scale`` into
+the scale that ``step`` applies.
 """
 from __future__ import annotations
 
@@ -71,6 +73,10 @@ class Trainer:
             self._params.append(param)
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
+        # set by contrib.amp.init_trainer; amp.scale_loss folds
+        # 1 / loss_scale into _scale
+        self._amp_loss_scaler = None
+        self._amp_original_scale = self._scale
         self._updater = opt_mod.get_updater(self._optimizer)
 
     def _init_optimizer(self, optimizer, optimizer_params):
@@ -87,6 +93,8 @@ class Trainer:
 
     @property
     def learning_rate(self):
+        if self._optimizer.lr_scheduler:
+            return self._optimizer._get_lr(0)
         return self._optimizer.lr
 
     @property

@@ -147,6 +147,10 @@ class NDArray:
     def mean(self, axis=None, keepdims=False):
         return invoke("mean", [self], {"axis": axis, "keepdims": keepdims})
 
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke("norm", [self], {"ord": ord, "axis": axis,
+                                       "keepdims": keepdims})
+
     # -- arithmetic --------------------------------------------------------
     def __neg__(self): return invoke("negative", [self], {})
 

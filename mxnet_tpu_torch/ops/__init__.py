@@ -23,12 +23,15 @@ from typing import Callable, Dict, Optional, Sequence, Set
 from ..base import MXNetError
 
 __all__ = ["Operator", "register", "get_op", "recording", "F",
-           "register_ndarray_fn"]
+           "register_ndarray_fn", "set_casts"]
 
 _OPS: Dict[str, "Operator"] = {}
 _ALIASES: Dict[str, str] = {}
 # F entries that take and return NDArrays themselves (nd.Custom)
 _ND_FNS: Dict[str, Callable] = {}
+# AMP's cast table (contrib.amp.init): name as called through F/nd ->
+# fn(inputs, attrs) -> (inputs, attrs) with the NDArray inputs cast
+_CASTS: Dict[str, Callable] = {}
 
 
 class Operator:
@@ -116,6 +119,15 @@ def register_ndarray_fn(name: str, fn: Callable):
     _ND_FNS[name] = fn
 
 
+def set_casts(table: Dict[str, Callable]):
+    """Install (or, with ``{}``, clear) the cast table that calls
+    through ``F``/``nd`` consult: AMP's op lists. Only these namespace
+    calls are cast, as the reference's patched ``nd`` module casts
+    them; NDArray operators go to ``invoke`` directly and are not."""
+    _CASTS.clear()
+    _CASTS.update(table)
+
+
 class _OpNamespace:
     """``F.<op>(*inputs, **attrs)`` over NDArrays, for every registered
     op and NDArray-level entry (what ``hybrid_forward`` receives as
@@ -128,9 +140,12 @@ class _OpNamespace:
         if name not in _OPS and name not in _ALIASES:
             raise AttributeError("no operator named %r" % name)
         op = get_op(name)
+        cast = _CASTS.get(name)
 
         def call(*inputs, **attrs):
             from ..ndarray.ndarray import invoke
+            if cast is not None:
+                inputs, attrs = cast(inputs, attrs)
             return invoke(op, inputs, attrs)
         call.__name__ = name
         call.__doc__ = op.__doc__

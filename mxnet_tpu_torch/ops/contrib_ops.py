@@ -14,13 +14,16 @@ kernels draw their mask from ``batch * head blocks`` int32 seeds taken
 from the context's generator (the composition draws a Bernoulli mask
 from it). The epilogues run the kernels of :mod:`.cuda_epilogue` unless
 the dtypes differ (the reference then runs the composition in the
-promoted dtype).
+promoted dtype). The LM-head cross entropies (``_contrib_fused_lm_head_ce``,
+``_contrib_chunked_lm_head_ce``) are XLA in the reference, and products
+and elementwise torch code here.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import random as _random
+from ..config import get as _cfg
 from ..context import context_of
 from . import register
 from . import cuda_attention
@@ -111,3 +114,205 @@ def bias_add_residual(data, bias, residual):
             residual.reshape(-1, C).contiguous())
         return out.reshape(data.shape)
     return data + bias + residual
+
+
+# ---------------------------------------------------------------------------
+# LM-head cross entropies: the decoder product and the softmax cross
+# entropy in one op that keeps only the per-position LSE; the backward
+# recomputes the logits (ref: contrib_ops.py :: _lm_head_ce and
+# _make_chunked_ce). The reference computes every product with f32
+# output (preferred_element_type) from operands promoted as JAX promotes
+# them, so bf16 hidden states against f32 weights take an f32 product.
+# ---------------------------------------------------------------------------
+_NEG_BIG = -1.0e30    # pad bias: exp(_NEG_BIG - lse) underflows to 0 in f32
+
+
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an f32 result, the operands promoted to their common
+    dtype first. Low-precision operands on the card take cuBLAS's f32
+    output (no rounding to the operands' dtype); on the CPU they are
+    widened, which is exact, so only the sum order separates the two."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dt), b.to(dt)
+    if dt == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _check_labels(opname, hidden, labels):
+    lead = tuple(hidden.shape[:-1])
+    if tuple(labels.shape) != lead:
+        # a transposed labels array of the same size would flatten into
+        # a silently wrong loss
+        raise ValueError("%s: labels shape %s must equal hidden's leading "
+                         "shape %s" % (opname, tuple(labels.shape), lead))
+    return lead
+
+
+class _LMHeadCE(torch.autograd.Function):
+    """The full-vocab head: (T, V) f32 logits in the forward, recomputed
+    in the backward; labels as ``take_along_axis`` reads them (negative
+    ids count from the end, others out of range give NaN) and the
+    backward's one-hot as ``jax.nn.one_hot`` builds it (zero out of
+    range)."""
+
+    @staticmethod
+    def forward(ctx, h2, w, b, labels):
+        z = _f32_product(h2, w.t()) + b.float()
+        m = z.amax(dim=1)
+        lse = m + torch.log(torch.exp(z - m[:, None]).sum(dim=1))
+        V = w.shape[0]
+        idx = torch.where(labels < 0, labels + V, labels)
+        ok = (idx >= 0) & (idx < V)
+        picked = z.gather(1, idx.clamp(0, V - 1)[:, None])[:, 0]
+        picked = torch.where(ok, picked, torch.nan)
+        ctx.save_for_backward(h2, w, b, labels, lse)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, dy):
+        h2, w, b, labels, lse = ctx.saved_tensors
+        V = w.shape[0]
+        p = torch.exp(_f32_product(h2, w.t()) + b.float() - lse[:, None])
+        _sub_one_hot(p, labels, V)
+        # dz drops to the activation dtype before the products
+        dz = (p * dy[:, None]).to(h2.dtype)
+        dh = _f32_product(dz, w).to(h2.dtype)
+        dw = _f32_product(dz.t(), h2).to(w.dtype)
+        db = dz.float().sum(dim=0).to(b.dtype)
+        return dh, dw, db, None
+
+
+@register("_contrib_fused_lm_head_ce")
+def fused_lm_head_ce(hidden, weight, bias, labels):
+    """Decoder product + softmax cross entropy in one op, the logits
+    recomputed in the backward. hidden (..., units); weight (vocab,
+    units); bias (vocab,); labels (...) ids of hidden's leading shape.
+    Returns the per-position loss (...,), f32."""
+    lead = _check_labels("_contrib_fused_lm_head_ce", hidden, labels)
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    loss = _LMHeadCE.apply(h2, weight, bias, labels.reshape(-1).long())
+    return loss.reshape(lead)
+
+
+def _sub_one_hot(p, local, width):
+    """p -= one_hot(local, width) in place, zero where ``local`` is out
+    of [0, width), as ``jax.nn.one_hot`` builds it. A scatter of 0 or -1
+    into each row: no boolean indexing, so the host never waits on the
+    card."""
+    hit = (local >= 0) & (local < width)
+    p.scatter_add_(1, local.clamp(0, width - 1)[:, None],
+                   -hit[:, None].to(p.dtype))
+
+
+def _ce_chunk(w, b, ci, chunk, last):
+    """Chunk ``ci`` of the vocab: its weight rows and f32 bias. The last
+    chunk, if the vocab is not whole chunks, is ``last``: padded to
+    ``chunk`` rows with zero weights and _NEG_BIG bias (the reference's
+    ``_ce_pad``), built once a forward by :func:`_ce_last`."""
+    if last is not None and ci == w.shape[0] // chunk:
+        return last
+    return (w[ci * chunk:(ci + 1) * chunk],
+            b[ci * chunk:(ci + 1) * chunk].float())
+
+
+def _ce_last(w, b, chunk):
+    """The padded last chunk, or None when the vocab is whole chunks."""
+    c0 = w.shape[0] // chunk * chunk
+    pad = chunk - (w.shape[0] - c0)
+    if pad == chunk:
+        return None
+    return (torch.cat([w[c0:], w.new_zeros(pad, w.shape[1])]),
+            torch.cat([b[c0:].float(), b.new_full((pad,), _NEG_BIG,
+                                                  dtype=torch.float32)]))
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Online softmax over vocab chunks: one (T, chunk) f32 logits tile
+    at a time, in the forward (max, exp-sum and the label's logit) and
+    in the backward (the tile recomputed and consumed at once: dh
+    accumulated in f32, dW and db per chunk). A Python loop stands in
+    for the reference's two ``lax.scan``s; the padded last chunk is
+    built once and kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, h2, w, b, labels, chunk):
+        V = w.shape[0]
+        n = -(-V // chunk)
+        # out-of-range ids clamp into the vocab (pick's mode='clip')
+        labels = labels.clamp(0, V - 1)
+        last = _ce_last(w, b, chunk)
+        picked = torch.zeros(h2.shape[0], dtype=torch.float32,
+                             device=h2.device)
+        ms, ss = [], []
+        for ci in range(n):
+            wc, bc = _ce_chunk(w, b, ci, chunk, last)
+            z = _f32_product(h2, wc.t()) + bc
+            mc = z.amax(dim=1)
+            ms.append(mc)
+            ss.append(torch.exp(z - mc[:, None]).sum(dim=1))
+            local = labels - ci * chunk
+            inchunk = (local >= 0) & (local < chunk)
+            pz = z.gather(1, local.clamp(0, chunk - 1)[:, None])[:, 0]
+            picked = torch.where(inchunk, pz, picked)
+        ms, ss = torch.stack(ms), torch.stack(ss)
+        m = ms.amax(dim=0)
+        lse = m + torch.log((ss * torch.exp(ms - m)).sum(dim=0))
+        ctx.save_for_backward(h2, w, b, labels, lse)
+        ctx.chunk, ctx.last = chunk, last
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, dy):
+        h2, w, b, labels, lse = ctx.saved_tensors
+        chunk, last = ctx.chunk, ctx.last
+        V = w.shape[0]
+        dh = torch.zeros(h2.shape, dtype=torch.float32, device=h2.device)
+        dw = torch.empty_like(w)
+        db = torch.empty_like(b)
+        for ci in range(-(-V // chunk)):
+            wc, bc = _ce_chunk(w, b, ci, chunk, last)
+            p = torch.exp(_f32_product(h2, wc.t()) + bc - lse[:, None])
+            _sub_one_hot(p, labels - ci * chunk, chunk)
+            # the same rounding point as the full-vocab head
+            dz = (p * dy[:, None]).to(h2.dtype)
+            dh = dh + _f32_product(dz, wc)
+            # the padded columns of dz are zero: the real rows only
+            c0, c1 = ci * chunk, min(V, (ci + 1) * chunk)
+            dz = dz[:, :c1 - c0]
+            dw[c0:c1] = _f32_product(dz.t(), h2).to(w.dtype)
+            db[c0:c1] = dz.float().sum(dim=0).to(b.dtype)
+        return dh.to(h2.dtype), dw, db, None, None
+
+
+def ce_chunk_size(chunk_size, vocab) -> int:
+    """The vocab chunk of one call: ``chunk_size``, or with 0
+    ``MXNET_CHUNKED_CE_CHUNK`` (the reference's ``_tuned_ce_chunk``
+    returns it untouched while ``MXNET_AUTOTUNE`` is off), at most the
+    vocab."""
+    chunk = int(chunk_size)
+    if chunk <= 0:
+        if _cfg("MXNET_AUTOTUNE") != "off":
+            raise NotImplementedError(
+                "MXNET_AUTOTUNE=%r: the tuned LM-head chunk is not ported "
+                "yet (ROADMAP.md queue 1, item 15)" % _cfg("MXNET_AUTOTUNE"))
+        chunk = int(_cfg("MXNET_CHUNKED_CE_CHUNK"))
+    return max(1, min(chunk, vocab))
+
+
+@register("_contrib_chunked_lm_head_ce")
+def chunked_lm_head_ce(hidden, weight, bias, labels, *, chunk_size=0):
+    """Decoder product + softmax cross entropy with an online softmax
+    over vocab chunks, so the (positions, vocab) logits never exist
+    whole; the backward reuses the forward's per-position LSE.
+    Out-of-range ids clamp into the vocab. chunk_size 0 reads
+    ``MXNET_CHUNKED_CE_CHUNK``. Returns the per-position loss (...,),
+    f32."""
+    lead = _check_labels("_contrib_chunked_lm_head_ce", hidden, labels)
+    chunk = ce_chunk_size(chunk_size, weight.shape[0])
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    loss = _ChunkedCE.apply(h2, weight, bias, labels.reshape(-1).long(),
+                            chunk)
+    return loss.reshape(lead)

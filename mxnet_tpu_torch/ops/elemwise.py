@@ -84,3 +84,23 @@ register("identity", aliases=["_copy"])(lambda data: data)
 @register("Cast", aliases=["cast"])
 def cast(data, *, dtype):
     return data.to(torch_dtype(dtype))
+
+
+@register("amp_cast")
+def amp_cast(data, *, dtype):
+    """AMP's cast (ref: amp_cast.cc): unlike Cast, integer inputs pass
+    through untouched."""
+    if not data.is_floating_point():
+        return data
+    return data.to(torch_dtype(dtype))
+
+
+@register("amp_multicast")
+def amp_multicast(*data, num_outputs):
+    """Every floating input cast to the widest floating dtype present
+    (ref: amp_cast.cc :: AMPMultiCast)."""
+    fl = [d.dtype for d in data if d.is_floating_point()]
+    if not fl:
+        return tuple(data)
+    widest = max(fl, key=lambda d: d.itemsize)
+    return tuple(d.to(widest) if d.is_floating_point() else d for d in data)

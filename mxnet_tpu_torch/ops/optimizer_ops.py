@@ -1,6 +1,8 @@
-"""Optimizer-update operators, the subset the Trainer's aggregated path
-runs for SGD and LAMB (counterpart of ``mxnet_tpu/ops/optimizer_ops.py``;
-ref: src/operator/optimizer_op.cc, contrib/multi_lamb.cc).
+"""Optimizer-update operators of SGD, LAMB, Adam and AdamW, with their
+multi-tensor and multi-precision (``mp_``, f32 master weight) forms, and
+``multi_all_finite`` for the AMP loss scaler (counterpart of
+``mxnet_tpu/ops/optimizer_ops.py``; ref: src/operator/optimizer_op.cc,
+contrib/multi_lamb.cc, contrib/adamw.cc).
 
 The reference computes these in XLA, outside any Pallas kernel, so here
 they are plain PyTorch elementwise code. Each returns the new weight
@@ -17,8 +19,10 @@ array (``lrs``/``wds`` of the preloaded SGD ops, ``lr``/``wd``/``t`` and
 ``rescale_grad`` of the LAMB runner) promotes a bf16 operand to f32
 there, so the port widens that operand to f32 explicitly: torch would
 otherwise keep bf16. The results therefore come back in f32 where the
-reference's do; LAMB casts the new w, m and v back to their own dtypes,
-as the reference does.
+reference's do; the multi-tensor LAMB, Adam and AdamW cast the new w, m
+and v back to their own dtypes, as the reference does. An ``mp_`` op
+takes the f32 master after the weight's states and returns the new
+weight in the weight's dtype beside the new master.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from . import register
+from .reduce_ops import norm
 
 _F32 = np.float32
 
@@ -117,12 +122,6 @@ def preloaded_multi_sgd_mom_update(*arrays, momentum=0.0, rescale_grad=1.0,
     return tuple(ws + ms)
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    """jnp.linalg.norm of the flattened x: squares in x's dtype, the sum
-    taken in f32 and rounded to x's dtype, the root in x's dtype."""
-    return torch.sqrt((x * x).sum(dtype=torch.float32).to(x.dtype))
-
-
 def _lamb_one(w, g, m, v, lr, wd, beta1, beta2, epsilon, t,
               bias_correction, rescale_grad, clip_gradient, lower_bound,
               upper_bound):
@@ -138,12 +137,12 @@ def _lamb_one(w, g, m, v, lr, wd, beta1, beta2, epsilon, t,
         mh = mh / _f32(_F32(1) - _F32(beta1) ** _F32(t))
         vh = vh / _f32(_F32(1) - _F32(beta2) ** _F32(t))
     upd = mh / (vh.sqrt() + epsilon) + _f32(wd) * w.float()
-    r1 = _norm(w)
+    r1 = norm(w).reshape(())
     if lower_bound is not None and lower_bound >= 0:
         r1 = r1.clamp_min(_weak(lower_bound, r1))
     if upper_bound is not None and upper_bound >= 0:
         r1 = r1.clamp_max(_weak(upper_bound, r1))
-    r2 = _norm(upd)
+    r2 = norm(upd).reshape(())
     ratio = torch.where((r1 > 0) & (r2 > 0), r1.float() / r2,
                         torch.ones_like(r2))
     return w.float() - _f32(lr) * ratio * upd, new_m, new_v
@@ -179,3 +178,320 @@ def multi_lamb_update(*arrays, learning_rates, wds, beta1=0.9, beta2=0.999,
         ms.append(nm.to(m.dtype))
         vs.append(nv.to(v.dtype))
     return tuple(ws + ms + vs)
+
+
+# ---------------------------------------------------------------------------
+# multi-precision SGD: the update on the f32 master, the gradient widened
+# ---------------------------------------------------------------------------
+@register("mp_sgd_update")
+def mp_sgd_update(weight, grad, weight32, *, lr, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0, lazy_update=True):
+    """Returns (w', w32')."""
+    g = _apply_wd(grad.float(), weight32, wd, rescale_grad, clip_gradient)
+    new_w32 = weight32 - lr * g
+    return new_w32.to(weight.dtype), new_w32
+
+
+@register("mp_sgd_mom_update")
+def mp_sgd_mom_update(weight, grad, mom, weight32, *, lr, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                      lazy_update=True):
+    """Returns (w', mom', w32')."""
+    g = _apply_wd(grad.float(), weight32, wd, rescale_grad, clip_gradient)
+    new_mom = _weak(momentum, mom) * mom - lr * g
+    new_w32 = weight32 + new_mom
+    return new_w32.to(weight.dtype), new_mom, new_w32
+
+
+def _mp_sgd_multi(arrays, per, n, lrs, wds, momentum, rescale_grad,
+                  clip_gradient):
+    """arrays = [w, g, (m,) w32] per tensor; returns (w'..., (m'...,)
+    w32'...)."""
+    ws, ms, w32s = [], [], []
+    for i in range(n):
+        grp = arrays[per * i:per * i + per]
+        w, g, w32 = grp[0], grp[1], grp[-1]
+        gg = _apply_wd(g.float(), w32, wds[i], rescale_grad, clip_gradient)
+        if per == 4:
+            nm = _weak(momentum, grp[2]) * grp[2] - lrs[i] * gg
+            ms.append(nm)
+            nw32 = w32 + nm
+        else:
+            nw32 = w32 - lrs[i] * gg
+        ws.append(nw32.to(w.dtype))
+        w32s.append(nw32)
+    return tuple(ws + ms + w32s)
+
+
+@register("multi_mp_sgd_update")
+def multi_mp_sgd_update(*arrays, lrs, wds, rescale_grad=1.0,
+                        clip_gradient=-1.0, num_weights=1):
+    """arrays = [w0, g0, w32_0, ...]; returns (w'..., w32'...)."""
+    n = int(num_weights)
+    return _mp_sgd_multi(arrays, 3, n, _per_tensor(lrs, n),
+                         _per_tensor(wds, n), 0.0, rescale_grad,
+                         clip_gradient)
+
+
+@register("multi_mp_sgd_mom_update")
+def multi_mp_sgd_mom_update(*arrays, lrs, wds, momentum=0.0,
+                            rescale_grad=1.0, clip_gradient=-1.0,
+                            num_weights=1):
+    """arrays = [w0, g0, m0, w32_0, ...]; returns (w'..., m'...,
+    w32'...)."""
+    n = int(num_weights)
+    return _mp_sgd_multi(arrays, 4, n, _per_tensor(lrs, n),
+                         _per_tensor(wds, n), momentum, rescale_grad,
+                         clip_gradient)
+
+
+@register("preloaded_multi_mp_sgd_update")
+def preloaded_multi_mp_sgd_update(*arrays, rescale_grad=1.0,
+                                  clip_gradient=-1.0, num_weights=1):
+    """multi_mp_sgd_update with lrs/wds as f32 tensors (the last two
+    inputs)."""
+    n = int(num_weights)
+    return _mp_sgd_multi(arrays, 3, n, arrays[3 * n], arrays[3 * n + 1], 0.0,
+                         rescale_grad, clip_gradient)
+
+
+@register("preloaded_multi_mp_sgd_mom_update")
+def preloaded_multi_mp_sgd_mom_update(*arrays, momentum=0.0,
+                                      rescale_grad=1.0, clip_gradient=-1.0,
+                                      num_weights=1):
+    """multi_mp_sgd_mom_update with lrs/wds as f32 tensors (the last
+    two inputs)."""
+    n = int(num_weights)
+    return _mp_sgd_multi(arrays, 4, n, arrays[4 * n], arrays[4 * n + 1],
+                         momentum, rescale_grad, clip_gradient)
+
+
+# ---------------------------------------------------------------------------
+# LAMB's two phases (the one-tensor update): phase 1 the moments and the
+# update direction, phase 2 the step scaled by ||w|| / ||update||
+# ---------------------------------------------------------------------------
+@register("lamb_update_phase1")
+def lamb_update_phase1(weight, grad, mean, var, *, beta1=0.9, beta2=0.999,
+                       epsilon=1e-6, t=1, bias_correction=True, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (update, mean', var')."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    new_mean = _weak(beta1, mean) * mean + _weak(1 - beta1, g) * g
+    new_var = _weak(beta2, var) * var + _weak(1 - beta2, g) * g.square()
+    m, v = new_mean, new_var
+    if bias_correction:
+        m = m / _weak(1 - beta1 ** t, m)
+        v = v / _weak(1 - beta2 ** t, v)
+    update = m / (v.sqrt() + _weak(epsilon, v)) + _weak(wd, weight) * weight
+    return update, new_mean, new_var
+
+
+@register("lamb_update_phase2")
+def lamb_update_phase2(weight, g_update, r1, r2, *, lr, lower_bound=-1.0,
+                       upper_bound=-1.0):
+    """w - lr * (r1 / r2) * update, the ratio 1 where a norm is 0; r1
+    clamped to the bounds given (>= 0)."""
+    r1v, r2v = r1.reshape(()), r2.reshape(())
+    if lower_bound is not None and lower_bound >= 0:
+        r1v = r1v.clamp_min(_weak(lower_bound, r1v))
+    if upper_bound is not None and upper_bound >= 0:
+        r1v = r1v.clamp_max(_weak(upper_bound, r1v))
+    ratio = torch.where((r1v > 0) & (r2v > 0), r1v / r2v,
+                        torch.ones_like(r2v))
+    return weight - _weak(lr, ratio) * ratio * g_update
+
+
+@register("mp_lamb_update_phase1")
+def mp_lamb_update_phase1(weight, grad, mean, var, weight32, *, beta1=0.9,
+                          beta2=0.999, epsilon=1e-6, t=1,
+                          bias_correction=True, wd=0.0, rescale_grad=1.0,
+                          clip_gradient=-1.0):
+    """Phase 1 on the f32 master; returns (update, mean', var')."""
+    return lamb_update_phase1(weight32, grad.float(), mean, var, beta1=beta1,
+                              beta2=beta2, epsilon=epsilon, t=t,
+                              bias_correction=bias_correction, wd=wd,
+                              rescale_grad=rescale_grad,
+                              clip_gradient=clip_gradient)
+
+
+@register("mp_lamb_update_phase2")
+def mp_lamb_update_phase2(weight, g_update, r1, r2, weight32, *, lr,
+                          lower_bound=-1.0, upper_bound=-1.0):
+    """Phase 2 on the f32 master; returns (w', w32')."""
+    new_w32 = lamb_update_phase2(weight32, g_update, r1, r2, lr=lr,
+                                 lower_bound=lower_bound,
+                                 upper_bound=upper_bound)
+    return new_w32.to(weight.dtype), new_w32
+
+
+@register("_multi_mp_lamb_update", aliases=["multi_mp_lamb_update"])
+def multi_mp_lamb_update(*arrays, learning_rates, wds, beta1=0.9,
+                         beta2=0.999, epsilon=1e-6, step_count=(1,),
+                         bias_correction=True, rescale_grad=1.0,
+                         clip_gradient=-1.0, lower_bound=-1.0,
+                         upper_bound=-1.0, num_tensors=1):
+    """Multi-tensor LAMB on f32 masters; arrays = [w0, g0, m0, v0,
+    w32_0, w1, ...]. Returns (w'..., m'..., v'..., w32'...)."""
+    n = int(num_tensors)
+    lrs = _per_tensor(learning_rates, n)
+    wds_t = _per_tensor(wds, n)
+    ts = _per_tensor(step_count, n)
+    ws, ms, vs, w32s = [], [], [], []
+    for i in range(n):
+        w, g, m, v, w32 = arrays[5 * i:5 * i + 5]
+        nw32, nm, nv = _lamb_one(w32, g, m, v, lrs[i], wds_t[i], beta1,
+                                 beta2, epsilon, ts[i], bias_correction,
+                                 rescale_grad, clip_gradient, lower_bound,
+                                 upper_bound)
+        ws.append(nw32.to(w.dtype))
+        ms.append(nm.to(m.dtype))
+        vs.append(nv.to(v.dtype))
+        w32s.append(nw32)
+    return tuple(ws + ms + vs + w32s)
+
+
+# ---------------------------------------------------------------------------
+# Adam and AdamW (bias correction folded into lr by the optimizer)
+# ---------------------------------------------------------------------------
+def _moments(g, mean, var, beta1, beta2):
+    new_mean = _weak(beta1, mean) * mean + _weak(1 - beta1, g) * g
+    new_var = _weak(beta2, var) * var + _weak(1 - beta2, g) * g.square()
+    return new_mean, new_var
+
+
+@register("adam_update")
+def adam_update(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                lazy_update=True):
+    """Returns (w', mean', var')."""
+    g = _apply_wd(grad, weight, wd, rescale_grad, clip_gradient)
+    new_mean, new_var = _moments(g, mean, var, beta1, beta2)
+    new_w = weight - _weak(lr, new_mean) * new_mean / (
+        new_var.sqrt() + _weak(epsilon, new_var))
+    return new_w, new_mean, new_var
+
+
+def _adamw_step(weight, grad, mean, var, rs, lr, beta1, beta2, epsilon, wd,
+                eta, clip_gradient):
+    g = grad * (rs if isinstance(rs, torch.Tensor) else _weak(rs, grad))
+    if clip_gradient is not None and clip_gradient >= 0:
+        g = g.clamp(-_weak(clip_gradient, g), _weak(clip_gradient, g))
+    new_mean, new_var = _moments(g, mean, var, beta1, beta2)
+    step = _weak(lr, new_mean) * new_mean / (
+        new_var.sqrt() + _weak(epsilon, new_var))
+    new_w = weight - _weak(eta, step) * (step + _weak(wd, weight) * weight)
+    return new_w, new_mean, new_var
+
+
+@register("adamw_update", aliases=["_adamw_update"])
+def adamw_update(weight, grad, mean, var, rescale_grad_t=None, *, lr,
+                 beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0, eta=1.0,
+                 clip_gradient=-1.0, rescale_grad=1.0):
+    """AdamW, decoupled weight decay (ref: contrib/adamw.cc); an optional
+    tensor rescale_grad_t takes rescale_grad's place. Returns (w',
+    mean', var')."""
+    rs = rescale_grad_t if rescale_grad_t is not None else rescale_grad
+    return _adamw_step(weight, grad, mean, var, rs, lr, beta1, beta2,
+                       epsilon, wd, eta, clip_gradient)
+
+
+@register("_mp_adamw_update", aliases=["mp_adamw_update"])
+def mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad_t=None,
+                    *, lr, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
+                    eta=1.0, clip_gradient=-1.0, rescale_grad=1.0):
+    """AdamW on the f32 master; returns (w', mean', var', w32')."""
+    rs = rescale_grad_t if rescale_grad_t is not None else rescale_grad
+    new_w32, new_mean, new_var = _adamw_step(
+        weight32, grad.float(), mean, var, rs, lr, beta1, beta2, epsilon,
+        wd, eta, clip_gradient)
+    return new_w32.to(weight.dtype), new_mean, new_var, new_w32
+
+
+def _adamish_one(w, g, m, v, lr, wd, eta, beta1, beta2, epsilon,
+                 rescale_grad, clip_gradient, decoupled):
+    """One tensor of the reference's ``_adamish_one``; lr, wd and
+    rescale_grad are f32 there, the rest weak floats."""
+    g = g.float() * _f32(rescale_grad)
+    if clip_gradient is not None and clip_gradient >= 0:
+        g = g.clamp(-clip_gradient, clip_gradient)
+    if not decoupled:
+        g = g + _f32(wd) * w.float()
+    nm, nv = _moments(g, m, v, beta1, beta2)
+    step = _f32(lr) * nm / (nv.sqrt() + epsilon)
+    if decoupled:
+        step = eta * (step + _f32(wd) * w.float())
+    return w.float() - step, nm, nv
+
+
+def _multi_adamish(arrays, stride, learning_rates, wds, etas, beta1, beta2,
+                   epsilon, rescale_grad, clip_gradient, num_tensors,
+                   decoupled):
+    n = int(num_tensors)
+    lrs = _per_tensor(learning_rates, n)
+    wds_t = _per_tensor(wds, n)
+    eta_t = _per_tensor(etas, n)
+    ws, ms, vs, w32s = [], [], [], []
+    for i in range(n):
+        grp = arrays[stride * i:stride * i + stride]
+        w, g, m, v = grp[:4]
+        master = grp[4] if stride == 5 else w
+        nw, nm, nv = _adamish_one(master, g, m, v, lrs[i], wds_t[i],
+                                  eta_t[i], beta1, beta2, epsilon,
+                                  rescale_grad, clip_gradient, decoupled)
+        ws.append(nw.to(w.dtype))
+        ms.append(nm.to(m.dtype))
+        vs.append(nv.to(v.dtype))
+        if stride == 5:
+            w32s.append(nw)
+    return tuple(ws + ms + vs + w32s)
+
+
+@register("multi_adam_update")
+def multi_adam_update(*arrays, learning_rates, wds, beta1=0.9, beta2=0.999,
+                      epsilon=1e-8, rescale_grad=1.0, clip_gradient=-1.0,
+                      num_tensors=1):
+    """Multi-tensor Adam, bias correction pre-folded into the lrs;
+    arrays = [w0, g0, m0, v0, ...]; returns (w'..., m'..., v'...)."""
+    return _multi_adamish(arrays, 4, learning_rates, wds, 1.0, beta1, beta2,
+                          epsilon, rescale_grad, clip_gradient, num_tensors,
+                          decoupled=False)
+
+
+@register("multi_mp_adam_update")
+def multi_mp_adam_update(*arrays, learning_rates, wds, beta1=0.9,
+                         beta2=0.999, epsilon=1e-8, rescale_grad=1.0,
+                         clip_gradient=-1.0, num_tensors=1):
+    """arrays = [w0, g0, m0, v0, w32_0, ...]; returns (w'..., m'...,
+    v'..., w32'...)."""
+    return _multi_adamish(arrays, 5, learning_rates, wds, 1.0, beta1, beta2,
+                          epsilon, rescale_grad, clip_gradient, num_tensors,
+                          decoupled=False)
+
+
+@register("_multi_adamw_update", aliases=["multi_adamw_update"])
+def multi_adamw_update(*arrays, learning_rates, wds, etas=1.0, beta1=0.9,
+                       beta2=0.999, epsilon=1e-8, rescale_grad=1.0,
+                       clip_gradient=-1.0, num_tensors=1):
+    """Multi-tensor AdamW; arrays = [w0, g0, m0, v0, ...]."""
+    return _multi_adamish(arrays, 4, learning_rates, wds, etas, beta1, beta2,
+                          epsilon, rescale_grad, clip_gradient, num_tensors,
+                          decoupled=True)
+
+
+@register("_multi_mp_adamw_update", aliases=["multi_mp_adamw_update"])
+def multi_mp_adamw_update(*arrays, learning_rates, wds, etas=1.0, beta1=0.9,
+                          beta2=0.999, epsilon=1e-8, rescale_grad=1.0,
+                          clip_gradient=-1.0, num_tensors=1):
+    """Multi-tensor AdamW on f32 masters; arrays = [w0, g0, m0, v0,
+    w32_0, ...]."""
+    return _multi_adamish(arrays, 5, learning_rates, wds, etas, beta1, beta2,
+                          epsilon, rescale_grad, clip_gradient, num_tensors,
+                          decoupled=True)
+
+
+@register("multi_all_finite")
+def multi_all_finite(*arrays, num_arrays=1, init_output=True):
+    """(1,) f32: 1 iff every element of every input is finite (ref:
+    contrib multi_all_finite, the AMP loss scaler's check)."""
+    flags = torch.stack([torch.isfinite(a).all() for a in arrays])
+    return flags.all().to(torch.float32).reshape(1)

@@ -39,3 +39,23 @@ def _make_reduce(opname, fn):
 
 register("sum", aliases=["sum_axis"])(_make_reduce("sum", torch.sum))
 register("mean", aliases=["mean_axis"])(_make_reduce("mean", torch.mean))
+
+
+@register("norm")
+def norm(data, *, ord=2, axis=None, keepdims=False):
+    """L1 or L2 norm over ``axis`` (all axes by default): squares in the
+    data's dtype, the sum taken in f32 and rounded to the data's dtype,
+    the root in it (jnp.linalg.norm's rounding); a full reduction
+    returns (1,)."""
+    ax = _axes(data, axis, False)
+    kw = {} if ax is None else {"dim": ax, "keepdim": bool(keepdims)}
+    if ord == 1:
+        out = data.abs().sum(dtype=torch.float32, **kw).to(data.dtype)
+    elif ord == 2:
+        out = torch.sqrt((data * data).sum(dtype=torch.float32, **kw)
+                         .to(data.dtype))
+    else:
+        raise ValueError("norm only supports ord=1 or 2")
+    if ax is None:
+        out = out.reshape((1,) * data.dim() if keepdims else (1,))
+    return out

@@ -141,21 +141,19 @@ def test_bert_training_slice_f32_matches_reference(pallas_interpret, opt):
 
 
 def test_mlm_loss_names_and_modes_match_reference():
-    ref, port = RefMLM(**MLM), PortMLM(**MLM)
-    names = list(ref.collect_params().keys())
-    assert list(port.collect_params().keys()) == names
-    assert {"mlm_head_weight", "mlm_head_bias", "mlm_transform_weight",
-            "mlm_transform_bias"} < set(names) and len(names) == 6
-    for mode in ("auto", "chunked", "fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PortMLM(**dict(MLM, mode=mode))
-
-
-@pytest.mark.parametrize("mode", ["auto", "chunked", "fused"])
-def test_mlm_loss_refusal_names_the_lm_head_queue_item(mode):
-    """The LM-head cross entropies are ROADMAP.md queue 1 item 5."""
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 5\)"):
-        PortMLM(**dict(MLM, mode=mode))
+    """Every mode builds, with the reference's parameter names, and
+    resolves as the reference's does (the modes' numerics:
+    tests/test_torch_lm_head_ce.py)."""
+    for mode in ("dense", "auto", "chunked", "fused"):
+        kw = dict(MLM, mode=mode, prefix="mlm_%s_" % mode)
+        ref, port = RefMLM(**kw), PortMLM(**kw)
+        names = list(ref.collect_params().keys())
+        assert list(port.collect_params().keys()) == names
+        assert {kw["prefix"] + n for n in (
+            "head_weight", "head_bias", "transform_weight",
+            "transform_bias")} < set(names) and len(names) == 6
+        assert port._resolve_mode() == ref._resolve_mode()
+    assert PortMLM(**dict(MLM, mode="auto"))._resolve_mode() == "chunked"
 
 
 def test_bert_training_with_dropout_runs_and_repeats():

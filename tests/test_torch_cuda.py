@@ -299,10 +299,14 @@ def test_layer_norm_bwd_kernel(card, dtype, M, C):
     x = _randn(card, (M, C), dtype, 3.0) + 1
     dy = _randn(card, (M, C), dtype)
     g = _randn(card, (C,), dtype)
-    got = cuda_norm.layer_norm_bwd_cuda(dy, x, g, 1e-5)
-    ref = cuda_norm.layer_norm_bwd_plain(dy, x, g, 1e-5)
-    for i, (a, b) in enumerate(zip(got, ref)):
-        _assert_close(a, b, reduced=i > 0)
+    # gamma also in f32 under a bf16 activation, as under AMP: dgamma and
+    # dbeta then come back in f32
+    for gg in (g, g.float()):
+        got = cuda_norm.layer_norm_bwd_cuda(dy, x, gg, 1e-5)
+        ref = cuda_norm.layer_norm_bwd_plain(dy, x, gg, 1e-5)
+        assert got[1].dtype == got[2].dtype == gg.dtype
+        for i, (a, b) in enumerate(zip(got, ref)):
+            _assert_close(a, b, reduced=i > 0)
 
 
 def test_layer_norm_bwd_paths(card):
@@ -783,3 +787,76 @@ def test_mnist_custom_op_step_equals_its_twin_on_the_card(card):
             assert cs._mnist_diff(nets, loss, tloss) is None, step
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# ---------------------------------------------------------------------------
+# the LM-head cross entropies (torch products, no kernel of the port)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("adt,bdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float16, torch.float16)],
+                         ids=str)
+def test_f32_product_out_dtype_matches_the_widened_product(card, adt, bdt):
+    """The head's product on the card (cuBLAS with f32 output for
+    low-precision operands) against the f32 product of the widened
+    operands with TF32 off: a product of two bf16 or f16 values is exact
+    in f32, so the two differ only in the order of f32 sums."""
+    from mxnet_tpu_torch.ops.contrib_ops import _f32_product
+    a = _randn(card, (512, 768), adt)
+    b = _randn(card, (768, 1000), bdt)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _f32_product(a, b)
+        ref = torch.mm(a.float(), b.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.dtype == torch.float32
+    _assert_close(got, ref, reduced=True)
+
+
+@pytest.mark.parametrize("hdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)],
+                         ids=str)
+def test_chunked_head_matches_the_full_vocab_head(card, hdt, wdt):
+    """The chunked head (chunk 1024 over a vocab of 5000, the last chunk
+    padded) against the full-vocab head on the card, at the tolerances
+    of tests/test_chunked_ce.py: f32 loss within rtol 1e-6 (atol 1e-6)
+    and gradients within rtol 5e-5 (atol 1e-5 of the largest); with bf16
+    hidden states the loss within 1e-5 and each gradient's max abs error
+    below 1e-2 of its largest magnitude. Both heads run with CUDA's sync
+    debug mode set to error: no op of either makes the host wait for
+    the card."""
+    from mxnet_tpu_torch.ops import contrib_ops
+    T, U, V = 512, 256, 5000
+    h = _randn(card, (T, U), hdt)
+    w = _randn(card, (V, U), wdt, 0.3)
+    b = _randn(card, (V,), torch.float32, 0.1)
+    lab = torch.randint(0, V, (T,), generator=card, device="cuda")
+    dy = torch.rand(T, generator=card, device="cuda")
+    runs = []
+    for op, kw in ((contrib_ops.chunked_lm_head_ce, {"chunk_size": 1024}),
+                   (contrib_ops.fused_lm_head_ce, {})):
+        ts = [t.clone().requires_grad_() for t in (h, w, b)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = op(*ts, lab, **kw)
+            runs.append([loss] + list(torch.autograd.grad(loss, ts, dy)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    (cl, *cg), (fl, *fg) = runs
+    assert cl.dtype == torch.float32
+    if hdt == torch.float32:
+        torch.testing.assert_close(cl, fl, rtol=1e-6, atol=1e-6)
+        for a, r in zip(cg, fg):
+            torch.testing.assert_close(a, r, rtol=5e-5,
+                                       atol=1e-5 * r.abs().max().item())
+        return
+    torch.testing.assert_close(cl, fl, rtol=1e-5, atol=1e-5)
+    for a, r in zip(cg, fg):
+        assert a.dtype == r.dtype
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err < 1e-2, err.item()
+
