@@ -149,6 +149,39 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    (``fixed_ms``, ``fixed_library_ms``): kernel and library call on one
    row, a launch and one row's latency.
 
+11. compiled — ``hybridize()`` as captured CUDA graphs
+   (``mxnet_tpu_torch/cached_op.py``) on three paths at full width, each
+   against its eager twin on the card (the same blocks run under
+   ``cached_op.eager()``), each driven with the launch counts set to 0
+   just before and read just after, and its graphs freed before the
+   next path: (a) the phase-4 session, every bucket a replayed graph,
+   every request's outputs equal to the eager session's; (b) BERT-base
+   pretrained as phase 5a runs it (``amp.init("bfloat16")``, the
+   chunked ``BERTMLMLoss()``, LAMB with ``PolyScheduler``, 32 x 128),
+   model and loss hybridized, ``COMPILED_STEPS`` steps at dropout 0
+   against the eager steps, then at dropout 0.1 two replays must draw
+   different masks (keep rate within 5 binomial sigma of 0.9); (c)
+   ResNet-50 v1 as bench.py's headline loop runs it (``amp.init
+   ("bfloat16")``, ``hybridize(static_alloc=True, static_shape=True)``
+   on the net and the loss, SGD lr 0.1 momentum 0.9, batch 128 at
+   224^2, ``MXNET_TRAINER_FUSED_UPDATE`` on), every step from the
+   second the consumed plan with the update in its graph, losses and
+   parameters after ``COMPILED_STEPS`` steps against the eager loop's.
+   Parity: serving bit for bit; each BERT step in lockstep with the
+   eager step from the same parameters, within ``COMPILED_AMP_RATIO``
+   times AMP's own error (all but the embeddings' gradients bit for
+   bit); the ResNet loop within ``COMPILED_SPREAD`` times the distance
+   between two eager loops, bit for bit where they are.
+   Each path prints graph replays and launches of a steady step (no
+   kernel wrapper and no model op may run in it), the host-clock step
+   eager against compiled (in turns), one profiled compiled step (busy
+   time, idle share) and the memory its graphs hold; the kernel
+   launches recorded into each path's graphs (counted inside each
+   capture alone, the eager warm-ups apart) go into the kernels line as
+   ``launches_per_compiled_capture``. Planted controls that must fail: a weight changed in place after capture, its replay
+   held to the output from before; a ResNet step whose replay is
+   skipped, held to the eager loop.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1077,8 +1110,9 @@ def _profile(what, fn, n_other=8):
               "not measured")
         return {}
     print("[profile] %s: wall %.2f ms (host clock, profiler on), %d "
-          "kernels, device busy %.2f ms (%.0f%% of wall)"
-          % (what, wall_ms, n_kernels, busy, 100 * busy / wall_ms))
+          "kernels, device busy %.2f ms (%.0f%% of wall, idle %.0f%%)"
+          % (what, wall_ms, n_kernels, busy, 100 * busy / wall_ms,
+             max(0.0, 100 - 100 * busy / wall_ms)))
     ranked = sorted(groups.items(), key=lambda kv: -kv[1])
     others = [kv for kv in ranked if kv[0].startswith("other: ")]
     rest = others[n_other:]
@@ -1696,17 +1730,18 @@ def phase_times_train(seed, reps, counts, errs, card, net, mlm, params,
 # bf16 AMP over f32 parameters, the default (chunked) LM head, LAMB with a
 # PolyScheduler; then float16 with master weights and loss scaling
 # ---------------------------------------------------------------------------
-def _build_amp(seed, num_layers=12, dtype=None):
-    """BERT-base's widths (``bert_12_768_12`` at 12 layers) at dropout
-    0.1 with the default ``BERTMLMLoss``, initialized on gpu(0), biases,
-    beta and gamma - 1 drawn from the seed, f32 unless ``dtype``."""
+def _build_amp(seed, num_layers=12, dtype=None, dropout=0.1):
+    """BERT-base's widths (``bert_12_768_12`` at 12 layers) at
+    ``dropout`` with the default ``BERTMLMLoss``, initialized on gpu(0),
+    biases, beta and gamma - 1 drawn from the seed, f32 unless
+    ``dtype``."""
     import torch
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTMLMLoss,
                                                       BERTModel,
                                                       bert_12_768_12)
     mx.random.seed(seed)
-    kw = dict(dropout=0.1, use_pooler=False, use_classifier=False,
+    kw = dict(dropout=dropout, use_pooler=False, use_classifier=False,
               use_decoder=False)
     net = bert_12_768_12(**kw) if num_layers == 12 else BERTModel(
         num_layers=num_layers, units=UNITS, hidden_size=HIDDEN,
@@ -3161,6 +3196,526 @@ def _attention_share(groups):
                                                sum(groups.values())))
 
 
+# ---------------------------------------------------------------------------
+# 11. compiled: hybridize() as captured CUDA graphs
+# ---------------------------------------------------------------------------
+COMPILED_STEPS = 3
+# (b) Each compiled BERT step against the eager step from the same
+# parameters, per gradient and for the loss, with the AMP step's own
+# distance from its f32 twin as the yardstick (as AMP_RATIO): the first
+# step is the eager warm-up, the second captures, the third replays
+# only. The graphs replay the eager step's kernels, so all but the
+# embedding tables' gradients (index_add_'s atomics, whose order changes
+# between any two runs, eager or not) come out bit for bit: on an H100
+# 462-465 of 468 per seed, the largest ratio 6.19e-05, 8.48e-05,
+# 5.22e-05, 4.42e-05 and 7.1e-05 for seeds 0-4; the limit is twice the
+# largest correct reading.
+COMPILED_AMP_RATIO = 1.7e-4
+# (c) The compiled ResNet loop against the eager loop, the largest
+# relative L2 distance over the losses of every step and the parameters
+# after the last, at most COMPILED_SPREAD times the distance between two
+# eager loops: on an H100 both were 0 at seeds 0-4, so bit for bit; with
+# step 3's replay skipped (the control) 0.481-0.915.
+COMPILED_SPREAD = 2.0
+COMPILED_TURNS = 5
+
+
+def _rel(a, b):
+    """Relative L2 distance of two tensors in f32 (0 when equal)."""
+    a, b = a.float(), b.float()
+    d = float((a - b).norm())
+    return 0.0 if d == 0 else d / max(float(b.norm()), 1e-30)
+
+
+def _snapshot(params):
+    return {n: p.data().tensor().detach().clone() for n, p in params.items()}
+
+
+def _restore(params, snap):
+    """Write ``snap`` into the parameters in place (their addresses, which
+    the graphs read, stay)."""
+    import torch
+    with torch.no_grad():
+        for n, p in params.items():
+            p.data().tensor().copy_(snap[n])
+
+
+def _run_distance(got, ref):
+    """The largest relative L2 distance over (losses, parameters) pairs,
+    and where it is."""
+    worst = (0.0, "none")
+    for i, (a, b) in enumerate(zip(got[0], ref[0])):
+        worst = max(worst, (_rel(a, b), "loss of step %d" % (i + 1)))
+    for n in ref[1]:
+        worst = max(worst, (_rel(got[1][n], ref[1][n]), n))
+    return worst
+
+
+def _parity(tag, eager_a, eager_b, compiled):
+    """Hold ``compiled`` to ``eager_a`` by COMPILED_SPREAD times the
+    distance between the two eager runs; returns (distance, failed)."""
+    spread, where_s = _run_distance(eager_b, eager_a)
+    dist, where = _run_distance(compiled, eager_a)
+    limit = COMPILED_SPREAD * spread
+    fail = dist > limit
+    verdict = (("caught" if fail else "MISSED") if tag.startswith("control")
+               else ("FAIL" if fail else "ok"))
+    print("[compiled] %s: compiled vs eager %.3g (%s), eager vs eager "
+          "%.3g (%s), limit %.3g%s %s" % (
+              tag, dist, where, spread, where_s, limit,
+              " (bit for bit)" if limit == 0 else "", verdict))
+    return dist, fail
+
+
+def _in_turns(eager_fn, compiled_fn, turns=COMPILED_TURNS):
+    """Host-clock medians (ms) of ``eager_fn`` and ``compiled_fn``, the
+    card synchronised around each, run in turns: eager, compiled,
+    compiled, eager."""
+    import torch
+    from mxnet_tpu_torch import cached_op
+    times = {"eager": [], "compiled": []}
+
+    def one(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "eager":
+            with cached_op.eager():
+                eager_fn()
+        else:
+            compiled_fn()
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    for _ in range(turns):
+        for kind in ("eager", "compiled", "compiled", "eager"):
+            one(kind)
+    return (statistics.median(times["eager"]),
+            statistics.median(times["compiled"]))
+
+
+def _steady(tag, fn, allowed=()):
+    """One steady compiled step: no kernel wrapper may run and no op but
+    ``allowed`` (what the step runs outside its graphs) may be
+    dispatched; returns the graph replays."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    cuda_build.reset_launch_counts()
+    cached_op.reset_replay_counts()
+    with mx.ops.recording() as seen:
+        fn()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    replays = cached_op.replay_counts()
+    ops = sorted(op.name for op in seen)
+    print("[compiled] %s, one steady step: graph replays %s; kernel "
+          "launches outside graphs %s; ops dispatched %s"
+          % (tag, replays, launched or "none", ops or "none"))
+    extra = [o for o in ops if o not in allowed]
+    if launched or extra:
+        raise SmokeFailure("%s: a steady compiled step dispatched %s%s "
+                           "outside its graphs" % (tag, launched or "",
+                                                   extra or ""))
+    return replays
+
+
+def _graph_mb(fn):
+    """(device memory held after ``fn()`` above before it, peak above
+    before), MB: the graph pools ``fn`` captures stay allocated."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ((torch.cuda.memory_allocated() - base) / 1e6,
+                 (torch.cuda.max_memory_allocated() - base) / 1e6)
+
+
+@contextlib.contextmanager
+def _capture_launches():
+    """Kernel launches recorded into CUDA graphs inside the scope, by
+    kernel: a wrapper runs once while its launch is captured, and a
+    replay runs what was captured without it."""
+    from unittest import mock
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    total = {k: 0 for k in cuda_build.KERNELS}
+    real = cached_op._capture
+
+    def counted(*a, **kw):
+        before = cuda_build.launch_counts()
+        try:
+            return real(*a, **kw)
+        finally:
+            for k, v in cuda_build.launch_counts().items():
+                total[k] += v - before[k]
+    with mock.patch.object(cached_op, "_capture", counted):
+        yield total
+
+
+def _free_graphs(*blocks):
+    """Drop every captured graph of ``blocks``, and with them the plans'
+    (a released graph closes the runners that replay over it)."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import autograd
+    autograd.disarm_fused_update()
+    autograd.flush_pending_step()
+    for b in blocks:
+        b._clear_cached_op()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _report(tag, eager_ms, compiled_ms, held, what="step"):
+    print("[compiled] %s: %s on the host clock %.2f ms eager, %.2f ms "
+          "compiled (medians of %d, in turns); graphs hold %.1f MB "
+          "(peak +%.1f MB while capturing)" % (
+              tag, what, eager_ms, compiled_ms, 2 * COMPILED_TURNS,
+              held[0], held[1]))
+
+
+def phase_compiled_serve(sess, reqs, net):
+    """(a) The phase-4 session with every bucket a captured graph; returns
+    {"serve": the kernel launches recorded into the graphs}."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    with cached_op.eager():
+        eager = [sess.infer(ids, tok) for ids, tok in reqs]
+    cuda_build.reset_launch_counts()
+    with _capture_launches() as counts:
+        first, held = _graph_mb(lambda: [sess.infer(ids, tok)
+                                         for ids, tok in reqs])
+    warm = {k: v - counts[k] for k, v in cuda_build.launch_counts().items()}
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
+    print("[compiled] serve: launches of the %d buckets' eager warm-ups %s; "
+          "recorded into their graphs %s" % (len(reqs), warm, counts))
+    if missing:
+        raise SmokeFailure("compiled serving captured no %s" % missing)
+    replays = _steady("serve", lambda: [sess.infer(ids, tok)
+                                        for ids, tok in reqs])
+    if replays["forward"] != len(reqs):
+        raise SmokeFailure("compiled serving: %d forward replays for %d "
+                           "requests" % (replays["forward"], len(reqs)))
+    outs = [sess.infer(ids, tok) for ids, tok in reqs]
+    for (ids, _), got, want, warm in zip(reqs, outs, eager, first):
+        for i, (g, w, f) in enumerate(zip(got, want, warm)):
+            err = float(np.abs(g - w).max())
+            if not (np.array_equal(g, w) and np.array_equal(f, w)):
+                raise SmokeFailure(
+                    "compiled serving, request %s output %d: max |replay - "
+                    "eager| %g, not bit for bit" % (ids.shape, i, err))
+    print("[compiled] serve: %d requests x %d outputs equal the eager "
+          "session's bit for bit" % (len(reqs), len(outs[0])))
+    ids, tok = reqs[0]
+    eager_ms, comp_ms = _in_turns(lambda: sess.infer(ids, tok),
+                                  lambda: sess.infer(ids, tok))
+    _report("serve request %s" % (ids.shape,), eager_ms, comp_ms, held,
+            "request")
+    _profile("one compiled request %s" % (ids.shape,),
+             lambda: sess.infer(ids, tok))
+
+    # control: a weight changed in place after capture must change the
+    # replay's output (held to the output from before, the check fails)
+    w = net.word_embed.weight.data().tensor()
+    keep = w.clone()
+    with torch.no_grad():
+        w.mul_(-1)
+    bad = sess.infer(ids, tok)
+    caught = not all(np.array_equal(b, e) for b, e in zip(bad, eager[0]))
+    with torch.no_grad():
+        w.copy_(keep)
+    back = all(np.array_equal(b, e)
+               for b, e in zip(sess.infer(ids, tok), eager[0]))
+    print("[control] serve: word embeddings negated in place after capture: "
+          "replay differs from before: %s; restored: equal again: %s"
+          % (caught, back))
+    if not (caught and back):
+        raise SmokeFailure("control: the replay did not read the weight "
+                           "written in place")
+    _free_graphs(net)
+    return {"serve": counts}
+
+
+def _bert_seq(out):
+    """A hybridized block with one output returns it (the reference's
+    CachedOp); the eager forward a tuple."""
+    import mxnet_tpu_torch as mx
+    return out if isinstance(out, mx.nd.NDArray) else out[0]
+
+
+def phase_compiled_bert(seed):
+    """(b) BERT-base pretrained as phase 5a runs it, model and loss
+    hybridized; returns {"bert": the kernel launches recorded into its
+    graphs}."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops import cuda_build
+    amp.init(target_dtype="bfloat16")
+    try:
+        net, mlm, params = _build_amp(seed, dropout=0.0)
+        ids, tok, lab = _train_batch(seed)
+        for b in (net, mlm):
+            b.hybridize(static_alloc=True, static_shape=True)
+
+        def fwd_bwd():
+            with mx.autograd.record():
+                per_position = mlm(_bert_seq(net(ids, tok)), lab)
+                loss = per_position.mean()
+            loss.backward()
+            return per_position
+
+        def grads(per_position):
+            return (per_position.tensor().detach().float().mean(),
+                    {n: p.grad().tensor().float().clone()
+                     for n, p in params.items()})
+
+        sched = mx.lr_scheduler.PolyScheduler(base_lr=1e-3, **AMP_POLY)
+        trainer = mx.gluon.Trainer(params, "lamb", {
+            "learning_rate": 1e-3, "wd": 0.01, "lr_scheduler": sched})
+        # in lockstep: each compiled step's loss and gradients against the
+        # eager step and the f32 twin step from the same parameters (LAMB
+        # turns a gradient's last-bit noise into a whole update, so three
+        # steps apart would compare LAMB, not the graphs)
+        counts = {k: 0 for k in cuda_build.KERNELS}
+        worst, equal, total, spread = 0.0, 0, 0, 0.0
+        held = (0.0, 0.0)
+        with _capture_launches() as captured:
+            for k in range(COMPILED_STEPS):
+                snap = _snapshot(params)
+                with cached_op.eager():
+                    eager = grads(fwd_bwd())
+                    again = grads(fwd_bwd())
+                    amp.reset()
+                    try:
+                        with _plain_kernels(f32_twin=True), _no_tf32():
+                            twin = grads(fwd_bwd())
+                    finally:
+                        amp.init(target_dtype="bfloat16")
+                _restore(params, snap)
+                cuda_build.reset_launch_counts()
+                cached_op.reset_replay_counts()
+                got, mem = _graph_mb(lambda: grads(fwd_bwd()))
+                held = (held[0] + mem[0], max(held[1], mem[1]))
+                launched = cuda_build.launch_counts()
+                replays = cached_op.replay_counts()
+                for name, v in launched.items():
+                    counts[name] += v
+                print("[compiled] bert step %d (%s): graph replays %s, "
+                      "kernel launches through the wrappers %d" % (
+                          k + 1, ("eager warm-up", "capture and replay",
+                                  "replay")[min(k, 2)], replays,
+                          sum(launched.values())))
+                if (k == 0) != (replays["forward"] == 0) or \
+                        (k > 0 and replays["backward"] != 2) or \
+                        (k > 1 and any(launched.values())):
+                    raise SmokeFailure(
+                        "compiled BERT step %d did not run as its place in "
+                        "the sequence says" % (k + 1))
+                checks = _train_compare(
+                    "compiled bert step %d" % (k + 1), got, eager, twin,
+                    limit=COMPILED_AMP_RATIO)
+                worst = max([worst] + [r for r, _ in checks])
+                pairs = [(got[0], eager[0])] + [(got[1][n], eager[1][n])
+                                                for n in eager[1]]
+                equal += sum(bool(torch.equal(x, y)) for x, y in pairs)
+                total += len(pairs)
+                spread = max([spread, _rel(again[0], eager[0])] +
+                             [_rel(again[1][n], eager[1][n])
+                              for n in eager[1]])
+                if any(fail for _, fail in checks):
+                    raise SmokeFailure(
+                        "compiled BERT step %d differs from the eager step "
+                        "by more than %g times AMP's own error"
+                        % (k + 1, COMPILED_AMP_RATIO))
+                trainer.step(TRAIN_BATCH)
+        print("[compiled] bert: launches over %d compiled steps (warm-up, "
+              "capture, replay): %s; recorded into the graphs: %s"
+              % (COMPILED_STEPS, counts, captured))
+        print("[compiled] bert, %d LAMB steps at dropout 0 in lockstep: "
+              "largest ratio to AMP's own error %.3g (limit %g); %d of %d "
+              "losses and gradients bit for bit; two eager runs apart by "
+              "%.3g at most (relative L2)" % (COMPILED_STEPS, worst,
+                                              COMPILED_AMP_RATIO, equal,
+                                              total,
+                                              spread))
+        missing = [k for k, v in TRAIN_LAUNCHES.items()
+                   if v and k != "dropout" and captured[k] == 0]
+        if missing:
+            raise SmokeFailure("compiled BERT captured no %s" % missing)
+
+        def step():
+            per_position = fwd_bwd()
+            trainer.step(TRAIN_BATCH)
+            return per_position
+        # outside the graphs a step runs the head's mean and LAMB
+        with mx.ops.recording() as outside:
+            trainer.step(TRAIN_BATCH)
+        allowed = {op.name for op in outside} | {"mean"}
+        replays = _steady("bert", step, allowed)
+        if replays["forward"] != 2 or replays["backward"] != 2:
+            raise SmokeFailure("compiled BERT step: replays %s, expected 2 "
+                               "forwards and 2 backwards" % replays)
+        eager_ms, comp_ms = _in_turns(step, step)
+        _report("bert AMP step (batch %d x seq %d, LAMB)"
+                % (TRAIN_BATCH, TRAIN_SEQ), eager_ms, comp_ms, held)
+        _profile("one compiled AMP step (batch %d x seq %d, LAMB)"
+                 % (TRAIN_BATCH, TRAIN_SEQ), step)
+        _free_graphs(net, mlm)
+        del net, mlm, params, trainer
+
+        # dropout 0.1: two replays of the same forward draw new masks
+        net, mlm, params = _build_amp(seed, dropout=0.1)
+        for blk in (net, mlm):
+            blk.hybridize(static_alloc=True, static_shape=True)
+        outs = []
+        with _capture_launches() as drops:
+            for _ in range(3):
+                with mx.autograd.record():
+                    outs.append(mlm(_bert_seq(net(ids, tok)), lab)
+                                .tensor().detach().clone())
+        captured["dropout"] = drops["dropout"]
+        drop = nn.Dropout(0.1)
+        drop.hybridize(static_alloc=True, static_shape=True)
+        x = mx.nd.ones((TRAIN_BATCH * TRAIN_SEQ, UNITS), ctx=mx.gpu(0),
+                       dtype="bfloat16")
+        masks = []
+        for _ in range(3):
+            with mx.autograd.train_mode():
+                masks.append(drop(x).tensor() != 0)
+        n = x.size
+        sigma = (n * 0.9 * 0.1) ** 0.5
+        keep = [int(m.sum()) for m in masks]
+        differ = not torch.equal(outs[1], outs[2]) and \
+            not torch.equal(masks[1], masks[2])
+        print("[compiled] bert at dropout 0.1: two replays' losses differ: "
+              "%s (max |diff| %.3g); Dropout(0.1) on (%d, %d) replayed: "
+              "masks differ: %s, keep rates %s (5 sigma of 0.9 is %.5f)"
+              % (not torch.equal(outs[1], outs[2]),
+                 float((outs[1] - outs[2]).abs().max()),
+                 TRAIN_BATCH * TRAIN_SEQ, UNITS,
+                 not torch.equal(masks[1], masks[2]),
+                 ["%.5f" % (k / n) for k in keep], 5 * sigma / n))
+        if not differ or any(abs(k - 0.9 * n) > 5 * sigma for k in keep) \
+                or not captured["dropout"]:
+            raise SmokeFailure("compiled dropout: replays drew the same "
+                               "masks or keep rates beyond 5 sigma")
+        _free_graphs(net, mlm, drop)
+    finally:
+        amp.reset()
+    return {"bert": captured}
+
+
+def phase_compiled_resnet(seed):
+    """(c) ResNet-50 v1 as bench.py's headline loop runs it; returns
+    {"resnet": the kernel launches recorded into its graphs}."""
+    import torch
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, cached_op
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import cuda_build
+    amp.init(target_dtype="bfloat16")
+    try:
+        mx.random.seed(seed)
+        net = resnet50_v1(prefix="resnet50c_")
+        net.initialize(init=mx.init.MSRAPrelu())
+        with torch.no_grad():
+            net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE)))
+        net.hybridize(static_alloc=True, static_shape=True)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize(static_alloc=True, static_shape=True)
+        params = net.collect_params()
+        g = torch.Generator(device=DEV).manual_seed(seed + 41)
+        x = mx.nd.NDArray(torch.randn(RESNET_BATCH, 3, RESNET_SIDE,
+                                      RESNET_SIDE, generator=g, device=DEV))
+        y = mx.nd.NDArray(torch.randint(0, 1000, (RESNET_BATCH,),
+                                        generator=g, device=DEV).float())
+        snap = _snapshot(params)
+        state = {}
+
+        def step(trainer, skip=False):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            state["stashed"].append(autograd._PENDING[0] is not None)
+            if skip:
+                with mock.patch.object(torch.cuda.CUDAGraph, "replay",
+                                       lambda self: None):
+                    trainer.step(RESNET_BATCH)
+            else:
+                trainer.step(RESNET_BATCH)
+            return loss
+
+        def run(compiled, skip_at=None):
+            _restore(params, snap)
+            # the last run's Trainer (over the same parameters) stays
+            # armed otherwise
+            autograd.disarm_fused_update()
+            state["tr"] = trainer = mx.gluon.Trainer(
+                params, "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                kvstore="device")
+            state["stashed"] = []
+            losses = []
+            with (contextlib.nullcontext() if compiled
+                  else cached_op.eager()):
+                for i in range(COMPILED_STEPS):
+                    loss = step(trainer, skip=i == skip_at)
+                    losses.append(loss.tensor().detach().float().clone())
+            return losses, _snapshot(params)
+
+        a, b = run(False), run(False)
+        cuda_build.reset_launch_counts()
+        cached_op.reset_replay_counts()
+        with _capture_launches() as counts:
+            c, held = _graph_mb(lambda: run(True))
+        print("[compiled] resnet: %d compiled steps: stashed plans %s, graph "
+              "replays %s, kernel launches %s (recorded into graphs %s)" % (
+                  COMPILED_STEPS, state["stashed"],
+                  cached_op.replay_counts(),
+                  {k: v for k, v in cuda_build.launch_counts().items()
+                   if v} or "none",
+                  {k: v for k, v in counts.items() if v} or "none"))
+        if state["stashed"] != [False] + [True] * (COMPILED_STEPS - 1):
+            raise SmokeFailure("the compiled ResNet steps did not consume "
+                               "a plan from the second on: %s"
+                               % state["stashed"])
+        _, fail = _parity("resnet, %d SGD steps" % COMPILED_STEPS, a, b, c)
+        if fail:
+            raise SmokeFailure("the compiled ResNet steps differ from the "
+                               "eager loop")
+        replays = _steady("resnet", lambda: step(state["tr"]))
+        if replays != {"forward": 2, "backward": 0, "tape": 1}:
+            raise SmokeFailure("compiled ResNet step: replays %s, expected "
+                               "2 forwards and one plan" % replays)
+        eager_ms, comp_ms = _in_turns(lambda: step(state["tr"]),
+                                      lambda: step(state["tr"]))
+        _report("resnet step (batch %d, SGD, fused update)" % RESNET_BATCH,
+                eager_ms, comp_ms, held)
+        _profile("one compiled ResNet-50 step (batch %d)" % RESNET_BATCH,
+                 lambda: step(state["tr"]))
+
+        # control: a step whose replay is skipped must fail the parity
+        bad = run(True, skip_at=COMPILED_STEPS - 1)
+        _, caught = _parity("control: step %d's replay skipped"
+                            % COMPILED_STEPS, a, b, bad)
+        if not caught:
+            raise SmokeFailure("control: the parity check passed a step "
+                               "whose replay was skipped")
+        _free_graphs(net, loss_fn)
+    finally:
+        amp.reset()
+    return {"resnet": counts}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3188,7 +3743,11 @@ def main(argv=None):
         errs.update(phase_parity_train(args.seed))
         phase_parity_attention(args.seed)
         errs["dual_bwd"] = phase_parity_resnet(args.seed)
-        counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
+        from mxnet_tpu_torch import cached_op
+        # phases 4 and 10 serve through the eager session; phase 11 is
+        # its compiled twin
+        with cached_op.eager():
+            counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
         train_counts, tnet, mlm, params, batch = phase_train(
             args.seed, args.train_steps)
         amp_errs = phase_parity_amp(args.seed)
@@ -3200,8 +3759,9 @@ def main(argv=None):
         rtc_mod, rtc_mod2, rtc_errs, rtc_counts = phase_rtc(args.seed)
         mnist_counts, mnist_step_counts, mnist_nets, mnist_loss, \
             mnist_batch = phase_mnist(args.seed, rtc_mod, args.mnist_epochs)
-        rows = phase_times(args.seed, args.reps, counts, n_fwd, errs, sess,
-                           reqs, net, card)
+        with cached_op.eager():
+            rows = phase_times(args.seed, args.reps, counts, n_fwd, errs,
+                               sess, reqs, net, card)
         train_rows, step = phase_times_train(
             args.seed, args.reps, train_counts, errs, card, tnet, mlm,
             params, batch)
@@ -3223,9 +3783,17 @@ def main(argv=None):
             r["launches_per_fused_step"] = stage_counts.get(k, 0)
             r["launches_per_resnet_step"] = resnet_counts.get(k, 0)
             r["launches_per_mlp_step"] = mnist_step_counts.get(k, 0)
-        phase_profile(net)
+        with cached_op.eager():
+            phase_profile(net)
         _attention_share(_profile("one training step (batch %d x seq %d, "
                                   "LAMB)" % (TRAIN_BATCH, TRAIN_SEQ), step))
+        compiled = phase_compiled_serve(sess, reqs, net)
+        compiled.update(phase_compiled_bert(args.seed))
+        compiled.update(phase_compiled_resnet(args.seed))
+        for r in rows:
+            r["launches_per_compiled_capture"] = {
+                path: c.get(r.get("kernel", r["name"]), 0)
+                for path, c in compiled.items()}
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)

@@ -27,6 +27,16 @@ over the incoming gradients, also under :func:`pause`. Such a node is
 first-order only, as in the reference: differentiating through it with
 ``create_graph=True`` raises instead of returning a graph that lacks its
 second derivative.
+
+A hybridized block's call is one node of the tape
+(:mod:`mxnet_tpu_torch.cached_op`). With ``MXNET_FUSED_BACKWARD`` on, a
+:func:`backward` whose tape holds only such nodes runs as one plan (one
+captured graph on the card). A Trainer that arms this module
+(``MXNET_TRAINER_FUSED_UPDATE``) has the next such backward stashed
+instead; its ``step`` runs the plan with the update appended. Reading a
+gradient, or the next backward, runs a stashed plan without the update
+first (:func:`flush_all_pending`), as the reference's fused-update
+deferral does.
 """
 from __future__ import annotations
 
@@ -37,10 +47,13 @@ from typing import Optional
 import torch
 
 from .base import MXNetError
+from .config import get as _cfg
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "mark_variables", "grad", "Function", "record_callback"]
+           "mark_variables", "grad", "Function", "record_callback",
+           "arm_fused_update", "disarm_fused_update", "take_pending_step",
+           "flush_pending_step", "flush_all_pending"]
 
 
 class _State(threading.local):
@@ -158,14 +171,109 @@ def _heads(heads, head_grads):
     return outs, cots
 
 
+# ---------------------------------------------------------------------------
+# fused-update deferral (MXNET_TRAINER_FUSED_UPDATE; reference
+# autograd.py's _PENDING machinery). An armed Trainer has the next
+# backward() over a tape of hybridized calls stashed as a plan; its step()
+# runs the plan with the SGD update appended, as one captured graph on the
+# card. Anything that needs the gradients before step() runs the plan
+# without the update first. The captured runners live with their owners
+# (cached_op._Plan.run), not here.
+# ---------------------------------------------------------------------------
+_ARM_TOKEN = [None]
+_ARM_LEAF_IDS = [frozenset()]
+_PENDING = [None]
+
+
+class _PendingStep:
+    """A stashed plan (:class:`cached_op._Plan`) and the Trainer that
+    owns it. ``execute()`` writes the gradients; ``execute_with_update``
+    also applies ``update()``, the device part of the optimizer step,
+    whose math and tensors ``upd_key`` names, through the runner kept in
+    ``runners`` (the optimizer's own dict)."""
+
+    __slots__ = ("plan", "token")
+
+    def __init__(self, plan, token):
+        self.plan, self.token = plan, token
+
+    def execute(self):
+        self.plan.run()
+
+    def execute_with_update(self, runners, upd_key, update):
+        self.plan.run(runners, upd_key, update)
+
+
+def arm_fused_update(token, leaf_ids=None):
+    """Arm deferral: the next backward() over a tape of hybridized calls
+    whose variables cover ``leaf_ids`` (ids of the Trainer's parameter
+    arrays) is stashed for ``token`` to consume at step(). One token at
+    a time; arming replaces the previous owner."""
+    _ARM_TOKEN[0] = token
+    _ARM_LEAF_IDS[0] = frozenset(leaf_ids or ())
+
+
+def disarm_fused_update(token=None):
+    if token is None or _ARM_TOKEN[0] is token:
+        _ARM_TOKEN[0] = None
+        _ARM_LEAF_IDS[0] = frozenset()
+
+
+def take_pending_step(token):
+    """Claim the stashed plan if it belongs to ``token``; None otherwise."""
+    p = _PENDING[0]
+    if p is not None and p.token is token:
+        _PENDING[0] = None
+        return p
+    return None
+
+
+def flush_pending_step():
+    """Run any stashed plan without the update (gradients written). A
+    cheap no-op when nothing is stashed."""
+    p = _PENDING[0]
+    if p is not None:
+        _PENDING[0] = None
+        p.execute()
+
+
+def flush_all_pending():
+    """Everything a gradient reader needs run before the read: the
+    stashed plan (the port has no K-step scan buffer yet)."""
+    flush_pending_step()
+
+
+def _fused_backward(outs, cots) -> bool:
+    """Run or stash the one plan of a tape of hybridized calls; False
+    when the tape holds another node."""
+    from . import cached_op
+    plan = cached_op.tape_plan(outs, cots, _VARS)
+    if plan is None:
+        return False
+    token = _ARM_TOKEN[0]
+    if token is not None and _ARM_LEAF_IDS[0] <= plan.leaf_ids:
+        _PENDING[0] = _PendingStep(plan, token)
+    else:
+        plan.run()
+    return True
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Gradients of ``heads`` into every reachable variable's ``.grad``
     (ref: autograd.backward). A head gradient left out is ones of the
     head's shape, as in MXNet, whatever the head's size."""
+    flush_all_pending()
     outs, cots = _heads(heads, head_grads)
+    if not retain_graph and _cfg("MXNET_FUSED_BACKWARD") and \
+            _fused_backward(outs, cots):
+        return
     variables = [v for v in list(_VARS) if v._t.requires_grad]
     if not variables:
         return
+    from . import cached_op
+    # hybridized calls' own backward graphs, captured on this thread
+    # before the engine replays them
+    cached_op.capture_pending_backwards()
     grads = torch.autograd.grad(outs, [v._t for v in variables], cots,
                                 retain_graph=retain_graph, allow_unused=True)
     with torch.no_grad():
@@ -187,11 +295,14 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     the gradients are recorded (when recording) and can be
     differentiated again."""
     from .ndarray.ndarray import NDArray
+    flush_all_pending()
     outs, cots = _heads(heads, head_grads)
     variables = [variables] if isinstance(variables, NDArray) \
         else list(variables)
     if retain_graph is None:
         retain_graph = create_graph
+    from . import cached_op
+    cached_op.capture_pending_backwards()
     with torch.enable_grad() if create_graph else torch.no_grad():
         grads = torch.autograd.grad(
             outs, [v.tensor() for v in variables], cots,

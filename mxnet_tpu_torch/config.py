@@ -65,14 +65,21 @@ define("MXNET_SERVE_BUCKETS", str, "",
        "Shape-bucket ladder for InferenceSession (serve/bucketing.py): "
        "'b1,b2,...' batch buckets, optionally ';s1,s2,...' sequence "
        "buckets. Empty = a power-of-two ladder up to max_batch/max_seq.")
+define("MXNET_FUSED_BACKWARD", bool, True,
+       "On, a backward() whose tape holds only hybridized blocks' nodes "
+       "runs as one captured graph over all of them (cached_op.py), and "
+       "an armed Trainer may defer it to step(). Off, each CachedOp call "
+       "is one graph for its forward and one for its backward, with no "
+       "deferral across CachedOps.")
 define("MXNET_TRAINER_FUSED_UPDATE", bool, True,
-       "The reference runs the optimizer inside its compiled step; its "
-       "results equal the separate update bit for bit, which the port "
-       "runs. Set explicitly, the Trainer raises: the compiled step is "
-       "ROADMAP.md queue 1, item 7.")
+       "A Trainer whose optimizer is plain SGD, after its first step, "
+       "defers each eligible backward() and runs it with the SGD update "
+       "appended as one captured graph (gluon/trainer.py); the results "
+       "equal the separate update bit for bit. Needs "
+       "MXNET_FUSED_BACKWARD.")
 define("MXNET_SCAN_STEPS", int, 1,
        "K-step whole-loop compilation; above 1 the Trainer raises "
-       "(ROADMAP.md queue 1, item 7).")
+       "(scan.py, the rest of ROADMAP.md queue 1, item 7).")
 define("MXNET_ZERO", bool, False,
        "ZeRO weight-update sharding; on, the Trainer raises (ROADMAP.md "
        "queue 1, item 11).")

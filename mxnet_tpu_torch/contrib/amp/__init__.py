@@ -80,15 +80,18 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
     cond = [c[0] if isinstance(c, (tuple, list)) else c
             for c in (conditional_fp32_ops or [])]
     lp, f32 = _to(torch_dtype(target_dtype)), _to(torch.float32)
-    table = {}
+    table, kinds = {}, {}
     # the reference patches each name once, low precision first
-    for name in list(lists.FP16_FUNCS) + list(target_precision_ops or []):
-        table.setdefault(name, lp)
-    for name in list(lists.FP32_FUNCS) + list(fp32_ops or []) + cond:
-        table.setdefault(name, f32)
-    for name in lists.WIDEST_TYPE_CASTS:
-        table.setdefault(name, _widest)
-    _ops.set_casts(table)
+    for kind, names, fn in (
+            ("low", list(lists.FP16_FUNCS) + list(target_precision_ops or
+                                                  []), lp),
+            ("f32", list(lists.FP32_FUNCS) + list(fp32_ops or []) + cond,
+             f32),
+            ("widest", lists.WIDEST_TYPE_CASTS, _widest)):
+        for name in names:
+            if name not in table:
+                table[name], kinds[name] = fn, kind
+    _ops.set_casts(table, key=(target_dtype, tuple(sorted(kinds.items()))))
     _initialized = True
 
 

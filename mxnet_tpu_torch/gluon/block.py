@@ -7,9 +7,14 @@ included — because the weight carry (:mod:`mxnet_tpu_torch.interop`)
 matches parameters by name.
 
 ``HybridBlock.hybrid_forward(F, x, ...)`` always receives the op
-namespace as ``F`` and runs eagerly on NDArrays. ``hybridize()``
-records its flags only; the compiled step (CUDA graphs or
-``torch.compile``) is later work (ROADMAP.md queue 1).
+namespace as ``F`` and runs on NDArrays. ``hybridize()`` makes the block
+run through a :class:`mxnet_tpu_torch.cached_op.CachedOp` built at its
+next call (after deferred shapes are complete): captured CUDA graphs on
+the card, the same function run eagerly on the CPU, one tape node under
+``autograd.record()``. Only the outermost active block captures; its
+children run eagerly inside its call. ``hybridize()`` again, ``cast`` and
+``initialize(force_reinit=True)`` drop the cached op, whose graphs would
+read the old parameters' memory.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import threading
 from collections import OrderedDict
 from typing import Dict, Optional
 
+from .. import cached_op as _cached_op
 from ..ndarray import NDArray
 from ..ops import F as _F
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
@@ -130,14 +136,22 @@ class Block:
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         from .. import initializer as init_mod
+        if force_reinit:
+            self._clear_cached_op()
         self.collect_params().initialize(
             init or init_mod.Uniform(), ctx, verbose, force_reinit)
 
     def cast(self, dtype):
+        self._clear_cached_op()
         for child in self._children.values():
             child.cast(dtype)
         for _, param in self.params.items():
             param.cast(dtype)
+
+    def _clear_cached_op(self):
+        """Drop this block's and its children's captured graphs."""
+        for child in self._children.values():
+            child._clear_cached_op()
 
     def __call__(self, *args, **kwargs):
         return self.forward(*args, **kwargs)
@@ -158,21 +172,51 @@ class HybridBlock(Block):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._flags = []
+        self._cached_op = None
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   **kwargs):
-        """Records the flags; the port runs every forward eagerly."""
+        """Run this block through a CachedOp from its next call
+        (``active``), with the flags ``static_alloc`` (parameters read
+        in place; else copied in like data) and ``static_shape`` (kept:
+        a graph is one signature either way); the cached op is built
+        anew."""
         self._active = active
         self._flags = [("static_alloc", static_alloc),
                        ("static_shape", static_shape)]
+        self._clear_cached_op()
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
+
+    def _clear_cached_op(self):
+        if self._cached_op is not None:
+            self._cached_op.release()
+            self._cached_op = None
+        super()._clear_cached_op()
+
+    def _call_cached_op(self, *args):
+        """The call through the CachedOp (ref: block.py ::
+        _call_cached_op); the first call with a parameter's shape still
+        deferred runs eagerly and completes it."""
+        cop = self._cached_op
+        if cop is None:
+            params = list(self.collect_params().values())
+            if any(p._data is None for p in params):
+                with _cached_op.eager():
+                    return self.forward(*args)
+            names = ["data%d" % i for i, a in enumerate(args)
+                     if isinstance(a, NDArray)] + [p.name for p in params]
+            cop = self._cached_op = _cached_op.CachedOp(
+                self.forward, params, names, self._flags, name=self.name)
+        return cop(*args)
 
     def infer_shape(self, *args):
         """Per-layer hook: layers with input-dependent parameter shapes
         override this to complete deferred shapes from real inputs."""
 
     def forward(self, x: NDArray, *args):
+        if self._active and _cached_op.outermost():
+            return self._call_cached_op(x, *args)
         ctx = x.context
         try:
             params = {_strip_prefix(name, self._prefix): p.data(ctx)

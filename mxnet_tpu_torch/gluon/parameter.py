@@ -9,12 +9,20 @@ autograd variable (:func:`mxnet_tpu_torch.autograd.mark_variables`) with
 a gradient array of its shape and dtype, which ``backward`` writes
 (``'write'``) or adds into (``'add'``). Writes to the data
 (``set_data``, the optimizer) go into the same tensor under
-``torch.no_grad``, so the autograd leaf stays the same object.
+``torch.no_grad``, so the autograd leaf stays the same object, and a
+captured graph that reads the parameter in place sees them.
+
+Reading a gradient (``grad``, ``list_grad``) first runs a backward that
+an armed Trainer deferred (:func:`mxnet_tpu_torch.autograd.
+flush_all_pending`). Inside a hybridized block's call,
+:func:`substitute` makes ``data`` return the CachedOp's stand-ins.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -33,6 +41,23 @@ class DeferredInitializationError(MXNetError):
 
 def _shape_complete(shape) -> bool:
     return shape is not None and all(s > 0 for s in shape)
+
+
+_SUBST = threading.local()
+
+
+@contextlib.contextmanager
+def substitute(mapping: Optional[Dict["Parameter", NDArray]]):
+    """Inside the scope, ``data()`` of a Parameter in ``mapping``
+    returns its NDArray there (a CachedOp's aliases of the parameters,
+    so its one tape node or graph owns every read); None changes
+    nothing."""
+    old = getattr(_SUBST, "map", None)
+    _SUBST.map = mapping if mapping is not None else old
+    try:
+        yield
+    finally:
+        _SUBST.map = old
 
 
 class Parameter:
@@ -166,6 +191,11 @@ class Parameter:
                 % (self.name, ctx, list(self._data)))
 
     def data(self, ctx: Optional[Context] = None) -> NDArray:
+        sub = getattr(_SUBST, "map", None)
+        if sub is not None:
+            got = sub.get(self)
+            if got is not None:
+                return got
         if ctx is None:
             self._check_initialized()
             return next(iter(self._data.values()))
@@ -177,6 +207,7 @@ class Parameter:
         return list(self._data.values())
 
     def grad(self, ctx: Optional[Context] = None) -> NDArray:
+        autograd.flush_all_pending()
         if self._grad is None:
             raise RuntimeError("Parameter %s grad_req='null'" % self.name)
         if ctx is None:
@@ -184,6 +215,7 @@ class Parameter:
         return self._grad[ctx]
 
     def list_grad(self) -> List[NDArray]:
+        autograd.flush_all_pending()
         if self._grad is None:
             raise RuntimeError("Parameter %s grad_req='null'" % self.name)
         return list(self._grad.values())

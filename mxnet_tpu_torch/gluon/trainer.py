@@ -8,21 +8,27 @@ there is more than one parameter (the reference's default aggregation),
 else through the one-tensor ``update``. With one context there is nothing to reduce, as in the reference,
 which then runs no kvstore either.
 
-The reference runs its update fused into the compiled step by default
-(``MXNET_TRAINER_FUSED_UPDATE``); its contract makes that bit-for-bit
-equal to the separate update this Trainer runs. What this slice does not
-port raises ``NotImplementedError`` naming its ROADMAP.md item: a
-kvstore, several contexts, gradient compression, ``update_on_kvstore``,
-ZeRO, the grad guard, modelwatch, the fused update or K-step scan when
-asked for. Under AMP (``contrib.amp.init_trainer``) the Trainer carries
+With ``MXNET_TRAINER_FUSED_UPDATE`` (on by default) a Trainer whose
+optimizer is exactly ``SGD``, without ``multi_precision``, with every
+``grad_req`` ``write`` or ``null`` and more than one parameter arms
+:mod:`mxnet_tpu_torch.autograd` after its first step: the next backward
+over a tape of hybridized calls is stashed, and ``step`` runs it with the
+SGD update appended, as one captured graph on the card (ref:
+trainer.py :: _consume_fused_plan). The result equals the separate
+update bit for bit. A gradient read or another backward before the step
+runs the stashed backward alone, and the step then updates as usual.
+What this slice does not port raises ``NotImplementedError`` naming its
+ROADMAP.md item: a kvstore, several contexts, gradient compression,
+``update_on_kvstore``, ZeRO, the grad guard, modelwatch, K-step scan
+when asked for. Under AMP (``contrib.amp.init_trainer``) the Trainer carries
 the loss scaler, and ``amp.scale_loss`` folds ``1 / loss_scale`` into
 the scale that ``step`` applies.
 """
 from __future__ import annotations
 
-import os
 from typing import List
 
+from .. import autograd
 from .. import optimizer as opt_mod
 from ..config import get as _cfg
 from .parameter import Parameter, ParameterDict
@@ -38,9 +44,6 @@ def _not_ported(what, item):
 def _check_features():
     """Raise for the reference's Trainer features this slice leaves out,
     where the environment turns them on."""
-    if os.environ.get("MXNET_TRAINER_FUSED_UPDATE") is not None and \
-            _cfg("MXNET_TRAINER_FUSED_UPDATE"):
-        raise _not_ported("the fused update (MXNET_TRAINER_FUSED_UPDATE)", 7)
     if _cfg("MXNET_SCAN_STEPS") > 1:
         raise _not_ported("K-step scan (MXNET_SCAN_STEPS)", 7)
     if _cfg("MXNET_ZERO"):
@@ -78,6 +81,7 @@ class Trainer:
         self._amp_loss_scaler = None
         self._amp_original_scale = self._scale
         self._updater = opt_mod.get_updater(self._optimizer)
+        self._fused_armed = False      # MXNET_TRAINER_FUSED_UPDATE state
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -117,7 +121,53 @@ class Trainer:
         _check_features()
         self._check_contexts()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._fused_armed:
+            plan = autograd.take_pending_step(self)
+            if plan is not None and self._fused_update_eligible():
+                # checked again now: the flag or optimizer may have
+                # changed since the backward was stashed
+                items = self._items()
+                key, apply = self._optimizer.multi_plan(
+                    [i for i, _, _ in items],
+                    [w for _, _, w in items], [g for _, g, _ in items],
+                    [self._updater._state(i, w) for i, _, w in items])
+                plan.execute_with_update(self._optimizer.step_runners,
+                                         key, apply)
+                self._rearm_fused_update()
+                return
+            if plan is not None:
+                plan.execute()
+            self._fused_armed = False
+            autograd.disarm_fused_update(self)
         self._update()
+        self._rearm_fused_update()
+
+    def _fused_update_eligible(self):
+        """The reference's ladder on the port's terms: the flag (and the
+        fused backward it rides on), exactly SGD, no masters, every
+        grad_req write or null, and the update_multi path (more than one
+        parameter); one context and no kvstore hold by construction."""
+        if not (_cfg("MXNET_TRAINER_FUSED_UPDATE") and
+                _cfg("MXNET_FUSED_BACKWARD")):
+            return False
+        opt = self._optimizer
+        if type(opt) is not opt_mod.SGD or opt.multi_precision:
+            return False
+        if any(p.grad_req not in ("null", "write") for p in self._params):
+            return False
+        return sum(1 for p in self._params
+                   if p.grad_req != "null" and p._data is not None) > 1
+
+    def _rearm_fused_update(self):
+        if self._fused_update_eligible():
+            autograd.arm_fused_update(
+                self, [id(p.data()) for p in self._params
+                       if p.grad_req != "null" and p._data is not None])
+            self._fused_armed = True
+            return
+        if self._fused_armed:
+            autograd.disarm_fused_update(self)
+        self._fused_armed = False
 
     def _check_contexts(self):
         ctxs = {tuple(p.list_ctx()) for p in self._params
@@ -125,9 +175,12 @@ class Trainer:
         if any(len(c) > 1 for c in ctxs) or len(ctxs) > 1:
             raise _not_ported("training on several contexts", 11)
 
+    def _items(self):
+        return [(i, p.grad(), p.data()) for i, p in enumerate(self._params)
+                if p.grad_req != "null" and p._data is not None]
+
     def _update(self):
-        items = [(i, p.grad(), p.data()) for i, p in enumerate(self._params)
-                 if p.grad_req != "null" and p._data is not None]
+        items = self._items()
         if len(items) > 1:
             self._updater.update_multi([i for i, _, _ in items],
                                        [g for _, g, _ in items],

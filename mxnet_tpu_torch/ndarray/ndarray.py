@@ -120,6 +120,7 @@ class NDArray:
     # -- autograd ----------------------------------------------------------
     @property
     def grad(self) -> Optional["NDArray"]:
+        autograd.flush_all_pending()
         return self._grad
 
     def attach_grad(self, grad_req: str = "write", stype=None):

@@ -22,7 +22,7 @@ from typing import Callable, Dict, Optional, Sequence, Set
 
 from ..base import MXNetError
 
-__all__ = ["Operator", "register", "get_op", "recording", "F",
+__all__ = ["Operator", "register", "get_op", "recording", "last_op", "F",
            "register_ndarray_fn", "set_casts"]
 
 _OPS: Dict[str, "Operator"] = {}
@@ -32,6 +32,9 @@ _ND_FNS: Dict[str, Callable] = {}
 # AMP's cast table (contrib.amp.init): name as called through F/nd ->
 # fn(inputs, attrs) -> (inputs, attrs) with the NDArray inputs cast
 _CASTS: Dict[str, Callable] = {}
+# what the cast table casts (None: nothing), part of a captured graph's
+# key: its casts are those it was captured under
+_CASTS_KEY = [None]
 
 
 class Operator:
@@ -106,9 +109,19 @@ def recording():
 
 
 def _note(op: Operator):
+    _rec.last = op.name
     seen = getattr(_rec, "seen", None)
     if seen is not None:
         seen.add(op)
+
+
+def last_op(reset: bool = False) -> Optional[str]:
+    """The name of the op this thread invoked last (a failed graph
+    capture names it); ``reset`` forgets it."""
+    name = getattr(_rec, "last", None)
+    if reset:
+        _rec.last = None
+    return name
 
 
 def register_ndarray_fn(name: str, fn: Callable):
@@ -119,13 +132,17 @@ def register_ndarray_fn(name: str, fn: Callable):
     _ND_FNS[name] = fn
 
 
-def set_casts(table: Dict[str, Callable]):
+def set_casts(table: Dict[str, Callable], key=None):
     """Install (or, with ``{}``, clear) the cast table that calls
     through ``F``/``nd`` consult: AMP's op lists. Only these namespace
     calls are cast, as the reference's patched ``nd`` module casts
     them; NDArray operators go to ``invoke`` directly and are not."""
     _CASTS.clear()
     _CASTS.update(table)
+    # ``key`` (hashable) names what the table does, so that a table
+    # installed again keeps the graphs captured under it
+    _CASTS_KEY[0] = None if not table else \
+        (key if key is not None else object())
 
 
 class _OpNamespace:

@@ -46,8 +46,8 @@ def interleaved_matmul_selfatt_qk(queries_keys_values, *, heads):
     """scores = (Q/√d)·Kᵀ over interleaved packed QKV
     (ref: transformer.cc :: interleaved_matmul_selfatt_qk)."""
     q, k, _, hd = _split_qkv(queries_keys_values, int(heads))
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=q.dtype,
-                                          device=q.device))
+    scale = 1.0 / torch.sqrt(torch.full((), float(hd), dtype=q.dtype,
+                                        device=q.device))
     return torch.matmul(q * scale, k.transpose(-1, -2))
 
 

@@ -23,7 +23,8 @@ for _n, _f in {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
 
 def _make_scalar(opname, fn, reverse=False):
     def impl(data, *, scalar=0.0):
-        s = torch.tensor(scalar, dtype=data.dtype, device=data.device)
+        # a fill, not a host-to-device copy: capture-safe
+        s = torch.full((), scalar, dtype=data.dtype, device=data.device)
         return fn(s, data) if reverse else fn(data, s)
     impl.__name__ = opname
     return impl

@@ -45,8 +45,10 @@ def _f32(x) -> float:
 
 def _weak(v, t: torch.Tensor) -> float:
     """Python float ``v`` as JAX applies it to ``t``: rounded to t's
-    dtype."""
-    if t.dtype in (torch.float32, torch.float64):
+    dtype. A tensor (a hyperparameter staged on the device, already in
+    t's dtype) passes through."""
+    if isinstance(v, torch.Tensor) or t.dtype in (torch.float32,
+                                                  torch.float64):
         return v
     return torch.tensor(v, dtype=t.dtype).item()
 

@@ -17,6 +17,16 @@ the weight takes its value. As in the reference, only float16 weights
 get one; a bfloat16 weight updates in its own dtype. The other
 optimizers (RMSProp, NAG, ...) wait (ROADMAP.md queue 1, item 6), and
 so do the reference's sparse (row-sparse gradient) branches (item 16).
+
+SGD's multi-tensor update keeps each group's learning rates, weight
+decays and ``rescale_grad`` in tensors on the weights' device that live
+as long as the optimizer, refreshed before every update by one copy
+from a pinned host buffer (:class:`_Staged`): a captured graph that
+runs the update reads the step's values there instead of the values of
+the step it was captured in. Such a graph (a backward with this update
+appended) is kept in the optimizer's ``step_runners`` and dies with it:
+it never serves another optimizer. The update counters advance on the
+host every step.
 """
 from __future__ import annotations
 
@@ -191,6 +201,10 @@ class SGD(Optimizer):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.momentum = momentum
         self.lazy_update = lazy_update
+        self._staged: Dict[tuple, "_Staged"] = {}
+        # captured steps that append this optimizer's update to a backward
+        # (cached_op._Plan.run): they read its staged hyperparameters
+        self.step_runners: Dict[tuple, Any] = {}
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -226,48 +240,98 @@ class SGD(Optimizer):
 
     def update_multi(self, indices, weights, grads, states):
         """One preloaded_multi_(mp_)sgd_* call for each group of
-        parameters — with momentum, without, and both with f32 masters —
-        the per-tensor lrs/wds as f32 tensors on the weights' device."""
-        groups = {("mom", False): [], ("plain", False): [],
-                  ("mom", True): [], ("plain", True): []}
+        parameters — with momentum, without, and both with f32 masters,
+        by gradient dtype — the per-tensor lrs/wds as f32 tensors on the
+        weights' device."""
+        self.multi_plan(indices, weights, grads, states)[1]()
+
+    def multi_plan(self, indices, weights, grads, states):
+        """The host part of :meth:`update_multi`: advance the counters and
+        stage each group's lrs, wds and rescale_grad on the device.
+        Returns ``(key, apply)``: ``apply()`` is the device part, and
+        ``key`` names its math and the addresses of the tensors it reads
+        and writes (a captured ``apply``, which keeps those tensors
+        alive, replays as long as the key holds)."""
+        groups: Dict[tuple, list] = {}
         for item in zip(indices, weights, grads, states):
             s = item[3]
             mp = isinstance(s, tuple)
             mom = (s[0] if mp else s) is not None
-            groups[("mom" if mom else "plain", mp)].append(item)
-        for (kind, mp), group in groups.items():
-            if group:
-                self._sgd_multi(group, kind == "mom", mp)
+            groups.setdefault((mom, mp, item[2].dtype), []).append(item)
+        calls, key = [], []
+        for (mom, mp, gdt), items in groups.items():
+            for i, _, _, _ in items:
+                self._update_count(i)
+            n = len(items)
+            arrays, dsts = [], []
+            for _, w, g, s in items:
+                st = ([s[0]] if mom else []) + [s[1]] if mp else \
+                    ([s] if mom else [])
+                arrays += [w.tensor(), g.tensor()] + [x.tensor() for x in st]
+                dsts.append([w] + st)
+            gkey = (mom, mp, gdt, tuple(i for i, _, _, _ in items))
+            staged = self._staged.get(gkey)
+            if staged is None:
+                # the multi-precision ops rescale the widened gradient
+                staged = self._staged[gkey] = _Staged(
+                    n, torch.float32 if mp else gdt, arrays[0].device)
+            staged.stage([self._get_lr(i) for i, _, _, _ in items],
+                         [self._get_wd(i) for i, _, _, _ in items],
+                         self.rescale_grad)
+            kw = dict(clip_gradient=self._clip(), num_weights=n)
+            if mom:
+                kw["momentum"] = self.momentum
+            op = {(True, False): _ops.preloaded_multi_sgd_mom_update,
+                  (False, False): _ops.preloaded_multi_sgd_update,
+                  (True, True): _ops.preloaded_multi_mp_sgd_mom_update,
+                  (False, True): _ops.preloaded_multi_mp_sgd_update}[
+                      (mom, mp)]
+            calls.append((op, arrays, dsts, kw, staged))
+            key.append((gkey, tuple(sorted(kw.items())),
+                        tuple((a.data_ptr(), a.shape) for a in arrays)))
 
-    def _sgd_multi(self, items, mom, mp):
-        for i, _, _, _ in items:
-            self._update_count(i)
-        dev = items[0][1].tensor().device
-        lrs = torch.tensor([self._get_lr(i) for i, _, _, _ in items],
-                           dtype=torch.float32, device=dev)
-        wds = torch.tensor([self._get_wd(i) for i, _, _, _ in items],
-                           dtype=torch.float32, device=dev)
-        n = len(items)
-        arrays, dsts = [], []
-        for _, w, g, s in items:
-            st = ([s[0]] if mom else []) + [s[1]] if mp else \
-                ([s] if mom else [])
-            arrays += [w.tensor(), g.tensor()] + [x.tensor() for x in st]
-            dsts.append([w] + st)
-        kw = dict(rescale_grad=self.rescale_grad,
-                  clip_gradient=self._clip(), num_weights=n)
-        if mom:
-            kw["momentum"] = self.momentum
-        op = {(True, False): _ops.preloaded_multi_sgd_mom_update,
-              (False, False): _ops.preloaded_multi_sgd_update,
-              (True, True): _ops.preloaded_multi_mp_sgd_mom_update,
-              (False, True): _ops.preloaded_multi_mp_sgd_update}[(mom, mp)]
-        with torch.no_grad():
-            outs = op(*arrays, lrs, wds, **kw)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            for k, dst in enumerate(dsts):
-                for j, arr in enumerate(dst):
-                    _write(arr, outs[j * n + k])
+        def apply():
+            with torch.no_grad():
+                for op, arrays, dsts, kw, staged in calls:
+                    n = kw["num_weights"]
+                    outs = op(*arrays, staged.lrs, staged.wds,
+                              rescale_grad=staged.rescale, **kw)
+                    outs = outs if isinstance(outs, tuple) else (outs,)
+                    for k, dst in enumerate(dsts):
+                        for j, arr in enumerate(dst):
+                            _write(arr, outs[j * n + k])
+        return ("sgd",) + tuple(key), apply
+
+
+class _Staged:
+    """One SGD group's per-step hyperparameters on the device: ``lrs``
+    and ``wds`` (f32, one a tensor) and ``rescale`` (0-d, in the dtype the
+    update rescales the gradient in, rounded to it as the Python scalar
+    is), refreshed by :meth:`stage` from pinned host memory. The host
+    buffer is rewritten only after the previous copy out of it ran."""
+
+    def __init__(self, n, rdtype, device):
+        pin = device.type == "cuda"
+        self.host = torch.empty(2 * n, dtype=torch.float32, pin_memory=pin)
+        self.host_r = torch.empty((), dtype=rdtype, pin_memory=pin)
+        self.dev = torch.empty(2 * n, dtype=torch.float32, device=device)
+        self.rescale = torch.empty((), dtype=rdtype, device=device)
+        self.lrs, self.wds = self.dev[:n], self.dev[n:]
+        self.n = n
+        self._done = None
+
+    def stage(self, lrs, wds, rescale):
+        if self._done is not None:
+            self._done.synchronize()
+        self.host[:self.n] = torch.tensor(lrs, dtype=torch.float32)
+        self.host[self.n:] = torch.tensor(wds, dtype=torch.float32)
+        self.host_r.fill_(rescale)
+        blocking = not self.dev.is_cuda
+        self.dev.copy_(self.host, non_blocking=not blocking)
+        self.rescale.copy_(self.host_r, non_blocking=not blocking)
+        if not blocking:
+            self._done = torch.cuda.Event()
+            self._done.record()
 
 
 def _bias_fold(beta1, beta2):

@@ -17,11 +17,18 @@ outputs by the reference's rules:
   sequence bucket. So BERT's decoder output, ``(seq, batch, vocab)``,
   can come back at bucket size, exactly as the reference returns it.
 
-Weights are read live from the Parameters on every request. Outputs
-are numpy arrays; a bfloat16 output comes back as float32 holding the
-same values (numpy has no bfloat16). The reference's mesh-sharded
-serving, scheduler, telemetry and compile accounting are later work
-(ROADMAP.md queue 1).
+Each bucket runs the block's CachedOp eval graph (the block is
+hybridized with ``static_alloc`` and ``static_shape`` unless it already
+is), the counterpart of the reference's ``serve_program`` with donated
+request buffers: on the card a bucket is captured on its first use, and
+each request is copied into the graph's static input buffers and
+replayed. The graph reads the parameters in place, so weights are live:
+a ``set_data`` is seen by the next request. The forward that resolves
+deferred shapes and the unpad probes run eagerly. Outputs are numpy
+arrays; a bfloat16 output comes back as float32 holding the same values
+(numpy has no bfloat16). The reference's mesh-sharded serving,
+scheduler, telemetry and compile accounting are later work (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..ndarray import NDArray, host_tensor
+from .. import cached_op as _cached_op
 from .. import ops as _ops
 from .bucketing import BucketLadder
 
@@ -95,7 +103,7 @@ class InferenceSession:
         # one forward resolves deferred shapes and shows which ops the
         # model runs (an op that draws random numbers turns off the
         # probe-based unpad, as in the reference)
-        with _ops.recording() as seen:
+        with _ops.recording() as seen, _cached_op.eager():
             self._forward([h.to(self._ctx.torch_device) for h in hosts])
         self._needs_rng = any(op.needs_rng for op in seen)
         self._seq_axis = seq_axis
@@ -143,8 +151,9 @@ class InferenceSession:
         if self._needs_rng:
             return None
         try:
-            oa = self._forward(self._probe_inputs(1, 2))
-            ob = self._forward(self._probe_inputs(2, 3))
+            with _cached_op.eager():
+                oa = self._forward(self._probe_inputs(1, 2))
+                ob = self._forward(self._probe_inputs(2, 3))
         except (RuntimeError, ValueError, IndexError):
             return None
         scales = []

@@ -398,7 +398,6 @@ def test_trainer_refuses_what_is_not_ported(kwargs, match):
 
 @pytest.mark.parametrize("var,value,match", [
     ("MXNET_ZERO", "1", "item 11"), ("MXNET_SCAN_STEPS", "4", "item 7"),
-    ("MXNET_TRAINER_FUSED_UPDATE", "1", "item 7"),
     ("MXNET_GUARD_NONFINITE", "skip_step", "item 13"),
     ("MXNET_MODELWATCH", "1", "item 13")])
 def test_trainer_step_refuses_features_turned_on(monkeypatch, var, value,

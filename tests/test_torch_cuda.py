@@ -269,11 +269,17 @@ def test_served_bert_runs_the_kernels(card):
                              max_batch=4, max_seq=16)
     outs = sess.infer(ids, tok)
     counts = cuda_build.launch_counts()
-    # 2 forwards (the session's first and the request), 2 layers each;
-    # serving launches no backward or dropout kernel
+    # 3 forwards through the wrappers (the session's first, the bucket's
+    # eager warm-up and its graph capture), 2 layers each; serving
+    # launches no backward or dropout kernel
     assert counts == dict({k: 0 for k in cuda_build.KERNELS},
-                          layer_norm_fwd=2 * 6, selfatt_fwd=2 * 2,
-                          bias_gelu_fwd=2 * 2, bias_residual_fwd=2 * 4)
+                          layer_norm_fwd=3 * 6, selfatt_fwd=3 * 2,
+                          bias_gelu_fwd=3 * 2, bias_residual_fwd=3 * 4)
+    # the next request replays the bucket's graph: no wrapper runs
+    np.testing.assert_array_equal(sess.infer(ids, tok)[0], outs[0])
+    assert cuda_build.launch_counts() == counts
+    # the plain versions, eagerly: the replayed kernels against them
+    from mxnet_tpu_torch import cached_op
     with mock.patch.object(cuda_norm, "layer_norm",
                            cuda_norm.layer_norm_plain), \
             mock.patch.object(cuda_attention, "selfatt",
@@ -281,7 +287,8 @@ def test_served_bert_runs_the_kernels(card):
             mock.patch.object(cuda_epilogue, "bias_gelu",
                               cuda_epilogue.bias_gelu_plain), \
             mock.patch.object(cuda_epilogue, "bias_residual",
-                              cuda_epilogue.bias_residual_plain):
+                              cuda_epilogue.bias_residual_plain), \
+            cached_op.eager():
         refs = sess.infer(ids, tok)
     assert cuda_build.launch_counts() == counts
     for o, r in zip(outs, refs):
@@ -860,3 +867,310 @@ def test_chunked_head_matches_the_full_vocab_head(card, hdt, wdt):
         err = (a.float() - r.float()).abs().max() / r.float().abs().max()
         assert err < 1e-2, err.item()
 
+
+
+# ---------------------------------------------------------------------------
+# hybridize(): CachedOp graphs and the fused SGD step, captured and replayed
+# ---------------------------------------------------------------------------
+def _small_bert(mx, dropout, seed=0):
+    """A 2-layer BERT and its dense MLM loss in bf16 on gpu(0), and a
+    (4, 16) batch: every BERT kernel runs (the dropout kernel at
+    dropout > 0)."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMLoss, BERTModel
+    mx.random.seed(seed)
+    net = BERTModel(num_layers=2, units=64, hidden_size=128, num_heads=4,
+                    max_length=32, vocab_size=100, prefix="bert_",
+                    dropout=dropout, use_pooler=False, use_classifier=False,
+                    use_decoder=False)
+    mlm = BERTMLMLoss(vocab_size=100, units=64, mode="dense", prefix="mlm_")
+    net.initialize(ctx=mx.gpu(0))
+    mlm.initialize(ctx=mx.gpu(0))
+    rng = np.random.RandomState(seed)
+    batch = [mx.nd.array(rng.randint(0, hi, (4, 16)), ctx=mx.gpu(0))
+             for hi in (100, 2, 100)]
+    net(*batch[:2])
+    net.cast("bfloat16")
+    mlm.cast("bfloat16")
+    params = net.collect_params()
+    params.update(mlm.collect_params())
+    return net, mlm, params, batch
+
+
+def _bert_step(mx, net, mlm, params, batch, head):
+    ids, tok, lab = batch
+    with mx.autograd.record():
+        seq = net(ids, tok)
+        seq = seq if isinstance(seq, mx.nd.NDArray) else seq[0]
+        per_position = mlm(seq, lab)
+        loss = per_position if head == "plan" else per_position.mean()
+    loss.backward()
+    return per_position.asnumpy(), {n: p.grad().asnumpy()
+                                    for n, p in params.items()}
+
+
+@pytest.mark.parametrize("head", ["plan", "nodes"])
+def test_hybridized_bert_replays_equal_eager(card, head):
+    """The BERT model and its loss hybridized: the first step is the
+    eager warm-up, the second captures, the fourth replays only. Every step's
+    loss and gradients equal the eager step's bit for bit at dropout 0
+    (the same kernels in the same order), but for the two embedding
+    tables: their gradient is ``index_select``'s backward, an
+    ``index_add_`` whose atomics add bf16 rows in an order that changes
+    from run to run, eager or not, so those are held to 2^-8 * sqrt(64)
+    relative L2: a bf16 rounding an add, in a random walk over the 64
+    tokens a row can receive (token_type's two rows read 0.0106 on an
+    H100). ``plan``: the
+    backward of the two nodes is one plan (its own graph from the third
+    step); ``nodes``: the loss's mean makes each node replay its own
+    backward graph."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    net, mlm, params, batch = _small_bert(mx, 0.0)
+    want = _bert_step(mx, net, mlm, params, batch, head)
+    for block in (net, mlm):
+        block.hybridize(static_alloc=True, static_shape=True)
+    cuda_build.reset_launch_counts()
+    for step in range(4):
+        if step == 3:
+            cached_op.reset_replay_counts()
+            cuda_build.reset_launch_counts()
+        got = _bert_step(mx, net, mlm, params, batch, head)
+        np.testing.assert_array_equal(got[0], want[0])
+        for n in want[1]:
+            if n.endswith("embed_weight"):
+                err = np.linalg.norm(got[1][n] - want[1][n]) / \
+                    np.linalg.norm(want[1][n])
+                assert err <= 2.0 ** -8 * 64 ** 0.5, (n, err)
+            else:
+                np.testing.assert_array_equal(got[1][n], want[1][n],
+                                              err_msg=n)
+        if step == 1:
+            counts = cuda_build.launch_counts()
+            cuda_build.reset_launch_counts()
+    for k in ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+              "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+              "bias_residual_fwd"):
+        assert counts[k] > 0, (k, counts)
+    # the fourth step replays graphs only (the plan's own graph is
+    # captured at its second run, the third step): no kernel wrapper runs
+    assert not any(cuda_build.launch_counts().values())
+    # the plan never runs a node's own backward, so none is captured
+    bwds = [e.bwd for b in (net, mlm)
+            for lst in b._cached_op._entries.values() for e in lst]
+    assert all((g is None) == (head == "plan") for g in bwds)
+    reps = cached_op.replay_counts()
+    assert reps == {"forward": 2, "backward": 0 if head == "plan" else 2,
+                    "tape": 1 if head == "plan" else 0}
+
+
+def test_hybridized_dropout_replays_draw_new_masks(card):
+    """A hybridized Dropout(0.1) in train mode: each replay draws new
+    seeds on the card, so two replays keep different elements, each
+    keeping within 5 binomial sigma of 0.9; a reseed makes the next
+    replay draw the first replay's mask again."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    drop = nn.Dropout(0.1)
+    drop.hybridize(static_alloc=True, static_shape=True)
+    x = mx.nd.ones((4096, 768), ctx=mx.gpu(0), dtype="bfloat16")
+    masks = []
+    for i in range(4):
+        if i == 1:
+            mx.random.seed(7)
+        with mx.autograd.train_mode():
+            masks.append(drop(x).tensor() != 0)
+    n = x.size
+    sigma = (n * 0.9 * 0.1) ** 0.5
+    for m in masks:
+        assert abs(m.sum().item() - 0.9 * n) <= 5 * sigma
+    assert not torch.equal(masks[2], masks[3])
+    mx.random.seed(7)
+    with mx.autograd.train_mode():
+        assert torch.equal(drop(x).tensor() != 0, masks[1])
+
+
+def _sgd_loop(mx, fused, lrs, monkeypatch):
+    from mxnet_tpu_torch.gluon import nn
+    monkeypatch.setenv("MXNET_TRAINER_FUSED_UPDATE", "1" if fused else "0")
+    mx.random.seed(3)
+    net = nn.HybridSequential(prefix="sgd_")
+    with net.name_scope():
+        net.add(nn.Dense(64, activation="relu"), nn.Dense(10))
+    net.initialize(ctx=mx.gpu(0))
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.randn(32, 20), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 10, (32,)), ctx=mx.gpu(0))
+    net(x)
+    net.hybridize(static_alloc=True, static_shape=True)
+    lf = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    lf.hybridize(static_alloc=True, static_shape=True)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": lrs[0], "momentum": 0.9})
+    losses = []
+    for lr in lrs:
+        tr.set_learning_rate(lr)
+        with mx.autograd.record():
+            loss = lf(net(x), y)
+        loss.backward()
+        tr.step(32)
+        losses.append(loss.asnumpy())
+    mx.autograd.disarm_fused_update()
+    return losses, [p.data().asnumpy() for p in net.collect_params().values()]
+
+
+def test_fused_sgd_replay_reads_the_new_learning_rate(card, monkeypatch):
+    """A learning rate changed after the fused step was captured (step
+    3) takes effect in the next replay: six steps at six learning rates
+    equal the same steps with the separate update, bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    lrs = [0.1, 0.05, 0.2, 0.01, 0.3, 0.0]
+    cached_op.reset_replay_counts()
+    got = _sgd_loop(mx, True, lrs, monkeypatch)
+    assert cached_op.replay_counts()["tape"] == 4
+    want = _sgd_loop(mx, False, lrs, monkeypatch)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fused_sgd_second_trainer_replays_its_own_step(card, monkeypatch):
+    """Two SGD Trainers without momentum, one after the other, over one
+    hybridized net: the second builds the same plan and update math as
+    the first, whose step is captured by then, yet replays a step of its
+    own that reads its rate and rescale; both equal the separate update
+    bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.gluon import nn
+
+    def run(fused):
+        monkeypatch.setenv("MXNET_TRAINER_FUSED_UPDATE",
+                           "1" if fused else "0")
+        mx.random.seed(3)
+        net = nn.HybridSequential(prefix="two_")
+        with net.name_scope():
+            net.add(nn.Dense(64, activation="relu"), nn.Dense(10))
+        net.initialize(ctx=mx.gpu(0))
+        rng = np.random.RandomState(0)
+        x = mx.nd.array(rng.randn(32, 20), ctx=mx.gpu(0))
+        y = mx.nd.array(rng.randint(0, 10, (32,)), ctx=mx.gpu(0))
+        net(x)
+        net.hybridize(static_alloc=True, static_shape=True)
+        lf = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        lf.hybridize(static_alloc=True, static_shape=True)
+        out = []
+        for lr, batch in ((0.1, 32), (0.02, 16)):
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": lr})
+            for _ in range(4):
+                with mx.autograd.record():
+                    loss = lf(net(x), y)
+                loss.backward()
+                tr.step(batch)
+                out.append(loss.asnumpy())
+        mx.autograd.disarm_fused_update()
+        return out + [p.data().asnumpy()
+                      for p in net.collect_params().values()]
+
+    cached_op.reset_replay_counts()
+    got = run(True)
+    # each Trainer: consumed at steps 2-4, captured at 3, replayed at 3-4
+    assert cached_op.replay_counts()["tape"] == 4
+    for a, b in zip(got, run(False)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fused_backward", ["1", "0"])
+def test_backward_after_release_names_the_op(card, monkeypatch,
+                                             fused_backward):
+    """A tape recorded on a captured graph whose block is cast before the
+    backward (the graphs are released) raises MXNetError naming the op,
+    through the tape plan and node by node."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    monkeypatch.setenv("MXNET_FUSED_BACKWARD", fused_backward)
+    net = nn.HybridSequential(prefix="rel_")
+    net.add(nn.Dense(16))
+    net.initialize(ctx=mx.gpu(0))
+    x = mx.nd.ones((4, 8), ctx=mx.gpu(0))
+    net(x)
+    net.hybridize(static_alloc=True, static_shape=True)
+    # the input's gradient makes the engine reach the node after the cast
+    x.attach_grad()
+    for _ in range(2):                 # the warm-up, then a captured call
+        with mx.autograd.record():
+            out = net(x)
+    net.cast("float16")
+    with pytest.raises(MXNetError, match="CachedOp rel: .*released"):
+        out.backward()
+
+
+def test_recorded_instances_are_capped(card):
+    """Recorded calls whose backward has not run each hold a graph
+    instance; the call past MAX_INSTANCES raises instead of capturing
+    another, and a backward frees its instance for the next call."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(prefix="cap_")
+    net.add(nn.Dense(16))
+    net.initialize(ctx=mx.gpu(0))
+    x = mx.nd.ones((4, 8), ctx=mx.gpu(0))
+    net(x)
+    net.hybridize(static_alloc=True, static_shape=True)
+    with mx.autograd.record():
+        outs = [net(x) for _ in range(1 + cached_op.MAX_INSTANCES)]
+        with pytest.raises(MXNetError, match="CachedOp cap: .*hold their residuals"):
+            net(x)
+    outs[-1].backward()
+    with mx.autograd.record():
+        net(x)
+    assert net._cached_op.num_entries() == 1
+
+
+def test_weight_changed_in_place_is_seen_by_the_replay(card):
+    """An eval graph reads the parameters in place (static_alloc): a
+    set_data after capture changes the next replay's output, which then
+    equals the eager forward with the new weight."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(32, activation="relu"), nn.Dense(8))
+    net.initialize(ctx=mx.gpu(0))
+    x = mx.nd.array(np.random.RandomState(1).randn(16, 24), ctx=mx.gpu(0))
+    net(x)
+    net.hybridize(static_alloc=True, static_shape=True)
+    net(x)                       # warm-up and capture
+    before = net(x).asnumpy()    # a replay
+    w = net[1].weight
+    w.set_data(w.data().asnumpy() * -2)
+    cached_op.reset_replay_counts()
+    after = net(x).asnumpy()
+    assert cached_op.replay_counts()["forward"] == 1
+    with cached_op.eager():
+        want = net(x).asnumpy()
+    np.testing.assert_array_equal(after, want)
+    assert not np.array_equal(after, before)
+
+
+def test_capture_failure_names_the_op(card):
+    """A forward that makes the host wait for the card cannot be
+    captured: the call raises MXNetError naming the last op before the
+    failure, and nothing runs eagerly instead."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Syncs(HybridBlock):
+        def hybrid_forward(self, F, x):
+            y = F.relu(x)
+            return y * float(y.asnumpy().sum())
+
+    blk = Syncs()
+    blk.hybridize()
+    x = mx.nd.ones((4, 4), ctx=mx.gpu(0))
+    # the eager warm-up runs, then the eval capture fails
+    with pytest.raises(MXNetError, match="capture failed at op relu"):
+        blk(x)
+    with pytest.raises(MXNetError, match="capture failed at op relu"):
+        blk(x)
