@@ -6,6 +6,7 @@ CUDA toolkit:
 
     python3 chip_smoke.py [--seed N] [--reps N] [--train-steps N]
                           [--resnet-steps N] [--mnist-epochs N]
+                          [--ptb-steps N]
 
 Phases, in order; any fault ends the run with a non-zero exit and no
 ``ok`` line:
@@ -182,12 +183,46 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    held to the output from before; a ResNet step whose replay is
    skipped, held to the eager loop.
 
+12. PTB LSTM — upstream MXNet's ``example/gluon/word_language_model``
+   as its README runs it (``--tied --nhid 650 --emsize 650 --dropout
+   0.5``): ``ptb_model`` (Embedding 10 000 x 650, dropout 0.5, a 2-layer
+   ``gluon.rnn.LSTM`` with dropout between its layers, dropout, a Dense
+   decoder tied to the embedding), bptt 35 x batch 32, f32, token ids
+   from ``ptb_stream(--seed)`` (Zipf's law, batchified), trained by
+   ``ptb_step`` as MXNet 1.x's train.py trains it (the state carried and
+   detached, ``SoftmaxCrossEntropyLoss`` over 35 x 32 tokens,
+   ``clip_global_norm`` to 0.25, SGD lr 20, ``trainer.step(1)``). First
+   the dropout kernel at (35, 32, 650) and (1120, 650), p 0.5, bit for
+   bit with its plain version forward and backward; then one forward and backward at
+   dropout 0 on the card (TF32 off) against the same weights through the
+   port on the CPU (``ptb_parity``: the loss, every gradient, the final
+   and carried (h, c), within ``PTB_PARITY``; the i and f gate blocks
+   swapped in the packing, and the h2h bias dropped, must be caught);
+   ``--ptb-steps`` clipped SGD steps at dropout 0.5 on consecutive
+   windows must keep the loss and the clip's norm finite, take the loss
+   ``PTB_FALL`` below the first step's and launch
+   ``PTB_DROPOUT_LAUNCHES`` dropout kernels a step (counted from 0 just before, read just after); the
+   LSTM layer's forward and backward beside ``torch.nn.LSTM`` (cuDNN, a
+   yardstick) on its weights; the dropout kernel's time at (1120, 650)
+   against its bound and ``F.dropout`` (the ``dropout_ptb`` row). Then
+   the model hybridized (its embedding, dropouts, LSTM and decoder each
+   captured through ``cached_op.py``): ``COMPILED_STEPS`` steps at
+   dropout 0 against two eager loops (``COMPILED_SPREAD``); at dropout
+   0.5, two replays of the Dropout drawing different masks within 5
+   binomial sigma of 0.5, and a steady step with no kernel launched
+   outside its graphs and the ``PTB_DROPOUT_LAUNCHES`` dropout launches
+   of the eager step inside the graphs it replays; the step eager
+   against compiled in turns with tokens/s, and one profiled step of
+   each. The rows gain ``launches_per_ptb_step`` and a ``ptb`` entry in
+   ``launches_per_compiled_capture``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import statistics
@@ -2133,7 +2168,7 @@ def phase_amp_fp16(seed):
             scales.append(scaler.loss_scale)
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_build.launch_counts().items() if v}
-        masters = {str(s[1].dtype)[6:] for s in
+        masters = {str(s[1].dtype) for s in
                    trainer._updater.states.values()}
         print("[amp fp16] %d layers, float16 with f32 masters (%s), LAMB "
               "multi_precision, loss per step: %s; loss scale per step: %s; "
@@ -3333,24 +3368,47 @@ def _graph_mb(fn):
 
 
 @contextlib.contextmanager
-def _capture_launches():
+def _capture_launches(by_graph=None):
     """Kernel launches recorded into CUDA graphs inside the scope, by
     kernel: a wrapper runs once while its launch is captured, and a
-    replay runs what was captured without it."""
+    replay runs what was captured without it. ``by_graph``: a dict that
+    gains {id(graph): {kernel: launches}} for each graph captured."""
     from unittest import mock
     from mxnet_tpu_torch import cached_op
     from mxnet_tpu_torch.ops import cuda_build
     total = {k: 0 for k in cuda_build.KERNELS}
     real = cached_op._capture
 
-    def counted(*a, **kw):
+    def counted(graph, *a, **kw):
         before = cuda_build.launch_counts()
         try:
-            return real(*a, **kw)
+            return real(graph, *a, **kw)
         finally:
-            for k, v in cuda_build.launch_counts().items():
-                total[k] += v - before[k]
+            added = {k: v - before[k]
+                     for k, v in cuda_build.launch_counts().items()
+                     if v != before[k]}
+            for k, v in added.items():
+                total[k] += v
+            if by_graph is not None:
+                by_graph[id(graph)] = added
     with mock.patch.object(cached_op, "_capture", counted):
+        yield total
+
+
+@contextlib.contextmanager
+def _replayed_launches(by_graph):
+    """Kernel launches that the CUDA graphs replayed inside the scope
+    carry, by kernel, from ``by_graph`` (filled by
+    ``_capture_launches``)."""
+    from unittest import mock
+    import torch
+    total = collections.Counter()
+    real = torch.cuda.CUDAGraph.replay
+
+    def replay(graph):
+        total.update(by_graph.get(id(graph), {}))
+        return real(graph)
+    with mock.patch.object(torch.cuda.CUDAGraph, "replay", replay):
         yield total
 
 
@@ -3716,6 +3774,444 @@ def phase_compiled_resnet(seed):
     return {"resnet": counts}
 
 
+# -- phase 12: the PTB word-language model ----------------------------------
+# apache/mxnet example/gluon/word_language_model, the README's
+# "--tied --nhid 650 --emsize 650 --dropout 0.5" run: vocabulary 10000
+# (PTB's), bptt 35, batch 32, SGD lr 20, clip 0.25 per token
+PTB_VOCAB = 10000
+PTB_UNITS = 650
+PTB_LAYERS = 2
+PTB_DROPOUT = 0.5
+PTB_BPTT = 35
+PTB_BATCH = 32
+PTB_LR = 20.0
+PTB_CLIP = 0.25
+
+
+def ptb_model(mx, vocab=PTB_VOCAB, units=PTB_UNITS, layers=PTB_LAYERS,
+              dropout=PTB_DROPOUT):
+    """model.py's ``RNNModel`` with tied weights for the package ``mx``
+    (the port or the reference), prefix ``rnnmodel_``: Embedding,
+    Dropout, a ``layers``-layer LSTM with dropout between its layers,
+    Dropout, and a Dense decoder that shares the embedding's weight. The
+    decoder is built with the embedding's prefix as well as its
+    parameters: both packages look a shared name up under the block's own
+    prefix, so ``params`` alone would leave it untied."""
+    gluon = mx.gluon
+
+    class RNNModel(gluon.Block):
+        def __init__(self):
+            super().__init__(prefix="rnnmodel_")
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(dropout)
+                self.encoder = gluon.nn.Embedding(vocab, units)
+                self.rnn = gluon.rnn.LSTM(units, layers, dropout=dropout,
+                                          input_size=units)
+            self.decoder = gluon.nn.Dense(vocab, in_units=units,
+                                          prefix=self.encoder.prefix,
+                                          params=self.encoder.params)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, units))), hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel()
+
+
+def ptb_step(mx, net, trainer, loss_fn, data, target, hidden,
+             clip=PTB_CLIP):
+    """One step of MXNet 1.x's train.py: the carried state detached
+    (truncated BPTT), every token's loss divided by bptt x batch, its
+    backward, the gradients clipped to ``clip`` by
+    ``gluon.utils.clip_global_norm``, ``trainer.step(1)``. Returns (every
+    token's loss, state, the norm before clipping)."""
+    bptt, batch = data.shape
+    hidden = [h.detach() for h in hidden]
+    with mx.autograd.record():
+        output, hidden = net(data, hidden)
+        loss = loss_fn(output, target.reshape((-1,)))
+        scaled = loss / (bptt * batch)
+    scaled.backward()
+    grads = [p.grad(data.context) for p in net.collect_params().values()]
+    norm = mx.gluon.utils.clip_global_norm(grads, clip)
+    trainer.step(1)
+    return loss, hidden, norm
+
+
+PTB_STEPS = 10
+# 12.2 The full-width model's forward and backward at dropout 0 on the
+# card (TF32 off) against the same weights through the port on the CPU:
+# the largest relative L2 distance over the loss, every gradient, the
+# final (h, c) and the gradients of the carried (h, c) must stay within
+# PTB_PARITY: twice the largest reading over seeds 0-4, 7.95e-07 to
+# 8.66e-07 on an H100 (PERF.md); the planted faults read 0.49 and 1.
+PTB_PARITY = 1.75e-6
+# 12.3 PTB_STEPS SGD steps at dropout 0.5 on consecutive windows of
+# ptb_stream(--seed), the state carried: the last step's per-token loss
+# at least PTB_FALL nats below the first's. On an H100 it fell 0.87-1.72
+# nats over seeds 0-4 (from 9.21; lr 20 spikes it at step 4 before the
+# clip takes hold); the margin is under half the smallest (PERF.md).
+PTB_FALL = 0.4
+# dropout launches of one eager PTB step: the embedding's, the one
+# between the LSTM layers and the output's, forward and backward
+PTB_DROPOUT_LAUNCHES = 6
+# ops a compiled PTB step dispatches outside its graphs: those of the loss
+# and of the clip's global norm, neither of which is hybridized
+PTB_HOST_OPS = ("Cast", "Reshape", "_div_scalar", "_plus_scalar",
+                "_power_scalar", "_rdiv_scalar", "broadcast_add",
+                "broadcast_minimum", "broadcast_mul", "log_softmax", "mean",
+                "negative", "pick", "sqrt", "sum")
+
+
+def ptb_stream(seed, n_windows, vocab=PTB_VOCAB, bptt=PTB_BPTT,
+               batch=PTB_BATCH):
+    """Token ids drawn from ``seed`` in place of PTB's: a stream with
+    Zipf's law for its unigram frequencies (a word of rank k has
+    probability proportional to 1/k, as in English text, the ranks
+    shuffled over the ids), batchified as train.py's ``batchify`` does
+    (``batch`` columns) and cut into ``n_windows`` consecutive (bptt,
+    batch) windows: [(data, target)] of float32 numpy arrays, target the
+    next token."""
+    import numpy as np
+    rs = np.random.RandomState(seed + 12)
+    pmf = 1.0 / np.arange(1, vocab + 1)
+    ids = rs.permutation(vocab)[rs.choice(vocab, n_windows * bptt * batch
+                                          + batch, p=pmf / pmf.sum())]
+    cols = ids.astype(np.float32).reshape(batch, -1).T
+    return [(cols[i * bptt:(i + 1) * bptt], cols[i * bptt + 1:
+                                                 (i + 1) * bptt + 1])
+            for i in range(n_windows)]
+
+
+def _ptb_window(mx, seed, ctx):
+    """The first window of ``ptb_stream(seed)`` on ``ctx``."""
+    data, target = ptb_stream(seed, 1)[0]
+    return mx.nd.array(data, ctx=ctx), mx.nd.array(target, ctx=ctx)
+
+
+def _ptb_net(seed, dropout):
+    import mxnet_tpu_torch as mx
+    mx.random.seed(seed)
+    net = ptb_model(mx, dropout=dropout)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return net
+
+
+def _ptb_fwd_bwd(mx, net, ctx, seed):
+    """One forward and backward from a carried (h, c) drawn from
+    ``seed``: {name: tensor} of the per-token loss, the final (h, c),
+    the carried state's gradients and every parameter's gradient."""
+    import numpy as np
+    data, target = _ptb_window(mx, seed, ctx)
+    rs = np.random.RandomState(seed + 13)
+    shape = (PTB_LAYERS, PTB_BATCH, PTB_UNITS)
+    hidden = [mx.nd.array(rs.randn(*shape) * 0.5, ctx=ctx) for _ in "hc"]
+    for h in hidden:
+        h.attach_grad()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        out, new = net(data, hidden)
+        loss = loss_fn(out, target.reshape((-1,)))
+    loss.backward()
+    got = {"loss": loss.mean().tensor(), "h": new[0].tensor(),
+           "c": new[1].tensor(), "dh": hidden[0].grad.tensor(),
+           "dc": hidden[1].grad.tensor()}
+    got.update({n: p.grad().tensor() for n, p in
+                net.collect_params().items()})
+    return {k: v.detach().float().cpu() for k, v in got.items()}
+
+
+@contextlib.contextmanager
+def _ptb_fault(kind):
+    """A planted fault in the RNN op's packing: ``swap_if`` swaps the i
+    and f gate blocks of every weight and bias, ``no_h2h_bias`` drops the
+    h2h bias."""
+    from unittest import mock
+    import torch
+    from mxnet_tpu_torch.ops import rnn_ops
+    real = rnn_ops._unpack
+
+    def swap(t):
+        i, f, g, o = torch.chunk(t, 4, dim=0)
+        return torch.cat([f, i, g, o], 0)
+
+    def unpack(*a):
+        ws, bs = real(*a)
+        if kind == "swap_if":
+            return ([(swap(w), swap(r)) for w, r in ws],
+                    [(swap(b), swap(c)) for b, c in bs])
+        return ws, [(b, c * 0) for b, c in bs]
+    with mock.patch.object(rnn_ops, "_unpack", unpack):
+        yield
+
+
+def ptb_parity(seed, fault=None):
+    """12.2: the full-width model at dropout 0 on the card, TF32 off,
+    against the same weights through the port on the CPU. Returns the
+    largest relative L2 distance and where it is."""
+    import mxnet_tpu_torch as mx
+    net = _ptb_net(seed, 0.0)
+    arrays = {n: p.data().asnumpy() for n, p in
+              net.collect_params().items()}
+    twin = ptb_model(mx, dropout=0.0)
+    mx.params_from_numpy(twin, arrays, ctx=mx.cpu())
+    with _no_tf32(), (_ptb_fault(fault) if fault else
+                      contextlib.nullcontext()):
+        card = _ptb_fwd_bwd(mx, net, mx.gpu(0), seed)
+    host = _ptb_fwd_bwd(mx, twin, mx.cpu(), seed)
+    return max((_rel(card[k], host[k]), k) for k in host)
+
+
+def phase_ptb(seed, steps, card, reps):
+    """Phase 12, eager: the dropout kernel at PTB's shapes, the model's
+    parity with its CPU run (and two planted faults), ``steps`` clipped
+    SGD steps at dropout 0.5, the LSTM layer beside cuDNN's. Returns
+    (kernel launches per step, the PTB dropout row with the launches of
+    the ``steps`` steps)."""
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build, cuda_dropout
+    # 12.1 the dropout kernel at the shapes the model gives it
+    gen = torch.Generator(device=DEV).manual_seed(seed + 12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    sd = torch.tensor([seed + 12], dtype=torch.int32, device=DEV)
+    err = 0.0
+    for shape in ((PTB_BPTT, PTB_BATCH, PTB_UNITS),
+                  (PTB_BPTT * PTB_BATCH, PTB_UNITS)):
+        x = randn(*shape).requires_grad_()
+        dy = randn(*shape)
+        y = cuda_dropout.dropout_fn(x, PTB_DROPOUT, sd)
+        y.backward(dy)
+        tag = "dropout p=%g %s f32" % (PTB_DROPOUT, shape)
+        for what, got, ref in (
+                (tag, y, cuda_dropout.dropout_plain(
+                    x.detach(), PTB_DROPOUT, sd)),
+                (tag + " backward", x.grad,
+                 cuda_dropout.dropout_plain(dy, PTB_DROPOUT, sd))):
+            _check_exact(what, got, ref)
+            err = max(err, float((got.detach() - ref).abs().max()))
+        _drop_pattern(tag + " fwd vs bwd mask", y, x.grad)
+    # 12.2 parity at dropout 0, and the planted faults
+    reading, where = ptb_parity(seed)
+    ok = reading <= PTB_PARITY
+    print("[ptb] card vs CPU at dropout 0 (TF32 off), loss, every "
+          "gradient and the carried (h, c): largest relative L2 %.3g (%s), "
+          "limit %g %s" % (reading, where, PTB_PARITY,
+                           "ok" if ok else "FAIL"))
+    if not ok:
+        raise SmokeFailure("PTB model on the card differs from its CPU run "
+                           "by %.3g (%s)" % (reading, where))
+    for fault in ("swap_if", "no_h2h_bias"):
+        r, w = ptb_parity(seed, fault)
+        caught = r > PTB_PARITY
+        print("[control] PTB with %s: largest relative L2 %.3g (%s) %s"
+              % (fault, r, w, "caught" if caught else "MISSED"))
+        if not caught:
+            raise SmokeFailure("planted PTB fault %s not caught" % fault)
+    # 12.3 training at dropout 0.5
+    net = _ptb_net(seed, PTB_DROPOUT)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": PTB_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    windows = [tuple(mx.nd.array(a, ctx=mx.gpu(0)) for a in w)
+               for w in ptb_stream(seed, steps)]
+    hidden = net.begin_state(batch_size=PTB_BATCH, ctx=mx.gpu(0))
+    losses, norms = [], []
+    cuda_build.reset_launch_counts()
+    for data, target in windows:
+        loss, hidden, norm = ptb_step(mx, net, trainer, loss_fn, data,
+                                      target, hidden)
+        losses.append(float(loss.mean().asscalar()))
+        norms.append(norm)
+    torch.cuda.synchronize()
+    totals = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    counts = {k: v // steps for k, v in totals.items()}
+    print("[ptb] %d SGD steps (lr %g, clip %g) at dropout %g, consecutive "
+          "windows: loss per token %s; clip_global_norm's norm %s; "
+          "launches per step %s" % (steps, PTB_LR, PTB_CLIP, PTB_DROPOUT,
+                                    " ".join("%.4f" % v for v in losses),
+                                    " ".join("%.2f" % v for v in norms),
+                                    counts))
+    import math
+    if not all(math.isfinite(v) for v in losses + norms) or \
+            losses[-1] > losses[0] - PTB_FALL or \
+            totals != {"dropout": PTB_DROPOUT_LAUNCHES * steps}:
+        raise SmokeFailure("PTB training: losses %s, norms %s, launches %s "
+                           "(the loss must fall by %g, %d dropout launches "
+                           "a step)" % (losses, norms, counts, PTB_FALL,
+                                        PTB_DROPOUT_LAUNCHES))
+    # the LSTM layer's forward and backward beside cuDNN's on its weights
+    lstm = net.rnn
+    cudnn = torch.nn.LSTM(PTB_UNITS, PTB_UNITS, PTB_LAYERS).cuda()
+    with torch.no_grad():
+        for i in range(PTB_LAYERS):
+            for ours, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(cudnn, "%s_l%d" % (theirs, i)).copy_(
+                    getattr(lstm, "l%d_%s" % (i, ours)).data().tensor())
+    xs = randn(PTB_BPTT, PTB_BATCH, PTB_UNITS)
+    h0 = [randn(PTB_LAYERS, PTB_BATCH, PTB_UNITS) for _ in "hc"]
+    xa = mx.nd.NDArray(xs.clone())
+    xa.attach_grad()
+
+    def ours():
+        # predict mode: no dropout between the layers, as cuDNN's here
+        with mx.autograd.record(train_mode=False):
+            out, _ = lstm(xa, [mx.nd.NDArray(h) for h in h0])
+        out.backward()
+        return out.tensor()
+    xt = xs.clone().requires_grad_()
+
+    def theirs():
+        out, _ = cudnn(xt, tuple(h0))
+        out.backward(torch.ones_like(out))
+        return out
+    with _no_tf32():
+        gap = float((ours() - theirs()).detach().abs().max())
+    ours_ms, theirs_ms = _host_ms(ours), _host_ms(theirs)
+    print("[times] PTB LSTM layer (2 x 650, T %d, N %d) forward+backward: "
+          "port %.3f ms, cuDNN (torch.nn.LSTM, a yardstick) %.3f ms, host "
+          "clock, card synchronised; outputs apart by %.3g (TF32 off)"
+          % (PTB_BPTT, PTB_BATCH, ours_ms, theirs_ms, gap))
+    # the row-8 kernel at the model's (bptt x batch, units)
+    bw, _, f32_peak = _peaks(card)
+    M, C = PTB_BPTT * PTB_BATCH, PTB_UNITS
+    xd = randn(M, C)
+    ms, plain_ms, lib_ms = (_gpu_ms(f, reps) for f in (
+        lambda: cuda_dropout.dropout_cuda(xd, PTB_DROPOUT, sd),
+        lambda: cuda_dropout.dropout_plain(xd, PTB_DROPOUT, sd),
+        lambda: F.dropout(xd, PTB_DROPOUT, training=True)))
+    t_bytes, t_ops = 2 * M * C * 4 / bw * 1e3, 20 * M * C / f32_peak * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    row = {"name": "dropout_ptb", "kernel": "dropout", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/dropout.cu",
+           "replaces": "mxnet_tpu/ops/pallas_dropout.py:73",
+           "launches": totals["dropout"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms}
+    print("[times] %-18s kernel %.4f ms  plain %.4f ms  library %.4f ms"
+          "  bound %.4f ms (%s), (%d, %d) f32 p %g"
+          % ("dropout_ptb", ms, plain_ms, lib_ms, bound, by, M, C,
+             PTB_DROPOUT))
+    return counts, row
+
+
+def phase_compiled_ptb(seed):
+    """12.4: the model hybridized (its embedding, dropouts, LSTM and
+    decoder each a CachedOp): COMPILED_STEPS steps at dropout 0 against
+    two eager loops; at dropout 0.5, two replays drawing new masks and a
+    steady step that launches no kernel outside its graphs and replays
+    graphs carrying the eager step's dropout launches; the step eager
+    against compiled in turns, one profiled step of each.
+    Returns {"ptb": the kernel launches recorded into its graphs}."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    gpu = mx.gpu(0)
+    windows = [tuple(mx.nd.array(a, ctx=gpu) for a in w)
+               for w in ptb_stream(seed, COMPILED_STEPS)]
+    data, target = windows[0]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loop(net, params, trainer):
+        hidden = net.begin_state(batch_size=PTB_BATCH, ctx=gpu)
+        losses = []
+        for d, t in windows:
+            loss, hidden, _ = ptb_step(mx, net, trainer, loss_fn, d, t,
+                                       hidden)
+            losses.append(loss.tensor().detach().clone())
+        return losses, {n: p.data().tensor().detach().clone()
+                        for n, p in params.items()}
+
+    net = _ptb_net(seed, 0.0)
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": PTB_LR})
+    snap = _snapshot(params)
+    runs = []
+    for _ in range(2):
+        runs.append(loop(net, params, trainer))
+        _restore(params, snap)
+    net.hybridize(static_alloc=True, static_shape=True)
+    with _capture_launches() as captured:
+        compiled, held = _graph_mb(lambda: loop(net, params, trainer))
+    _, fail = _parity("ptb", runs[0], runs[1], compiled)
+    if fail:
+        raise SmokeFailure("compiled PTB loop differs from the eager loop")
+    _free_graphs(net)
+    del net, params, trainer
+
+    # dropout 0.5: two replays draw new masks at the keep rate
+    net = _ptb_net(seed, PTB_DROPOUT)
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": PTB_LR})
+    net.hybridize(static_alloc=True, static_shape=True)
+    x = mx.nd.ones((PTB_BPTT, PTB_BATCH, PTB_UNITS), ctx=gpu)
+    hidden = net.begin_state(batch_size=PTB_BATCH, ctx=gpu)
+
+    def step():
+        nonlocal hidden
+        _, hidden, _ = ptb_step(mx, net, trainer, loss_fn, data, target,
+                                hidden)
+    masks, by_graph = [], {}
+    with _capture_launches(by_graph) as drops:
+        for _ in range(3):
+            with mx.autograd.train_mode():
+                masks.append(net.drop(x).tensor() != 0)
+        for _ in range(2):
+            step()
+    # a steady step: no kernel launched outside the graphs, and the
+    # graphs it replays carry the eager step's dropout launches
+    with _replayed_launches(by_graph) as replayed:
+        _steady("ptb at dropout %g" % PTB_DROPOUT, step,
+                allowed=PTB_HOST_OPS)
+    print("[compiled] ptb at dropout %g, one steady step: kernel launches "
+          "in the graphs replayed %s (eager: %d dropout)"
+          % (PTB_DROPOUT, dict(replayed) or "none", PTB_DROPOUT_LAUNCHES))
+    if dict(replayed) != {"dropout": PTB_DROPOUT_LAUNCHES}:
+        raise SmokeFailure("compiled PTB step at dropout %g replayed "
+                           "graphs carrying %s, not the eager step's %d "
+                           "dropout launches" % (PTB_DROPOUT, dict(replayed),
+                                                 PTB_DROPOUT_LAUNCHES))
+    n = x.size
+    sigma = (n * 0.25) ** 0.5
+    keep = [int(m.sum()) for m in masks]
+    differ = not torch.equal(masks[1], masks[2])
+    print("[compiled] ptb Dropout(%g) on %s replayed: masks differ: %s, "
+          "keep rates %s (5 sigma of 0.5 is %.5f); dropout launches "
+          "recorded into the graphs %d" % (
+              PTB_DROPOUT, x.shape, differ, ["%.5f" % (k / n) for k in keep],
+              5 * sigma / n, drops["dropout"]))
+    if not differ or any(abs(k - 0.5 * n) > 5 * sigma for k in keep):
+        raise SmokeFailure("compiled PTB dropout: replays drew the same "
+                           "masks or keep rates beyond 5 sigma")
+    captured = {k: captured[k] + drops[k] for k in captured}
+    eager_ms, comp_ms = _in_turns(step, step)
+    _report("ptb step (bptt %d x batch %d, SGD, clip) at dropout %g"
+            % (PTB_BPTT, PTB_BATCH, PTB_DROPOUT), eager_ms, comp_ms, held)
+    tokens = PTB_BPTT * PTB_BATCH
+    print("[times] ptb step: %.1f tokens/s eager, %.1f tokens/s compiled "
+          "(host clock)" % (tokens / eager_ms * 1e3, tokens / comp_ms * 1e3))
+
+    def eager_step():
+        with cached_op.eager():
+            step()
+    _profile("one eager PTB step (dropout %g)" % PTB_DROPOUT, eager_step)
+    _profile("one compiled PTB step (dropout %g)" % PTB_DROPOUT, step)
+    _free_graphs(net)
+    return {"ptb": captured}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3727,6 +4223,8 @@ def main(argv=None):
                     help="ResNet-50 SGD steps on one fixed batch")
     ap.add_argument("--mnist-epochs", type=int, default=3,
                     help="epochs of the MNIST MLP with the rtc custom op")
+    ap.add_argument("--ptb-steps", type=int, default=PTB_STEPS,
+                    help="clipped SGD steps of the PTB LSTM model")
     args = ap.parse_args(argv)
     import torch
     try:
@@ -3790,7 +4288,13 @@ def main(argv=None):
         compiled = phase_compiled_serve(sess, reqs, net)
         compiled.update(phase_compiled_bert(args.seed))
         compiled.update(phase_compiled_resnet(args.seed))
+        ptb_counts, ptb_row = phase_ptb(args.seed, args.ptb_steps, card,
+                                        args.reps)
+        compiled.update(phase_compiled_ptb(args.seed))
+        rows.append(ptb_row)
         for r in rows:
+            r["launches_per_ptb_step"] = ptb_counts.get(
+                r.get("kernel", r["name"]), 0)
             r["launches_per_compiled_capture"] = {
                 path: c.get(r.get("kernel", r["name"]), 0)
                 for path, c in compiled.items()}

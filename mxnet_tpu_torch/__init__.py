@@ -22,7 +22,10 @@ BN-backward kernel. The fourth opens the user-extension surface:
 reference's flagship configuration does: the chunked LM-head cross
 entropy (``BERTMLMLoss``'s default), ``contrib.amp`` with its loss
 scaler, multi-precision master weights, LAMB's phase ops, Adam/AdamW
-and ``lr_scheduler``.
+and ``lr_scheduler``. The eleventh brings the reference's whole NDArray
+surface and ``gluon.rnn``, and trains upstream MXNet's PTB
+word-language model (a tied 2-layer LSTM) with ``gluon.utils.
+clip_global_norm``.
 
 Usage mirrors the reference::
 
@@ -53,8 +56,9 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 from . import ndarray
+from .ndarray import waitall
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import autograd

@@ -127,8 +127,9 @@ def predict_mode() -> _Scope:
     return _Scope(None, False)
 
 
-# every NDArray marked as a variable and still alive
-_VARS: "weakref.WeakSet" = weakref.WeakSet()
+# every NDArray marked as a variable and still alive, by id: a WeakSet
+# would compare two references to one array with its elementwise ``==``
+_VARS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):
@@ -144,9 +145,9 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         v._grad = g
         v._grad_req = req
         if req == "null":
-            _VARS.discard(v)
+            _VARS.pop(id(v), None)
         else:
-            _VARS.add(v)
+            _VARS[id(v)] = v
 
 
 def _heads(heads, head_grads):
@@ -247,7 +248,7 @@ def _fused_backward(outs, cots) -> bool:
     """Run or stash the one plan of a tape of hybridized calls; False
     when the tape holds another node."""
     from . import cached_op
-    plan = cached_op.tape_plan(outs, cots, _VARS)
+    plan = cached_op.tape_plan(outs, cots, list(_VARS.values()))
     if plan is None:
         return False
     token = _ARM_TOKEN[0]
@@ -267,7 +268,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     if not retain_graph and _cfg("MXNET_FUSED_BACKWARD") and \
             _fused_backward(outs, cots):
         return
-    variables = [v for v in list(_VARS) if v._t.requires_grad]
+    variables = [v for v in list(_VARS.values()) if v._t.requires_grad]
     if not variables:
         return
     from . import cached_op
@@ -283,7 +284,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
             if v._grad_req == "write":
                 v._grad.tensor().copy_(g)
             else:
-                v._grad.tensor().add_(g.to(v._grad.dtype))
+                v._grad.tensor().add_(g.to(v._grad._t.dtype))
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -5,10 +5,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import ml_dtypes
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "Registry"]
+__all__ = ["MXNetError", "torch_dtype", "np_dtype", "Registry"]
 
 
 class MXNetError(RuntimeError):
@@ -28,11 +29,31 @@ def torch_dtype(dtype) -> torch.dtype:
     'bfloat16', ...), a numpy dtype or a torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if isinstance(dtype, str):
+        name = dtype
+    elif getattr(dtype, "__name__", None) == "bfloat16" or \
+            getattr(dtype, "name", None) == "bfloat16":
+        name = "bfloat16"         # ml_dtypes' scalar type or its dtype
+    else:
+        name = np.dtype(dtype).name
     out = _BY_NAME.get(name)
     if out is None:
         raise MXNetError("unsupported dtype %r" % (dtype,))
     return out
+
+
+_NP_BY_TORCH = {t: n for n, t in _BY_NAME.items()}
+
+
+def np_dtype(dtype: torch.dtype):
+    """The numpy dtype of a torch dtype, as the reference's
+    ``NDArray.dtype`` gives it: bfloat16 is ``ml_dtypes.bfloat16``."""
+    name = _NP_BY_TORCH.get(dtype)
+    if name is None:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+    if name == "bfloat16":
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(name)
 
 
 class Registry:

@@ -80,6 +80,44 @@ _SLOT = object()       # marks a data input's position among the arguments
 _BWD_TODO: "weakref.WeakSet" = weakref.WeakSet()
 
 
+class _Seq:
+    """A list or tuple among a call's arguments or outputs, with its
+    NDArrays replaced by ``_SLOT`` (hashable: part of a signature)."""
+
+    __slots__ = ("kind", "items")
+
+    def __init__(self, kind, items):
+        self.kind, self.items = kind, items
+
+    def __eq__(self, other):
+        return isinstance(other, _Seq) and self.kind is other.kind and \
+            self.items == other.items
+
+    def __hash__(self):
+        return hash((self.kind, self.items))
+
+
+def _flatten(obj, leaves: list):
+    """``obj`` with each NDArray appended to ``leaves`` and replaced by
+    ``_SLOT``, lists and tuples kept as :class:`_Seq`."""
+    from .ndarray import NDArray
+    if isinstance(obj, NDArray):
+        leaves.append(obj)
+        return _SLOT
+    if isinstance(obj, (list, tuple)):
+        return _Seq(type(obj), tuple(_flatten(o, leaves) for o in obj))
+    return obj
+
+
+def _unflatten(fmt, it):
+    """The nesting ``fmt`` with its slots filled from ``it``."""
+    if fmt is _SLOT:
+        return next(it)
+    if isinstance(fmt, _Seq):
+        return fmt.kind(_unflatten(f, it) for f in fmt.items)
+    return fmt
+
+
 def replay_counts() -> Dict[str, int]:
     """Graph replays of each kind since the last reset."""
     return dict(_REPLAYS)
@@ -400,6 +438,9 @@ class CachedOp:
         self._aux = [k for k, p in enumerate(self.params) if p._is_aux]
         self.aux_idx: List[int] = []
         self._entries: Dict[tuple, List[_Entry]] = {}
+        # each signature's output nesting (its first call is eager)
+        self._out_fmts: Dict[tuple, object] = {}
+        self._out_fmt = None
         self._warm: set = set()
         self._lock = threading.Lock()
         self._finalizer = weakref.finalize(self, _release_entries,
@@ -421,17 +462,19 @@ class CachedOp:
 
     def _run(self, tensors, consts, ctx, substitute):
         """The block's forward over ``tensors`` (data, then parameters)
-        with every child eager; returns the output tensors."""
+        with every child eager; returns the output tensors, flat (their
+        nesting is kept in ``self._out_fmt``)."""
         from .gluon.parameter import substitute as _sub
         from .ndarray import NDArray
-        it = iter(tensors[:self.n_data])
-        args = [NDArray(next(it), ctx) if c is _SLOT else c for c in consts]
+        it = iter([NDArray(t, ctx) for t in tensors[:self.n_data]])
+        args = [_unflatten(c, it) for c in consts]
         mapping = {p: NDArray(t, ctx) for p, t in
                    zip(self.params, tensors[self.n_data:])} \
             if substitute else None
         with eager(), _sub(mapping):
             out = self._forward(*args)
-        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        outs = []
+        self._out_fmt = _flatten(out, outs)
         return [o.tensor() for o in outs]
 
     def _eager(self, tensors, consts, ctx, recording, entry):
@@ -463,20 +506,19 @@ class CachedOp:
 
     def __call__(self, *args):
         from .ndarray import NDArray
-        datas = [a for a in args if isinstance(a, NDArray)]
+        datas = []
+        consts = tuple(_flatten(a, datas) for a in args)
         if not datas:
             raise MXNetError("CachedOp %s: no NDArray input" % self.name)
         ctx = datas[0].context
         self.n_data = len(datas)
-        consts = tuple(_SLOT if isinstance(a, NDArray) else a for a in args)
         arrays = datas + [p.data(ctx) for p in self.params]
         self.aux_idx = [self.n_data + k for k in self._aux]
         tensors = [a.tensor() for a in arrays]
         recording = autograd.is_recording() and \
             any(t.requires_grad for t in tensors)
         train = autograd.is_training()
-        key = (train, recording, _ops._CASTS_KEY[0],
-               tuple(c if c is not _SLOT else None for c in consts),
+        key = (train, recording, _ops._CASTS_KEY[0], consts,
                tuple((t.shape, t.stride(), t.dtype, t.device,
                       t.requires_grad) for t in tensors))
         with self._lock:
@@ -486,9 +528,16 @@ class CachedOp:
             else:
                 outs = self._call_card(entry, key, tensors, consts, ctx,
                                        recording, train)
-        res = [NDArray(t, ctx) for t in outs]
-        # as the reference's CachedOp: a list of several, else the one
-        return res if len(res) > 1 else res[0]
+            if self._out_fmt is not None:
+                self._out_fmts[key] = self._out_fmt
+                self._out_fmt = None
+            fmt = self._out_fmts[key]
+        res = iter([NDArray(t, ctx) for t in outs])
+        if isinstance(fmt, _Seq) and all(c is _SLOT for c in fmt.items):
+            # as the reference's CachedOp: a list of several, else the one
+            res = list(res)
+            return res if len(res) > 1 else res[0]
+        return _unflatten(fmt, res)
 
     def _call_card(self, entry, key, tensors, consts, ctx, recording,
                    train):

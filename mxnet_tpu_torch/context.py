@@ -14,14 +14,15 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "context_of"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "context_of", "num_gpus"]
 
 
 class Context:
-    """A device context; devtype in {'cpu', 'gpu'}."""
+    """A device context; devtype in {'cpu', 'gpu', 'cpu_pinned'}."""
 
     _default = threading.local()
-    devtype2id = {"cpu": 1, "gpu": 2}
+    devtype2id = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 
     def __init__(self, device_type: str = "cpu", device_id: int = 0):
         if isinstance(device_type, Context):
@@ -49,7 +50,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """The ``torch.device`` of this context. Raises for a GPU
         context on a machine without CUDA, or an id out of range."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -60,6 +61,15 @@ class Context:
             raise MXNetError("context %s out of range: %d CUDA device(s)"
                              % (self, n))
         return torch.device("cuda", self.device_id)
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        """A copy of ``t`` in this context's memory: page-locked host
+        memory for ``cpu_pinned`` (where a card can be reached), so
+        that a copy to the card can run asynchronously."""
+        out = t.to(self.torch_device, copy=True)
+        if self.device_type == "cpu_pinned" and torch.cuda.is_available():
+            out = out.pin_memory()
+        return out
 
     def __enter__(self):
         stack = getattr(Context._default, "stack", None)
@@ -79,6 +89,16 @@ def cpu(device_id: int = 0) -> Context:
 
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory (ref: context.py :: cpu_pinned)."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA cards this process sees."""
+    return torch.cuda.device_count()
 
 
 def current_context() -> Context:

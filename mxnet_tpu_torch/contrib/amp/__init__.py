@@ -41,8 +41,8 @@ _loss_scaler: Optional[LossScaler] = None
 
 
 def _cast_input(arr, dtype: torch.dtype):
-    if isinstance(arr, NDArray) and arr.dtype.is_floating_point and \
-            arr.dtype != dtype:
+    if isinstance(arr, NDArray) and arr._tdtype.is_floating_point and \
+            arr._tdtype != dtype:
         return arr.astype(dtype)
     return arr
 
@@ -58,8 +58,8 @@ def _to(dtype: torch.dtype):
 def _widest(inputs, attrs):
     """Cast the floating NDArray inputs to the widest of their dtypes
     (the first of equal width)."""
-    dtypes = [a.dtype for a in inputs
-              if isinstance(a, NDArray) and a.dtype.is_floating_point]
+    dtypes = [a._tdtype for a in inputs
+              if isinstance(a, NDArray) and a._tdtype.is_floating_point]
     if not dtypes:
         return inputs, attrs
     widest = max(dtypes, key=lambda d: d.itemsize)

@@ -7,3 +7,5 @@ from . import loss
 from . import nn
 from . import model_zoo
 from . import data
+from . import rnn
+from . import utils

@@ -18,10 +18,11 @@ read the old parameters' memory.
 """
 from __future__ import annotations
 
+import math
 import re
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .. import cached_op as _cached_op
 from ..ndarray import NDArray
@@ -85,6 +86,8 @@ class Block:
         self._child_counters: Dict[str, int] = {}
         self._params = ParameterDict(prefix, shared=params)
         self._children: "OrderedDict[str, Block]" = OrderedDict()
+        self._forward_hooks: List = []
+        self._forward_pre_hooks: List = []
 
     @property
     def prefix(self):
@@ -121,6 +124,20 @@ class Block:
     def register_child(self, block, name=None):
         self._children[name or str(len(self._children))] = block
 
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after every call."""
+        self._forward_hooks.append(hook)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before every call."""
+        self._forward_pre_hooks.append(hook)
+
+    def apply(self, fn):
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
     def collect_params(self, select: Optional[str] = None) -> ParameterDict:
         ret = ParameterDict(self._params.prefix)
         if select is None:
@@ -148,16 +165,89 @@ class Block:
         for _, param in self.params.items():
             param.cast(dtype)
 
+    def zero_grad(self):
+        self.collect_params().zero_grad()
+
     def _clear_cached_op(self):
         """Drop this block's and its children's captured graphs."""
         for child in self._children.values():
             child._clear_cached_op()
 
     def __call__(self, *args, **kwargs):
-        return self.forward(*args, **kwargs)
+        for hook in self._forward_pre_hooks:
+            hook(self, args)
+        out = self.forward(*args, **kwargs)
+        for hook in self._forward_hooks:
+            hook(self, args, out)
+        return out
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
+
+    def _iter_blocks(self):
+        yield self
+        for child in self._children.values():
+            yield from child._iter_blocks()
+
+    def summary(self, *inputs):
+        """Print a table of every block's type, output shape and
+        parameter count (shared parameters counted once) from one
+        forward with hooks (ref: block.py :: summary). Call it before
+        ``hybridize()``: a captured call runs no child's hooks."""
+        if any(getattr(b, "_active", False) for b in self._iter_blocks()):
+            raise AssertionError(
+                "'summary' is only supported before hybridize: the "
+                "traced CachedOp bypasses child forward hooks")
+        summary: "OrderedDict[str, dict]" = OrderedDict()
+        seen = set()
+        hooks = []
+
+        def _shape_of(out):
+            first = out[0] if isinstance(out, (list, tuple)) else out
+            return tuple(first.shape)
+
+        def _register(blk, prefix=""):
+            def hook(b, _args, out, _name=prefix or type(blk).__name__):
+                key = "%s-%d" % (_name, len(summary) + 1)
+                n_params = n_shared = 0
+                for p in b._params.values():
+                    sz = math.prod(p.shape) if p.shape else 0
+                    if id(p) in seen:
+                        n_shared += sz
+                    else:
+                        seen.add(id(p))
+                        n_params += sz
+                summary[key] = dict(type=type(b).__name__,
+                                    output=_shape_of(out),
+                                    n_params=n_params, n_shared=n_shared)
+            blk.register_forward_hook(hook)
+            hooks.append(hook)
+            for child in blk._children.values():
+                _register(child, (prefix + "." if prefix else "")
+                          + type(child).__name__)
+
+        _register(self)
+        try:
+            self(*inputs)
+        finally:
+            for blk in self._iter_blocks():
+                blk._forward_hooks = [h for h in blk._forward_hooks
+                                      if h not in hooks]
+        lines = ["-" * 76,
+                 "%-34s %-24s %15s" % ("Layer (type)", "Output Shape",
+                                       "Param #"),
+                 "=" * 76]
+        total = shared = 0
+        for key, row in summary.items():
+            lines.append("%-34s %-24s %15d"
+                         % (key + " (" + row["type"] + ")",
+                            str(row["output"]), row["n_params"]))
+            total += row["n_params"]
+            shared += row["n_shared"]
+        lines += ["=" * 76, "Total params: %d" % total,
+                  "Shared params: %d" % shared, "-" * 76]
+        print("\n".join(lines))
+        return summary
 
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
@@ -204,8 +294,11 @@ class HybridBlock(Block):
             if any(p._data is None for p in params):
                 with _cached_op.eager():
                     return self.forward(*args)
-            names = ["data%d" % i for i, a in enumerate(args)
-                     if isinstance(a, NDArray)] + [p.name for p in params]
+            datas = []
+            for a in args:
+                _cached_op._flatten(a, datas)
+            names = ["data%d" % i for i in range(len(datas))] + \
+                [p.name for p in params]
             cop = self._cached_op = _cached_op.CachedOp(
                 self.forward, params, names, self._flags, name=self.name)
         return cop(*args)

@@ -1,29 +1,25 @@
-"""Basic neural-net layers, the subset the BERT and ResNet slices use
-(counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``; ref:
+"""Basic neural-net layers, the subset the BERT, ResNet and PTB slices
+use (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``; ref:
 python/mxnet/gluon/nn/basic_layers.py)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding", "Flatten", "Activation"]
 
 
-class HybridSequential(HybridBlock):
-    def __init__(self, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
+class _Stack:
+    """What both sequential containers share: ``add``, iteration,
+    ``len`` and indexing (a slice is a new container of the same kind
+    over the same blocks)."""
 
     def add(self, *blocks):
         for block in blocks:
             self.register_child(block)
-
-    def hybrid_forward(self, F, x, *args):
-        for block in self._children.values():
-            x = block(x)
-        return x
 
     def __iter__(self):
         return iter(self._children.values())
@@ -39,6 +35,28 @@ class HybridSequential(HybridBlock):
                 net.add(*layers)
             return net
         return layers
+
+
+class Sequential(_Stack, Block):
+    """Stack of blocks run in order (ref: nn.Sequential)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def forward(self, x, *args):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+
+class HybridSequential(_Stack, HybridBlock):
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def hybrid_forward(self, F, x, *args):
+        for block in self._children.values():
+            x = block(x)
+        return x
 
 
 class Dense(HybridBlock):

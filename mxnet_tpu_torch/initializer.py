@@ -18,7 +18,8 @@ from .base import MXNetError
 from . import random as _random
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "MSRAPrelu", "create", "register"]
+           "Orthogonal", "Xavier", "MSRAPrelu", "LSTMBias", "create",
+           "register"]
 
 _REG: Dict[str, type] = {}
 
@@ -133,6 +134,32 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal matrix (ref: initializer.py ::
+    Orthogonal): the left or right singular vectors of a (rows, rest)
+    draw, uniform in [-1, 1] or standard normal (``rand_type``), in
+    float64 as the reference draws."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", generator=None):
+        super().__init__(generator, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:]) if len(arr.shape) > 1 else 1
+        tmp = torch.empty((nout, nin), dtype=torch.float64,
+                          device=arr.tensor().device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=self._gen(arr))
+        else:
+            tmp.normal_(0.0, 1.0, generator=self._gen(arr))
+        u, _, v = torch.linalg.svd(tmp.cpu(), full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr.tensor().copy_((self.scale * q).reshape(arr.shape))
+
+
+@register
 class Xavier(Initializer):
     """Xavier/Glorot (ref: initializer.py :: Xavier): scale
     sqrt(magnitude / factor) from the fans of the weight's shape, drawn
@@ -180,6 +207,24 @@ class MSRAPrelu(Xavier):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
                          generator)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class LSTMBias(Initializer):
+    """Zero biases with the forget gate's quarter at ``forget_bias``
+    (ref: initializer.py :: LSTMBias; gates [i, f, g, o])."""
+
+    def __init__(self, forget_bias=1.0, generator=None):
+        super().__init__(generator, forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        t = arr.tensor()
+        t.zero_()
+        num_hidden = arr.shape[0] // 4
+        t[num_hidden:2 * num_hidden] = self.forget_bias
+
+    _init_bias = _init_weight
 
 
 def create(name, **kwargs) -> Initializer:

@@ -178,3 +178,4 @@ from . import nn            # noqa: E402,F401
 from . import contrib_ops   # noqa: E402,F401
 from . import reduce_ops    # noqa: E402,F401
 from . import optimizer_ops  # noqa: E402,F401
+from . import rnn_ops       # noqa: E402,F401

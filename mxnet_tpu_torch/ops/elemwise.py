@@ -1,9 +1,10 @@
 """Elementwise, scalar and broadcast operators (counterpart of
 ``mxnet_tpu/ops/elemwise.py``; ref: src/operator/tensor/elemwise_*).
 
-MXNet semantics kept: ``broadcast_*`` applies numpy broadcasting; a
-scalar operand takes the array's dtype before the op, as in the
-reference. The unary family is the reference's table, one torch call
+MXNet semantics kept: ``elemwise_*`` requires identical shapes;
+``broadcast_*`` applies numpy broadcasting; a scalar operand takes the
+array's dtype before the op, as in the reference; a comparison returns
+0/1 in its first input's dtype; ``mod`` is the floored modulo (numpy's). The unary family is the reference's table, one torch call
 each (``gamma`` as ``exp(lgamma)`` and ``logical_not`` in the input's
 dtype, as the reference computes them).
 """
@@ -15,17 +16,46 @@ from ..base import torch_dtype
 from . import register
 
 
-for _n, _f in {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
-               "div": torch.div, "maximum": torch.maximum,
-               "minimum": torch.minimum}.items():
-    register("broadcast_" + _n)(_f)
+_BINARY = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+           "div": torch.div, "mod": torch.remainder, "power": torch.pow,
+           "maximum": torch.maximum, "minimum": torch.minimum,
+           "hypot": torch.hypot}
+_BINARY_CMP = {"equal": torch.eq, "not_equal": torch.ne,
+               "greater": torch.gt, "greater_equal": torch.ge,
+               "lesser": torch.lt, "lesser_equal": torch.le,
+               "logical_and": torch.logical_and,
+               "logical_or": torch.logical_or,
+               "logical_xor": torch.logical_xor}
 
 
-def _make_scalar(opname, fn, reverse=False):
+def _make_binary(opname, fn, cmp=False, same_shape=False):
+    def impl(lhs, rhs):
+        if same_shape and lhs.shape != rhs.shape:
+            raise ValueError("%s requires identical shapes, got %s and %s"
+                             % (opname, tuple(lhs.shape), tuple(rhs.shape)))
+        out = fn(lhs, rhs)
+        return out.to(lhs.dtype) if cmp else out
+    impl.__name__ = opname
+    return impl
+
+
+_LEGACY_ALIAS = {"add": "_plus", "sub": "_minus", "mul": "_mul",
+                 "div": "_div"}
+for _n, _f in _BINARY.items():
+    if _n in _LEGACY_ALIAS:
+        register("elemwise_" + _n, aliases=[_LEGACY_ALIAS[_n]])(
+            _make_binary("elemwise_" + _n, _f, same_shape=True))
+    register("broadcast_" + _n)(_make_binary("broadcast_" + _n, _f))
+for _n, _f in _BINARY_CMP.items():
+    register("broadcast_" + _n)(_make_binary("broadcast_" + _n, _f, True))
+
+
+def _make_scalar(opname, fn, reverse=False, cmp=False):
     def impl(data, *, scalar=0.0):
         # a fill, not a host-to-device copy: capture-safe
         s = torch.full((), scalar, dtype=data.dtype, device=data.device)
-        return fn(s, data) if reverse else fn(data, s)
+        out = fn(s, data) if reverse else fn(data, s)
+        return out.to(data.dtype) if cmp else out
     impl.__name__ = opname
     return impl
 
@@ -37,9 +67,19 @@ for _n, _f, _r in [
         ("_mul_scalar", torch.mul, False),
         ("_div_scalar", torch.div, False),
         ("_rdiv_scalar", torch.div, True),
+        ("_power_scalar", torch.pow, False),
+        ("_rpower_scalar", torch.pow, True),
+        ("_mod_scalar", torch.remainder, False),
+        ("_rmod_scalar", torch.remainder, True),
         ("_maximum_scalar", torch.maximum, False),
         ("_minimum_scalar", torch.minimum, False)]:
     register(_n)(_make_scalar(_n, _f, _r))
+for _n, _f in [("_equal_scalar", torch.eq), ("_not_equal_scalar", torch.ne),
+               ("_greater_scalar", torch.gt),
+               ("_greater_equal_scalar", torch.ge),
+               ("_lesser_scalar", torch.lt),
+               ("_lesser_equal_scalar", torch.le)]:
+    register(_n)(_make_scalar(_n, _f, cmp=True))
 
 
 def _cbrt(x):
@@ -65,6 +105,10 @@ _UNARY = {
     "logical_not": lambda x: torch.logical_not(x).to(x.dtype),
     "rsqrt": torch.rsqrt,
     "relu": torch.relu, "sigmoid": torch.sigmoid,
+    "softsign": lambda x: x / (1 + torch.abs(x)),
+    "softrelu": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "log_sigmoid": torch.nn.functional.logsigmoid,
+    "digamma": torch.digamma,
 }
 
 
@@ -80,6 +124,31 @@ for _n, _f in _UNARY.items():
     register(_n)(_make_unary(_n, _f))
 
 register("identity", aliases=["_copy"])(lambda data: data)
+register("make_loss")(lambda data: data)
+register("BlockGrad", aliases=["stop_gradient"])(lambda data: data.detach())
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(data, *, alpha=0.2, beta=0.5):
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+@register("clip")
+def clip(data, *, a_min, a_max):
+    return torch.clamp(data, a_min, a_max)
+
+
+@register("smooth_l1")
+def smooth_l1(data, *, scalar=1.0):
+    s2 = scalar * scalar
+    return torch.where(torch.abs(data) < 1.0 / s2,
+                       0.5 * s2 * torch.square(data),
+                       torch.abs(data) - 0.5 / s2)
+
+
+@register("where")
+def where(condition, x, y):
+    return torch.where(condition.to(torch.bool), x, y)
 
 
 @register("Cast", aliases=["cast"])

@@ -66,27 +66,96 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
 
 @register("Activation", aliases=["activation"])
 def activation_op(data, *, act_type):
-    """The activations the slices run: tanh (BERT's pooler) and relu
-    (the MLP, ResNet)."""
-    if act_type == "tanh":
-        return torch.tanh(data)
+    """relu, sigmoid, tanh, softrelu (softplus) or softsign (ref:
+    activation.cc)."""
     if act_type == "relu":
         return torch.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return torch.logaddexp(data, torch.zeros_like(data))
+    if act_type == "softsign":
+        return data / (1 + torch.abs(data))
     raise ValueError("unknown act_type %r" % act_type)
 
 
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """The LeakyReLU family (ref: leaky_relu.cc): leaky, prelu (slope
+    ``gamma`` per channel of axis 1), elu, selu, gelu (erf) and rrelu
+    (the mean slope, as in inference)."""
+    pos = data >= 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "prelu":
+        a = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(pos, data, a * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(pos, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data)
+    if act_type == "rrelu":
+        return torch.where(pos, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+def _length_mask(data, length, axis):
+    """True before each row's length along ``axis``; ``length`` runs
+    along axis 0 (ref: nn.py :: softmax)."""
+    ax = int(axis) % data.dim()
+    shape = [1] * data.dim()
+    shape[ax] = data.shape[ax]
+    steps = torch.arange(data.shape[ax], device=data.device).reshape(shape)
+    lshape = [1] * data.dim()
+    lshape[0] = data.shape[0]
+    return steps < length.reshape(lshape)
+
+
 @register("softmax")
-def softmax(data, *, axis=-1, temperature=None, dtype=None):
+def softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
+            use_length=False):
+    """Softmax over ``axis``; with ``use_length`` the steps at or past
+    each row's ``length`` are left out and come back 0."""
     x = data if temperature in (None, 1.0) else data / temperature
-    out = torch.softmax(x, dim=int(axis))
+    if use_length and length is not None:
+        mask = _length_mask(data, length, axis)
+        x = torch.where(mask, x, torch.full((), float("-inf"),
+                                            dtype=x.dtype, device=x.device))
+        out = torch.softmax(x, dim=int(axis))
+        out = torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                                 device=out.device))
+    else:
+        out = torch.softmax(x, dim=int(axis))
     return out.to(torch_dtype(dtype)) if dtype else out
 
 
 @register("log_softmax")
-def log_softmax(data, *, axis=-1, temperature=None, dtype=None,
+def log_softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
                 use_length=False):
+    """Log-softmax over ``axis``; with ``use_length`` the steps at or
+    past each row's ``length`` are left out of the sum and come back 0,
+    as MXNet's SoftmaxWithLength writes them (the reference's
+    log_softmax takes no length)."""
     x = data if temperature in (None, 1.0) else data / temperature
-    out = torch.log_softmax(x, dim=int(axis))
+    if use_length and length is not None:
+        mask = _length_mask(data, length, axis)
+        x = torch.where(mask, x, torch.full((), float("-inf"),
+                                            dtype=x.dtype, device=x.device))
+        out = torch.where(mask, torch.log_softmax(x, dim=int(axis)),
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+    else:
+        out = torch.log_softmax(x, dim=int(axis))
     return out.to(torch_dtype(dtype)) if dtype else out
 
 

@@ -1,15 +1,20 @@
-"""Reductions, the subset the training slice runs (counterpart of
+"""Reductions and orderings (counterpart of
 ``mxnet_tpu/ops/reduce_ops.py``; ref:
-src/operator/tensor/broadcast_reduce_op_value.cc).
+src/operator/tensor/broadcast_reduce_op_value.cc, ordering_op.cc,
+broadcast_reduce_op_index.cc).
 
 MXNet-1.x semantics kept: a full reduction (axis=None, keepdims=False)
 returns shape ``(1,)``, not a 0-d scalar, and ``exclude=True`` reduces
-over every axis but the given ones.
+over every axis but the given ones. ``argmax``/``argmin`` and the
+indices of ``topk``/``argsort`` are float32 unless asked otherwise;
+sorts are stable, and a descending sort is the ascending one reversed,
+as the reference computes it.
 """
 from __future__ import annotations
 
 import torch
 
+from ..base import torch_dtype
 from . import register
 
 
@@ -37,8 +42,86 @@ def _make_reduce(opname, fn):
     return impl
 
 
+def _prod(data, dim=None, keepdim=False):
+    if dim is None:
+        return torch.prod(data)
+    for a in sorted(dim, reverse=True):
+        data = torch.prod(data, dim=a, keepdim=keepdim)
+    return data
+
+
+def _nanprod(data, dim=None, keepdim=False):
+    return _prod(torch.where(torch.isnan(data), torch.ones_like(data), data),
+                 dim, keepdim)
+
+
 register("sum", aliases=["sum_axis"])(_make_reduce("sum", torch.sum))
 register("mean", aliases=["mean_axis"])(_make_reduce("mean", torch.mean))
+register("prod")(_make_reduce("prod", _prod))
+register("nansum")(_make_reduce("nansum", torch.nansum))
+register("nanprod")(_make_reduce("nanprod", _nanprod))
+register("max", aliases=["max_axis"])(_make_reduce("max", torch.amax))
+register("min", aliases=["min_axis"])(_make_reduce("min", torch.amin))
+
+
+def _arg(fn, data, axis, keepdims):
+    if axis is None:
+        out = fn(data.reshape(-1))
+        out = out.reshape((1,) * data.dim() if keepdims else (1,))
+    else:
+        out = fn(data, dim=int(axis), keepdim=bool(keepdims))
+    return out.to(torch.float32)
+
+
+@register("argmax")
+def argmax(data, *, axis=None, keepdims=False):
+    return _arg(torch.argmax, data, axis, keepdims)
+
+
+@register("argmin")
+def argmin(data, *, axis=None, keepdims=False):
+    return _arg(torch.argmin, data, axis, keepdims)
+
+
+@register("argmax_channel")
+def argmax_channel(data):
+    return torch.argmax(data, dim=1).to(torch.float32)
+
+
+@register("topk")
+def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """Top-k along an axis (ref: ordering_op.cc :: TopK)."""
+    ax = int(axis) % data.dim()
+    vals, idx = torch.topk(data.movedim(ax, -1), int(k), dim=-1,
+                           largest=not is_ascend, sorted=True)
+    vals = vals.movedim(-1, ax)
+    idx = idx.movedim(-1, ax).to(torch_dtype(dtype))
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "indices":
+        return idx
+    if ret_typ == "both":
+        return vals, idx
+    raise ValueError("unsupported ret_typ %r" % ret_typ)
+
+
+@register("sort")
+def sort(data, *, axis=-1, is_ascend=True):
+    if axis is None:
+        data, axis = data.reshape(-1), -1
+    out = torch.sort(data, dim=int(axis), stable=True).values
+    return out if is_ascend else torch.flip(out, (int(axis),))
+
+
+@register("argsort")
+def argsort(data, *, axis=-1, is_ascend=True, dtype="float32"):
+    if axis is None:
+        data, axis = data.reshape(-1), -1
+    idx = torch.argsort(data, dim=int(axis), stable=True)
+    if not is_ascend:
+        idx = torch.flip(idx, (int(axis),))
+    return idx.to(torch_dtype(dtype))
 
 
 @register("norm")

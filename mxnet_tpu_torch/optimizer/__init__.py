@@ -96,7 +96,7 @@ class Optimizer:
     def create_state_multi_precision(self, index, weight):
         """``(state of the f32 master, master)`` for a float16 weight
         under ``multi_precision``, else the plain state."""
-        if self.multi_precision and weight.dtype == torch.float16:
+        if self.multi_precision and weight._tdtype == torch.float16:
             w32 = weight.astype("float32")
             return (self.create_state(index, w32), w32)
         return self.create_state(index, weight)
@@ -257,7 +257,7 @@ class SGD(Optimizer):
             s = item[3]
             mp = isinstance(s, tuple)
             mom = (s[0] if mp else s) is not None
-            groups.setdefault((mom, mp, item[2].dtype), []).append(item)
+            groups.setdefault((mom, mp, item[2]._tdtype), []).append(item)
         calls, key = [], []
         for (mom, mp, gdt), items in groups.items():
             for i, _, _, _ in items:

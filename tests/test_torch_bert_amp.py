@@ -218,4 +218,4 @@ def test_bert_amp_step_runs_the_chunked_head_and_the_cast_mix():
     params = net.collect_params()
     params.update(mlm.collect_params())
     for p in params.values():
-        assert p.grad().dtype == torch.float32
+        assert p.grad().dtype == np.float32

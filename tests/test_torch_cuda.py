@@ -1174,3 +1174,113 @@ def test_capture_failure_names_the_op(card):
         blk(x)
     with pytest.raises(MXNetError, match="capture failed at op relu"):
         blk(x)
+
+
+# ---------------------------------------------------------------------------
+# the PTB slice: the RNN op, the dropout kernel at its shapes, the
+# hybridized LSTM with its carried states
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _rnn_grads(mx, ctx, mode, bi, layers, arrays):
+    args = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    if mode != "lstm":
+        args = args[:3]
+    for a in args:
+        a.attach_grad()
+    with mx.autograd.record():
+        out = mx.nd.RNN(*args, state_size=arrays[2].shape[-1],
+                        num_layers=layers, mode=mode, bidirectional=bi)
+        loss = sum((o * o).sum() for o in out)
+    loss.backward()
+    return [o.tensor().detach() for o in out] + \
+        [a.grad.tensor() for a in args]
+
+
+@pytest.mark.parametrize("mode,bi,layers", [
+    ("lstm", False, 2), ("gru", True, 1), ("rnn_tanh", False, 1),
+    ("rnn_relu", True, 2)])
+def test_rnn_op_on_the_card_matches_the_cpu_run(card, no_tf32, mode, bi,
+                                                layers):
+    """The RNN op on the card against the same op on the CPU (the
+    reference's math, as the CPU tests hold it), TF32 off: outputs,
+    final states and every gradient within the f32 tolerance."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_param_size
+    T, N, I, H = 7, 5, 12, 16
+    D = 2 if bi else 1
+    rs = np.random.RandomState(0)
+    arrays = [rs.randn(T, N, I).astype(np.float32),
+              (rs.randn(rnn_param_size(mode, I, H, layers, bi)) * 0.2)
+              .astype(np.float32),
+              rs.randn(layers * D, N, H).astype(np.float32),
+              rs.randn(layers * D, N, H).astype(np.float32)]
+    got = _rnn_grads(mx, mx.gpu(0), mode, bi, layers, arrays)
+    want = _rnn_grads(mx, mx.cpu(), mode, bi, layers, arrays)
+    for g, w in zip(got, want):
+        _assert_close(g, w.cuda())
+
+
+@pytest.mark.parametrize("shape", [(35, 32, 650), (35 * 32, 650),
+                                   (3, 5, 7)])
+def test_dropout_kernel_at_ptb_shapes(card, shape):
+    """PTB's dropout shapes (a last axis that is not a multiple of 128),
+    f32 at p 0.5: forward and backward bit for bit with the plain
+    version, the backward's mask the forward's."""
+    x = (torch.rand(shape, generator=card, device="cuda") + 1) \
+        .requires_grad_()
+    dy = torch.rand(shape, generator=card, device="cuda") + 1
+    seed = torch.tensor([20251017], dtype=torch.int32, device="cuda")
+    y = cuda_dropout.dropout_fn(x, 0.5, seed)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, cuda_dropout.dropout_plain(x.detach(), 0.5, seed))
+    assert torch.equal(x.grad, cuda_dropout.dropout_plain(dy, 0.5, seed))
+    assert torch.equal(y == 0, x.grad == 0)
+    n = y.numel()
+    assert abs((y != 0).sum().item() - n / 2) <= 5 * (n / 4) ** 0.5
+
+
+def test_hybridized_lstm_with_states_replays_equal_eager(card, no_tf32):
+    """A 2-layer LSTM called with its states, hybridized: its output and
+    final states, and the gradients of the input, the states and every
+    parameter, equal the eager call's bit for bit from the warm-up to a
+    replay (the same products in the same order)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    layer = mx.gluon.rnn.LSTM(32, 2, input_size=16, prefix="lstm_")
+    layer.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rs = np.random.RandomState(1)
+    x = mx.nd.array(rs.randn(9, 4, 16), ctx=mx.gpu(0))
+    states = [mx.nd.array(rs.randn(2, 4, 32), ctx=mx.gpu(0))
+              for _ in range(2)]
+
+    def step():
+        xa = x.copy()
+        xa.attach_grad()
+        sa = [s.copy() for s in states]
+        for s in sa:
+            s.attach_grad()
+        with mx.autograd.record():
+            out, new = layer(xa, sa)
+            loss = (out * out).sum() + (new[0] * new[1]).sum()
+        loss.backward()
+        return [out.asnumpy(), new[0].asnumpy(), new[1].asnumpy(),
+                xa.grad.asnumpy()] + [s.grad.asnumpy() for s in sa] + \
+            [p.grad().asnumpy() for p in layer.collect_params().values()]
+
+    want = step()
+    layer.hybridize(static_alloc=True, static_shape=True)
+    for i in range(3):
+        if i == 2:
+            cached_op.reset_replay_counts()
+        got = step()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert cached_op.replay_counts()["forward"] == 1

@@ -76,8 +76,10 @@ def test_ones_indexing_len_and_wait_to_read():
     a = pt.nd.array(x, ctx=pt.cpu())
     np.testing.assert_array_equal(a[1].asnumpy(), x[1])
     np.testing.assert_array_equal(a[1:, 2].asnumpy(), x[1:, 2])
-    with pytest.raises(pt.MXNetError, match="only ints and slices"):
-        a[np.array([0, 2])]
+    # advanced indexing gathers, as the reference's does
+    np.testing.assert_array_equal(
+        a[np.array([0, 2])].asnumpy(),
+        mx.nd.array(x, ctx=mx.cpu())[np.array([0, 2])].asnumpy())
     with pytest.raises(TypeError):
         len(pt.nd.zeros((), ctx=pt.cpu()))
     a.attach_grad()

@@ -15,6 +15,7 @@ and the reference's within the f32 tolerances stated at each test: the
 two packages sum in other orders (XLA fuses, torch does not), which
 costs a few f32 ulps a layer.
 """
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -438,4 +439,4 @@ def test_amp_casts_are_part_of_the_signature():
         assert net._cached_op.num_entries() == 2
     finally:
         amp.reset()
-    assert low.dtype == torch.bfloat16 and f32.dtype == torch.float32
+    assert low.dtype == ml_dtypes.bfloat16 and f32.dtype == np.float32

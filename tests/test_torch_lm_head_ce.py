@@ -135,7 +135,7 @@ def test_labels_shape_refused_and_nd_call(op):
     args = [pt.nd.array(a, ctx=ctx) for a in (h, w, b)]
     out = getattr(pt.nd, op)(*args, pt.nd.array(lab, ctx=ctx))
     ref = getattr(mx.nd, op)(*[mx.nd.array(a) for a in (h, w, b, lab)])
-    assert out.shape == (4, 6) and out.dtype == torch.float32
+    assert out.shape == (4, 6) and out.dtype == np.float32
     np.testing.assert_allclose(out.asnumpy(), ref.asnumpy(), rtol=1e-5,
                                atol=1e-6)
     bad = pt.nd.array(lab.reshape(6, 4), ctx=ctx)

@@ -286,7 +286,7 @@ def test_trainer_multi_precision_matches_reference(opt):
     for w, m in zip(pw, pm):
         np.testing.assert_array_equal(w, m.astype(np.float16)
                                       .astype(np.float32))
-    assert all(isinstance(s, tuple) and s[1].dtype == torch.float32
+    assert all(isinstance(s, tuple) and s[1].dtype == np.float32
                for s in trainer._updater.states.values())
 
 

@@ -8,6 +8,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -221,7 +222,7 @@ def test_params_from_numpy_loads_and_converts():
     net.cast("bfloat16")
     pt.params_from_numpy(net, arrays, ctx=pt.cpu())
     for name, p in net.collect_params().items():
-        assert p.data().dtype == torch.bfloat16
+        assert p.data().dtype == ml_dtypes.bfloat16
         np.testing.assert_allclose(p.data().asnumpy(), arrays[name],
                                    rtol=1e-2, atol=1e-2)
 

@@ -10,9 +10,9 @@ statistics included. Tolerances: f32 within 1e-4 (the reference's XLA
 convolutions and reductions add in another order than torch's), bf16
 within 4e-2 relative L2.
 """
+import ml_dtypes
 import numpy as np
 import pytest
-import torch
 
 import mxnet_tpu as mx
 
@@ -209,7 +209,7 @@ def test_bf16_eval_rounds_where_the_reference_promotes():
         ref(mx.nd.array(x, ctx=mx.cpu()).astype("bfloat16"))
     port.cast("bfloat16")
     got = port(pt.nd.array(x, ctx=pt.cpu()).astype("bfloat16"))
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == ml_dtypes.bfloat16
     ref.cast("float32")
     xb = mx.nd.array(x, ctx=mx.cpu()).astype("bfloat16").astype("float32")
     assert _rel(got.asnumpy(), ref(xb).asnumpy()) <= 4e-2
@@ -244,4 +244,4 @@ def test_params_from_numpy_carries_the_moving_statistics():
         np.testing.assert_array_equal(p.data().asnumpy(), arrays[n])
     port.cast("bfloat16")
     for n in stats:   # BatchNorm stays f32 under a bf16 cast
-        assert port.collect_params()[n].data().dtype == torch.float32
+        assert port.collect_params()[n].data().dtype == np.float32

@@ -47,7 +47,7 @@ def test_saxpy_matches_reference():
         [mx.nd.array(x), mx.nd.array(y)]).asnumpy()
     got = pt.rtc.CudaModule(SRC, plain=PLAIN).get_kernel(
         "saxpy", alpha=2.0).launch([_port(x), _port(y)])
-    assert got.context == pt.cpu() and got.dtype == torch.float32
+    assert got.context == pt.cpu() and got.dtype == np.float32
     np.testing.assert_allclose(got.asnumpy(), ref, rtol=1e-6)
     np.testing.assert_allclose(got.asnumpy(), 2.0 * x + y, rtol=1e-6)
 
@@ -244,7 +244,7 @@ def test_given_signature_and_default_n():
                        "double value, long long n", value=3.0)
     out = k.launch([_port(np.zeros(3, np.float32))], out_shapes=[(2, 5)],
                    out_dtypes=["float64"])
-    assert seen["shape"] == (2, 5) and out.dtype == torch.float64
+    assert seen["shape"] == (2, 5) and out.dtype == np.float64
     np.testing.assert_array_equal(out.asnumpy(), np.full((2, 5), 3.0))
 
 
