@@ -216,6 +216,42 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    each. The rows gain ``launches_per_ptb_step`` and a ``ptb`` entry in
    ``launches_per_compiled_capture``.
 
+13. resume — checkpoints in the reference's file formats
+   (``save_parameters``, ``save_states``, ``nd.save``), written into a
+   temporary directory that is removed at the end. On each path a run
+   of ``RESUME_STEPS`` (N) steps is saved, loaded into a fresh model and
+   Trainer (initialized from another seed) and trained N more, and held
+   bit for bit against 2N steps without a break: every loss, parameter
+   (the BatchNorm moving statistics too) and optimizer state; then step
+   N's files are loaded into the same model and Trainer, whose graphs
+   are captured, and the N steps replayed must agree bit for bit again.
+   (a) ResNet-50 as phase 11 runs it (bf16 AMP, SGD momentum 0.9, batch
+   128 at 224^2, hybridized, the fused SGD step in its graph); the
+   rollback must capture nothing anew, and a planted fault, the states
+   rebound to new tensors while the captured step that reads the old
+   ones is kept, must fail the check. (b) The PTB LSTM at dropout 0.5,
+   hybridized, with its carried state saved by ``nd.save`` and
+   ``mx.random.seed`` called at step N in every run (the dropout counter
+   on the card restarts alike); the last resumed step's graphs must
+   carry phase 12's ``PTB_DROPOUT_LAUNCHES``. (c) BERT-base as phase 5a
+   runs it (f32 parameters under bf16 AMP, the chunked head, LAMB with a
+   ``PolyScheduler``, 32 x 128): three steps, saved and loaded, every
+   parameter and LAMB (mean, var) equal to the saved ones with its
+   dtype, the fresh optimizer's ``num_update`` 0 (as the reference, the
+   blob carries no optimizer), one resumed forward and backward against
+   its plain-version twin within ``AMP_RATIO`` and the resumed step
+   taken, its states then on the card. (d) NAG, RMSProp (plain and
+   centered), Ftrl, SignSGD and AdaGrad train the MNIST MLP
+   ``RESUME_OPT_STEPS`` steps on the card at aggregation width 1 and at
+   its default, saved and loaded after step 2 (the round trip bit for
+   bit), against the port's CPU run within ``OPT_PARITY``; a load of the
+   parameters of one step before the save must fail that check. The
+   kernels of these paths launch outside graphs (counted from 0 just
+   before the phase, read just after; the rows gain
+   ``launches_per_resume``), and one line gives each path's file sizes
+   and its ``save_parameters``, ``save_states``, ``load_parameters`` and
+   ``load_states`` times beside the card's name and power limit.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3240,8 +3276,8 @@ COMPILED_STEPS = 3
 # distance from its f32 twin as the yardstick (as AMP_RATIO): the first
 # step is the eager warm-up, the second captures, the third replays
 # only. The graphs replay the eager step's kernels, so all but the
-# embedding tables' gradients (index_add_'s atomics, whose order changes
-# between any two runs, eager or not) come out bit for bit: on an H100
+# embedding tables' gradients (then index_add_'s atomics, whose order
+# changed between any two runs, eager or not) came out bit for bit: on an H100
 # 462-465 of 468 per seed, the largest ratio 6.19e-05, 8.48e-05,
 # 5.22e-05, 4.42e-05 and 7.1e-05 for seeds 0-4; the limit is twice the
 # largest correct reading.
@@ -4212,6 +4248,491 @@ def phase_compiled_ptb(seed):
     return {"ptb": captured}
 
 
+# -- phase 13: resume -------------------------------------------------------
+# Each path trains RESUME_STEPS (N) steps, saves its parameters and the
+# Trainer's states in the reference's formats, loads them into a fresh
+# model and Trainer, and trains N more; and trains 2N steps without a
+# break. The two runs must agree bit for bit: every loss, parameter (the
+# BatchNorm moving statistics too) and optimizer state.
+RESUME_STEPS = 3
+# the kernels phase 13's paths launch outside graphs: BERT's eager steps
+# and the PTB model's warm-up (ResNet-50's path has none)
+RESUME_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+                  "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+                  "bias_residual_fwd", "dropout")
+# 13.4: the new optimizers on the MNIST MLP, RESUME_OPT_STEPS SGD-style
+# steps on the card (TF32 off) against the port's CPU run of the same
+# steps from the same weights and batches: the largest relative L2
+# distance over the parameters after the last step. OPT_PARITY is twice
+# the largest reading over seeds 0-4 on an H100 at both widths, by
+# optimizer: NAG 1.40e-07-2.16e-07, RMSProp 1.99e-07-4.97e-07 (centered
+# 2.00e-07-5.02e-07), Ftrl 1.26e-07-1.94e-07, AdaGrad up to 2.88e-04
+# (the history starts at 0, so a first step divides by |g| + eps) and
+# SignSGD 0, so bit for bit; the parameters of one step before the save
+# (the control) read 0.044-0.74 (PERF.md §6).
+RESUME_OPT_STEPS = 5
+RESUME_OPTIMIZERS = (
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("rmsprop", {"learning_rate": 0.001, "wd": 1e-4}),
+    ("rmsprop_centered", {"learning_rate": 0.001, "centered": True,
+                          "wd": 1e-4}),
+    ("ftrl", {"learning_rate": 0.1, "lamda1": 1e-4, "wd": 1e-4}),
+    ("signsgd", {"learning_rate": 0.001, "wd": 1e-4}),
+    ("adagrad", {"learning_rate": 0.05, "wd": 1e-4}),
+)
+OPT_PARITY = {"nag": 4.33e-7, "rmsprop": 9.95e-7, "rmsprop_centered": 1.01e-6,
+              "ftrl": 3.89e-7, "signsgd": 0.0, "adagrad": 5.77e-4}
+
+
+def _timed(fn):
+    """Seconds ``fn()`` takes, the card synchronised around it."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _save(tag, tmp, blocks, trainer, report, extra=None):
+    """Save every block's parameters and the Trainer's states under
+    ``tmp``, timed; returns the file names."""
+    import os
+    import mxnet_tpu_torch as mx
+    files = {"params": [os.path.join(tmp, "%s-%d.params" % (tag, i))
+                        for i in range(len(blocks))],
+             "states": os.path.join(tmp, tag + ".states")}
+    t_p = _timed(lambda: [b.save_parameters(f)
+                          for b, f in zip(blocks, files["params"])])
+    t_s = _timed(lambda: trainer.save_states(files["states"]))
+    if extra is not None:
+        files["extra"] = os.path.join(tmp, tag + ".nd")
+        mx.nd.save(files["extra"], extra)
+    report[tag] = {
+        "params_mb": sum(os.path.getsize(f) for f in files["params"]) / 1e6,
+        "states_mb": os.path.getsize(files["states"]) / 1e6,
+        "save_parameters_s": t_p, "save_states_s": t_s}
+    return files
+
+
+def _load(tag, files, blocks, trainer, report):
+    t_p = _timed(lambda: [b.load_parameters(f)
+                          for b, f in zip(blocks, files["params"])])
+    t_s = _timed(lambda: trainer.load_states(files["states"]))
+    report[tag].setdefault("load_parameters_s", t_p)
+    report[tag].setdefault("load_states_s", t_s)
+
+
+def _state_tensors(trainer):
+    """{index: [state tensors]} of a Trainer (None states give [])."""
+    out = {}
+    for i, s in trainer._updater.states.items():
+        flat = list(s) if isinstance(s, tuple) else [s]
+        flat = [x for y in flat for x in (list(y) if isinstance(y, tuple)
+                                          else [y])]
+        out[i] = [x.tensor().detach().clone() for x in flat
+                  if x is not None]
+    return out
+
+
+def _run_state(params, trainer):
+    return ({n: p.data().tensor().detach().clone()
+             for n, p in zip(range(len(params)), params.values())},
+            _state_tensors(trainer))
+
+
+def _bit_equal(tag, got, want):
+    """Hold (losses, (parameters, states)) of a run to another's, bit for
+    bit; returns the names that differ."""
+    import torch
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(a.to(b.device), b)
+    bad = ["loss of step %d" % (i + 1)
+           for i, (a, b) in enumerate(zip(got[0], want[0])) if not same(a, b)]
+    bad += ["parameter %d" % k for k in want[1][0]
+            if not same(got[1][0][k], want[1][0][k])]
+    for i, st in want[1][1].items():
+        g = got[1][1].get(i, [])
+        if len(g) != len(st) or not all(map(same, g, st)):
+            bad.append("state %d" % i)
+    n = len(want[0]) + len(want[1][0]) + len(want[1][1])
+    verdict = (("caught" if bad else "MISSED") if tag.startswith("control")
+               else ("FAIL" if bad else "ok"))
+    print("[resume] %s: %d of %d losses, parameters and states bit for "
+          "bit%s %s" % (tag, n - len(bad), n,
+                        " (differ: %s)" % ", ".join(bad[:4]) if bad else "",
+                        verdict))
+    return bad
+
+
+def _rekey(key, moved):
+    """``key`` with every address in ``moved`` replaced."""
+    if isinstance(key, tuple):
+        return tuple(_rekey(k, moved) for k in key)
+    return moved.get(key, key) if isinstance(key, int) else key
+
+
+@contextlib.contextmanager
+def _rebind_fault(trainer):
+    """The planted fault: ``load_states`` rebinds the updater's states to
+    new tensors and keeps the captured step, which reads the old ones,
+    under the key the new tensors give (what a port whose captured steps
+    did not follow the states would do)."""
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+
+    def rebind(self, loaded):
+        upd = self
+        old = upd.states
+        new = {i: s.as_in_context(mx.gpu(0)) for i, s in loaded.items()}
+        moved = {old[i].tensor().data_ptr(): new[i].tensor().data_ptr()
+                 for i in new if old.get(i) is not None}
+        runners = trainer.optimizer.step_runners
+        for k in list(runners):
+            runners[_rekey(k, moved)] = runners.pop(k)
+        upd.states, upd._unplaced = new, set()
+    with mock.patch.object(type(trainer._updater), "load_state_dict",
+                           rebind):
+        yield
+
+
+def _resume_resnet(seed, tmp, report):
+    """13.1: bench.py's ResNet-50 headline loop compiled (phase 11's);
+    returns nothing, raises on a fault."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, cached_op
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    N = RESUME_STEPS
+    amp.init(target_dtype="bfloat16")
+    try:
+        g = torch.Generator(device=DEV).manual_seed(seed + 41)
+        x = mx.nd.NDArray(torch.randn(RESNET_BATCH, 3, RESNET_SIDE,
+                                      RESNET_SIDE, generator=g, device=DEV))
+        y = mx.nd.NDArray(torch.randint(0, 1000, (RESNET_BATCH,),
+                                        generator=g, device=DEV).float())
+
+        def build(s):
+            autograd.disarm_fused_update()
+            mx.random.seed(s)
+            net = resnet50_v1(prefix="resnet50r_")
+            net.initialize(init=mx.init.MSRAPrelu())
+            with torch.no_grad():
+                net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE)))
+            net.hybridize(static_alloc=True, static_shape=True)
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            loss_fn.hybridize(static_alloc=True, static_shape=True)
+            trainer = mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}, kvstore="device")
+            return net, loss_fn, trainer
+
+        def steps(net, loss_fn, trainer, n):
+            losses = []
+            for _ in range(n):
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                trainer.step(RESNET_BATCH)
+                losses.append(loss.tensor().detach().clone())
+            return losses, _run_state(net.collect_params(), trainer)
+
+        net, lf, tr = build(seed)
+        whole = steps(net, lf, tr, 2 * N)
+        _free_graphs(net, lf)
+        del net, lf, tr
+        net, lf, tr = build(seed)
+        steps(net, lf, tr, N)
+        files = _save("resnet", tmp, [net], tr, report)
+        _free_graphs(net, lf)
+        del net, lf, tr
+        net, lf, tr = build(seed + 1000)
+        _load("resnet", files, [net], tr, report)
+        resumed = steps(net, lf, tr, N)
+        want = (whole[0][N:], whole[1])
+        bad = _bit_equal("resnet: %d steps, saved, loaded into a fresh net "
+                         "and Trainer, %d more vs %d uninterrupted"
+                         % (N, N, 2 * N), resumed, want)
+        # the rollback: step N's files into this net and Trainer, whose
+        # graphs (the fused SGD step's too) are captured
+        captures = []
+        real = cached_op._capture
+        from unittest import mock
+        with mock.patch.object(cached_op, "_capture",
+                               lambda *a, **k: (captures.append(1),
+                                                real(*a, **k))[1]):
+            _load("resnet", files, [net], tr, report)
+            rolled = steps(net, lf, tr, N)
+        bad += _bit_equal("resnet: step %d's files loaded into the captured "
+                          "net and Trainer, %d replayed steps (%d new "
+                          "captures)" % (N, N, len(captures)), rolled, want)
+        if captures:
+            bad.append("the rollback captured %d graphs anew"
+                       % len(captures))
+        if bad:
+            raise SmokeFailure("resumed ResNet-50 differs from the "
+                               "uninterrupted run: %s" % bad[:4])
+        # control: the states rebound, the captured step kept
+        with _rebind_fault(tr):
+            _load("resnet", files, [net], tr, report)
+            faulty = steps(net, lf, tr, N)
+        if not _bit_equal("control: states rebound, captured step kept",
+                          faulty, want):
+            raise SmokeFailure("control: the resume check passed states "
+                               "rebound under a captured step")
+        _free_graphs(net, lf)
+    finally:
+        amp.reset()
+
+
+def _resume_ptb(seed, tmp, report, by_graph):
+    """13.2: the PTB LSTM at dropout 0.5, hybridized (phase 12's net and
+    step); the dropout counter reseeded at step N in every run."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    N = RESUME_STEPS
+    gpu = mx.gpu(0)
+    windows = [tuple(mx.nd.array(a, ctx=gpu) for a in w)
+               for w in ptb_stream(seed, 2 * N)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def build(s):
+        autograd.disarm_fused_update()
+        net = _ptb_net(s, PTB_DROPOUT)
+        net.hybridize(static_alloc=True, static_shape=True)
+        return net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                     {"learning_rate": PTB_LR})
+
+    def steps(net, trainer, hidden, ks, replayed=None):
+        losses = []
+        for k in ks:
+            if k == N:
+                mx.random.seed(seed + 13)
+            with (_replayed_launches(by_graph) if replayed is not None
+                  and k == ks[-1] else contextlib.nullcontext()) as got:
+                loss, hidden, _ = ptb_step(mx, net, trainer, loss_fn,
+                                           *windows[k], hidden)
+            if got is not None:
+                replayed.update(got)
+            losses.append(loss.tensor().detach().clone())
+        return losses, hidden
+
+    net, tr = build(seed)
+    losses, _ = steps(net, tr, net.begin_state(batch_size=PTB_BATCH,
+                                               ctx=gpu), range(2 * N))
+    want = (losses[N:], _run_state(net.collect_params(), tr))
+    _free_graphs(net)
+    del net, tr
+    net, tr = build(seed)
+    _, hidden = steps(net, tr, net.begin_state(batch_size=PTB_BATCH,
+                                               ctx=gpu), range(N))
+    files = _save("ptb", tmp, [net], tr, report, extra=hidden)
+    _free_graphs(net)
+    del net, tr
+    net, tr = build(seed + 1000)
+    _load("ptb", files, [net], tr, report)
+    replayed = collections.Counter()
+    with _capture_launches(by_graph):
+        losses, _ = steps(net, tr, mx.nd.load(files["extra"], ctx=gpu),
+                          range(N, 2 * N), replayed)
+    bad = _bit_equal("ptb: %d steps, saved with the carried state, loaded "
+                     "into a fresh net, %d more vs %d uninterrupted"
+                     % (N, N, 2 * N), (losses, _run_state(
+                         net.collect_params(), tr)), want)
+    _load("ptb", files, [net], tr, report)
+    losses, _ = steps(net, tr, mx.nd.load(files["extra"], ctx=gpu),
+                      range(N, 2 * N))
+    bad += _bit_equal("ptb: step %d's files loaded into the captured net, "
+                      "%d replayed steps" % (N, N), (losses, _run_state(
+                          net.collect_params(), tr)), want)
+    print("[resume] ptb: the last resumed step replayed graphs carrying %s "
+          "(phase 12's steady step: %d dropout)"
+          % (dict(replayed) or "none", PTB_DROPOUT_LAUNCHES))
+    if dict(replayed) != {"dropout": PTB_DROPOUT_LAUNCHES}:
+        bad.append("replayed launches %s" % dict(replayed))
+    _free_graphs(net)
+    if bad:
+        raise SmokeFailure("resumed PTB run differs from the uninterrupted "
+                           "run: %s" % bad[:4])
+
+
+def _resume_bert(seed, tmp, report):
+    """13.3: BERT-base pretrained as phase 5a runs it: 3 LAMB steps under
+    a PolyScheduler, saved, loaded into a fresh model and Trainer."""
+    import math
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    amp.init(target_dtype="bfloat16")
+    try:
+        batch = _train_batch(seed)
+
+        def build(s):
+            net, mlm, params = _build_amp(s)
+            sched = mx.lr_scheduler.PolyScheduler(base_lr=1e-3, **AMP_POLY)
+            return net, mlm, params, mx.gluon.Trainer(params, "lamb", {
+                "learning_rate": 1e-3, "wd": 0.01, "lr_scheduler": sched})
+
+        net, mlm, params, tr = build(seed)
+        for _ in range(3):
+            _amp_step(net, mlm, tr, batch)
+        saved = _run_state(params, tr)
+        dtypes = {i: [t.dtype for t in st] for i, st in saved[1].items()}
+        files = _save("bert", tmp, [net, mlm], tr, report)
+        del net, mlm, params, tr
+        torch.cuda.empty_cache()
+        net, mlm, params, tr = build(seed + 1000)
+        _load("bert", files, [net, mlm], tr, report)
+        got = _run_state(params, tr)
+        bad = _bit_equal("bert: %d parameters and %d LAMB (mean, var) "
+                         "loaded vs saved" % (len(saved[0]), len(saved[1])),
+                         ([], got), ([], saved))
+        if {i: [t.dtype for t in st] for i, st in got[1].items()} != dtypes:
+            bad.append("a state's dtype changed")
+        print("[resume] bert: the fresh optimizer's num_update is %d (the "
+              "reference restarts it too)" % tr.optimizer.num_update)
+        if tr.optimizer.num_update != 0:
+            bad.append("num_update %d" % tr.optimizer.num_update)
+        if bad:
+            raise SmokeFailure("BERT-base states did not load as saved: %s"
+                               % bad[:4])
+        # one resumed step against its plain-version twin
+        kern = _fwd_bwd(net, mlm, params, batch, seed)
+        with _plain_kernels():
+            plain = _fwd_bwd(net, mlm, params, batch, seed)
+            amp.reset()
+            try:
+                with _plain_kernels(f32_twin=True), _no_tf32():
+                    twin = _fwd_bwd(net, mlm, params, batch, seed)
+            finally:
+                amp.init(target_dtype="bfloat16")
+        checks = _train_compare("resume parity", kern, plain, twin,
+                                limit=AMP_RATIO)
+        worst = max(r for r, _ in checks)
+        print("[resume] bert: the resumed step against its plain twin: "
+              "largest of %d ratios %.3g (limit %g)"
+              % (len(checks), worst, AMP_RATIO))
+        per_position = _amp_step(net, mlm, tr, batch)
+        loss = float(per_position.tensor().detach().mean())
+        on_card = all(t.is_cuda for st in _state_tensors(tr).values()
+                      for t in st)
+        print("[resume] bert: resumed step loss %.6f (step 4 of the run), "
+              "states on the card after it: %s" % (loss, on_card))
+        if any(f for _, f in checks) or not math.isfinite(loss) or \
+                not on_card:
+            raise SmokeFailure("the resumed BERT step failed its checks")
+        del net, mlm, params, tr, kern, plain, twin
+        torch.cuda.empty_cache()
+    finally:
+        amp.reset()
+
+
+def resume_optimizer(seed, name, kw, aggregate, tmp, fault=False):
+    """13.4: the MNIST MLP trained RESUME_OPT_STEPS steps by one new
+    optimizer on the card (saved and loaded into a fresh net and Trainer
+    after step 2, the round trip held bit for bit) and on the CPU;
+    returns the largest relative L2 distance over the parameters.
+    ``fault`` loads the parameters of one step before the save."""
+    import os
+    import mxnet_tpu_torch as mx
+    X, Y, _, _ = mnist_synthetic()
+    batches = [(X[i * MNIST_BATCH:(i + 1) * MNIST_BATCH],
+                Y[i * MNIST_BATCH:(i + 1) * MNIST_BATCH])
+               for i in range(RESUME_OPT_STEPS)]
+    mx.random.seed(seed)
+    init = mnist_mlp(mx, False)
+    init.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    init(mx.nd.array(X[:1], ctx=mx.cpu()))
+    arrays = {n: p.data().asnumpy() for n, p in init.collect_params().items()}
+    opt = "rmsprop" if name.startswith("rmsprop") else name
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def fresh(ctx, values):
+        net = mnist_mlp(mx, False)
+        mx.params_from_numpy(net, values, ctx=ctx)
+        return net, mx.gluon.Trainer(net.collect_params(), opt, dict(kw))
+
+    def run(ctx, resume_at=None):
+        net, tr = fresh(ctx, arrays)
+        prev = None
+        for k, (data, label) in enumerate(batches):
+            if k == resume_at:
+                net.save_parameters(os.path.join(tmp, "mlp.params"))
+                tr.save_states(os.path.join(tmp, "mlp.states"))
+                before = _run_state(net.collect_params(), tr)
+                net, tr = fresh(ctx, prev if fault else arrays)
+                if not fault:
+                    net.load_parameters(os.path.join(tmp, "mlp.params"))
+                tr.load_states(os.path.join(tmp, "mlp.states"))
+                after = _run_state(net.collect_params(), tr)
+                if not fault and _bit_equal("%s round trip" % name,
+                                            ([], after), ([], before)):
+                    raise SmokeFailure("%s: the saved and loaded MLP "
+                                       "differs" % name)
+            prev = {n: p.data().asnumpy()
+                    for n, p in net.collect_params().items()}
+            _mnist_step(net, tr, loss_fn, mx.nd.array(data, ctx=ctx),
+                        mx.nd.array(label, ctx=ctx))
+        return {n: p.data().tensor().detach().float().cpu()
+                for n, p in net.collect_params().items()}
+
+    var = "MXNET_OPTIMIZER_AGGREGATION_SIZE"
+    old_width = os.environ.get(var)
+    os.environ[var] = str(aggregate)
+    try:
+        with _no_tf32():
+            card = run(mx.gpu(0), resume_at=2)
+        host = run(mx.cpu())
+    finally:
+        if old_width is None:
+            del os.environ[var]
+        else:
+            os.environ[var] = old_width
+    return max((_rel(card[n], host[n]), n) for n in host)
+
+
+def _resume_optimizers(seed, tmp):
+    """13.4: every new optimizer at aggregation width 1 and at its
+    default, card against CPU within OPT_PARITY; a stale load must fail
+    it."""
+    for name, kw in RESUME_OPTIMIZERS:
+        for agg in (1, 4096):
+            dist, where = resume_optimizer(seed, name, kw, agg, tmp)
+            limit = OPT_PARITY[name]
+            print("[resume] %s at width %d: card vs CPU after %d steps "
+                  "%.3g (%s), limit %g %s" % (
+                      name, agg, RESUME_OPT_STEPS, dist, where, limit,
+                      "ok" if dist <= limit else "FAIL"))
+            if dist > limit:
+                raise SmokeFailure("%s on the card differs from the CPU run "
+                                   "by %.3g (limit %g)" % (name, dist, limit))
+        dist, where = resume_optimizer(seed, name, kw, 4096, tmp, fault=True)
+        caught = dist > OPT_PARITY[name]
+        print("[control] %s, the parameters of one step before the save "
+              "loaded: %.3g (%s) %s" % (name, dist, where,
+                                        "caught" if caught else "MISSED"))
+        if not caught:
+            raise SmokeFailure("control: %s's card-vs-CPU check passed a "
+                               "stale load" % name)
+
+
+def phase_resume(seed, card_line):
+    """13: resume every trained path from checkpoints in the reference's
+    formats (files in a temporary directory, removed at the end); prints
+    the file sizes and save and load times."""
+    import tempfile
+    by_graph, report = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _resume_resnet(seed, tmp, report)
+        _resume_ptb(seed, tmp, report, by_graph)
+        _resume_bert(seed, tmp, report)
+        _resume_optimizers(seed, tmp)
+    print("[resume] checkpoint files (MB) and host-clock times (s) (%s): "
+          "%s" % (card_line, json.dumps(report)))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4242,6 +4763,7 @@ def main(argv=None):
         phase_parity_attention(args.seed)
         errs["dual_bwd"] = phase_parity_resnet(args.seed)
         from mxnet_tpu_torch import cached_op
+        from mxnet_tpu_torch.ops import cuda_build
         # phases 4 and 10 serve through the eager session; phase 11 is
         # its compiled twin
         with cached_op.eager():
@@ -4292,8 +4814,18 @@ def main(argv=None):
                                         args.reps)
         compiled.update(phase_compiled_ptb(args.seed))
         rows.append(ptb_row)
+        cuda_build.reset_launch_counts()
+        phase_resume(args.seed, card_line)
+        resume_counts = cuda_build.launch_counts()
+        missing = [k for k in RESUME_KERNELS if not resume_counts.get(k)]
+        print("[resume] kernel launches in phase 13: %s" % {
+            k: v for k, v in resume_counts.items() if v})
+        if missing:
+            raise SmokeFailure("phase 13 launched no %s" % missing)
         for r in rows:
             r["launches_per_ptb_step"] = ptb_counts.get(
+                r.get("kernel", r["name"]), 0)
+            r["launches_per_resume"] = resume_counts.get(
                 r.get("kernel", r["name"]), 0)
             r["launches_per_compiled_capture"] = {
                 path: c.get(r.get("kernel", r["name"]), 0)

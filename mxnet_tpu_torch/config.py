@@ -65,6 +65,11 @@ define("MXNET_SERVE_BUCKETS", str, "",
        "Shape-bucket ladder for InferenceSession (serve/bucketing.py): "
        "'b1,b2,...' batch buckets, optionally ';s1,s2,...' sequence "
        "buckets. Empty = a power-of-two ladder up to max_batch/max_seq.")
+define("MXNET_OPTIMIZER_AGGREGATION_SIZE", int, 4096,
+       "Multi-tensor update width (the optimizer's aggregate_num): "
+       "update_multi takes its parameters in chunks of this many, one "
+       "multi-tensor op a chunk (0 or less: one chunk). At 1 the Trainer "
+       "updates each parameter alone and arms no fused SGD step.")
 define("MXNET_FUSED_BACKWARD", bool, True,
        "On, a backward() whose tape holds only hybridized blocks' nodes "
        "runs as one captured graph over all of them (cached_op.py), and "

@@ -14,7 +14,13 @@ the card, the same function run eagerly on the CPU, one tape node under
 ``autograd.record()``. Only the outermost active block captures; its
 children run eagerly inside its call. ``hybridize()`` again, ``cast`` and
 ``initialize(force_reinit=True)`` drop the cached op, whose graphs would
-read the old parameters' memory.
+read the old parameters' memory; ``load_parameters`` writes into that
+memory, so the graphs stay and read the loaded values.
+
+``save_parameters``/``load_parameters`` use the reference's format: the
+NDArray container of ``nd.save`` keyed by structural names (``0.weight``,
+``1.running_mean``, ...), so a file written by either package loads in
+the other.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from collections import OrderedDict
 from typing import Dict, List, Optional
 
 from .. import cached_op as _cached_op
+from .. import ndarray as nd
+from ..context import cpu, current_context
 from ..ndarray import NDArray
 from ..ops import F as _F
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
@@ -167,6 +175,77 @@ class Block:
 
     def zero_grad(self):
         self.collect_params().zero_grad()
+
+    def _structural_params(self, prefix="") -> "OrderedDict[str, Parameter]":
+        """The parameters by structural name: the child attribute names
+        joined by '.', then the name without the block's prefix (ref:
+        Block._collect_params_with_prefix; the save_parameters format,
+        which does not change when prefixes are numbered anew)."""
+        ret = OrderedDict()
+        for name, p in self._params.items():
+            ret[prefix + _strip_prefix(name, self._prefix)] = p
+        for cname, child in self._children.items():
+            ret.update(child._structural_params(prefix + cname + "."))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """``nd.save`` of every parameter by structural name; with
+        ``deduplicate`` a shared parameter is written once, under its
+        first name (ref: save_parameters)."""
+        arg_dict, seen = {}, set()
+        for name, param in self._structural_params().items():
+            if deduplicate and id(param) in seen:
+                continue
+            seen.add(id(param))
+            arg_dict[name] = param.data()
+        nd.save(filename, arg_dict)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from ``filename`` (ref: load_parameters).
+        A name resolves as a structural name, else a full parameter
+        name, else a name without this block's prefix. Values are
+        written into the parameters' arrays, converted to their dtypes
+        (so captured graphs that read them stay valid); a parameter
+        whose shape was deferred takes the file's. ``ctx`` moves the
+        parameters there first. ``cast_dtype`` and ``dtype_source`` are
+        accepted and change nothing, as in the reference."""
+        loaded = nd.load(filename, ctx=cpu())
+        params = self._structural_params()
+        full_names = self.collect_params()
+        resolved = {}
+        for k, v in loaded.items():
+            if k in params:
+                resolved[k] = (params[k], v)
+            elif k in full_names:
+                resolved[k] = (full_names[k], v)
+            elif self._prefix + k in full_names:
+                resolved[k] = (full_names[self._prefix + k], v)
+            elif not ignore_extra:
+                raise ValueError("Parameter %s in file %s unknown to block"
+                                 % (k, filename))
+        if not allow_missing:
+            matched = {id(p) for p, _ in resolved.values()}
+            for name, p in params.items():
+                if id(p) not in matched:
+                    raise AssertionError("Parameter %s missing in file %s"
+                                         % (name, filename))
+        for p, data in resolved.values():
+            if p._data is None and p._deferred_init is None:
+                p._shape = tuple(data.shape)
+                p.initialize(ctx=ctx or [current_context()])
+            elif p._deferred_init is not None:
+                p._shape = tuple(data.shape)
+                if ctx is not None:
+                    p.reset_ctx(ctx)
+                p._finish_deferred_init()
+            elif ctx is not None:
+                p.reset_ctx(ctx)
+            p.set_data(data)
+
+    save_params = save_parameters
+    load_params = load_parameters
 
     def _clear_cached_op(self):
         """Drop this block's and its children's captured graphs."""

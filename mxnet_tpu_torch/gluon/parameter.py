@@ -16,6 +16,8 @@ Reading a gradient (``grad``, ``list_grad``) first runs a backward that
 an armed Trainer deferred (:func:`mxnet_tpu_torch.autograd.
 flush_all_pending`). Inside a hybridized block's call,
 :func:`substitute` makes ``data`` return the CachedOp's stand-ins.
+``ParameterDict.save``/``load`` write and read the parameters by name
+in the reference's NDArray file format (``nd.save``).
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ from typing import Dict, List, Optional
 import torch
 
 from ..base import MXNetError, torch_dtype
-from ..context import Context, current_context
+from ..context import Context, cpu, current_context
 from .. import autograd
 from .. import initializer as init_mod
+from .. import ndarray as nd
 from ..ndarray import NDArray, array, zeros
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
@@ -231,17 +234,40 @@ class Parameter:
 
     def set_data(self, data):
         """Copy ``data`` (NDArray, tensor or numpy array) into every
-        context's copy, converted to this parameter's dtype."""
+        context's copy, converted to this parameter's dtype; the arrays
+        keep their storage."""
         self.shape = tuple(data.shape)
         if self._data is None:
             if self._deferred_init is None:
                 raise RuntimeError("Parameter %s not initialized" % self.name)
             self._shape = tuple(data.shape)
             self._finish_deferred_init()
+        if isinstance(data, NDArray):
+            src = data.tensor()
+        elif isinstance(data, torch.Tensor):
+            src = data
+        else:
+            src = array(data, ctx=cpu(), dtype=self.dtype).tensor()
         with torch.no_grad():
-            for c, d in self._data.items():
-                src = array(data, ctx=c, dtype=self.dtype)
-                d.tensor().copy_(src.tensor())
+            for d in self._data.values():
+                d.tensor().copy_(src.detach())
+
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (a Context or a list of them),
+        with fresh zero gradients (ref: reset_ctx). On the contexts it
+        already has, nothing moves: the gradients are zeroed in place,
+        so graphs that read the arrays stay valid."""
+        ctx = [ctx] if isinstance(ctx, Context) else list(ctx)
+        if self._data is not None:
+            if list(self._data) == ctx:
+                self.zero_grad()
+                return
+            data = next(iter(self._data.values()))
+            self._data = OrderedDict((c, data.copyto(c)) for c in ctx)
+            self._init_grad()
+        elif self._deferred_init is not None:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx, default_init)
 
     def _load(self, data, ctx_list: List[Context]):
         """Take ``data`` as this parameter's value on ``ctx_list``
@@ -354,3 +380,47 @@ class ParameterDict:
         for p in self.values():
             setattr(p, name, value)
 
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def list_ctx(self):
+        s = set()
+        for p in self.values():
+            if p._data is not None:
+                s.update(p.list_ctx())
+        return list(s)
+
+    def save(self, fname, strip_prefix=""):
+        """``nd.save`` of every parameter by name, ``strip_prefix`` cut
+        from each (ref: ParameterDict.save)."""
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError("Parameter %s does not start with prefix %s"
+                                 % (param.name, strip_prefix))
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        nd.save(fname, arg_dict)
+
+    def load(self, fname, ctx=None, allow_missing=False, ignore_extra=False,
+             restore_prefix=""):
+        """Set every parameter from ``fname``, its names given
+        ``restore_prefix`` (ref: ParameterDict.load); with ``ctx`` the
+        parameters move there first."""
+        arg_dict = nd.load(fname, ctx=cpu())
+        if restore_prefix:
+            arg_dict = {restore_prefix + k: v for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise AssertionError("Parameter %s missing in file %s"
+                                         % (name, fname))
+        for name, data in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise ValueError("Parameter %s in file %s is unknown"
+                                     % (name, fname))
+                continue
+            if ctx is not None:
+                self._params[name].reset_ctx(ctx)
+            self._params[name].set_data(data)

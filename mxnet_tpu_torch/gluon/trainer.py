@@ -4,13 +4,21 @@
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``scale / batch_size`` and applies one update to every parameter whose
 ``grad_req`` is not ``'null'``: through one ``update_multi`` call when
-there is more than one parameter (the reference's default aggregation),
-else through the one-tensor ``update``. With one context there is nothing to reduce, as in the reference,
-which then runs no kvstore either.
+the optimizer's ``aggregate_num`` (``MXNET_OPTIMIZER_AGGREGATION_SIZE``)
+is above 1 and there is more than one parameter, else through the
+one-tensor ``update`` of each, as in the reference. With one context
+there is nothing to reduce, as in the reference, which then runs no
+kvstore either.
+
+``save_states``/``states_blob`` write the updater's states blob (a
+pickle of ``{index: state}``, the reference's format) and
+``load_states``/``load_states_blob`` read one, either package's; the
+optimizer is not in the blob, so its update counters stay this
+Trainer's (a fresh Trainer restarts them, as the reference's does).
 
 With ``MXNET_TRAINER_FUSED_UPDATE`` (on by default) a Trainer whose
 optimizer is exactly ``SGD``, without ``multi_precision``, with every
-``grad_req`` ``write`` or ``null`` and more than one parameter arms
+``grad_req`` ``write`` or ``null`` and ``aggregate_num`` above 1 arms
 :mod:`mxnet_tpu_torch.autograd` after its first step: the next backward
 over a tape of hybridized calls is stashed, and ``step`` runs it with the
 SGD update appended, as one captured graph on the card (ref:
@@ -144,27 +152,27 @@ class Trainer:
 
     def _fused_update_eligible(self):
         """The reference's ladder on the port's terms: the flag (and the
-        fused backward it rides on), exactly SGD, no masters, every
-        grad_req write or null, and the update_multi path (more than one
-        parameter); one context and no kvstore hold by construction."""
+        fused backward it rides on), exactly SGD, no masters, an
+        aggregation width above 1, every grad_req write or null; one
+        context and no kvstore hold by construction."""
         if not (_cfg("MXNET_TRAINER_FUSED_UPDATE") and
                 _cfg("MXNET_FUSED_BACKWARD")):
             return False
         opt = self._optimizer
         if type(opt) is not opt_mod.SGD or opt.multi_precision:
             return False
-        if any(p.grad_req not in ("null", "write") for p in self._params):
+        if opt.aggregate_num <= 1:
             return False
-        return sum(1 for p in self._params
-                   if p.grad_req != "null" and p._data is not None) > 1
+        return all(p.grad_req in ("null", "write") for p in self._params)
 
     def _rearm_fused_update(self):
         if self._fused_update_eligible():
-            autograd.arm_fused_update(
-                self, [id(p.data()) for p in self._params
-                       if p.grad_req != "null" and p._data is not None])
-            self._fused_armed = True
-            return
+            leaf_ids = [id(p.data()) for p in self._params
+                        if p.grad_req != "null" and p._data is not None]
+            if leaf_ids:
+                autograd.arm_fused_update(self, leaf_ids)
+                self._fused_armed = True
+                return
         if self._fused_armed:
             autograd.disarm_fused_update(self)
         self._fused_armed = False
@@ -181,10 +189,42 @@ class Trainer:
 
     def _update(self):
         items = self._items()
-        if len(items) > 1:
+        if self._optimizer.aggregate_num > 1 and len(items) > 1:
             self._updater.update_multi([i for i, _, _ in items],
                                        [g for _, g, _ in items],
                                        [w for _, _, w in items])
         else:
             for i, grad, arr in items:
                 self._updater(i, grad, arr)
+
+    # ------------------------------------------------------------------
+    # the optimizer's states (ref: trainer.py :: save_states ...)
+    # ------------------------------------------------------------------
+    def save_states(self, fname):
+        """Write :meth:`states_blob` to ``fname``."""
+        with open(fname, "wb") as f:
+            f.write(self.states_blob())
+
+    def states_blob(self) -> bytes:
+        """The updater's states, pickled as ``{index: state}`` without the
+        optimizer (``get_states(dump_optimizer=False)``)."""
+        return self._updater.get_states(dump_optimizer=False)
+
+    def load_states(self, fname):
+        """Read a states file written by either package."""
+        with open(fname, "rb") as f:
+            self.load_states_blob(f.read())
+
+    def load_states_blob(self, states: bytes):
+        """Load a states blob. A blob the reference wrapped with its
+        quantized-sync residuals (``__mx_quant__``, ``__mx_zero_quant__``)
+        loads as its plain states and the residuals are dropped, as the
+        reference does on a path without quantization. The optimizer
+        stays this Trainer's."""
+        obj = opt_mod.loads_states(states)
+        if isinstance(obj, dict) and obj.get("__mx_quant__"):
+            obj = opt_mod.loads_states(obj["updater"])
+        elif isinstance(obj, dict) and obj.get("__mx_zero_quant__"):
+            obj = obj["states"]
+        self._updater.load_state_dict(obj)
+        self._updater.optimizer = self._optimizer

@@ -34,7 +34,8 @@ from ..context import Context, context_of, current_context
 from ..ops import Operator, _note, get_op
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "to_tensor",
-           "host_tensor", "concatenate", "waitall"]
+           "host_tensor", "host_numpy", "host_copies", "concatenate",
+           "waitall"]
 
 
 class NDArray:
@@ -136,9 +137,10 @@ class NDArray:
         return self._t.shape[0]
 
     def __reduce__(self):
-        # pickle through the host, as the reference does
-        return (_unpickle, (self.asnumpy(), self._ctx.device_type,
-                            self._ctx.device_id))
+        # pickle through the host in the array's own dtype, as the
+        # reference does
+        return (_unpickle, (host_numpy(self._t.detach().cpu()),
+                            self._ctx.device_type, self._ctx.device_id))
 
     # -- indexing ------------------------------------------------------------
     @property
@@ -498,11 +500,39 @@ def array(source_array, ctx: Optional[Context] = None, dtype=None) -> NDArray:
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
     """A CPU tensor from a numpy array, bfloat16 arrays (ml_dtypes)
     included."""
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray alone would make a 0-d array 1-d
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(arr.copy())
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """The numpy array sharing a CPU tensor's memory, in its dtype
+    (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np_dtype(torch.bfloat16))
+    return t.numpy()
+
+
+def host_copies(tensors: Sequence[torch.Tensor]) -> list:
+    """CPU tensors holding the values of ``tensors``: a card's tensors
+    copied into page-locked memory asynchronously, then one wait for
+    each card they lie on; a CPU tensor is returned as it is."""
+    out, devices = [], set()
+    for t in tensors:
+        t = t.detach()
+        if t.device.type == "cpu":
+            out.append(t)
+            continue
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+        devices.add(t.device)
+    for d in devices:
+        torch.cuda.current_stream(d).synchronize()
+    return out
 
 
 def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:

@@ -239,6 +239,29 @@ def _fill_value(dtype):
     return torch.iinfo(dtype).min
 
 
+class _GatherRows(torch.autograd.Function):
+    """``weight.index_select(0, idx)`` whose backward adds the rows'
+    gradients with ``index_put_(accumulate=True)``, which sorts the ids
+    and adds each table row's contributions in one order, the same from
+    run to run (``index_select``'s own backward, ``index_add_``, adds
+    them with atomics on the card, and ``F.embedding``'s does too past a
+    few thousand ids)."""
+
+    @staticmethod
+    def forward(ctx, weight, idx):
+        ctx.save_for_backward(idx)
+        ctx.weight_shape = weight.shape
+        return weight.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        dw = torch.zeros(ctx.weight_shape, dtype=grad.dtype,
+                         device=grad.device)
+        dw.index_put_((idx,), grad, accumulate=True)
+        return dw, None
+
+
 @register("Embedding")
 def embedding(data, weight, *, input_dim, output_dim, dtype="float32",
               sparse_grad=False):
@@ -248,12 +271,13 @@ def embedding(data, weight, *, input_dim, output_dim, dtype="float32",
     gives a NaN row whose gradient goes nowhere, as the reference's
     ``jnp.take`` does: the ids are clamped, the rows gathered, then the
     out-of-range rows replaced (no device assert, no host sync). The
-    weight's gradient is the scatter-add of the rows' gradients."""
+    weight's gradient is the scatter-add of the rows' gradients, the
+    same from run to run (:class:`_GatherRows`)."""
     idx = data.to(torch.int64)
     n = weight.shape[0]
     valid = (idx >= -n) & (idx < n)
     safe = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
-    rows = weight.index_select(0, safe.reshape(-1)).reshape(
+    rows = _GatherRows.apply(weight, safe.reshape(-1)).reshape(
         tuple(idx.shape) + (weight.shape[1],))
     fill = torch.full((), _fill_value(weight.dtype), dtype=weight.dtype,
                       device=weight.device)

@@ -1,8 +1,12 @@
 """Optimizer-update operators of SGD, LAMB, Adam and AdamW, with their
-multi-tensor and multi-precision (``mp_``, f32 master weight) forms, and
-``multi_all_finite`` for the AMP loss scaler (counterpart of
+multi-tensor and multi-precision (``mp_``, f32 master weight) forms,
+those of NAG, RMSProp (plain and centered), Ftrl, SignSGD, FTML and
+grouped AdaGrad, ``multi_all_finite`` for the AMP loss scaler, and the
+multi-tensor norms and LARS scaling (counterpart of
 ``mxnet_tpu/ops/optimizer_ops.py``; ref: src/operator/optimizer_op.cc,
-contrib/multi_lamb.cc, contrib/adamw.cc).
+contrib/multi_lamb.cc, contrib/adamw.cc, contrib/multi_lars.cc). The
+reference's ``_sparse_adagrad_update`` waits with ``ndarray/sparse.py``
+(ROADMAP.md queue 1, item 16).
 
 The reference computes these in XLA, outside any Pallas kernel, so here
 they are plain PyTorch elementwise code. Each returns the new weight
@@ -497,3 +501,182 @@ def multi_all_finite(*arrays, num_arrays=1, init_output=True):
     contrib multi_all_finite, the AMP loss scaler's check)."""
     flags = torch.stack([torch.isfinite(a).all() for a in arrays])
     return flags.all().to(torch.float32).reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# NAG, RMSProp, Ftrl, SignSGD, FTML and grouped AdaGrad (one tensor each)
+# ---------------------------------------------------------------------------
+@register("nag_mom_update")
+def nag_mom_update(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """mom' = momentum * mom + g; w' = w - lr * (g + momentum * mom')."""
+    g = _apply_wd(grad, weight, wd, rescale_grad, clip_gradient)
+    new_mom = _weak(momentum, mom) * mom + g
+    step = g + _weak(momentum, new_mom) * new_mom
+    return weight - _weak(lr, step) * step, new_mom
+
+
+def _clip_weights(w, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        c = _weak(clip_weights, w)
+        w = w.clamp(-c, c)
+    return w
+
+
+@register("rmsprop_update")
+def rmsprop_update(weight, grad, n, *, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0, clip_weights=-1.0):
+    """n' = gamma1 * n + (1 - gamma1) * g^2; w' = w - lr * g /
+    sqrt(n' + epsilon), clipped to clip_weights (> 0)."""
+    g = _apply_wd(grad, weight, wd, rescale_grad, clip_gradient)
+    new_n = _weak(gamma1, n) * n + _weak(1 - gamma1, g) * g.square()
+    step = _weak(lr, g) * g / (new_n + _weak(epsilon, new_n)).sqrt()
+    return _clip_weights(weight - step, clip_weights), new_n
+
+
+@register("rmspropalex_update")
+def rmspropalex_update(weight, grad, n, g, delta, *, lr, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0, clip_weights=-1.0):
+    """Centered RMSProp (Graves 2013) with states (n, g, delta); returns
+    (w', n', g', delta')."""
+    gr = _apply_wd(grad, weight, wd, rescale_grad, clip_gradient)
+    new_n = _weak(gamma1, n) * n + _weak(1 - gamma1, gr) * gr.square()
+    new_g = _weak(gamma1, g) * g + _weak(1 - gamma1, gr) * gr
+    den = (new_n - new_g.square() + _weak(epsilon, new_n)).sqrt()
+    new_delta = _weak(gamma2, delta) * delta - _weak(lr, gr) * gr / den
+    return (_clip_weights(weight + new_delta, clip_weights), new_n, new_g,
+            new_delta)
+
+
+@register("ftrl_update")
+def ftrl_update(weight, grad, z, n, *, lr, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    """FTRL-proximal; returns (w', z', n'): w' is 0 where |z'| <=
+    lamda1."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    new_n = n + g.square()
+    sigma = (new_n.sqrt() - n.sqrt()) / _weak(lr, n)
+    new_z = z + g - sigma * weight
+    den = (_weak(beta, new_n) + new_n.sqrt()) / _weak(lr, new_n) + \
+        _weak(wd, new_n)
+    shrunk = -(new_z - new_z.sign() * _weak(lamda1, new_z)) / den
+    new_w = torch.where(new_z.abs() <= _weak(lamda1, new_z),
+                        torch.zeros_like(weight), shrunk)
+    return new_w, new_z, new_n
+
+
+@register("signsgd_update")
+def signsgd_update(weight, grad, *, lr, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """w - lr * sign(rescale * g + wd * w)."""
+    g = _apply_wd(grad, weight, wd, rescale_grad, clip_gradient)
+    return weight - _weak(lr, weight) * g.sign()
+
+
+@register("ftml_update")
+def ftml_update(weight, grad, d, v, z, *, lr, beta1=0.6, beta2=0.999,
+                epsilon=1e-8, t=1, wd=0.0, rescale_grad=1.0, clip_grad=-1.0):
+    """FTML (ref: optimizer_op.cc :: ftml_update); returns (w', d', v',
+    z'). The gradient is clipped after the weight decay is added."""
+    g = grad * _weak(rescale_grad, grad) + _weak(wd, weight) * weight
+    if clip_grad is not None and clip_grad >= 0:
+        g = g.clamp(-_weak(clip_grad, g), _weak(clip_grad, g))
+    new_v = _weak(beta2, v) * v + _weak(1 - beta2, g) * g.square()
+    d_t = _weak((1 - beta1 ** t) / lr, new_v) * (
+        (new_v / _weak(1 - beta2 ** t, new_v)).sqrt()
+        + _weak(epsilon, new_v))
+    sigma = d_t - _weak(beta1, d) * d
+    new_z = _weak(beta1, z) * z + _weak(1 - beta1, g) * g - sigma * weight
+    return -new_z / d_t, d_t, new_v, new_z
+
+
+@register("_contrib_group_adagrad_update")
+def group_adagrad_update(weight, grad, history, *, lr, epsilon=1e-5,
+                         rescale_grad=1.0, clip_gradient=-1.0):
+    """Row-wise AdaGrad: the history (one value a row) grows by the mean
+    of the row's squared gradient; returns (w', history')."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    if g.dim() > 1:
+        new_h = history + g.square().mean(dim=tuple(range(1, g.dim())),
+                                          keepdim=True)
+    else:
+        new_h = history + g.square()
+    step = _weak(lr, g) * g / (new_h.sqrt() + _weak(epsilon, new_h))
+    return weight - step, new_h
+
+
+# ---------------------------------------------------------------------------
+# multi-tensor SGD with lrs/wds given as attributes, the norms, LARS
+# ---------------------------------------------------------------------------
+@register("multi_sgd_update")
+def multi_sgd_update(*arrays, lrs, wds, rescale_grad=1.0,
+                     clip_gradient=-1.0, num_weights=1):
+    """arrays = [w0, g0, w1, g1, ...]; lrs and wds Python floats (one
+    or one a tensor); returns the new weights."""
+    n = int(num_weights)
+    lrs, wds = _per_tensor(lrs, n), _per_tensor(wds, n)
+    outs = [sgd_update(arrays[2 * i], arrays[2 * i + 1], lr=lrs[i],
+                       wd=wds[i], rescale_grad=rescale_grad,
+                       clip_gradient=clip_gradient) for i in range(n)]
+    return tuple(outs) if n > 1 else outs[0]
+
+
+@register("multi_sgd_mom_update")
+def multi_sgd_mom_update(*arrays, lrs, wds, momentum=0.0, rescale_grad=1.0,
+                         clip_gradient=-1.0, num_weights=1):
+    """arrays = [w0, g0, m0, w1, ...]; returns (w0', ..., m0', ...)."""
+    n = int(num_weights)
+    lrs, wds = _per_tensor(lrs, n), _per_tensor(wds, n)
+    ws, ms = [], []
+    for i in range(n):
+        w, m = sgd_mom_update(*arrays[3 * i:3 * i + 3], lr=lrs[i],
+                              momentum=momentum, wd=wds[i],
+                              rescale_grad=rescale_grad,
+                              clip_gradient=clip_gradient)
+        ws.append(w)
+        ms.append(m)
+    return tuple(ws + ms)
+
+
+def _l2(a):
+    return a.float().square().sum().sqrt()
+
+
+@register("multi_l2_norm")
+def multi_l2_norm(*arrays, num_arrays=1):
+    """(num_arrays,) f32: each array's L2 norm."""
+    return torch.stack([_l2(a) for a in arrays])
+
+
+@register("multi_finite_norm")
+def multi_finite_norm(*arrays, num_arrays=1, num_weights=0):
+    """f32 [finite_0, ..., norm_0, ...] over the gradients (the inputs
+    but the last ``num_weights``), then the weights' L2 norms."""
+    grads = arrays[:len(arrays) - num_weights]
+    weights = arrays[len(arrays) - num_weights:]
+    flags = [torch.isfinite(a.float()).all().float() for a in grads]
+    norms = [_l2(a) for a in grads] + [_l2(w) for w in weights]
+    return torch.cat([torch.stack(flags), torch.stack(norms)])
+
+
+@register("multi_update_norm")
+def multi_update_norm(*arrays, num_arrays=1):
+    """arrays = [old0, new0, old1, new1, ...]; (pairs,) f32: the L2 norm
+    of each new - old."""
+    return torch.stack([_l2(arrays[2 * i + 1] - arrays[2 * i])
+                        for i in range(len(arrays) // 2)])
+
+
+@register("_contrib_multi_lars")
+def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, *, eta, eps,
+               rescale_grad=1.0):
+    """LARS: each lr scaled by eta * ||w|| / (||g|| + wd * ||w|| + eps)
+    from the squared norms, unscaled where either norm is 0."""
+    w_norm = weights_sum_sq.sqrt()
+    g_norm = grads_sum_sq.sqrt() * _weak(rescale_grad, grads_sum_sq)
+    ratio = _weak(eta, w_norm) * w_norm / (g_norm + wds * w_norm
+                                           + _weak(eps, w_norm))
+    one = torch.ones_like(ratio)
+    return lrs * torch.where(w_norm > 0, torch.where(g_norm > 0, ratio, one),
+                             one)

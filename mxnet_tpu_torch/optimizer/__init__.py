@@ -1,22 +1,25 @@
-"""Optimizers: SGD with momentum, LAMB, Adam and AdamW, with
-multi-precision master weights and learning-rate schedulers
-(counterpart of ``mxnet_tpu/optimizer/__init__.py``; ref:
+"""Optimizers: SGD with momentum, NAG, LAMB, Adam, AdamW, RMSProp
+(plain and centered), Ftrl, SignSGD and AdaGrad, with multi-precision
+master weights and learning-rate schedulers, and the Updater's states
+blob (counterpart of ``mxnet_tpu/optimizer/__init__.py``; ref:
 python/mxnet/optimizer/optimizer.py).
 
 Each update computes the new weight and states with the operators of
 :mod:`mxnet_tpu_torch.ops.optimizer_ops` and writes them into the
 existing weight and state tensors in place, under ``torch.no_grad``, so
 a parameter's autograd leaf stays the same object. A write casts to the
-destination's dtype. The Trainer updates several parameters through one
-``update_multi`` call, as the reference does at its default aggregation
-size (4096 tensors per call).
+destination's dtype. ``update_multi`` takes its parameters in chunks of
+``aggregate_num`` (``MXNET_OPTIMIZER_AGGREGATION_SIZE``, 4096 by
+default; 0 or less, one chunk), one multi-tensor op a chunk where the
+optimizer has one (SGD, Adam, AdamW, LAMB), as the reference does; the
+others update each tensor alone.
 
 With ``multi_precision=True`` a float16 weight gets an f32 master copy
 in its state, ``(state, weight32)``: the update runs on the master and
 the weight takes its value. As in the reference, only float16 weights
-get one; a bfloat16 weight updates in its own dtype. The other
-optimizers (RMSProp, NAG, ...) wait (ROADMAP.md queue 1, item 6), and
-so do the reference's sparse (row-sparse gradient) branches (item 16).
+get one; a bfloat16 weight updates in its own dtype. The reference's
+sparse (row-sparse gradient) branches wait (ROADMAP.md queue 1, item
+16).
 
 SGD's multi-tensor update keeps each group's learning rates, weight
 decays and ``rescale_grad`` in tensors on the weights' device that live
@@ -27,21 +30,36 @@ the step it was captured in. Such a graph (a backward with this update
 appended) is kept in the optimizer's ``step_runners`` and dies with it:
 it never serves another optimizer. The update counters advance on the
 host every step.
+
+``Updater.get_states`` pickles ``{index: state}`` as the reference does,
+each array through ``ndarray._unpickle`` (all of them copied to the
+host first, with one wait for the card). ``set_states`` reads such a
+blob, the reference's too, with an unpickler that admits only the
+array globals; a loaded state is written into the existing state
+tensors where their shapes and dtypes match (a captured step that reads
+them replays the loaded values), else it moves to its weight's context
+the first time that index is updated and the optimizer's captured steps
+are closed.
 """
 from __future__ import annotations
 
+import io
 import math
+import pickle
 from typing import Any, Dict
 
 import torch
 
 from ..base import MXNetError
+from ..config import get as _cfg
 from ..ndarray import NDArray, zeros
+from ..ndarray import ndarray as _nd
 from ..ops import optimizer_ops as _ops
 from ..ops import reduce_ops as _reduce
 
-__all__ = ["Optimizer", "SGD", "LAMB", "Adam", "AdamW", "create",
-           "register", "Updater", "get_updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "LAMB", "Adam", "AdamW", "RMSProp",
+           "Ftrl", "SignSGD", "AdaGrad", "create", "register", "Updater",
+           "get_updater"]
 
 _REG: Dict[str, type] = {}
 
@@ -55,6 +73,12 @@ def register(klass):
 def _write(arr: NDArray, value: torch.Tensor):
     with torch.no_grad():
         arr.tensor().copy_(value)
+
+
+def _chunks(items, agg):
+    """``items`` in chunks of ``agg`` (all in one when ``agg`` <= 0)."""
+    agg = len(items) if agg <= 0 else agg
+    return [items[k:k + agg] for k in range(0, len(items), max(agg, 1))]
 
 
 def _is_mp_state(state) -> bool:
@@ -85,6 +109,8 @@ class Optimizer:
         self.param_idx2name = param_idx2name or {}
         self.param_dict = param_dict or {}
         self.idx2name = dict(self.param_idx2name)
+        # the multi-tensor width (ref: aggregate_num)
+        self.aggregate_num = _cfg("MXNET_OPTIMIZER_AGGREGATION_SIZE")
 
     @staticmethod
     def create_optimizer(name, **kwargs):
@@ -105,7 +131,15 @@ class Optimizer:
         raise NotImplementedError
 
     def update_multi_precision(self, index, weight, grad, state):
-        self.update(index, weight, grad, state)
+        """MXNet 1.x's ``update_multi_precision``: a float16 weight under
+        ``multi_precision`` updates its f32 master with the widened
+        gradient and takes the master's value."""
+        if self.multi_precision and weight._tdtype == torch.float16:
+            inner, w32 = state
+            self.update(index, w32, grad.astype("float32"), inner)
+            _write(weight, w32.tensor())
+        else:
+            self.update(index, weight, grad, state)
 
     def update_multi(self, indices, weights, grads, states):
         for i, w, g, s in zip(indices, weights, grads, states):
@@ -164,30 +198,36 @@ class Optimizer:
         groups = {False: [], True: []}
         for item in zip(indices, weights, grads, states):
             groups[_is_mp_state(item[3])].append(item)
-        for is_mp, items in groups.items():
-            if not items:
-                continue
-            lrs, wds, ts, arrays, dsts = [], [], [], [], []
-            for i, w, g, s in items:
-                self._update_count(i)
-                t = self._index_update_count[i]
-                lr = self._get_lr(i)
-                lrs.append(fold_lr(lr, t) if fold_lr else lr)
-                wds.append(self._get_wd(i))
-                ts.append(t)
-                st = list(s[0]) + [s[1]] if is_mp else list(s)
-                arrays += [w.tensor(), g.tensor()] + [x.tensor() for x in st]
-                dsts.append([w] + st)
-            kw = dict(hp, learning_rates=lrs, wds=wds, num_tensors=len(items),
-                      rescale_grad=self.rescale_grad)
-            if needs_step:
-                kw["step_count"] = ts
-            with torch.no_grad():
-                outs = (mp_kernel if is_mp else kernel)(*arrays, **kw)
-                n = len(items)
-                for k, dst in enumerate(dsts):
-                    for j, arr in enumerate(dst):
-                        _write(arr, outs[j * n + k])
+        for is_mp, group in groups.items():
+            for items in _chunks(group, int(self.aggregate_num)):
+                self._adaptive_chunk(items, is_mp, kernel, mp_kernel, hp,
+                                     needs_step, fold_lr)
+
+    def _adaptive_chunk(self, items, is_mp, kernel, mp_kernel, hp,
+                        needs_step, fold_lr):
+        """One multi-tensor op over ``items``, all with plain states or
+        all with masters."""
+        lrs, wds, ts, arrays, dsts = [], [], [], [], []
+        for i, w, g, s in items:
+            self._update_count(i)
+            t = self._index_update_count[i]
+            lr = self._get_lr(i)
+            lrs.append(fold_lr(lr, t) if fold_lr else lr)
+            wds.append(self._get_wd(i))
+            ts.append(t)
+            st = list(s[0]) + [s[1]] if is_mp else list(s)
+            arrays += [w.tensor(), g.tensor()] + [x.tensor() for x in st]
+            dsts.append([w] + st)
+        kw = dict(hp, learning_rates=lrs, wds=wds, num_tensors=len(items),
+                  rescale_grad=self.rescale_grad)
+        if needs_step:
+            kw["step_count"] = ts
+        with torch.no_grad():
+            outs = (mp_kernel if is_mp else kernel)(*arrays, **kw)
+            n = len(items)
+            for k, dst in enumerate(dsts):
+                for j, arr in enumerate(dst):
+                    _write(arr, outs[j * n + k])
 
 
 @register
@@ -247,19 +287,25 @@ class SGD(Optimizer):
 
     def multi_plan(self, indices, weights, grads, states):
         """The host part of :meth:`update_multi`: advance the counters and
-        stage each group's lrs, wds and rescale_grad on the device.
-        Returns ``(key, apply)``: ``apply()`` is the device part, and
-        ``key`` names its math and the addresses of the tensors it reads
-        and writes (a captured ``apply``, which keeps those tensors
-        alive, replays as long as the key holds)."""
+        stage each chunk's lrs, wds and rescale_grad on the device (a
+        group's chunks are ``aggregate_num`` wide; the math of each
+        tensor is the same at any width). Returns ``(key, apply)``:
+        ``apply()`` is the device part, and ``key`` names its math and
+        the addresses of the tensors it reads and writes (a captured
+        ``apply``, which keeps those tensors alive, replays as long as
+        the key holds)."""
         groups: Dict[tuple, list] = {}
         for item in zip(indices, weights, grads, states):
             s = item[3]
             mp = isinstance(s, tuple)
             mom = (s[0] if mp else s) is not None
             groups.setdefault((mom, mp, item[2]._tdtype), []).append(item)
+        # the reference's SGD takes chunks of one at a width of 0 or less
+        agg = max(int(self.aggregate_num), 1)
+        chunks = [(gk, items) for gk, group in groups.items()
+                  for items in _chunks(group, agg)]
         calls, key = [], []
-        for (mom, mp, gdt), items in groups.items():
+        for (mom, mp, gdt), items in chunks:
             for i, _, _, _ in items:
                 self._update_count(i)
             n = len(items)
@@ -498,16 +544,257 @@ class LAMB(Optimizer):
                              _ops.multi_mp_lamb_update, hp, True)
 
 
+def _zeros_like(weight):
+    return zeros(weight.shape, ctx=weight.ctx, dtype=weight.dtype)
+
+
+def _hp(opt, index):
+    """The one-tensor ops' common attributes."""
+    return dict(lr=opt._get_lr(index), wd=opt._get_wd(index),
+                rescale_grad=opt.rescale_grad, clip_gradient=opt._clip())
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov momentum (ref: optimizer.py :: NAG -> nag_mom_update,
+    sgd_update without momentum)."""
+
+    def __init__(self, momentum=0.0, learning_rate=0.1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        w, g = weight.tensor(), grad.tensor()
+        with torch.no_grad():
+            if state is not None:
+                nw, nm = _ops.nag_mom_update(w, g, state.tensor(),
+                                             momentum=self.momentum,
+                                             **_hp(self, index))
+                _write(state, nm)
+            else:
+                nw = _ops.sgd_update(w, g, **_hp(self, index))
+            _write(weight, nw)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (ref: optimizer.py :: RMSProp -> rmsprop_update; centered
+    -> rmspropalex_update with states (n, g, delta))."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return tuple(_zeros_like(weight) for _ in range(3))
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(_hp(self, index), gamma1=self.gamma1, epsilon=self.epsilon,
+                  clip_weights=-1.0 if self.clip_weights is None
+                  else self.clip_weights)
+        w, g = weight.tensor(), grad.tensor()
+        with torch.no_grad():
+            if self.centered:
+                outs = _ops.rmspropalex_update(
+                    w, g, *[x.tensor() for x in state], gamma2=self.gamma2,
+                    **kw)
+                for arr, new in zip(state, outs[1:]):
+                    _write(arr, new)
+                nw = outs[0]
+            else:
+                nw, nn = _ops.rmsprop_update(w, g, state.tensor(), **kw)
+                _write(state, nn)
+            _write(weight, nw)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (ref: optimizer.py :: Ftrl -> ftrl_update, states
+    (z, n))."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        with torch.no_grad():
+            nw, nz, nn = _ops.ftrl_update(
+                weight.tensor(), grad.tensor(), z.tensor(), n.tensor(),
+                lamda1=self.lamda1, beta=self.beta, **_hp(self, index))
+            _write(z, nz)
+            _write(n, nn)
+            _write(weight, nw)
+
+
+@register
+class SignSGD(Optimizer):
+    """SignSGD (ref: optimizer.py :: SignSGD -> signsgd_update)."""
+
+    def __init__(self, learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        with torch.no_grad():
+            _write(weight, _ops.signsgd_update(
+                weight.tensor(), grad.tensor(), **_hp(self, index)))
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (ref: optimizer.py :: AdaGrad), composed of elementwise
+    operations as the reference composes it: the rescaled, clipped
+    gradient plus wd * w, its square added to the history, w - lr * g /
+    (sqrt(history) + eps)."""
+
+    def __init__(self, learning_rate=0.01, eps=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w, h = weight.tensor(), state.tensor()
+        with torch.no_grad():
+            g = grad.tensor() * _ops._weak(self.rescale_grad, grad.tensor())
+            if self.clip_gradient is not None:
+                c = _ops._weak(self.clip_gradient, g)
+                g = g.clamp(-c, c)
+            if wd:
+                g = g + _ops._weak(wd, w) * w
+            h.add_(g.square())
+            w.sub_(_ops._weak(lr, g) * g
+                   / (h.sqrt() + _ops._weak(self.float_stable_eps, h)))
+
+
 def create(name, **kwargs) -> Optimizer:
     """An optimizer by registered name (or the optimizer itself)."""
     if isinstance(name, Optimizer):
         return name
     klass = _REG.get(str(name).lower())
     if klass is None:
-        raise MXNetError("optimizer %r is not ported (ported: %s; the rest "
-                         "is ROADMAP.md queue 1, item 6)"
-                         % (name, ", ".join(sorted(_REG))))
+        raise MXNetError("Cannot find '%s' in registry 'optimizer'. "
+                         "Registered: %s" % (name, sorted(_REG)))
     return klass(**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the states blob: a pickle of {index: state}, each array through
+# ndarray._unpickle as the reference writes it
+# ---------------------------------------------------------------------------
+def _arrays_of(state, out):
+    if isinstance(state, NDArray):
+        out.append(state)
+    elif isinstance(state, (tuple, list)):
+        for s in state:
+            _arrays_of(s, out)
+    elif isinstance(state, dict):
+        for s in state.values():
+            _arrays_of(s, out)
+    return out
+
+
+class _StatesPickler(pickle.Pickler):
+    """Pickles each NDArray as the reference does, ``(_unpickle, (host
+    array, device type, device id))``, from host copies made
+    beforehand."""
+
+    def __init__(self, f, hosts):
+        super().__init__(f, protocol=pickle.DEFAULT_PROTOCOL)
+        self._hosts = hosts
+
+    def reducer_override(self, obj):
+        if isinstance(obj, NDArray):
+            return (_nd._unpickle, (self._hosts[id(obj)],
+                                    obj.ctx.device_type, obj.ctx.device_id))
+        return NotImplemented
+
+
+def _host_unpickle(arr, devtype, devid):
+    """Both packages' ``_unpickle`` as the states unpickler maps them: the
+    array on the host, whatever context the blob names (the update places
+    it)."""
+    return _nd._unpickle(arr, "cpu", 0)
+
+
+# the globals a states blob may name: the two packages' array
+# constructors (by name: the reference is never imported), numpy's array
+# reconstruction under numpy 1 and 2, and ml_dtypes' bfloat16
+_BLOB_GLOBALS = {
+    ("mxnet_tpu.ndarray.ndarray", "_unpickle"): _host_unpickle,
+    ("mxnet_tpu_torch.ndarray.ndarray", "_unpickle"): _host_unpickle,
+}
+
+
+def _blob_global(module, name):
+    if (module, name) in _BLOB_GLOBALS:
+        return _BLOB_GLOBALS[(module, name)]
+    allowed = {("numpy", "ndarray"), ("numpy", "dtype"),
+               ("ml_dtypes", "bfloat16"), ("_codecs", "encode")}
+    for core in ("numpy.core", "numpy._core"):
+        allowed |= {(core + ".multiarray", "_reconstruct"),
+                    (core + ".multiarray", "scalar"),
+                    (core + ".numeric", "_frombuffer")}
+    if (module, name) not in allowed:
+        raise MXNetError("optimizer states blob names the global %s.%s, "
+                         "which a states blob may not hold" % (module, name))
+    import importlib
+    return getattr(importlib.import_module(module), name)
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        return _blob_global(module, name)
+
+
+def loads_states(blob: bytes):
+    """The object a states blob holds, read by the restricted
+    unpickler."""
+    return _StatesUnpickler(io.BytesIO(blob)).load()
+
+
+def _fits(cur, new) -> bool:
+    """``new`` has ``cur``'s structure, shapes and dtypes."""
+    if isinstance(cur, NDArray) and isinstance(new, NDArray):
+        return cur.shape == new.shape and cur._tdtype == new._tdtype
+    if isinstance(cur, tuple) and isinstance(new, tuple):
+        return len(cur) == len(new) and all(map(_fits, cur, new))
+    return cur is None and new is None
+
+
+def _copy_into(cur, new):
+    if isinstance(cur, NDArray):
+        _write(cur, new.tensor())
+    elif isinstance(cur, tuple):
+        for c, n in zip(cur, new):
+            _copy_into(c, n)
+
+
+def _place(state, ctx):
+    if isinstance(state, NDArray):
+        return state.as_in_context(ctx)
+    if isinstance(state, (tuple, list)):
+        return tuple(_place(s, ctx) for s in state)
+    return state
 
 
 class Updater:
@@ -516,11 +803,16 @@ class Updater:
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
+        # indices whose loaded state has not met its weight yet
+        self._unplaced: set = set()
 
     def _state(self, index, weight):
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
+        elif index in self._unplaced:
+            self._unplaced.discard(index)
+            self.states[index] = _place(self.states[index], weight.ctx)
         return self.states[index]
 
     def __call__(self, index, grad, weight):
@@ -530,6 +822,54 @@ class Updater:
     def update_multi(self, indices, grads, weights):
         states = [self._state(i, w) for i, w in zip(indices, weights)]
         self.optimizer.update_multi(indices, weights, grads, states)
+
+    def get_states(self, dump_optimizer=False):
+        """The states blob: a pickle of ``{index: state}`` (the
+        reference's form), every array copied to the host first with one
+        wait for the card. The port does not pickle the optimizer (its
+        captured steps and staged tensors live on the card)."""
+        if dump_optimizer:
+            raise MXNetError("get_states(dump_optimizer=True) is not "
+                             "supported: the optimizer holds captured "
+                             "steps and device buffers; save its settings "
+                             "with the code that builds it")
+        arrays = _arrays_of(self.states, [])
+        hosts = {id(a): _nd.host_numpy(h) for a, h in
+                 zip(arrays, _nd.host_copies([a.tensor() for a in arrays]))}
+        buf = io.BytesIO()
+        _StatesPickler(buf, hosts).dump(self.states)
+        return buf.getvalue()
+
+    def set_states(self, states: bytes):
+        """Load a states blob (either package's): see
+        :meth:`load_state_dict`."""
+        self.load_state_dict(loads_states(states))
+
+    def load_state_dict(self, loaded):
+        """Take ``{index: state}``: where the index has a state of the
+        same structure, shapes and dtypes, the values are written into
+        it (its tensors, which a captured step may read, stay); other
+        states move to their weight's context when the index is next
+        updated. When a state is not kept, the optimizer's captured
+        steps (which read the old tensors and keep them alive) are
+        closed, so the next step captures anew."""
+        if not isinstance(loaded, dict):
+            raise MXNetError("an optimizer states blob holds a dict, not "
+                             "%s" % type(loaded).__name__)
+        old, self.states, self._unplaced = self.states, {}, set()
+        for index, state in loaded.items():
+            cur = old.get(index)
+            if cur is not None and _fits(cur, state):
+                _copy_into(cur, state)
+                self.states[index] = cur
+            else:
+                self.states[index] = state
+                self._unplaced.add(index)
+        if any(self.states.get(i) is not cur for i, cur in old.items()):
+            runners = getattr(self.optimizer, "step_runners", {})
+            for runner in runners.values():
+                runner.close()
+            runners.clear()
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -56,6 +56,17 @@ def _train(lib, ctx, net, hybridize=False):
     return losses, norms, params, [h.asnumpy() for h in hidden]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _port_config_unset():
+    """Unset every variable the port's config declares: other test files
+    of the suite set some (MXNET_ZERO, ...) in os.environ without
+    restoring them, and the port's Trainer refuses what they turn on."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in pt.config.VARS:
+            mp.delenv(var, raising=False)
+        yield
+
+
 @pytest.fixture(scope="module")
 def reference():
     mp = pytest.MonkeyPatch()

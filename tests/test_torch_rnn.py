@@ -20,6 +20,17 @@ RTOL, ATOL = 1e-4, 1e-5
 CPU = pt.cpu()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _port_config_unset():
+    """Unset every variable the port's config declares: other test files
+    of the suite set some (MXNET_ZERO, ...) in os.environ without
+    restoring them, and the port's Trainer refuses what they turn on."""
+    with pytest.MonkeyPatch.context() as mp:
+        for var in pt.config.VARS:
+            mp.delenv(var, raising=False)
+        yield
+
+
 def _randn(shape, seed=0, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(
         np.float32)
