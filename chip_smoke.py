@@ -252,6 +252,38 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    and its ``save_parameters``, ``save_states``, ``load_parameters`` and
    ``load_states`` times beside the card's name and power limit.
 
+14. scan — K-step whole-loop compilation (``MXNET_SCAN_STEPS=4``,
+   ``mxnet_tpu_torch/scan.py``) and the grad guard on BERT-base as
+   ``_build_train`` builds it (bf16, dropout 0.1, the dense MLM head,
+   32 x 128), model and loss hybridized, backward from the loss block's
+   output, plain SGD (momentum 0.9, wd 0.01, a ``PolyScheduler``), each
+   run from one snapshot and one ``mx.random.seed`` with its graphs
+   freed first. (b) ``SCAN_STEPS`` steps at K=4 (the arming step, two
+   chunks, a tail of two drained by the read) bit for bit with the
+   per-step fused path at K=1: every loss, parameter and momentum. (c)
+   The same with a ``skip_step`` guard and ``nan_grad`` planted at step
+   ``SCAN_PLANT``, bit for bit with the classic guarded path at K=1, one
+   skipped step in both, 4 host reads against 11. (d) The ladder, each
+   rung with its one warning: a loss read every step bails after three
+   forces and stays bit for bit; ``MXNET_GUARD_CLIP_NORM`` runs the
+   classic path with the gradients' norm at the clip norm within 1e-3
+   (of the norm times the factor as rounded to bf16); phase 11's
+   compiled ResNet-50 loop bails (BatchNorm writes moving statistics)
+   and stays bit for bit with K=1 over 4 steps. (e) Planted faults that
+   must fail: the chunk reading row 0's lr for every step, the verdict
+   ignored in the graph. (a) A steady chunk makes one chunk replay, no
+   forward or plan replay and no launch outside its graph, and its graph
+   carries K times a per-step fused step's launches of the eight BERT
+   kernels. (f) ms a step at K=1 and K=4 in turns (medians of
+   ``2 * SCAN_TURNS`` segments of ``SCAN_SEGMENT`` chunks), a profiled
+   chunk and K profiled per-step steps (busy and idle share), the
+   memory each captured graph holds, and the
+   same for tools/loop_micro.py's MLP (width 256, f32, a skip_step
+   guard); each line with the card's name and power limit. The rows
+   gain ``launches_per_scan_run`` (the K=4 parity run's launches through
+   the wrappers, its eager chunk and tail) and a ``scan`` entry in
+   ``launches_per_compiled_capture``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3787,7 +3819,7 @@ def phase_compiled_resnet(seed):
             raise SmokeFailure("the compiled ResNet steps differ from the "
                                "eager loop")
         replays = _steady("resnet", lambda: step(state["tr"]))
-        if replays != {"forward": 2, "backward": 0, "tape": 1}:
+        if replays != {"forward": 2, "backward": 0, "tape": 1, "chunk": 0}:
             raise SmokeFailure("compiled ResNet step: replays %s, expected "
                                "2 forwards and one plan" % replays)
         eager_ms, comp_ms = _in_turns(lambda: step(state["tr"]),
@@ -4733,6 +4765,583 @@ def phase_resume(seed, card_line):
           "%s" % (card_line, json.dumps(report)))
 
 
+# ---------------------------------------------------------------------------
+# 14. scan: K steps as one captured graph a chunk, with the grad guard
+# ---------------------------------------------------------------------------
+SCAN_K = 4
+# one arming step, two chunks, a tail of two drained by a read
+SCAN_STEPS = 11
+# the step (from 1) whose first gradient gets a NaN: inside chunk 2
+SCAN_PLANT = 6
+SCAN_POLY = {"max_update": 100, "warmup_steps": 2, "pwr": 1}
+# the guard's clip norm, on the norm after rescale_grad: far below
+# BERT-base's, so every step clips
+SCAN_CLIP = 1e-3
+SCAN_TURNS = 5
+# chunks in one timed segment
+SCAN_SEGMENT = 3
+# tools/loop_micro.py's MLP: 4 hidden Dense(256) + Dense(256), batch 64
+MLP_WIDTH, MLP_DEPTH, MLP_BATCH = 256, 4, 64
+SCAN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+                "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+                "bias_residual_fwd", "dropout")
+
+
+class _ScanRig:
+    """BERT-base as ``_build_train`` builds it (bf16, dropout 0.1, the
+    dense MLM head), model and loss hybridized, its parameters' snapshot
+    and ``SCAN_STEPS`` batches of 32 x 128."""
+
+    def __init__(self, seed):
+        import os
+        os.environ["MXNET_TRAINER_FUSED_UPDATE"] = "1"
+        self.seed = seed
+        self.net, self.mlm, self.params = _build_train(seed)
+        for b in (self.net, self.mlm):
+            b.hybridize(static_alloc=True, static_shape=True)
+        self.snap = _snapshot(self.params)
+        self.batches = [_train_batch(seed + 100 + i)
+                        for i in range(SCAN_STEPS + 2)]
+
+    def step(self, trainer, i):
+        """One step on batch ``i``, backward from the loss block's
+        output; returns it (deferred under a buffering chunk)."""
+        import mxnet_tpu_torch as mx
+        ids, tok, lab = self.batches[i % len(self.batches)]
+        with mx.autograd.record():
+            per_position = self.mlm(_bert_seq(self.net(ids, tok)), lab)
+        per_position.backward()
+        trainer.step(TRAIN_BATCH)
+        return per_position
+
+    def trainer(self, k, guard=None):
+        """A fresh SGD Trainer (momentum 0.9, wd 0.01, a PolyScheduler)
+        at MXNET_SCAN_STEPS=k from the snapshot, the counter reseeded
+        and every graph of the blocks freed (so every run starts with
+        the same eager warm-up)."""
+        import os
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import faultinject
+        os.environ["MXNET_SCAN_STEPS"] = str(k)
+        _free_graphs(self.net, self.mlm)
+        _restore(self.params, self.snap)
+        faultinject.reset()
+        mx.random.seed(self.seed)
+        sched = mx.lr_scheduler.PolyScheduler(base_lr=1e-3, **SCAN_POLY)
+        tr = mx.gluon.Trainer(self.params, "sgd", {
+            "learning_rate": 1e-3, "momentum": 0.9, "wd": 0.01,
+            "lr_scheduler": sched})
+        if guard is not None:
+            tr.grad_guard = guard
+        return tr
+
+    def run(self, k, steps=SCAN_STEPS, guard=None, plant=None,
+            read=False, probe=None):
+        """``steps`` steps at K = k; returns (losses, (parameters,
+        momenta)) as ``_bit_equal`` reads them, and the runner's counts
+        (None at K=1). The Trainer and its graphs are dropped."""
+        import torch
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import faultinject
+        tr = self.trainer(k, guard)
+        losses = []
+        for i in range(steps):
+            if plant is not None and i == plant - 1:
+                faultinject.set_fault("nan_grad", 1.0, max_fires=1)
+            out = probe(i, lambda: self.step(tr, i)) if probe \
+                else self.step(tr, i)
+            if read:
+                out.wait_to_read()
+            losses.append(out)
+        mx.autograd.flush_all_pending()
+        faultinject.reset()
+        torch.cuda.synchronize()
+        got = ([l.tensor().detach().clone() for l in losses],
+               (_snapshot(self.params),
+                {i: [s.tensor().detach().clone()]
+                 for i, s in tr._updater.states.items() if s is not None}))
+        mx.autograd.disarm_fused_update()
+        import gc
+        r = tr._scan
+        info = None if r is None else {
+            "retired": r.retired_chunks, "flushed": r.flushed_steps,
+            "bailed": r.bailed}
+        del tr, r
+        gc.collect()
+        return got, info
+
+
+def _scan_bits(tag, got, want):
+    """Hold (losses, (parameters, momenta)) of a run to another's, bit
+    for bit; returns the names that differ (a control must differ)."""
+    import torch
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    bad = ["loss of step %d" % (i + 1)
+           for i, (a, b) in enumerate(zip(got[0], want[0])) if not same(a, b)]
+    bad += [n for n in want[1][0] if not same(got[1][0][n], want[1][0][n])]
+    bad += ["momentum %d" % i for i, st in want[1][1].items()
+            if not all(map(same, got[1][1].get(i, []), st))]
+    n = len(want[0]) + len(want[1][0]) + len(want[1][1])
+    control = tag.startswith("control")
+    print("[scan] %s: %d of %d losses, parameters and momenta bit for "
+          "bit%s %s" % (tag, n - len(bad), n,
+                        " (differ: %s)" % ", ".join(bad[:4]) if bad else "",
+                        ("caught" if bad else "MISSED") if control
+                        else ("FAIL" if bad else "ok")))
+    if bad and not control:
+        raise SmokeFailure("scan %s: not bit for bit (%s)" % (tag, bad[:4]))
+    return bad
+
+
+def _scan_engagement(rig, by_graph):
+    """(a): a K=4 run of 13 steps; the third chunk, steady, must make one
+    chunk replay and nothing else, launch no kernel outside its graph,
+    and carry K times a per-step fused step's launches of kernels 1-8.
+    Returns the kernels replayed in one per-step step and in one chunk."""
+    import torch
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    seen = {}
+
+    def probe_one(i, step):
+        if i != 5:
+            return step()
+        with _replayed_launches(by_graph) as rep:
+            cuda_build.reset_launch_counts()
+            cached_op.reset_replay_counts()
+            out = step()
+            torch.cuda.synchronize()
+        seen["step"] = (dict(rep), cached_op.replay_counts(),
+                        {k: v for k, v in cuda_build.launch_counts().items()
+                         if v})
+        return out
+    with _capture_launches(by_graph):
+        rig.run(1, steps=7, probe=probe_one)
+
+    def probe_k(i, step):
+        if i < 9:
+            return step()
+        if i == 9:
+            seen["ctx"] = _replayed_launches(by_graph)
+            seen["rep"] = seen["ctx"].__enter__()
+            cuda_build.reset_launch_counts()
+            cached_op.reset_replay_counts()
+        out = step()
+        if i == 12:
+            torch.cuda.synchronize()
+            seen["ctx"].__exit__(None, None, None)
+            seen["chunk"] = (dict(seen["rep"]), cached_op.replay_counts(),
+                             {k: v for k, v in
+                              cuda_build.launch_counts().items() if v})
+        return out
+    with _capture_launches(by_graph):
+        _, info = rig.run(SCAN_K, steps=13, probe=probe_k)
+    step_rep, step_replays, step_out = seen["step"]
+    chunk_rep, chunk_replays, chunk_out = seen["chunk"]
+    print("[scan] (a) per-step fused step: replays %s, launches outside "
+          "graphs %s, kernels its graphs carry %s" % (
+              step_replays, step_out or "none", dict(step_rep)))
+    print("[scan] (a) steady chunk of %d steps: replays %s, launches "
+          "outside graphs %s, kernels its graph carries %s; runner %s" % (
+              SCAN_K, chunk_replays, chunk_out or "none", dict(chunk_rep),
+              info))
+    want = {"forward": 0, "backward": 0, "tape": 0, "chunk": 1}
+    short = [k for k in SCAN_KERNELS
+             if not step_rep.get(k) or
+             chunk_rep.get(k, 0) != SCAN_K * step_rep[k]]
+    if chunk_replays != want or chunk_out or short or \
+            step_replays != {"forward": 2, "backward": 0, "tape": 1,
+                             "chunk": 0}:
+        raise SmokeFailure("scan (a): a steady chunk is not one graph "
+                           "with %d steps' kernels (%s)" % (SCAN_K, short))
+    return step_rep, chunk_rep
+
+
+def _scan_resnet(seed):
+    """(d) the rung of a forward that writes auxiliary state: phase 11's
+    compiled ResNet-50 loop (bf16 AMP, BatchNorm, SGD momentum 0.9, the
+    fused update) at K=4 bails with one warning and stays bit for bit
+    with K=1 over 4 steps."""
+    import logging
+    import os
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    amp.init(target_dtype="bfloat16")
+    try:
+        mx.random.seed(seed)
+        net = resnet50_v1(prefix="resnet50s_")
+        net.initialize(init=mx.init.MSRAPrelu())
+        with torch.no_grad():
+            net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE)))
+        net.hybridize(static_alloc=True, static_shape=True)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize(static_alloc=True, static_shape=True)
+        params = net.collect_params()
+        g = torch.Generator(device=DEV).manual_seed(seed + 41)
+        x = mx.nd.NDArray(torch.randn(RESNET_BATCH, 3, RESNET_SIDE,
+                                      RESNET_SIDE, generator=g, device=DEV))
+        y = mx.nd.NDArray(torch.randint(0, 1000, (RESNET_BATCH,),
+                                        generator=g, device=DEV).float())
+        snap = _snapshot(params)
+
+        def run(k):
+            os.environ["MXNET_SCAN_STEPS"] = str(k)
+            _free_graphs(net, loss_fn)
+            _restore(params, snap)
+            tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.1,
+                                                  "momentum": 0.9})
+            losses = []
+            for _ in range(4):
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                tr.step(RESNET_BATCH)
+                losses.append(loss.tensor().detach().clone())
+            autograd.flush_all_pending()
+            autograd.disarm_fused_update()
+            return (losses, (_snapshot(params), {
+                i: [s.tensor().detach().clone()]
+                for i, s in tr._updater.states.items() if s is not None})), tr
+        one, _ = run(1)
+        warned, h = _warnings_of("mxnet_tpu_torch.scan")
+        try:
+            four, tr = run(SCAN_K)
+        finally:
+            logging.getLogger("mxnet_tpu_torch.scan").removeHandler(h)
+        print("[scan] (d) ResNet-50 at K=%d: bailed %s, warnings %s"
+              % (SCAN_K, tr._scan is not None and tr._scan.bailed, warned))
+        if tr._scan is None or not tr._scan.bailed or len(warned) != 1 or \
+                "auxiliary state" not in warned[0]:
+            raise SmokeFailure("scan (d): the BatchNorm loop did not bail "
+                               "with one warning")
+        _scan_bits("(d) ResNet-50 K=%d against K=1, 4 steps" % SCAN_K,
+                   four, one)
+        _free_graphs(net, loss_fn)
+    finally:
+        amp.reset()
+
+
+def _scan_clip(rig, card_line):
+    """(d) MXNET_GUARD_CLIP_NORM > 0 at K=4: the Trainer never arms, says
+    so once, and the guard scales the gradients to the clip norm."""
+    import logging
+    import os
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import guardrails
+    warned, handler = _warnings_of("mxnet_tpu_torch.scan")
+    os.environ["MXNET_GUARD_CLIP_NORM"] = repr(SCAN_CLIP)
+    try:
+        tr = rig.trainer(SCAN_K)
+        rels = []
+        for i in range(2):
+            ids, tok, lab = rig.batches[i]
+            with mx.autograd.record():
+                per_position = rig.mlm(_bert_seq(rig.net(ids, tok)), lab)
+            per_position.backward()
+            tr.step(TRAIN_BATCH)
+            guard = tr.grad_guard
+            grads = [p.grad() for p in rig.params.values()
+                     if p.grad_req != "null"]
+            _, after = guardrails.finite_report(grads)
+            after *= tr.optimizer.rescale_grad
+            scale = SCAN_CLIP / (guard.last_norm + 1e-12)
+            rounded = torch.tensor(scale, dtype=grads[0].tensor().dtype)
+            want = guard.last_norm * float(rounded)
+            rels.append((after / SCAN_CLIP - 1, after / want - 1))
+    finally:
+        os.environ.pop("MXNET_GUARD_CLIP_NORM", None)
+        logging.getLogger("mxnet_tpu_torch.scan").removeHandler(handler)
+    mx.autograd.disarm_fused_update()
+    print("[scan] (d) clip %g at K=%d: armed %s, runner %s, clipped %d of "
+          "%d steps, norm after the clip over the clip norm - 1: %s (over "
+          "the norm times the bf16-rounded factor - 1: %s); warnings %s; %s"
+          % (SCAN_CLIP, SCAN_K, tr._fused_armed, tr._scan,
+             guard.clipped_steps, guard.steps,
+             ["%.3g" % a for a, _ in rels], ["%.3g" % b for _, b in rels],
+             warned, card_line))
+    if tr._fused_armed or tr._scan is not None or guard.clipped_steps != 2 \
+            or any(abs(b) > 1e-3 for _, b in rels) or len(warned) != 1:
+        raise SmokeFailure("scan (d): the clip guard did not run the "
+                           "classic path or missed its norm")
+
+
+def _scan_turns(label, step, k, card_line, profile_label, prime=0):
+    """(f) ms a step at K=1 and at K=k in turns: medians of
+    2 * SCAN_TURNS segments of SCAN_SEGMENT chunks each (a K=k segment
+    after ``prime`` untimed steps, which arm a Trainer that K=1
+    disarmed), then one profiled chunk and k profiled per-step steps.
+    A segment holds several chunks: a chunk's steps are recorded on the
+    host while the card runs the chunk before, as a loop without reads
+    runs them."""
+    import os
+    import torch
+    times = {1: [], k: []}
+
+    def seg(kk):
+        os.environ["MXNET_SCAN_STEPS"] = str(kk)
+        for _ in range(prime if kk == k else 0):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k * SCAN_SEGMENT):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (k * SCAN_SEGMENT)
+    for kk in (1, k, 1, k, 1, k):     # warm: every graph captured
+        seg(kk)
+    for _ in range(SCAN_TURNS):
+        for kk in (1, k, k, 1):
+            times[kk].append(seg(kk))
+    one, many = statistics.median(times[1]), statistics.median(times[k])
+    print("[scan] (f) %s: ms a step on the host clock %.3f at K=1, %.3f at "
+          "K=%d (medians of %d, in turns; K=%d / K=1 = %.3f); %s"
+          % (label, one, many, k, 2 * SCAN_TURNS, k, many / one,
+             card_line))
+
+    def steps():
+        for _ in range(k):
+            step()
+    os.environ["MXNET_SCAN_STEPS"] = str(k)
+    for _ in range(prime):
+        step()
+    _profile("%s, one chunk of %d steps at K=%d" % (profile_label, k, k),
+             steps)
+    os.environ["MXNET_SCAN_STEPS"] = "1"
+    _profile("%s, %d steps at K=1" % (profile_label, k), steps)
+    return one, many
+
+
+def _scan_mlp(seed, card_line):
+    """(f) tools/loop_micro.py's MLP (f32, width 256, a skip_step guard,
+    SGD lr 0.01 momentum 0.9): K=1 (the classic guarded step: the guard
+    needs the gradients on the host every step) against K=4 in turns,
+    and the memory of each path's graphs."""
+    import os
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import guardrails
+    os.environ["MXNET_TRAINER_FUSED_UPDATE"] = "1"
+    mx.random.seed(seed)
+    net = mx.gluon.nn.HybridSequential(prefix="loopmlp_")
+    with net.name_scope():
+        for _ in range(MLP_DEPTH):
+            net.add(mx.gluon.nn.Dense(MLP_WIDTH, activation="relu",
+                                      in_units=MLP_WIDTH))
+        net.add(mx.gluon.nn.Dense(MLP_WIDTH, in_units=MLP_WIDTH))
+    net.initialize(mx.init.Xavier())
+    net.hybridize(static_alloc=True, static_shape=True)
+    lf = mx.gluon.loss.L2Loss()
+    lf.hybridize(static_alloc=True, static_shape=True)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.01, "momentum": 0.9})
+    tr.grad_guard = guardrails.GradGuard(nonfinite="skip_step")
+    g = torch.Generator(device=DEV).manual_seed(seed + 3)
+    x = mx.nd.NDArray(torch.rand(MLP_BATCH, MLP_WIDTH, generator=g,
+                                 device=DEV))
+    y = mx.nd.NDArray(torch.rand(MLP_BATCH, MLP_WIDTH, generator=g,
+                                 device=DEV))
+
+    def step():
+        with mx.autograd.record():
+            loss = lf(net(x), y)
+        loss.backward()
+        tr.step(MLP_BATCH)
+    with _capture_mb() as mb:
+        for kk in (1, SCAN_K):
+            os.environ["MXNET_SCAN_STEPS"] = str(kk)
+            for _ in range(1 + 3 * SCAN_K):
+                step()
+            mx.autograd.flush_all_pending()
+    syncs0, steps0 = tr.grad_guard.sync_count, tr.grad_guard.steps
+    _scan_turns("MLP %d x %d, batch %d, f32, skip_step guard" % (
+        MLP_DEPTH + 1, MLP_WIDTH, MLP_BATCH), step, SCAN_K, card_line,
+        "MLP (loop_micro)", prime=1)
+    mx.autograd.flush_all_pending()
+    print("[scan] (f) MLP: graphs (MB: pool / allocated / peak) %s; guard "
+          "reads %d over %d steps since the warm-up (the runner bailed: "
+          "%s)" % ({w: ["%.1f / %.1f / %.1f" % x for x in v]
+                    for w, v in mb.items()},
+                   tr.grad_guard.sync_count - syncs0,
+                   tr.grad_guard.steps - steps0,
+                   tr._scan is not None and tr._scan.bailed))
+    mx.autograd.disarm_fused_update()
+    _free_graphs(net, lf)
+
+
+@contextlib.contextmanager
+def _capture_mb():
+    """Device memory of each CUDA graph captured inside the scope, MB, by
+    what was captured: {what: [(pool, held, peak)]}: the memory its
+    private pool keeps reserved once captured, the tensors still
+    allocated from it (static outputs, residuals), and the peak of
+    allocated memory above the start while capturing."""
+    import torch
+    from unittest import mock
+    from mxnet_tpu_torch import cached_op
+    seen = collections.defaultdict(list)
+    real = cached_op._capture
+
+    def measured(graph, what, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        base_res = torch.cuda.memory_reserved()
+        try:
+            return real(graph, what, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            seen[what].append(
+                ((torch.cuda.memory_reserved() - base_res) / 1e6,
+                 (torch.cuda.memory_allocated() - base) / 1e6,
+                 (torch.cuda.max_memory_allocated() - base) / 1e6))
+    with mock.patch.object(cached_op, "_capture", measured):
+        yield seen
+
+
+def _warnings_of(logger):
+    """A list that gains the message of every warning ``logger`` logs
+    while the returned handler is attached."""
+    import logging
+    got = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            got.append(record.getMessage())
+    h = _Catch(logging.WARNING)
+    logging.getLogger(logger).addHandler(h)
+    return got, h
+
+
+def phase_scan(seed, card_line):
+    """14. scan: BERT-base trained with fused SGD at MXNET_SCAN_STEPS=4,
+    each chunk one captured graph. Returns ({"scan": the kernel launches
+    recorded into the graphs of the K=4 parity run}, the launches through
+    the wrappers in that run)."""
+    import logging
+    import os
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import guardrails, optimizer
+    from mxnet_tpu_torch.ops import cuda_build
+    rig = _ScanRig(seed)
+    by_graph = {}
+    try:
+        # (b) parity: K=4 against the per-step fused path at K=1
+        with _capture_launches(by_graph) as cap4, _capture_mb() as mb4:
+            cuda_build.reset_launch_counts()
+            four, info4 = rig.run(SCAN_K)
+            launched = cuda_build.launch_counts()
+        with _capture_mb() as mb1:
+            one, _ = rig.run(1)
+        print("[scan] (b) K=%d: runner %s; kernel launches through the "
+              "wrappers %s, recorded into graphs %s" % (
+                  SCAN_K, info4, {k: v for k, v in launched.items() if v},
+                  {k: v for k, v in cap4.items() if v}))
+        if info4 != {"retired": 2, "flushed": 2, "bailed": False}:
+            raise SmokeFailure("scan (b): the K=%d run did not retire two "
+                               "chunks and drain a tail of two" % SCAN_K)
+        _scan_bits("(b) K=%d against K=1, %d steps (losses, parameters, "
+                   "momenta)" % (SCAN_K, SCAN_STEPS), four, one)
+        chunk_mb = [x for w, v in mb4.items() if "chunk" in w for x in v]
+        step_mb = [x for v in mb1.values() for x in v]
+        print("[scan] (f) memory of the captured graphs (MB: pool reserved "
+              "/ allocated from it after capture / peak allocated above "
+              "the start while capturing): the chunk of %d steps %s; the "
+              "per-step fused step's graphs %s, pools %.1f in all; %s" % (
+                  SCAN_K, ["%.1f / %.1f / %.1f" % x for x in chunk_mb],
+                  {w: ["%.1f / %.1f / %.1f" % x for x in v]
+                   for w, v in mb1.items()},
+                  sum(x[0] for x in step_mb), card_line))
+
+        # (c) the guard: a NaN planted inside chunk 2
+        g4 = guardrails.GradGuard(nonfinite="skip_step")
+        gfour, _ = rig.run(SCAN_K, guard=g4, plant=SCAN_PLANT)
+        g1 = guardrails.GradGuard(nonfinite="skip_step")
+        gone, _ = rig.run(1, guard=g1, plant=SCAN_PLANT)
+        print("[scan] (c) nan_grad at step %d: skipped %d at K=%d, %d at "
+              "K=1; host reads %d at K=%d, %d at K=1; nonfinite %d, %d"
+              % (SCAN_PLANT, g4.skipped_steps, SCAN_K, g1.skipped_steps,
+                 g4.sync_count, SCAN_K, g1.sync_count, g4.nonfinite_steps,
+                 g1.nonfinite_steps))
+        if (g4.skipped_steps, g1.skipped_steps) != (1, 1) or \
+                (g4.sync_count, g1.sync_count) != (4, SCAN_STEPS):
+            raise SmokeFailure("scan (c): the guard's counts differ from "
+                               "the reference's for this loop")
+        _scan_bits("(c) guarded K=%d against the classic guard at K=1"
+                   % SCAN_K, gfour, gone)
+
+        # (d) the ladder: a loss read every step, the clip, BatchNorm
+        warned, h = _warnings_of("mxnet_tpu_torch.scan")
+        try:
+            read, info = rig.run(SCAN_K, read=True)
+        finally:
+            logging.getLogger("mxnet_tpu_torch.scan").removeHandler(h)
+        print("[scan] (d) a loss read every step at K=%d: runner %s, "
+              "warnings %s" % (SCAN_K, info, warned))
+        if not info["bailed"] or info["retired"] or len(warned) != 1 or \
+                "read every chunk" not in warned[0]:
+            raise SmokeFailure("scan (d): the loss-read loop did not bail "
+                               "after %d forces" % 3)
+        _scan_bits("(d) a loss read every step, K=%d against K=1"
+                   % SCAN_K, read, one)
+        _scan_clip(rig, card_line)
+
+        # (e) planted faults, each must fail its check
+        real = optimizer.SGDPrep.apply
+        with mock.patch.object(
+                optimizer.SGDPrep, "apply",
+                lambda self, st, row=0, ok=None, skipped=None:
+                real(self, st, 0, ok, skipped)):
+            bad, _ = rig.run(SCAN_K)
+        if not _scan_bits("control: the chunk reads row 0's lr for every "
+                          "step, against (b)'s K=1", bad, one):
+            raise SmokeFailure("scan (e): row 0's lr for every step "
+                               "passed the parity check")
+        with mock.patch.object(
+                optimizer.SGDPrep, "apply",
+                lambda self, st, row=0, ok=None, skipped=None:
+                real(self, st, row, None, skipped)):
+            bad, _ = rig.run(SCAN_K, plant=SCAN_PLANT,
+                             guard=guardrails.GradGuard(
+                                 nonfinite="skip_step"))
+        if not _scan_bits("control: the verdict ignored in the graph, "
+                          "against (c)'s K=1", bad, gone):
+            raise SmokeFailure("scan (e): an ignored verdict passed the "
+                               "guard's parity check")
+
+        # (a) engagement of a steady chunk
+        _scan_engagement(rig, by_graph)
+
+        # (f) times: the same Trainer at K=1 and K=4 in turns
+        tr = rig.trainer(SCAN_K)
+        at = [0]
+
+        def step():
+            rig.step(tr, at[0])
+            at[0] += 1
+        _scan_turns("BERT-base %d x %d bf16, SGD, dropout 0.1" % (
+            TRAIN_BATCH, TRAIN_SEQ), step, SCAN_K, card_line, "BERT-base")
+        mx.autograd.flush_all_pending()
+        mx.autograd.disarm_fused_update()
+        del tr
+        _free_graphs(rig.net, rig.mlm)
+        del rig
+        _scan_resnet(seed)
+        _scan_mlp(seed, card_line)
+    finally:
+        os.environ.pop("MXNET_SCAN_STEPS", None)
+        os.environ.pop("MXNET_GUARD_CLIP_NORM", None)
+    return {"scan": cap4}, launched
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4822,7 +5431,17 @@ def main(argv=None):
             k: v for k, v in resume_counts.items() if v})
         if missing:
             raise SmokeFailure("phase 13 launched no %s" % missing)
+        scan_capture, scan_counts = phase_scan(args.seed, card_line)
+        compiled.update(scan_capture)
+        print("[scan] kernel launches through the wrappers in phase 14's "
+              "K=%d parity run: %s" % (SCAN_K, {
+                  k: v for k, v in scan_counts.items() if v}))
+        missing = [k for k in SCAN_KERNELS if not scan_capture["scan"].get(k)]
+        if missing:
+            raise SmokeFailure("phase 14 captured no %s" % missing)
         for r in rows:
+            r["launches_per_scan_run"] = scan_counts.get(
+                r.get("kernel", r["name"]), 0)
             r["launches_per_ptb_step"] = ptb_counts.get(
                 r.get("kernel", r["name"]), 0)
             r["launches_per_resume"] = resume_counts.get(

@@ -73,5 +73,7 @@ from . import operator
 from . import rtc
 from . import metric
 from . import guardrails
+from . import faultinject
+from . import scan
 from . import contrib
 from .interop import params_from_numpy

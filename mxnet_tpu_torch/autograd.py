@@ -36,7 +36,11 @@ captured graph on the card). A Trainer that arms this module
 instead; its ``step`` runs the plan with the update appended. Reading a
 gradient, or the next backward, runs a stashed plan without the update
 first (:func:`flush_all_pending`), as the reference's fused-update
-deferral does.
+deferral does. Under ``MXNET_SCAN_STEPS`` the hybridized calls of a
+step may return deferred arrays (:mod:`mxnet_tpu_torch.scan`):
+``backward`` on their heads stashes the step for the Trainer's chunk
+runner, and :func:`flush_all_pending` drains the buffered chunks
+(registered by :func:`register_scan_flusher`) before the stashed plan.
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
            "mark_variables", "grad", "Function", "record_callback",
            "arm_fused_update", "disarm_fused_update", "take_pending_step",
-           "flush_pending_step", "flush_all_pending"]
+           "flush_pending_step", "flush_all_pending",
+           "register_scan_flusher", "flush_scan_chunks"]
 
 
 class _State(threading.local):
@@ -141,7 +146,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         if req not in ("write", "add", "null"):
             raise MXNetError("grad_req must be write, add or null, got %r"
                              % (req,))
-        v._t = v._t.detach().requires_grad_(req != "null")
+        v._t = v.tensor().detach().requires_grad_(req != "null")
         v._grad = g
         v._grad_req = req
         if req == "null":
@@ -184,6 +189,12 @@ def _heads(heads, head_grads):
 _ARM_TOKEN = [None]
 _ARM_LEAF_IDS = [frozenset()]
 _PENDING = [None]
+# the K-step scan layer (scan.py): the drains of its buffered chunks,
+# its hook that stashes a backward over deferred heads, and the plan of
+# the last fused backward (the template an arming step leaves behind)
+_SCAN_FLUSHERS: list = []
+_SCAN_STASH = [None]
+_LAST_PLAN = [None]
 
 
 class _PendingStep:
@@ -197,6 +208,10 @@ class _PendingStep:
 
     def __init__(self, plan, token):
         self.plan, self.token = plan, token
+
+    @property
+    def leaf_ids(self):
+        return self.plan.leaf_ids
 
     def execute(self):
         self.plan.run()
@@ -238,10 +253,30 @@ def flush_pending_step():
         p.execute()
 
 
+def register_scan_flusher(cb):
+    _SCAN_FLUSHERS.append(cb)
+
+
+def flush_scan_chunks():
+    """Drain every buffered K-step chunk (a cheap no-op when nothing is
+    buffered)."""
+    for cb in _SCAN_FLUSHERS:
+        cb()
+
+
 def flush_all_pending():
     """Everything a gradient reader needs run before the read: the
-    stashed plan (the port has no K-step scan buffer yet)."""
+    buffered chunks first (they are older steps, whose updates
+    ``Trainer.step`` already took), then the stashed plan."""
+    flush_scan_chunks()
     flush_pending_step()
+
+
+def last_plan():
+    """The plan of the last fused backward under ``MXNET_SCAN_STEPS``
+    above 1, taken once (a chunk runner's template)."""
+    plan, _LAST_PLAN[0] = _LAST_PLAN[0], None
+    return plan
 
 
 def _fused_backward(outs, cots) -> bool:
@@ -251,6 +286,8 @@ def _fused_backward(outs, cots) -> bool:
     plan = cached_op.tape_plan(outs, cots, list(_VARS.values()))
     if plan is None:
         return False
+    if _cfg("MXNET_SCAN_STEPS") > 1:
+        _LAST_PLAN[0] = plan
     token = _ARM_TOKEN[0]
     if token is not None and _ARM_LEAF_IDS[0] <= plan.leaf_ids:
         _PENDING[0] = _PendingStep(plan, token)
@@ -263,6 +300,9 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Gradients of ``heads`` into every reachable variable's ``.grad``
     (ref: autograd.backward). A head gradient left out is ones of the
     head's shape, as in MXNet, whatever the head's size."""
+    stash = _SCAN_STASH[0]
+    if stash is not None and not retain_graph and stash(heads, head_grads):
+        return
     flush_all_pending()
     outs, cots = _heads(heads, head_grads)
     if not retain_graph and _cfg("MXNET_FUSED_BACKWARD") and \

@@ -45,7 +45,13 @@ Trainer consumes it (:mod:`mxnet_tpu_torch.autograd`), run eagerly at its
 first occurrence and as one captured graph after that. A plan's runner
 belongs to the last node's graph instance, or with an update to the
 optimizer (its staged hyperparameters are what the graph reads), so it
-dies with either; releasing any instance it replays over closes it. The
+dies with either; releasing any instance it replays over closes it.
+
+Under ``MXNET_SCAN_STEPS`` a recorded call first asks the chunk runner
+(:mod:`mxnet_tpu_torch.scan`, through ``_DEFER``) whether it belongs to
+the step being buffered; if so it returns deferred arrays and runs
+nothing. A record carries its call (``_Rec.call``, ``_Rec.meta``), from
+which the runner replays a step's calls inside its chunk graph. The
 reference's symbol plumbing (``_COP_SYMS``, ``get_symbol``) has no
 counterpart: the port has no ``symbol`` module.
 """
@@ -74,10 +80,13 @@ _TLS = threading.local()
 _UID = [0]
 # graph replays by kind since the last reset: a CachedOp's forward and
 # backward, and a tape plan (backward, or backward + update)
-_REPLAYS = {"forward": 0, "backward": 0, "tape": 0}
+# and a K-step chunk (scan.py)
+_REPLAYS = {"forward": 0, "backward": 0, "tape": 0, "chunk": 0}
 _SLOT = object()       # marks a data input's position among the arguments
 # live records on instances whose node-by-node backward is not captured yet
 _BWD_TODO: "weakref.WeakSet" = weakref.WeakSet()
+# scan.py's hook: deferred outputs for a call while a chunk buffers
+_DEFER = [None]
 
 
 class _Seq:
@@ -116,6 +125,14 @@ def _unflatten(fmt, it):
     if isinstance(fmt, _Seq):
         return fmt.kind(_unflatten(f, it) for f in fmt.items)
     return fmt
+
+
+def _format(fmt, arrays):
+    """A call's result from its output arrays: as the reference's
+    CachedOp, a flat list of several, else the one; else the nesting."""
+    if isinstance(fmt, _Seq) and all(c is _SLOT for c in fmt.items):
+        return arrays if len(arrays) > 1 else arrays[0]
+    return _unflatten(fmt, iter(arrays))
 
 
 def replay_counts() -> Dict[str, int]:
@@ -204,18 +221,24 @@ class _Rec:
     """One call's tape record: the inner leaves (aliases of the inputs)
     and outputs whose graph holds the residuals, the inputs that need a
     gradient (``req``), the outputs that carry one (``diff``), and on
-    the card the graph instance (``entry``) that owns them."""
+    the card the graph instance (``entry``) that owns them. ``call`` is
+    the call (CachedOp, signature key, argument nesting, context) and
+    ``meta`` its outputs' (shape, dtype, requires_grad), which a K-step
+    chunk replays the call from (scan.py)."""
 
     __slots__ = ("entry", "static", "ins", "outs", "req", "diff", "gen",
-                 "out_ts", "__weakref__")
+                 "out_ts", "call", "meta", "__weakref__")
 
-    def __init__(self, entry, static, ins, outs):
+    def __init__(self, entry, static, ins, outs, call=None):
         self.entry, self.static = entry, static
         self.ins, self.outs = ins, outs
         self.req = [i for i, t in enumerate(ins) if t.requires_grad]
         self.diff = [j for j, o in enumerate(outs) if o.requires_grad]
         self.gen = entry.gen if static else 0
         self.out_ts = None
+        self.call = call
+        self.meta = None if call is None else tuple(
+            (o.shape, o.dtype, o.requires_grad) for o in outs)
 
     def check(self):
         if not self.static:
@@ -477,7 +500,7 @@ class CachedOp:
         self._out_fmt = _flatten(out, outs)
         return [o.tensor() for o in outs]
 
-    def _eager(self, tensors, consts, ctx, recording, entry):
+    def _eager(self, tensors, consts, ctx, recording, entry, call=None):
         """One eager call: outputs, as one tape node when recording."""
         if not recording:
             with torch.no_grad():
@@ -485,7 +508,7 @@ class CachedOp:
         leaves = [_alias(t, t.requires_grad) for t in tensors]
         with torch.enable_grad():
             outs = self._run(leaves, consts, ctx, True)
-        rec = _Rec(entry, False, leaves, outs)
+        rec = _Rec(entry, False, leaves, outs, call)
         rec.out_ts = [o.detach() for o in outs]
         return list(_Node.apply(rec, *tensors))
 
@@ -510,6 +533,10 @@ class CachedOp:
         consts = tuple(_flatten(a, datas) for a in args)
         if not datas:
             raise MXNetError("CachedOp %s: no NDArray input" % self.name)
+        if _DEFER[0] is not None:
+            deferred = _DEFER[0](self, datas, consts)
+            if deferred is not None:
+                return deferred
         ctx = datas[0].context
         self.n_data = len(datas)
         arrays = datas + [p.data(ctx) for p in self.params]
@@ -521,29 +548,27 @@ class CachedOp:
         key = (train, recording, _ops._CASTS_KEY[0], consts,
                tuple((t.shape, t.stride(), t.dtype, t.device,
                       t.requires_grad) for t in tensors))
+        call = (self, key, consts, ctx) if recording else None
         with self._lock:
             entry = self._instance(key, recording)
             if not tensors[0].is_cuda:
-                outs = self._eager(tensors, consts, ctx, recording, entry)
+                outs = self._eager(tensors, consts, ctx, recording, entry,
+                                   call)
             else:
                 outs = self._call_card(entry, key, tensors, consts, ctx,
-                                       recording, train)
+                                       recording, train, call)
             if self._out_fmt is not None:
                 self._out_fmts[key] = self._out_fmt
                 self._out_fmt = None
             fmt = self._out_fmts[key]
-        res = iter([NDArray(t, ctx) for t in outs])
-        if isinstance(fmt, _Seq) and all(c is _SLOT for c in fmt.items):
-            # as the reference's CachedOp: a list of several, else the one
-            res = list(res)
-            return res if len(res) > 1 else res[0]
-        return _unflatten(fmt, res)
+        return _format(fmt, [NDArray(t, ctx) for t in outs])
 
     def _call_card(self, entry, key, tensors, consts, ctx, recording,
-                   train):
+                   train, call=None):
         if key not in self._warm:
             with _on_side_stream(tensors[0].device):
-                outs = self._eager(tensors, consts, ctx, recording, entry)
+                outs = self._eager(tensors, consts, ctx, recording, entry,
+                                   call)
             self._warm.add(key)
             if not recording:
                 entry.capture(tensors, consts, ctx)
@@ -558,7 +583,7 @@ class CachedOp:
         outs = entry.replay(tensors, train)
         if not recording:
             return outs
-        rec = _Rec(entry, True, entry.leaves, entry.outs)
+        rec = _Rec(entry, True, entry.leaves, entry.outs, call)
         entry.owner = weakref.ref(rec)
         if entry.needs_bwd and entry.bwd is None:
             _BWD_TODO.add(rec)

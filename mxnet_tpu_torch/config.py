@@ -83,17 +83,38 @@ define("MXNET_TRAINER_FUSED_UPDATE", bool, True,
        "equal the separate update bit for bit. Needs "
        "MXNET_FUSED_BACKWARD.")
 define("MXNET_SCAN_STEPS", int, 1,
-       "K-step whole-loop compilation; above 1 the Trainer raises "
-       "(scan.py, the rest of ROADMAP.md queue 1, item 7).")
+       "K-step whole-loop compilation (scan.py): above 1 an armed "
+       "Trainer (MXNET_TRAINER_FUSED_UPDATE) buffers K consecutive "
+       "steps of hybridized calls, their forwards deferred, and retires "
+       "them as one function: on the card one captured graph of K "
+       "forwards, backwards and SGD updates. Bit for bit with K = 1.")
 define("MXNET_ZERO", bool, False,
        "ZeRO weight-update sharding; on, the Trainer raises (ROADMAP.md "
        "queue 1, item 11).")
+define("MXNET_FAULT_INJECT", str, "",
+       "Fault-injection spec 'site:prob[:max_fires],...' (e.g. "
+       "'nan_grad:1:1'); the sites are listed in faultinject.py.")
+define("MXNET_FAULT_INJECT_SEED", int, 0,
+       "Seed of the fault-injection probability draws (deterministic "
+       "chaos runs).")
 define("MXNET_GUARD_NONFINITE", str, "off",
-       "GradGuard non-finite policy; anything but 'off' makes the Trainer "
-       "raise (ROADMAP.md queue 1, item 13).")
+       "Non-finite gradient policy of guardrails.GradGuard at "
+       "Trainer.step: 'off' (no check), 'raise' (MXNetError naming the "
+       "offending parameters), 'skip_step' (drop the update, count it), "
+       "'zero' (zero the bad gradients and proceed).")
 define("MXNET_GUARD_CLIP_NORM", float, 0.0,
-       "GradGuard global-norm clip; above 0 the Trainer raises "
-       "(ROADMAP.md queue 1, item 13).")
+       "Global-gradient-norm clip threshold of GradGuard, on the norm "
+       "after rescale_grad (the same single reduction as the finiteness "
+       "check); 0 disables clipping.")
+define("MXNET_GUARD_LOSS_SPIKE", float, 0.0,
+       "Loss-spike factor: GradGuard.observe_loss emits a 'loss_spike' "
+       "event when a loss exceeds factor x the rolling mean (0 "
+       "disables).")
+define("MXNET_GUARD_LOSS_WINDOW", int, 50,
+       "Rolling window (observations) of the loss-spike detector.")
+define("MXNET_GUARD_COMM_VOTE", bool, False,
+       "Pre-allreduce finiteness vote of the dist kvstore; on, the "
+       "Trainer raises (ROADMAP.md queue 1, item 11).")
 define("MXNET_MODELWATCH", bool, False,
        "Training-dynamics statistics; on, the Trainer raises (ROADMAP.md "
        "queue 1, item 13).")

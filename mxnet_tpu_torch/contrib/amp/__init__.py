@@ -113,6 +113,11 @@ def init_trainer(optimizer_or_trainer):
                               dynamic=fp16)
     optimizer_or_trainer._amp_loss_scaler = _loss_scaler
     optimizer_or_trainer._amp_original_scale = optimizer_or_trainer._scale
+    # a grad guard the Trainer resolved before this call drives this
+    # scaler's backoff and growth (one code path with and without AMP)
+    guard = getattr(optimizer_or_trainer, "_grad_guard", None)
+    if guard is not None:
+        guard.scaler = _loss_scaler
     return optimizer_or_trainer
 
 
@@ -137,7 +142,14 @@ def unscale(optimizer_or_trainer):
     on overflow a dynamic scaler halves its scale and zeroes them. The
     Trainer's gradient scale goes back to its value before
     ``scale_loss``, so the step does not divide a second time (MXNet's
-    ``amp.unscale`` does this; the reference leaves it)."""
+    ``amp.unscale`` does this; the reference leaves it).
+
+    A grad guard wired to this scaler that owns the overflow policy
+    (``MXNET_GUARD_NONFINITE`` not ``off``) checks the gradients at
+    ``step`` and backs the scale off or grows it there, once a step:
+    here they are only divided. The restored scale is what the guard's
+    clip then multiplies the norm by, so it clips the unscaled
+    gradients' norm over the batch, as without AMP."""
     scaler = getattr(optimizer_or_trainer, "_amp_loss_scaler", None)
     if scaler is None:
         return
@@ -145,7 +157,13 @@ def unscale(optimizer_or_trainer):
     for p in optimizer_or_trainer._params:
         if p.grad_req != "null" and p._grad is not None:
             grads.extend(p.list_grad())
-    scaler.unscale_and_check(grads)
+    # the lazy property: on the first step the guard may not be resolved
+    guard = getattr(optimizer_or_trainer, "grad_guard", None)
+    if guard is not None and guard.scaler is scaler \
+            and guard.nonfinite != "off":
+        scaler.unscale(grads)
+    else:
+        scaler.unscale_and_check(grads)
     optimizer_or_trainer._scale = optimizer_or_trainer._amp_original_scale
 
 

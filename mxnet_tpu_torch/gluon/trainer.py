@@ -25,19 +25,29 @@ SGD update appended, as one captured graph on the card (ref:
 trainer.py :: _consume_fused_plan). The result equals the separate
 update bit for bit. A gradient read or another backward before the step
 runs the stashed backward alone, and the step then updates as usual.
-What this slice does not port raises ``NotImplementedError`` naming its
-ROADMAP.md item: a kvstore, several contexts, gradient compression,
-``update_on_kvstore``, ZeRO, the grad guard, modelwatch, K-step scan
-when asked for. Under AMP (``contrib.amp.init_trainer``) the Trainer carries
-the loss scaler, and ``amp.scale_loss`` folds ``1 / loss_scale`` into
-the scale that ``step`` applies.
+With a grad guard (``grad_guard``, from ``MXNET_GUARD_*`` by default;
+:mod:`mxnet_tpu_torch.guardrails`) ``step`` checks the gradients in one
+reduction and one host read before the update and may skip the step,
+zero the bad gradients, raise or clip, as the reference's classic guard
+pass does; an enabled guard disarms the fused update, except a
+``skip_step`` guard under ``MXNET_SCAN_STEPS`` above 1, which the K-step
+chunk carries (:mod:`mxnet_tpu_torch.scan`). Under K-step scan the
+armed Trainer pushes each stashed step to its chunk runner, which
+retires K of them at once. What this slice does not port raises
+``NotImplementedError`` naming its ROADMAP.md item: a kvstore, several
+contexts, gradient compression, ``update_on_kvstore``, ZeRO, the kv
+finite vote, modelwatch. Under AMP (``contrib.amp.init_trainer``) the
+Trainer carries the loss scaler, and ``amp.scale_loss`` folds
+``1 / loss_scale`` into the scale that ``step`` applies.
 """
 from __future__ import annotations
 
+import logging
 from typing import List
 
 from .. import autograd
 from .. import optimizer as opt_mod
+from .. import scan as scan_mod
 from ..config import get as _cfg
 from .parameter import Parameter, ParameterDict
 
@@ -52,13 +62,10 @@ def _not_ported(what, item):
 def _check_features():
     """Raise for the reference's Trainer features this slice leaves out,
     where the environment turns them on."""
-    if _cfg("MXNET_SCAN_STEPS") > 1:
-        raise _not_ported("K-step scan (MXNET_SCAN_STEPS)", 7)
     if _cfg("MXNET_ZERO"):
         raise _not_ported("ZeRO (MXNET_ZERO)", 11)
-    if _cfg("MXNET_GUARD_NONFINITE") != "off" or \
-            _cfg("MXNET_GUARD_CLIP_NORM") > 0:
-        raise _not_ported("the grad guard (MXNET_GUARD_*)", 13)
+    if _cfg("MXNET_GUARD_COMM_VOTE"):
+        raise _not_ported("the kv finite vote (MXNET_GUARD_COMM_VOTE)", 11)
     if _cfg("MXNET_MODELWATCH"):
         raise _not_ported("modelwatch (MXNET_MODELWATCH)", 13)
 
@@ -90,6 +97,11 @@ class Trainer:
         self._amp_original_scale = self._scale
         self._updater = opt_mod.get_updater(self._optimizer)
         self._fused_armed = False      # MXNET_TRAINER_FUSED_UPDATE state
+        self._fused_structural_bail = False
+        self._grad_guard = None        # guardrails.GradGuard (lazy)
+        self._guard_resolved = False
+        self._scan = None              # MXNET_SCAN_STEPS chunk runner
+        self._scan_warned = False
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -120,43 +132,154 @@ class Trainer:
         """Nothing to reduce on one context."""
         self._check_contexts()
 
+    @property
+    def grad_guard(self):
+        """The guard applied each step (guardrails.GradGuard), made from
+        the MXNET_GUARD_* variables on first use; None when every guard
+        feature is off. Assign to install one. An AMP loss scaler given
+        by ``amp.init_trainer`` is handed to it."""
+        if self._grad_guard is None and not self._guard_resolved:
+            from .. import guardrails
+            self._grad_guard = guardrails.from_env(
+                scaler=self._amp_loss_scaler)
+            self._guard_resolved = True
+        return self._grad_guard
+
+    @grad_guard.setter
+    def grad_guard(self, guard):
+        self._grad_guard = guard
+        self._guard_resolved = True
+
+    def _guard_grads(self):
+        """(name, gradient) of each parameter with a gradient, in the
+        Trainer's order (one context: the arrays the guard writes)."""
+        return [(p.name, p.grad()) for p in self._params
+                if p.grad_req != "null" and p._data is not None]
+
+    def _guard_arrays(self):
+        """The names and gradient tensors of :meth:`_guard_grads`, read
+        without draining (a K-step chunk's verdict covers them)."""
+        live = [p for p in self._params
+                if p.grad_req != "null" and p._data is not None]
+        return ([p.name for p in live],
+                [next(iter(p._grad.values())).tensor() for p in live])
+
     def step(self, batch_size, ignore_stale_grad=False):
         """One update of every parameter, gradients scaled by
-        1 / batch_size inside the update (ref: trainer.py :: step)."""
-        self.update(batch_size, ignore_stale_grad)
-
-    def update(self, batch_size, ignore_stale_grad=False):
+        1 / batch_size inside the update, after the guard's pass (ref:
+        trainer.py :: step). An armed Trainer runs the stashed backward
+        with the update appended, or pushes it to its K-step runner."""
         _check_features()
         self._check_contexts()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._scan is None and not self._scan_warned and \
+                scan_mod.steps() > 1 and not self._fused_update_eligible():
+            # once a Trainer: K-step scan asked for, this loop cannot
+            # take it (not SGD, masters, a guard beyond skip_step, ...)
+            self._scan_warned = True
+            logging.getLogger("mxnet_tpu_torch.scan").warning(
+                "MXNET_SCAN_STEPS=%d requested but this Trainer is not "
+                "scan-eligible (not fused-update eligible) — running per "
+                "step", scan_mod.steps())
         if self._fused_armed:
-            plan = autograd.take_pending_step(self)
-            if plan is not None and self._fused_update_eligible():
-                # checked again now: the flag or optimizer may have
-                # changed since the backward was stashed
-                items = self._items()
-                key, apply = self._optimizer.multi_plan(
-                    [i for i, _, _ in items],
-                    [w for _, _, w in items], [g for _, g, _ in items],
-                    [self._updater._state(i, w) for i, _, w in items])
-                plan.execute_with_update(self._optimizer.step_runners,
-                                         key, apply)
+            pending = autograd.take_pending_step(self)
+            if pending is not None and self._consume_pending(pending):
                 self._rearm_fused_update()
                 return
-            if plan is not None:
-                plan.execute()
             self._fused_armed = False
             autograd.disarm_fused_update(self)
+        guard = self.grad_guard
+        if guard is not None and guard.enabled:
+            # rescale_grad carries 1 / batch_size: the guard clips the
+            # norm the update sees
+            if not guard.check(self._guard_grads(),
+                               rescale=self._optimizer.rescale_grad):
+                return          # a skipped step (counted by the guard)
         self._update()
         self._rearm_fused_update()
 
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The update alone, without the guard (ref: trainer.py ::
+        update); a stashed backward runs first, without the update."""
+        _check_features()
+        self._check_contexts()
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update()
+
+    def _consume_pending(self, pending) -> bool:
+        """Run a stashed step with its update; True when done. Checked
+        again now: the flag, the optimizer or the guard may have changed
+        since the backward was stashed. False leaves the gradients
+        written for the classic path."""
+        eligible = self._fused_update_eligible()
+        guard = self.grad_guard
+        guard_on = guard is not None and guard.enabled
+        runner = self._scan_runner() if eligible else None
+        if eligible:
+            skips = len(runner.steps) if runner is not None and guard_on \
+                else 0
+            prep = self._prep_fused_plan(pending.leaf_ids, skips)
+            if prep is None:
+                # recurs every step: stop deferring for nothing
+                self._fused_structural_bail = True
+            elif runner is not None and runner.push(pending, prep):
+                return True
+            elif not guard_on:
+                self._consume_plan(pending, prep)
+                return True
+            else:
+                # the guard must see this step: its counters advance
+                # again in the classic update
+                prep.rewind(self._optimizer)
+        pending.execute()
+        return False
+
+    def _prep_fused_plan(self, leaf_ids, skips=0):
+        """The SGD update's host part for a stashed step whose backward
+        writes ``leaf_ids``: the counters advanced now, when the
+        per-step path advances them, so a schedule's lr reaches a chunk
+        retired later (``skips``: lrs also for that many earlier steps
+        of the chunk skipped). None when a parameter is not on the tape
+        or has a master weight (the counters untouched)."""
+        items = []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or p._data is None:
+                continue
+            w = p.list_data()[0]
+            if id(w) not in leaf_ids:
+                return None
+            items.append((i, next(iter(p._grad.values())), w))
+        if not items:
+            return None
+        states = [self._updater._state(i, w) for i, _, w in items]
+        if any(isinstance(s, tuple) for s in states):
+            return None
+        return self._optimizer.multi_prep(
+            [i for i, _, _ in items], [w for _, _, w in items],
+            [g for _, g, _ in items], states, skips=skips)
+
+    def _consume_plan(self, pending, prep):
+        """The stashed backward with the SGD update appended: one
+        captured graph on the card (the optimizer keeps its runner)."""
+        key, apply = self._optimizer.multi_plan(None, None, None, None,
+                                                prep=prep)
+        pending.execute_with_update(self._optimizer.step_runners, key,
+                                    apply)
+
     def _fused_update_eligible(self):
         """The reference's ladder on the port's terms: the flag (and the
-        fused backward it rides on), exactly SGD, no masters, an
-        aggregation width above 1, every grad_req write or null; one
-        context and no kvstore hold by construction."""
+        fused backward it rides on), no structural bail, no guard but a
+        chunk-compatible one, exactly SGD, no masters, an aggregation
+        width above 1, every grad_req write or null; one context and no
+        kvstore hold by construction."""
         if not (_cfg("MXNET_TRAINER_FUSED_UPDATE") and
                 _cfg("MXNET_FUSED_BACKWARD")):
+            return False
+        if self._fused_structural_bail:
+            return False
+        guard = self.grad_guard
+        if guard is not None and guard.enabled and \
+                not scan_mod.guard_compatible(self, guard):
             return False
         opt = self._optimizer
         if type(opt) is not opt_mod.SGD or opt.multi_precision:
@@ -172,10 +295,34 @@ class Trainer:
             if leaf_ids:
                 autograd.arm_fused_update(self, leaf_ids)
                 self._fused_armed = True
+                runner = self._scan_runner()
+                if runner is not None and runner.template is None:
+                    # the arming step's backward is the first template
+                    runner.adopt(autograd.last_plan())
                 return
         if self._fused_armed:
             autograd.disarm_fused_update(self)
         self._fused_armed = False
+
+    def _scan_runner(self):
+        """This Trainer's chunk runner, made on first use; None when
+        MXNET_SCAN_STEPS is 1 or the runner bailed. A changed K drains
+        the old runner and starts one at the new length."""
+        k = scan_mod.steps()
+        if k <= 1:
+            self._scan_flush()
+            return None
+        r = self._scan
+        if r is None or (r.k != k and not r.bailed):
+            if r is not None:
+                r.flush()
+            r = self._scan = scan_mod.ChunkRunner(self, k)
+        return None if r.bailed else r
+
+    def _scan_flush(self):
+        """Drain a buffered partial chunk (checkpoints)."""
+        if self._scan is not None:
+            self._scan.flush()
 
     def _check_contexts(self):
         ctxs = {tuple(p.list_ctx()) for p in self._params
@@ -207,7 +354,9 @@ class Trainer:
 
     def states_blob(self) -> bytes:
         """The updater's states, pickled as ``{index: state}`` without the
-        optimizer (``get_states(dump_optimizer=False)``)."""
+        optimizer (``get_states(dump_optimizer=False)``); a buffered
+        chunk drains first, so the checkpoint lands between chunks."""
+        self._scan_flush()
         return self._updater.get_states(dump_optimizer=False)
 
     def load_states(self, fname):
@@ -220,7 +369,9 @@ class Trainer:
         quantized-sync residuals (``__mx_quant__``, ``__mx_zero_quant__``)
         loads as its plain states and the residuals are dropped, as the
         reference does on a path without quantization. The optimizer
-        stays this Trainer's."""
+        stays this Trainer's. A buffered chunk drains first (its steps
+        must not replay over the loaded states)."""
+        self._scan_flush()
         obj = opt_mod.loads_states(states)
         if isinstance(obj, dict) and obj.get("__mx_quant__"):
             obj = opt_mod.loads_states(obj["updater"])

@@ -19,6 +19,15 @@ input's dtype; the hash stays the identity's.
 Autograd (ref: NDArray AGInfo + attach_grad): ``attach_grad`` makes the
 tensor a torch leaf that requires grad and gives it a ``.grad`` array;
 :func:`mxnet_tpu_torch.autograd.backward` fills it by ``grad_req``.
+
+Deferred arrays (ref: the ``_pending`` marker): while a K-step chunk
+buffers (:mod:`mxnet_tpu_torch.scan`) a hybridized call returns arrays
+whose values a later function will produce. Such an array carries
+``_pending``, (its step, node, output); its tensor is already of the
+right shape, dtype and device, so ``shape`` and the like read without
+waiting, but any read of its values (``tensor()``, ``asnumpy``,
+``wait_to_read``, an op that takes it, an in-place write) forces the
+step first.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "to_tensor",
 class NDArray:
     """A device-resident array."""
 
-    __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "_pending",
+                 "__weakref__")
 
     # higher than numpy's so ndarray.__add__(NDArray) defers to us
     __array_priority__ = 1000.0
@@ -51,6 +61,7 @@ class NDArray:
         self._ctx = ctx if ctx is not None else context_of(tensor.device)
         self._grad: Optional["NDArray"] = None
         self._grad_req = "null"
+        self._pending = None
 
     # -- properties --------------------------------------------------------
     @property
@@ -89,14 +100,17 @@ class NDArray:
         return invoke("transpose", [self], {})
 
     def tensor(self) -> torch.Tensor:
-        """The underlying ``torch.Tensor`` (shared, not copied)."""
+        """The underlying ``torch.Tensor`` (shared, not copied); a
+        deferred array's step is forced first."""
+        if self._pending is not None:
+            self._pending[0].force()
         return self._t
 
     # -- host transfer -----------------------------------------------------
     def asnumpy(self) -> np.ndarray:
         """A copy of the values on the host, bf16 widened to f32 on the
         device that holds them; one host copy on either device."""
-        t = self._t.detach()
+        t = self.tensor().detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
         elif t.device.type == "cpu":
@@ -128,7 +142,7 @@ class NDArray:
     def wait_to_read(self):
         """Block until the values are computed: a no-op on the host, a
         sync of the array's stream on the card."""
-        if self._t.is_cuda:
+        if self.tensor().is_cuda:
             torch.cuda.current_stream(self._t.device).synchronize()
 
     def __len__(self):
@@ -139,7 +153,7 @@ class NDArray:
     def __reduce__(self):
         # pickle through the host in the array's own dtype, as the
         # reference does
-        return (_unpickle, (host_numpy(self._t.detach().cpu()),
+        return (_unpickle, (host_numpy(self.tensor().detach().cpu()),
                             self._ctx.device_type, self._ctx.device_id))
 
     # -- indexing ------------------------------------------------------------
@@ -166,11 +180,11 @@ class NDArray:
         an NDArray, list or numpy array indexes as numpy does (a copy).
         Inside ``autograd.record()`` both are recorded."""
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self._t[self._index(key)], self._ctx)
+            return NDArray(self.tensor()[self._index(key)], self._ctx)
 
     def _value(self, value) -> torch.Tensor:
         if isinstance(value, NDArray):
-            return value._t.to(self._t.dtype)
+            return value.tensor().to(self._t.dtype)
         return torch.as_tensor(np.asarray(value), dtype=self._t.dtype,
                                device=self._t.device)
 
@@ -187,6 +201,7 @@ class NDArray:
         """Write ``value`` into the indexed region (ref: ndarray.py
         ``__setitem__``): in place, or as a recorded assignment on a
         copy that this array is rebound to inside ``record()``."""
+        self.tensor()
         key = self._index(key)
         if autograd.is_recording() and (self._in_graph or (
                 isinstance(value, NDArray) and value._in_graph)):
@@ -219,21 +234,22 @@ class NDArray:
         (which takes this array's shape and dtype, as in the
         reference)."""
         if isinstance(other, NDArray):
-            src = self._t.detach()
-            if src.shape == other._t.shape and src.dtype == other._t.dtype:
+            src = self.tensor().detach()
+            if src.shape == other.tensor().shape and \
+                    src.dtype == other._t.dtype:
                 with torch.no_grad():
                     other._t.copy_(src)
             else:
                 other._t = src.to(other._t.device, copy=True)
             return other
         ctx = Context(other)
-        return NDArray(ctx.place(self._t.detach()), ctx)
+        return NDArray(ctx.place(self.tensor().detach()), ctx)
 
     def as_in_context(self, ctx: Context) -> "NDArray":
         ctx = Context(ctx)
         if ctx == self._ctx:
             return self
-        return NDArray(ctx.place(self._t), ctx)
+        return NDArray(ctx.place(self.tensor()), ctx)
 
     as_in_ctx = as_in_context
 
@@ -250,11 +266,12 @@ class NDArray:
         """Make this array a variable with a zero ``.grad`` of its
         shape and dtype."""
         autograd.mark_variables(
-            [self], [NDArray(torch.zeros_like(self._t.detach()), self._ctx)],
+            [self], [NDArray(torch.zeros_like(self.tensor().detach()),
+                             self._ctx)],
             grad_req)
 
     def detach(self) -> "NDArray":
-        return NDArray(self._t.detach(), self._ctx)
+        return NDArray(self.tensor().detach(), self._ctx)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         autograd.backward([self], None if out_grad is None else [out_grad],
@@ -321,6 +338,7 @@ class NDArray:
         tensor; inside ``record()`` an array on the tape is rebound to
         the recorded result (a write into a tensor the tape saved would
         corrupt its backward), as the reference rebinds its buffer."""
+        self.tensor()
         r = self._binop(o, op, scalar_op)
         if r is NotImplemented:
             return r
@@ -437,7 +455,7 @@ class NDArray:
 
 def to_tensor(x) -> Optional[torch.Tensor]:
     """The tensor of an NDArray (tensors and None pass through)."""
-    return x._t if isinstance(x, NDArray) else x
+    return x.tensor() if isinstance(x, NDArray) else x
 
 
 def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
@@ -483,7 +501,7 @@ def array(source_array, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     and float64 arrays default to float32, as in MXNet)."""
     ctx = Context(ctx or current_context())
     if isinstance(source_array, NDArray):
-        t = source_array._t
+        t = source_array.tensor()
     elif isinstance(source_array, torch.Tensor):
         t = source_array
     else:

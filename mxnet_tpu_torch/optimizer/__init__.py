@@ -29,7 +29,9 @@ runs the update reads the step's values there instead of the values of
 the step it was captured in. Such a graph (a backward with this update
 appended) is kept in the optimizer's ``step_runners`` and dies with it:
 it never serves another optimizer. The update counters advance on the
-host every step.
+host every step, in :meth:`SGD.multi_prep`, whose :class:`SGDPrep` is
+the step's host part; a K-step chunk (``scan.py``) stages K of them as
+K rows and step k of its graph reads row k.
 
 ``Updater.get_states`` pickles ``{index: state}`` as the reference does,
 each array through ``ndarray._unpickle`` (all of them copied to the
@@ -285,15 +287,15 @@ class SGD(Optimizer):
         weights' device."""
         self.multi_plan(indices, weights, grads, states)[1]()
 
-    def multi_plan(self, indices, weights, grads, states):
-        """The host part of :meth:`update_multi`: advance the counters and
-        stage each chunk's lrs, wds and rescale_grad on the device (a
-        group's chunks are ``aggregate_num`` wide; the math of each
-        tensor is the same at any width). Returns ``(key, apply)``:
-        ``apply()`` is the device part, and ``key`` names its math and
-        the addresses of the tensors it reads and writes (a captured
-        ``apply``, which keeps those tensors alive, replays as long as
-        the key holds)."""
+    def multi_prep(self, indices, weights, grads, states, skips=0):
+        """The host part of a multi-tensor step (:class:`SGDPrep`):
+        advance the counters, then take each chunk's lrs and wds and the
+        rescale (a group's chunks are ``aggregate_num`` wide; the math of
+        each tensor is the same at any width). With ``skips`` the lrs
+        are also taken as if that many earlier steps had not advanced
+        the counters (0 to ``skips``, from the most): a K-step chunk
+        whose guard may skip a step selects the row of its skips in the
+        graph (scan.py)."""
         groups: Dict[tuple, list] = {}
         for item in zip(indices, weights, grads, states):
             s = item[3]
@@ -304,10 +306,13 @@ class SGD(Optimizer):
         agg = max(int(self.aggregate_num), 1)
         chunks = [(gk, items) for gk, group in groups.items()
                   for items in _chunks(group, agg)]
-        calls, key = [], []
+        base_counts = dict(self._index_update_count)
+        base_num = self.num_update
+        calls, vals, key = [], [], []
         for (mom, mp, gdt), items in chunks:
             for i, _, _, _ in items:
                 self._update_count(i)
+            num = self.num_update
             n = len(items)
             arrays, dsts = [], []
             for _, w, g, s in items:
@@ -316,14 +321,12 @@ class SGD(Optimizer):
                 arrays += [w.tensor(), g.tensor()] + [x.tensor() for x in st]
                 dsts.append([w] + st)
             gkey = (mom, mp, gdt, tuple(i for i, _, _, _ in items))
-            staged = self._staged.get(gkey)
-            if staged is None:
-                # the multi-precision ops rescale the widened gradient
-                staged = self._staged[gkey] = _Staged(
-                    n, torch.float32 if mp else gdt, arrays[0].device)
-            staged.stage([self._get_lr(i) for i, _, _, _ in items],
-                         [self._get_wd(i) for i, _, _, _ in items],
-                         self.rescale_grad)
+            lr_rows = []
+            for back in range(skips, -1, -1):
+                # in rising count order: a scheduler may keep state
+                self.num_update = num - back
+                lr_rows.insert(0, [self._get_lr(i) for i, _, _, _ in items])
+            self.num_update = num
             kw = dict(clip_gradient=self._clip(), num_weights=n)
             if mom:
                 kw["momentum"] = self.momentum
@@ -332,46 +335,115 @@ class SGD(Optimizer):
                   (True, True): _ops.preloaded_multi_mp_sgd_mom_update,
                   (False, True): _ops.preloaded_multi_mp_sgd_update}[
                       (mom, mp)]
-            calls.append((op, arrays, dsts, kw, staged))
+            # the multi-precision ops rescale the widened gradient
+            calls.append((gkey, op, arrays, dsts, kw,
+                          torch.float32 if mp else gdt))
+            vals.append((lr_rows, [self._get_wd(i) for i, _, _, _ in items]))
             key.append((gkey, tuple(sorted(kw.items())),
                         tuple((a.data_ptr(), a.shape) for a in arrays)))
+        return SGDPrep(calls, vals, self.rescale_grad, ("sgd",) + tuple(key),
+                       base_counts, base_num)
 
-        def apply():
-            with torch.no_grad():
-                for op, arrays, dsts, kw, staged in calls:
-                    n = kw["num_weights"]
-                    outs = op(*arrays, staged.lrs, staged.wds,
-                              rescale_grad=staged.rescale, **kw)
-                    outs = outs if isinstance(outs, tuple) else (outs,)
-                    for k, dst in enumerate(dsts):
-                        for j, arr in enumerate(dst):
-                            _write(arr, outs[j * n + k])
-        return ("sgd",) + tuple(key), apply
+    def staged_for(self, prep, rows=1):
+        """The staged tensors of each of ``prep``'s chunks, ``rows``
+        steps deep; they live as long as the optimizer."""
+        out = []
+        for gkey, _, arrays, _, kw, rdtype in prep.calls:
+            sk = (gkey, rows)
+            staged = self._staged.get(sk)
+            if staged is None:
+                staged = self._staged[sk] = _Staged(
+                    kw["num_weights"], rdtype, arrays[0].device, rows)
+            out.append(staged)
+        return out
+
+    def multi_plan(self, indices, weights, grads, states, prep=None):
+        """:meth:`multi_prep` (or the ``prep`` made earlier) staged on the
+        device. Returns ``(key, apply)``: ``apply()`` is the device part,
+        and ``key`` names its math and the addresses of the tensors it
+        reads and writes (a captured ``apply``, which keeps those
+        tensors alive, replays as long as the key holds)."""
+        if prep is None:
+            prep = self.multi_prep(indices, weights, grads, states)
+        staged = self.staged_for(prep)
+        for st, (lr_rows, wds) in zip(staged, prep.vals):
+            st.stage([(lr_rows[:1], wds, prep.rescale)])
+        return prep.key, lambda: prep.apply(staged)
+
+
+class SGDPrep:
+    """One SGD multi-tensor step's host part: ``calls`` (per chunk: its
+    group key, op, input tensors, destination arrays, attributes and the
+    rescale dtype), ``vals`` (per chunk: lrs by skipped steps, then wds),
+    ``rescale``, the ``key`` of its math and tensors, and the counters
+    before it advanced them (``base_counts``, ``base_num``), which a
+    step that falls back to the classic path rewinds to."""
+
+    __slots__ = ("calls", "vals", "rescale", "key", "base_counts",
+                 "base_num")
+
+    def __init__(self, calls, vals, rescale, key, base_counts, base_num):
+        self.calls, self.vals, self.rescale = calls, vals, rescale
+        self.key, self.base_counts, self.base_num = key, base_counts, \
+            base_num
+
+    def rewind(self, opt):
+        opt._index_update_count = dict(self.base_counts)
+        opt.num_update = self.base_num
+
+    def apply(self, staged, row=0, ok=None, skipped=None):
+        """The device part: each chunk's op on row ``row`` of its staged
+        tensors, the lrs of row ``skipped`` (a device index) of the step
+        when given. With ``ok`` (a device bool) each weight and state
+        keeps its value where ``ok`` is false."""
+        with torch.no_grad():
+            for (_, op, arrays, dsts, kw, _), st in zip(self.calls, staged):
+                n = kw["num_weights"]
+                lrs = st.lr_tab[row, 0] if skipped is None else \
+                    st.lr_tab[row].index_select(0, skipped)[0]
+                outs = op(*arrays, lrs, st.wd_tab[row],
+                          rescale_grad=st.rescale[row], **kw)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                for k, dst in enumerate(dsts):
+                    for j, arr in enumerate(dst):
+                        new = outs[j * n + k]
+                        if ok is not None:
+                            new = torch.where(ok, new, arr.tensor())
+                        _write(arr, new)
 
 
 class _Staged:
-    """One SGD group's per-step hyperparameters on the device: ``lrs``
-    and ``wds`` (f32, one a tensor) and ``rescale`` (0-d, in the dtype the
-    update rescales the gradient in, rounded to it as the Python scalar
-    is), refreshed by :meth:`stage` from pinned host memory. The host
-    buffer is rewritten only after the previous copy out of it ran."""
+    """One SGD chunk's hyperparameters on the device for ``rows`` steps:
+    ``lr_tab`` (rows, rows, n) f32, step k's lrs by the number of steps
+    of its chunk skipped before it; ``wd_tab`` (rows, n) f32; ``rescale``
+    (rows,) in the dtype the update rescales the gradient in, rounded to
+    it as the Python scalar is. Refreshed by :meth:`stage` from pinned
+    host memory, whose buffer is rewritten only after the previous copy
+    out of it ran."""
 
-    def __init__(self, n, rdtype, device):
+    def __init__(self, n, rdtype, device, rows=1):
         pin = device.type == "cuda"
-        self.host = torch.empty(2 * n, dtype=torch.float32, pin_memory=pin)
-        self.host_r = torch.empty((), dtype=rdtype, pin_memory=pin)
-        self.dev = torch.empty(2 * n, dtype=torch.float32, device=device)
-        self.rescale = torch.empty((), dtype=rdtype, device=device)
-        self.lrs, self.wds = self.dev[:n], self.dev[n:]
-        self.n = n
+        size = rows * rows * n + rows * n
+        self.host = torch.zeros(size, dtype=torch.float32, pin_memory=pin)
+        self.host_r = torch.empty(rows, dtype=rdtype, pin_memory=pin)
+        self.dev = torch.empty(size, dtype=torch.float32, device=device)
+        self.rescale = torch.empty(rows, dtype=rdtype, device=device)
+        self.lr_tab = self.dev[:rows * rows * n].view(rows, rows, n)
+        self.wd_tab = self.dev[rows * rows * n:].view(rows, n)
+        self._host_lr = self.host[:rows * rows * n].view(rows, rows, n)
+        self._host_wd = self.host[rows * rows * n:].view(rows, n)
+        self.n, self.rows = n, rows
         self._done = None
 
-    def stage(self, lrs, wds, rescale):
+    def stage(self, steps):
+        """``steps``: per row, (lrs by skips, wds, rescale)."""
         if self._done is not None:
             self._done.synchronize()
-        self.host[:self.n] = torch.tensor(lrs, dtype=torch.float32)
-        self.host[self.n:] = torch.tensor(wds, dtype=torch.float32)
-        self.host_r.fill_(rescale)
+        for k, (lr_rows, wds, rescale) in enumerate(steps):
+            for s, lrs in enumerate(lr_rows):
+                self._host_lr[k, s] = torch.tensor(lrs, dtype=torch.float32)
+            self._host_wd[k] = torch.tensor(wds, dtype=torch.float32)
+            self.host_r[k].fill_(rescale)
         blocking = not self.dev.is_cuda
         self.dev.copy_(self.host, non_blocking=not blocking)
         self.rescale.copy_(self.host_r, non_blocking=not blocking)

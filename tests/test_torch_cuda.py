@@ -959,7 +959,7 @@ def test_hybridized_bert_replays_equal_eager(card, head):
     assert all((g is None) == (head == "plan") for g in bwds)
     reps = cached_op.replay_counts()
     assert reps == {"forward": 2, "backward": 0 if head == "plan" else 2,
-                    "tape": 1 if head == "plan" else 0}
+                    "tape": 1 if head == "plan" else 0, "chunk": 0}
 
 
 def test_hybridized_dropout_replays_draw_new_masks(card):
@@ -1488,3 +1488,165 @@ def test_embedding_backward_is_the_same_from_run_to_run(card, ids_shape):
     for gr in grads[1:4]:
         assert torch.equal(gr, grads[0])
     _assert_close(grads[0], grads[4])
+
+
+# ---------------------------------------------------------------------------
+# MXNET_SCAN_STEPS: K steps as one captured graph a chunk
+# ---------------------------------------------------------------------------
+def _scan_bert(mx, seed=0):
+    """A 2-layer BERT 128 wide at dropout 0.1 and its dense MLM loss in
+    bf16 on gpu(0), hybridized, and a (4, 16) batch."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMLoss, BERTModel
+    mx.random.seed(seed)
+    net = BERTModel(num_layers=2, units=128, hidden_size=256, num_heads=2,
+                    max_length=32, vocab_size=100, prefix="sbert_",
+                    dropout=0.1, use_pooler=False, use_classifier=False,
+                    use_decoder=False)
+    mlm = BERTMLMLoss(vocab_size=100, units=128, mode="dense",
+                      prefix="smlm_")
+    net.initialize(ctx=mx.gpu(0))
+    mlm.initialize(ctx=mx.gpu(0))
+    rng = np.random.RandomState(seed)
+    batch = [mx.nd.array(rng.randint(0, hi, (4, 16)), ctx=mx.gpu(0))
+             for hi in (100, 2, 100)]
+    net(*batch[:2])
+    net.cast("bfloat16")
+    mlm.cast("bfloat16")
+    for b in (net, mlm):
+        b.hybridize(static_alloc=True, static_shape=True)
+    params = net.collect_params()
+    params.update(mlm.collect_params())
+    return net, mlm, params, batch
+
+
+def _scan_run(mx, monkeypatch, k, steps, guard=False, plant=None,
+              probe=None):
+    """``steps`` SGD steps (momentum 0.9, wd 0.01, a PolyScheduler) of
+    the small BERT at MXNET_SCAN_STEPS=k from seed 0, backward from the
+    loss block's output; ``plant``: the step index whose gradient gets a
+    NaN; ``probe(i)`` wraps step i. Returns (losses, parameters,
+    momenta, the guard, the Trainer)."""
+    from mxnet_tpu_torch import faultinject
+    monkeypatch.setenv("MXNET_SCAN_STEPS", str(k))
+    monkeypatch.setenv("MXNET_TRAINER_FUSED_UPDATE", "1")
+    faultinject.reset()
+    net, mlm, params, batch = _scan_bert(mx)
+    sched = mx.lr_scheduler.PolyScheduler(max_update=100, base_lr=0.01,
+                                          warmup_steps=2, pwr=1)
+    tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.01,
+                                          "momentum": 0.9, "wd": 0.01,
+                                          "lr_scheduler": sched})
+    if guard:
+        tr.grad_guard = mx.guardrails.GradGuard(nonfinite="skip_step")
+    mx.random.seed(5)
+    ids, tok, lab = batch
+    losses = []
+    for i in range(steps):
+        if plant is not None and i == plant - 1:
+            faultinject.set_fault("nan_grad", 1.0, max_fires=1)
+
+        def step():
+            with mx.autograd.record():
+                seq = net(ids, tok)
+                seq = seq if isinstance(seq, mx.nd.NDArray) else seq[0]
+                per_position = mlm(seq, lab)
+            per_position.backward()
+            tr.step(4)
+            return per_position
+        losses.append(probe(i, step) if probe else step())
+    mx.autograd.flush_all_pending()
+    faultinject.reset()
+    out = ([l.asnumpy() for l in losses],
+           {n: p.data().asnumpy() for n, p in params.items()},
+           {i: s.asnumpy() for i, s in tr._updater.states.items()},
+           tr.grad_guard, tr)
+    mx.autograd.disarm_fused_update()
+    return out
+
+
+def _assert_runs_equal(a, b):
+    for x, y in zip(a[0], b[0]):
+        np.testing.assert_array_equal(x, y)
+    for key in (1, 2):
+        assert a[key].keys() == b[key].keys()
+        for n in a[key]:
+            np.testing.assert_array_equal(a[key][n], b[key][n],
+                                          err_msg=str(n))
+
+
+def test_scan_chunk_replays_once_per_k(card, monkeypatch):
+    """At K=4 the first chunk runs eagerly, the second is captured, the
+    third replays one graph: no forward, backward or plan replay and no
+    kernel launched outside it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    seen = {}
+
+    def probe(i, step):
+        if i == 9:                  # the first step of the third chunk
+            cached_op.reset_replay_counts()
+            cuda_build.reset_launch_counts()
+        out = step()
+        if i == 12:
+            torch.cuda.synchronize()
+            seen["replays"] = cached_op.replay_counts()
+            seen["launches"] = {k: v for k, v in
+                                cuda_build.launch_counts().items() if v}
+        return out
+    *_, tr = _scan_run(mx, monkeypatch, 4, 13, probe=probe)
+    assert seen["replays"] == {"forward": 0, "backward": 0, "tape": 0,
+                               "chunk": 1}
+    assert seen["launches"] == {}
+    assert tr._scan.retired_chunks == 3 and not tr._scan.bailed
+
+
+def test_scan_one_host_sync_per_chunk(card, monkeypatch):
+    """A steady guarded chunk reads the card once (its verdict), as
+    torch.cuda.set_sync_debug_mode counts synchronising calls."""
+    import warnings
+    import mxnet_tpu_torch as mx
+    seen = {}
+
+    def probe(i, step):
+        if i not in (9, 10, 11, 12):
+            return step()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        seen.setdefault("syncs", []).append(
+            sum("called a synchronizing" in str(x.message) for x in w))
+        return out
+    *_, guard, tr = _scan_run(mx, monkeypatch, 4, 13, guard=True,
+                              probe=probe)
+    assert seen["syncs"] == [0, 0, 0, 1]
+    assert guard.sync_count == 1 + 3
+
+
+def test_scan_bitwise_with_per_step(card, monkeypatch):
+    """11 steps at K=4 (the arming step, two chunks, a tail of two
+    drained by the read) equal 11 per-step fused steps bit for bit:
+    losses, parameters and momenta, at dropout 0.1 under a schedule."""
+    import mxnet_tpu_torch as mx
+    four = _scan_run(mx, monkeypatch, 4, 11)
+    one = _scan_run(mx, monkeypatch, 1, 11)
+    _assert_runs_equal(four, one)
+    assert four[4]._scan.retired_chunks == 2
+    assert four[4]._scan.flushed_steps == 2
+
+
+def test_scan_guard_skip_bitwise_with_classic(card, monkeypatch):
+    """A NaN planted at step 6, inside the second chunk: K=4 with a
+    skip_step guard equals the classic guarded path at K=1 bit for bit,
+    both skip one step, and the chunked run reads the card 4 times (the
+    arming step, two chunks, the tail) against 11."""
+    import mxnet_tpu_torch as mx
+    four = _scan_run(mx, monkeypatch, 4, 11, guard=True, plant=6)
+    one = _scan_run(mx, monkeypatch, 1, 11, guard=True, plant=6)
+    _assert_runs_equal(four, one)
+    assert four[3].skipped_steps == one[3].skipped_steps == 1
+    assert (four[3].sync_count, one[3].sync_count) == (4, 11)

@@ -12,8 +12,8 @@ one cached plan with the update, the counters advanced once a step, a
 gradient read or the next backward running the stashed plan without the
 update, and no arming for anything but plain SGD. A served session over
 a hybridized block answers as the eager forward does. The reference's
-guard tests (``:183``, ``:204``) wait for the port's grad guard
-(ROADMAP.md queue 1, item 13).
+guard tests (``:183``, ``:204``): an enabled guard never arms, and one
+installed mid-training sees the step already stashed.
 """
 import numpy as np
 import pytest
@@ -304,9 +304,13 @@ def test_fused_backward_off_runs_node_by_node(monkeypatch):
 
 
 def test_scan_steps_still_refused(monkeypatch):
+    """K-step scan is ported; what stays refused is scan over several
+    devices: MXNET_ZERO beside MXNET_SCAN_STEPS raises naming item 11
+    (the reference's red test_replicated_and_zero_paths_fall_back)."""
     net, lf, tr = _setup(pt, "s_")
     monkeypatch.setenv("MXNET_SCAN_STEPS", "4")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    monkeypatch.setenv("MXNET_ZERO", "1")
+    with pytest.raises(NotImplementedError, match="item 11"):
         tr.step(8)
 
 
@@ -338,3 +342,59 @@ def test_served_hybridized_session_equals_eager_forward():
         want2 = net(pt.nd.array(padded, ctx=pt.cpu())).asnumpy()[:3]
     np.testing.assert_array_equal(again, want2)
     assert not np.array_equal(again, got)
+
+
+@pytest.mark.parametrize("lib", ["ref", "port"])
+def test_guard_disables_fused_update(monkeypatch, lib):
+    """An enabled guard needs the gradients on the host before the
+    update: the fused path never arms (reference :183), in both
+    packages."""
+    lib = mx if lib == "ref" else pt
+    monkeypatch.setenv("MXNET_TRAINER_FUSED_UPDATE", "1")
+    monkeypatch.setenv("MXNET_GUARD_NONFINITE", "skip_step")
+    net, lf, tr = _setup(lib, "gd_")
+    x, y = _data(lib)
+    for _ in range(2):
+        _fwd_bwd(lib, net, lf, x, y)
+        tr.step(8)
+    assert not tr._fused_armed
+    assert tr.grad_guard.steps == 2 and tr.grad_guard.sync_count == 2
+
+
+@pytest.mark.parametrize("lib", ["ref", "port"])
+def test_guard_installed_mid_training_not_bypassed(monkeypatch, lib):
+    """Eligibility is checked again when the stashed step is consumed: a
+    guard installed after the loop armed sees the very next step (the
+    stashed plan runs without the update, the classic guard pass runs;
+    reference :204), and the parameters equal the reference's."""
+    libs = {"ref": mx, "port": pt}
+    got = {}
+    for name in ("ref", "port"):
+        if name != lib and lib != "port":
+            continue
+        m = libs[name]
+        monkeypatch.setenv("MXNET_TRAINER_FUSED_UPDATE", "1")
+        monkeypatch.delenv("MXNET_GUARD_NONFINITE", raising=False)
+        net, lf, tr = _setup(m, "gm_")
+        x, y = _data(m)
+        for _ in range(2):
+            _fwd_bwd(m, net, lf, x, y)
+            tr.step(8)
+        assert tr._fused_armed
+        _fwd_bwd(m, net, lf, x, y)
+        assert (ref_ag if m is mx else ag)._PENDING[0] is not None
+        monkeypatch.setenv("MXNET_GUARD_NONFINITE", "skip_step")
+        tr.grad_guard = m.guardrails.from_env()
+        checked = []
+        orig_check = tr.grad_guard.check
+        tr.grad_guard.check = lambda *a, **k: (checked.append(1),
+                                               orig_check(*a, **k))[1]
+        tr.step(8)
+        assert checked, "guard bypassed by the stashed fused plan"
+        assert not tr._fused_armed
+        got[name] = [p.data().asnumpy()
+                     for p in net.collect_params().values()]
+        (ref_ag if m is mx else ag).disarm_fused_update()
+    if lib == "port":
+        for a, b in zip(got["port"], got["ref"]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
