@@ -284,6 +284,46 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    the wrappers, its eager chunk and tail) and a ``scan`` entry in
    ``launches_per_compiled_capture``.
 
+15. vision — the vision model zoo, ``gluon.data.vision`` and the
+   DataLoader's worker processes, under TF32 off, f32. (b) The loader:
+   ``VisionChain`` (a flip drawn from the seed and the sample index,
+   HWC to CHW, /255, ImageNet's mean and std; numpy only) over
+   ``SyntheticImageDataset(shape=(224, 224, 3))``, ``DataLoader(
+   batch_size=64, shuffle=True, num_workers=4)``: one epoch bit for bit
+   with ``num_workers=0``'s; ``transforms.Compose([ToTensor(),
+   Normalize()])`` warns once and runs in a thread, bit for bit with the
+   numpy chain without the flip; no worker reaches
+   ``torch.cuda._lazy_init``; no segment left in ``/dev/shm``. Controls:
+   batches yielded in completion order (the first batch slowed), and a
+   worker creating a CUDA tensor, must be caught. (a) ``get_model(
+   "vgg16", classes=1000)``, Xavier from ``--seed``, SGD lr 0.01,
+   momentum 0.9, wd 5e-4: the first step against its float64 twin (the
+   same weights, batch and dropout seeds, the plain dropout in f64)
+   within ``VISION_TWIN``, a step whose two dropouts share one seed
+   caught; ``VISION_STEPS`` steps eager, then hybridized (SGD fused into
+   the backward's graph) from the same snapshot and seed, bit for bit,
+   the loss falling; row 8 launched 4 times by an eager step and
+   recorded 4 times into the graphs. (c) alexnet, vgg16_bn,
+   mobilenet1_0, mobilenet_v2_1_0, densenet121, squeezenet1_0 and 1_1
+   at 224^2, inception_v3 at 299^2, batch 32: each first step against
+   its float64 twin, one SGD step, its row-8 launches. (d)
+   ``BASELINE.json`` configs[0] through ``gluon.data.vision.MNIST``: idx
+   files from ``--seed`` (training gzipped, test raw), train_mnist.py's
+   ``to_float``, the MLP trained 2 epochs with ``num_workers=2``, every
+   loss bit for bit with ``num_workers=0``. (e) ``Conv2DTranspose``
+   (32, 512, 14, 14) -> (32, 256, 28, 28), kernel 4, stride 2, groups 1
+   and 2, forward and backward against the float64 twin; the kernel left
+   unflipped caught. (g) ms a VGG-16 step and images/s eager against
+   hybridized in turns, one profiled step of each, the loop's wait on
+   the loader at 4 workers and at 0, the graphs' and the peak memory,
+   each family's step, row 8 at (64, 4096) f32 against its plain
+   version, ``F.dropout`` and its byte bound (the ``dropout_vgg`` row),
+   each line with the card's name, power limit and ``/dev/shm`` size.
+   The rows gain ``launches_per_vision_step``, ``launches_per_family_step``
+   and a ``vision`` entry in ``launches_per_compiled_capture``.
+   ``vision_readings(seeds, card_line)`` prints the twin readings behind
+   ``VISION_TWIN``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5342,6 +5382,830 @@ def phase_scan(seed, card_line):
     return {"scan": cap4}, launched
 
 
+# -- phase 15: the vision model zoo, gluon.data.vision, worker processes ----
+# VGG-16 trained as an ImageNet user trains it: 64 x 224^2, 1000 classes,
+# SGD lr 0.01, momentum 0.9, wd 5e-4, fed by DataLoader(num_workers=4)
+VISION_BATCH, VISION_SIDE, VISION_STEPS = 64, 224, 10
+VISION_WORKERS = 4
+# the labels fall in 10 of the 1000 classes, which the net learns within
+# the 10 steps of one epoch (the loss falls)
+VISION_CLASSES = 10
+VISION_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 5e-4}
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# every other family: one full-width training step at batch 32
+FAMILY_BATCH = 32
+FAMILIES = (("alexnet", 224), ("vgg16_bn", 224), ("mobilenet1_0", 224),
+            ("mobilenet_v2_1_0", 224), ("densenet121", 224),
+            ("squeezenet1_0", 224), ("squeezenet1_1", 224),
+            ("inception_v3", 299))
+# row-8 launches of one eager training step (forward and backward of each
+# Dropout layer); the others have none
+VISION_DROPOUT_LAUNCHES = {"vgg16": 4, "alexnet": 4, "vgg16_bn": 4,
+                           "squeezenet1_0": 2, "squeezenet1_1": 2,
+                           "inception_v3": 2}
+# The first step (f32, TF32 off, the dropout kernel) against its float64
+# twin (the same weights, batch and dropout seeds; the plain dropout in
+# f64): the largest of the loss's relative distance and each gradient's
+# relative L2 distance (a gradient whose f64 norm is below 1e-4 of the
+# median, a bias before a BatchNorm, is rounding noise and not held).
+# Limits twice the largest reading over seeds 0-4 on an H100
+# (vision_readings): vgg16 0.0057-0.00725 (the first convolution's weight
+# gradient, a sum over 64 x 224^2 positions), alexnet 0.000631-0.00488,
+# vgg16_bn 0.00785-0.0114, mobilenet1_0 0.0104-0.0169, mobilenet_v2_1_0
+# 0.012-0.0151, densenet121 0.157-0.253 (the stem BatchNorm's gamma: f32
+# E[x^2] - E[x]^2 and sum(dy x) - mean sum(dy) over 401 408 values a
+# channel), squeezenet1_0 0.00212-0.00373, squeezenet1_1 0.000617-0.0037,
+# inception_v3 0.036-0.0401, Conv2DTranspose 7.19e-07 (groups 2) and
+# 1.21e-06 (groups 1) at every seed. The controls read 0.989 (both
+# dropouts on one seed) and 1.41 (the kernel unflipped).
+VISION_TWIN = {"vgg16": 0.0145, "alexnet": 0.00976, "vgg16_bn": 0.0228,
+               "mobilenet1_0": 0.0338, "mobilenet_v2_1_0": 0.0302,
+               "densenet121": 0.506, "squeezenet1_0": 0.00746,
+               "squeezenet1_1": 0.0074, "inception_v3": 0.0802,
+               "deconv": 2.42e-06}
+# (e) an FCN-like upsampling: (32, 512, 14, 14) -> (32, 256, 28, 28)
+DECONV_IN, DECONV_OUT, DECONV_SIDE = 512, 256, 14
+MNIST_IDX_TRAIN, MNIST_IDX_TEST, MNIST_IDX_EPOCHS = 5000, 1000, 2
+
+
+class VisionChain:
+    """Phase 15's input chain over ``base`` (HWC uint8 images, labels):
+    a left-right flip drawn from the seed and the sample's index, HWC to
+    CHW, /255, ImageNet's mean and std, in f32, with the arithmetic of
+    ``transforms.ToTensor`` and ``Normalize``. numpy only, so it runs in
+    worker processes; the same sample comes out whichever worker makes
+    it."""
+
+    def __init__(self, base, seed, flip=True):
+        self.base, self.seed, self.flip = base, seed, flip
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        import numpy as np
+        img, label = self.base[i]
+        if self.flip and \
+                np.random.RandomState(self.seed * 1000003 + i).rand() < 0.5:
+            img = img[:, ::-1]
+        x = (img.astype(np.float32) / 255.0).transpose(2, 0, 1)
+        mean = np.asarray(IMAGENET_MEAN, np.float32).reshape(-1, 1, 1)
+        std = np.asarray(IMAGENET_STD, np.float32).reshape(-1, 1, 1)
+        return (x - mean) / std, label
+
+
+def _shm_line():
+    import shutil
+    total, _, free = shutil.disk_usage("/dev/shm")
+    return "/dev/shm %.2f GB, %.2f GB free" % (total / 1e9, free / 1e9)
+
+
+def _shm_segments():
+    import glob
+    from mxnet_tpu_torch.gluon.data.dataloader import SHM_PREFIX
+    return set(glob.glob("/dev/shm/%s*" % SHM_PREFIX))
+
+
+def _vision_data(seed):
+    """One epoch of (a): VISION_STEPS batches of HWC uint8 images."""
+    import mxnet_tpu_torch as mx
+    return mx.gluon.data.vision.SyntheticImageDataset(
+        num_samples=VISION_BATCH * VISION_STEPS,
+        shape=(VISION_SIDE, VISION_SIDE, 3), num_classes=VISION_CLASSES,
+        seed=seed)
+
+
+def _epoch(loader, seed):
+    """Every batch of one epoch of ``loader`` under ``np.random.seed``
+    (the shuffle), as (data, label) tensors on the card."""
+    import numpy as np
+    np.random.seed(seed)
+    return [(a.tensor(), b.tensor()) for a, b in loader]
+
+
+def _epochs_equal(got, want):
+    import torch
+    return len(got) == len(want) and all(
+        a.dtype == c.dtype and torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(got, want))
+
+
+class _ArrivalOrder:
+    """A fork context whose second Queue (the loader's results) numbers
+    each result by its arrival: the loader's reorder buffer then yields
+    batches in completion order (the control of (b))."""
+
+    def __init__(self, real):
+        self._real, self._made = real, 0
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def Queue(self):
+        q = self._real.Queue()
+        self._made += 1
+        if self._made == 2:
+            real_get, arrived = q.get, [0]
+
+            def get(*a, **kw):
+                seq, status, payload = real_get(*a, **kw)
+                arrived[0] += 1
+                return arrived[0] - 1, status, payload
+            q.get = get
+        return q
+
+
+class _SlowFirst:
+    """``base`` whose first batch's samples take 0.3 s each in a worker,
+    so that later batches complete before it."""
+
+    def __init__(self, base, first):
+        self.base, self.first = base, set(first)
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        if i in self.first:
+            time.sleep(0.3)
+        return self.base[i]
+
+
+def _vision_loader(seed, where):
+    """(b) the loader: worker batches against num_workers=0 bit for bit,
+    the Gluon transforms sent to threads, no worker touching the card,
+    no segment left. Returns the seconds of one 4-worker epoch and the
+    lazy-init count."""
+    import multiprocessing
+    import os
+    import warnings
+    from unittest import mock
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import dataloader as dl
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+    gdata = mx.gluon.data
+    base = _vision_data(seed)
+    chain = VisionChain(base, seed)
+
+    def loader(ds, workers):
+        return gdata.DataLoader(ds, batch_size=VISION_BATCH, shuffle=True,
+                                num_workers=workers)
+    # a worker that reaches for CUDA passes torch.cuda._lazy_init (the C++
+    # side calls it too): count such calls made outside the parent
+    parent, touched = os.getpid(), multiprocessing.get_context(
+        "fork").Value("i", 0)
+    real_init = torch.cuda._lazy_init
+
+    def lazy_init():
+        if os.getpid() != parent:
+            with touched.get_lock():
+                touched.value += 1
+        return real_init()
+    before = _shm_segments()
+    with mock.patch.object(torch.cuda, "_lazy_init", lazy_init):
+        want = _epoch(loader(chain, 0), seed)
+        t0 = time.perf_counter()
+        got = _epoch(loader(chain, VISION_WORKERS), seed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        left = _shm_segments() - before
+        same = _epochs_equal(got, want)
+        print("[vision] (b) %d batches of %d x 3 x %d^2 f32 from %d worker "
+              "processes in %.2f s: bit for bit with num_workers=0 %s; "
+              "lazy CUDA inits in workers %d; segments left in /dev/shm %d; "
+              "%s" % (len(got), VISION_BATCH, VISION_SIDE, VISION_WORKERS,
+                      seconds, same, touched.value, len(left), where))
+        if not same or touched.value or left:
+            raise SmokeFailure("vision (b): the worker batches differ from "
+                               "num_workers=0's, a worker touched CUDA, or "
+                               "a shared-memory segment was left")
+
+        # the Gluon transforms make NDArrays: threads, one warning
+        gluon_chain = base.transform_first(transforms.Compose([
+            transforms.ToTensor(),
+            transforms.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+        threaded = loader(gluon_chain, VISION_WORKERS)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            g1 = _epoch(threaded, seed)
+            g2 = _epoch(threaded, seed)
+        forks = [str(w.message) for w in rec if "fork" in str(w.message)]
+        plain = _epoch(loader(VisionChain(base, seed, flip=False),
+                              VISION_WORKERS), seed)
+        same = _epochs_equal(g1, plain) and _epochs_equal(g2, plain)
+        print("[vision] (b) transforms.Compose([ToTensor(), Normalize()]) "
+              "with num_workers=%d: %d warning(s) in two epochs (%s), "
+              "threaded, bit for bit with the numpy chain without the flip "
+              "%s" % (VISION_WORKERS, len(forks),
+                      forks[0][:60] + "..." if forks else "none", same))
+        if len(forks) != 1 or not same:
+            raise SmokeFailure("vision (b): the Gluon transforms did not go "
+                               "to threads with one warning and the numpy "
+                               "chain's values")
+
+    # control: a loader yielding worker batches in completion order
+    slow = _SlowFirst(chain, [])
+    np.random.seed(seed)
+    first = list(gdata.RandomSampler(len(chain)))[:VISION_BATCH]
+    slow.first = set(first)
+    real_ctx = dl.multiprocessing.get_context
+    with mock.patch.object(dl.multiprocessing, "get_context",
+                           lambda kind: _ArrivalOrder(real_ctx(kind))):
+        bad = _epoch(loader(slow, VISION_WORKERS), seed)
+    caught = not _epochs_equal(bad, want)
+    print("[control] worker batches yielded in completion order (the first "
+          "batch slowed): %s" % ("caught" if caught else "MISSED"))
+    if not caught:
+        raise SmokeFailure("control: the loader check passed batches in "
+                           "completion order")
+    # control: a worker that touches the card is seen
+    class Touching:
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            torch.zeros(1, device="cuda")
+            return np.zeros(2, np.float32)
+    touched.value = 0
+    with mock.patch.object(torch.cuda, "_lazy_init", lazy_init):
+        try:
+            list(gdata.DataLoader(Touching(), batch_size=4, num_workers=2))
+            raised = False
+        except RuntimeError:
+            raised = True
+    print("[control] a worker creating a CUDA tensor: the loader raised %s, "
+          "lazy CUDA inits in workers %d: %s" % (
+              raised, touched.value,
+              "caught" if raised and touched.value else "MISSED"))
+    if not (raised and touched.value):
+        raise SmokeFailure("control: a worker touching CUDA went unseen")
+    return seconds
+
+
+def _vision_step(net, loss_fn, x, y):
+    import mxnet_tpu_torch as mx
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return loss
+
+
+def _grads(net):
+    return {n: p.grad().tensor().detach().double().clone()
+            for n, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+@contextlib.contextmanager
+def _f64_twin():
+    """The plain kernels, the dropout in f64 among them (the op runs its
+    composition for f64 otherwise)."""
+    from unittest import mock
+    from mxnet_tpu_torch.ops import cuda_dropout
+    with _plain_kernels(f32_twin=True), mock.patch.object(
+            cuda_dropout, "dropout_available",
+            lambda shape, dtype, p: 0.0 < p < 1.0):
+        yield
+
+
+@contextlib.contextmanager
+def _one_seed_for_both():
+    """The planted fault of (a): every dropout of a step reuses the first
+    one's seed."""
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    real, first = mx.random.seeds, []
+
+    def seeds(n, ctx=None):
+        if not first:
+            first.append(real(n, ctx))
+        return first[0]
+    with mock.patch.object(mx.random, "seeds", seeds):
+        yield
+
+
+class _Twin:
+    """A net's f32 step against its float64 twin: ``build()`` makes the
+    net, which gets the f32 net's weights in f64."""
+
+    def __init__(self, tag, net, build, x, y, seed):
+        import numpy as np
+        import mxnet_tpu_torch as mx
+        self.tag, self.net, self.x, self.y, self.seed = tag, net, x, y, seed
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        twin = build()
+        twin.cast("float64")
+        mx.params_from_numpy(twin, {
+            n: p.data().asnumpy().astype(np.float64)
+            for n, p in net.collect_params().items()}, ctx=mx.gpu(0))
+        mx.random.seed(seed)
+        with _f64_twin():
+            loss = _vision_step(twin, self.loss_fn,
+                                mx.nd.NDArray(x.tensor().double()), y)
+        self.loss64 = loss.tensor().detach().double().mean()
+        self.g64 = _grads(twin)
+        # a bias before a BatchNorm has a zero gradient: in f64 it is
+        # rounding noise, and no yardstick (phase 7's rule)
+        norms = sorted(float(g.norm()) for g in self.g64.values())
+        floor = 1e-4 * norms[len(norms) // 2]
+        self.noise = sorted(n for n, g in self.g64.items()
+                            if float(g.norm()) < floor)
+        del twin
+
+    def reading(self, fault=None):
+        """(the largest distance, where) of the f32 step from the twin."""
+        import mxnet_tpu_torch as mx
+        mx.random.seed(self.seed)
+        with (fault or contextlib.nullcontext)():
+            loss = _vision_step(self.net, self.loss_fn, self.x, self.y)
+        worst = (float(abs(loss.tensor().detach().double().mean()
+                           - self.loss64) / abs(self.loss64)), "loss")
+        for n, g in _grads(self.net).items():
+            if n not in self.noise:
+                d = float((g - self.g64[n]).norm() / self.g64[n].norm())
+                worst = max(worst, (d, n))
+        return worst
+
+    def check(self, limit):
+        worst = self.reading()
+        verdict = "unset" if limit is None else \
+            ("FAIL" if worst[0] > limit else "ok")
+        print("[vision] %s: f32 step (TF32 off) against its float64 twin: "
+              "largest distance %.3g (%s), limit %s %s; %d gradient arrays "
+              "at f64 rounding noise not held%s" % (
+                  self.tag, worst[0], worst[1],
+                  "%.3g" % limit if limit is not None else "unset", verdict,
+                  len(self.noise),
+                  " (e.g. %s)" % self.noise[0] if self.noise else ""))
+        if limit is not None and worst[0] > limit:
+            raise SmokeFailure("%s: the step is beyond its limit from its "
+                               "float64 twin" % self.tag)
+        return worst[0]
+
+
+def _zoo_net(name, side, seed, classes=1000):
+    """``get_model(name)`` on the card, prefix ``<name>_``, Xavier from
+    ``seed``, its shapes inferred; returns (net, build)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    def build():
+        return vision.get_model(name, classes=classes, prefix=name + "_")
+    mx.random.seed(seed)
+    net = build()
+    net.initialize(mx.init.Xavier())
+    with torch.no_grad():
+        net(mx.nd.zeros((1, 3, side, side)))
+    return net, build
+
+
+def _card_batch(seed, n, side, classes=1000):
+    import torch
+    import mxnet_tpu_torch as mx
+    g = torch.Generator(device=DEV).manual_seed(seed + 50)
+    x = torch.randn(n, 3, side, side, generator=g, device=DEV)
+    y = torch.randint(0, classes, (n,), generator=g, device=DEV)
+    return mx.nd.NDArray(x), mx.nd.NDArray(y.float())
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms (some of its f32 weight-gradient
+    algorithms add with atomics, in another order from run to run)."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _vgg_first_batch(seed):
+    """The first batch of (a)'s epoch (made in-process)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    np.random.seed(seed)
+    loader = mx.gluon.data.DataLoader(
+        VisionChain(_vision_data(seed), seed), batch_size=VISION_BATCH,
+        shuffle=True)
+    x, y = next(iter(loader))
+    return x, y
+
+
+def _vision_vgg(seed, where):
+    """(a) VGG-16 trained at 64 x 224^2, eager and hybridized. Returns
+    (launches of one eager step, launches recorded into its graphs)."""
+    import math
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    gdata = mx.gluon.data
+    net, build = _zoo_net("vgg16", VISION_SIDE, seed)
+    params = net.collect_params()
+    print("[vision] (a) vgg16: %d parameters in %d arrays, Xavier from seed "
+          "%d; SGD %s; batch %d x 3 x %d^2 f32 from DataLoader(shuffle=True, "
+          "num_workers=%d)" % (
+              sum(p.data().size for p in params.values()), len(params), seed,
+              VISION_SGD, VISION_BATCH, VISION_SIDE, VISION_WORKERS))
+    loader = gdata.DataLoader(VisionChain(_vision_data(seed), seed),
+                              batch_size=VISION_BATCH, shuffle=True,
+                              num_workers=VISION_WORKERS)
+    x0, y0 = _vgg_first_batch(seed)
+    twin = _Twin("(a) vgg16, the first step", net, build, x0, y0, seed)
+    twin.check(VISION_TWIN["vgg16"])
+    bad = twin.reading(_one_seed_for_both)
+    limit = VISION_TWIN["vgg16"]
+    caught = limit is not None and bad[0] > limit
+    print("[control] both dropouts on one seed: distance %.3g (%s) %s"
+          % (bad[0], bad[1], "caught" if caught else "MISSED"))
+    if limit is not None and not caught:
+        raise SmokeFailure("control: the twin check passed a step whose "
+                           "dropouts share one seed")
+
+    net.hybridize(static_alloc=True, static_shape=True)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize(static_alloc=True, static_shape=True)
+    snap = _snapshot(params)
+    state = {}
+
+    def step(trainer, x, y):
+        loss = _vision_step(net, loss_fn, x, y)
+        trainer.step(VISION_BATCH)
+        return loss
+
+    def run(compiled, ldr=loader):
+        _restore(params, snap)
+        autograd.disarm_fused_update()
+        state["tr"] = trainer = mx.gluon.Trainer(params, "sgd",
+                                                 dict(VISION_SGD),
+                                                 kvstore="device")
+        mx.random.seed(seed)
+        np.random.seed(seed)
+        losses, waits = [], []
+        with (contextlib.nullcontext() if compiled else cached_op.eager()):
+            it = iter(ldr)
+            for i in range(VISION_STEPS):
+                t0 = time.perf_counter()
+                x, y = next(it)
+                waits.append(time.perf_counter() - t0)
+                if i == 0 and not compiled:
+                    cuda_build.reset_launch_counts()
+                loss = step(trainer, x, y)
+                if i == 0 and not compiled:
+                    torch.cuda.synchronize()
+                    state["counts"] = {k: v for k, v in
+                                       cuda_build.launch_counts().items()
+                                       if v}
+                losses.append(loss.tensor().detach().float().mean().clone())
+                state["batch"] = (x, y)
+            it.close()
+        torch.cuda.synchronize()
+        return (losses, _snapshot(params)), waits
+
+    with _deterministic():
+        (eager, waits4) = run(False)
+        counts = state["counts"]
+        (again, _) = run(False)
+        with _capture_launches() as cap:
+            (compiled, _), held = _graph_mb(lambda: run(True))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    dist, where_d = _run_distance(compiled, eager)
+    spread, where_s = _run_distance(again, eager)
+    losses = [float(v) for v in eager[0]]
+    print("[vision] (a) eager losses %s; eager against eager %.3g%s; "
+          "losses equal to the eager run's, step by step: hybridized %s"
+          % (" ".join("%.4f" % v for v in losses), spread,
+             "" if spread == 0 else " at " + where_s,
+             "".join("=" if torch.equal(a, b) else "x"
+                     for a, b in zip(compiled[0], eager[0]))))
+    print("[vision] (a) hybridized against eager over %d steps (losses "
+          "and parameters): largest distance %.3g%s; one eager step "
+          "launched %s, the graphs recorded %s" % (
+              VISION_STEPS, dist, " (bit for bit)" if dist == 0 else
+              " at %s FAIL" % where_d, counts,
+              {k: v for k, v in cap.items() if v}))
+    if dist != 0:
+        raise SmokeFailure("vision (a): the hybridized steps differ from the "
+                           "eager ones")
+    if counts.get("dropout") != 4 or cap.get("dropout") != 4:
+        raise SmokeFailure("vision (a): row 8 launched %s an eager step and "
+                           "%s into the graphs, 4 expected"
+                           % (counts.get("dropout"), cap.get("dropout")))
+    if not all(math.isfinite(v) for v in losses) or \
+            not sum(losses[-3:]) < sum(losses[:3]):
+        raise SmokeFailure("vision (a): the loss did not fall: %s" % losses)
+
+    # (g) numbers: in turns, the profile, the loader's wait, memory,
+    # under the algorithms the graphs were captured with
+    with _deterministic():
+        x, y = state["batch"]
+        tr = state["tr"]
+        eager_ms, comp_ms = _in_turns(lambda: step(tr, x, y),
+                                      lambda: step(tr, x, y), turns=10)
+        _, waits0 = run(True, gdata.DataLoader(
+            VisionChain(_vision_data(seed), seed), batch_size=VISION_BATCH,
+            shuffle=True, num_workers=0))
+        print("[vision] (g) vgg16 step (batch %d): %.2f ms eager (%.1f "
+              "images/s), %.2f ms hybridized (%.1f images/s), host clock, "
+              "medians of 10 in turns; graphs hold %.1f MB (peak %.1f MB "
+              "above the start while capturing), peak allocated %.1f MB; "
+              "the loop waits on the loader %.2f ms a step at "
+              "num_workers=%d, %.2f ms at 0 (medians of steps 2-%d); %s" % (
+                  VISION_BATCH, eager_ms, VISION_BATCH / eager_ms * 1e3,
+                  comp_ms, VISION_BATCH / comp_ms * 1e3, held[0], held[1],
+                  peak, statistics.median(waits4[1:]) * 1e3,
+                  VISION_WORKERS, statistics.median(waits0[1:]) * 1e3,
+                  VISION_STEPS, where))
+        _profile("one hybridized VGG-16 step (batch %d, SGD in the "
+                 "backward's graph)" % VISION_BATCH, lambda: step(tr, x, y))
+        with cached_op.eager():
+            _profile("one eager VGG-16 step (batch %d)" % VISION_BATCH,
+                     lambda: step(tr, x, y))
+    del tr, state["tr"]
+    _free_graphs(net, loss_fn)
+    return counts, cap
+
+
+def _vision_families(seed, where):
+    """(c) every other family: its first step against its float64 twin,
+    then one SGD step and its time. Returns {name: dropout launches}."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    launches = {}
+    for name, side in FAMILIES:
+        net, build = _zoo_net(name, side, seed)
+        x, y = _card_batch(seed, FAMILY_BATCH, side)
+        _Twin("(c) %s, batch %d x %d^2" % (name, FAMILY_BATCH, side), net,
+              build, x, y, seed).check(VISION_TWIN[name])
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(VISION_SGD))
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        times = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            if i == 0:
+                cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = _vision_step(net, loss_fn, x, y)
+            trainer.step(FAMILY_BATCH)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                launches[name] = cuda_build.launch_counts().get("dropout", 0)
+        finite = bool(torch.isfinite(loss.tensor()).all())
+        print("[vision] (c) %s: one SGD step %.2f ms (median of 3 after the "
+              "first), loss finite %s, row-8 launches %d (expected %d); %s"
+              % (name, statistics.median(times[1:]), finite, launches[name],
+                 VISION_DROPOUT_LAUNCHES.get(name, 0), where))
+        if not finite or launches[name] != \
+                VISION_DROPOUT_LAUNCHES.get(name, 0):
+            raise SmokeFailure("vision (c): %s's step is not finite or "
+                               "launched row 8 %d times" % (name,
+                                                            launches[name]))
+        del net, trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _write_idx(root, prefix, images, labels, gz):
+    import gzip
+    import os
+    import struct
+    opener, ext = (gzip.open, ".gz") if gz else (open, "")
+    with opener(os.path.join(root, "%s-images-idx3-ubyte%s" % (prefix, ext)),
+                "wb") as f:
+        f.write(struct.pack(">IIII", 2051, *images.shape) + images.tobytes())
+    with opener(os.path.join(root, "%s-labels-idx1-ubyte%s" % (prefix, ext)),
+                "wb") as f:
+        f.write(struct.pack(">II", 2049, len(labels)) + labels.tobytes())
+
+
+def mnist_idx(root, seed, n_train=MNIST_IDX_TRAIN, n_test=MNIST_IDX_TEST):
+    """MNIST idx files under ``root`` from ``seed``: uint8 images and
+    mnist_synthetic's learnable labels (the argmax of a random linear map
+    of the image in [0, 1]); the training files gzipped, the test files
+    not."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    W = rng.rand(784, 10)
+    for prefix, n, gz in (("train", n_train, True), ("t10k", n_test, False)):
+        x = rng.randint(0, 256, (n, 28, 28)).astype(np.uint8)
+        y = (x.reshape(n, -1) / 255.0 @ W).argmax(axis=1).astype(np.uint8)
+        _write_idx(root, prefix, x, y, gz)
+
+
+def _to_float(data, label):
+    """train_mnist.py's transform: uint8 0-255 to float 0-1."""
+    import numpy as np
+    return data.astype(np.float32) / 255.0, label
+
+
+def _vision_mnist(seed):
+    """(d) BASELINE.json configs[0] through gluon.data.vision.MNIST: the
+    MLP trained with 2 worker processes, bit for bit with 0."""
+    import tempfile
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    gdata = mx.gluon.data
+    with tempfile.TemporaryDirectory() as root:
+        mnist_idx(root, seed)
+        train = gdata.vision.MNIST(root=root, train=True).transform(
+            _to_float)
+        test = gdata.vision.MNIST(root=root, train=False).transform(
+            _to_float)
+        mx.random.seed(seed)
+        net = mnist_mlp(mx, False)
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, 28, 28, 1)))
+        init = {n: p.data().asnumpy() for n, p in
+                net.collect_params().items()}
+        runs = {}
+        for workers in (2, 0):
+            net = mnist_mlp(mx, False)
+            mx.params_from_numpy(net, init, ctx=mx.gpu(0))
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       {"learning_rate": MNIST_LR})
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            np.random.seed(seed)
+            loader = gdata.DataLoader(train, batch_size=MNIST_BATCH,
+                                      shuffle=True, num_workers=workers)
+            losses = []
+            for _ in range(MNIST_IDX_EPOCHS):
+                for data, label in loader:
+                    loss = _vision_step(net, loss_fn, data, label)
+                    trainer.step(data.shape[0])
+                    losses.append(loss.tensor().detach().mean().clone())
+            acc = mx.metric.Accuracy()
+            for data, label in gdata.DataLoader(test,
+                                                batch_size=MNIST_BATCH):
+                acc.update([label], [net(data)])
+            runs[workers] = (torch.stack(losses), acc.get()[1])
+    (l2, a2), (l0, a0) = runs[2], runs[0]
+    same = torch.equal(l2, l0)
+    per = len(l2) // MNIST_IDX_EPOCHS
+    first, last = float(l2[:per].mean()), float(l2[-per:].mean())
+    print("[vision] (d) MNIST idx files (%d gz training, %d raw test images "
+          "from seed %d) through gluon.data.vision.MNIST and "
+          "DataLoader(num_workers=2): %d steps, losses bit for bit with "
+          "num_workers=0 %s; mean loss %.4f in epoch 1, %.4f in epoch %d; "
+          "test accuracy %.4f (%.4f at num_workers=0)" % (
+              MNIST_IDX_TRAIN, MNIST_IDX_TEST, seed, len(l2), same, first,
+              last, MNIST_IDX_EPOCHS, a2, a0))
+    if not same or not last < first:
+        raise SmokeFailure("vision (d): the MNIST run with workers differs "
+                           "from num_workers=0's, or its loss did not fall")
+
+
+def _deconv_reading(layer, twin, x, fault=None):
+    """Relative L2 of the f32 output and the data, weight and bias
+    gradients from the float64 twin's; the largest."""
+    import mxnet_tpu_torch as mx
+    outs = []
+    for net, xx, f in ((layer, x, fault),
+                       (twin, mx.nd.NDArray(x.tensor().double()), None)):
+        xx.attach_grad()
+        with (f or contextlib.nullcontext)():
+            with mx.autograd.record():
+                out = net(xx)
+                loss = (out * out).sum()
+            loss.backward()
+        outs.append([out.tensor().detach().double(),
+                     xx.grad.tensor().double()]
+                    + [p.grad().tensor().double()
+                       for p in net.collect_params().values()])
+    return max(float((a - b).norm() / b.norm()) for a, b in zip(*outs))
+
+
+def _vision_deconv(seed, where):
+    """(e) Conv2DTranspose at an FCN-like shape against its f64 twin,
+    groups 1 and 2, with the unflipped-kernel control."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    g = torch.Generator(device=DEV).manual_seed(seed + 60)
+    x = mx.nd.NDArray(torch.randn(FAMILY_BATCH, DECONV_IN, DECONV_SIDE,
+                                  DECONV_SIDE, generator=g, device=DEV))
+    worst = 0.0
+    for groups in (1, 2):
+        def build():
+            return mx.gluon.nn.Conv2DTranspose(
+                DECONV_OUT, 4, strides=2, padding=1, groups=groups,
+                in_channels=DECONV_IN, prefix="up_")
+        mx.random.seed(seed)
+        layer = build()
+        layer.initialize(mx.init.Xavier())
+        twin = build()
+        twin.cast("float64")
+        mx.params_from_numpy(twin, {
+            n: p.data().asnumpy().astype(np.float64)
+            for n, p in layer.collect_params().items()}, ctx=mx.gpu(0))
+        d = _deconv_reading(layer, twin, x)
+        t0 = time.perf_counter()
+        out = layer(x)
+        torch.cuda.synchronize()
+        print("[vision] (e) Conv2DTranspose %s -> %s, kernel 4, stride 2, "
+              "groups %d: forward and backward against the float64 twin "
+              "%.3g (limit %s); forward %.2f ms" % (
+                  tuple(x.shape), tuple(out.shape), groups, d,
+                  VISION_TWIN["deconv"],
+                  (time.perf_counter() - t0) * 1e3))
+        worst = max(worst, d)
+        real = nn_ops._CONV_T[2]
+        bad = _deconv_reading(layer, twin, x, lambda: mock.patch.dict(
+            nn_ops._CONV_T, {2: lambda xx, w, *a: real(xx, w.flip((2, 3)),
+                                                       *a)}))
+        limit = VISION_TWIN["deconv"]
+        caught = limit is not None and bad > limit
+        print("[control] the kernel left unflipped (groups %d): %.3g %s"
+              % (groups, bad, "caught" if caught else "MISSED"))
+        if limit is not None and (d > limit or not caught):
+            raise SmokeFailure("vision (e): Conv2DTranspose beyond its limit "
+                               "from the float64 twin, or the unflipped "
+                               "kernel passed")
+    return worst
+
+
+def _vision_dropout_row(seed, reps, card, launches):
+    """(g) row 8 at VGG's classifier shape, (64, 4096) f32, p 0.5."""
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_dropout
+    g = torch.Generator(device=DEV).manual_seed(seed + 70)
+    M, C, p = VISION_BATCH, 4096, 0.5
+    x = torch.randn(M, C, generator=g, device=DEV)
+    sd = mx.random.seeds(1, mx.gpu(0))
+    err = float((cuda_dropout.dropout_cuda(x, p, sd)
+                 - cuda_dropout.dropout_plain(x, p, sd)).abs().max())
+    ms, plain_ms, lib_ms = (_gpu_ms(f, reps) for f in (
+        lambda: cuda_dropout.dropout_cuda(x, p, sd),
+        lambda: cuda_dropout.dropout_plain(x, p, sd),
+        lambda: F.dropout(x, p, training=True)))
+    bw, _, f32_peak = _peaks(card)
+    t_bytes, t_ops = 2 * M * C * 4 / bw * 1e3, 20 * M * C / f32_peak * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    row = {"name": "dropout_vgg", "kernel": "dropout", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/dropout.cu",
+           "replaces": "mxnet_tpu/ops/pallas_dropout.py:73",
+           "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms}
+    print("[times] %-18s kernel %.4f ms  plain %.4f ms  library %.4f ms"
+          "  bound %.4f ms (%s), (%d, %d) f32 p %g"
+          % ("dropout_vgg", ms, plain_ms, lib_ms, bound, by, M, C, p))
+    if err != 0:
+        raise SmokeFailure("dropout at (%d, %d) f32 differs from its plain "
+                           "version" % (M, C))
+    return row
+
+
+def vision_readings(seeds, card_line):
+    """The readings behind VISION_TWIN: each twin distance at ``seeds``
+    (print only; the limits are twice the largest)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    with _no_tf32():
+        for seed in seeds:
+            for name, side in (("vgg16", VISION_SIDE),) + FAMILIES:
+                net, build = _zoo_net(name, side, seed)
+                x, y = _vgg_first_batch(seed) if name == "vgg16" else \
+                    _card_batch(seed, FAMILY_BATCH, side)
+                _Twin("seed %d %s" % (seed, name), net, build, x, y,
+                      seed).check(None)
+                del net
+                torch.cuda.empty_cache()
+            _vision_deconv(seed, card_line)
+
+
+def phase_vision(seed, reps, card, card_line):
+    """15. vision. Returns (launches of one eager VGG-16 step, {"vision":
+    launches recorded into its graphs}, {family: row-8 launches}, the
+    dropout_vgg row)."""
+    where = "%s; %s" % (card_line, _shm_line())
+    print("[vision] %s" % where)
+    with _no_tf32():
+        _vision_loader(seed, where)
+        counts, cap = _vision_vgg(seed, where)
+        families = _vision_families(seed, where)
+        _vision_mnist(seed)
+        _vision_deconv(seed, where)
+        row = _vision_dropout_row(seed, reps, card, counts.get("dropout", 0))
+    return counts, {"vision": cap}, families, row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5439,7 +6303,16 @@ def main(argv=None):
         missing = [k for k in SCAN_KERNELS if not scan_capture["scan"].get(k)]
         if missing:
             raise SmokeFailure("phase 14 captured no %s" % missing)
+        vision_counts, vision_capture, family_counts, vision_row = \
+            phase_vision(args.seed, args.reps, card, card_line)
+        compiled.update(vision_capture)
+        rows.append(vision_row)
         for r in rows:
+            k = r.get("kernel", r["name"])
+            r["launches_per_vision_step"] = vision_counts.get(k, 0)
+            r["launches_per_family_step"] = {
+                name: n if k == "dropout" else 0
+                for name, n in family_counts.items()}
             r["launches_per_scan_run"] = scan_counts.get(
                 r.get("kernel", r["name"]), 0)
             r["launches_per_ptb_step"] = ptb_counts.get(

@@ -131,6 +131,10 @@ define("MXNET_AUTOTUNE", str, "off",
        "Kernel auto-tuner mode; 'off' keeps every hand-picked constant "
        "(the CE chunk above). Anything else raises where a tuned choice "
        "would be read (ROADMAP.md queue 1, item 15).")
+define("MXNET_DATALOADER_RESTARTS", int, 2,
+       "Restart budget for dead DataLoader worker processes per epoch "
+       "(gluon/data/dataloader.py); once it is spent the loader warns and "
+       "loads the rest of the epoch in-process.")
 define("MXNET_PREFETCH_DEPTH", int, 2,
        "DataLoader read-ahead (gluon/data/dataloader.py): up to this many "
        "upcoming batches are made on the host and staged onto the card by "

@@ -1,7 +1,9 @@
 """Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``; ref:
 python/mxnet/gluon/data/dataset.py). ``RecordFileDataset`` waits for
-``recordio.py`` (ROADMAP queue 1, item 9)."""
+``recordio.py`` (ROADMAP queue 1, item 9, second part)."""
 from __future__ import annotations
+
+import os
 
 from ...ndarray import NDArray
 
@@ -92,3 +94,31 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class _DownloadedDataset(Dataset):
+    """A dataset read from files under ``root`` by ``_get_data`` into
+    ``_data`` and ``_label`` (ref: dataset.py :: _DownloadedDataset);
+    ``transform(data, label)`` runs on each item."""
+
+    def __init__(self, root, transform):
+        super().__init__()
+        self._transform = transform
+        self._data = None
+        self._label = None
+        root = os.path.expanduser(root)
+        self._root = root
+        if not os.path.isdir(root):
+            os.makedirs(root, exist_ok=True)
+        self._get_data()
+
+    def __getitem__(self, idx):
+        if self._transform is not None:
+            return self._transform(self._data[idx], self._label[idx])
+        return self._data[idx], self._label[idx]
+
+    def __len__(self):
+        return len(self._label)
+
+    def _get_data(self):
+        raise NotImplementedError

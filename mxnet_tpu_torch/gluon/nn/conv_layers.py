@@ -1,13 +1,15 @@
 """Convolution and pooling layers (counterpart of
 ``mxnet_tpu/gluon/nn/conv_layers.py``; ref:
-python/mxnet/gluon/nn/conv_layers.py). The transposed convolutions wait
-for the ``Deconvolution`` op."""
+python/mxnet/gluon/nn/conv_layers.py). The transposed convolutions run
+the ``Deconvolution`` op, their weight laid out (in, out/g, k...); the
+reference lists no 3-D transpose, and neither does the port."""
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
            "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
@@ -34,8 +36,15 @@ class _Conv(HybridBlock):
                 "kernel": kernel_size, "stride": strides, "dilate": dilation,
                 "pad": padding, "num_filter": channels, "num_group": groups,
                 "no_bias": not use_bias}
-            wshape = (channels, in_channels // groups if in_channels else 0) \
-                + tuple(kernel_size)
+            if adj is not None:
+                self._kwargs["adj"] = adj
+            if op_name == "Convolution":
+                wshape = (channels,
+                          in_channels // groups if in_channels else 0) \
+                    + tuple(kernel_size)
+            else:
+                wshape = (in_channels, channels // groups) \
+                    + tuple(kernel_size)
             self.weight = self.params.get(
                 "weight", shape=wshape, init=weight_initializer,
                 allow_deferred_init=True)
@@ -46,9 +55,12 @@ class _Conv(HybridBlock):
                 if activation is not None else None
 
     def infer_shape(self, x, *args):
-        self.weight._shape = (self._channels,
-                              x.shape[1] // self._kwargs["num_group"]) \
-            + tuple(self._kwargs["kernel"])
+        groups = self._kwargs["num_group"]
+        if self._op_name == "Convolution":
+            lead = (self._channels, x.shape[1] // groups)
+        else:
+            lead = (x.shape[1], self._channels // groups)
+        self.weight._shape = lead + tuple(self._kwargs["kernel"])
 
     def hybrid_forward(self, F, x, weight, bias=None):
         op = getattr(F, self._op_name)
@@ -102,6 +114,31 @@ class Conv3D(_Conv):
                          _pair(padding, 3), _pair(dilation, 3), groups, layout,
                          in_channels, activation, use_bias, weight_initializer,
                          bias_initializer, **kwargs)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _pair(kernel_size, 1), _pair(strides, 1),
+                         _pair(padding, 1), _pair(dilation, 1), groups, layout,
+                         in_channels, activation, use_bias, weight_initializer,
+                         bias_initializer, op_name="Deconvolution",
+                         adj=_pair(output_padding, 1), **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _pair(kernel_size, 2), _pair(strides, 2),
+                         _pair(padding, 2), _pair(dilation, 2), groups, layout,
+                         in_channels, activation, use_bias, weight_initializer,
+                         bias_initializer, op_name="Deconvolution",
+                         adj=_pair(output_padding, 2), **kwargs)
 
 
 class _Pooling(HybridBlock):

@@ -191,5 +191,22 @@ def minimum(lhs, rhs):
     return _minmax(lhs, rhs, "minimum")
 
 
+class _ImageNamespace:
+    """``nd.image.<name>``: the ``_image_<name>`` ops (MXNet 1.x's
+    ``mx.nd.image``: to_tensor, normalize, resize, crop, the flips, the
+    random colour ops and lighting)."""
+
+    def __getattr__(self, name):
+        return getattr(_F, "_image_" + name)
+
+    def __dir__(self):
+        from ..ops import _OPS
+        return sorted(n[len("_image_"):] for n in _OPS
+                      if n.startswith("_image_"))
+
+
+image = _ImageNamespace()
+
+
 def __getattr__(name):
     return getattr(_F, name)

@@ -179,3 +179,4 @@ from . import contrib_ops   # noqa: E402,F401
 from . import reduce_ops    # noqa: E402,F401
 from . import optimizer_ops  # noqa: E402,F401
 from . import rnn_ops       # noqa: E402,F401
+from . import image_ops     # noqa: E402,F401

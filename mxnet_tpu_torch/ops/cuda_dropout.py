@@ -78,11 +78,13 @@ def dropout_available(shape, dtype, p) -> bool:
 
 def dropout_plain(x: torch.Tensor, p: float,
                   seed: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch ops."""
+    """The kernel's arithmetic in PyTorch ops (in f64 for f64 data, the
+    float64 twins of the card checks)."""
     idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
     s = (seed.reshape(()).to(torch.int64) + (idx >> 32)) & _M32
     keep = hash_bits(idx & _M32, s) >= keep_threshold(p)
-    y = torch.where(keep.reshape(x.shape), x.float() * _scale(p), 0.0)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = torch.where(keep.reshape(x.shape), x.to(acc) * _scale(p), 0.0)
     return y.to(x.dtype)
 
 

@@ -1,9 +1,10 @@
 """Neural-network operators, the subset the serving and training slices
 run (counterpart of ``mxnet_tpu/ops/nn.py``; ref: src/operator/nn/).
 
-``FullyConnected`` is a ``torch.matmul`` and ``Convolution`` a
-``torch.nn.functional.conv{1,2,3}d``, as the reference leaves both to
-XLA outside any kernel. ``Pooling`` pads explicitly as the reference's
+``FullyConnected`` is a ``torch.matmul``, ``Convolution`` a
+``torch.nn.functional.conv{1,2,3}d`` and ``Deconvolution`` a
+``conv_transpose{1,2,3}d``, as the reference leaves all three to XLA
+outside any kernel. ``Pooling`` pads explicitly as the reference's
 ``reduce_window`` does, then pools. ``BatchNorm`` keeps the reference's
 arithmetic (statistics shifted by the moving mean, the forward and its
 hand-derived backward in per-channel coefficients, the moving statistics
@@ -238,6 +239,35 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
     return _from_nc(out, nhwc)
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution")
+def deconvolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_group=1, no_bias=True, cudnn_tune=None, cudnn_off=False,
+                  workspace=512, layout=None):
+    """Transposed convolution (ref: deconvolution.cc), NC+spatial, weight
+    (in, out/g, k...), ``adj`` the extra high-side output rows. The
+    reference computes it as an input-dilated convolution with the kernel
+    flipped and its group blocks moved onto the output axis; torch's
+    transposed convolution takes MXNet's weight layout as it is.
+    ``target_shape`` is accepted and ignored, as in the reference."""
+    nsp = len(tuple(kernel))
+    if nsp not in _CONV_T:
+        raise ValueError("deconvolution supports 1-3 spatial dims")
+    stride = _tup(stride, nsp) if stride else (1,) * nsp
+    dilate = _tup(dilate, nsp) if dilate else (1,) * nsp
+    pad = _tup(pad, nsp) if pad else (0,) * nsp
+    adj = _tup(adj, nsp) if adj else (0,) * nsp
+    out = _CONV_T[nsp](data, weight, None, stride, pad, adj, int(num_group),
+                       dilate)
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return out
+
+
 # -- Pooling ----------------------------------------------------------------
 @register("Pooling", aliases=["pooling"])
 def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
@@ -312,15 +342,17 @@ def _sum_pool(x, k, s):
 class _BNTrainFn(torch.autograd.Function):
     """Training-mode batch norm with the reference's hand-derived
     backward (``_bn_train_fn``): statistics in one pass shifted by the
-    moving mean, ``out = x * scale + shift`` with the per-channel vectors
-    rounded to x's dtype first, and ``dx = a·dy + b_c·x + c_c``."""
+    moving mean, in f32 (f64 for f64 data, as MXNet's), ``out = x *
+    scale + shift`` with the per-channel vectors rounded to x's dtype
+    first, and ``dx = a·dy + b_c·x + c_c``."""
 
     @staticmethod
     def forward(ctx, x, g, b, shift, ax, eps):
         red = tuple(i for i in range(x.dim()) if i != ax)
         bc = _bcast(ax, x.dim())
-        sh = shift.float()
-        d = x.float() - bc(sh)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        sh = shift.to(acc)
+        d = x.to(acc) - bc(sh)
         n = x.numel() // max(x.shape[ax], 1)
         s1 = d.sum(dim=red)
         s2 = (d * d).sum(dim=red)
@@ -328,8 +360,8 @@ class _BNTrainFn(torch.autograd.Function):
         var = torch.clamp_min(s2 / n - dmean * dmean, 0.0)
         mean = dmean + sh
         inv = torch.rsqrt(var + eps)
-        scale = inv * g.float()
-        out = _bn_apply(x, bc(scale), bc(b.float() - mean * scale))
+        scale = inv * g.to(acc)
+        out = _bn_apply(x, bc(scale), bc(b.to(acc) - mean * scale))
         ctx.save_for_backward(x, g, mean, inv)
         ctx.ax, ctx.n = ax, n
         ctx.mark_non_differentiable(mean, var)
@@ -341,13 +373,14 @@ class _BNTrainFn(torch.autograd.Function):
         red = tuple(i for i in range(x.dim()) if i != ctx.ax)
         bc = _bcast(ctx.ax, x.dim())
         n = ctx.n
-        dyf = dy.float()
+        acc = torch.promote_types(x.dtype, torch.float32)
+        dyf = dy.to(acc)
         dyf_sum = dyf.sum(dim=red)
-        dyx_sum = (dyf * x.float()).sum(dim=red)
+        dyx_sum = (dyf * x.to(acc)).sum(dim=red)
         # sum(dy * (x - mean)) = sum(dy*x) - mean * sum(dy)
         dy_xmu = dyx_sum - mean * dyf_sum
         dgamma = dy_xmu * inv
-        a = g.float() * inv
+        a = g.to(acc) * inv
         b_c = -a * inv * inv * dy_xmu / n
         c_c = -a * dyf_sum / n - b_c * mean
         dx = (dy * bc(a).to(dy.dtype) + x * bc(b_c).to(x.dtype)

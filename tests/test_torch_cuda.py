@@ -1650,3 +1650,97 @@ def test_scan_guard_skip_bitwise_with_classic(card, monkeypatch):
     _assert_runs_equal(four, one)
     assert four[3].skipped_steps == one[3].skipped_steps == 1
     assert (four[3].sync_count, one[3].sync_count) == (4, 11)
+
+
+# ---------------------------------------------------------------------------
+# the DataLoader's worker processes and the VGG step (chip_smoke.py phase 15)
+# ---------------------------------------------------------------------------
+class _NumpyChain:
+    def __len__(self):
+        return 24
+
+    def __getitem__(self, i):
+        return np.full((3, 4, 4), float(i), np.float32), np.int32(i)
+
+
+class _TouchesTheCard(_NumpyChain):
+    def __getitem__(self, i):
+        torch.zeros(1, device="cuda")
+        return super().__getitem__(i)
+
+
+def _lazy_init_counter(monkeypatch):
+    """torch.cuda._lazy_init wrapped to count calls made in a child
+    process (the C++ side reaches it too); the count lives in shared
+    memory."""
+    import multiprocessing
+    import os
+    parent = os.getpid()
+    count = multiprocessing.get_context("fork").Value("i", 0)
+    real = torch.cuda._lazy_init
+
+    def lazy_init():
+        if os.getpid() != parent:
+            with count.get_lock():
+                count.value += 1
+        return real()
+    monkeypatch.setattr(torch.cuda, "_lazy_init", lazy_init)
+    return count
+
+
+def test_dataloader_workers_never_touch_the_card(card, monkeypatch):
+    """The parent has initialised CUDA; its forked workers make numpy
+    batches without reaching CUDA, and the batches land on the card. A
+    worker that creates a CUDA tensor is seen and raises."""
+    import mxnet_tpu_torch as mx
+    torch.zeros(1, device="cuda")
+    count = _lazy_init_counter(monkeypatch)
+    assert torch.cuda.is_initialized()
+    loader = mx.gluon.data.DataLoader(_NumpyChain(), batch_size=4,
+                                      num_workers=2)
+    got = [(x.tensor(), y.tensor()) for x, y in loader]
+    assert count.value == 0 and len(got) == 6
+    for i, (x, y) in enumerate(got):
+        assert x.is_cuda and y.dtype == torch.int32
+        assert torch.equal(y.cpu(), torch.arange(4 * i, 4 * i + 4,
+                                                 dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="DataLoader worker failed"):
+        list(mx.gluon.data.DataLoader(_TouchesTheCard(), batch_size=4,
+                                      num_workers=2))
+    assert count.value > 0
+
+
+def test_vgg_step_launches_the_dropout_kernel_four_times(card):
+    """VGG's classifier has two Dropout(0.5) layers: an eager training
+    step launches row 8 four times (forward and backward of each), and a
+    hybridized one records the four into its graphs."""
+    import chip_smoke
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    net = mx.gluon.model_zoo.vision.VGG([1, 1, 1, 1, 1], [8, 8, 16, 16, 16],
+                                        classes=10, prefix="v_")
+    net.initialize(mx.init.Xavier())
+    net.hybridize(static_alloc=True, static_shape=True)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.01, "momentum": 0.9})
+    x = mx.nd.NDArray(torch.randn(4, 3, 32, 32, generator=card,
+                                  device="cuda"))
+    y = mx.nd.NDArray(torch.arange(4, device="cuda").float())
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(4)
+    with cached_op.eager():
+        step()
+        cuda_build.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        assert cuda_build.launch_counts()["dropout"] == 4
+    with chip_smoke._capture_launches() as recorded:
+        for _ in range(3):
+            step()
+    torch.cuda.synchronize()
+    assert recorded["dropout"] == 4

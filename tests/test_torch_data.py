@@ -136,13 +136,6 @@ def test_dataloader_without_cuda_raises_unless_cpu_requested(monkeypatch):
         next(iter(loader))
 
 
-def test_dataloader_worker_processes_are_refused():
-    x, y = _xy()
-    with pytest.raises(pt.MXNetError, match="ROADMAP queue 1, item 9"):
-        port_data.DataLoader(port_data.ArrayDataset(x, y), batch_size=4,
-                             num_workers=2)
-
-
 class _Failing(port_data.Dataset):
     def __len__(self):
         return 8
