@@ -324,6 +324,40 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    ``vision_readings(seeds, card_line)`` prints the twin readings behind
    ``VISION_TWIN``.
 
+16. imagenet — ``BASELINE.json`` configs[1] fed from a JPEG .rec as the
+   reference feeds ImageNet (``bench.py``'s ``MXNET_BENCH_PIPELINE``):
+   ``IMAGENET_RECORDS`` synthetic photos from ``--seed`` (smooth random
+   fields plus noise, each side 300-500 px, labels 0-999) packed by
+   ``recordio.pack_img`` at quality 95 into a temporary directory, read
+   by ``io.ImageRecordIter`` (``IMAGENET_ITER``: resize 256, random
+   224^2 crop, mirror, ImageNet's mean and std, shuffle, 4 threads,
+   batch 128, seed ``--seed``). (a) The io library built from
+   ``mxnet_tpu_torch/csrc/io.cc`` with g++ under
+   ``mxnet_tpu_torch/_build/host/``: the libjpeg linked, its path, the
+   build seconds; a build against ABI-80 headers must be refused when it
+   loads. (b) ``DECODE_RECORDS`` records of one size, no resize, crop or
+   mirror: the pixels bit for bit with ``cv2.imdecode`` in RGB (OpenCV's
+   BGR must fail). (c) One epoch on the card bit for bit with the same
+   iterator and seed on the CPU (batches uploaded from the previous
+   staging slot must fail). (d) ``resnet50_v1`` as phase 11(c) trains it
+   (bf16 AMP, hybridized net and loss, SGD 0.1 momentum 0.9 with the
+   fused update, cuDNN's deterministic algorithms): ``IMAGENET_STEPS``
+   steps fed by the iterator, then the same batches collected first
+   from a second iterator with the same seed and replayed resident from
+   the same snapshot: every loss and parameter bit for bit, the losses
+   finite (two batches swapped must fail); the port's kernels launched
+   in the fed run (none: the rows gain ``launches_per_fed_run``). (e)
+   ``RAW_RECORDS`` raw 224^2 records as bench.py writes them: the
+   pipeline's images/s at 1 and 4 threads, and the native producer's
+   alone. (f) The JPEG pipeline's images/s at 1, 4 and
+   ``os.cpu_count()`` threads; the fed step at 4 and at
+   ``os.cpu_count()`` threads against the resident step in turns, with
+   the loop's wait inside ``next()``; one profiled steady fed step and
+   one resident (busy and idle share); the
+   host's CPU count; each line with the card's name and power limit. To
+   run it alone: ``python3 -c "import chip_smoke as cs; line =
+   cs.phase_device(); cs.phase_imagenet(0, line)"``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -333,6 +367,7 @@ import argparse
 import collections
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -6206,6 +6241,478 @@ def phase_vision(seed, reps, card, card_line):
     return counts, {"vision": cap}, families, row
 
 
+# -- phase 16: the ImageNet input path ---------------------------------------
+# BASELINE.json configs[1] fed as the reference feeds ImageNet: JPEG
+# records in a .rec/.idx through io.ImageRecordIter, with upstream
+# train_imagenet.py's augmentation (resize 256, random 224^2 crop,
+# mirror, ImageNet's mean and std) and --data-nthreads default (4)
+IMAGENET_RECORDS = 1280           # 10 batches of 128
+IMAGENET_SIDES = (300, 501)       # each side drawn from 300-500 px
+IMAGENET_QUALITY = 95             # im2rec's default
+IMAGENET_BATCH = 128
+IMAGENET_STEPS = 10
+IMAGENET_ITER = dict(
+    data_shape=(3, 224, 224), shuffle=True, rand_crop=True,
+    rand_mirror=True, resize=256, mean_r=123.68, mean_g=116.779,
+    mean_b=103.939, std_r=58.393, std_g=57.12, std_b=57.375,
+    preprocess_threads=4)
+DECODE_RECORDS, DECODE_HW = 16, (375, 500)
+RAW_RECORDS, RAW_SIDE = 512, 224  # bench.py:80-91: batch * 4 raw records
+IMAGENET_TURNS = 2
+
+
+def imagenet_image(seed, i, h, w):
+    """Synthetic photo ``i`` of ``--seed`` (h x w BGR uint8): a smooth
+    random field (a few coarse random colours, upsampled by cubic
+    interpolation) plus pixel noise, so that its JPEG is of a photo's
+    size, not a flat field's."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState((seed * 1_000_003 + i) % 2 ** 32)
+    coarse = rng.randint(0, 256, (rng.randint(3, 12), rng.randint(3, 12),
+                                  3)).astype(np.float32)
+    img = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+    img += rng.randint(-24, 25, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def imagenet_pack(seed, prefix, n=None, hw=None):
+    """Pack ``n`` (``IMAGENET_RECORDS``) synthetic photos (each side
+    drawn from ``IMAGENET_SIDES``, or all ``hw``), labels 0-999, with
+    ``recordio.pack_img`` at quality 95 into ``prefix``.rec/.idx;
+    encoded on 8 threads. Returns (rec, idx, the records' bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from mxnet_tpu_torch import recordio
+    n = n or IMAGENET_RECORDS
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 1000, n)
+    shapes = [hw or tuple(rng.randint(*IMAGENET_SIDES, 2)) for _ in range(n)]
+
+    def one(i):
+        img = imagenet_image(seed, i, *shapes[i])
+        return recordio.pack_img(
+            recordio.IRHeader(0, float(labels[i]), i, 0), img,
+            quality=IMAGENET_QUALITY)
+    with ThreadPoolExecutor(8) as pool:
+        records = list(pool.map(one, range(n)))
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, r in enumerate(records):
+        w.write_idx(i, r)
+    w.close()
+    return prefix + ".rec", prefix + ".idx", sum(len(r) for r in records)
+
+
+def _imagenet_ctx():
+    import mxnet_tpu_torch as mx
+    return mx.gpu(0) if DEV == "cuda" else mx.cpu()
+
+
+def _imagenet_iter(rec, idx, seed, **kw):
+    import mxnet_tpu_torch as mx
+    args = dict(IMAGENET_ITER, path_imgrec=rec, path_imgidx=idx,
+                batch_size=IMAGENET_BATCH, seed=seed, ctx=_imagenet_ctx())
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def _imagenet_build(card_line):
+    """(a) the io library from csrc/io.cc, its libjpeg; a header of
+    another libjpeg ABI must be refused."""
+    import tempfile
+    from pathlib import Path
+    from mxnet_tpu_torch import native
+    from mxnet_tpu_torch.base import MXNetError
+    t0 = time.perf_counter()
+    native.load_io_lib()
+    info = native.build_info()
+    print("[imagenet] (a) io library %s: %s in %.2f s (load %.2f s), "
+          "libjpeg %s %s (the loader resolved %s); %s" % (
+              info["library"], "compiled" if info["compiled"] else "reused",
+              info["seconds"], time.perf_counter() - t0,
+              info["libjpeg_kind"], info["libjpeg"], info["linked"],
+              card_line))
+    build_root = Path(native.__file__).resolve().parent / "_build"
+    if not Path(info["library"]).resolve().is_relative_to(build_root):
+        raise SmokeFailure("imagenet (a): the io library %s is not under %s"
+                           % (info["library"], build_root))
+    with tempfile.TemporaryDirectory(prefix="mxt_jpeg_") as hdr:
+        for name in native.JPEG_HEADERS:
+            text = (native.JPEG_INCLUDE / name).read_text()
+            if name == "jconfig.h":
+                text = text.replace("#define JPEG_LIB_VERSION  62",
+                                    "#define JPEG_LIB_VERSION  80")
+            (Path(hdr) / name).write_text(text)
+        path, _ = native.build_io(include=Path(hdr))
+        try:
+            native.load_io_lib(path)
+        except MXNetError as e:
+            print("[control] libjpeg ABI-80 headers against the ABI-62 "
+                  "library refused at load: %s caught" % e)
+        else:
+            raise SmokeFailure("control: a library built against ABI-80 "
+                               "headers loaded")
+
+
+def _imagenet_decode(seed, tmp):
+    """(b) no resize, crop or mirror, data_shape the records' own size:
+    the pipeline's pixels against OpenCV's decode, RGB."""
+    import cv2
+    import numpy as np
+    from mxnet_tpu_torch import recordio
+    h, w = DECODE_HW
+    rec, idx, _ = imagenet_pack(seed + 1, tmp + "/decode",
+                                n=DECODE_RECORDS, hw=DECODE_HW)
+    it = _imagenet_iter(rec, idx, seed, data_shape=(3, h, w), shuffle=False,
+                        rand_crop=False, rand_mirror=False, resize=0,
+                        mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0,
+                        std_g=1.0, std_b=1.0, batch_size=DECODE_RECORDS)
+    got = it.next().data[0].asnumpy().transpose(0, 2, 3, 1)
+    r = recordio.MXRecordIO(rec, "r")
+    want = np.stack([cv2.imdecode(np.frombuffer(
+        recordio.unpack(r.read())[1], np.uint8), cv2.IMREAD_COLOR)
+        for _ in range(DECODE_RECORDS)]).astype(np.float32)
+    diff = float(np.abs(got - want[..., ::-1]).max())
+    bgr = float(np.abs(got - want).max())
+    print("[imagenet] (b) %d JPEG records %dx%d decoded by the pipeline "
+          "against cv2.imdecode (OpenCV %s) -> RGB: largest difference %g%s;"
+          " control, OpenCV's BGR: %g %s" % (
+              DECODE_RECORDS, h, w, cv2.__version__, diff,
+              " (bit for bit)" if diff == 0 else " FAIL", bgr,
+              "caught" if bgr else "MISSED"))
+    if diff != 0:
+        raise SmokeFailure("imagenet (b): the pipeline's decode differs from "
+                           "OpenCV's by up to %g" % diff)
+    if not bgr:
+        raise SmokeFailure("control: BGR pixels passed the decode check")
+
+
+def _epoch_batches(it, n=None):
+    """The next ``n`` (or an epoch of) batches as host copies (data,
+    label, pad)."""
+    out = []
+    for b in it:
+        out.append((b.data[0].tensor().cpu(), b.label[0].tensor().cpu(),
+                    b.pad))
+        if n is not None and len(out) == n:
+            break
+    return out
+
+
+def _batches_equal(got, want):
+    """The indices of the batches that differ in data, label or pad."""
+    import torch
+    return [i for i, (g, w) in enumerate(zip(got, want))
+            if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                    and g[2] == w[2])] + \
+        ([len(want)] if len(got) != len(want) else [])
+
+
+def _imagenet_card_vs_cpu(seed, rec, idx):
+    """(c) one epoch on the card against the same iterator and seed on
+    the CPU, bit for bit; a batch uploaded from the wrong staging slot
+    must be caught."""
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    card = _epoch_batches(_imagenet_iter(rec, idx, seed))
+    host = _epoch_batches(_imagenet_iter(rec, idx, seed, ctx=mx.cpu()))
+    bad = _batches_equal(card, host)
+    print("[imagenet] (c) %d batches on %s against ctx=mx.cpu(): %s" % (
+        len(host), _imagenet_ctx(),
+        "bit for bit ok" if not bad else "differ at %s FAIL" % bad))
+    if bad:
+        raise SmokeFailure("imagenet (c): the card's batches differ from the "
+                           "CPU's at %s" % bad)
+    upload = mx.io.ImageRecordIter._upload
+
+    def wrong_slot(self, slot):
+        return upload(self, self._slots[(self._turn - 2) % len(self._slots)])
+    with mock.patch.object(mx.io.ImageRecordIter, "_upload", wrong_slot):
+        faulty = _epoch_batches(_imagenet_iter(rec, idx, seed), 3)
+    caught = _batches_equal(faulty, host[:3])
+    print("[control] batches uploaded from the previous staging slot: "
+          "differ at %s %s" % (caught, "caught" if caught else "MISSED"))
+    if not caught:
+        raise SmokeFailure("control: batches from the wrong staging slot "
+                           "passed the card-vs-CPU check")
+
+
+def _imagenet_resnet(seed, rec, idx, card_line):
+    """(d) ResNet-50 v1 as phase 11(c) trains it, fed by the iterator,
+    against the same batches resident; (f) its step times and profile.
+    Returns the launches of the fed run."""
+    import math
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import cuda_build
+    side = IMAGENET_ITER["data_shape"][1]
+    amp.init(target_dtype="bfloat16")
+    try:
+        mx.random.seed(seed)
+        net = resnet50_v1(prefix="resnet50fed_")
+        net.initialize(init=mx.init.MSRAPrelu(), ctx=_imagenet_ctx())
+        with torch.no_grad():
+            net(mx.nd.zeros((1, 3, side, side), ctx=_imagenet_ctx()))
+        net.hybridize(static_alloc=True, static_shape=True)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize(static_alloc=True, static_shape=True)
+        params = net.collect_params()
+        snap = _snapshot(params)
+
+        def step(trainer, x, y):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(IMAGENET_BATCH)
+            return loss
+
+        def fresh():
+            _restore(params, snap)
+            autograd.disarm_fused_update()
+            return mx.gluon.Trainer(params, "sgd", {
+                "learning_rate": 0.1, "momentum": 0.9}, kvstore="device")
+
+        def fed(it, trainer, n):
+            losses, waits = [], []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                b = it.next()
+                waits.append(time.perf_counter() - t0)
+                loss = step(trainer, b.data[0], b.label[0])
+                losses.append(loss.tensor().detach().float().clone())
+            torch.cuda.synchronize()
+            return losses, waits
+
+        def resident(batches):
+            trainer = fresh()
+            losses = [step(trainer, x, y).tensor().detach().float().clone()
+                      for x, y in batches]
+            torch.cuda.synchronize()
+            return (losses, _snapshot(params)), trainer
+
+        with _deterministic():
+            it = _imagenet_iter(rec, idx, seed)
+            trainer = fresh()
+            cuda_build.reset_launch_counts()
+            losses, waits = fed(it, trainer, IMAGENET_STEPS)
+            counts = cuda_build.launch_counts()
+            run_fed = (losses, _snapshot(params))
+            again = _imagenet_iter(rec, idx, seed)
+            batches = [(mx.nd.NDArray(b.data[0].tensor().clone()),
+                        mx.nd.NDArray(b.label[0].tensor().clone()))
+                       for b, _ in zip(again, range(IMAGENET_STEPS))]
+            run_res, _ = resident(batches)
+            dist, where = _run_distance(run_res, run_fed)
+            vals = [float(v.mean()) for v in losses]
+            print("[imagenet] (d) resnet50_v1, bf16 AMP, hybridized, SGD "
+                  "0.1 momentum 0.9 (fused), batch %d: %d steps fed by "
+                  "ImageRecordIter, losses %s; the same batches resident: "
+                  "largest distance %.3g%s; kernel launches in the fed run "
+                  "%s" % (IMAGENET_BATCH, IMAGENET_STEPS,
+                          " ".join("%.4f" % v for v in vals), dist,
+                          " (bit for bit) ok" if dist == 0 else
+                          " at %s FAIL" % where,
+                          {k: v for k, v in counts.items() if v} or "none"))
+            if dist != 0:
+                raise SmokeFailure("imagenet (d): the fed run differs from "
+                                   "its resident replay at %s" % where)
+            if not all(math.isfinite(v) for v in vals):
+                raise SmokeFailure("imagenet (d): a loss is not finite: %s"
+                                   % vals)
+            swapped = list(batches)
+            swapped[1], swapped[2] = swapped[2], swapped[1]
+            run_bad, _ = resident(swapped)
+            bad, where = _run_distance(run_bad, run_fed)
+            print("[control] batches 2 and 3 swapped in the resident run: "
+                  "distance %.3g (%s) %s" % (bad, where,
+                                             "caught" if bad else "MISSED"))
+            if not bad:
+                raise SmokeFailure("control: swapped batches passed the "
+                                   "fed-vs-resident check")
+
+            # (f) the fed loop (at 4 threads and at every host CPU)
+            # against the resident loop, in turns
+            iters = {"fed": it, "fed_all": _imagenet_iter(
+                rec, idx, seed, preprocess_threads=os.cpu_count())}
+            times = {k: [] for k in ("fed", "fed_all", "resident")}
+            waits_ms = {"fed": [], "fed_all": []}
+            x, y = batches[0]
+            for _ in range(IMAGENET_TURNS):
+                for kind in ("fed", "resident", "fed_all", "fed_all",
+                             "resident", "fed"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if kind == "resident":
+                        for _ in range(IMAGENET_STEPS):
+                            step(trainer, x, y)
+                        torch.cuda.synchronize()
+                    else:
+                        iters[kind].reset()
+                        _, w = fed(iters[kind], trainer, IMAGENET_STEPS)
+                        waits_ms[kind].append(statistics.median(w) * 1e3)
+                    times[kind].append((time.perf_counter() - t0) * 1e3
+                                       / IMAGENET_STEPS)
+            ms = {k: statistics.median(v) for k, v in times.items()}
+            print("[imagenet] (f) resnet50_v1 step (batch %d, hybridized, "
+                  "bf16 AMP): fed by ImageRecordIter at 4 threads %.2f ms "
+                  "(%.1f images/s; the loop waits %.2f ms a step inside "
+                  "next(), median), at %d threads %.2f ms (%.1f images/s; "
+                  "waits %.2f ms), resident %.2f ms (%.1f images/s); medians "
+                  "of %d runs of %d steps each in turns, host clock; the "
+                  "first fed epoch's waits %s ms; %d host CPUs; %s" % (
+                      IMAGENET_BATCH, ms["fed"],
+                      IMAGENET_BATCH / ms["fed"] * 1e3,
+                      statistics.median(waits_ms["fed"]), os.cpu_count(),
+                      ms["fed_all"], IMAGENET_BATCH / ms["fed_all"] * 1e3,
+                      statistics.median(waits_ms["fed_all"]),
+                      ms["resident"], IMAGENET_BATCH / ms["resident"] * 1e3,
+                      2 * IMAGENET_TURNS, IMAGENET_STEPS,
+                      " ".join("%.1f" % (v * 1e3) for v in waits),
+                      os.cpu_count(), card_line))
+
+            def fed_step():
+                b = it.next()
+                step(trainer, b.data[0], b.label[0])
+            it.reset()
+            for _ in range(IMAGENET_STEPS // 2):   # past the run-ahead
+                fed_step()
+            _profile("one steady fed ResNet-50 step (batch %d, 4 threads, "
+                     "next() inside)" % IMAGENET_BATCH, fed_step)
+            _profile("one resident ResNet-50 step (batch %d)"
+                     % IMAGENET_BATCH, lambda: step(trainer, x, y))
+            del trainer, it, iters, again, batches
+        _free_graphs(net, loss_fn)
+    finally:
+        amp.reset()
+    return counts
+
+
+def _pipeline_rate(rec, idx, seed, n_batches, **kw):
+    """Images/s of the iterator alone, batches on the card: the first
+    batch (the producer's start) apart, ``n_batches`` more, ending in a
+    synchronise."""
+    import torch
+    it = _imagenet_iter(rec, idx, seed, **kw)
+    b = it.next()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(n_batches):
+        try:
+            b = it.next()
+        except StopIteration:
+            it.reset()
+            b = it.next()
+        n += b.data[0].shape[0] - b.pad
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def _native_rate(rec, idx, threads, n_batches, side, mirror):
+    """Images/s of the native producer alone (``MXIONext`` in a loop,
+    nothing copied out), raw records, shuffled: the first batch apart,
+    resets at each epoch's end included."""
+    import ctypes
+    from mxnet_tpu_torch import native
+    lib = native.load_io_lib()
+    h = lib.MXIOCreateImageRecordIter(
+        rec.encode(), idx.encode(), IMAGENET_BATCH, side, side, 1, 1, 0,
+        int(mirror), 0, threads, 1)
+    if not h:
+        raise SmokeFailure("imagenet (e): %s" % native.last_error(lib))
+    data = ctypes.POINTER(ctypes.c_uint8)()
+    label = ctypes.POINTER(ctypes.c_float)()
+    n = ctypes.c_int(0)
+
+    def nxt():
+        rc = lib.MXIONext(h, ctypes.byref(data), ctypes.byref(label),
+                          ctypes.byref(n))
+        if rc == 1:
+            lib.MXIOReset(h)
+            rc = lib.MXIONext(h, ctypes.byref(data), ctypes.byref(label),
+                              ctypes.byref(n))
+        if rc != 0:
+            raise SmokeFailure("imagenet (e): %s" % native.last_error(lib))
+        return n.value
+    try:
+        nxt()
+        t0 = time.perf_counter()
+        total = sum(nxt() for _ in range(n_batches))
+        return total / (time.perf_counter() - t0)
+    finally:
+        lib.MXIOFree(h)
+
+
+def _imagenet_rates(seed, tmp, rec, idx, nbytes, card_line):
+    """(e) raw records as bench.py writes them; (f) the JPEG pipeline
+    alone at 1, 4 and os.cpu_count() threads."""
+    import numpy as np
+    from mxnet_tpu_torch import recordio
+    raw = (np.random.RandomState(0).rand(3, RAW_SIDE, RAW_SIDE)
+           .transpose(1, 2, 0) * 255).astype(np.uint8)
+    rrec, ridx = tmp + "/raw.rec", tmp + "/raw.idx"
+    w = recordio.MXIndexedRecordIO(ridx, rrec, "w")
+    for i in range(RAW_RECORDS):
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i % 1000), i,
+                                                       0), raw.tobytes()))
+    w.close()
+    bench = dict(shuffle=True, rand_crop=False, rand_mirror=True, resize=0,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=255.0,
+                 std_g=255.0, std_b=255.0)
+    raw_rates = {t: _pipeline_rate(rrec, ridx, 1, 3 * RAW_RECORDS //
+                                   IMAGENET_BATCH, preprocess_threads=t,
+                                   **bench)
+                 for t in (1, 4)}
+    native_rates = {t: _native_rate(rrec, ridx, t, 3 * RAW_RECORDS //
+                                    IMAGENET_BATCH, RAW_SIDE, True)
+                    for t in (1, 4)}
+    print("[imagenet] (e) raw %d^2 records (bench.py:80-91: shuffle, "
+          "mirror, /255), the pipeline alone to the card: %s images/s; the "
+          "native producer alone (MXIONext, nothing copied out): %s "
+          "images/s; %s" % (
+              RAW_SIDE, ", ".join("%.1f at %d thread%s" % (
+                  r, t, "s" * (t > 1)) for t, r in raw_rates.items()),
+              ", ".join("%.1f at %d thread%s" % (r, t, "s" * (t > 1))
+                        for t, r in native_rates.items()), card_line))
+    threads = sorted({1, 4, os.cpu_count()})
+    rates = {t: _pipeline_rate(rec, idx, seed, IMAGENET_RECORDS //
+                               IMAGENET_BATCH - 1, preprocess_threads=t)
+             for t in threads}
+    print("[imagenet] (f) JPEG records (%d, %.1f KB each on average, sides "
+          "%d-%d, quality %d; resize 256, random crop 224, mirror, "
+          "normalise), the pipeline alone to the card: %s images/s; %d host "
+          "CPUs; %s" % (IMAGENET_RECORDS, nbytes / IMAGENET_RECORDS / 1e3,
+                        IMAGENET_SIDES[0], IMAGENET_SIDES[1] - 1,
+                        IMAGENET_QUALITY, ", ".join(
+                            "%.1f at %d thread%s" % (r, t, "s" * (t > 1))
+                            for t, r in rates.items()),
+                        os.cpu_count(), card_line))
+
+
+def phase_imagenet(seed, card_line):
+    """16. ResNet-50 v1 trained from a JPEG .rec through
+    io.ImageRecordIter. Returns the launches of the fed run."""
+    import tempfile
+    print("[imagenet] %s" % card_line)
+    _imagenet_build(card_line)
+    with tempfile.TemporaryDirectory(prefix="mxt_imagenet_") as tmp:
+        t0 = time.perf_counter()
+        rec, idx, nbytes = imagenet_pack(seed, tmp + "/train")
+        print("[imagenet] %d synthetic JPEG records from seed %d (sides "
+              "%d-%d px, quality %d): %.1f MB, packed in %.2f s" % (
+                  IMAGENET_RECORDS, seed, IMAGENET_SIDES[0],
+                  IMAGENET_SIDES[1] - 1, IMAGENET_QUALITY, nbytes / 1e6,
+                  time.perf_counter() - t0))
+        _imagenet_decode(seed, tmp)
+        _imagenet_card_vs_cpu(seed, rec, idx)
+        counts = _imagenet_resnet(seed, rec, idx, card_line)
+        _imagenet_rates(seed, tmp, rec, idx, nbytes, card_line)
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6307,6 +6814,10 @@ def main(argv=None):
             phase_vision(args.seed, args.reps, card, card_line)
         compiled.update(vision_capture)
         rows.append(vision_row)
+        fed_counts = phase_imagenet(args.seed, card_line)
+        for r in rows:
+            r["launches_per_fed_run"] = fed_counts.get(
+                r.get("kernel", r["name"]), 0)
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_vision_step"] = vision_counts.get(k, 0)

@@ -25,7 +25,10 @@ scaler, multi-precision master weights, LAMB's phase ops, Adam/AdamW
 and ``lr_scheduler``. The eleventh brings the reference's whole NDArray
 surface and ``gluon.rnn``, and trains upstream MXNet's PTB
 word-language model (a tied 2-layer LSTM) with ``gluon.utils.
-clip_global_norm``.
+clip_global_norm``. The fifteenth brings the ImageNet input path:
+``recordio``, ``io`` (``ImageRecordIter`` on the native decode/augment
+pipeline of ``csrc/io.cc``, built with g++ at first use), ``image`` and
+the record datasets, and ``python -m mxnet_tpu_torch.tools.im2rec``.
 
 Usage mirrors the reference::
 
@@ -50,6 +53,15 @@ Usage mirrors the reference::
 
     mod = mx.rtc.CudaModule(cuda_source, plain={"relu": relu_plain})
     y = mod.get_kernel("relu").launch([x])
+
+    it = mx.io.ImageRecordIter(path_imgrec="train.rec",
+                               path_imgidx="train.idx",
+                               data_shape=(3, 224, 224), batch_size=128,
+                               shuffle=True, rand_crop=True,
+                               rand_mirror=True, resize=256,
+                               preprocess_threads=4)
+    for batch in it:               # batch.data[0] on the card, NCHW f32
+        ...
 """
 from __future__ import annotations
 
@@ -76,4 +88,8 @@ from . import guardrails
 from . import faultinject
 from . import scan
 from . import contrib
+from . import recordio
+from . import native
+from . import io
+from . import image
 from .interop import params_from_numpy

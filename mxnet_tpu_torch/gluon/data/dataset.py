@@ -1,13 +1,12 @@
 """Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``; ref:
-python/mxnet/gluon/data/dataset.py). ``RecordFileDataset`` waits for
-``recordio.py`` (ROADMAP queue 1, item 9, second part)."""
+python/mxnet/gluon/data/dataset.py)."""
 from __future__ import annotations
 
 import os
 
 from ...ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -94,6 +93,25 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of a RecordIO file, as bytes, by position in its
+    ``.idx`` (ref: dataset.py :: RecordFileDataset). Safe in forked
+    DataLoader workers: the reader reopens its file in a process other
+    than the one that opened it (``recordio.MXRecordIO._check_pid``)."""
+
+    def __init__(self, filename):
+        from ...recordio import MXIndexedRecordIO
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = MXIndexedRecordIO(self.idx_file, self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)
 
 
 class _DownloadedDataset(Dataset):

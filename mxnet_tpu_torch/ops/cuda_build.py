@@ -25,10 +25,18 @@ options and the flags, so a second module with the same source reuses the
 first's library. A user kernel counts its launches under ``rtc:<name>``,
 an entry made at its first launch and dropped by
 :func:`reset_launch_counts`.
+
+Builds are safe across processes (several test workers, two scripts on
+one checkout): each build directory is written under an exclusive
+``fcntl`` lock (:func:`build_lock`), and every library is compiled into
+a temporary file that an atomic rename puts in place, so no process
+loads a half-written library or compiles a half-written source.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -44,7 +52,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["SOURCES", "KERNELS", "build", "build_info", "library",
-           "build_source", "load_library", "RTC_PREFIX",
+           "build_source", "load_library", "build_lock", "RTC_PREFIX",
            "launch_counts", "reset_launch_counts", "count_launch",
            "check_launch", "check_cuda_tensor", "sm_count", "stream_of",
            "DTYPE_CODES",
@@ -108,19 +116,36 @@ def _nvcc() -> str:
                      "the CUDA toolkit")
 
 
+@contextlib.contextmanager
+def build_lock(directory: Path):
+    """Hold an exclusive lock on ``directory`` (made if missing) for a
+    build into it: ``flock`` on its ``.lock`` file, so one process at a
+    time builds there, a second waits and then finds the library, and
+    the lock goes with a process that dies."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    fd = os.open(str(directory / ".lock"), os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
 def build() -> Dict[str, Path]:
     """Compile every source not built yet for the current digest, one
     ``nvcc`` per source, all started together; returns {source: path
     of its shared library}. Raises MXNetError naming the source and the
     compiler's output when a build fails."""
-    with _lock:
-        out_dir = BUILD_ROOT / source_digest()
-        targets = {s: out_dir / (Path(s).stem + ".so") for s in SOURCES}
+    out_dir = BUILD_ROOT / source_digest()
+    targets = {s: out_dir / (Path(s).stem + ".so") for s in SOURCES}
+    if all(t.exists() for t in targets.values()):
+        return targets
+    nvcc = _nvcc()
+    with _lock, build_lock(out_dir):
         todo = [s for s, t in targets.items() if not t.exists()]
         if not todo:
             return targets
-        nvcc = _nvcc()
-        out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         procs = []
         for src in todo:
@@ -185,11 +210,12 @@ def build_source(source: str, options=()) -> Path:
     h.update(source.encode())
     out_dir = BUILD_ROOT / "rtc" / h.hexdigest()[:16]
     target = out_dir / "module.so"
-    with _lock:
+    if target.exists():
+        return target
+    nvcc = _nvcc()
+    with _lock, build_lock(out_dir):
         if target.exists():
             return target
-        nvcc = _nvcc()
-        out_dir.mkdir(parents=True, exist_ok=True)
         src = out_dir / "module.cu"
         src.write_text(source)
         tmp = out_dir / ("module.%d.tmp" % os.getpid())

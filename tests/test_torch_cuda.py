@@ -1744,3 +1744,50 @@ def test_vgg_step_launches_the_dropout_kernel_four_times(card):
             step()
     torch.cuda.synchronize()
     assert recorded["dropout"] == 4
+
+
+# ---------------------------------------------------------------------------
+# io.ImageRecordIter: the pinned staging ring, the side-stream upload
+# ---------------------------------------------------------------------------
+def _raw_pack(tmp_path, n=23, h=12, w=10):
+    from mxnet_tpu_torch import recordio
+    rec, idx = str(tmp_path / "r.rec"), str(tmp_path / "r.idx")
+    wr = recordio.MXIndexedRecordIO(idx, rec, "w")
+    rng = np.random.RandomState(0)
+    for i in range(n):
+        wr.write_idx(i, recordio.pack(
+            recordio.IRHeader(0, float(i), i, 0),
+            rng.randint(0, 256, (h, w, 3), np.uint8).tobytes()))
+    wr.close()
+    return rec, idx
+
+
+@pytest.mark.parametrize("stream", ["default", "side"])
+def test_image_record_iter_card_batches_equal_cpu(card, tmp_path, stream):
+    """More batches than staging slots, two epochs, a short tail: each
+    card batch equals the CPU iterator's, also when the consumer runs on
+    a stream of its own (it waits for the upload's event)."""
+    import mxnet_tpu_torch as mx
+    rec, idx = _raw_pack(tmp_path)
+    kw = dict(path_imgrec=rec, path_imgidx=idx, data_shape=(3, 12, 10),
+              batch_size=4, shuffle=True, rand_mirror=True, seed=3,
+              mean_r=1.0, std_b=3.0)
+    gpu = mx.io.ImageRecordIter(ctx=mx.gpu(0), **kw)
+    cpu = mx.io.ImageRecordIter(ctx=mx.cpu(), **kw)
+    s = torch.cuda.Stream() if stream == "side" else \
+        torch.cuda.current_stream()
+    with torch.cuda.stream(s):
+        for _ in range(2):
+            got = [(b.data[0].tensor().clone(), b.label[0].tensor().clone(),
+                    b.pad) for b in gpu]
+            want = [(b.data[0].tensor(), b.label[0].tensor(), b.pad)
+                    for b in cpu]
+            torch.cuda.synchronize()
+            assert len(got) == len(want) == 6
+            for (gd, gl, gp), (wd, wl, wp) in zip(got, want):
+                assert gd.is_cuda and gp == wp
+                assert torch.equal(gd.cpu(), wd) and torch.equal(gl.cpu(), wl)
+            gpu.reset()
+            cpu.reset()
+    assert len(gpu._slots) == gpu.STAGING_SLOTS
+    assert all(sl.data.is_pinned() for sl in gpu._slots)

@@ -117,6 +117,57 @@ def test_port_runs_without_jax_or_reference_in_a_subprocess():
     assert "LOADED []" in proc.stdout
 
 
+def test_port_loads_only_its_own_io_library():
+    """The port's image pipeline builds and loads its own library from
+    mxnet_tpu_torch/_build/, never the reference's mxnet_tpu/native/*.so,
+    and imports neither JAX nor the reference."""
+    code = textwrap.dedent("""
+        import sys, tempfile
+        import numpy as np
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch import native, recordio
+        tmp = tempfile.mkdtemp()
+        w = recordio.MXIndexedRecordIO(tmp + "/a.idx", tmp + "/a.rec", "w")
+        for i in range(4):
+            w.write_idx(i, recordio.pack((0, float(i), i, 0),
+                                         bytes(range(48))))
+        w.close()
+        it = mx.io.ImageRecordIter(path_imgrec=tmp + "/a.rec",
+                                   path_imgidx=tmp + "/a.idx",
+                                   data_shape=(3, 4, 4), batch_size=2,
+                                   shuffle=True, ctx=mx.cpu())
+        assert next(it).data[0].shape == (2, 3, 4, 4)
+        maps = open("/proc/self/maps").read()
+        print("NATIVE", "mxnet_tpu/native" in maps)
+        print("OWN", native.build_info()["library"] in maps,
+              "/mxnet_tpu_torch/_build/host/" in native.build_info()["library"])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MXNET_")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NATIVE False" in proc.stdout
+    assert "OWN True True" in proc.stdout
+    assert "LOADED []" in proc.stdout
+
+
+def test_port_sources_name_no_reference_library():
+    """No port source or build file names the reference's native
+    libraries."""
+    files = [f for f in PORT.rglob("*")
+             if f.is_file() and "_build" not in f.relative_to(PORT).parts
+             and f.suffix in (".py", ".cc", ".cu", ".cuh", ".h")]
+    bad = [str(f.relative_to(REPO)) for f in files
+           if "libmxtpu_" in f.read_text(errors="replace")
+           or "mxnet_tpu/native/lib" in f.read_text(errors="replace")]
+    assert bad == []
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -120,8 +120,31 @@ def test_synthetic_dataset_matches_the_reference():
 
 @pytest.mark.parametrize("cls", ["ImageRecordDataset", "ImageFolderDataset"])
 def test_decoding_datasets_name_the_roadmap(tmp_path, cls):
-    with pytest.raises(pt.MXNetError, match="item 9, second part"):
-        getattr(pvision, cls)(str(tmp_path))
+    """The ROADMAP entry these named (item 9, second part) is ported:
+    both datasets decode now, as the reference's do (the record dataset
+    in RGB, the reference's in BGR; tests/test_torch_record_datasets.py
+    holds them item for item)."""
+    cv2 = pytest.importorskip("cv2")
+    img = _image(np.uint8, shape=(9, 7, 3))
+    if cls == "ImageRecordDataset":
+        from mxnet_tpu_torch import recordio
+        rec = str(tmp_path / "a.rec")
+        w = recordio.MXIndexedRecordIO(str(tmp_path / "a.idx"), rec, "w")
+        w.write_idx(0, recordio.pack_img((0, 3.0, 0, 0), img, img_fmt=".png"))
+        w.close()
+        got, want = getattr(pvision, cls)(rec), getattr(rvision, cls)(rec)
+        flip = slice(None, None, -1)
+    else:
+        (tmp_path / "c").mkdir()
+        cv2.imwrite(str(tmp_path / "c" / "a.png"), img)
+        got = getattr(pvision, cls)(str(tmp_path))
+        want = getattr(rvision, cls)(str(tmp_path))
+        flip = slice(None)
+    assert len(got) == len(want) == 1
+    np.testing.assert_array_equal(got[0][0].asnumpy(),
+                                  want[0][0].asnumpy()[:, :, flip])
+    np.testing.assert_array_equal(got[0][0].asnumpy(), img[:, :, ::-1])
+    assert got[0][1] == want[0][1]
 
 
 # ---------------------------------------------------------------------------
