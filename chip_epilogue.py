@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The redesigned row-wise kernels on one NVIDIA card (the LayerNorm
-forward, bias+residual, bias+GeLU forward and backward): their bf16
-bit-equal shares over seeds, and their device times against another
-tree's kernels, in turns.
+"""The redesigned row-wise and elementwise kernels on one NVIDIA card (the
+LayerNorm forward, bias+residual, bias+GeLU forward and backward,
+dropout): their bf16 bit-equal shares over seeds, and their device times
+against another tree's kernels, in turns.
 
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -16,13 +16,16 @@ CUDA toolkit:
    output bit-equal to the plain version at each shape: the readings from
    which the tests' floors ``LN_EQUAL`` and ``GELU_EQUAL`` are set
    (bias+residual's must be 1).
-2. turns (with ``--old DIR``) — DIR holds another tree's ``epilogue.cu``,
-   ``layer_norm.cu`` and ``common.cuh``, for example ``git archive
-   <commit> mxnet_tpu_torch/csrc`` unpacked under the gitignored
-   ``mxnet_tpu_torch/_build/``. Its libraries are built there with the
-   port's nvcc flags and called through ctypes with the C interface of
-   the kernels before this tree's redesign (the LayerNorm forward and
-   bias+residual without an SM count). Each of the LayerNorm forward and
+2. turns (with ``--old DIR``) — DIR holds another tree's ``common.cuh``
+   and any of its ``epilogue.cu``, ``layer_norm.cu`` and ``dropout.cu``,
+   for example ``git archive <commit> mxnet_tpu_torch/csrc`` unpacked
+   under the gitignored ``mxnet_tpu_torch/_build/``. The sources DIR
+   holds are built there with the port's nvcc flags and called through
+   ctypes with the C interface of the kernels before this tree's
+   redesign (the LayerNorm forward and bias+residual without an SM
+   count; dropout without a launch plan). Both row-wise sources give
+   the row-wise turns, ``dropout.cu`` the dropout turns. Each of the
+   LayerNorm forward and
    bias+residual at one row (the fixed cost: a launch and one row's
    latency), (1024, 768) and (4096, 768), the bias+GeLU forward at (1024,
    3072) and (4096, 3072) and its backward at (4096, 3072), bf16, is
@@ -30,7 +33,13 @@ CUDA toolkit:
    ``--reps`` calls, ``chip_smoke._gpu_ms``) after both are checked
    against the plain version, then the one PyTorch call that computes
    the same function; and the SASS instructions an element of each
-   redesigned kernel (``chip_smoke._sass_per_element``).
+   redesigned kernel (``chip_smoke._sass_per_element``). The dropout
+   kernel (``DROPOUT_TURNS``: BERT's (4096, 768) bf16 at p 0.1, PTB's
+   (1120, 650) and VGG-16's (64, 4096) f32 at p 0.5, and one element,
+   its fixed cost) is timed the same way after both kernels equal the
+   plain version bit for bit, with ``F.dropout`` and the byte bound (x
+   read once, y written once, at the card's published memory rate)
+   beside each reading, and the new kernel's launch plan.
 
 Prints the card's name and power limit first and one JSON object last.
 """
@@ -129,12 +138,22 @@ def shares(seeds):
     return out
 
 
+# the dropout turns: path, shape, dtype, p
+DROPOUT_TURNS = (("bert", (4096, 768), "bfloat16", 0.1),
+                 ("ptb", (1120, 650), "float32", 0.5),
+                 ("vgg", (64, 4096), "float32", 0.5),
+                 ("one element", (1,), "float32", 0.5))
+
+
 def _old_libraries(old_dir):
-    """Build another tree's epilogue.cu and layer_norm.cu (one nvcc each,
-    started together); returns {source: (library, path)}."""
+    """Build those of another tree's epilogue.cu, layer_norm.cu and
+    dropout.cu that ``old_dir`` holds (one nvcc each, started together);
+    returns {source: (library, path)}."""
     from mxnet_tpu_torch.ops import cuda_build
     procs = {}
-    for src in ("epilogue.cu", "layer_norm.cu"):
+    for src in ("epilogue.cu", "layer_norm.cu", "dropout.cu"):
+        if not (Path(old_dir) / src).exists():
+            continue
         path = Path(old_dir) / (Path(src).stem + "_old.so")
         procs[src] = (path, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(old_dir),
@@ -147,25 +166,93 @@ def _old_libraries(old_dir):
             raise cs.SmokeFailure("nvcc failed for %s:\n%s" % (src, log))
         libs[src] = (cuda_build.load_library(path), path)
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    ep = libs["epilogue.cu"][0]
-    ep.mxt_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, i32, i32, p]
-    ep.mxt_bias_gelu_bwd.argtypes = [p, p, p, p, p, i64, p, i64, i32, i32,
-                                     i32, i32, p]
-    ep.mxt_bias_gelu_bwd_strips.argtypes = [i64, i32, i32, i32]
-    ep.mxt_bias_gelu_bwd_strips.restype = i64
-    ep.mxt_bias_residual_fwd.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
-    ln = libs["layer_norm.cu"][0]
-    ln.mxt_layer_norm_fwd.argtypes = [p, p, p, p, i64, i32, ctypes.c_float,
-                                      i32, i32, p]
+    if "epilogue.cu" in libs:
+        ep = libs["epilogue.cu"][0]
+        ep.mxt_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, i32, i32, p]
+        ep.mxt_bias_gelu_bwd.argtypes = [p, p, p, p, p, i64, p, i64, i32,
+                                         i32, i32, i32, p]
+        ep.mxt_bias_gelu_bwd_strips.argtypes = [i64, i32, i32, i32]
+        ep.mxt_bias_gelu_bwd_strips.restype = i64
+        ep.mxt_bias_residual_fwd.argtypes = [p, p, p, p, i64, i32, i32, i32,
+                                             p]
+    if "layer_norm.cu" in libs:
+        ln = libs["layer_norm.cu"][0]
+        ln.mxt_layer_norm_fwd.argtypes = [p, p, p, p, i64, i32,
+                                          ctypes.c_float, i32, i32, p]
+    if "dropout.cu" in libs:
+        dr = libs["dropout.cu"][0]
+        dr.mxt_dropout.argtypes = [p, p, p, i64, ctypes.c_uint32,
+                                   ctypes.c_float, i32, p]
+        dr.mxt_dropout.restype = i32
     return libs
 
 
-def turns(old_dir, reps):
+def dropout_turns(lib, reps):
+    """The dropout kernel against ``lib``'s (another tree's, one element a
+    thread) at ``DROPOUT_TURNS``, in turns, with ``F.dropout`` and the
+    byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import cuda_build, cuda_dropout as cd
+    dev = torch.device("cuda")
+    bw = cs._peaks(torch.cuda.get_device_name(0))[0]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    seed = torch.tensor([16], dtype=torch.int32, device="cuda")
+
+    def old(x, p):
+        y = torch.empty_like(x)
+        rc = lib.mxt_dropout(x.data_ptr(), y.data_ptr(), seed.data_ptr(),
+                             x.numel(), cd.keep_threshold(p), cd._scale(p),
+                             cuda_build.DTYPE_CODES[x.dtype],
+                             cuda_build.stream_of(x))
+        if rc:
+            raise cs.SmokeFailure("the old dropout kernel: CUDA error %d"
+                                  % rc)
+        return y
+
+    out = []
+    for name, shape, dtype, p in DROPOUT_TURNS:
+        x = torch.randn(shape, generator=g, device="cuda").to(
+            getattr(torch, dtype))
+        ref = cd.dropout_plain(x, p, seed)
+        fns = {"new": lambda: cd.dropout_cuda(x, p, seed),
+               "old": lambda: old(x, p)}
+        for who, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise cs.SmokeFailure("%s dropout %s %s: not the plain "
+                                      "version bit for bit"
+                                      % (who, shape, dtype))
+        t = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            t[who].append(cs._gpu_ms(fns[who], reps))
+        lib_ms = cs._gpu_ms(lambda: F.dropout(x, p, training=True), reps)
+        nbytes = 2 * x.numel() * x.element_size()
+        bound = nbytes / bw * 1e3
+        plan = cd.launch_plan(x.numel(), x.element_size(), True,
+                              cuda_build.sm_count(dev),
+                              cd._per_sm(dev, cuda_build.DTYPE_CODES[x.dtype],
+                                         True))
+        r = {"name": "dropout", "path": name, "shape": list(shape),
+             "dtype": dtype, "p": p, "old_ms": t["old"], "new_ms": t["new"],
+             "library_ms": lib_ms, "bound_ms": bound, "bound_by": "bytes",
+             "plan": plan._asdict()}
+        print("[turns] dropout %s %s %s p %g: old %.4f / %.4f ms, new %.4f / "
+              "%.4f ms (old, new, new, old); F.dropout %.4f ms; byte bound "
+              "%.4f ms (%d bytes); new plan %d accesses a thread, %d blocks"
+              % (name, shape, dtype, p, t["old"][0], t["old"][1],
+                 t["new"][0], t["new"][1], lib_ms, bound, nbytes, plan.units,
+                 plan.blocks))
+        out.append(r)
+    return out
+
+
+def turns(libs, reps):
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import (cuda_build, cuda_epilogue as ce,
                                      cuda_norm as cn)
-    libs = _old_libraries(old_dir)
     ep, ep_path = libs["epilogue.cu"]
     ln, ln_path = libs["layer_norm.cu"]
     bf16 = cuda_build.DTYPE_CODES[torch.bfloat16]
@@ -288,8 +375,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--old", help="directory of another tree's epilogue.cu, "
-                    "layer_norm.cu and common.cuh")
+    ap.add_argument("--old", help="directory of another tree's common.cuh "
+                    "and any of its epilogue.cu, layer_norm.cu, dropout.cu")
     args = ap.parse_args(argv)
     import torch
     try:
@@ -297,7 +384,12 @@ def main(argv=None):
         result = {"card": card_line, "device": torch.cuda.get_device_name(0),
                   "shares": shares(args.seeds)}
         if args.old:
-            result["turns"] = turns(args.old, args.reps)
+            libs = _old_libraries(args.old)
+            if {"epilogue.cu", "layer_norm.cu"} <= set(libs):
+                result["turns"] = turns(libs, args.reps)
+            if "dropout.cu" in libs:
+                result["dropout_turns"] = dropout_turns(
+                    libs["dropout.cu"][0], args.reps)
     except cs.SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1

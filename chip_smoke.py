@@ -24,7 +24,11 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    dropout 0.1 and the dropout kernel at the shapes BERT-base training
    gives them; the dual backward (dx, dW, the masked jg and the
    chaining sums) at every call shape of ResNet-50's fused stages. The dropout masks of kernel and plain version must be
-   identical (zero patterns compared exactly), and the dropout keep rate
+   identical (zero patterns compared exactly), its output bit for bit,
+   also from an x one element off 16-byte alignment (the kernel's
+   one-element variant, ``cuda_dropout.scalar_launches``; every dropout
+   launch of the BERT, PTB and VGG-16 steps must take the 16-byte one),
+   and the dropout keep rate
    within 5 binomial sigma of 0.9. Attention also at ``ATT_SHAPES`` (L
    77, 512 and 1024, hd 64, 32 and 128; both backward routes), each
    element within ``order_limit`` (the tolerance widened by exactly the
@@ -1318,6 +1322,20 @@ def _drop_pattern(what, got, ref):
                            "version's" % what)
 
 
+def _vector_dropouts(tag, scalar_before, what):
+    """Every dropout launch of a path (``what`` says which) took the
+    16-byte variant: ``cuda_dropout.scalar_launches`` still reads
+    ``scalar_before``."""
+    from mxnet_tpu_torch.ops import cuda_dropout
+    scalar = cuda_dropout.scalar_launches - scalar_before
+    print("[%s] dropout launches (%s): %d of the one-element variant, the "
+          "rest of the 16-byte one %s" % (tag, what, scalar,
+                                          "FAIL" if scalar else "ok"))
+    if scalar:
+        raise SmokeFailure("%s: %d dropout launches took the one-element "
+                           "variant" % (tag, scalar))
+
+
 def phase_parity_train(seed):
     """The training kernels against their plain versions at the shapes
     BERT-base training gives them; returns {kernel: max abs error}."""
@@ -1356,7 +1374,16 @@ def phase_parity_train(seed):
     ref = cuda_dropout.dropout_plain(x, 0.1, seed_t)
     errs["dropout"] = _check_close("dropout p=0.1 (%d, %d)" % (M, C), got,
                                    ref, KERNEL_ATOL, KERNEL_RTOL)
+    _check_exact("dropout p=0.1 (%d, %d)" % (M, C), got, ref)
     _drop_pattern("dropout mask (%d, %d)" % (M, C), got, ref)
+    # the one-element variant: the same x one element off 16-byte alignment
+    scalar = cuda_dropout.scalar_launches
+    shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(M, C)
+    _check_exact("dropout p=0.1 (%d, %d), x off alignment" % (M, C),
+                 cuda_dropout.dropout_cuda(shifted, 0.1, seed_t), ref)
+    if cuda_dropout.scalar_launches != scalar + 1:
+        raise SmokeFailure("dropout: x off 16-byte alignment did not take "
+                           "the one-element variant")
     keep = float((got != 0).float().mean())
     sigma = math.sqrt(0.9 * 0.1 / got.numel())
     print("[parity] dropout keep rate %.6f, 0.9 +- %.2g (5 sigma = %.2g) %s"
@@ -1660,7 +1687,7 @@ def phase_train(seed, steps):
     import torch
     from unittest import mock
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.ops import cuda_build, cuda_epilogue
+    from mxnet_tpu_torch.ops import cuda_build, cuda_dropout, cuda_epilogue
     t0 = time.perf_counter()
     net, mlm, params = _build_train(seed)
     batch = _train_batch(seed)
@@ -1722,6 +1749,7 @@ def phase_train(seed, steps):
                                {"learning_rate": 1e-3, "wd": 0.01})
     ids, tok, lab = batch
     losses = []
+    scalar = cuda_dropout.scalar_launches
     for step in range(steps):
         if step == 0:
             cuda_build.reset_launch_counts()
@@ -1743,6 +1771,8 @@ def phase_train(seed, steps):
                                    "%s with %d dropouts in the forward"
                                    % (counts, TRAIN_LAUNCHES,
                                       TRAIN_FWD_DROPOUT))
+            _vector_dropouts("train", scalar, "%d in one step"
+                             % counts["dropout"])
         # the mean in f32: the bf16 mean that is differentiated has a
         # resolution of 1/16 at BERT's initial loss
         losses.append(float(per_position.tensor().detach().float().mean()))
@@ -4169,6 +4199,7 @@ def phase_ptb(seed, steps, card, reps):
     hidden = net.begin_state(batch_size=PTB_BATCH, ctx=mx.gpu(0))
     losses, norms = [], []
     cuda_build.reset_launch_counts()
+    scalar = cuda_dropout.scalar_launches
     for data, target in windows:
         loss, hidden, norm = ptb_step(mx, net, trainer, loss_fn, data,
                                       target, hidden)
@@ -4191,6 +4222,8 @@ def phase_ptb(seed, steps, card, reps):
                            "(the loss must fall by %g, %d dropout launches "
                            "a step)" % (losses, norms, counts, PTB_FALL,
                                         PTB_DROPOUT_LAUNCHES))
+    _vector_dropouts("ptb", scalar, "%d in %d steps"
+                     % (totals["dropout"], steps))
     # the LSTM layer's forward and backward beside cuDNN's on its weights
     lstm = net.rnn
     cudnn = torch.nn.LSTM(PTB_UNITS, PTB_UNITS, PTB_LAYERS).cuda()
@@ -5840,7 +5873,7 @@ def _vision_vgg(seed, where):
     import torch
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, cached_op
-    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.ops import cuda_build, cuda_dropout
     gdata = mx.gluon.data
     net, build = _zoo_net("vgg16", VISION_SIDE, seed)
     params = net.collect_params()
@@ -5904,6 +5937,7 @@ def _vision_vgg(seed, where):
         torch.cuda.synchronize()
         return (losses, _snapshot(params)), waits
 
+    scalar = cuda_dropout.scalar_launches
     with _deterministic():
         (eager, waits4) = run(False)
         counts = state["counts"]
@@ -5934,6 +5968,10 @@ def _vision_vgg(seed, where):
         raise SmokeFailure("vision (a): row 8 launched %s an eager step and "
                            "%s into the graphs, 4 expected"
                            % (counts.get("dropout"), cap.get("dropout")))
+    _vector_dropouts("vision", scalar, "%d an eager step over two eager "
+                     "runs of %d steps, %d into the graphs"
+                     % (counts.get("dropout"), VISION_STEPS,
+                        cap.get("dropout")))
     if not all(math.isfinite(v) for v in losses) or \
             not sum(losses[-3:]) < sum(losses[:3]):
         raise SmokeFailure("vision (a): the loss did not fall: %s" % losses)

@@ -44,8 +44,6 @@
 // row, and ordered_col_sum adds the partial rows in strip order.
 // Deterministic, no atomics. The scratch's row count is bwd_strips (twin:
 // ops/cuda_epilogue.py :: bwd_scratch_shape).
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -68,54 +66,6 @@ constexpr int kBwdBlocksPerSm = 2;
 // runs of ordered_col_sum over the backward's partial rows: a few dozen
 // rows, so 16 runs of a few rows each, and 32 columns a block
 constexpr int kDbRuns = 16;
-
-// the register image of kV elements of T: a 16-byte vector, or one element
-template <typename T, int kV>
-using Raw = typename std::conditional<kV == 1, T, uint4>::type;
-
-__device__ __forceinline__ uint32_t pack_half2(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T, int kV>
-__device__ __forceinline__ void unpack(const Raw<T, kV>& r, float* f) {
-  if constexpr (kV == 1) {
-    f[0] = to_f32(r);
-  } else if constexpr (std::is_same<T, float>::value) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    unpack_bf16x8(r, f);
-  } else {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 v =
-          __half22float2(*reinterpret_cast<const __half2*>(&w[k]));
-      f[2 * k] = v.x;
-      f[2 * k + 1] = v.y;
-    }
-  }
-}
-
-// f rounded to T (to nearest even)
-template <typename T, int kV>
-__device__ __forceinline__ Raw<T, kV> pack(const float* f) {
-  if constexpr (kV == 1) {
-    return from_f32<T>(f[0]);
-  } else if constexpr (std::is_same<T, float>::value) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return pack_bf16x8(f);
-  } else {
-    return make_uint4(pack_half2(f[0], f[1]), pack_half2(f[2], f[3]),
-                      pack_half2(f[4], f[5]), pack_half2(f[6], f[7]));
-  }
-}
 
 // the thread's kV bias values from column c, read `shift` columns off
 // (0, but for chip_smoke.py's planted fault)

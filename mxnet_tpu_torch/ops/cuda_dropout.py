@@ -20,11 +20,20 @@ has no counterpart here (and no interpreter form, so its CPU path is a
 distribution — keep rate, scale, the same mask forward and backward.
 The reference's limits (``C % 128``, at least 16 rows) are TPU tiling
 limits, so the kernel serves every shape.
+
+The kernel moves 16 bytes an access where ``x`` and ``y`` are 16-byte
+aligned and one element an access where they are not (``x`` a view at an
+odd offset): :func:`launch_plan` picks the variant and the grid from the
+card's SM count, and the second variant's launches are counted apart in
+``scalar_launches`` beside the kernel's count in
+``cuda_build.launch_counts()["dropout"]``, which counts both.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -33,11 +42,23 @@ from ..base import MXNetError
 from . import cuda_build as _cb
 
 __all__ = ["hash_bits", "keep_threshold", "dropout", "dropout_cuda",
-           "dropout_plain", "dropout_fn", "dropout_available"]
+           "dropout_plain", "dropout_fn", "dropout_available", "Plan",
+           "launch_plan"]
 
 KERNEL = "dropout"
 SOURCE = "dropout.cu"
 _M32 = 0xFFFFFFFF
+
+# csrc/dropout.cu: threads a block; elements a piece, whose index's high
+# word the kernel adds to the seed once; accesses a thread may issue
+# before it hashes and stores
+THREADS = 256
+PIECE = 1 << 32
+UNITS = (1, 2, 4)
+
+# launches that took the one-element variant (x or y off 16-byte
+# alignment); each is also one launch of the kernel's count
+scalar_launches = 0
 
 
 def _mul32(z: torch.Tensor, c: int) -> torch.Tensor:
@@ -88,15 +109,68 @@ def dropout_plain(x: torch.Tensor, p: float,
     return y.to(x.dtype)
 
 
+class Plan(NamedTuple):
+    """One launch of ``csrc/dropout.cu``: 16-byte accesses (``vector``)
+    of ``elems`` elements, else one element an access; ``units``
+    accesses a thread at a time; a grid of ``blocks`` by ``pieces``."""
+    vector: bool
+    elems: int
+    units: int
+    blocks: int
+    pieces: int
+
+
+def launch_plan(n: int, itemsize: int, aligned: bool, sms: int,
+                per_sm: Mapping[int, int]) -> Plan:
+    """The launch for ``n`` elements of ``itemsize`` bytes on a card of
+    ``sms`` SMs that keeps ``per_sm[u]`` blocks of the variant with ``u``
+    accesses a thread resident on each. ``aligned``: x and y both 16-byte
+    aligned. The tensor is cut into 2^32-element pieces; a piece's
+    vectors (whole accesses; the rest, fewer than ``elems``, are the
+    tail) take one pass of the fewest units a thread for which one wave
+    of blocks covers them, else loop on one wave of four-unit blocks."""
+    elems = 16 // itemsize if aligned else 1
+    pieces = -(-n // PIECE)
+    nvec = min(n, PIECE) // elems
+    for units in UNITS:
+        wave = sms * per_sm[units]
+        blocks = -(-nvec // (THREADS * units))
+        if blocks <= wave:
+            break
+    else:
+        blocks = wave
+    return Plan(aligned, elems, units, max(blocks, 1), pieces)
+
+
 def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
-        p = ctypes.c_void_p
+        p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mxt_dropout.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_uint32,
-                                    ctypes.c_float, ctypes.c_int, p]
-        lib.mxt_dropout.restype = ctypes.c_int
+                                    ctypes.c_float, i32, i32, i32, i32, i32,
+                                    p]
+        lib.mxt_dropout.restype = i32
+        lib.mxt_dropout_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.mxt_dropout_blocks_per_sm.restype = i32
         lib._mxt_ready = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _per_sm(device: torch.device, code: int, vector: bool):
+    """{units: resident blocks an SM} of each variant, from the CUDA
+    occupancy calculator."""
+    lib = _lib()
+    out = {}
+    with torch.cuda.device(device):
+        for units in UNITS:
+            nb = lib.mxt_dropout_blocks_per_sm(code, int(vector), units)
+            if nb < 1:
+                raise MXNetError("%s: no occupancy for %d units (%s)" % (
+                    KERNEL, units, lib.mxt_error_string(-nb).decode()
+                    if nb < 0 else "0 blocks an SM"))
+            out[units] = nb
+    return out
 
 
 def dropout_cuda(x: torch.Tensor, p: float,
@@ -108,13 +182,22 @@ def dropout_cuda(x: torch.Tensor, p: float,
     if seed.numel() != 1 or not 0.0 < p < 1.0:
         raise MXNetError("%s: needs one seed and 0 < p < 1, got %d seeds "
                          "and p=%g" % (KERNEL, seed.numel(), p))
+    global scalar_launches
     y = torch.empty_like(x)
     lib = _lib()
+    code = _cb.DTYPE_CODES[x.dtype]
+    aligned = (x.data_ptr() | y.data_ptr()) % 16 == 0
+    plan = launch_plan(x.numel(), x.element_size(), aligned,
+                       _cb.sm_count(x.device),
+                       _per_sm(x.device, code, aligned))
     with torch.cuda.device(x.device):
         rc = lib.mxt_dropout(x.data_ptr(), y.data_ptr(), seed.data_ptr(),
-                             x.numel(), keep_threshold(p), _scale(p),
-                             _cb.DTYPE_CODES[x.dtype], _cb.stream_of(x))
+                             x.numel(), keep_threshold(p), _scale(p), code,
+                             int(plan.vector), plan.units, plan.blocks,
+                             plan.pieces, _cb.stream_of(x))
     _cb.check_launch(lib, rc, KERNEL)
+    if not plan.vector:
+        scalar_launches += 1
     return y
 
 

@@ -6,8 +6,9 @@ dot.cc, indexing_op.cc).
 leaves its products to XLA outside any kernel. Index ops keep the
 reference's out-of-range rules: ``take`` clips or wraps, ``Embedding``
 gives a NaN row for an id past the table and wraps a negative one (what
-``jnp.take`` does), ``one_hot`` gives a zero row. Nothing asserts on the
-card and nothing syncs with the host.
+``jnp.take`` does), ``one_hot`` gives a zero row, ``gather_nd`` wraps a
+negative index once and clamps (what jnp's gather does). Nothing asserts
+on the card and nothing syncs with the host.
 """
 from __future__ import annotations
 
@@ -309,8 +310,18 @@ def one_hot(indices, *, depth, on_value=1.0, off_value=0.0, dtype="float32"):
 
 @register("gather_nd")
 def gather_nd(data, indices):
+    """``data[indices[0], ..., indices[m - 1]]``; an index on axis ``i``
+    is taken as jnp's gather takes it: a negative one gets
+    ``data.shape[i]`` added, then every one is clamped to ``[0,
+    data.shape[i] - 1]`` (on the tensor: no host sync, no device
+    assert)."""
     idx = indices.to(torch.int64)
-    return data[tuple(idx[i] for i in range(idx.shape[0]))]
+    axes = []
+    for i in range(idx.shape[0]):
+        n = data.shape[i]
+        j = idx[i]
+        axes.append(torch.where(j < 0, j + n, j).clamp(0, n - 1))
+    return data[tuple(axes)]
 
 
 @register("SequenceMask")

@@ -91,7 +91,12 @@ def argmax_channel(data):
 @register("topk")
 def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
          dtype="float32"):
-    """Top-k along an axis (ref: ordering_op.cc :: TopK)."""
+    """Top-k along an axis (ref: ordering_op.cc :: TopK); ``axis=None``
+    takes the top k of the flattened array, as MXNet 1.x does (the
+    reference answers along the last axis), its indices positions in the
+    flattened array."""
+    if axis is None:
+        data, axis = data.reshape(-1), -1
     ax = int(axis) % data.dim()
     vals, idx = torch.topk(data.movedim(ax, -1), int(k), dim=-1,
                            largest=not is_ascend, sorted=True)

@@ -385,15 +385,74 @@ def test_bias_gelu_bwd_kernel(card, dtype, shape):
                       ref[0], dtype, GELU_EQUAL)
 
 
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("n", [1, 1000, 4096 * 768])
-def test_dropout_kernel_is_the_plain_version(card, dtype, n):
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 4095, 4097, 1120 * 650,
+                               4096 * 768])
+def test_dropout_kernel_is_the_plain_version(card, dtype, n, p):
+    """Sizes below one 16-byte access, with a tail of every length, and
+    the main path's; the 16-byte variant, bit for bit."""
     x = torch.rand(n, generator=card, device="cuda").to(dtype) + 1
     seed = torch.tensor([12345], dtype=torch.int32, device="cuda")
-    got = cuda_dropout.dropout_cuda(x, 0.1, seed)
-    ref = cuda_dropout.dropout_plain(x, 0.1, seed)
+    scalar = cuda_dropout.scalar_launches
+    got = cuda_dropout.dropout_cuda(x, p, seed)
+    ref = cuda_dropout.dropout_plain(x, p, seed)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+    assert cuda_dropout.scalar_launches == scalar
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_dropout_kernel_on_an_offset_view(card, dtype, offset):
+    """x a view 1-3 elements into a larger tensor (off 16-byte
+    alignment): the one-element variant, counted apart, bit for bit with
+    the plain version; its aligned copy takes the 16-byte variant and
+    gives the same values."""
+    n = 1120 * 650 + 5
+    big = torch.rand(n + offset, generator=card, device="cuda").to(dtype) + 1
+    x = big[offset:]
+    assert x.data_ptr() % 16 != 0
+    seed = torch.tensor([777], dtype=torch.int32, device="cuda")
+    scalar = cuda_dropout.scalar_launches
+    launches = cuda_build.launch_counts()["dropout"]
+    got = cuda_dropout.dropout_cuda(x, 0.5, seed)
+    assert cuda_dropout.scalar_launches == scalar + 1
+    copy = cuda_dropout.dropout_cuda(x.clone(), 0.5, seed)
+    assert cuda_dropout.scalar_launches == scalar + 1
+    assert cuda_build.launch_counts()["dropout"] == launches + 2
+    torch.cuda.synchronize()
+    ref = cuda_dropout.dropout_plain(x, 0.5, seed)
+    assert torch.equal(got, ref) and torch.equal(copy, ref)
+
+
+def test_dropout_kernel_past_2_32_elements(card):
+    """n = 2^32 + 4096 bf16 (about 17 GB with the output): the elements on
+    both sides of 2^32, where the index's high word joins the seed,
+    against hash_bits of those indices; the first 2^20 against the plain
+    version."""
+    n, w, big = (1 << 32) + 4096, 1 << 14, 1 << 32
+    free, _ = torch.cuda.mem_get_info()
+    if free < 2 * n * 2 + (1 << 30):
+        pytest.skip("needs %.1f GB free on the card, has %.1f"
+                    % ((2 * n * 2 + (1 << 30)) / 1e9, free / 1e9))
+    seed = torch.tensor([2 ** 31 - 5], dtype=torch.int32, device="cuda")
+    x = torch.full((n,), 1.5, dtype=torch.bfloat16, device="cuda")
+    x[:1 << 20] = torch.rand(1 << 20, generator=card, device="cuda") + 1
+    x[big - w:] = torch.rand(n - big + w, generator=card, device="cuda") + 1
+    y = cuda_dropout.dropout_cuda(x, 0.1, seed)
+    torch.cuda.synchronize()
+    head = cuda_dropout.dropout_plain(x[:1 << 20], 0.1, seed)
+    assert torch.equal(y[:1 << 20], head)
+    idx = torch.arange(big - w, n, dtype=torch.int64, device="cuda")
+    s = (seed.to(torch.int64) + (idx >> 32)) & 0xFFFFFFFF
+    keep = cuda_dropout.hash_bits(idx & 0xFFFFFFFF, s) >= \
+        cuda_dropout.keep_threshold(0.1)
+    want = torch.where(keep, x[big - w:].float() * cuda_dropout._scale(0.1),
+                       0.0).to(torch.bfloat16)
+    assert torch.equal(y[big - w:], want)
+    del x, y
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("L,N,heads,hd", [
@@ -1488,6 +1547,47 @@ def test_embedding_backward_is_the_same_from_run_to_run(card, ids_shape):
     for gr in grads[1:4]:
         assert torch.equal(gr, grads[0])
     _assert_close(grads[0], grads[4])
+
+
+def test_gather_nd_out_of_range_on_the_card(card):
+    """``nd.gather_nd`` with indices past either end of each axis gives
+    the CPU's values on the card, and the CUDA context stays usable:
+    the indices are clamped on the tensor, so torch's index kernel never
+    asserts."""
+    import mxnet_tpu_torch as mx
+    x = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    cases = ([[3, -1, -5], [0, 4, 1]],
+             [[1, -1, -3, 2, 0, 5], [2, 0, -4, -1, 3, 1],
+              [3, -2, 4, -5, 0, -1]])
+    for idx in cases:
+        idx = np.array(idx, dtype=np.float32)
+        data = x.reshape(-1, 4)[:3] if idx.shape[0] == 2 else x
+        got = [mx.nd.gather_nd(mx.nd.array(data, ctx=ctx),
+                               mx.nd.array(idx, ctx=ctx)).asnumpy()
+               for ctx in (mx.gpu(0), mx.cpu())]
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_array_equal(
+        mx.nd.gather_nd(mx.nd.array(x[0], ctx=mx.gpu(0)),
+                        mx.nd.array(cases[0], ctx=mx.gpu(0))).asnumpy(),
+        [8, 11, 1])
+    assert float((torch.ones(4, device="cuda") * 2).sum()) == 8.0
+
+
+@pytest.mark.parametrize("ret_typ", ["value", "indices", "both"])
+def test_topk_axis_none_on_the_card(card, ret_typ):
+    """``nd.topk(axis=None)`` flattens on the card as on the CPU: shape
+    (k,), the same values and flat positions."""
+    import mxnet_tpu_torch as mx
+    x = np.random.RandomState(0).randn(3, 4, 5).astype(np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        o = mx.nd.topk(mx.nd.array(x, ctx=ctx), axis=None, k=3,
+                       ret_typ=ret_typ)
+        outs.append([a.asnumpy() for a in (o if ret_typ == "both" else (o,))])
+    for g, c in zip(*outs):
+        assert g.shape == (3,)
+        np.testing.assert_array_equal(g, c)
 
 
 # ---------------------------------------------------------------------------
