@@ -6751,6 +6751,579 @@ def phase_imagenet(seed, card_line):
     return counts
 
 
+# -- phase 17: the creation and random ops, the losses and norms ------------
+RANDOM_DRAWS = 1 << 24            # draws of each _random_* sampler
+SAMPLE_DRAWS = 1 << 22            # draws of each parameter of a _sample_*
+# the Kolmogorov-Smirnov statistic's 0.1% critical value, 1.95 / sqrt(n)
+# (Smirnov's asymptotic), and the chi-square's at p = 1e-3
+KS_ALPHA = 1.95
+CHI2_P = 1e-3
+# (name, attrs, scipy distribution, torch CDF of x) of the continuous
+# _random_* samplers, and (name, attrs, scipy distribution, dtype) of the
+# discrete ones
+RANDOM_CONTINUOUS = (
+    ("_random_uniform", {"low": -1.0, "high": 3.0}, ("uniform", (-1.0, 4.0))),
+    ("_random_normal", {"loc": 2.0, "scale": 0.5}, ("norm", (2.0, 0.5))),
+    ("_random_gamma", {"alpha": 2.5, "beta": 1.5}, ("gamma", (2.5, 0, 1.5))),
+    ("_random_exponential", {"lam": 2.0}, ("expon", (0, 0.5))),
+)
+RANDOM_DISCRETE = (
+    ("_random_poisson", {"lam": 4.0}, ("poisson", (4.0,))),
+    ("_random_randint", {"low": -3, "high": 7}, ("randint", (-3, 7))),
+    ("_random_negative_binomial", {"k": 3, "p": 0.4}, ("nbinom", (3, 0.4))),
+    # nbinom(1 / alpha, 1 / (1 + alpha mu))
+    ("_random_generalized_negative_binomial", {"mu": 2.0, "alpha": 0.5},
+     ("nbinom", (2.0, 0.5))),
+)
+# (name, parameter rows, scipy distribution of row i)
+SAMPLE_CONTINUOUS = (
+    ("_sample_uniform", ([0.0, -2.0], [1.0, 2.0]),
+     lambda i, a, b: ("uniform", (a[i], b[i] - a[i]))),
+    ("_sample_normal", ([0.0, 5.0], [1.0, 0.25]),
+     lambda i, m, s: ("norm", (m[i], s[i]))),
+    ("_sample_exponential", ([1.0, 4.0],),
+     lambda i, lam: ("expon", (0, 1 / lam[i]))),
+    ("_sample_gamma", ([2.0, 8.0], [1.0, 0.5]),
+     lambda i, a, b: ("gamma", (a[i], 0, b[i]))),
+)
+SAMPLE_DISCRETE = (
+    ("_sample_poisson", ([3.0, 0.5],), lambda i, lam: ("poisson", (lam[i],))),
+    ("_sample_negative_binomial", ([4.0, 2.0], [0.4, 0.7]),
+     lambda i, k, p: ("nbinom", (k[i], p[i]))),
+    ("_sample_generalized_negative_binomial", ([2.0, 1.0], [0.5, 0.25]),
+     lambda i, mu, al: ("nbinom", (1 / al[i], 1 / (1 + al[i] * mu[i])))),
+)
+MULTINOMIAL_P = ((0.1, 0.2, 0.3, 0.4), (0.7, 0.05, 0.05, 0.2))
+SHUFFLE_N = 1 << 20
+# (b): VGG-16's classifier shape through Dense, Dropout (row 8), noise and
+# GroupNorm(32)
+RANDOM_BATCH, RANDOM_UNITS, RANDOM_GROUPS, RANDOM_P = 64, 4096, 32, 0.5
+RANDOM_STEPS = 3
+# (c): the widths of the models the repo supports. ResNet-50's stage-1
+# output; BERT-base's MLM logits (batch 32 x seq 128, vocab 30522); CTC
+# over BERT's vocabulary at seq 128, labels up to 64; the other losses
+# at BERT-base's hidden states (32, 128, 768)
+NORM_SHAPE = (32, 256, 56, 56)
+NORM_GROUPS = 32
+MLM_SHAPE = (4096, 30522)
+CTC_T, CTC_N, CTC_C, CTC_L = 128, 32, 30522, 64
+LOSS_SHAPE = (32, 128, 768)
+# card against the port's CPU path on the same inputs, elementwise
+# |got - ref| <= atol + rtol |ref|, atol scaled by max |ref| for sums over
+# many rows (dgamma, dbeta); each from the f32 summation-order error of
+# the reductions involved (sqrt(n) ulps over n terms), with 5x margin
+WIDTH_TOL = {
+    "norm": (1e-4, 1e-4),         # stats over 3136-25088 elements
+    "norm_sum": (1e-4, 1e-4),     # x max|ref|: dgamma, dbeta (10^5 terms)
+    "softmax": (1e-9, 1e-5),      # probabilities ~1/30522, exp's ulps
+    "ce": (0.0, 1e-5),            # a sum of 4096 logs
+    "ctc_loss": (0.0, 1e-5),      # ~1300 a sequence, the recursion in f32
+    "ctc_grad": (2e-4, 1e-4),     # posteriors from exp of log-space sums
+    "loss": (1e-6, 1e-5),         # means over 98304 elements
+}
+RANDOM_REPS = 2
+
+
+def random_block(mx, units=None, groups=None, p=RANDOM_P):
+    """Dense(units) -> Dropout(p) -> + N(0, 1) noise -> GroupNorm(groups),
+    returning (output, the noise, the dropout output): input noise and
+    dropout drawn inside one hybridized block (``RANDOM_UNITS`` and
+    ``RANDOM_GROUPS`` by default)."""
+    nn = mx.gluon.nn
+    units = units or RANDOM_UNITS
+    groups = groups or RANDOM_GROUPS
+
+    class NoisyBlock(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.dense = nn.Dense(units, in_units=units)
+                self.drop = nn.Dropout(p)
+                self.norm = nn.GroupNorm(num_groups=groups,
+                                         in_channels=units)
+
+        def hybrid_forward(self, F, x):
+            d = self.drop(self.dense(x))
+            z = F.random_normal(shape=d.shape, ctx=d.context)
+            return self.norm(d + z), z, d
+    return NoisyBlock(prefix="noisy_")
+
+
+def _scipy_dist(spec):
+    import scipy.stats as st
+    name, args = spec
+    return getattr(st, name)(*args)
+
+
+def _torch_cdf(spec, x):
+    """The CDF of ``spec`` at the f64 tensor ``x`` (on the card), held
+    against scipy's at a thousand of its quantiles first."""
+    import math
+    import torch
+    name, args = spec
+    if name == "uniform":
+        lo, width = args
+        return ((x - lo) / width).clamp(0, 1)
+    if name == "norm":
+        mu, sig = args
+        return 0.5 * (1 + torch.erf((x - mu) / (sig * math.sqrt(2))))
+    if name == "expon":
+        _, scale = args
+        return (1 - torch.exp(-x.clamp_min(0) / scale))
+    if name == "gamma":
+        a, _, scale = args
+        return torch.special.gammainc(torch.full_like(x, a),
+                                      x.clamp_min(0) / scale)
+    raise SmokeFailure("no CDF for %s" % name)
+
+
+def _ks(what, x, spec, quiet=False):
+    """The KS statistic of the draws ``x`` (a card tensor) against
+    scipy's ``spec``, computed on the card in f64, the torch CDF first
+    checked against scipy's; raises above the 0.1% critical value."""
+    import numpy as np
+    import torch
+    dist = _scipy_dist(spec)
+    q = dist.ppf(np.linspace(0.001, 0.999, 1000))
+    mine = _torch_cdf(spec, torch.tensor(q, dtype=torch.float64,
+                                         device=DEV)).cpu().numpy()
+    cdf_err = float(np.abs(mine - dist.cdf(q)).max())
+    if cdf_err > 1e-9:
+        raise SmokeFailure("%s: the torch CDF is %.3g from scipy's"
+                           % (what, cdf_err))
+    xs = torch.sort(x.reshape(-1).double()).values
+    n = xs.numel()
+    f = _torch_cdf(spec, xs)
+    i = torch.arange(1, n + 1, dtype=torch.float64, device=DEV)
+    d = float(torch.maximum((i / n - f).max(), (f - (i - 1) / n).max()))
+    bound = KS_ALPHA / n ** 0.5
+    if not quiet:
+        print("[random] %-46s KS %.3g (< %.3g, n %d) %s"
+              % (what, d, bound, n, "ok" if d < bound else "FAIL"))
+    if d >= bound:
+        raise SmokeFailure("%s: KS statistic %.3g >= %.3g" % (what, d, bound))
+    return d
+
+
+def _chi2(what, x, pmf):
+    """A chi-square of the integer draws ``x`` against ``pmf`` over the
+    outcomes with at least 5 expected draws (the rest pooled); raises
+    above the critical value at ``CHI2_P``."""
+    import numpy as np
+    import scipy.stats as st
+    import torch
+    v = x.reshape(-1).long()
+    lo, hi = int(v.min()), int(v.max())
+    counts = torch.bincount(v - lo, minlength=hi - lo + 1).cpu().numpy()
+    n = int(v.numel())
+    ks = np.arange(lo, hi + 1)
+    probs = np.array([pmf(k) for k in ks])
+    keep = probs * n >= 5
+    obs = list(counts[keep])
+    exp = list(probs[keep] * n)
+    rest_o, rest_e = n - sum(obs), n - sum(exp)
+    if rest_e >= 5:
+        obs.append(rest_o)
+        exp.append(rest_e)
+    exp = np.array(exp) * (sum(obs) / sum(exp))
+    stat = float(((np.array(obs) - exp) ** 2 / exp).sum())
+    crit = float(st.chi2.isf(CHI2_P, len(obs) - 1))
+    print("[random] %-46s chi2 %.4g (< %.4g, %d bins, n %d) %s"
+          % (what, stat, crit, len(obs), n, "ok" if stat < crit else "FAIL"))
+    if stat >= crit:
+        raise SmokeFailure("%s: chi-square %.4g >= %.4g" % (what, stat, crit))
+
+
+def _random_samplers(seed):
+    """(a) Every sampler on the card, by distribution; seed twice equal;
+    shuffle a permutation; the normal sampler's scale doubled caught."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops as port_ops
+    ctx = mx.gpu(0)
+    nd = mx.nd
+    for name, attrs, spec in RANDOM_CONTINUOUS:
+        mx.random.seed(seed)
+        x = getattr(nd, name)(shape=(RANDOM_DRAWS,), ctx=ctx, **attrs)
+        if x.shape != (RANDOM_DRAWS,) or x.dtype != np.float32:
+            raise SmokeFailure("%s: %s %s" % (name, x.shape, x.dtype))
+        _ks("%s %s" % (name, attrs), x.tensor(), spec)
+    for name, attrs, spec in RANDOM_DISCRETE:
+        mx.random.seed(seed)
+        x = getattr(nd, name)(shape=(RANDOM_DRAWS,), ctx=ctx, **attrs)
+        want = np.int32 if name == "_random_randint" else np.float32
+        if x.dtype != want:
+            raise SmokeFailure("%s: dtype %s" % (name, x.dtype))
+        _chi2("%s %s" % (name, attrs), x.tensor(), _scipy_dist(spec).pmf)
+    for name, params, dist in SAMPLE_CONTINUOUS + SAMPLE_DISCRETE:
+        mx.random.seed(seed)
+        arrays = [nd.array(np.array(p, np.float32), ctx=ctx) for p in params]
+        x = getattr(nd, name)(*arrays, shape=(SAMPLE_DRAWS,)).tensor()
+        if tuple(x.shape) != (2, SAMPLE_DRAWS):
+            raise SmokeFailure("%s: shape %s" % (name, tuple(x.shape)))
+        continuous = name in dict((c[0], c) for c in SAMPLE_CONTINUOUS)
+        for i in range(2):
+            spec = dist(i, *params)
+            what = "%s row %d %s" % (name, i, spec)
+            if continuous:
+                _ks(what, x[i], spec)
+            else:
+                _chi2(what, x[i], _scipy_dist(spec).pmf)
+    mx.random.seed(seed)
+    probs = nd.array(np.array(MULTINOMIAL_P, np.float32), ctx=ctx)
+    m = mx.random.multinomial(probs, shape=(SAMPLE_DRAWS,))
+    if m.dtype != np.int32 or m.shape != (2, SAMPLE_DRAWS):
+        raise SmokeFailure("multinomial: %s %s" % (m.shape, m.dtype))
+    for i, row in enumerate(MULTINOMIAL_P):
+        _chi2("_sample_multinomial row %d %s" % (i, row), m.tensor()[i],
+              lambda k, row=row: row[k] if 0 <= k < len(row) else 0.0)
+    s = mx.random.shuffle(nd.arange(SHUFFLE_N, ctx=ctx, dtype="int32"))
+    st_ = s.tensor()
+    perm = bool(torch.equal(torch.sort(st_).values,
+                            torch.arange(SHUFFLE_N, device=DEV,
+                                         dtype=torch.int32)))
+    moved = int((st_ != torch.arange(SHUFFLE_N, device=DEV)).sum())
+    print("[random] shuffle of arange(%d): a permutation %s, %d moved"
+          % (SHUFFLE_N, perm, moved))
+    if not perm or moved < SHUFFLE_N // 2:
+        raise SmokeFailure("shuffle is not a random permutation")
+    same = []
+    for name, attrs, _ in RANDOM_CONTINUOUS + RANDOM_DISCRETE:
+        draws = []
+        for _ in range(2):
+            mx.random.seed(seed + 1)
+            draws.append(getattr(nd, name)(shape=(RANDOM_DRAWS,), ctx=ctx,
+                                           **attrs).tensor())
+        same.append(bool(torch.equal(draws[0], draws[1])))
+    print("[random] seed(%d) twice: every _random_* sampler's %d draws "
+          "equal bit for bit: %s" % (seed + 1, RANDOM_DRAWS, all(same)))
+    if not all(same):
+        raise SmokeFailure("a sampler did not repeat its draws after seed()")
+    op = port_ops._OPS["_random_normal"]
+    real = op.impl
+
+    def planted():
+        op.impl = lambda **kw: real(**kw) * 2.0
+        try:
+            name, attrs, spec = RANDOM_CONTINUOUS[1]
+            x = getattr(nd, name)(shape=(RANDOM_DRAWS,), ctx=ctx, **attrs)
+            _ks("%s with its scale doubled" % name, x.tensor() - 2.0, spec)
+        finally:
+            op.impl = real
+    _must_fail("the normal sampler with its scale doubled", planted)
+
+
+def _noisy_run(net, x, steps):
+    """``steps`` recorded steps of ``net`` on ``x``: (output, noise,
+    dropout output, dx) of each."""
+    import torch
+    import mxnet_tpu_torch as mx
+    out = []
+    w = mx.nd.NDArray(torch.linspace(0.5, 1.5, x.size, device=DEV)
+                      .reshape(x.shape))
+    for _ in range(steps):
+        x.attach_grad()
+        with mx.autograd.record():
+            y, z, d = net(x)
+            loss = (y * w).sum()
+        loss.backward()
+        out.append([a.tensor().detach().clone()
+                    for a in (y, z, d, x.grad)])
+    torch.cuda.synchronize()
+    return out
+
+
+def _random_block(seed, card_line):
+    """(b) The block eager and hybridized: new draws on every call and
+    replay, compiled bit for bit with eager after seed(s); the dropout
+    launches of each mode (row 8's ``launches_per_random_block``)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    net = random_block(mx)
+    mx.random.seed(seed)
+    net.initialize(mx.init.Xavier())
+    x = mx.nd.array(__import__("numpy").random.RandomState(seed + 17)
+                    .randn(RANDOM_BATCH, RANDOM_UNITS).astype("float32"),
+                    ctx=mx.gpu(0))
+    net.hybridize(static_alloc=True, static_shape=True)
+    mx.random.seed(seed + 5)
+    cuda_build.reset_launch_counts()
+    with cached_op.eager():
+        eager = _noisy_run(net, x, RANDOM_STEPS)
+    eager_launches = cuda_build.launch_counts().get("dropout", 0)
+    mx.random.seed(seed + 5)
+    cached_op.reset_replay_counts()
+    by_graph = {}
+    with _capture_launches(by_graph) as captured, \
+            _replayed_launches(by_graph) as replayed:
+        compiled = _noisy_run(net, x, RANDOM_STEPS)
+    replays = cached_op.replay_counts()
+    names = ("output", "noise", "dropout output", "dx")
+    for i, (e, c) in enumerate(zip(eager, compiled)):
+        for n, a, b in zip(names, e, c):
+            if not torch.equal(a, b):
+                raise SmokeFailure(
+                    "random block step %d: the compiled %s differs from the "
+                    "eager one (max %.3g)" % (i, n, float((a - b).abs()
+                                                          .max())))
+    for i in range(1, RANDOM_STEPS):
+        for n, j in (("noise", 1), ("dropout mask", 2)):
+            a, b = compiled[i - 1][j], compiled[i][j]
+            if n == "dropout mask":
+                a, b = a != 0, b != 0
+            if torch.equal(a, b):
+                raise SmokeFailure("random block: steps %d and %d drew the "
+                                   "same %s" % (i - 1, i, n))
+    keep = float((compiled[-1][2] != 0).float().mean())
+    z = compiled[-1][1]
+    print("[random] block Dense(%d) -> Dropout(%g) -> + N(0, 1) -> "
+          "GroupNorm(%d) on (%d, %d) f32, %d steps: compiled equals eager "
+          "bit for bit after seed(); new noise and masks each step (keep "
+          "%.4f, noise mean %.4f std %.4f); graph replays %s; dropout "
+          "launches: eager %d (%d a step), recorded into the graphs %d, "
+          "replayed %d; %s" % (
+              RANDOM_UNITS, RANDOM_P, RANDOM_GROUPS, RANDOM_BATCH,
+              RANDOM_UNITS, RANDOM_STEPS, keep, float(z.mean()),
+              float(z.std()), replays, eager_launches,
+              eager_launches // RANDOM_STEPS, captured.get("dropout", 0),
+              replayed.get("dropout", 0), card_line))
+    if not eager_launches or not captured.get("dropout", 0) \
+            or not replays.get("forward"):
+        raise SmokeFailure("random block: the dropout kernel was not "
+                           "launched in both modes, or no graph replayed")
+    if abs(keep - (1 - RANDOM_P)) > 0.01:
+        raise SmokeFailure("random block: keep rate %.4f" % keep)
+    _free_graphs(net)
+    return {"dropout": eager_launches // RANDOM_STEPS}
+
+
+def _graph_generator_cost():
+    """Host time of one replay of a one-kernel graph with the context's
+    generator registered and without (what ``cached_op._capture`` adds
+    to every replay)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    x = torch.zeros(1, device=DEV)
+    out = {}
+    for reg in (False, True):
+        g = torch.cuda.CUDAGraph()
+        if reg:
+            g.register_generator_state(mx.random.generator(mx.gpu(0)))
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            x.add_(1)
+        torch.cuda.current_stream().wait_stream(s)
+        with torch.cuda.graph(g):
+            x.add_(1)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                g.replay()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[reg] = statistics.median(times)
+    print("[random] one replay of a one-kernel graph: %.2f us with the "
+          "generator registered, %.2f us without (host clock, 1000 replays, "
+          "median of 5)" % (out[True], out[False]))
+
+
+def _width_check(what, got, ref, tol, scale_by_max=False):
+    """Card tensor ``got`` against CPU tensor ``ref``: |got - ref| <= atol
+    (x max |ref| with ``scale_by_max``) + rtol |ref|."""
+    import torch
+    atol, rtol = tol
+    g, r = got.detach().float().cpu(), ref.detach().float()
+    if g.shape != r.shape:
+        raise SmokeFailure("%s: shape %s != %s" % (what, tuple(g.shape),
+                                                   tuple(r.shape)))
+    if not torch.isfinite(g).all():
+        raise SmokeFailure("%s: non-finite values on the card" % what)
+    if scale_by_max:
+        atol = atol * float(r.abs().max())
+    err = (g - r).abs()
+    bad = int((err > atol + rtol * r.abs()).sum())
+    print("[random] %-46s max_abs_err=%.3g tol=%.3g+%g*|ref| %s"
+          % (what, float(err.max()), atol, rtol, "FAIL" if bad else "ok"))
+    if bad:
+        raise SmokeFailure("%s: %d elements beyond tolerance" % (what, bad))
+    return float(err.max())
+
+
+def _record_fwd_bwd(fn, arrays, head=None):
+    """fn(*arrays) under record, backward with ``head`` (ones when None);
+    returns (output tensor, the gradients of the arrays)."""
+    import mxnet_tpu_torch as mx
+    for a in arrays:
+        a.attach_grad()
+    with mx.autograd.record():
+        y = fn(*arrays)
+    y.backward(head)
+    return y.tensor(), [a.grad.tensor() for a in arrays]
+
+
+def _on(ctx, *arrays):
+    import mxnet_tpu_torch as mx
+    return [mx.nd.array(a, ctx=ctx) for a in arrays]
+
+
+def _random_widths(seed, card_line):
+    """(c) the new ops at full width, card against the port's CPU path;
+    (d) their device times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(seed + 23)
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    nd = mx.nd
+    times = {}
+
+    def both(what, fn, inputs, tol, grads_tol=None, head=None,
+             sum_grads=()):
+        outs = {}
+        for ctx in (cpu, gpu):
+            arrays = _on(ctx, *inputs)
+            h = None if head is None else nd.array(head, ctx=ctx)
+            outs[ctx] = _record_fwd_bwd(fn, arrays, h)
+        _width_check(what, outs[gpu][0], outs[cpu][0], tol)
+        for i, (g, r) in enumerate(zip(outs[gpu][1], outs[cpu][1])):
+            if i in sum_grads:
+                _width_check("%s d[%d]" % (what, i), g, r,
+                             WIDTH_TOL["norm_sum"], scale_by_max=True)
+            else:
+                _width_check("%s d[%d]" % (what, i), g, r, grads_tol or tol)
+        arrays = _on(gpu, *inputs)
+        h = None if head is None else nd.array(head, ctx=gpu)
+        times[what] = _gpu_ms(lambda: _record_fwd_bwd(fn, arrays, h),
+                              RANDOM_REPS, trials=3)
+        del outs, arrays
+        torch.cuda.empty_cache()
+
+    x = rs.randn(*NORM_SHAPE).astype(np.float32)
+    g = (rs.rand(NORM_SHAPE[1]) + 0.5).astype(np.float32)
+    b = rs.randn(NORM_SHAPE[1]).astype(np.float32)
+    head = rs.randn(*NORM_SHAPE).astype(np.float32)
+    both("GroupNorm(%d) %s" % (NORM_GROUPS, NORM_SHAPE),
+         lambda a, c, d: nd.GroupNorm(a, c, d, num_groups=NORM_GROUPS),
+         (x, g, b), WIDTH_TOL["norm"], head=head, sum_grads=(1, 2))
+    both("InstanceNorm %s" % (NORM_SHAPE,),
+         lambda a, c, d: nd.InstanceNorm(a, c, d), (x, g, b),
+         WIDTH_TOL["norm"], head=head, sum_grads=(1, 2))
+    del x, head
+    logits = (rs.randn(*MLM_SHAPE) * 2).astype(np.float32)
+    label = rs.randint(0, MLM_SHAPE[1], MLM_SHAPE[0]).astype(np.float32)
+    label[::7] = -1
+    both("SoftmaxOutput %s (ignore, valid)" % (MLM_SHAPE,),
+         lambda a, lab: nd.SoftmaxOutput(a, lab, use_ignore=True,
+                                         normalization="valid"),
+         (logits, label), WIDTH_TOL["softmax"])
+    label = np.abs(label)
+    both("softmax_cross_entropy %s" % (MLM_SHAPE,),
+         lambda a, lab: nd.softmax_cross_entropy(a, lab), (logits, label),
+         WIDTH_TOL["ce"], grads_tol=WIDTH_TOL["softmax"])
+    del logits
+    acts = rs.randn(CTC_T, CTC_N, CTC_C).astype(np.float32)
+    llen = rs.randint(1, CTC_L + 1, CTC_N)
+    dlen = rs.randint(CTC_T - 28, CTC_T + 1, CTC_N).astype(np.float32)
+    for blank in ("first", "last"):
+        lab = rs.randint(1, CTC_C, (CTC_N, CTC_L)).astype(np.float32)
+        if blank == "last":
+            lab -= 1
+        pad = 0.0 if blank == "first" else -1.0
+        lab[np.arange(CTC_L)[None, :] >= llen[:, None]] = pad
+        fn = (lambda blank: lambda a, d, lab: nd.CTCLoss(
+            a, lab, d, use_data_lengths=True, blank_label=blank))(blank)
+        what = "CTCLoss (T %d, N %d, C %d) blank %s" % (CTC_T, CTC_N, CTC_C,
+                                                        blank)
+        both(what, fn, (acts, dlen, lab), WIDTH_TOL["ctc_loss"],
+             grads_tol=WIDTH_TOL["ctc_grad"])
+        if blank == "first":
+            # torch's own CTC (cuDNN or its native kernel) on the same
+            # sequences, for the value and the library time
+            a = torch.tensor(acts, device=DEV)
+            lp = torch.log_softmax(a, -1)
+            tl = torch.tensor(lab, device=DEV).long()
+            il = torch.tensor(dlen, device=DEV).long()
+            ll = torch.tensor(llen, device=DEV).long()
+            mine = nd.CTCLoss(nd.array(acts, ctx=gpu), nd.array(lab, ctx=gpu),
+                              nd.array(dlen, ctx=gpu), use_data_lengths=True
+                              ).tensor()
+            lib = F.ctc_loss(lp, tl, il, ll, blank=0, reduction="none")
+            rel = float(((mine - lib).abs() / lib.abs()).max())
+            a.requires_grad_(True)
+
+            def lib_step():
+                F.ctc_loss(torch.log_softmax(a, -1), tl, il, ll, blank=0,
+                           reduction="sum").backward()
+            times["torch ctc_loss (library)"] = _gpu_ms(lib_step,
+                                                        RANDOM_REPS,
+                                                        trials=3)
+            print("[random] CTCLoss against torch.nn.functional.ctc_loss "
+                  "on the card: max relative difference %.3g" % rel)
+            if rel > 1e-4:
+                raise SmokeFailure("CTCLoss is %.3g from torch's ctc_loss"
+                                   % rel)
+            del a, lp
+    del acts
+    torch.cuda.empty_cache()
+    pred = rs.randn(*LOSS_SHAPE).astype(np.float32)
+    real = rs.randn(*LOSS_SHAPE).astype(np.float32)
+    sign = np.where(rs.rand(*LOSS_SHAPE) > 0.5, 1.0, -1.0).astype(np.float32)
+    bits = (sign > 0).astype(np.float32)
+    e = np.exp(real - real.max(-1, keepdims=True))
+    probs = (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    loss = mx.gluon.loss
+    flat = (LOSS_SHAPE[0] * LOSS_SHAPE[1], LOSS_SHAPE[2])
+    cos_label = np.where(rs.rand(flat[0]) > 0.5, 1.0, -1.0).astype(
+        np.float32)
+    for name, block, inputs in (
+            ("L1Loss", loss.L1Loss(), (pred, real)),
+            ("SigmoidBCELoss", loss.SigmoidBCELoss(), (pred, bits)),
+            ("KLDivLoss", loss.KLDivLoss(from_logits=False),
+             (pred, probs)),
+            ("HuberLoss", loss.HuberLoss(rho=0.5), (pred, real)),
+            ("HingeLoss", loss.HingeLoss(), (pred, sign)),
+            ("SquaredHingeLoss", loss.SquaredHingeLoss(), (pred, sign)),
+            ("LogisticLoss", loss.LogisticLoss(), (pred, sign)),
+            ("CosineEmbeddingLoss", loss.CosineEmbeddingLoss(margin=0.1),
+             (pred.reshape(flat), real.reshape(flat), cos_label))):
+        both("%s %s" % (name, tuple(inputs[0].shape)),
+             (lambda blk: lambda *a: blk(*a))(block), inputs,
+             WIDTH_TOL["loss"])
+    for what, ms in times.items():
+        print("[times] %-46s %.3f ms forward+backward; %s"
+              % (what, ms, card_line))
+    return times
+
+
+def phase_random(seed, card_line):
+    """17. The creation and random ops, random ops in a captured graph
+    with the dropout kernel, the new losses and norms at full width.
+    Returns {"dropout": launches of one eager step of the random
+    block}."""
+    print("[random] %s" % card_line)
+    took = []
+    t0 = time.perf_counter()
+    _random_samplers(seed)
+    took.append(time.perf_counter())
+    counts = _random_block(seed, card_line)
+    _graph_generator_cost()
+    took.append(time.perf_counter())
+    _random_widths(seed, card_line)
+    took.append(time.perf_counter())
+    print("[random] phase 17 took %.1f s: samplers %.1f, the random block "
+          "%.1f, the widths (CPU path included) %.1f"
+          % (took[-1] - t0, took[0] - t0, took[1] - took[0],
+             took[2] - took[1]))
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6853,8 +7426,11 @@ def main(argv=None):
         compiled.update(vision_capture)
         rows.append(vision_row)
         fed_counts = phase_imagenet(args.seed, card_line)
+        random_counts = phase_random(args.seed, card_line)
         for r in rows:
             r["launches_per_fed_run"] = fed_counts.get(
+                r.get("kernel", r["name"]), 0)
+            r["launches_per_random_block"] = random_counts.get(
                 r.get("kernel", r["name"]), 0)
         for r in rows:
             k = r.get("kernel", r["name"])

@@ -66,8 +66,10 @@ from typing import Dict, List, Optional
 import torch
 
 from .base import MXNetError
+from .context import Context
 from . import autograd
 from . import ops as _ops
+from . import random as _random
 
 __all__ = ["CachedOp", "eager", "outermost", "tape_plan", "replay_counts",
            "reset_replay_counts", "capture_pending_backwards",
@@ -197,10 +199,19 @@ def _on_side_stream(device: torch.device):
 
 def _capture(graph, what: str, fn, pool=None):
     """Record ``fn()`` into ``graph``; a failure raises MXNetError naming
-    ``what`` and the last op invoked. Garbage is not collected during
-    the capture: a dead block's CachedOp (a reference cycle) frees its
-    graphs from its finalizer, which a capture cannot survive."""
+    ``what`` and the last op invoked. The current card's generator
+    (:func:`mxnet_tpu_torch.random.generator`) is registered with the
+    graph, so the random ops it captures draw anew on every replay,
+    from where the eager stream stands; a torch without
+    ``register_generator_state`` refuses such a draw during the capture,
+    and the capture raises. Garbage is not collected during the capture:
+    a dead block's CachedOp (a reference cycle) frees its graphs from its
+    finalizer, which a capture cannot survive."""
     _ops.last_op(reset=True)
+    register = getattr(graph, "register_generator_state", None)
+    if register is not None:
+        register(_random.generator(
+            Context("gpu", torch.cuda.current_device())))
     enabled = gc.isenabled()
     gc.disable()
     try:

@@ -1,10 +1,16 @@
-"""Gluon losses, the subset the training slices use (counterpart of
-``mxnet_tpu/gluon/loss.py``; ref: python/mxnet/gluon/loss.py)."""
+"""Gluon losses (counterpart of ``mxnet_tpu/gluon/loss.py``; ref:
+python/mxnet/gluon/loss.py): each a ``HybridBlock`` over ``F`` ops,
+``weight`` and ``sample_weight`` applied by ``_apply_weighting``, the
+loss averaged over every axis but ``batch_axis``."""
 from __future__ import annotations
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "CTCLoss",
+           "SigmoidBinaryCrossEntropyLoss", "SigmoidBCELoss",
+           "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "KLDivLoss",
+           "HuberLoss", "HingeLoss", "SquaredHingeLoss", "LogisticLoss",
+           "CosineEmbeddingLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -40,6 +46,54 @@ class L2Loss(Loss):
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
+class L1Loss(Loss):
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross entropy of sigmoid(pred), or of pred itself with
+    ``from_sigmoid``; ``pos_weight`` scales the positive term."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = F.reshape_like(label, pred)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + \
+                    F.Activation(-F.abs(pred), act_type="softrelu")
+            else:
+                log_weight = 1 + F.broadcast_mul(pos_weight - 1, label)
+                loss = pred - pred * label + log_weight * \
+                    (F.Activation(-F.abs(pred), act_type="softrelu")
+                     + F.relu(-pred))
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(F.log(pred + eps) * label
+                         + F.log(1. - pred + eps) * (1. - label))
+            else:
+                loss = -(F.broadcast_mul(F.log(pred + eps) * label,
+                                         pos_weight)
+                         + F.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
 class SoftmaxCrossEntropyLoss(Loss):
     """Softmax cross entropy (ref: loss.py :: SoftmaxCrossEntropyLoss)."""
 
@@ -63,3 +117,127 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """label * (log label - pred), pred log probabilities (or logits
+    without ``from_logits``, log-softmaxed over ``axis``)."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HuberLoss(Loss):
+    """|d| - rho/2 where |d| > rho, else d^2 / (2 rho)."""
+
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class LogisticLoss(Loss):
+    """log(1 + exp(-pred * label)); labels in {-1, 1} ('signed') or
+    {0, 1} ('binary')."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = F.reshape_like(label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.Activation(-F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CosineEmbeddingLoss(Loss):
+    """1 - cos(input1, input2) where label is 1, else relu(cos -
+    margin); the cosine over the last axis."""
+
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        cos = F.sum(input1 * input2, axis=-1) / (
+            F.norm(input1, axis=-1) * F.norm(input2, axis=-1) + 1e-12)
+        label = label.reshape((-1,))
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss over ``F.CTCLoss``
+    (blank 0, labels padded with 0 or -1): pred in ``layout`` 'NTC' or
+    'TNC', labels in ``label_layout`` 'NT' or 'TN'; ``pred_lengths`` and
+    ``label_lengths`` optional, each alone too."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError("layout must be NTC or TNC, got %r" % layout)
+        if label_layout not in ("NT", "TN"):
+            raise ValueError("label_layout must be NT or TN, got %r"
+                             % label_layout)
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="first")
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -1,5 +1,5 @@
-"""Basic neural-net layers, the subset the BERT, ResNet and PTB slices
-use (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``; ref:
+"""Basic neural-net layers (counterpart of
+``mxnet_tpu/gluon/nn/basic_layers.py``; ref:
 python/mxnet/gluon/nn/basic_layers.py)."""
 from __future__ import annotations
 
@@ -9,7 +9,8 @@ import torch
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding", "Flatten", "Activation"]
+           "LayerNorm", "GroupNorm", "InstanceNorm", "Embedding", "Flatten",
+           "Activation", "Lambda", "HybridLambda"]
 
 
 class _Stack:
@@ -245,6 +246,90 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class _ChannelNorm(HybridBlock):
+    """GroupNorm's and InstanceNorm's ``gamma`` and ``beta``, one per
+    channel of axis 1."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix, params):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._epsilon = epsilon
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.gamma._shape = (x.shape[1],)
+        self.beta._shape = (x.shape[1],)
+
+
+class GroupNorm(_ChannelNorm):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Instance normalization; ``axis`` is accepted and, as in the
+    reference, the channels are axis 1."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class Lambda(Block):
+    """A block running ``function`` (or the ``nd`` function it names) on
+    its inputs."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            function = getattr(nd_mod, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A hybrid block running ``function(F, x, *args)``, or the ``F`` op
+    a string names on ``(x, *args)``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+            self._func = None
+        else:
+            self._func = function
+            self._func_name = function.__name__
+
+    def hybrid_forward(self, F, x, *args):
+        if self._func is None:
+            return getattr(F, self._func_name)(x, *args)
+        return self._func(F, x, *args)
 
 
 class Flatten(HybridBlock):

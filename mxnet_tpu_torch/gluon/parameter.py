@@ -35,7 +35,8 @@ from .. import initializer as init_mod
 from .. import ndarray as nd
 from ..ndarray import NDArray, array, zeros
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -287,6 +288,31 @@ class Parameter:
                                  for c, d in self._data.items())
         self._init_grad()
 
+    def var(self):
+        """The parameter's Symbol (ref: Parameter.var): the port has no
+        ``symbol`` module yet."""
+        raise MXNetError("Parameter.var returns a Symbol: the port's "
+                         "symbol module is ROADMAP.md queue 1, item 16")
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (ref:
+    gluon Constant): its initializer writes the value, whatever
+    initializer the block is given."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = array(value, ctx=cpu())
+        self.value = value
+
+        class _CInit(init_mod.Initializer):
+            def _init_weight(self, _, arr):
+                arr.tensor().copy_(value.tensor())
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype.name, init=_CInit(),
+                         differentiable=False)
+
 
 class ParameterDict:
     """Prefix-scoped parameter dictionary (ref: ParameterDict)."""
@@ -348,6 +374,18 @@ class ParameterDict:
                         param._shape = tuple(v)
                 elif getattr(param, k, None) in (None, "write", 1.0):
                     setattr(param, k, v)
+        return param
+
+    def get_constant(self, name, value=None) -> Constant:
+        """Get-or-create the Constant ``prefix + name`` (ref:
+        get_constant)."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named %s" % name)
+            param = Constant(name, value)
+            self._params[name] = param
         return param
 
     def _get_impl(self, name):

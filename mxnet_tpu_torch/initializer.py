@@ -1,5 +1,4 @@
-"""Weight initializers, the subset the serving and training slices use
-(counterpart of ``mxnet_tpu/initializer.py``; ref:
+"""Weight initializers (counterpart of ``mxnet_tpu/initializer.py``; ref:
 python/mxnet/initializer.py).
 
 Every random draw takes an explicit ``torch.Generator``: the one given
@@ -10,16 +9,18 @@ global generator.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from . import random as _random
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Orthogonal", "Xavier", "MSRAPrelu", "LSTMBias", "create",
-           "register"]
+           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
+           "Mixed", "create", "register"]
 
 _REG: Dict[str, type] = {}
 
@@ -210,6 +211,24 @@ class MSRAPrelu(Xavier):
 
 
 @register
+class Bilinear(Initializer):
+    """Bilinear upsampling weights for a (C, 1, k, k) deconvolution
+    kernel (ref: initializer.py :: Bilinear), computed as the reference
+    computes them in float32."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))) \
+            .astype(np.float32).reshape(shape)
+        arr.tensor().copy_(torch.from_numpy(weight))
+
+
+@register
 class LSTMBias(Initializer):
     """Zero biases with the forget gate's quarter at ``forget_bias``
     (ref: initializer.py :: LSTMBias; gates [i, f, g, o])."""
@@ -227,9 +246,27 @@ class LSTMBias(Initializer):
     _init_bias = _init_weight
 
 
+class Mixed:
+    """The initializer of the first pattern (a regular expression) that
+    matches the start of a parameter's name (ref: initializer.py ::
+    Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise ValueError("parameter %s did not match any pattern" % name)
+
+
 def create(name, **kwargs) -> Initializer:
-    """An initializer from an instance or a registered name."""
-    if isinstance(name, Initializer):
+    """An initializer from an instance (or a ``Mixed``) or a registered
+    name."""
+    if isinstance(name, (Initializer, Mixed)):
         return name
     cls = _REG.get(str(name).lower())
     if cls is None:

@@ -35,7 +35,7 @@ from ..ops import F as _F
 
 __all__ = ["NDArray", "array", "zeros", "ones", "invoke", "host_tensor",
            "concatenate", "waitall", "stack_list", "moveaxis", "maximum",
-           "minimum", "save", "load"]
+           "minimum", "save", "load", "full", "arange", "linspace", "eye"]
 
 _LIST_MAGIC = 0x112          # kMXAPINDArrayListMagic
 _ND_MAGIC_V2 = 0xF993FAC9    # NDARRAY_V2_MAGIC (dense, with stype)
@@ -160,6 +160,32 @@ def _load_npz(fname: str, ctx: Context):
         keys.sort(key=lambda k: int(k[len("__list__"):]))
         return [array(loaded[k], ctx=ctx) for k in keys]
     return {k: array(loaded[k], ctx=ctx) for k in keys}
+
+
+def full(shape, val, ctx=None, dtype="float32"):
+    """The ``_full`` op with MXNet's positional order."""
+    return invoke("_full", [], {"shape": shape, "value": val, "ctx": ctx,
+                                "dtype": dtype})
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    """The ``_arange`` op with MXNet's positional order."""
+    return invoke("_arange", [], {"start": start, "stop": stop,
+                                  "step": step, "repeat": repeat, "ctx": ctx,
+                                  "dtype": dtype})
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype="float32"):
+    """The ``_linspace`` op with MXNet's positional order."""
+    return invoke("_linspace", [], {"start": start, "stop": stop,
+                                    "num": num, "endpoint": endpoint,
+                                    "ctx": ctx, "dtype": dtype})
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    """The ``_eye`` op with MXNet's positional order."""
+    return invoke("_eye", [], {"N": N, "M": M, "k": k, "ctx": ctx,
+                               "dtype": dtype})
 
 
 def stack_list(arrays, axis=0):

@@ -465,6 +465,16 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
         op = get_op(op)
     _note(op)
     tensors = [to_tensor(x) for x in inputs]
+    ctx = out_ctx = None
+    if "ctx" in attrs:
+        # the reference's ctx keyword: an op with inputs runs where they
+        # lie and ignores it
+        attrs = dict(attrs)
+        ctx = attrs.pop("ctx")
+    if op.needs_device:
+        # a zero-input op: its device from ctx, else the current context
+        out_ctx = Context(ctx or current_context())
+        attrs = dict(attrs, _device=out_ctx.torch_device)
     if op.needs_train_flag:
         attrs = dict(attrs, _train=autograd.is_training())
     # a graph is built only inside autograd.record(); the grad mode is
@@ -488,8 +498,8 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
         if len(out) == 1:
             out = out[0]
     if isinstance(out, (tuple, list)):
-        return tuple(NDArray(o) for o in out)
-    return NDArray(out)
+        return tuple(NDArray(o, out_ctx) for o in out)
+    return NDArray(out, out_ctx)
 
 
 def _unpickle(arr, devtype, devid):
@@ -553,18 +563,23 @@ def host_copies(tensors: Sequence[torch.Tensor]) -> list:
     return out
 
 
-def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+def _create(name, shape, ctx, dtype) -> NDArray:
+    """The creation op ``name``'s function called directly: the arrays
+    the framework makes for itself (gradients, states, a clip's scale)
+    are not op dispatches (``ops.recording`` does not see them)."""
     ctx = Context(ctx or current_context())
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
-                               device=ctx.torch_device), ctx)
+    return NDArray(get_op(name).impl(shape=shape, dtype=dtype,
+                                     _device=ctx.torch_device), ctx)
+
+
+def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    """The ``_zeros`` op (``F.zeros``) with MXNet's positional order."""
+    return _create("_zeros", shape, ctx, dtype)
 
 
 def ones(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
-    ctx = Context(ctx or current_context())
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    return NDArray(torch.ones(shape, dtype=torch_dtype(dtype),
-                              device=ctx.torch_device), ctx)
+    """The ``_ones`` op (``F.ones``) with MXNet's positional order."""
+    return _create("_ones", shape, ctx, dtype)
 
 
 def concatenate(arrays, axis=0, always_copy=True) -> NDArray:

@@ -17,6 +17,7 @@ the reference's ``pallas_fused`` is.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import threading
 from typing import Callable, Dict, Optional, Sequence, Set
 
@@ -45,6 +46,10 @@ class Operator:
         serving session's unpad rule reads it.
     needs_train_flag : impl takes a ``_train`` bool attr from
         :func:`mxnet_tpu_torch.autograd.is_training`.
+    needs_device : the op takes no input array (creation ops, the
+        ``_random_*`` samplers); impl takes a ``_device`` attr, the
+        ``torch.device`` of the call's ``ctx`` (default: the current
+        context).
     mutate_aux : mapping extra-output-index -> input-index; ``invoke``
         writes those outputs back into their input arrays and drops them
         from the visible outputs (ref: FMutateInputs; BatchNorm's moving
@@ -53,11 +58,13 @@ class Operator:
 
     def __init__(self, name: str, impl: Callable, needs_rng: bool = False,
                  needs_train_flag: bool = False,
-                 mutate_aux: Optional[Dict[int, int]] = None):
+                 mutate_aux: Optional[Dict[int, int]] = None,
+                 needs_device: bool = False):
         self.name = name
         self.impl = impl
         self.needs_rng = needs_rng
         self.needs_train_flag = needs_train_flag
+        self.needs_device = needs_device
         self.mutate_aux = mutate_aux or {}
         self.__doc__ = impl.__doc__
 
@@ -160,13 +167,30 @@ class _OpNamespace:
         cast = _CASTS.get(name)
 
         def call(*inputs, **attrs):
-            from ..ndarray.ndarray import invoke
+            from ..ndarray.ndarray import NDArray, invoke
+            if any(isinstance(v, NDArray) for v in attrs.values()):
+                inputs, attrs = _bind_arrays(op, inputs, attrs)
             if cast is not None:
                 inputs, attrs = cast(inputs, attrs)
             return invoke(op, inputs, attrs)
         call.__name__ = name
         call.__doc__ = op.__doc__
         return call
+
+
+def _bind_arrays(op: Operator, inputs, attrs):
+    """Arrays passed by keyword, bound by name to the impl's array
+    parameters after the positional ones (ref: ndarray/register.py):
+    an absent optional array leaves a None slot, so ``CTCLoss(data,
+    label, label_lengths=...)`` reaches the right parameter."""
+    names = [p.name for p in inspect.signature(op.impl).parameters.values()
+             if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    inputs, attrs = list(inputs), dict(attrs)
+    for name in names[len(inputs):]:
+        inputs.append(attrs.pop(name, None))
+    while inputs and inputs[-1] is None:
+        inputs.pop()
+    return inputs, attrs
 
 
 F = _OpNamespace()
@@ -180,3 +204,5 @@ from . import reduce_ops    # noqa: E402,F401
 from . import optimizer_ops  # noqa: E402,F401
 from . import rnn_ops       # noqa: E402,F401
 from . import image_ops     # noqa: E402,F401
+from . import init_ops      # noqa: E402,F401
+from . import random_ops    # noqa: E402,F401

@@ -1,5 +1,5 @@
-"""Neural-network operators, the subset the serving and training slices
-run (counterpart of ``mxnet_tpu/ops/nn.py``; ref: src/operator/nn/).
+"""Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``; ref:
+src/operator/nn/).
 
 ``FullyConnected`` is a ``torch.matmul``, ``Convolution`` a
 ``torch.nn.functional.conv{1,2,3}d`` and ``Deconvolution`` a
@@ -15,6 +15,15 @@ for a CUDA tensor, their plain versions for a CPU one); another axis, or
 reference's ``_ln_fused``). Train-mode ``Dropout`` with a full-shape
 mask goes to :mod:`.cuda_dropout`; with ``axes`` it runs the reference's
 composition, its mask drawn from the context's generator.
+
+``GroupNorm`` and ``InstanceNorm`` are torch's ``group_norm``, with f32
+statistics for 16-bit data. ``SoftmaxOutput`` and the three regression
+outputs are ``torch.autograd.Function`` subclasses whose backward ignores the
+head gradient, as the reference's custom VJPs do. ``CTCLoss`` runs the
+reference's own recursion (``optax.ctc_loss``: blank and label states in
+log space, -1e5 for log 0) step by step in torch, so it gives the
+reference's finite loss for an impossible alignment, and its backward,
+autograd through the steps, has no atomics and is the same on every run.
 """
 from __future__ import annotations
 
@@ -212,7 +221,7 @@ def _from_nc(x, nhwc):
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
-@register("Convolution", aliases=["convolution"])
+@register("Convolution", aliases=["convolution", "Convolution_v1"])
 def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
                 dilate=None, pad=None, num_group=1, no_bias=False,
                 cudnn_tune=None, cudnn_off=False, workspace=1024, layout=None,
@@ -269,7 +278,7 @@ def deconvolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
 
 
 # -- Pooling ----------------------------------------------------------------
-@register("Pooling", aliases=["pooling"])
+@register("Pooling", aliases=["pooling", "Pooling_v1"])
 def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
             count_include_pad=True, cudnn_off=False, layout=None):
@@ -403,7 +412,8 @@ def _bcast(ax, ndim):
     return bc
 
 
-@register("BatchNorm", aliases=["batch_norm"], mutate_aux={1: 3, 2: 4},
+@register("BatchNorm", aliases=["batch_norm", "BatchNorm_v1"],
+          mutate_aux={1: 3, 2: 4},
           needs_train_flag=True)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *,
                eps=1e-3, momentum=0.9, fix_gamma=True, use_global_stats=False,
@@ -428,3 +438,228 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *,
     out = (data - bc(moving_mean)) * bc(inv * g) + bc(beta)
     return out.to(data.dtype), moving_mean, moving_var
 
+
+
+# -- InstanceNorm, GroupNorm ------------------------------------------------
+def _group_norm(data, gamma, beta, groups, eps):
+    """Normalization over each sample's channel groups, the statistics in
+    f32 for 16-bit data (torch's ``group_norm``, on f32 then); the
+    output in the promoted dtype of data, gamma and beta, as the
+    reference's affine step gives it."""
+    low = data.dtype in (torch.float16, torch.bfloat16)
+    x = data.float() if low else data
+    out = F.group_norm(x, int(groups), gamma.to(x.dtype), beta.to(x.dtype),
+                       float(eps))
+    return out.to(torch.promote_types(
+        torch.promote_types(data.dtype, gamma.dtype), beta.dtype))
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """Normalization over each sample's and channel's spatial positions
+    (ref: instance_norm.cc), gamma and beta per channel (axis 1)."""
+    return _group_norm(data, gamma, beta, data.shape[1], eps)
+
+
+@register("GroupNorm")
+def group_norm(data, gamma, beta, *, num_groups=1, eps=1e-5):
+    """Normalization over ``num_groups`` groups of axis 1's channels and
+    the spatial positions (ref: group_norm.cc), gamma and beta per
+    channel."""
+    return _group_norm(data, gamma, beta, num_groups, eps)
+
+
+# -- softmin, softmax_cross_entropy -----------------------------------------
+@register("softmin")
+def softmin(data, *, axis=-1, temperature=None, dtype=None):
+    """softmax(-data / temperature) over ``axis`` (MXNet 1.x's
+    temperature; the reference ignores it)."""
+    x = -data if temperature in (None, 1.0) else -data / temperature
+    out = torch.softmax(x, dim=int(axis))
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    """The summed cross entropy of softmax(data) (N, C) at the integer
+    labels (N,), as a (1,) array (ref: softmax_cross_entropy.cc)."""
+    logp = torch.log_softmax(data, dim=-1)
+    nll = -torch.gather(logp, -1, label.long().unsqueeze(-1))
+    return nll.sum().reshape(1)
+
+
+# -- the output ops: a forward and a loss gradient of their own -------------
+def _label_grad(ctx, label):
+    """The label's gradient: zero, as the reference's custom VJPs give
+    it."""
+    return torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax forward; the backward ignores the head gradient and gives
+    (p - onehot(label)) * grad_scale (ref: softmax_output.cc and the
+    reference's ``_softmax_output_fn``): labels equal to ``ignore_label``
+    give 0 with ``use_ignore``; ``normalization`` 'batch' divides by the
+    batch size, 'valid' (with ``use_ignore``) by the labels kept."""
+
+    @staticmethod
+    def forward(ctx, data, label, ax, grad_scale, use_ignore, ignore_label,
+                normalization):
+        prob = torch.softmax(data, dim=ax)
+        ctx.save_for_backward(prob, label)
+        ctx.cfg = (ax, grad_scale, use_ignore, ignore_label, normalization)
+        return prob
+
+    @staticmethod
+    def backward(ctx, _g):
+        prob, label = ctx.saved_tensors
+        ax, grad_scale, use_ignore, ignore_label, normalization = ctx.cfg
+        lab = label.to(torch.int64).unsqueeze(ax)
+        shape = [1] * prob.dim()
+        shape[ax] = prob.shape[ax]
+        classes = torch.arange(prob.shape[ax], device=prob.device)
+        grad = prob - (classes.reshape(shape) == lab).to(prob.dtype)
+        if use_ignore:
+            keep = (lab != int(ignore_label)).to(prob.dtype)
+            grad = grad * keep
+        if normalization == "batch":
+            grad = grad / prob.shape[0]
+        elif normalization == "valid" and use_ignore:
+            grad = grad / torch.clamp_min(keep.sum(), 1.0)
+        return (grad * grad_scale, _label_grad(ctx, label), None, None, None,
+                None, None)
+
+
+@register("SoftmaxOutput", aliases=["Softmax"])
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax with the cross-entropy gradient of its own (ref:
+    softmax_output.cc): over the last axis, or axis 1 with
+    ``multi_output``."""
+    return _SoftmaxOutputFn.apply(data, label, 1 if multi_output else -1,
+                                  float(grad_scale), bool(use_ignore),
+                                  float(ignore_label), normalization)
+
+
+class _RegressionFn(torch.autograd.Function):
+    """The regression outputs (ref: regression_output.cc): the forward
+    is the identity (linear, mae) or the sigmoid (logistic); the backward
+    ignores the head gradient and gives (pred - label) * grad_scale, or
+    its sign for mae."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        pred = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(pred, label)
+        ctx.cfg = (kind, grad_scale)
+        return pred
+
+    @staticmethod
+    def backward(ctx, _g):
+        pred, label = ctx.saved_tensors
+        kind, grad_scale = ctx.cfg
+        diff = pred - label.reshape(pred.shape)
+        grad = torch.sign(diff) if kind == "mae" else diff
+        return grad * grad_scale, _label_grad(ctx, label), None, None
+
+
+@register("LinearRegressionOutput")
+def linear_regression_output(data, label, *, grad_scale=1.0):
+    return _RegressionFn.apply(data, label, "linear", float(grad_scale))
+
+
+@register("LogisticRegressionOutput")
+def logistic_regression_output(data, label, *, grad_scale=1.0):
+    return _RegressionFn.apply(data, label, "logistic", float(grad_scale))
+
+
+@register("MAERegressionOutput")
+def mae_regression_output(data, label, *, grad_scale=1.0):
+    return _RegressionFn.apply(data, label, "mae", float(grad_scale))
+
+
+# -- CTC loss ---------------------------------------------------------------
+# log(0) as the recursion writes it: an impossible alignment costs a large
+# finite loss, never inf
+_CTC_LOG_EPS = -1e5
+
+
+def _ctc_recursion(logits, logit_pad, labels, label_pad, blank_id):
+    """Per-sequence CTC loss (N,) in f32: logits (N, T, C), labels (N, L)
+    with their paddings (1.0 at a padded step or label). The recursion
+    over blank (phi) and label (emit) states in log space, with
+    ``_CTC_LOG_EPS`` for log(0), step for step as the reference's
+    ``optax.ctc_loss`` runs it (so an infeasible alignment gives the same
+    large finite loss), differentiated by autograd."""
+    N, T, C = logits.shape
+    L = labels.shape[1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    labellens = L - label_pad.sum(dim=1).long()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))
+    phi_lp = logprobs[:, :, blank_id].t().unsqueeze(-1)           # (T, N, 1)
+    # a label outside [0, C) emits with log probability 0, as the
+    # reference's one-hot product gives it
+    inside = ((labels >= 0) & (labels < C)).float()
+    emit_lp = torch.gather(logprobs, 2, labels.clamp(0, C - 1).unsqueeze(1)
+                           .expand(N, T, L)) * inside.unsqueeze(1)
+    emit_lp = emit_lp.transpose(0, 1)                             # (T, N, L)
+    # a padded step keeps the states (the reference's pad * prev + (1 -
+    # pad) * next, exactly, as a select)
+    pads = (logit_pad.t() > 0).unsqueeze(-1)                       # (T, N, 1)
+    dev = logits.device
+    phi = torch.full((N, L + 1), _CTC_LOG_EPS, device=dev)
+    phi[:, 0] = 0.0
+    emit = torch.full((N, L), _CTC_LOG_EPS, device=dev)
+    eps_repeat = _CTC_LOG_EPS * repeat
+    eps_other = _CTC_LOG_EPS * (1.0 - repeat)
+
+    def add_phi(p, score):
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], score)], dim=-1)
+
+    for t in range(T):
+        le, lp, pad = emit_lp[t], phi_lp[t], pads[t]
+        prev_phi = add_phi(phi, emit + eps_repeat)
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + le, emit + le)
+        next_phi = add_phi(prev_phi + lp, emit + lp + eps_other)
+        emit = torch.where(pad, emit, next_emit)
+        phi = torch.where(pad, phi, next_phi)
+    last = add_phi(phi, emit)
+    return -torch.gather(last, 1, labellens.unsqueeze(1)).squeeze(1)
+
+
+@register("CTCLoss", aliases=["ctc_loss", "_contrib_CTCLoss",
+                              "_contrib_ctc_loss"])
+def ctc_loss_op(data, label, data_lengths=None, label_lengths=None, *,
+                use_data_lengths=False, use_label_lengths=False,
+                blank_label="first"):
+    """Connectionist temporal classification loss (ref:
+    src/operator/nn/ctc_loss.cc): data (T, N, C) unnormalized
+    activations, label (N, L) padded class ids; returns the loss per
+    sequence (N,). Without label lengths a label counts where it is not
+    padding: -1, and 0 too with ``blank_label='first'`` (blank 0; 'last'
+    makes C - 1 the blank)."""
+    if blank_label not in ("first", "last"):
+        raise ValueError("blank_label must be 'first' or 'last', got %r"
+                         % (blank_label,))
+    T, N, C = data.shape
+    dev = data.device
+    logits = data.transpose(0, 1).float()
+    steps = torch.arange(T, device=dev).unsqueeze(0)
+    if use_data_lengths and data_lengths is not None:
+        dlen = data_lengths.to(torch.int64).unsqueeze(1)
+    else:
+        dlen = torch.full((N, 1), T, dtype=torch.int64, device=dev)
+    logit_pad = (steps >= dlen).float()
+    lab = label.to(torch.int64)
+    if use_label_lengths and label_lengths is not None:
+        llen = label_lengths.to(torch.int64)
+    else:
+        valid = (lab != -1) & (lab != 0) if blank_label == "first" \
+            else lab != -1
+        llen = valid.sum(dim=1)
+    positions = torch.arange(lab.shape[1], device=dev).unsqueeze(0)
+    label_pad = (positions >= llen.unsqueeze(1)).float()
+    blank_id = 0 if blank_label == "first" else C - 1
+    lab = torch.where(label_pad > 0, torch.full_like(lab, blank_id), lab)
+    return _ctc_recursion(logits, logit_pad, lab, label_pad, blank_id)

@@ -24,7 +24,9 @@ import torch
 
 from .context import Context, current_context
 
-__all__ = ["seed", "generator", "seeds"]
+__all__ = ["seed", "generator", "seeds", "uniform", "normal", "randint",
+           "randn", "exponential", "poisson", "gamma", "shuffle",
+           "multinomial"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -35,6 +37,10 @@ _gens: Dict[Context, torch.Generator] = {}
 _counters: Dict[Context, torch.Tensor] = {}
 
 
+def _gen_seed(ctx: Context) -> int:
+    return (_ctx_seed.get(ctx, _seed) * 1000003 + ctx.device_id) % (1 << 63)
+
+
 def _base(ctx: Context) -> int:
     """The counter's start: the context's seed in the high 32 bits."""
     return ((_ctx_seed.get(ctx, _seed) * 1000003 + ctx.device_id)
@@ -42,17 +48,19 @@ def _base(ctx: Context) -> int:
 
 
 def seed(seed_state: int, ctx: Optional[Context] = None):
-    """Reset the generators (ref: mx.random.seed)."""
+    """Reset the generators and the on-card counters (ref:
+    mx.random.seed), in place."""
     global _seed
     with _lock:
         if ctx is None:
             _seed = int(seed_state)
             _ctx_seed.clear()
-            _gens.clear()
         else:
             ctx = Context(ctx)
             _ctx_seed[ctx] = int(seed_state)
-            _gens.pop(ctx, None)
+        for c, g in _gens.items():
+            if ctx is None or c == ctx:
+                g.manual_seed(_gen_seed(c))
         for c, counter in _counters.items():
             if ctx is None or c == ctx:
                 counter.fill_(_base(c))
@@ -66,8 +74,7 @@ def generator(ctx: Optional[Context] = None) -> torch.Generator:
         g = _gens.get(ctx)
         if g is None:
             g = torch.Generator(device=ctx.torch_device)
-            g.manual_seed((_ctx_seed.get(ctx, _seed) * 1000003
-                           + ctx.device_id) % (1 << 63))
+            g.manual_seed(_gen_seed(ctx))
             _gens[ctx] = g
         return g
 
@@ -94,3 +101,84 @@ def seeds(n: int, ctx: Optional[Context] = None) -> torch.Tensor:
     counter.add_(int(n))
     bits = hash_bits(c & 0xFFFFFFFF, c >> 32)
     return (bits % (2 ** 31 - 1)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# MXNet 1.x's mx.random functions
+# ---------------------------------------------------------------------------
+def _draw(name, params, shape, dtype, ctx, out):
+    """``_random_<name>`` with the scalar ``params`` (a dict); the result
+    copied into ``out`` when one is given."""
+    from .ndarray import invoke
+    attrs = dict(params, ctx=ctx)
+    if shape is not None:
+        attrs["shape"] = shape
+    if dtype is not None:
+        attrs["dtype"] = dtype
+    res = invoke("_random_" + name, [], attrs)
+    if out is None:
+        return res
+    out[:] = res
+    return out
+
+
+def uniform(low=0.0, high=1.0, shape=None, dtype=None, ctx=None, out=None):
+    """Draws from U[low, high)."""
+    return _draw("uniform", {"low": low, "high": high}, shape, dtype, ctx,
+                 out)
+
+
+def normal(loc=0.0, scale=1.0, shape=None, dtype=None, ctx=None, out=None):
+    """Draws from N(loc, scale^2)."""
+    return _draw("normal", {"loc": loc, "scale": scale}, shape, dtype, ctx,
+                 out)
+
+
+def randn(*shape, loc=0.0, scale=1.0, dtype="float32", ctx=None):
+    """Normal draws of the shape given by position."""
+    return normal(loc, scale, shape, dtype, ctx)
+
+
+def randint(low, high, shape=None, dtype=None, ctx=None, out=None):
+    """Integers in [low, high) (int32 by default)."""
+    return _draw("randint", {"low": low, "high": high}, shape, dtype, ctx,
+                 out)
+
+
+def exponential(scale=1.0, shape=None, dtype=None, ctx=None, out=None,
+                lam=None):
+    """Exponential draws of mean ``scale`` (MXNet 1.x), or of rate
+    ``lam`` (the reference's keyword)."""
+    lam = 1.0 / scale if lam is None else lam
+    return _draw("exponential", {"lam": lam}, shape, dtype, ctx, out)
+
+
+def poisson(lam=1.0, shape=None, dtype=None, ctx=None, out=None):
+    """Poisson draws of rate ``lam`` (float32 by default)."""
+    return _draw("poisson", {"lam": lam}, shape, dtype, ctx, out)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=None, dtype=None, ctx=None, out=None):
+    """Gamma draws of shape ``alpha`` and scale ``beta``."""
+    return _draw("gamma", {"alpha": alpha, "beta": beta}, shape, dtype, ctx,
+                 out)
+
+
+def shuffle(data):
+    """``data`` with its rows (axis 0) in a random order."""
+    from .ndarray import invoke
+    return invoke("_shuffle", [data], {})
+
+
+def multinomial(data, shape=None, get_prob=False, out=None, dtype="int32"):
+    """Category draws from the probabilities on ``data``'s last axis,
+    ``shape`` draws per distribution; with ``get_prob`` also the log
+    probability of each draw."""
+    from .ndarray import invoke
+    res = invoke("_sample_multinomial", [data], {
+        "shape": () if shape is None else shape, "get_prob": get_prob,
+        "dtype": dtype})
+    if out is None:
+        return res
+    out[:] = res
+    return out

@@ -1891,3 +1891,135 @@ def test_image_record_iter_card_batches_equal_cpu(card, tmp_path, stream):
             cpu.reset()
     assert len(gpu._slots) == gpu.STAGING_SLOTS
     assert all(sl.data.is_pinned() for sl in gpu._slots)
+
+
+# ---------------------------------------------------------------------------
+# the samplers and random ops inside captured graphs; CTC and
+# SoftmaxOutput on the card
+# ---------------------------------------------------------------------------
+SAMPLERS = [("_random_uniform", {"low": -1.0, "high": 2.0}),
+            ("_random_normal", {"loc": 1.0, "scale": 3.0}),
+            ("_random_gamma", {"alpha": 2.0, "beta": 0.5}),
+            ("_random_exponential", {"lam": 3.0}),
+            ("_random_poisson", {"lam": 2.5}),
+            ("_random_randint", {"low": 0, "high": 1000}),
+            ("_random_negative_binomial", {"k": 2, "p": 0.3}),
+            ("_random_generalized_negative_binomial", {"mu": 1.5,
+                                                       "alpha": 0.4})]
+
+
+@pytest.mark.parametrize("name,attrs", SAMPLERS)
+def test_sampler_repeats_after_seed_on_the_card(card, name, attrs):
+    import mxnet_tpu_torch as mx
+    draws = []
+    for _ in range(2):
+        mx.random.seed(13)
+        a = getattr(mx.nd, name)(shape=(4096,), **attrs)
+        b = getattr(mx.nd, name)(shape=(4096,), **attrs)
+        draws.append((a.tensor(), b.tensor()))
+    assert draws[0][0].is_cuda
+    assert torch.equal(draws[0][0], draws[1][0])
+    assert torch.equal(draws[0][1], draws[1][1])
+    assert not torch.equal(draws[0][0], draws[0][1])
+
+
+def _random_block_steps(net, x, steps=3):
+    import mxnet_tpu_torch as mx
+    out = []
+    for _ in range(steps):
+        x.attach_grad()
+        with mx.autograd.record():
+            y, z, d = net(x)
+        y.backward()
+        out.append([a.tensor().clone() for a in (y, z, d, x.grad)])
+    torch.cuda.synchronize()
+    return out
+
+
+def test_random_block_replays_draw_anew_and_repeat_after_seed(card):
+    """Dropout and F.random_normal in one hybridized block: each replay
+    draws a new mask and new noise, and after seed() the captured run
+    equals the eager one bit for bit."""
+    import chip_smoke
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    net = chip_smoke.random_block(mx, units=256, groups=8)
+    net.initialize(mx.init.Xavier())
+    net.hybridize(static_alloc=True)
+    x = mx.nd.NDArray(torch.randn(16, 256, generator=card, device="cuda"))
+    mx.random.seed(3)
+    with cached_op.eager():
+        eager = _random_block_steps(net, x)
+    mx.random.seed(3)
+    cached_op.reset_replay_counts()
+    compiled = _random_block_steps(net, x)
+    assert cached_op.replay_counts()["forward"] == 2
+    for e, c in zip(eager, compiled):
+        for a, b in zip(e, c):
+            assert torch.equal(a, b)
+    for i in (1, 2):
+        assert not torch.equal(compiled[i][1], compiled[i - 1][1])
+        assert not torch.equal(compiled[i][2] != 0, compiled[i - 1][2] != 0)
+
+
+def test_capture_with_an_unregistered_generator_raises(card, monkeypatch):
+    """A capture whose random op draws from a generator the graph does
+    not hold raises naming the op; it does not run eagerly instead."""
+    import chip_smoke
+    import mxnet_tpu_torch as mx
+    net = chip_smoke.random_block(mx, units=64, groups=4)
+    net.initialize()
+    net.hybridize()
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "register_generator_state",
+                        lambda self, gen: None, raising=False)
+    x = mx.nd.NDArray(torch.randn(8, 64, generator=card, device="cuda"))
+    with mx.autograd.train_mode():
+        with pytest.raises(MXNetError, match="_random_normal"):
+            for _ in range(2):
+                net(x)
+
+
+@pytest.mark.parametrize("blank", ["first", "last"])
+def test_ctc_loss_card_matches_cpu(card, blank):
+    """The same recursion on the card and on the CPU: the loss within
+    1e-5 relative, the gradient within 1e-4 + 1e-4 relative."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(0)
+    T, N, C, L = 40, 8, 500, 12
+    acts = rs.randn(T, N, C).astype(np.float32)
+    lab = rs.randint(1, C, (N, L)).astype(np.float32)
+    llen = rs.randint(1, L + 1, N)
+    if blank == "last":
+        lab -= 1
+    lab[np.arange(L)[None, :] >= llen[:, None]] = \
+        0.0 if blank == "first" else -1.0
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        x = mx.nd.array(acts, ctx=ctx)
+        x.attach_grad()
+        with mx.autograd.record():
+            loss = mx.nd.CTCLoss(x, mx.nd.array(lab, ctx=ctx),
+                                 blank_label=blank)
+        loss.backward()
+        res.append((loss.asnumpy(), x.grad.asnumpy()))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
+    np.testing.assert_allclose(res[1][1], res[0][1], rtol=1e-4, atol=1e-4)
+
+
+def test_softmax_output_card_matches_cpu(card):
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(1)
+    d = rs.randn(256, 1000).astype(np.float32) * 3
+    lab = rs.randint(0, 1000, 256).astype(np.float32)
+    lab[::5] = -1
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        x = mx.nd.array(d, ctx=ctx)
+        x.attach_grad()
+        with mx.autograd.record():
+            p = mx.nd.SoftmaxOutput(x, mx.nd.array(lab, ctx=ctx),
+                                    use_ignore=True, normalization="valid")
+        p.backward()
+        res.append((p.asnumpy(), x.grad.asnumpy()))
+    for g, r in zip(res[1], res[0]):
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-9)
