@@ -362,6 +362,43 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    run it alone: ``python3 -c "import chip_smoke as cs; line =
    cs.phase_device(); cs.phase_imagenet(0, line)"``.
 
+17. random — the creation and random ops: each sampler's draws held by
+   a KS statistic or a chi-square, ``seed`` repeatable, a random block
+   hybridized bit for bit with its eager twin, the norms and losses at
+   full width card against CPU (``phase_random``).
+18. ops tail — the rest of the op registry (``ops/tensor_tail.py``, the
+   rest of ``ops/matrix.py`` with ``linalg_*``, five contrib ops,
+   ``ops/vision_ops.py``) in f32 at the published widths of the public
+   models that use it: SSD-300 (``ssd_300_vgg16_atrous_voc``:
+   MultiBoxPrior over its six maps, 8732 anchors; MultiBoxTarget at
+   batch 32 with 1-40 boxes an image; MultiBoxDetection at (32, 21,
+   8732), NMS 0.45 over the top 400; box_iou, bipartite_matching,
+   box_encode and box_decode on (32, 8732, 40); box_nms at (32, 8732)
+   top 400 and (2, 8732) over all), Faster R-CNN and R-FCN (ROIAlign on
+   (2, 1024, 38, 63) x 256 ROIs at 14 x 14, ROIPooling on (2, 512, 38,
+   63) x 256 at 7 x 7, PSROIPooling on (1, 1029, 38, 63) x 300, 21 x 7 x
+   7), Deformable ConvNets (both deformable 3 x 3 convolutions, 512 ->
+   512, dilation 2, 4 groups, on (2, 512, 38, 63)), FlowNetC
+   (Correlation, displacement 20, stride2 2, on two (8, 256, 48, 64)
+   maps), the Transformer base (the encoder-decoder products at L 128, N
+   32, 512 units, 8 heads; masked_softmax over (256, 128, 128)), the
+   linalg family at (256, 64, 64) SPD and (32, 512, 512) against a
+   float64 twin on the CPU (syevd and gelqf by reconstruction and
+   orthogonality), the rest at ResNet-50's stage 1 and BERT-base's
+   hidden states, LRN at AlexNet's conv1 and an FCN head's x32
+   upsampling. Each output and gradient on the card against the same
+   call on the port's CPU path: the group's largest max|got - ref| /
+   max|ref| within ``OPS_TAIL_LIMIT`` (twice the largest reading of
+   ``ops_tail_readings`` over seeds 0-4), and each group's planted
+   fault beyond it. ROIPooling's separable form bit for bit with the
+   reference's 6-D formulation at 8 ROIs, and the peak memory of both.
+   The SSD head and an offset conv -> deformable conv -> ROIAlign block
+   hybridized bit for bit with their eager twins; boolean_mask eager on
+   the card, refused under capture. Each call's median time over
+   ``--reps``, the peaks of the ROI, NMS and deformable calls, the
+   phase's seconds. To run it alone: ``python3 -c "import chip_smoke as
+   cs; line = cs.phase_device(); cs.phase_ops_tail(0, line)"``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -7324,6 +7361,893 @@ def phase_random(seed, card_line):
     return counts
 
 
+# -- phase 18: the rest of the op registry ------------------------------------
+# Each group at the published widths of a public model that uses it, f32,
+# card against the port's CPU path on the same inputs. SSD-300 (GluonCV's
+# ssd_300_vgg16_atrous_voc): six maps of a 300 px image, anchor sizes
+# 30-315 px, the ratios and steps of that config, 8732 anchors, 21
+# classes, NMS 0.45 over the top 400
+SSD_SIDE = 300
+SSD_MAPS = (38, 19, 10, 5, 3, 1)
+SSD_SIZES = (30, 60, 111, 162, 213, 264, 315)
+SSD_RATIOS = ((1, 2, 0.5),) + ((1, 2, 0.5, 3, 1 / 3),) * 3 + \
+    ((1, 2, 0.5),) * 2
+SSD_STEPS = (8, 16, 32, 64, 100, 300)
+SSD_ANCHORS = 8732
+SSD_BATCH, SSD_CLASSES, SSD_GT = 32, 21, 40
+SSD_NMS = {"nms_threshold": 0.45, "nms_topk": 400, "threshold": 0.01}
+# Faster R-CNN (faster_rcnn_resnet50_v1b_voc) and R-FCN on a 600 x 1000
+# image: the stride-16 map is 38 x 63
+RCNN_IMAGE, RCNN_MAP, RCNN_SCALE = (600, 1000), (38, 63), 1.0 / 16
+ROI_ALIGN_SHAPE, ROI_ALIGN_ROIS, ROI_ALIGN_POOL = (2, 1024) + RCNN_MAP, \
+    256, (14, 14)
+ROI_POOL_SHAPE, ROI_POOL_ROIS, ROI_POOL_POOL = (2, 512) + RCNN_MAP, 256, \
+    (7, 7)
+PSROI_SHAPE, PSROI_ROIS, PSROI_DIM, PSROI_POOL = (1, 1029) + RCNN_MAP, \
+    300, 21, 7
+# Deformable ConvNets (R-FCN ResNet-101's res5 3 x 3): 512 -> 512,
+# dilation 2, 4 deformable groups (72 offset and 36 mask channels)
+DEFORM_SHAPE = (2, 512) + RCNN_MAP
+DEFORM = {"kernel": (3, 3), "num_filter": 512, "dilate": (2, 2),
+          "pad": (2, 2), "num_deformable_group": 4}
+# FlowNetC's correlation: displacement 20, stride2 2 (441 channels)
+CORR_SHAPE = (8, 256, 48, 64)
+CORR = {"kernel_size": 1, "max_displacement": 20, "stride1": 1,
+        "stride2": 2, "pad_size": 20}
+# the Transformer base (GluonNLP transformer_en_de_512)
+ENCDEC_L, ENCDEC_N, ENCDEC_UNITS, ENCDEC_HEADS = 128, 32, 512, 8
+# linalg: SPD batches and square products, against a float64 twin
+LINALG_SPD, LINALG_GEMM = (256, 64, 64), (32, 512, 512)
+# the rest at the widths of the supported models: ResNet-50's stage-1
+# output (and its 3 x 3 conv's 64-channel input), BERT-base's hidden
+# states, AlexNet's conv1 output, an FCN head upsampled x32
+TAIL_RESNET, TAIL_RESNET_3X3, TAIL_BERT = (32, 256, 56, 56), \
+    (32, 64, 56, 56), (32, 128, 768)
+LRN_SHAPE, LRN_NSIZE = (64, 96, 55, 55), 5
+FCN_HEAD, FCN_SCALE = (32, 21, 16, 16), 32
+# card against CPU (linalg: against the float64 twin), the largest
+# max|got - ref| / max|ref| of each group's outputs and gradients: twice
+# the largest reading of ops_tail_readings(range(5), ...) on one H100
+# (700 W). The readings: ssd_prior 0 at every seed, ssd_target
+# 2.91e-7-4.04e-7, ssd_detection 6.27e-9, roi_align 2.75e-7-4.81e-7,
+# roi_pooling 1.03e-7-1.63e-7, psroi_pooling 3.17e-8-6.42e-8, deformable
+# 2.53e-6-3.46e-6, correlation 1.85e-7-2.19e-7, encdec 1.48e-6-2.08e-6,
+# linalg 2.20e-5-2.39e-5 (syevd's reconstruction), rest_resnet
+# 5.73e-7-8.48e-7, rest_bert 6.36e-7-7.15e-7, lrn 1.34e-7, upsampling
+# 4.23e-7-6.40e-7. The planted faults read at least 2.0e-4 (the moments
+# scaled by 1.0001), 2.23e-3 (the anchor sizes 0.1% off), 0.095 (NMS past
+# the top 400) and 0.36-1.40 for the others.
+OPS_TAIL_LIMIT = {
+    "ssd_prior": 0.0, "ssd_target": 8.08e-7, "ssd_detection": 1.26e-8,
+    "roi_align": 9.62e-7, "roi_pooling": 3.27e-7, "psroi_pooling": 1.29e-7,
+    "deformable": 6.92e-6, "correlation": 4.39e-7, "encdec": 4.16e-6,
+    "linalg": 4.79e-5, "rest_resnet": 1.70e-6, "rest_bert": 1.44e-6,
+    "lrn": 2.68e-7, "upsampling": 1.28e-6}
+
+
+def _call_ms(fn, reps):
+    """Median device time of one synchronised ``fn()`` over ``reps``
+    calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def _tail_reading(got, ref):
+    """max |got - ref| / max |ref| over the elements finite in ``ref``;
+    inf where the shapes or the non-finite elements differ. Computed in
+    float64 on ``got``'s device (the reference is copied there)."""
+    import torch
+    g = got.detach().double()
+    r = ref.detach().to(g.device, torch.float64)
+    if g.shape != r.shape:
+        return float("inf")
+    fin = torch.isfinite(r)
+    if not torch.equal(fin, torch.isfinite(g)) or \
+            not torch.equal(g[~fin].nan_to_num(), r[~fin].nan_to_num()):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    scale = float(r[fin].abs().max()) or 1.0
+    return float((g[fin] - r[fin]).abs().max()) / scale
+
+
+def _tail_run(fn, arrays, grad, head):
+    """fn(*arrays), under record with a backward when ``grad`` lists
+    inputs (``head(k, output)`` the head gradient of output k); returns
+    (output tensors, their gradients)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    for i in grad:
+        arrays[i].attach_grad()
+    with mx.autograd.record() if grad else contextlib.nullcontext():
+        y = fn(*arrays)
+        ys = list(y) if isinstance(y, (list, tuple)) else [y]
+        if grad:
+            total = None
+            for k, o in enumerate(ys):
+                if not np.issubdtype(np.dtype(o.dtype), np.floating):
+                    continue
+                term = (o * head(k, o)).sum()
+                total = term if total is None else total + term
+    if grad:
+        total.backward()
+    return [o.tensor() for o in ys], [arrays[i].grad.tensor() for i in grad]
+
+
+def _f64_run(fn, arrays, grad, head):
+    """A linalg check's reference: fn on float64 twins of the arrays."""
+    import mxnet_tpu_torch as mx
+    twins = [mx.nd.NDArray(a.tensor().double()) for a in arrays]
+    return _tail_run(fn, twins, grad, head)
+
+
+class _Tail:
+    """Phase 18's checks: each call on the port's CPU path, then on the
+    card; the readings by group, each call's device time and the peak
+    memory of the heavy ones."""
+
+    def __init__(self, seed, reps, card_line, faults):
+        self.seed, self.reps, self.card_line = seed, reps, card_line
+        self.readings = collections.defaultdict(float)
+        self.times, self.peaks = {}, {}
+        self.faults = faults
+        self.fault_readings = {}
+
+    def check(self, group, what, fn, inputs, grad=(), bad=None, peak=False,
+              ref=_tail_run):
+        """Hold fn on the card against ``ref`` (fn on the port's CPU path
+        by default) on the same inputs and heads; ``bad``, the group's
+        planted fault, is a faulty twin of fn run on the card when faults
+        are checked. Returns the reference's outputs."""
+        import numpy as np
+        import torch
+        import mxnet_tpu_torch as mx
+        heads = {}
+
+        def hs(k, o):
+            # head k, uniform in [0.5, 1.5) from the seed, made once a
+            # context (not inside the timed calls)
+            key = (k, tuple(o.shape), str(o.context))
+            if key not in heads:
+                h = np.random.RandomState(self.seed + 181 + k).uniform(
+                    0.5, 1.5, o.shape).astype(np.float32)
+                heads[key] = mx.nd.array(h, ctx=o.context)
+            return heads[key]
+        t0 = time.perf_counter()
+        cpu_out, cpu_grad = ref(
+            fn, [mx.nd.array(a, ctx=mx.cpu(), dtype=a.dtype)
+                 for a in inputs], grad, hs)
+        cpu_s = time.perf_counter() - t0
+        gpu = mx.gpu(0)
+
+        def card(f=fn):
+            return _tail_run(f, [mx.nd.array(a, ctx=gpu, dtype=a.dtype)
+                                 for a in inputs], grad, hs)
+
+        def reading(out, g):
+            return max([_tail_reading(a, b) for a, b in zip(out, cpu_out)]
+                       + [_tail_reading(a, b) for a, b in zip(g, cpu_grad)])
+        r = reading(*card())
+        self.readings[group] = max(self.readings[group], r)
+        arrays = [mx.nd.array(a, ctx=gpu, dtype=a.dtype) for a in inputs]
+        self.times[what] = _call_ms(
+            lambda: _tail_run(fn, arrays, grad, hs), self.reps)
+        if peak:
+            self.peaks[what] = _peak_mb(
+                lambda: _tail_run(fn, arrays, grad, hs))
+        limit = OPS_TAIL_LIMIT[group]
+        print("[ops_tail] %-58s %-13s reading %.3g (limit %s) %.3f ms%s; "
+              "CPU path %.1f s" % (what, group, r, limit, self.times[what],
+                                   " peak %.1f MB" % self.peaks[what]
+                                   if peak else "", cpu_s))
+        if limit is not None and r > limit:
+            raise SmokeFailure("ops_tail %s: %s reads %.3g beyond its limit "
+                               "%g" % (group, what, r, limit))
+        if self.faults and bad is not None:
+            self.fault_readings[group] = (what, reading(*card(bad)))
+        del arrays
+        heads.clear()
+        torch.cuda.empty_cache()
+        return cpu_out
+
+    def controls(self):
+        """Each group's planted fault must read beyond its limit."""
+        missed = []
+        for group, (what, fr) in sorted(self.fault_readings.items()):
+            limit = OPS_TAIL_LIMIT[group]
+            caught = limit is not None and fr > limit
+            print("[control] %-13s planted in %s: reading %.3g (limit %s) %s"
+                  % (group, what, fr, limit, "caught" if caught else
+                     "MISSED" if limit is not None else "no limit set"))
+            if limit is not None and not caught:
+                missed.append(group)
+        unplanted = [g for g in OPS_TAIL_LIMIT
+                     if g not in self.fault_readings]
+        if unplanted:
+            raise SmokeFailure("ops_tail: no planted fault ran for %s"
+                               % unplanted)
+        if missed:
+            raise SmokeFailure("ops_tail: planted faults passed in %s"
+                               % missed)
+
+
+def ssd_anchors(mx, ctx):
+    """SSD-300's 8732 anchors from MultiBoxPrior over its six maps, as
+    (1, N, 4), and the per-map calls."""
+    outs = []
+    for k, m in enumerate(SSD_MAPS):
+        s0, s1 = SSD_SIZES[k] / SSD_SIDE, SSD_SIZES[k + 1] / SSD_SIDE
+        step = SSD_STEPS[k] / SSD_SIDE
+        outs.append(mx.nd._contrib_MultiBoxPrior(
+            mx.nd.zeros((1, 1, m, m), ctx=ctx),
+            sizes=(s0, (s0 * s1) ** 0.5), ratios=SSD_RATIOS[k],
+            steps=(step, step), offsets=(0.5, 0.5)))
+    return mx.nd.concat(*outs, dim=1)
+
+
+def _ssd_labels(rs):
+    """(B, SSD_GT, 5) labels: 1-40 boxes an image (class 0-19, corners in
+    [0, 1]), the rest -1."""
+    import numpy as np
+    lab = np.full((SSD_BATCH, SSD_GT, 5), -1.0, np.float32)
+    for b in range(SSD_BATCH):
+        n = rs.randint(1, SSD_GT + 1)
+        xy = rs.uniform(0, 0.8, (n, 2))
+        wh = rs.uniform(0.05, 0.5, (n, 2))
+        lab[b, :n, 0] = rs.randint(0, SSD_CLASSES - 1, n)
+        lab[b, :n, 1:3] = xy
+        lab[b, :n, 3:5] = np.minimum(xy + wh, 1.0)
+    return lab
+
+
+def _rcnn_rois(rs, n_img, R):
+    """R proposals (batch, x1, y1, x2, y2) on a 600 x 1000 image, 16 to
+    400 px a side."""
+    import numpy as np
+    H, W = RCNN_IMAGE
+    wh = rs.uniform(16, 400, (R, 2))
+    x1 = rs.uniform(0, W - wh[:, 0])
+    y1 = rs.uniform(0, H - wh[:, 1])
+    return np.stack([rs.randint(0, n_img, R), x1, y1, x1 + wh[:, 0],
+                     y1 + wh[:, 1]], 1).astype(np.float32)
+
+
+def roi_pool_6d(data, rois, pooled, scale):
+    """The reference's ROIPooling formulation (one (R, C, PH, PW, H, W)
+    masked tensor, a copy of the map per ROI) transcribed in torch: the
+    memory it needs, against the port's separable form."""
+    import torch
+    PH, PW = pooled
+    N, C, H, W = data.shape
+    b = rois[:, 0].long()
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * scale) for i in (1, 2, 3, 4))
+    rh = torch.clamp(y2 - y1 + 1, min=1.0)
+    rw = torch.clamp(x2 - x1 + 1, min=1.0)
+    ph = torch.arange(PH, dtype=data.dtype, device=data.device)
+    pw = torch.arange(PW, dtype=data.dtype, device=data.device)
+    # IEEE division, as the reference's (CUDA's division by a host
+    # number multiplies by its reciprocal)
+    ph_, pw_ = (torch.full((), float(v), device=data.device)
+                for v in (PH, PW))
+    hs = torch.floor(y1[:, None] + ph[None] * rh[:, None] / ph_)
+    he = torch.ceil(y1[:, None] + (ph[None] + 1) * rh[:, None] / ph_)
+    ws = torch.floor(x1[:, None] + pw[None] * rw[:, None] / pw_)
+    we = torch.ceil(x1[:, None] + (pw[None] + 1) * rw[:, None] / pw_)
+    hh = torch.arange(H, dtype=data.dtype, device=data.device)
+    ww = torch.arange(W, dtype=data.dtype, device=data.device)
+    hm = (hh[None, None] >= hs[..., None]) & (hh[None, None] < he[..., None])
+    wm = (ww[None, None] >= ws[..., None]) & (ww[None, None] < we[..., None])
+    feat = data[b]
+    m = hm[:, None, :, None, :, None] & wm[:, None, None, :, None, :]
+    vals = torch.where(m, feat[:, :, None, None], torch.finfo(
+        torch.float32).min)
+    out = vals.amax(dim=(4, 5))
+    return torch.where(m.any(dim=(4, 5)), out, 0.0)
+
+
+def _tail_ssd(t, rs):
+    """SSD-300's MultiBox and box ops."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from unittest import mock
+    from mxnet_tpu_torch.ops import vision_ops as vo
+    nd = mx.nd
+    anchors = ssd_anchors(mx, mx.gpu(0))
+    if anchors.shape != (1, SSD_ANCHORS, 4):
+        raise SmokeFailure("SSD-300's MultiBoxPrior gave %s anchors, not %d"
+                           % (anchors.shape, SSD_ANCHORS))
+    real_f32 = vo._f32
+
+    def off_f32(x):
+        return real_f32(x * 1.001)
+
+    def prior(_):
+        return ssd_anchors(mx, _.context)
+
+    def prior_bad(_):
+        with mock.patch.object(vo, "_f32", off_f32):
+            return ssd_anchors(mx, _.context)
+    z = np.zeros((1,), np.float32)
+    t.check("ssd_prior", "MultiBoxPrior x6 maps -> (1, %d, 4)" % SSD_ANCHORS,
+            prior, [z], bad=prior_bad)
+    anc = anchors.asnumpy()
+    labels = _ssd_labels(rs)
+    logits = rs.normal(0, 2, (SSD_BATCH, SSD_CLASSES, SSD_ANCHORS))
+    cls_prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+                ).astype(np.float32)
+    del logits
+    loc = rs.normal(0, 0.5, (SSD_BATCH, SSD_ANCHORS * 4)).astype(np.float32)
+    def target(a, lab, cp):
+        return nd._contrib_MultiBoxTarget(a, lab, cp)
+
+    t.check("ssd_target", "MultiBoxTarget (32, 8732) anchors, (32, 40, 5) "
+            "labels", target, [anc, labels, cls_prob])
+    gt = labels[..., 1:5].copy()
+    gt[labels[..., 0] < 0] = 0.0
+    anc_b = np.broadcast_to(anc, (SSD_BATCH, SSD_ANCHORS, 4)).copy()
+    t.check("ssd_target", "box_iou (32, 8732, 4) x (32, 40, 4)",
+            lambda a, b: nd._contrib_box_iou(a, b), [anc_b, gt], grad=(0, 1))
+    iou = vo._iou_matrix(*(mx.nd.array(x, ctx=mx.cpu()).tensor()
+                           for x in (anc_b, gt))).numpy()
+    iou[np.broadcast_to((labels[:, None, :, 0] < 0),
+                        iou.shape)] = -1.0
+    rows = t.check("ssd_target", "bipartite_matching (32, 8732, 40)",
+                   lambda s: nd._contrib_bipartite_matching(
+                       s, threshold=1e-12), [iou])
+    matches = rows[0].numpy()
+    samples = (matches >= 0).astype(np.float32)
+    def encode_bad(s, m, a, r):
+        # planted: the (w, h) variances applied to (x, y)
+        return nd._contrib_box_encode(
+            s, m, a, r, mx.nd.zeros((4,), ctx=a.context),
+            mx.nd.array([0.2, 0.2, 0.1, 0.1], ctx=a.context))
+    t.check("ssd_target", "box_encode (32, 8732) matches",
+            lambda s, m, a, r: nd._contrib_box_encode(s, m, a, r),
+            [samples, matches, anc_b, gt], grad=(2, 3), bad=encode_bad)
+    preds = rs.normal(0, 0.5, (SSD_BATCH, SSD_ANCHORS, 4)).astype(np.float32)
+    t.check("ssd_target", "box_decode (32, 8732, 4)",
+            lambda p, a: nd._contrib_box_decode(p, a, std0=0.1, std1=0.1,
+                                                std2=0.2, std3=0.2),
+            [preds, anc], grad=(0, 1))
+
+    def detect(cp, lp, a):
+        return nd._contrib_MultiBoxDetection(cp, lp, a, **SSD_NMS)
+
+    def detect_bad(*a):
+        # planted: NMS over every candidate, past the top 400
+        with mock.patch.object(vo, "nms_bound", lambda n, topk: n):
+            return detect(*a)
+    t.check("ssd_detection", "MultiBoxDetection (32, 21, 8732) top 400",
+            detect, [cls_prob, loc, anc], bad=detect_bad, peak=True)
+    det = np.concatenate([rs.randint(0, 20, (SSD_BATCH, SSD_ANCHORS, 1)),
+                          rs.uniform(0, 1, (SSD_BATCH, SSD_ANCHORS, 1)),
+                          anc_b], -1).astype(np.float32)
+    for B, topk in ((SSD_BATCH, 400), (2, -1)):
+        t.check("ssd_detection", "box_nms (%d, 8732, 6) topk %d" % (B, topk),
+                lambda d, k=topk: nd._contrib_box_nms(
+                    d, overlap_thresh=0.45, topk=k, id_index=0,
+                    valid_thresh=0.01), [det[:B]], peak=True)
+    return cls_prob, loc, anc
+
+
+def _tail_rcnn(t, rs):
+    """Faster R-CNN's ROIAlign and ROIPooling, R-FCN's PSROIPooling,
+    Deformable ConvNets' two convolutions."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from unittest import mock
+    from mxnet_tpu_torch.ops import vision_ops as vo
+    nd = mx.nd
+    data = rs.normal(0, 1, ROI_ALIGN_SHAPE).astype(np.float32)
+    rois = _rcnn_rois(rs, ROI_ALIGN_SHAPE[0], ROI_ALIGN_ROIS)
+    real_gather = vo._bilinear_gather
+
+    def three_taps(d, xs, ys, batch=None):
+        # planted: the samples a quarter pixel off
+        return real_gather(d, xs + 0.25, ys, batch)
+
+    def align(d, r):
+        return nd._contrib_ROIAlign(d, r, pooled_size=ROI_ALIGN_POOL,
+                                    spatial_scale=RCNN_SCALE,
+                                    sample_ratio=2)
+
+    def align_bad(*a):
+        with mock.patch.object(vo, "_bilinear_gather", three_taps):
+            return align(*a)
+    t.check("roi_align", "ROIAlign %s x %d ROIs -> 14 x 14"
+            % (ROI_ALIGN_SHAPE, ROI_ALIGN_ROIS), align, [data, rois],
+            grad=(0,), bad=align_bad, peak=True)
+    data = rs.normal(0, 1, ROI_POOL_SHAPE).astype(np.float32)
+    rois = _rcnn_rois(rs, ROI_POOL_SHAPE[0], ROI_POOL_ROIS)
+    real_span = vo._span
+
+    def short_span(lo, hi, n):
+        a, length = real_span(lo, hi, n)
+        return a, length - 1
+
+    def pool(d, r):
+        return nd.ROIPooling(d, r, pooled_size=ROI_POOL_POOL,
+                             spatial_scale=RCNN_SCALE)
+
+    def pool_bad(*a):
+        with mock.patch.object(vo, "_span", short_span):
+            return pool(*a)
+    t.check("roi_pooling", "ROIPooling %s x %d ROIs -> 7 x 7"
+            % (ROI_POOL_SHAPE, ROI_POOL_ROIS), pool, [data, rois],
+            grad=(0,), bad=pool_bad, peak=True)
+    # the reference's 6-D formulation: its peak at 8 ROIs, which scales
+    # with the ROI count, against the separable form at all 256
+    d8 = torch.tensor(data, device=DEV)
+    r8 = torch.tensor(rois[:8], device=DEV)
+    six = _peak_mb(lambda: roi_pool_6d(d8, r8, ROI_POOL_POOL, RCNN_SCALE))
+    same = torch.equal(roi_pool_6d(d8, r8, ROI_POOL_POOL, RCNN_SCALE),
+                       vo.roi_pooling(d8, r8, pooled_size=ROI_POOL_POOL,
+                                      spatial_scale=RCNN_SCALE))
+    R, (C, H, W) = ROI_POOL_ROIS, ROI_POOL_SHAPE[1:]
+    elems = R * C * ROI_POOL_POOL[0] * ROI_POOL_POOL[1] * H * W
+    print("[ops_tail] ROIPooling memory: the reference's (R, C, 7, 7, H, W) "
+          "form peaks at %.1f MB for 8 ROIs (bit for bit with the separable "
+          "form: %s), so %.0f MB for %d (its masked tensor alone %.1f GB "
+          "f32 and %.1f GB of mask); the separable form %.1f MB for %d "
+          "forward and backward; %s"
+          % (six, same, six * R / 8, R, elems * 4 / 1e9, elems / 1e9,
+             t.peaks[[k for k in t.peaks if k.startswith("ROIPooling")][0]],
+             R, t.card_line))
+    if not same:
+        raise SmokeFailure("ROIPooling's separable form differs from the "
+                           "6-D form on the card")
+    del d8, r8
+    data = rs.normal(0, 1, PSROI_SHAPE).astype(np.float32)
+    rois = _rcnn_rois(rs, 1, PSROI_ROIS)
+    real_bins = vo._quantized_bins
+
+    def tall_bins(*a):
+        hs, he, ws, we = real_bins(*a)
+        return hs, he + 1, ws, we
+
+    def psroi(d, r):
+        return nd._contrib_PSROIPooling(d, r, spatial_scale=RCNN_SCALE,
+                                        output_dim=PSROI_DIM,
+                                        pooled_size=PSROI_POOL)
+
+    def psroi_bad(*a):
+        with mock.patch.object(vo, "_quantized_bins", tall_bins):
+            return psroi(*a)
+    t.check("psroi_pooling", "PSROIPooling %s x %d ROIs, 21 x 7 x 7"
+            % (PSROI_SHAPE, PSROI_ROIS), psroi, [data, rois], grad=(0,),
+            bad=psroi_bad, peak=True)
+    N, C, H, W = DEFORM_SHAPE
+    dg = DEFORM["num_deformable_group"]
+    x = rs.normal(0, 1, DEFORM_SHAPE).astype(np.float32)
+    off = rs.normal(0, 1, (N, dg * 18, H, W)).astype(np.float32)
+    mask = rs.uniform(0, 1, (N, dg * 9, H, W)).astype(np.float32)
+    F = DEFORM["num_filter"]
+    w = (rs.normal(0, 1, (F, C, 3, 3)) / (9 * C) ** 0.5).astype(np.float32)
+    b = rs.normal(0, 0.1, F).astype(np.float32)
+
+    def swapped(d, xs, ys, batch=None):
+        # planted: the offsets' (y, x) order swapped
+        return real_gather(d, ys, xs, batch)
+    for name, ins in (("DeformableConvolution", [x, off, w, b]),
+                      ("ModulatedDeformableConvolution",
+                       [x, off, mask, w, b])):
+        fn = (lambda n: lambda *a: getattr(nd, "_contrib_" + n)(
+            *a, **DEFORM))(name)
+
+        def bad(*a, fn=fn):
+            with mock.patch.object(vo, "_bilinear_gather", swapped):
+                return fn(*a)
+        t.check("deformable", "%s %s 3x3 512->512 dil 2, 4 groups"
+                % (name, DEFORM_SHAPE), fn, ins,
+                grad=tuple(range(len(ins))), bad=bad, peak=True)
+
+
+def _tail_flow_and_attention(t, rs):
+    """FlowNetC's correlation; the Transformer's encoder-decoder
+    attention ops."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    nd = mx.nd
+    a = rs.normal(0, 1, CORR_SHAPE).astype(np.float32)
+    b = rs.normal(0, 1, CORR_SHAPE).astype(np.float32)
+    t.check("correlation", "Correlation 2 x %s, displacement 20, stride2 2"
+            % (CORR_SHAPE,), lambda x, y: nd.Correlation(x, y, **CORR),
+            [a, b], grad=(0, 1),
+            bad=lambda x, y: nd.Correlation(y, x, **CORR))
+    L, N, U, Hh = ENCDEC_L, ENCDEC_N, ENCDEC_UNITS, ENCDEC_HEADS
+    q = rs.normal(0, 1, (L, N, U)).astype(np.float32)
+    kv = rs.normal(0, 1, (L, N, 2 * U)).astype(np.float32)
+    swapped = kv.reshape(L, N, Hh, 2, -1)[:, :, :, ::-1].reshape(L, N, -1)
+    t.check("encdec", "interleaved_matmul_encdec_qk L %d N %d %d units %d "
+            "heads" % (L, N, U, Hh),
+            lambda x, y: nd._contrib_interleaved_matmul_encdec_qk(
+                x, y, heads=Hh), [q, kv], grad=(0, 1),
+            bad=lambda x, y: nd._contrib_interleaved_matmul_encdec_qk(
+                x, mx.nd.array(swapped, ctx=y.context), heads=Hh))
+    att = rs.uniform(0, 1, (N * Hh, L, L)).astype(np.float32)
+    att /= att.sum(-1, keepdims=True)
+    t.check("encdec", "interleaved_matmul_encdec_valatt",
+            lambda x, y: nd._contrib_interleaved_matmul_encdec_valatt(
+                x, y, heads=Hh), [kv, att], grad=(0, 1))
+    scores = rs.normal(0, 3, (N * Hh // 1, L, L)).astype(np.float32)
+    lens = rs.randint(1, L + 1, N * Hh)
+    mask = (np.arange(L)[None, None, :] < lens[:, None, None]).astype(
+        np.float32) * np.ones((1, L, 1), np.float32)
+    t.check("encdec", "masked_softmax (%d, %d, %d) valid lengths"
+            % scores.shape, lambda s, m: nd.masked_softmax(s, m),
+            [scores, mask], grad=(0,))
+    t.check("encdec", "masked_log_softmax (%d, %d, %d)" % scores.shape,
+            lambda s, m: nd.masked_log_softmax(s, m), [scores, mask])
+    t.check("encdec", "div_sqrt_dim (%d, %d, %d)" % q.shape,
+            lambda x: nd._contrib_div_sqrt_dim(x), [q], grad=(0,))
+
+
+def _tail_linalg(t, rs):
+    """The la_op family at (256, 64, 64) SPD and (32, 512, 512)
+    products, f32 on the card against a float64 twin on the CPU; the
+    sign-free checks of syevd and gelqf (reconstruction, orthogonality,
+    the eigenvalues)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    nd = mx.nd
+    B, n, _ = LINALG_SPD
+    x = rs.normal(0, 1, LINALG_SPD)
+    spd = (x @ x.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32)
+    low = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    rect = rs.normal(0, 1, (B, n // 2, n)).astype(np.float32)
+    g = LINALG_GEMM
+    A, Bm, C = (rs.normal(0, 1, g).astype(np.float32) for _ in range(3))
+    checks = [
+        ("linalg_gemm (32, 512, 512)", lambda a, b, c: nd.linalg_gemm(
+            a, b, c, alpha=0.5, beta=2.0), [A, Bm, C], (0, 1, 2)),
+        ("linalg_gemm2 (32, 512, 512) transpose_b",
+         lambda a, b: nd.linalg_gemm2(a, b, transpose_b=True), [A, Bm],
+         (0, 1)),
+        ("linalg_potrf (256, 64, 64)", nd.linalg_potrf, [spd], (0,)),
+        ("linalg_potri", nd.linalg_potri, [low], (0,)),
+        ("linalg_trsm", lambda a, b: nd.linalg_trsm(a, b, alpha=2.0),
+         [low, spd], (0, 1)),
+        ("linalg_trmm rightside", lambda a, b: nd.linalg_trmm(
+            a, b, rightside=True), [low, spd], (0, 1)),
+        ("linalg_syrk", lambda a: nd.linalg_syrk(a, alpha=0.5), [rect],
+         (0,)),
+        ("linalg_inverse", nd.linalg_inverse, [spd], (0,)),
+        ("linalg_det", nd.linalg_det, [spd], (0,)),
+        ("linalg_slogdet", nd.linalg_slogdet, [spd], (0,)),
+        ("linalg_sumlogdiag", nd.linalg_sumlogdiag, [spd], (0,)),
+        ("linalg_extractdiag/makediag", lambda a: nd.linalg_makediag(
+            nd.linalg_extractdiag(a, offset=1), offset=-1), [spd], (0,)),
+        ("linalg_extracttrian/maketrian", lambda a: nd.linalg_maketrian(
+            nd.linalg_extracttrian(a, offset=-1), offset=-1), [spd], (0,)),
+    ]
+    for what, fn, ins, grad in checks:
+        bad = (lambda a, b: nd.linalg_trsm(a, b, alpha=2.0,
+                                           transpose=True)) \
+            if what == "linalg_trsm" else None
+        t.check("linalg", what, fn, ins, grad=grad, bad=bad, ref=_f64_run)
+
+    def syevd_parts(a):
+        U, lam = nd.linalg_syevd(a)
+        recon = nd.linalg_gemm2(nd.linalg_gemm2(U, nd.linalg_makediag(lam),
+                                                transpose_a=True), U)
+        gram = nd.linalg_gemm2(U, U, transpose_b=True)
+        return recon, gram, lam
+
+    def gelqf_parts(a):
+        Q, L = nd.linalg_gelqf(a)
+        return nd.linalg_gemm2(L, Q), nd.linalg_gemm2(Q, Q, transpose_b=True)
+    for what, fn, ins in (("linalg_syevd: U^T diag(l) U, U U^T, l",
+                           syevd_parts, [spd]),
+                          ("linalg_gelqf (256, 32, 64): L Q, Q Q^T",
+                           gelqf_parts, [rect])):
+        t.check("linalg", what, fn, ins, ref=_f64_run)
+
+
+def _tail_rest(t, rs):
+    """The rest of tensor_tail, matrix and vision_ops at ResNet-50's and
+    BERT-base's widths; LRN at AlexNet's conv1; the FCN head's x32
+    upsampling."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    nd = mx.nd
+    x = rs.normal(0, 1, TAIL_RESNET).astype(np.float32)
+    y = rs.normal(0, 1, TAIL_RESNET).astype(np.float32)
+    N, C, H, W = TAIL_RESNET
+    resnet = [
+        ("add_n x3", lambda a, b: nd.add_n(a, b, a), [x, y], (0, 1)),
+        ("_maximum", nd._maximum, [x, y], (0, 1)),
+        ("_hypot", nd._hypot, [x, y], (0, 1)),
+        ("_greater", nd._greater, [x, y], ()),
+        ("relu6", nd.relu6, [x * 4], (0,)),
+        ("reverse axis 3", lambda a: nd.reverse(a, axis=3), [x], (0,)),
+        ("moments over (0, 2, 3)", lambda a: nd.moments(a, axes=(0, 2, 3)),
+         [x], (0,)),
+        ("L2Normalization channel", lambda a: nd.L2Normalization(
+            a, mode="channel"), [x], (0,)),
+        ("Pad reflect 1", lambda a: nd.Pad(
+            a, mode="reflect", pad_width=(0, 0, 0, 0, 1, 1, 1, 1)), [x],
+         (0,)),
+        ("depth_to_space 2", lambda a: nd.depth_to_space(a, block_size=2),
+         [x], (0,)),
+        ("space_to_depth 2", lambda a: nd.space_to_depth(a, block_size=2),
+         [x], (0,)),
+        ("UpSampling nearest x2", lambda a: nd.UpSampling(a, scale=2),
+         [x], (0,)),
+        ("Crop center 48^2", lambda a: nd.Crop(a, h_w=(48, 48),
+                                               center_crop=True), [x], (0,)),
+        ("SoftmaxActivation channel", lambda a: nd.SoftmaxActivation(
+            a, mode="channel"), [x], (0,)),
+        ("AdaptiveAvgPooling2D 7x7", lambda a:
+         nd._contrib_AdaptiveAvgPooling2D(a, output_size=7), [x], (0,)),
+    ]
+    loc = np.tile(np.array([[0.9, 0.1, 0.05, -0.1, 0.9, 0.02]], np.float32),
+                  (N, 1))
+    resnet.append(("SpatialTransformer affine 56^2", lambda a, b:
+                   nd.SpatialTransformer(a, b, target_shape=(H, W)),
+                   [x, loc], (0, 1)))
+    x3 = rs.normal(0, 1, TAIL_RESNET_3X3).astype(np.float32)
+    resnet.append(("im2col 3x3 pad 1 %s" % (TAIL_RESNET_3X3,), lambda a:
+                   nd.im2col(a, kernel=(3, 3), pad=(1, 1)), [x3], (0,)))
+    cols = rs.normal(0, 1, (N, 64 * 9, H * W)).astype(np.float32)
+    resnet.append(("col2im 3x3 pad 1 -> %s" % (TAIL_RESNET_3X3,), lambda a:
+                   nd.col2im(a, output_size=(H, W), kernel=(3, 3),
+                             pad=(1, 1)), [cols], (0,)))
+    for what, fn, ins, grad in resnet:
+        bad = (lambda a: nd.moments(a * 1.0001, axes=(0, 2, 3))) \
+            if what.startswith("moments") else None
+        t.check("rest_resnet", "%s %s" % (what, TAIL_RESNET), fn, ins,
+                grad=grad, bad=bad)
+    del x, y, x3, cols
+    h = rs.normal(0, 1, TAIL_BERT).astype(np.float32)
+    B, T, U = TAIL_BERT
+    ht = np.ascontiguousarray(h.transpose(1, 0, 2))       # (T, N, U)
+    lens = rs.randint(1, T + 1, B).astype(np.float32)
+    rows = h.reshape(B * T, U)
+    idx = rs.randint(0, U, B * T).astype(np.float32)
+    hs = rs.randint(0, 512, U).astype(np.float32)
+    ss = np.where(rs.rand(U) > 0.5, 1.0, -1.0).astype(np.float32)
+    bert = [
+        ("SequenceLast lengths", lambda a, b: nd.SequenceLast(
+            a, b, use_sequence_length=True), [ht, lens], (0,)),
+        ("SequenceReverse lengths", lambda a, b: nd.SequenceReverse(
+            a, b, use_sequence_length=True), [ht, lens], (0,)),
+        ("moments over units", lambda a: nd.moments(a, axes=(2,)), [h],
+         (0,)),
+        ("L2Normalization instance", nd.L2Normalization, [h], (0,)),
+        ("_split_v2 3 sections", lambda a: nd._split_v2(
+            a, sections=3, axis=2), [h], (0,)),
+        ("batch_take (4096, 768)", nd.batch_take, [rows, idx], (0,)),
+        ("fft then ifft", lambda a: nd._contrib_ifft(nd._contrib_fft(a)),
+         [h], (0,)),
+        ("count_sketch -> 512", lambda a, b, c: nd._contrib_count_sketch(
+            a, b, c, out_dim=512), [rows, hs, ss], (0,)),
+        ("quadratic", lambda a: nd._contrib_quadratic(a, a=0.5, b=-1,
+                                                      c=2), [h], (0,)),
+        ("gradientmultiplier -1", lambda a: nd._contrib_gradientmultiplier(
+            a, scalar=-1.0), [h], (0,)),
+        ("round_ste, sign_ste", lambda a: nd._contrib_round_ste(a * 3)
+         + nd._contrib_sign_ste(a), [h], (0,)),
+        ("rcbrt", nd.rcbrt, [h], (0,)),
+    ]
+    for what, fn, ins, grad in bert:
+        bad = (lambda a: nd.moments(a * 1.0001, axes=(2,))) \
+            if what.startswith("moments") else None
+        t.check("rest_bert", "%s %s" % (what, TAIL_BERT), fn, ins, grad=grad,
+                bad=bad)
+    del h, ht, rows
+    z = rs.uniform(-1, 1, LRN_SHAPE).astype(np.float32)
+    t.check("lrn", "LRN %s nsize %d" % (LRN_SHAPE, LRN_NSIZE),
+            lambda a: nd.LRN(a, nsize=LRN_NSIZE), [z], grad=(0,),
+            bad=lambda a: nd.LRN(a, nsize=LRN_NSIZE, knorm=1.0))
+    del z
+    f = rs.normal(0, 1, FCN_HEAD).astype(np.float32)
+    s = FCN_SCALE
+    k = 2 * s - s % 2
+    wts = rs.uniform(0, 1, (FCN_HEAD[1], 1, k, k)).astype(np.float32) / k
+    side = FCN_HEAD[2] * s
+    t.check("upsampling", "UpSampling bilinear x%d %s" % (s, FCN_HEAD),
+            lambda a, w: nd.UpSampling(a, w, scale=s, sample_type="bilinear",
+                                       num_args=2, num_filter=FCN_HEAD[1]),
+            [f, wts], grad=(0, 1))
+    t.check("upsampling", "BilinearResize2D %s -> %d^2" % (FCN_HEAD, side),
+            lambda a: nd._contrib_BilinearResize2D(a, height=side,
+                                                   width=side), [f],
+            grad=(0,),
+            bad=lambda a: nd._contrib_BilinearResize2D(
+                a, height=side, width=side, align_corners=False))
+
+
+def _tail_blocks(mx):
+    class Head(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, cls_prob, loc, anchors):
+            return F._contrib_MultiBoxDetection(cls_prob, loc, anchors,
+                                                **SSD_NMS)
+
+    class RoiDeform(mx.gluon.HybridBlock):
+        """An offset conv, a deformable 3 x 3 at Deformable ConvNets'
+        width, then ROIAlign over the proposals."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.offset = mx.gluon.nn.Conv2D(
+                    DEFORM["num_deformable_group"] * 18, 3, padding=1,
+                    in_channels=DEFORM_SHAPE[1])
+                self.weight = self.params.get(
+                    "weight", shape=(DEFORM["num_filter"], DEFORM_SHAPE[1],
+                                     3, 3))
+                self.bias = self.params.get(
+                    "bias", shape=(DEFORM["num_filter"],), init="zeros")
+
+        def hybrid_forward(self, F, x, rois, weight, bias):
+            off = self.offset(x)
+            y = F._contrib_DeformableConvolution(x, off, weight, bias,
+                                                 **DEFORM)
+            return F._contrib_ROIAlign(y, rois, pooled_size=ROI_ALIGN_POOL,
+                                       spatial_scale=RCNN_SCALE,
+                                       sample_ratio=2)
+
+    class Mask(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x, m):
+            return F._contrib_boolean_mask(x, m)
+    return Head, RoiDeform, Mask
+
+
+def _tail_captured(seed, rs, cls_prob, loc, anc, card_line):
+    """The SSD head and an offset conv -> deformable conv -> ROIAlign
+    block hybridized (captured graphs) bit for bit with their eager
+    twins; boolean_mask eager on the card, and refused under capture."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    gpu = mx.gpu(0)
+    Head, RoiDeform, Mask = _tail_blocks(mx)
+    head = Head()
+    ins = [mx.nd.array(a, ctx=gpu) for a in (cls_prob, loc, anc)]
+    with cached_op.eager():
+        want = head(*ins).tensor().clone()
+    head.hybridize()
+    cached_op.reset_replay_counts()
+    for _ in range(3):
+        got = head(*ins)
+    replays = cached_op.replay_counts()["forward"]
+    same = torch.equal(got.tensor(), want)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        head(*ins)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    with cached_op.eager():
+        for _ in range(5):
+            head(*ins)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print("[ops_tail] SSD head (MultiBoxDetection (32, 21, 8732), top 400) "
+          "hybridized: bit for bit with eager %s, %d replays of 3 calls; "
+          "host clock %.2f ms a call (eager %.2f ms); %s"
+          % (same, replays, graph_ms, eager_ms, card_line))
+    if not same or replays < 2:
+        raise SmokeFailure("the captured SSD head differs from its eager "
+                           "twin, or was not replayed")
+    mx.random.seed(seed)
+    blk = RoiDeform(prefix="rd_")
+    blk.initialize(mx.init.Xavier(), ctx=gpu)
+    x = mx.nd.array(rs.normal(0, 1, DEFORM_SHAPE).astype(np.float32),
+                    ctx=gpu)
+    rois = mx.nd.array(_rcnn_rois(rs, DEFORM_SHAPE[0], ROI_ALIGN_ROIS),
+                       ctx=gpu)
+    with _no_tf32():
+        with cached_op.eager():
+            want = blk(x, rois).tensor().clone()
+        blk.hybridize(static_alloc=True)
+        cached_op.reset_replay_counts()
+        for _ in range(3):
+            got = blk(x, rois)
+        replays = cached_op.replay_counts()["forward"]
+        same = torch.equal(got.tensor(), want)
+    print("[ops_tail] offset conv -> DeformableConvolution -> ROIAlign %s, "
+          "%d ROIs, hybridized: bit for bit with eager %s, %d replays of 3 "
+          "calls" % (DEFORM_SHAPE, ROI_ALIGN_ROIS, same, replays))
+    if not same or replays < 2:
+        raise SmokeFailure("the captured ROIAlign/deformable block differs "
+                           "from its eager twin, or was not replayed")
+    data = rs.normal(0, 1, (4096, 768)).astype(np.float32)
+    keep = (rs.rand(4096) > 0.5).astype(np.float32)
+    card = mx.nd._contrib_boolean_mask(mx.nd.array(data, ctx=gpu),
+                                       mx.nd.array(keep, ctx=gpu))
+    host = data[keep > 0]
+    ok = card.shape == host.shape and np.array_equal(card.asnumpy(), host)
+    blk = Mask()
+    blk.hybridize()
+    try:
+        blk(mx.nd.array(data, ctx=gpu), mx.nd.array(keep, ctx=gpu))
+        refused = False
+    except mx.MXNetError as e:
+        refused = "hybridized" in str(e)
+    print("[ops_tail] boolean_mask (4096, 768) eager on the card: %d rows, "
+          "equal to numpy's %s; refused under capture %s"
+          % (card.shape[0], ok, refused))
+    if not ok or not refused:
+        raise SmokeFailure("boolean_mask: wrong rows on the card, or a "
+                           "captured call was not refused")
+
+
+def _ops_tail(seed, reps, card_line, faults):
+    import numpy as np
+    t = _Tail(seed, reps, card_line, faults)
+    rs = np.random.RandomState(seed + 180)
+    took = [time.perf_counter()]
+    with _no_tf32():
+        cls_prob, loc, anc = _tail_ssd(t, rs)
+        took.append(time.perf_counter())
+        _tail_rcnn(t, rs)
+        took.append(time.perf_counter())
+        _tail_flow_and_attention(t, rs)
+        _tail_linalg(t, rs)
+        took.append(time.perf_counter())
+        _tail_rest(t, rs)
+        took.append(time.perf_counter())
+    return t, (cls_prob, loc, anc), took
+
+
+def ops_tail_readings(seeds, card_line, reps=2):
+    """The readings behind OPS_TAIL_LIMIT at ``seeds`` (print only; the
+    limits are twice the largest) and the planted faults' readings."""
+    worst = collections.defaultdict(float)
+    faults = {}
+    for seed in seeds:
+        t, _, _ = _ops_tail(seed, reps, card_line, faults=True)
+        for g, r in t.readings.items():
+            worst[g] = max(worst[g], r)
+        for g, (_, fr) in t.fault_readings.items():
+            faults[g] = min(faults.get(g, float("inf")), fr)
+        print("[readings] seed %d: %s" % (seed, json.dumps(t.readings)))
+    print("[readings] largest: %s" % json.dumps(worst))
+    print("[readings] limits (2x): %s" % json.dumps(
+        {g: 2 * r for g, r in worst.items()}))
+    print("[readings] planted faults, smallest: %s" % json.dumps(faults))
+
+
+def phase_ops_tail(seed, card_line, reps=5):
+    """18. The rest of the op registry (tensor_tail, matrix with linalg,
+    five contrib ops, vision_ops) at the widths of SSD-300, Faster
+    R-CNN/R-FCN, Deformable ConvNets, FlowNetC and the Transformer, card
+    against the port's CPU path; the SSD head and a ROIAlign/deformable
+    block captured; each group's planted fault."""
+    import torch
+    print("[ops_tail] %s" % card_line)
+    t0 = time.perf_counter()
+    t, (cls_prob, loc, anc), took = _ops_tail(seed, reps, card_line, True)
+    t.controls()
+    import numpy as np
+    _tail_captured(seed, np.random.RandomState(seed + 190), cls_prob, loc,
+                   anc, card_line)
+    torch.cuda.empty_cache()
+    for what, mb in sorted(t.peaks.items()):
+        print("[ops_tail] peak %-58s %.1f MB; %s" % (what, mb, card_line))
+    print("[ops_tail] phase 18 took %.1f s: SSD %.1f, R-CNN %.1f, "
+          "correlation + attention + linalg %.1f, the rest %.1f, "
+          "captured %.1f; %s"
+          % (time.perf_counter() - t0, took[1] - took[0], took[2] - took[1],
+             took[3] - took[2], took[4] - took[3],
+             time.perf_counter() - took[4], card_line))
+    return t
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7427,10 +8351,18 @@ def main(argv=None):
         rows.append(vision_row)
         fed_counts = phase_imagenet(args.seed, card_line)
         random_counts = phase_random(args.seed, card_line)
+        cuda_build.reset_launch_counts()
+        phase_ops_tail(args.seed, card_line, args.reps)
+        tail_counts = cuda_build.launch_counts()
+        print("[ops_tail] kernel launches in phase 18: %s (no port kernel "
+              "is on its path)" % {k: v for k, v in tail_counts.items()
+                                    if v})
         for r in rows:
             r["launches_per_fed_run"] = fed_counts.get(
                 r.get("kernel", r["name"]), 0)
             r["launches_per_random_block"] = random_counts.get(
+                r.get("kernel", r["name"]), 0)
+            r["launches_per_ops_tail"] = tail_counts.get(
                 r.get("kernel", r["name"]), 0)
         for r in rows:
             k = r.get("kernel", r["name"])

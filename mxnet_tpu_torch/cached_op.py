@@ -71,9 +71,9 @@ from . import autograd
 from . import ops as _ops
 from . import random as _random
 
-__all__ = ["CachedOp", "eager", "outermost", "tape_plan", "replay_counts",
-           "reset_replay_counts", "capture_pending_backwards",
-           "MAX_INSTANCES"]
+__all__ = ["CachedOp", "eager", "in_call", "outermost", "tape_plan",
+           "replay_counts", "reset_replay_counts",
+           "capture_pending_backwards", "MAX_INSTANCES"]
 
 # graph instances of one signature: each holds a whole forward's residuals
 MAX_INSTANCES = 4
@@ -151,6 +151,14 @@ def outermost() -> bool:
     """True outside every CachedOp call and :func:`eager` scope: only
     there does a hybridized block run through its CachedOp."""
     return getattr(_TLS, "depth", 0) == 0
+
+
+def in_call() -> bool:
+    """True while a CachedOp runs its block's forward (its eager run on
+    the CPU, its warm-up or capture on the card, a chunk's replay):
+    where the reference traces the block under jit. An op whose output
+    shape depends on the data refuses to run there."""
+    return getattr(_TLS, "calls", 0) > 0
 
 
 @contextlib.contextmanager
@@ -505,8 +513,12 @@ class CachedOp:
         mapping = {p: NDArray(t, ctx) for p, t in
                    zip(self.params, tensors[self.n_data:])} \
             if substitute else None
-        with eager(), _sub(mapping):
-            out = self._forward(*args)
+        _TLS.calls = getattr(_TLS, "calls", 0) + 1
+        try:
+            with eager(), _sub(mapping):
+                out = self._forward(*args)
+        finally:
+            _TLS.calls -= 1
         outs = []
         self._out_fmt = _flatten(out, outs)
         return [o.tensor() for o in outs]

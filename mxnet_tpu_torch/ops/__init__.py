@@ -206,3 +206,5 @@ from . import rnn_ops       # noqa: E402,F401
 from . import image_ops     # noqa: E402,F401
 from . import init_ops      # noqa: E402,F401
 from . import random_ops    # noqa: E402,F401
+from . import tensor_tail   # noqa: E402,F401
+from . import vision_ops    # noqa: E402,F401

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import random as _random
+from ..base import MXNetError
 from ..config import get as _cfg
 from ..context import context_of
 from . import register
@@ -62,6 +63,73 @@ def interleaved_matmul_selfatt_valatt(queries_keys_values, attention, *,
     Lq = out.shape[1]
     return out.reshape(N, heads, Lq, hd).permute(2, 0, 1, 3).reshape(
         Lq, N, heads * hd)
+
+
+@register("_contrib_interleaved_matmul_encdec_qk")
+def interleaved_matmul_encdec_qk(queries, keys_values, *, heads):
+    """Encoder-decoder scores (Q/√d)·Kᵀ: queries (Lq, N, heads*hd), keys
+    and values interleaved per head (Lk, N, heads*2*hd) -> (N*heads, Lq,
+    Lk) (ref: transformer.cc :: interleaved_matmul_encdec_qk)."""
+    Lq, N, hdim = queries.shape
+    heads = int(heads)
+    hd = hdim // heads
+    q = queries.reshape(Lq, N, heads, hd).permute(1, 2, 0, 3).reshape(
+        N * heads, Lq, hd)
+    Lk = keys_values.shape[0]
+    k = keys_values.reshape(Lk, N, heads, 2, hd)[:, :, :, 0, :].permute(
+        1, 2, 0, 3).reshape(N * heads, Lk, hd)
+    scale = 1.0 / torch.sqrt(torch.full((), float(hd), dtype=q.dtype,
+                                        device=q.device))
+    return torch.matmul(q * scale, k.transpose(-1, -2))
+
+
+@register("_contrib_interleaved_matmul_encdec_valatt")
+def interleaved_matmul_encdec_valatt(keys_values, attention, *, heads):
+    """att·V over the interleaved keys and values, re-packed to (Lq, N,
+    heads*hd) (ref: transformer.cc :: interleaved_matmul_encdec_valatt)."""
+    Lk, N, two_hdim = keys_values.shape
+    heads = int(heads)
+    hd = two_hdim // (2 * heads)
+    v = keys_values.reshape(Lk, N, heads, 2, hd)[:, :, :, 1, :].permute(
+        1, 2, 0, 3).reshape(N * heads, Lk, hd)
+    out = torch.matmul(attention, v)
+    Lq = out.shape[1]
+    return out.reshape(N, heads, Lq, hd).permute(2, 0, 1, 3).reshape(
+        Lq, N, heads * hd)
+
+
+@register("_contrib_div_sqrt_dim")
+def div_sqrt_dim(data):
+    """data / sqrt(data.shape[-1])."""
+    return data / torch.sqrt(torch.full((), float(data.shape[-1]),
+                                        dtype=data.dtype, device=data.device))
+
+
+@register("_contrib_arange_like")
+def arange_like(data, *, start=0.0, step=1.0, repeat=1, axis=None):
+    """start + step * i in data's dtype, over data's shape, or along
+    ``axis`` alone. ``repeat`` is taken and ignored, as in the
+    reference."""
+    n = data.numel() if axis is None else data.shape[int(axis)]
+    out = torch.arange(n, dtype=data.dtype, device=data.device) * step \
+        + start
+    return out.reshape(data.shape) if axis is None else out
+
+
+@register("_contrib_boolean_mask")
+def boolean_mask(data, index, *, axis=0):
+    """The slices of ``data`` along ``axis`` where ``index`` is nonzero.
+    Its shape depends on the data, so it runs eagerly only: the card
+    tells the host how many slices there are. Inside a hybridized
+    block's call it raises, as the reference's does under jit."""
+    from .. import cached_op
+    if cached_op.in_call():
+        raise MXNetError(
+            "_contrib_boolean_mask has a data-dependent output shape and "
+            "cannot run inside a hybridized (captured) call; call it "
+            "eagerly, or use SequenceMask/where")
+    idx = torch.nonzero(index.to(torch.bool).reshape(-1))[:, 0]
+    return data.index_select(int(axis), idx)
 
 
 @register("_contrib_sdp_selfatt", needs_rng=True, needs_train_flag=True)

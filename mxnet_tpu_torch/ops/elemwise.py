@@ -82,6 +82,15 @@ for _n, _f in [("_equal_scalar", torch.eq), ("_not_equal_scalar", torch.ne),
     register(_n)(_make_scalar(_n, _f, cmp=True))
 
 
+def div_exact(x, d):
+    """``x / d`` for a Python number ``d``, rounded as IEEE division on
+    every device: CUDA divides by a host scalar as a product with its
+    reciprocal, which can land a last bit away (and so flip a floor or
+    a ceil that follows). ``d`` goes to the device as a 0-d tensor."""
+    return x / torch.full((), d, dtype=x.dtype if x.is_floating_point()
+                          else torch.get_default_dtype(), device=x.device)
+
+
 def _cbrt(x):
     return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
 

@@ -7,15 +7,17 @@ leaves its products to XLA outside any kernel. Index ops keep the
 reference's out-of-range rules: ``take`` clips or wraps, ``Embedding``
 gives a NaN row for an id past the table and wraps a negative one (what
 ``jnp.take`` does), ``one_hot`` gives a zero row, ``gather_nd`` wraps a
-negative index once and clamps (what jnp's gather does). Nothing asserts
-on the card and nothing syncs with the host.
+negative index once and clamps (what jnp's gather does), a scatter drops
+a write out of range. Nothing asserts on the card and nothing syncs with
+the host. The la_op family (``linalg_*``, also as ``_linalg_*``) runs
+through ``torch.linalg``: cuSOLVER and cuBLAS on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import torch_dtype
-from . import register
+from . import register, _ALIASES
 
 
 @register("dot")
@@ -357,3 +359,493 @@ def stack(*data, axis=0):
     """Join arrays of one shape along a new axis (ref: matrix.py ::
     stack); the DataLoader's batchify stacks NDArray samples with it."""
     return torch.stack(data, dim=int(axis))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's matrix.py: layout, sequence and index ops,
+# im2col/col2im, khatri_rao and the la_op family
+# ---------------------------------------------------------------------------
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """data / sqrt(sum(data^2) + eps) over every axis but the batch
+    (instance), the channel axis (channel) or the spatial axes (spatial)
+    (ref: l2_normalization.cc)."""
+    if mode == "instance":
+        ax = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        ax = (1,)
+    elif mode == "spatial":
+        ax = tuple(range(2, data.dim()))
+    else:
+        raise ValueError(mode)
+    return data / torch.sqrt(torch.square(data).sum(dim=ax, keepdim=True)
+                             + eps)
+
+
+def _int32_vector(values, device):
+    """An int32 vector of Python ints made on ``device`` by fills (a
+    host-to-device copy could not be captured)."""
+    if not values:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    return torch.stack([torch.full((), int(v), dtype=torch.int32,
+                                   device=device) for v in values])
+
+
+@register("shape_array")
+def shape_array(data):
+    """The shape as an int32 vector (the reference's dtype)."""
+    return _int32_vector(tuple(data.shape), data.device)
+
+
+@register("size_array")
+def size_array(data):
+    """The element count as an int32 vector of one."""
+    return _int32_vector((data.numel(),), data.device)
+
+
+def _decode_index(enc, shape):
+    """The hashable basic index of the reference's ``_encode_index``
+    (("i", k), ("s", start, stop, step), ("n",)) as a torch index with
+    positive steps only, and the output axes to flip afterwards (a
+    negative step takes the same elements in reverse order)."""
+    out, flips = [], []
+    dim = 0      # input axis
+    oax = 0      # output axis
+    for e in enc:
+        if e[0] == "i":
+            out.append(e[1])
+            dim += 1
+        elif e[0] == "n":
+            out.append(None)
+            oax += 1
+        else:
+            sl = slice(e[1], e[2], e[3])
+            if sl.step is not None and sl.step < 0:
+                pos = range(*sl.indices(shape[dim]))
+                sl = slice(pos[-1], pos[0] + 1, -sl.step) if len(pos) \
+                    else slice(0, 0)
+                flips.append(oax)
+            out.append(sl)
+            dim += 1
+            oax += 1
+    return tuple(out), tuple(flips)
+
+
+@register("_view_index")
+def view_index(data, *, index):
+    """Recorded basic indexing (ref: the reference NDArray's slice and
+    ``at`` under autograd)."""
+    idx, flips = _decode_index(index, data.shape)
+    out = data[idx]
+    return torch.flip(out, flips) if flips else out
+
+
+@register("_slice_assign")
+def slice_assign(data, val, *, index):
+    """``data`` with the indexed region replaced by ``val`` (ref:
+    _slice_assign); the gradient is zero in the assigned region of
+    d(data) and the region's gradient in d(val)."""
+    idx, flips = _decode_index(index, data.shape)
+    out = data.clone()
+    region = out[idx]
+    v = val.to(data.dtype).expand(region.shape)
+    out[idx] = torch.flip(v, flips) if flips else v
+    return out
+
+
+@register("Pad", aliases=["pad"])
+def pad(data, *, mode="constant", pad_width, constant_value=0.0):
+    """Pad every axis by (before, after) pairs in ``pad_width`` (ref:
+    pad.cc): a constant, the edge value, or the reflection without the
+    edge (numpy's modes, as the reference's ``jnp.pad``)."""
+    pw = tuple(int(p) for p in pad_width)
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    pairs += [(0, 0)] * (data.dim() - len(pairs))
+    if mode == "constant":
+        flat = []
+        for lo, hi in reversed(pairs):
+            flat += [lo, hi]
+        return torch.nn.functional.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError(mode)
+    out = data
+    for ax, (lo, hi) in enumerate(pairs):
+        if not lo and not hi:
+            continue
+        n = data.shape[ax]
+        pos = torch.arange(-lo, n + hi, device=data.device)
+        if mode == "edge":
+            pos = pos.clamp(0, n - 1)
+        else:
+            pos = torch.where(pos < 0, -pos, pos)
+            pos = torch.where(pos > n - 1, 2 * (n - 1) - pos, pos)
+        out = out.index_select(ax, pos)
+    return out
+
+
+@register("scatter_nd")
+def scatter_nd(data, indices, *, shape):
+    """Zeros of ``shape`` with ``data`` written at ``indices`` (M, ...)
+    (ref: indexing_op.cc :: scatter_nd)."""
+    from .tensor_tail import scatter_set
+    base = torch.zeros(tuple(int(s) for s in shape), dtype=data.dtype,
+                       device=data.device)
+    return scatter_set(base, tuple(indices.to(torch.int64)), data)
+
+
+@register("SequenceLast")
+def sequence_last(data, sequence_length=None, *, use_sequence_length=False,
+                  axis=0):
+    """The last step of each sequence along ``axis`` (ref:
+    sequence_last.cc); a length of 0 takes the last step, as the
+    reference's wrapped index -1 does."""
+    ax = int(axis)
+    if not use_sequence_length or sequence_length is None:
+        return data.select(ax, -1)
+    T = data.shape[ax]
+    last = sequence_length.to(torch.int64) - 1
+    last = torch.where(last < 0, last + T, last).clamp(0, T - 1)
+    x = data.movedim(ax, 0)                 # (T, N, ...)
+    idx = last.reshape((1, -1) + (1,) * (x.dim() - 2)).expand(
+        (1,) + tuple(x.shape[1:]))
+    return torch.gather(x, 0, idx).squeeze(0)
+
+
+@register("SequenceReverse")
+def sequence_reverse(data, sequence_length=None, *, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's first ``length`` steps reversed along axis 0, the
+    rest kept (ref: sequence_reverse.cc)."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (int(axis),))
+    T = data.shape[0]
+    steps = torch.arange(T, device=data.device)[:, None]
+    lens = sequence_length.to(torch.int64)[None, :]
+    rev = torch.where(steps < lens, lens - 1 - steps, steps)
+    rev = torch.where(rev < 0, rev + T, rev).clamp(0, T - 1)
+    idx = rev.reshape(rev.shape + (1,) * (data.dim() - 2)).expand(data.shape)
+    return torch.gather(data, 0, idx)
+
+
+@register("depth_to_space")
+def depth_to_space(data, *, block_size):
+    b = int(block_size)
+    n, c, h, w = data.shape
+    x = data.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def space_to_depth(data, *, block_size):
+    b = int(block_size)
+    n, c, h, w = data.shape
+    x = data.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register("batch_take")
+def batch_take(a, indices):
+    """``a[i, indices[i]]`` for every row i, as jnp's indexing takes it:
+    an index wraps once if negative and is clamped, and one that was out
+    of range passes no gradient back (its scatter drops it)."""
+    n = a.shape[1]
+    idx = indices.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = (idx >= 0) & (idx < n)
+    out = torch.gather(a, 1, idx.clamp(0, n - 1).reshape(-1, 1)).squeeze(1)
+    return torch.where(inside, out, out.detach())
+
+
+@register("UpSampling")
+def upsampling(*data, scale, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=256):
+    """Upsampling (ref: nn/upsampling.cc). nearest: each pixel repeated
+    ``scale`` times on both axes, several inputs brought to the first's
+    size and concatenated; bilinear: the grouped Deconvolution whose
+    weight is the second input, kernel 2s - s % 2, stride s, pad
+    ceil((s - 1) / 2)."""
+    s = int(scale)
+    if sample_type == "bilinear":
+        from . import get_op
+        x, w = data[0], data[1]
+        C = x.shape[1]
+        k = 2 * s - s % 2
+        p = -(-(s - 1) // 2)
+        return get_op("Deconvolution").impl(
+            x, w, kernel=(k, k), num_filter=C, stride=(s, s), pad=(p, p),
+            num_group=C, no_bias=True)
+    outs = [d.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+            for d in data]
+    if len(outs) == 1:
+        return outs[0]
+    target = outs[0].shape[2:]
+    fixed = []
+    for o in outs:
+        if o.shape[2:] != target:
+            o = o.repeat_interleave(target[0] // o.shape[2], dim=2) \
+                .repeat_interleave(target[1] // o.shape[3], dim=3)
+        fixed.append(o)
+    return torch.cat(fixed, dim=1)
+
+
+@register("khatri_rao")
+def khatri_rao(*arrays):
+    """Column-wise Kronecker product: (r_i, k) inputs -> (prod r_i, k)
+    (ref: contrib/krprod.cc)."""
+    if not arrays:
+        raise ValueError("khatri_rao needs at least one input")
+    out = arrays[0]
+    for a in arrays[1:]:
+        out = (out[:, None, :] * a[None, :, :]).reshape(
+            out.shape[0] * a.shape[0], out.shape[1])
+    return out
+
+
+def _patch_geometry(kernel, stride, dilate, pad):
+    k = tuple(int(x) for x in kernel)
+    nsp = len(k)
+
+    def tup(v, default):
+        t = tuple(int(x) for x in (v or ()))
+        if not t:
+            return (default,) * nsp
+        return t if len(t) == nsp else t + (t[-1],) * (nsp - len(t))
+    return k, tup(stride, 1), tup(dilate, 1), tup(pad, 0)
+
+
+@register("im2col")
+def im2col(data, *, kernel, stride=None, dilate=None, pad=None):
+    """Conv patches as columns (ref: tensor/im2col.h): (N, C, *spatial)
+    -> (N, C * prod(kernel), prod(out_spatial)), the feature axis in (c,
+    k_1, ..., k_n) order. One strided window view a spatial axis, any
+    number of them."""
+    k, s, d, p = _patch_geometry(kernel, stride, dilate, pad)
+    nsp = len(k)
+    flat = []
+    for lo in reversed(p):
+        flat += [lo, lo]
+    x = torch.nn.functional.pad(data, flat)
+    for i in range(nsp):
+        x = x.unfold(2 + i, (k[i] - 1) * d[i] + 1, s[i])
+        x = x[..., ::d[i]]
+    # (N, C, O_1..O_n, K_1..K_n) -> (N, C, K_1..K_n, O_1..O_n)
+    perm = (0, 1) + tuple(range(2 + nsp, 2 + 2 * nsp)) + \
+        tuple(range(2, 2 + nsp))
+    x = x.permute(perm)
+    n_out = 1
+    for o in x.shape[2 + nsp:]:
+        n_out *= o
+    return x.reshape(data.shape[0], -1, n_out)
+
+
+@register("col2im")
+def col2im(data, *, output_size, kernel, stride=None, dilate=None,
+           pad=None):
+    """The adjoint of im2col (ref: tensor/im2col.h col2im): each
+    column's values added back into the (N, C, *output_size) image
+    where its patch lies, overlaps summed. One strided slice-add a
+    kernel offset."""
+    k, s, d, p = _patch_geometry(kernel, stride, dilate, pad)
+    nsp = len(k)
+    size = tuple(int(x) for x in output_size)
+    outs = tuple((size[i] + 2 * p[i] - d[i] * (k[i] - 1) - 1) // s[i] + 1
+                 for i in range(nsp))
+    N = data.shape[0]
+    kk = 1
+    for v in k:
+        kk *= v
+    C = data.shape[1] // kk
+    cols = data.reshape((N, C) + k + outs)
+    img = torch.zeros((N, C) + tuple(size[i] + 2 * p[i]
+                                     for i in range(nsp)),
+                      dtype=data.dtype, device=data.device)
+    for off in _offsets(k):
+        win = tuple(slice(off[i] * d[i],
+                          off[i] * d[i] + s[i] * (outs[i] - 1) + 1, s[i])
+                    for i in range(nsp))
+        img[(slice(None), slice(None)) + win] += cols[(slice(None),
+                                                       slice(None)) + off]
+    crop = tuple(slice(p[i], p[i] + size[i]) for i in range(nsp))
+    return img[(slice(None), slice(None)) + crop]
+
+
+def _offsets(k):
+    """Every kernel offset tuple, last axis fastest."""
+    out = [()]
+    for n in k:
+        out = [o + (j,) for o in out for j in range(n)]
+    return out
+
+
+# -- the la_op family (ref: src/operator/tensor/la_op.cc): torch.linalg,
+# cuSOLVER and cuBLAS on the card. The ``_ex`` forms are used where
+# torch has them, so no factorisation checks its status on the host; a
+# Cholesky factor of a matrix that is not positive definite is NaN, as
+# the reference's is. -------------------------------------------------------
+@register("linalg_gemm")
+def linalg_gemm(A, B, C, *, transpose_a=False, transpose_b=False,
+                alpha=1.0, beta=1.0, axis=-3):
+    """alpha op(A) op(B) + beta C."""
+    if axis != -3:
+        raise NotImplementedError(
+            "linalg_gemm: only the default axis=-3 layout is supported")
+    a = A.transpose(-1, -2) if transpose_a else A
+    b = B.transpose(-1, -2) if transpose_b else B
+    return alpha * torch.matmul(a, b) + beta * C
+
+
+@register("linalg_gemm2")
+def linalg_gemm2(A, B, *, transpose_a=False, transpose_b=False, alpha=1.0,
+                 axis=-3):
+    """alpha op(A) op(B)."""
+    a = A.transpose(-1, -2) if transpose_a else A
+    b = B.transpose(-1, -2) if transpose_b else B
+    return alpha * torch.matmul(a, b)
+
+
+@register("linalg_potrf")
+def linalg_potrf(A):
+    """The lower Cholesky factor L, A = L Lᵀ."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")).tril())
+
+
+def _eye_like(A):
+    n = A.shape[-1]
+    return torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+
+
+@register("linalg_potri")
+def linalg_potri(A):
+    """(L Lᵀ)⁻¹ from the Cholesky factor L."""
+    linv = torch.linalg.solve_triangular(A, _eye_like(A), upper=False)
+    return torch.matmul(linv.transpose(-1, -2), linv)
+
+
+@register("linalg_trsm")
+def linalg_trsm(A, B, *, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """X with op(A) X = alpha B, or X op(A) = alpha B with
+    ``rightside``, A triangular."""
+    a = A.transpose(-1, -2) if transpose else A
+    lo = lower != transpose
+    if rightside:
+        return torch.linalg.solve_triangular(a, alpha * B, upper=not lo,
+                                             left=False)
+    return torch.linalg.solve_triangular(a, alpha * B, upper=not lo)
+
+
+@register("linalg_trmm")
+def linalg_trmm(A, B, *, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """alpha op(A) B, or alpha B op(A) with ``rightside``, A's triangle
+    only."""
+    tri = torch.tril(A) if lower else torch.triu(A)
+    a = tri.transpose(-1, -2) if transpose else tri
+    return alpha * (torch.matmul(B, a) if rightside else torch.matmul(a, B))
+
+
+@register("linalg_syrk")
+def linalg_syrk(A, *, transpose=False, alpha=1.0):
+    """alpha A Aᵀ, or alpha Aᵀ A with ``transpose``."""
+    at = A.transpose(-1, -2)
+    return alpha * (torch.matmul(at, A) if transpose else torch.matmul(A, at))
+
+
+@register("linalg_gelqf")
+def linalg_gelqf(A):
+    """LQ factorisation A = L Q of an (m, n) matrix, m <= n, through the
+    QR of Aᵀ. Returns (Q, L), MXNet 1.x's order (``Q, L = gelqf(A)``);
+    the reference returns (L, Q) (ROADMAP.md queue 3)."""
+    q, r = torch.linalg.qr(A.transpose(-1, -2))
+    return q.transpose(-1, -2), r.transpose(-1, -2)
+
+
+@register("linalg_syevd")
+def linalg_syevd(A):
+    """Symmetric eigendecomposition: (U, lambda) with A = Uᵀ diag(lambda)
+    U, the eigenvalues ascending. Each row of U is unique up to its
+    sign."""
+    w, v = torch.linalg.eigh(A)
+    return v.transpose(-1, -2), w
+
+
+@register("linalg_sumlogdiag")
+def linalg_sumlogdiag(A):
+    return torch.log(torch.diagonal(A, dim1=-2, dim2=-1)).sum(dim=-1)
+
+
+@register("linalg_extractdiag")
+def linalg_extractdiag(A, *, offset=0):
+    return torch.diagonal(A, offset=int(offset), dim1=-2, dim2=-1)
+
+
+@register("linalg_makediag")
+def linalg_makediag(A, *, offset=0):
+    return torch.diag_embed(A, offset=int(offset))
+
+
+def _trian_index(n, offset, lower, device):
+    if lower:
+        return torch.tril_indices(n, n, int(offset), device=device)
+    return torch.triu_indices(n, n, int(offset), device=device)
+
+
+@register("linalg_extracttrian")
+def linalg_extracttrian(A, *, offset=0, lower=True):
+    """The lower (or upper) triangle band, ``offset`` diagonals off the
+    main one, packed row by row into a vector."""
+    rows, cols = _trian_index(A.shape[-1], offset, lower, A.device)
+    return A[..., rows, cols]
+
+
+def _trian_len(n, offset, lower):
+    """Entries of the band extracttrian packs from an (n, n) matrix."""
+    k = int(offset)
+    count = 0
+    for i in range(n):
+        lo, hi = (0, min(n, i + k + 1)) if lower else (max(0, i + k), n)
+        count += max(0, hi - lo)
+    return count
+
+
+@register("linalg_maketrian")
+def linalg_maketrian(A, *, offset=0, lower=True):
+    """The inverse of extracttrian: the packed band written back into an
+    otherwise zero square matrix."""
+    m = A.shape[-1]
+    n = 1
+    while _trian_len(n, offset, lower) < m:
+        n += 1
+    if _trian_len(n, offset, lower) != m:
+        raise ValueError("maketrian: %d entries fit no square matrix with "
+                         "offset %d" % (m, offset))
+    rows, cols = _trian_index(n, offset, lower, A.device)
+    lead = tuple(A.shape[:-1])
+    flat = torch.zeros(lead + (n * n,), dtype=A.dtype, device=A.device)
+    flat = flat.scatter(-1, (rows * n + cols).expand(lead + (m,)), A)
+    return flat.reshape(lead + (n, n))
+
+
+@register("linalg_det")
+def linalg_det(A):
+    return torch.linalg.det(A)
+
+
+@register("linalg_slogdet")
+def linalg_slogdet(A):
+    sign, logdet = torch.linalg.slogdet(A)
+    return sign, logdet
+
+
+@register("linalg_inverse")
+def linalg_inverse(A):
+    return torch.linalg.inv_ex(A).inverse
+
+
+# the reference registers every la_op as ``_linalg_*`` too
+for _n in ("gemm", "gemm2", "potrf", "potri", "trmm", "trsm", "syrk",
+           "gelqf", "syevd", "sumlogdiag", "extractdiag", "makediag",
+           "extracttrian", "maketrian", "det", "slogdet", "inverse"):
+    _ALIASES.setdefault("_linalg_" + _n, "linalg_" + _n)

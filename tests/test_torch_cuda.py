@@ -2023,3 +2023,177 @@ def test_softmax_output_card_matches_cpu(card):
         res.append((p.asnumpy(), x.grad.asnumpy()))
     for g, r in zip(res[1], res[0]):
         np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the op registry: tensor_tail, matrix with linalg, the five
+# contrib ops, vision_ops
+# ---------------------------------------------------------------------------
+def _ssd_candidates(rs, B, N=8732):
+    """(B, N, 6) rows [class, score, x1, y1, x2, y2]: clustered boxes in
+    [0, 1], 20 classes, scores in [0, 1)."""
+    xy = rs.uniform(0, 0.8, (B, N, 2))
+    wh = rs.uniform(0.02, 0.3, (B, N, 2))
+    return np.concatenate([rs.randint(0, 20, (B, N, 1)),
+                           rs.uniform(0, 1, (B, N, 1)), xy, xy + wh],
+                          -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("topk", [-1, 400])
+def test_box_nms_ssd_width_card_matches_cpu(card, topk):
+    """box_nms over SSD-300's 8732 candidates, all of them or the top
+    400: the card's output equals the CPU's bit for bit (the IoUs are
+    elementwise f32 operations on both, the sort is stable)."""
+    import mxnet_tpu_torch as mx
+    det = _ssd_candidates(np.random.RandomState(2), 2)
+    out = [mx.nd._contrib_box_nms(
+        mx.nd.array(det, ctx=ctx), overlap_thresh=0.45, valid_thresh=0.01,
+        topk=topk, id_index=0).asnumpy() for ctx in (mx.cpu(), mx.gpu(0))]
+    np.testing.assert_array_equal(out[1], out[0])
+    assert (out[1][..., 1] > 0).sum() <= (2 * topk if topk > 0 else 2 * 8732)
+
+
+def test_roi_align_backward_card_matches_cpu(card):
+    """ROIAlign forward and backward at a Faster R-CNN-like (2, 64, 38,
+    63) map, 64 ROIs: within 1e-5 relative, and 1e-5 of the largest
+    gradient (the card adds the taps' gradients in another order)."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(3)
+    data = rs.randn(2, 64, 38, 63).astype(np.float32)
+    wh = rs.uniform(16, 400, (64, 2))
+    x1 = rs.uniform(0, 1000 - wh[:, 0])
+    y1 = rs.uniform(0, 600 - wh[:, 1])
+    rois = np.stack([rs.randint(0, 2, 64), x1, y1, x1 + wh[:, 0],
+                     y1 + wh[:, 1]], 1).astype(np.float32)
+    head = rs.rand(64, 64, 7, 7).astype(np.float32)
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        x = mx.nd.array(data, ctx=ctx)
+        x.attach_grad()
+        with mx.autograd.record():
+            y = mx.nd._contrib_ROIAlign(x, mx.nd.array(rois, ctx=ctx),
+                                        pooled_size=(7, 7),
+                                        spatial_scale=1 / 16,
+                                        sample_ratio=2)
+        y.backward(mx.nd.array(head, ctx=ctx))
+        res.append((y.asnumpy(), x.grad.asnumpy()))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5, atol=1e-6)
+    scale = np.abs(res[0][1]).max()
+    np.testing.assert_allclose(res[1][1], res[0][1], rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+def test_linalg_syevd_gelqf_on_the_card(card):
+    """cuSOLVER may choose other signs than LAPACK: the card is held to
+    what is unique, the reconstructions A = U^T diag(l) U and A = L Q,
+    the orthogonality of U and Q, and the eigenvalues against the CPU's,
+    each within 1e-4 of the largest entry."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(4)
+    x = rs.randn(16, 32, 32)
+    spd = (x @ x.transpose(0, 2, 1) / 32 + np.eye(32)).astype(np.float32)
+    U, lam = mx.nd.linalg_syevd(mx.nd.array(spd, ctx=mx.gpu(0)))
+    u, l = U.asnumpy().astype(np.float64), lam.asnumpy().astype(np.float64)
+    recon = u.transpose(0, 2, 1) @ (l[..., None] * u)
+    assert np.abs(recon - spd).max() <= 1e-4 * np.abs(spd).max()
+    assert np.abs(u @ u.transpose(0, 2, 1) - np.eye(32)).max() <= 1e-4
+    _, lam_cpu = mx.nd.linalg_syevd(mx.nd.array(spd, ctx=mx.cpu()))
+    assert np.abs(l - lam_cpu.asnumpy()).max() <= 1e-4 * np.abs(l).max()
+    a = rs.randn(16, 12, 32).astype(np.float32)
+    Q, L = mx.nd.linalg_gelqf(mx.nd.array(a, ctx=mx.gpu(0)))
+    q, lo = Q.asnumpy().astype(np.float64), L.asnumpy().astype(np.float64)
+    assert np.abs(lo @ q - a).max() <= 1e-4 * np.abs(a).max()
+    assert np.abs(q @ q.transpose(0, 2, 1) - np.eye(12)).max() <= 1e-4
+    assert np.abs(np.triu(lo, 1)).max() == 0
+
+
+def test_boolean_mask_eager_on_the_card(card):
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(5)
+    data = rs.randn(100, 7).astype(np.float32)
+    keep = (rs.rand(100) > 0.3).astype(np.float32)
+    out = mx.nd._contrib_boolean_mask(mx.nd.array(data, ctx=mx.gpu(0)),
+                                      mx.nd.array(keep, ctx=mx.gpu(0)))
+    np.testing.assert_array_equal(out.asnumpy(), data[keep > 0])
+
+
+def test_hybridized_ssd_head_bit_for_bit_with_eager(card):
+    """SSD's detection head (MultiBoxDetection, NMS 0.45 over the top
+    400) captured in a CUDA graph equals its eager twin bit for bit, and
+    the graph is replayed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+
+    class Head(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, c, l, a):
+            return F._contrib_MultiBoxDetection(c, l, a, nms_threshold=0.45,
+                                                nms_topk=400)
+    rs = np.random.RandomState(6)
+    N = 8732
+    logits = rs.randn(2, 21, N) * 2
+    cls = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(
+        np.float32)
+    loc = (rs.randn(2, N * 4) * 0.5).astype(np.float32)
+    anchors = _ssd_candidates(rs, 1)[..., 2:]
+    ins = [mx.nd.array(a, ctx=mx.gpu(0)) for a in (cls, loc, anchors)]
+    head = Head()
+    with cached_op.eager():
+        want = head(*ins).asnumpy()
+    head.hybridize()
+    cached_op.reset_replay_counts()
+    for _ in range(3):
+        got = head(*ins).asnumpy()
+    assert cached_op.replay_counts()["forward"] >= 2
+    np.testing.assert_array_equal(got, want)
+
+
+NO_SYNC_OPS = [
+    ("linalg_potrf", lambda nd, a, e: nd.linalg_potrf(a)),
+    ("linalg_potri", lambda nd, a, e: nd.linalg_potri(nd.linalg_potrf(a))),
+    ("linalg_trsm", lambda nd, a, e: nd.linalg_trsm(nd.linalg_potrf(a), a)),
+    ("linalg_inverse", lambda nd, a, e: nd.linalg_inverse(a)),
+    ("linalg_det", lambda nd, a, e: nd.linalg_det(a)),
+    ("linalg_slogdet", lambda nd, a, e: nd.linalg_slogdet(a)[1]),
+    ("linalg_gelqf", lambda nd, a, e: nd.linalg_gelqf(a)[0]),
+    ("linalg_maketrian", lambda nd, a, e: nd.linalg_maketrian(
+        nd.linalg_extracttrian(a))),
+    ("ROIPooling", lambda nd, a, e: nd.ROIPooling(
+        a.reshape((2, 8, 4, 8)), e["rois"], pooled_size=(2, 3),
+        spatial_scale=0.25)),
+    ("ROIAlign", lambda nd, a, e: nd._contrib_ROIAlign(
+        a.reshape((2, 8, 4, 8)), e["rois"], pooled_size=(2, 3),
+        spatial_scale=0.25, sample_ratio=2)),
+    ("box_nms", lambda nd, a, e: nd._contrib_box_nms(
+        a.reshape((4, 16, 8))[..., :6], topk=5)),
+    ("MultiBoxTarget", lambda nd, a, e: nd._contrib_MultiBoxTarget(
+        nd.abs(a.reshape((1, 128, 4))) / 8, e["label"],
+        a.reshape((1, 4, 128)))[0]),
+    ("bipartite_matching", lambda nd, a, e: nd._contrib_bipartite_matching(
+        a.reshape((4, 16, 8)), threshold=0.1)[0]),
+]
+
+
+@pytest.mark.parametrize("name,fn", NO_SYNC_OPS,
+                         ids=[n for n, _ in NO_SYNC_OPS])
+def test_new_ops_read_nothing_back_on_the_card(card, name, fn):
+    """None of these ops waits on the card from the host (torch's sync
+    debug mode turns a synchronising call into an error): each can be
+    captured in a CUDA graph. linalg_syevd is not among them: torch's
+    eigh checks its status on the host (ROADMAP.md queue 3)."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(7)
+    x = rs.randn(8, 8, 8).astype(np.float32)
+    gpu = mx.gpu(0)
+    a = mx.nd.array(x @ x.transpose(0, 2, 1) + 8 * np.eye(8, dtype=np.float32),
+                    ctx=gpu)
+    extra = {"rois": mx.nd.array([[0, 1, 1, 30, 20], [1, 0, 5, 60, 40]],
+                                 ctx=gpu),
+             "label": mx.nd.array([[[0, 0.1, 0.1, 0.5, 0.5]]], ctx=gpu)}
+    torch.cuda.synchronize()
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(mx.nd, a, extra)
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+    assert np.isfinite(out.asnumpy()).all()

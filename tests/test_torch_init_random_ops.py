@@ -48,10 +48,14 @@ def _ctx(lib):
 # ---------------------------------------------------------------------------
 # the registry
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("module", ["init_ops", "random_ops", "nn"])
+@pytest.mark.parametrize("module", ["init_ops", "random_ops", "nn",
+                                    "tensor_tail", "matrix", "contrib_ops",
+                                    "vision_ops"])
 def test_op_names_match_reference(module):
     """Every name the reference's module registers, and its aliases,
-    resolve in the port."""
+    resolve in the port to the op the reference resolves them to (an
+    alias that is also an op's own name, as ``reverse``, resolves to
+    that op in both)."""
     names = [n for n, op in ref_ops._OPS.items()
              if op.impl.__module__ == "mxnet_tpu.ops." + module]
     assert names
@@ -59,7 +63,7 @@ def test_op_names_match_reference(module):
     assert not missing, missing
     aliases = [a for a, n in ref_ops._ALIASES.items() if n in names]
     unresolved = [a for a in aliases
-                  if port_ops.get_op(a).name != ref_ops._ALIASES[a]]
+                  if port_ops.get_op(a).name != ref_ops.get_op(a).name]
     assert not unresolved, unresolved
 
 
