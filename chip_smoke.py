@@ -399,6 +399,46 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    phase's seconds. To run it alone: ``python3 -c "import chip_smoke as
    cs; line = cs.phase_device(); cs.phase_ops_tail(0, line)"``.
 
+19. layout — the NHWC layout pass on the hybridized path
+   (``MXNET_LAYOUT_OPT``, ``symbol/layout_opt.py``: an island opens
+   for tensor-core data, 16-bit or f32 under TF32) and the S2D stem
+   (``MXNET_CONV_S2D``). Phases 11, 15 and 18 keep their bit-for-bit
+   checks of a hybridized conv net against its eager twin with the pass
+   off (``layout_opt("0")``; their timings run on the default path);
+   their twins with the pass on run here, each within ``LAYOUT_LIMIT``
+   (twice the largest reading of ``layout_readings`` over seeds 0-4) and
+   each with a planted fault (every 2-D convolution of a hybridized call
+   reading its kernel mirrored) beyond it: phase 11's compiled bf16
+   ResNet-50 v1 (128 x 224^2, 3 SGD steps: losses, parameters and the
+   first gradients; every conv bias elided, exactly zero-gradient and
+   unmoved) against the eager loop, and against the eager loop fed
+   channels-last with its conv biases frozen (the same cuDNN kernels:
+   every component, the fault beyond each), phase 15's VGG-16 (64 x
+   224^2 f32, TF32 off, 2 steps) and phase 18's offset conv ->
+   deformable conv -> ROIAlign block. Then the ResNet-50 step with the
+   pass on and off in turns (ms, images/s, graph memory, one profiled
+   step each way: kernels and cuDNN's layout-change kernels by name)
+   and with the S2D stem on and off (ms, device busy), VGG-16's step
+   both ways with TF32 off and on, the stem at (128, 3, 224, 224) bf16
+   with S2D on and off (device time, the output's distance within
+   ``LAYOUT_LIMIT["stem"]``), and a dropout after a channels-last conv
+   (structured, and row 8's kernel) bit for bit with NCHW.
+   ``layout_readings`` also prints the witness of the ResNet-50 gap
+   (``_layout_witness``: the eager steps channels-last against NCHW in
+   bf16 and in f32 with TF32 off, by kind of leaf).
+20. engine — the dependency engine built from ``csrc/engine.cc`` with
+   g++; the MNIST MLP with its rtc custom op (phase 9's net), three SGD
+   steps with ``nd.Custom`` on the engine's workers bit for bit with the
+   inline callback; a slow custom op (``ENGINE_SLOW_S`` of host work)
+   beside ``ENGINE_MAIN_MATMULS`` bf16 matmuls on the main stream, wall
+   time against the sum of the two apart (at most 75%); an exploding
+   custom op raising at ``wait_to_read``, the context computing after
+   it; the served BERT-base (8, 128) request and one eager ResNet-50 step
+   under ``NaiveEngine`` bit for bit with the default, timed both ways.
+   To run 19 and 20 alone: ``python3 -c "import chip_smoke as cs; line =
+   cs.phase_device(); cs.phase_layout(0, line)"``; ``layout_readings(
+   range(5), line)`` prints the readings behind ``LAYOUT_LIMIT``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3940,26 +3980,41 @@ def phase_compiled_resnet(seed):
                     losses.append(loss.tensor().detach().float().clone())
             return losses, _snapshot(params)
 
-        a, b = run(False), run(False)
-        cuda_build.reset_launch_counts()
-        cached_op.reset_replay_counts()
-        with _capture_launches() as counts:
-            c, held = _graph_mb(lambda: run(True))
-        print("[compiled] resnet: %d compiled steps: stashed plans %s, graph "
-              "replays %s, kernel launches %s (recorded into graphs %s)" % (
-                  COMPILED_STEPS, state["stashed"],
-                  cached_op.replay_counts(),
-                  {k: v for k, v in cuda_build.launch_counts().items()
-                   if v} or "none",
-                  {k: v for k, v in counts.items() if v} or "none"))
-        if state["stashed"] != [False] + [True] * (COMPILED_STEPS - 1):
-            raise SmokeFailure("the compiled ResNet steps did not consume "
-                               "a plan from the second on: %s"
-                               % state["stashed"])
-        _, fail = _parity("resnet, %d SGD steps" % COMPILED_STEPS, a, b, c)
-        if fail:
-            raise SmokeFailure("the compiled ResNet steps differ from the "
-                               "eager loop")
+        # bit for bit with the eager loop with the layout pass off; phase
+        # 19 holds the pass's run to the eager loop within LAYOUT_LIMIT
+        with layout_opt("0"):
+            a, b = run(False), run(False)
+            cuda_build.reset_launch_counts()
+            cached_op.reset_replay_counts()
+            with _capture_launches() as counts:
+                c = run(True)
+            print("[compiled] resnet: %d compiled steps: stashed plans %s, "
+                  "graph replays %s, kernel launches %s (recorded into "
+                  "graphs %s)" % (
+                      COMPILED_STEPS, state["stashed"],
+                      cached_op.replay_counts(),
+                      {k: v for k, v in cuda_build.launch_counts().items()
+                       if v} or "none",
+                      {k: v for k, v in counts.items() if v} or "none"))
+            if state["stashed"] != [False] + [True] * (COMPILED_STEPS - 1):
+                raise SmokeFailure("the compiled ResNet steps did not "
+                                   "consume a plan from the second on: %s"
+                                   % state["stashed"])
+            _, fail = _parity("resnet, %d SGD steps" % COMPILED_STEPS, a, b,
+                              c)
+            if fail:
+                raise SmokeFailure("the compiled ResNet steps differ from "
+                                   "the eager loop")
+            # control: a step whose replay is skipped must fail the parity
+            bad = run(True, skip_at=COMPILED_STEPS - 1)
+            _, caught = _parity("control: step %d's replay skipped"
+                                % COMPILED_STEPS, a, b, bad)
+            if not caught:
+                raise SmokeFailure("control: the parity check passed a step "
+                                   "whose replay was skipped")
+        # the numbers on the default path (MXNET_LAYOUT_OPT as set)
+        _free_graphs(net, loss_fn)
+        _, held = _graph_mb(lambda: run(True))
         replays = _steady("resnet", lambda: step(state["tr"]))
         if replays != {"forward": 2, "backward": 0, "tape": 1, "chunk": 0}:
             raise SmokeFailure("compiled ResNet step: replays %s, expected "
@@ -3970,14 +4025,6 @@ def phase_compiled_resnet(seed):
                 eager_ms, comp_ms, held)
         _profile("one compiled ResNet-50 step (batch %d)" % RESNET_BATCH,
                  lambda: step(state["tr"]))
-
-        # control: a step whose replay is skipped must fail the parity
-        bad = run(True, skip_at=COMPILED_STEPS - 1)
-        _, caught = _parity("control: step %d's replay skipped"
-                            % COMPILED_STEPS, a, b, bad)
-        if not caught:
-            raise SmokeFailure("control: the parity check passed a step "
-                               "whose replay was skipped")
         _free_graphs(net, loss_fn)
     finally:
         amp.reset()
@@ -5975,7 +6022,9 @@ def _vision_vgg(seed, where):
         return (losses, _snapshot(params)), waits
 
     scalar = cuda_dropout.scalar_launches
-    with _deterministic():
+    # bit for bit with the layout pass off; phase 19 holds the pass's run
+    # to the eager steps within LAYOUT_LIMIT
+    with _deterministic(), layout_opt("0"):
         (eager, waits4) = run(False)
         counts = state["counts"]
         (again, _) = run(False)
@@ -6014,10 +6063,14 @@ def _vision_vgg(seed, where):
         raise SmokeFailure("vision (a): the loss did not fall: %s" % losses)
 
     # (g) numbers: in turns, the profile, the loader's wait, memory,
-    # under the algorithms the graphs were captured with
+    # under the algorithms the graphs were captured with, on the default
+    # path (MXNET_LAYOUT_OPT as set: other graphs than (a)'s, captured by
+    # the first two steps)
     with _deterministic():
         x, y = state["batch"]
         tr = state["tr"]
+        step(tr, x, y)
+        step(tr, x, y)
         eager_ms, comp_ms = _in_turns(lambda: step(tr, x, y),
                                       lambda: step(tr, x, y), turns=10)
         _, waits0 = run(True, gdata.DataLoader(
@@ -8150,7 +8203,9 @@ def _tail_captured(seed, rs, cls_prob, loc, anc, card_line):
                     ctx=gpu)
     rois = mx.nd.array(_rcnn_rois(rs, DEFORM_SHAPE[0], ROI_ALIGN_ROIS),
                        ctx=gpu)
-    with _no_tf32():
+    # bit for bit with the layout pass off; phase 19 holds the pass's run
+    # to eager within LAYOUT_LIMIT["deform"]
+    with _no_tf32(), layout_opt("0"):
         with cached_op.eager():
             want = blk(x, rois).tensor().clone()
         blk.hybridize(static_alloc=True)
@@ -8246,6 +8301,1005 @@ def phase_ops_tail(seed, card_line, reps=5):
              took[3] - took[2], took[4] - took[3],
              time.perf_counter() - took[4], card_line))
     return t
+
+
+# ---------------------------------------------------------------------------
+# 19. the NHWC layout pass (MXNET_LAYOUT_OPT) and the S2D stem
+#     (MXNET_CONV_S2D)
+# ---------------------------------------------------------------------------
+# Each check under MXNET_LAYOUT_OPT=1 against its eager twin (the pass
+# runs only in a hybridized call) reads relative L2 distances by
+# component, each against its own limit: the first step's output
+# ("logits"), the largest over the steps' losses ("loss"), the first
+# step's gradients and the parameters after the last step, each as one
+# vector with the elided conv biases apart (those must be exactly
+# zero-gradient and unmoved under the pass); the deformable block's and
+# the S2D stem's "output". Each limit is twice the largest reading of
+# ``layout_readings`` over seeds 0-4 on an H100; the planted fault (every
+# 2-D convolution inside a hybridized call reads its kernel mirrored, the
+# orientation bug of a layout rewrite) must exceed one of them, and for
+# "resnet_nhwc" every one.
+# "resnet" holds the bf16 ResNet-50 to the eager loop in NCHW. Its
+# gradients part by up to ~0.7 and its parameters by ~0.12, and no limit
+# there can fail the fault: cuDNN's NHWC kernels alone part them so
+# (``_layout_witness``: the eager loop fed channels-last, no pass, reads
+# the same by kind of leaf to the printed digits; NHWC against itself 0;
+# in f32 with TF32 off 0.023-0.025, against logits 2.1e-5-2.5e-5 apart:
+# at initialisation BatchNorm's backward cancels most of a gradient).
+# "resnet_nhwc" holds it to the eager loop fed channels-last with the
+# conv biases frozen, the same kernels and the elision's effect: bit for
+# bit, so every component catches the fault.
+# Readings at seeds 0-4 (NVIDIA H100 80GB HBM3, 700 W): "resnet" logits
+# 0-0.0234, loss 0.0555-0.0757, gradients 0.0319-0.717, parameters
+# 0.0643-0.121 (mirrored: logits 0.216-0.222, gradients 1.40 at least);
+# "resnet_nhwc" 0 (mirrored: logits 0.215, loss 0.061, gradients 1.40,
+# parameters 0.208 at least); VGG-16 (f32, TF32 off: no island) 0
+# (mirrored: loss 5.94e-6, parameters 1.96e-5 at least); the deformable
+# block 0 (mirrored 1.22); the stem 1.65e-5-1.85e-5.
+LAYOUT_LIMIT = {"resnet": {"logits": 0.0468, "loss": 0.152,
+                           "gradients": 1.44, "parameters": 0.243},
+                "resnet_nhwc": {"logits": 0.0, "loss": 0.0,
+                                "gradients": 0.0, "parameters": 0.0},
+                "vgg16": {"loss": 0.0, "parameters": 0.0},
+                "deform": {"output": 0.0},
+                "stem": {"output": 3.71e-5}}
+LAYOUT_TURNS = 5
+LAYOUT_VGG_STEPS = 2
+# cuDNN's layout-change kernels, matched in lower case
+LAYOUT_KERNEL_NAMES = ("nchwtonhwc", "nhwctonchw", "nchw2nhwc",
+                       "nhwc2nchw")
+S2D_REPS = 20
+
+
+@contextlib.contextmanager
+def _env_flag(name, flag):
+    """The environment variable ``name`` set to ``flag`` in the scope."""
+    old = os.environ.get(name)
+    os.environ[name] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def layout_opt(flag):
+    """``MXNET_LAYOUT_OPT`` set to ``flag`` ("0" or "1") in the scope; a
+    CachedOp reads it at each call and keys its graphs on it."""
+    return _env_flag("MXNET_LAYOUT_OPT", flag)
+
+
+def conv_s2d(flag):
+    """``MXNET_CONV_S2D`` set to ``flag`` in the scope (also part of a
+    CachedOp's signature)."""
+    return _env_flag("MXNET_CONV_S2D", flag)
+
+
+@contextlib.contextmanager
+def _mirrored_kernels(on=True):
+    """The planted fault: every 2-D convolution inside a hybridized call
+    with the pass on reads its kernel mirrored left to right (graphs
+    captured before it keep their kernels: release them first)."""
+    from unittest import mock
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    from mxnet_tpu_torch.symbol import layout_opt as lo
+
+    def conv(x, w, b, *a):
+        if lo.active() is not None:
+            w = w.flip(-1)
+        return F.conv2d(x, w, b, *a)
+    with (mock.patch.dict(nn_ops._CONV, {2: conv}) if on
+          else contextlib.nullcontext()):
+        yield
+
+
+def _layout_check(tag, reading, limit, planted=False):
+    """Print a reading (a dict of components) against its limits; returns
+    whether a component is beyond its limit (None: a readings run,
+    nothing judged)."""
+    got = ", ".join("%s %.4g" % kv for kv in sorted(reading.items()))
+    if limit is None:
+        print("[layout] %s: %s, no limit set" % (tag, got))
+        return False
+    beyond = sorted(k for k, v in reading.items()
+                    if not v <= limit[k])          # NaN is beyond
+    verdict = ("caught" if beyond else "MISSED") if planted else \
+        ("FAIL" if beyond else "ok")
+    print("[layout] %s: %s; limits %s %s%s" % (
+        tag, got, ", ".join("%s %.4g" % kv for kv in sorted(limit.items())),
+        verdict, " (beyond: %s)" % ", ".join(beyond) if beyond else ""))
+    return bool(beyond)
+
+
+def _vector_distance(got, ref, skip=()):
+    """The relative L2 distance of two dicts of tensors as one vector,
+    ``skip`` apart."""
+    import torch
+
+    def cat(d):
+        return torch.cat([d[n].float().flatten() for n in ref
+                          if n not in skip])
+    return _rel(cat(got), cat(ref))
+
+
+def _leaf_groups(got, ref, skip=()):
+    """``_vector_distance`` of each kind of leaf apart: the conv weights,
+    BatchNorm's gamma and beta, the dense layer."""
+    def kind(n):
+        if "conv" in n and n.endswith("_weight"):
+            return "conv"
+        if "batch_norm" in n:
+            return "batchnorm"
+        return "dense" if "dense" in n else "other"
+    out = {}
+    for k in ("conv", "batchnorm", "dense", "other"):
+        names = [n for n in ref if n not in skip and kind(n) == k]
+        if names:
+            out[k] = _vector_distance({n: got[n] for n in names},
+                                      {n: ref[n] for n in names})
+    return out
+
+
+class _LayoutResNet:
+    """Phase 11's compiled ResNet-50 v1 (bf16 AMP, 128 x 224^2,
+    ``static_alloc``, SGD with the fused update) with the pass on and
+    off, from one snapshot of the parameters and one batch."""
+
+    def __init__(self, seed):
+        import torch
+        import mxnet_tpu_torch as mx
+        from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+        self.mx = mx
+        mx.random.seed(seed)
+        self.net = net = resnet50_v1(prefix="resnet50l_")
+        net.initialize(init=mx.init.MSRAPrelu())
+        with torch.no_grad():
+            net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE)))
+        net.hybridize(static_alloc=True, static_shape=True)
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.loss_fn.hybridize(static_alloc=True, static_shape=True)
+        self.params = net.collect_params()
+        # every conv bias of ResNet v1 feeds one BatchNorm: all elided
+        self.biases = [n for n in self.params
+                       if n.endswith("_bias") and "conv" in n]
+        g = torch.Generator(device=DEV).manual_seed(seed + 41)
+        self.x = mx.nd.NDArray(torch.randn(RESNET_BATCH, 3, RESNET_SIDE,
+                                           RESNET_SIDE, generator=g,
+                                           device=DEV))
+        self.y = mx.nd.NDArray(torch.randint(0, 1000, (RESNET_BATCH,),
+                                             generator=g, device=DEV).float())
+        self.snap = _snapshot(self.params)
+        self.trainer = None
+
+    def step(self, flag):
+        """One more step with the pass ``flag`` (after :meth:`run`)."""
+        mx = self.mx
+        with layout_opt(flag):
+            with mx.autograd.record():
+                loss = self.loss_fn(self.net(self.x), self.y)
+            loss.backward()
+            self.trainer.step(RESNET_BATCH)
+        return loss
+
+    def run(self, flag, compiled=True, fault=False, channels_last=False,
+            frozen_biases=False):
+        """``COMPILED_STEPS`` steps from the snapshot: (the first step's
+        output, the losses, the first step's gradients, the parameters
+        after). With ``channels_last`` the batch goes in channels-last,
+        so an eager run takes cuDNN's NHWC kernels without the pass; with
+        ``frozen_biases`` the conv biases take no gradient and stay put
+        (``grad_req`` null for the run: the elision's effect, without the
+        pass). A run with ``frozen_biases`` gives the parameters new
+        gradient arrays: make it before any capture."""
+        import torch
+        from mxnet_tpu_torch import autograd, cached_op
+        mx = self.mx
+        x = self.x if not channels_last else mx.nd.NDArray(
+            self.x.tensor().contiguous(memory_format=torch.channels_last))
+        _restore(self.params, self.snap)
+        autograd.disarm_fused_update()
+        for n in self.biases if frozen_biases else ():
+            self.params[n].grad_req = "null"
+        self.trainer = trainer = mx.gluon.Trainer(
+            self.params, "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+            kvstore="device")
+        losses, grads, logits = [], None, None
+        try:
+            with (contextlib.nullcontext() if compiled
+                  else cached_op.eager()), \
+                    _mirrored_kernels(fault), layout_opt(flag):
+                for i in range(COMPILED_STEPS):
+                    with mx.autograd.record():
+                        out = self.net(x)
+                        loss = self.loss_fn(out, self.y)
+                    loss.backward()
+                    if i == 0:
+                        logits = out.tensor().detach().float().clone()
+                        grads = {n: p.grad().tensor().detach().clone()
+                                 for n, p in self.params.items()
+                                 if p.grad_req != "null"}
+                    trainer.step(RESNET_BATCH)
+                    losses.append(loss.tensor().detach().float().clone())
+            torch.cuda.synchronize()
+        finally:
+            for n in self.biases if frozen_biases else ():
+                self.params[n].grad_req = "write"
+        return logits, losses, grads, _snapshot(self.params)
+
+    def reading(self, got, ref):
+        """The reading of a run under the pass against the eager run, and
+        whether the elided biases stayed exactly put with zero
+        gradients."""
+        import torch
+        skip = set(self.biases)
+        reading = {
+            "logits": _rel(got[0], ref[0]),
+            "loss": max(_rel(a, b) for a, b in zip(got[1], ref[1])),
+            "gradients": _vector_distance(got[2], ref[2], skip),
+            "parameters": _vector_distance(got[3], ref[3], skip)}
+        frozen = all(bool((got[2][n] == 0).all()) and
+                     torch.equal(got[3][n], self.snap[n])
+                     for n in self.biases)
+        return reading, frozen
+
+    def groups(self, got, ref):
+        """The first gradients' and the last parameters' distances by
+        kind of leaf (the elided biases apart)."""
+        skip = set(self.biases)
+        return {"gradients": _leaf_groups(got[2], ref[2], skip),
+                "parameters": _leaf_groups(got[3], ref[3], skip)}
+
+
+def _layout_vgg(seed, limit, card_line, fault=False, timing=True):
+    """VGG-16 (phase 15's, 64 x 224^2 f32, TF32 off, SGD) hybridized with
+    the pass on against its eager steps; with ``timing``, the step both
+    ways in turns. Returns the reading."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, cached_op
+    from mxnet_tpu_torch.ops import cuda_build
+    net, _ = _zoo_net("vgg16", VISION_SIDE, seed)
+    params = net.collect_params()
+    net.hybridize(static_alloc=True, static_shape=True)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize(static_alloc=True, static_shape=True)
+    x, y = _card_batch(seed, VISION_BATCH, VISION_SIDE)
+    snap = _snapshot(params)
+    state = {}
+
+    def step(flag):
+        with layout_opt(flag):
+            loss = _vision_step(net, loss_fn, x, y)
+            state["tr"].step(VISION_BATCH)
+        return loss
+
+    def run(flag, compiled, fault=False):
+        _restore(params, snap)
+        autograd.disarm_fused_update()
+        state["tr"] = mx.gluon.Trainer(params, "sgd", dict(VISION_SGD),
+                                       kvstore="device")
+        mx.random.seed(seed)
+        losses = []
+        with (contextlib.nullcontext() if compiled else cached_op.eager()), \
+                _mirrored_kernels(fault):
+            for _ in range(LAYOUT_VGG_STEPS):
+                losses.append(step(flag).tensor().detach().float()
+                              .mean().clone())
+        torch.cuda.synchronize()
+        return losses, _snapshot(params)
+
+    with _deterministic(), _no_tf32():
+        eager = run("1", False)
+        cuda_build.reset_launch_counts()
+        on = run("1", True, fault)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    reading = {"loss": max(_rel(a, b) for a, b in zip(on[0], eager[0])),
+               "parameters": _vector_distance(on[1], eager[1])}
+    tag = "vgg16 (batch %d x %d^2 f32, %d SGD steps) hybridized with the " \
+        "pass against eager" % (VISION_BATCH, VISION_SIDE, LAYOUT_VGG_STEPS)
+    if fault:
+        tag = "control: " + tag + ", kernels mirrored"
+    out = {"reading": reading, "counts": counts}
+    if timing:
+        # f32 with TF32 off opens no island: the pass computes what NCHW
+        # does; with TF32 on (torch's default for cuDNN) every conv runs
+        # channels-last under the pass. Fresh graphs for each mode: a
+        # graph keeps the kernels of its capture.
+        out["ms"] = {}
+        for mode, ctx in (("TF32 off", _no_tf32), ("TF32 on",
+                                                   contextlib.nullcontext)):
+            _free_graphs(net, loss_fn)
+            with _deterministic(), ctx():
+                run("0", True)
+                run("1", True)
+                ms = _turns({"0": lambda: step("0"),
+                             "1": lambda: step("1")})
+            print("[layout] vgg16 step (batch %d, f32, %s, SGD): %.2f ms "
+                  "NCHW (%.1f images/s), %.2f ms with the pass (%.1f "
+                  "images/s), host clock, medians of %d in turns; %s"
+                  % (VISION_BATCH, mode, ms["0"],
+                     VISION_BATCH / ms["0"] * 1e3, ms["1"],
+                     VISION_BATCH / ms["1"] * 1e3, 2 * LAYOUT_TURNS,
+                     card_line))
+            out["ms"][mode] = ms
+    out["fail"] = _layout_check(tag, reading, limit, planted=fault)
+    _free_graphs(net, loss_fn)
+    return out
+
+
+def _turns(fns, turns=LAYOUT_TURNS):
+    """Host-clock medians (ms) of each of two callables, the card
+    synchronised around each call, in turns: a, b, b, a."""
+    import torch
+    keys = list(fns)
+    times = {k: [] for k in keys}
+    for _ in range(turns):
+        for k in keys + keys[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _kernel_census(fn):
+    """One call of ``fn`` (run once before, warm) under torch.profiler:
+    (kernels launched, device ms, {cuDNN layout-change kernel name:
+    launches}, their device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, busy, layout, layout_ms = 0, 0.0, collections.Counter(), 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.device_time_total if hasattr(ev, "device_time_total") \
+            else ev.cuda_time_total
+        n += 1
+        busy += us / 1e3
+        if any(k in ev.name.lower() for k in LAYOUT_KERNEL_NAMES):
+            layout[ev.name[:60]] += 1
+            layout_ms += us / 1e3
+    return n, busy, dict(layout), layout_ms
+
+
+def _layout_resnet(seed, card_line, limits, timing=True):
+    """The compiled ResNet-50 with the pass against its eager loop (the
+    twin of phase 11's bit-for-bit check), and against the eager loop fed
+    channels-last with its conv biases frozen (the same cuDNN kernels and
+    the elision's effect, without the pass), each with the planted
+    fault; then with ``timing`` the pass on and off in turns, their graph
+    memory and one profiled step each way, and the S2D stem on and off.
+    ``limits``: LAYOUT_LIMIT, or None to judge nothing. Returns the
+    readings and the numbers."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import cuda_build
+    limit = limits and limits["resnet"]
+    limit_nhwc = limits and limits["resnet_nhwc"]
+    amp.init(target_dtype="bfloat16")
+    out = {}
+    try:
+        rig = _LayoutResNet(seed)
+        eager = rig.run("1", compiled=False)
+        twin = rig.run("1", compiled=False, channels_last=True,
+                       frozen_biases=True)
+        held = {}
+        cuda_build.reset_launch_counts()
+        on, held["1"] = _graph_mb(lambda: rig.run("1"))
+        out["counts"] = {k: v for k, v in cuda_build.launch_counts().items()
+                         if v}
+        plan = rig.net._cached_op.layout_plan()
+        reading, frozen = rig.reading(on, eager)
+        elided = sum(1 for _, e in plan if e)
+        print("[layout] resnet50_v1 plan: %d convs, %d channels-last, %d "
+              "biases elided (%d conv biases in the net): those exactly "
+              "zero-gradient and unmoved after %d steps %s"
+              % (len(plan), sum(1 for n, _ in plan if n), elided,
+                 len(rig.biases), COMPILED_STEPS, frozen))
+        if elided != len(rig.biases) or not frozen or \
+                not all(n for n, _ in plan):
+            raise SmokeFailure("layout: the ResNet plan %s does not elide "
+                               "and freeze every conv bias" % plan)
+        out["reading"] = reading
+        out["reading_nhwc"] = rig.reading(on, twin)[0]
+        out["groups"] = rig.groups(on, eager)
+        tag = "resnet50_v1 compiled with the pass against the eager loop " \
+            "(%d steps)" % COMPILED_STEPS
+        tag_nhwc = tag + " fed channels-last, conv biases frozen"
+        out["fail"] = _layout_check(tag, reading, limit) | \
+            _layout_check(tag_nhwc, out["reading_nhwc"], limit_nhwc)
+        # the fault needs graphs captured under it
+        _free_graphs(rig.net, rig.loss_fn)
+        bad_run = rig.run("1", fault=True)
+        bad, _ = rig.reading(bad_run, eager)
+        out["fault_nhwc"] = rig.reading(bad_run, twin)[0]
+        out["fault_groups"] = rig.groups(bad_run, eager)
+        _free_graphs(rig.net, rig.loss_fn)
+        out["fault"] = bad
+        _layout_check("control: " + tag + ", kernels mirrored", bad, limit,
+                      planted=True)
+        caught = _layout_check("control: " + tag_nhwc + ", kernels "
+                               "mirrored", out["fault_nhwc"], limit_nhwc,
+                               planted=True)
+        if limit_nhwc is not None and \
+                not all(out["fault_nhwc"][k] > limit_nhwc[k]
+                        for k in limit_nhwc):
+            raise SmokeFailure("control: the channels-last layout twin "
+                               "check passed mirrored kernels in %s"
+                               % sorted(k for k in limit_nhwc if not
+                                        out["fault_nhwc"][k] >
+                                        limit_nhwc[k]))
+        if limit is not None and not caught:
+            raise SmokeFailure("control: the layout twin check passed "
+                               "mirrored kernels")
+        if timing:
+            _, held["1"] = _graph_mb(lambda: rig.run("1"))
+            _, held["0"] = _graph_mb(lambda: rig.run("0"))
+            ms = _turns({"0": lambda: rig.step("0"),
+                         "1": lambda: rig.step("1")})
+            census = {f: _kernel_census(lambda f=f: rig.step(f))
+                      for f in ("0", "1")}
+            for f, name in (("0", "NCHW (MXNET_LAYOUT_OPT=0)"),
+                            ("1", "with the pass (MXNET_LAYOUT_OPT=1)")):
+                n, busy, layout, layout_ms = census[f]
+                print("[layout] resnet50_v1 compiled step %s: %.2f ms, %.1f "
+                      "images/s (host clock, median of %d in turns); graphs "
+                      "hold %.1f MB (peak +%.1f MB capturing); one profiled "
+                      "step: %d kernels, device busy %.2f ms; cuDNN layout "
+                      "changes %d launches, %.3f ms (%s); %s"
+                      % (name, ms[f], RESNET_BATCH / ms[f] * 1e3,
+                         2 * LAYOUT_TURNS, held[f][0], held[f][1], n, busy,
+                         sum(layout.values()), layout_ms,
+                         json.dumps(layout) if layout else "none",
+                         card_line))
+            out.update(ms=ms, held=held, census=census)
+            # the stem's S2D rewrite on and off, each with its own graphs
+            # (the flag is part of the signature), the pass on
+            _free_graphs(rig.net, rig.loss_fn)
+            for f in ("0", "1"):
+                with conv_s2d(f):
+                    rig.run("1")
+
+            def s2d_step(f):
+                with conv_s2d(f):
+                    rig.step("1")
+            s2d = _turns({f: lambda f=f: s2d_step(f) for f in ("0", "1")})
+            busy = {f: _kernel_census(lambda f=f: s2d_step(f))[1]
+                    for f in ("0", "1")}
+            print("[layout] resnet50_v1 compiled step with the pass, the stem "
+                  "plain (MXNET_CONV_S2D=0): %.2f ms, %.1f images/s, device "
+                  "busy %.3f ms; with the S2D stem (=1): %.2f ms, %.1f "
+                  "images/s, device busy %.3f ms (host clock, medians of %d "
+                  "in turns; device time of one profiled step); %s"
+                  % (s2d["0"], RESNET_BATCH / s2d["0"] * 1e3, busy["0"],
+                     s2d["1"], RESNET_BATCH / s2d["1"] * 1e3, busy["1"],
+                     2 * LAYOUT_TURNS, card_line))
+            out["s2d_ms"], out["s2d_busy"] = s2d, busy
+        _free_graphs(rig.net, rig.loss_fn)
+    finally:
+        amp.reset()
+    return out
+
+
+def _layout_witness(seed):
+    """Where the pass's ResNet-50 gap comes from: the eager steps (no
+    pass, no CachedOp) with the batch channels-last against NCHW, in bf16
+    AMP and in f32 with TF32 off, and the channels-last eager steps run
+    twice (cuDNN's own run-to-run spread); then the pass against eager
+    under cuDNN's deterministic algorithms. Readings by kind of leaf."""
+    from mxnet_tpu_torch.contrib import amp
+    got = {}
+    amp.init(target_dtype="bfloat16")
+    try:
+        rig = _LayoutResNet(seed)
+        eager = rig.run("1", compiled=False)
+        nhwc = rig.run("1", compiled=False, channels_last=True)
+        again = rig.run("1", compiled=False, channels_last=True)
+        got["bf16 eager NHWC vs NCHW"] = (rig.reading(nhwc, eager)[0],
+                                          rig.groups(nhwc, eager))
+        got["bf16 eager NHWC vs itself"] = (rig.reading(again, nhwc)[0],
+                                            rig.groups(again, nhwc))
+        with _deterministic():
+            det = rig.run("1", compiled=False)
+            on = rig.run("1")
+        got["bf16 pass vs eager, deterministic cuDNN"] = (
+            rig.reading(on, det)[0], rig.groups(on, det))
+        _free_graphs(rig.net, rig.loss_fn)
+        del rig
+    finally:
+        amp.reset()
+    with _no_tf32():
+        rig = _LayoutResNet(seed)
+        eager = rig.run("1", compiled=False)
+        nhwc = rig.run("1", compiled=False, channels_last=True)
+        got["f32 eager NHWC vs NCHW, TF32 off"] = (
+            rig.reading(nhwc, eager)[0], rig.groups(nhwc, eager))
+        del rig
+    for k, (reading, groups) in got.items():
+        print("[witness] seed %d, %s: %s; by leaf %s"
+              % (seed, k, json.dumps(reading), json.dumps(groups)))
+    return got
+
+
+def _layout_stem(seed, card_line, limit, timing=True):
+    """ResNet-50's stem convolution (64 filters, 7 x 7 / 2, pad 3) at
+    (128, 3, 224, 224) bf16 with MXNET_CONV_S2D on and off: the output's
+    distance, and each way's time."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    g = torch.Generator(device=DEV).manual_seed(seed + 190)
+    x = torch.randn(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE, generator=g,
+                    device=DEV).to(torch.bfloat16)
+    w = (torch.randn(64, 3, 7, 7, generator=g, device=DEV) * 0.1) \
+        .to(torch.bfloat16)
+    kw = dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64,
+              no_bias=True)
+    outs, ms = {}, {}
+    for flag in ("0", "1"):
+        with conv_s2d(flag):
+            outs[flag] = nn_ops.convolution(x, w, **kw)
+            if timing:
+                ms[flag] = _gpu_ms(lambda: nn_ops.convolution(x, w, **kw),
+                                   S2D_REPS)
+    reading = {"output": _rel(outs["1"], outs["0"])}
+    fail = _layout_check("stem 7x7/2 over 3 channels at (%d, 3, %d, %d) "
+                         "bf16, S2D against the plain convolution"
+                         % (RESNET_BATCH, RESNET_SIDE, RESNET_SIDE), reading,
+                         limit)
+    if timing:
+        print("[layout] stem convolution: %.3f ms plain, %.3f ms S2D "
+              "(device time, CUDA events, median of 7 trials of %d); %s"
+              % (ms["0"], ms["1"], S2D_REPS, card_line))
+    return {"reading": reading, "ms": ms, "fail": fail}
+
+
+def _layout_dropout(seed, card_line):
+    """Dropout after a conv inside an island: structured (``axes``, the
+    context's generator) and full-shape (row 8's kernel) on the
+    channels-last conv output, bit for bit with the same logical tensor
+    in NCHW from the same seed."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    g = torch.Generator(device=DEV).manual_seed(seed + 191)
+    x = torch.randn(32, 256, 28, 28, generator=g, device=DEV)
+    w = torch.randn(256, 256, 3, 3, generator=g, device=DEV) * 0.02
+    y = torch.nn.functional.conv2d(
+        x.contiguous(memory_format=torch.channels_last),
+        w.contiguous(memory_format=torch.channels_last), None, 1, 1)
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        raise SmokeFailure("layout: cuDNN gave a channels-last conv an "
+                           "NCHW output")
+    ok = []
+    for axes in ((2, 3), ()):
+        got = []
+        for t in (y, y.contiguous()):
+            mx.random.seed(seed)
+            got.append(nn_ops.dropout_op(t, p=0.5, axes=axes, _train=True))
+        ok.append(torch.equal(got[0], got[1]))
+    print("[layout] Dropout(0.5) on a channels-last conv output (32, 256, "
+          "28, 28) f32 against the same values in NCHW, same seed: "
+          "structured axes=(2, 3) bit for bit %s, full-shape (row 8) bit "
+          "for bit %s; %s" % (ok[0], ok[1], card_line))
+    if not all(ok):
+        raise SmokeFailure("layout: a dropout after a channels-last conv "
+                           "differs from its NCHW run")
+
+
+def _layout_deform(seed, limit, fault=False):
+    """Phase 18's offset conv -> deformable conv -> ROIAlign block,
+    hybridized with the pass, against its eager run: the twin of phase
+    18's bit-for-bit check (taken with the pass off)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    gpu = mx.gpu(0)
+    _, RoiDeform, _ = _tail_blocks(mx)
+    rs = np.random.RandomState(seed + 190)
+    mx.random.seed(seed)
+    blk = RoiDeform(prefix="rdl_")
+    blk.initialize(mx.init.Xavier(), ctx=gpu)
+    x = mx.nd.array(rs.normal(0, 1, DEFORM_SHAPE).astype(np.float32),
+                    ctx=gpu)
+    rois = mx.nd.array(_rcnn_rois(rs, DEFORM_SHAPE[0], ROI_ALIGN_ROIS),
+                       ctx=gpu)
+    with _no_tf32():
+        with cached_op.eager():
+            want = blk(x, rois).tensor().clone()
+        blk.hybridize(static_alloc=True)
+        with layout_opt("1"), _mirrored_kernels(fault):
+            for _ in range(3):
+                got = blk(x, rois)
+            plan = blk._cached_op.layout_plan()
+        reading = {"output": _rel(got.tensor(), want)}
+    blk._clear_cached_op()
+    tag = "offset conv -> deformable conv -> ROIAlign %s hybridized with " \
+        "the pass (plan %s) against eager" % (DEFORM_SHAPE, plan)
+    if fault:
+        tag = "control: " + tag + ", kernels mirrored"
+    return reading, _layout_check(tag, reading, limit, planted=fault)
+
+
+def layout_readings(seeds, card_line):
+    """The readings behind LAYOUT_LIMIT at ``seeds`` (print only; each
+    limit is twice the largest) and the planted faults' readings."""
+    worst = collections.defaultdict(dict)
+    faults = collections.defaultdict(dict)
+
+    def note(table, name, reading, pick):
+        for k, v in reading.items():
+            table[name][k] = pick(table[name].get(k, v), v)
+    for seed in seeds:
+        r = _layout_resnet(seed, card_line, None, timing=False)
+        print("[witness] seed %d, bf16 pass vs eager: by leaf %s; mirrored "
+              "kernels: by leaf %s" % (seed, json.dumps(r["groups"]),
+                                       json.dumps(r["fault_groups"])))
+        _layout_witness(seed)
+        got = {"resnet": r["reading"], "resnet_nhwc": r["reading_nhwc"],
+               "vgg16": _layout_vgg(seed, None, card_line,
+                                    timing=False)["reading"],
+               "deform": _layout_deform(seed, None)[0],
+               "stem": _layout_stem(seed, card_line, None,
+                                    timing=False)["reading"]}
+        bad = {"resnet": r["fault"], "resnet_nhwc": r["fault_nhwc"],
+               "vgg16": _layout_vgg(seed, None, card_line, fault=True,
+                                    timing=False)["reading"],
+               "deform": _layout_deform(seed, None, fault=True)[0]}
+        for name, reading in got.items():
+            note(worst, name, reading, max)
+        for name, reading in bad.items():
+            note(faults, name, reading, min)
+        print("[readings] seed %d: %s" % (seed, json.dumps(got)))
+    print("[readings] largest: %s" % json.dumps(worst))
+    print("[readings] limits (2x): %s" % json.dumps(
+        {n: {k: 2 * v for k, v in r.items()} for n, r in worst.items()}))
+    print("[readings] planted faults, smallest: %s" % json.dumps(faults))
+
+
+def phase_layout(seed, card_line):
+    """19. The NHWC layout pass on the hybridized path and the S2D stem:
+    the compiled ResNet-50, VGG-16 and phase 18's deformable block with
+    the pass against their eager twins, each with a planted fault; timed
+    in turns against the pass off, with the cuDNN layout changes of one
+    step each way; the stem with MXNET_CONV_S2D on and off; a dropout
+    after a channels-last conv bit for bit with NCHW. Returns the kernel
+    launches of the compiled ResNet-50's and VGG-16's runs with the pass
+    (not their controls')."""
+    print("[layout] %s" % card_line)
+    t0 = time.perf_counter()
+    r = _layout_resnet(seed, card_line, LAYOUT_LIMIT)
+    v = _layout_vgg(seed, LAYOUT_LIMIT["vgg16"], card_line)
+    vf = _layout_vgg(seed, LAYOUT_LIMIT["vgg16"], card_line, fault=True,
+                     timing=False)
+    _, d_fail = _layout_deform(seed, LAYOUT_LIMIT["deform"])
+    _, d_caught = _layout_deform(seed, LAYOUT_LIMIT["deform"], fault=True)
+    s = _layout_stem(seed, card_line, LAYOUT_LIMIT["stem"])
+    _layout_dropout(seed, card_line)
+    # the sound runs with the pass: the compiled ResNet-50's and VGG-16's
+    # steps, each counted from a reset just before it
+    counts = collections.Counter(r["counts"])
+    counts.update(v["counts"])
+    counts = dict(counts)
+    print("[layout] kernel launches of the compiled runs with the pass: "
+          "resnet50_v1 %s, vgg16 %s (its two dropouts, forward and "
+          "backward, in each of %d steps)"
+          % (r["counts"] or "none", v["counts"] or "none",
+             LAYOUT_VGG_STEPS))
+    if r["fail"] or v["fail"] or d_fail or s["fail"]:
+        raise SmokeFailure("layout: a run with the pass (or the S2D stem) "
+                           "is beyond its limit")
+    if LAYOUT_LIMIT["vgg16"] is not None and not (vf["fail"] and d_caught):
+        raise SmokeFailure("control: the VGG-16 or deformable layout check "
+                           "passed mirrored kernels")
+    if not counts.get("dropout"):
+        raise SmokeFailure("layout: VGG-16's steps launched no dropout "
+                           "kernel")
+    print("[layout] phase 19 took %.1f s; %s"
+          % (time.perf_counter() - t0, card_line))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 20. the dependency engine: nd.Custom on engine workers, NaiveEngine
+# ---------------------------------------------------------------------------
+ENGINE_SLOW_S = 0.5       # the slow custom op's host work
+ENGINE_MAIN_MATMULS = 300  # the main stream's work beside it: bf16 matmuls
+ENGINE_MATMUL_SIDE = 8192
+
+
+def _engine_ops(mx):
+    """The phase's custom ops, registered once: ``engine_slow`` (host work
+    of ENGINE_SLOW_S seconds, then x * 2 on its worker's stream) and
+    ``engine_boom`` (raises)."""
+    from mxnet_tpu_torch import operator as op_mod
+    if op_mod.get_prop("engine_slow") is not None:
+        return
+
+    class Slow(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            time.sleep(ENGINE_SLOW_S)
+            self.assign(out_data[0], req[0], in_data[0] * 2)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * 2)
+
+    @mx.operator.register("engine_slow")
+    class SlowProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Slow()
+
+    class Boom(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            raise RuntimeError("planted failure in a custom op's forward")
+
+        def backward(self, *a, **kw):
+            pass
+
+    @mx.operator.register("engine_boom")
+    class BoomProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Boom()
+
+
+def _engine_mnist(seed, mod, card_line):
+    """The MNIST MLP with its rtc custom op (phase 9's net), three SGD
+    steps with ``nd.Custom`` on the engine's workers against the same
+    steps with the callback inline, bit for bit."""
+    from unittest import mock
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import operator as op_mod
+    register_rtc_relu(mx, mod)
+    data, label = (a[:MNIST_BATCH]
+                   for a in mnist_synthetic(6 * MNIST_BATCH)[:2])
+    runs = {}
+    for how in ("engine", "inline"):
+        net, trainer, loss_fn = _mnist_one(mx, seed)
+        x = mx.nd.array(data, ctx=mx.gpu(0))
+        y = mx.nd.array(label, ctx=mx.gpu(0))
+        # the inline callback is the one a hybridized call runs
+        patch = mock.patch.object(op_mod._cached_op, "in_call",
+                                  lambda: True) if how == "inline" \
+            else contextlib.nullcontext()
+        losses = []
+        with patch:
+            for _ in range(3):
+                with mx.autograd.record():
+                    out = net(x)
+                    loss = loss_fn(out, y)
+                loss.backward()
+                trainer.step(MNIST_BATCH)
+                losses.append(loss.tensor().detach().clone())
+        torch.cuda.synchronize()
+        runs[how] = (losses, {n: p.data().tensor().detach().clone()
+                              for n, p in net.collect_params().items()})
+    same = all(torch.equal(a, b) for a, b in zip(runs["engine"][0],
+                                                 runs["inline"][0])) and \
+        all(torch.equal(runs["engine"][1][n], runs["inline"][1][n])
+            for n in runs["inline"][1])
+    print("[engine] MNIST MLP (rtc_relu custom op), 3 SGD steps at batch "
+          "%d: nd.Custom on the engine's workers bit for bit with the "
+          "inline callback %s; %s" % (MNIST_BATCH, same, card_line))
+    if not same:
+        raise SmokeFailure("engine: the engine-gated custom op differs "
+                           "from the inline one")
+
+
+def _mnist_one(mx, seed):
+    """Phase 9's MLP with the custom op on the card, initialised from
+    ``seed``: (net, trainer, loss)."""
+    net = mnist_mlp(mx, True)
+    mx.random.seed(seed)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 1, 28, 28), ctx=mx.gpu(0)))   # the deferred shapes
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    return net, trainer, mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+def _engine_overlap(card_line):
+    """A slow custom op (ENGINE_SLOW_S of host work, then its output on
+    its worker's stream) beside ENGINE_MAIN_MATMULS bf16 matmuls on the
+    main stream: wall time of both against the sum of each alone."""
+    import torch
+    import mxnet_tpu_torch as mx
+    a = torch.randn(ENGINE_MATMUL_SIDE, ENGINE_MATMUL_SIDE, device=DEV,
+                    dtype=torch.bfloat16)
+    x = mx.nd.array(torch.arange(4096, dtype=torch.float32), ctx=mx.gpu(0))
+
+    def main_work():
+        c = a
+        for _ in range(ENGINE_MAIN_MATMULS):
+            c = a @ a
+        return c
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    main_work()
+    mx.nd.Custom(x, op_type="engine_slow").wait_to_read()
+    t_main = timed(main_work)
+    t_op = timed(lambda: mx.nd.Custom(x, op_type="engine_slow")
+                 .wait_to_read())
+    box = {}
+
+    def both():
+        y = mx.nd.Custom(x, op_type="engine_slow")
+        main_work()
+        box["y"] = y.asnumpy()
+    t_both = timed(both)
+    right = bool((box["y"] == torch.arange(4096).numpy() * 2).all())
+    print("[engine] a slow custom op (%.2f s of host work) beside %d "
+          "(%d^2) bf16 matmuls on the main stream: %.3f s together, "
+          "%.3f s + %.3f s = %.3f s apart (%.0f%% of the sum); its output "
+          "right %s; %s" % (ENGINE_SLOW_S, ENGINE_MAIN_MATMULS,
+                            ENGINE_MATMUL_SIDE, t_both,
+                            t_op, t_main, t_op + t_main,
+                            100 * t_both / (t_op + t_main), right,
+                            card_line))
+    if not right or t_both > 0.75 * (t_op + t_main):
+        raise SmokeFailure("engine: the custom op's callback did not "
+                           "overlap the main stream's work, or its output "
+                           "is wrong")
+    return {"together_s": t_both, "op_s": t_op, "main_s": t_main}
+
+
+def _engine_boom(card_line):
+    """An exploding custom op: the call returns, the error raises at
+    wait_to_read with its message, and the context computes after it."""
+    import torch
+    import mxnet_tpu_torch as mx
+    x = mx.nd.array(torch.ones(1024), ctx=mx.gpu(0))
+    t0 = time.perf_counter()
+    y = mx.nd.Custom(x, op_type="engine_boom")
+    call_s = time.perf_counter() - t0
+    try:
+        y.wait_to_read()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    z = (x * 3).sum().asscalar()
+    ok = raised is not None and "planted failure" in raised and \
+        "custom_op:engine_boom" in raised and z == 3072.0
+    print("[engine] exploding custom op: the call returned in %.2f ms, "
+          "raised at wait_to_read: %r; the context computes after it "
+          "(sum 3 x 1024 ones = %s) %s; %s"
+          % (call_s * 1e3, (raised or "nothing")[:90], z,
+             "ok" if ok else "FAIL", card_line))
+    if not ok:
+        raise SmokeFailure("engine: the exploding custom op did not raise "
+                           "at the wait, or the context died")
+
+
+def _engine_naive(sess, reqs, card_line):
+    """The served BERT-base (8, 128) request and one eager ResNet-50
+    step (f32, SGD) under NaiveEngine against the default engine, bit for
+    bit, each timed both ways."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op, engine
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    eng = engine.engine()
+    req = reqs[0]
+    mx.random.seed(0)
+    net = resnet50_v1(prefix="resnet50n_")
+    net.initialize(init=mx.init.MSRAPrelu(), ctx=mx.gpu(0))
+    g = torch.Generator(device=DEV).manual_seed(43)
+    x = mx.nd.NDArray(torch.randn(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE,
+                                  generator=g, device=DEV))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (RESNET_BATCH,), generator=g,
+                                    device=DEV).float())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net.collect_params()
+    with torch.no_grad():
+        net(x)
+    snap = _snapshot(params)
+
+    def serve():
+        outs = sess.infer(*req)
+        torch.cuda.synchronize()
+        return outs
+
+    def resnet_step():
+        _restore(params, snap)
+        for p in params.values():
+            if p.grad_req != "null":
+                p.zero_grad()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.tensor().clone(), {n: p.grad().tensor().clone()
+                                       for n, p in params.items()
+                                       if p.grad_req != "null"}
+    res, ms = {}, {}
+    with cached_op.eager(), _deterministic():
+        serve()
+        resnet_step()                     # cuDNN's algorithm choices
+        for naive in (False, True, True, False):
+            eng.set_naive(naive)
+            try:
+                t0 = time.perf_counter()
+                s = serve()
+                t1 = time.perf_counter()
+                r = resnet_step()
+                t2 = time.perf_counter()
+            finally:
+                eng.set_naive(False)
+            res.setdefault(naive, (s, r))
+            ms.setdefault(naive, []).append(((t1 - t0) * 1e3,
+                                             (t2 - t1) * 1e3))
+
+    def flat(s):
+        return s if isinstance(s, (list, tuple)) else [s]
+    serve_same = all(np.array_equal(a, b) for a, b in zip(
+        flat(res[True][0]), flat(res[False][0])))
+    (l1, g1), (l0, g0) = res[True][1], res[False][1]
+    step_same = torch.equal(l1, l0) and all(torch.equal(g1[n], g0[n])
+                                            for n in g0)
+    med = {k: (statistics.median(v[0] for v in ms[k]),
+               statistics.median(v[1] for v in ms[k])) for k in ms}
+    print("[engine] NaiveEngine (every op and new array synchronises its "
+          "stream) against the default: served BERT-base (8, 128) bit for "
+          "bit %s, %.2f ms naive vs %.2f ms; one eager ResNet-50 step "
+          "(batch %d, f32) loss and gradients bit for bit %s, %.2f ms "
+          "naive vs %.2f ms (host clock, medians of 2, in turns); %s"
+          % (serve_same, med[True][0], med[False][0], RESNET_BATCH,
+             step_same, med[True][1], med[False][1], card_line))
+    if not (serve_same and step_same):
+        raise SmokeFailure("engine: NaiveEngine changed a result")
+    return med
+
+
+def phase_engine(seed, mod, sess, reqs, card_line):
+    """20. The dependency engine built from csrc/engine.cc; the MNIST MLP
+    with its custom op through the engine bit for bit with the inline
+    callback; a slow custom op overlapping the main stream; an exploding
+    one raising at the wait; the served BERT-base and an eager ResNet-50
+    step under NaiveEngine. Returns the kernel launches of its runs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import native
+    from mxnet_tpu_torch.ops import cuda_build
+    print("[engine] %s" % card_line)
+    t0 = time.perf_counter()
+    path, compiled = native.build_engine()
+    t1 = time.perf_counter()
+    lib = native.load_engine_lib()
+    import ctypes
+    ver = ctypes.c_int(0)
+    lib.MXGetVersion(ctypes.byref(ver))
+    print("[engine] built %s from mxnet_tpu_torch/csrc/engine.cc with g++ "
+          "in %.2f s (compiled %s), MXGetVersion %d" % (
+              path, t1 - t0, compiled, ver.value))
+    _engine_ops(mx)
+    cuda_build.reset_launch_counts()
+    _engine_mnist(seed, mod, card_line)
+    _engine_overlap(card_line)
+    _engine_boom(card_line)
+    _engine_naive(sess, reqs, card_line)
+    counts = {k: n for k, n in cuda_build.launch_counts().items() if n}
+    print("[engine] kernel launches in phase 20: %s" % counts)
+    rtc = [k for k in counts if k.startswith("rtc:")]
+    if not rtc or not counts.get("layer_norm_fwd") or \
+            not counts.get("selfatt_fwd"):
+        raise SmokeFailure("engine: phase 20 launched no rtc, LayerNorm or "
+                           "attention kernel: %s" % counts)
+    print("[engine] phase 20 took %.1f s; %s"
+          % (time.perf_counter() - t0, card_line))
+    return counts
 
 
 def main(argv=None):
@@ -8357,6 +9411,13 @@ def main(argv=None):
         print("[ops_tail] kernel launches in phase 18: %s (no port kernel "
               "is on its path)" % {k: v for k, v in tail_counts.items()
                                     if v})
+        layout_counts = phase_layout(args.seed, card_line)
+        engine_counts = phase_engine(args.seed, rtc_mod, sess, reqs,
+                                     card_line)
+        for r in rows:
+            k = r.get("kernel", r["name"])
+            r["launches_per_layout_run"] = layout_counts.get(k, 0)
+            r["launches_per_engine_run"] = engine_counts.get(k, 0)
         for r in rows:
             r["launches_per_fed_run"] = fed_counts.get(
                 r.get("kernel", r["name"]), 0)

@@ -90,6 +90,7 @@ from . import scan
 from . import contrib
 from . import recordio
 from . import native
+from . import engine
 from . import io
 from . import image
 from .interop import params_from_numpy

@@ -53,7 +53,17 @@ the step being buffered; if so it returns deferred arrays and runs
 nothing. A record carries its call (``_Rec.call``, ``_Rec.meta``), from
 which the runner replays a step's calls inside its chunk graph. The
 reference's symbol plumbing (``_COP_SYMS``, ``get_symbol``) has no
-counterpart: the port has no ``symbol`` module.
+counterpart: the port traces no Symbol graph.
+
+With ``MXNET_LAYOUT_OPT`` on (the default), the block's forward runs
+under the reference's two graph passes, applied op by op
+(:mod:`mxnet_tpu_torch.symbol.layout_opt`): 2-D ungrouped convolutions
+of tensor-core data channels-last, the outputs back in contiguous NCHW,
+and a conv bias whose only consumer is a training BatchNorm given a zero
+gradient. The flag, and ``MXNET_CONV_S2D`` beside it, are read at each
+call and are part of the signature, so flipping one selects other
+graphs; :meth:`CachedOp.layout_plan` gives a signature's decisions. The
+passes run on the CPU too, as the reference's do.
 """
 from __future__ import annotations
 
@@ -66,10 +76,13 @@ from typing import Dict, List, Optional
 import torch
 
 from .base import MXNetError
+from .config import get as _cfg
 from .context import Context
 from . import autograd
+from . import engine as _engine
 from . import ops as _ops
 from . import random as _random
+from .symbol import layout_opt as _layout_opt
 
 __all__ = ["CachedOp", "eager", "in_call", "outermost", "tape_plan",
            "replay_counts", "reset_replay_counts",
@@ -212,9 +225,12 @@ def _capture(graph, what: str, fn, pool=None):
     graph, so the random ops it captures draw anew on every replay,
     from where the eager stream stands; a torch without
     ``register_generator_state`` refuses such a draw during the capture,
-    and the capture raises. Garbage is not collected during the capture:
+    and the capture raises. The native engine's ops are drained first:
+    a worker launching on the card must not run into it. Garbage is not collected during the capture:
     a dead block's CachedOp (a reference cycle) frees its graphs from its
     finalizer, which a capture cannot survive."""
+    # an engine worker's launches and syncs must not run into a capture
+    _engine.native_drain()
     _ops.last_op(reset=True)
     register = getattr(graph, "register_generator_state", None)
     if register is not None:
@@ -340,10 +356,11 @@ class _Entry:
     plan runners it owns (``runners``) and those that replay over it
     (``readers``, closed when it is released)."""
 
-    def __init__(self, cop, recording):
+    def __init__(self, cop, recording, layout=False):
         # weak: the CachedOp's finalizer holds its entries
         self._cop = weakref.ref(cop)
         self.name, self.recording = cop.name, recording
+        self.layout = layout   # MXNET_LAYOUT_OPT of its signature
         self.graph = self.bwd = None
         self.bufs = self.leaves = self.outs = None
         self.gouts = self.gins = None
@@ -379,7 +396,7 @@ class _Entry:
         fwd = torch.cuda.CUDAGraph()
         self.outs = _capture(
             fwd, "CachedOp %s forward" % cop.name,
-            lambda: cop._run(self.leaves, consts, ctx, True))
+            lambda: cop._run(self.leaves, consts, ctx, True, self.layout))
         if self.recording:
             self.gins = [None] * len(self.leaves)
             self.needs_bwd = any(o.requires_grad for o in self.outs) and \
@@ -483,7 +500,12 @@ class CachedOp:
         # each signature's output nesting (its first call is eager)
         self._out_fmts: Dict[tuple, object] = {}
         self._out_fmt = None
+        # each signature's layout plan (MXNET_LAYOUT_OPT), set by its
+        # last run of the block's forward
+        self._layout_plans: Dict[tuple, "_layout_opt.LayoutPlan"] = {}
+        self._layout_plan = None
         self._warm: set = set()
+        self._last_key = None
         self._lock = threading.Lock()
         self._finalizer = weakref.finalize(self, _release_entries,
                                            self._entries)
@@ -502,10 +524,21 @@ class CachedOp:
     def _param_ptrs(self, tensors):
         return tuple(t.data_ptr() for t in tensors[self.n_data:])
 
-    def _run(self, tensors, consts, ctx, substitute):
+    def layout_plan(self, key=None) -> Optional[List[tuple]]:
+        """``(nhwc, bias_elided)`` of each Convolution call, in call
+        order, as the layout passes decided them for signature ``key``
+        (default: the signature called last); None where the passes
+        were off."""
+        plan = self._layout_plans.get(key) if key is not None else \
+            self._layout_plans.get(self._last_key)
+        return None if plan is None else plan.rows()
+
+    def _run(self, tensors, consts, ctx, substitute, layout=False):
         """The block's forward over ``tensors`` (data, then parameters)
         with every child eager; returns the output tensors, flat (their
-        nesting is kept in ``self._out_fmt``)."""
+        nesting is kept in ``self._out_fmt``). With ``layout`` the NHWC
+        pass and the conv-bias elision wrap it, and their plan is kept
+        in ``self._layout_plan``."""
         from .gluon.parameter import substitute as _sub
         from .ndarray import NDArray
         it = iter([NDArray(t, ctx) for t in tensors[:self.n_data]])
@@ -513,24 +546,32 @@ class CachedOp:
         mapping = {p: NDArray(t, ctx) for p, t in
                    zip(self.params, tensors[self.n_data:])} \
             if substitute else None
-        _TLS.calls = getattr(_TLS, "calls", 0) + 1
-        try:
+
+        def body():
             with eager(), _sub(mapping):
                 out = self._forward(*args)
+            outs = []
+            self._out_fmt = _flatten(out, outs)
+            return [o.tensor() for o in outs]
+        if layout:
+            plan = _layout_opt.LayoutPlan()
+            body = _layout_opt.convert_layout(
+                _layout_opt.elide_conv_bias_into_bn(body, plan), plan)
+            self._layout_plan = plan
+        _TLS.calls = getattr(_TLS, "calls", 0) + 1
+        try:
+            return body()
         finally:
             _TLS.calls -= 1
-        outs = []
-        self._out_fmt = _flatten(out, outs)
-        return [o.tensor() for o in outs]
 
     def _eager(self, tensors, consts, ctx, recording, entry, call=None):
         """One eager call: outputs, as one tape node when recording."""
         if not recording:
             with torch.no_grad():
-                return self._run(tensors, consts, ctx, False)
+                return self._run(tensors, consts, ctx, False, entry.layout)
         leaves = [_alias(t, t.requires_grad) for t in tensors]
         with torch.enable_grad():
-            outs = self._run(leaves, consts, ctx, True)
+            outs = self._run(leaves, consts, ctx, True, entry.layout)
         rec = _Rec(entry, False, leaves, outs, call)
         rec.out_ts = [o.detach() for o in outs]
         return list(_Node.apply(rec, *tensors))
@@ -546,7 +587,7 @@ class CachedOp:
                 "residuals for a backward that has not run; run backward or "
                 "drop their outputs before the next call"
                 % (self.name, len(lst)))
-        e = _Entry(self, recording)
+        e = _Entry(self, recording, key[5])
         lst.append(e)
         return e
 
@@ -570,7 +611,8 @@ class CachedOp:
         train = autograd.is_training()
         key = (train, recording, _ops._CASTS_KEY[0], consts,
                tuple((t.shape, t.stride(), t.dtype, t.device,
-                      t.requires_grad) for t in tensors))
+                      t.requires_grad) for t in tensors),
+               _layout_opt.layout_opt_enabled(), _cfg("MXNET_CONV_S2D"))
         call = (self, key, consts, ctx) if recording else None
         with self._lock:
             entry = self._instance(key, recording)
@@ -583,6 +625,10 @@ class CachedOp:
             if self._out_fmt is not None:
                 self._out_fmts[key] = self._out_fmt
                 self._out_fmt = None
+            if self._layout_plan is not None:
+                self._layout_plans[key] = self._layout_plan
+                self._layout_plan = None
+            self._last_key = key
             fmt = self._out_fmts[key]
         return _format(fmt, [NDArray(t, ctx) for t in outs])
 

@@ -8,10 +8,14 @@ packages. Reads are live: every :func:`get` consults the environment.
 The reference's kernel switches (``MXNET_PALLAS_LAYERNORM``,
 ``MXNET_FLASH_ATTENTION``, ``MXNET_PALLAS_EPILOGUE``) have no counterpart:
 the port decides kernel or plain version by the tensor's device and the
-kernel's domain alone. Nor has ``MXNET_CONV_S2D``: the reference's
-space-to-depth rewrite of the 7x7/s2 ResNet stem is the same math
-re-expressed for the TPU's matrix unit, and the port leaves the choice
-of convolution algorithm to cuDNN.
+kernel's domain alone. The compute-path switches of the convolution
+family keep theirs: ``MXNET_LAYOUT_OPT`` runs a hybridized block's 2-D
+convolutions of tensor-core data (16-bit, or f32 under TF32)
+channels-last (:mod:`mxnet_tpu_torch.symbol.layout_opt`),
+and ``MXNET_CONV_S2D`` computes the 7x7/s2/p3 stem over at most four
+channels as a 4x4 stride-1 convolution of its 2x2 space-to-depth input
+(``ops/nn.py`` ``_stem_s2d_conv``), the same sums in another order, in
+either layout.
 """
 from __future__ import annotations
 
@@ -61,6 +65,34 @@ def get(name: str):
     return var.parse(os.environ.get(name))
 
 
+define("MXNET_ENGINE_TYPE", str, "",
+       "'NaiveEngine' runs every op synchronously: a native-engine push "
+       "executes at the push, and every registry op and new array on the "
+       "card synchronises its stream, so a fault surfaces at the op that "
+       "caused it (engine.py). Default: the native threaded dependency "
+       "engine (csrc/engine.cc).")
+define("MXNET_CPU_WORKER_NTHREADS", int, 2,
+       "Worker threads of the native dependency engine.")
+define("MXNET_CUSTOM_OP_NUM_THREADS", int, 0,
+       "Workers executing Python custom ops on the native engine; 0 "
+       "inherits MXNET_CPU_WORKER_NTHREADS.")
+define("MXNET_ENGINE_WATCHDOG", float, 0.0,
+       "Native dependency-engine wait watchdog in seconds: a "
+       "wait_for_var/wait_for_all past the deadline raises MXNetError "
+       "listing every pending op's label and enqueue site instead of "
+       "hanging (0 disables).")
+define("MXNET_LAYOUT_OPT", bool, True,
+       "NHWC layout pass on hybridized conv graphs (symbol/layout_opt.py): "
+       "a CachedOp's 2-D ungrouped convolutions of 16-bit data (or f32 "
+       "while cuDNN may use TF32) run channels-last, its "
+       "outputs leave contiguous NCHW, and a conv bias whose only consumer "
+       "is a BatchNorm gets a gradient of exactly zero. Read when a call "
+       "selects its graph, and part of the signature.")
+define("MXNET_CONV_S2D", bool, True,
+       "Rewrite 7x7/s2/p3 convolutions over at most 4 channels (the "
+       "ResNet stem) as 4x4 stride-1 convolutions of the 2x2 "
+       "space-to-depth input (ops/nn.py _stem_s2d_conv). Part of a "
+       "CachedOp's signature.")
 define("MXNET_SERVE_BUCKETS", str, "",
        "Shape-bucket ladder for InferenceSession (serve/bucketing.py): "
        "'b1,b2,...' batch buckets, optionally ';s1,s2,...' sequence "

@@ -1,6 +1,16 @@
-"""Build and load the port's host library: the native image pipeline
-behind :class:`io.ImageRecordIter` (counterpart of
-``mxnet_tpu/native/__init__.py`` :: ``load_io_lib``, ``last_error``).
+"""Build and load the port's host libraries: the native image pipeline
+behind :class:`io.ImageRecordIter` and the dependency engine behind
+:mod:`mxnet_tpu_torch.engine` (counterpart of
+``mxnet_tpu/native/__init__.py`` :: ``load_io_lib``, ``last_error``,
+``load_engine_lib``).
+
+``csrc/engine.cc`` is the port's own copy of the reference's dependency
+engine. :func:`load_engine_lib` compiles it at first use with the same
+flags into ``_build/host/<digest>/libmxt_engine.so`` (``<digest>``
+hashes the flags and the source), under the same lock and rename, and
+binds the reference's C ABI. A failed build raises :class:`MXNetError`
+with the compiler's output; nothing falls back to running the engine's
+work synchronously.
 
 ``csrc/io.cc`` is the port's own copy of the reference's pipeline
 (RecordIO, JPEG decode, resize/crop/mirror, the threaded
@@ -42,9 +52,12 @@ from .base import MXNetError
 from .ops.cuda_build import BUILD_ROOT, CSRC_DIR, build_lock
 
 __all__ = ["IO_SOURCE", "JPEG_INCLUDE", "CXX_FLAGS", "find_libjpeg",
-           "build_io", "load_io_lib", "last_error", "build_info"]
+           "build_io", "load_io_lib", "last_error", "build_info",
+           "ENGINE_SOURCE", "build_engine", "load_engine_lib"]
 
 IO_SOURCE = CSRC_DIR / "io.cc"
+ENGINE_SOURCE = CSRC_DIR / "engine.cc"
+ENGINE_LIB_NAME = "libmxt_engine.so"
 JPEG_INCLUDE = CSRC_DIR / "jpeg"
 JPEG_HEADERS = ("jpeglib.h", "jmorecfg.h", "jconfig.h")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
@@ -54,6 +67,7 @@ JPEG_SONAME = "libjpeg.so.62"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_engine_lib: Optional[ctypes.CDLL] = None
 _info: Dict[str, object] = {}
 
 
@@ -103,12 +117,12 @@ def find_libjpeg() -> Tuple[str, str]:
         "wheel bundles no pillow.libs/libjpeg-*.so.62*" % JPEG_SONAME)
 
 
-def _cxx() -> str:
+def _cxx(what: str = "the native image pipeline "
+         "(mxnet_tpu_torch/csrc/io.cc)") -> str:
     for name in (os.environ.get("CXX"), "g++", "c++"):
         if name and shutil.which(name):
             return shutil.which(name)
-    raise MXNetError("no C++ compiler (g++) to build the native image "
-                     "pipeline (mxnet_tpu_torch/csrc/io.cc)")
+    raise MXNetError("no C++ compiler (g++) to build %s" % what)
 
 
 def _digest(libjpeg: str, include: Path) -> str:
@@ -217,3 +231,72 @@ def build_info() -> Dict[str, object]:
     library's path, whether it compiled and in how many seconds. Empty
     before the first load."""
     return dict(_info)
+
+
+# ---------------------------------------------------------------------------
+# the dependency engine
+# ---------------------------------------------------------------------------
+def build_engine(source: Optional[Path] = None) -> Tuple[Path, bool]:
+    """Compile ``source`` (default ``csrc/engine.cc``) into a shared
+    library, or reuse the one already built from the same source and
+    flags. Returns its path and whether it compiled. Raises MXNetError
+    with the compiler's output when the build fails."""
+    source = Path(source) if source is not None else ENGINE_SOURCE
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(source.read_bytes())
+    out_dir = HOST_ROOT / h.hexdigest()[:16]
+    target = out_dir / ENGINE_LIB_NAME
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with build_lock(out_dir):
+        if target.exists():
+            return target, False
+        tmp = out_dir / ("%s.%d.tmp" % (ENGINE_LIB_NAME, os.getpid()))
+        cmd = [_cxx("the dependency engine (%s)" % source), *CXX_FLAGS,
+               "-o", str(tmp), str(source)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise MXNetError("g++ failed for the dependency engine %s "
+                             "(%s):\n%s" % (source, " ".join(cmd),
+                                             proc.stdout))
+        os.replace(tmp, target)
+        return target, True
+
+
+def _bind_engine(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.MXGetLastError.restype = ctypes.c_char_p
+    lib.MXGetLastError.argtypes = []
+    lib.MXGetVersion.restype = ctypes.c_int
+    lib.MXGetVersion.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.MXEngineCreate.restype = ctypes.c_void_p
+    lib.MXEngineCreate.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.MXEngineFree.restype = None
+    lib.MXEngineFree.argtypes = [ctypes.c_void_p]
+    lib.MXEngineNewVar.restype = ctypes.c_uint64
+    lib.MXEngineNewVar.argtypes = [ctypes.c_void_p]
+    lib.MXEngineDeleteVar.restype = ctypes.c_int
+    lib.MXEngineDeleteVar.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.MXEnginePushAsync.restype = ctypes.c_int
+    lib.MXEnginePushAsync.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int]
+    lib.MXEngineWaitForVar.restype = ctypes.c_int
+    lib.MXEngineWaitForVar.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.MXEngineWaitForAll.restype = ctypes.c_int
+    lib.MXEngineWaitForAll.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def load_engine_lib(path: Optional[Path] = None) -> ctypes.CDLL:
+    """The engine library's ctypes handle (the reference's MXEngine* and
+    MXGetVersion C ABI): the one at ``path``, or the port's own, built
+    on first use. Raises MXNetError when the build fails."""
+    global _engine_lib
+    if path is None:
+        with _lock:
+            if _engine_lib is None:
+                _engine_lib = load_engine_lib(build_engine()[0])
+            return _engine_lib
+    return _bind_engine(ctypes.CDLL(str(path)))

@@ -22,12 +22,20 @@ tensor a torch leaf that requires grad and gives it a ``.grad`` array;
 
 Deferred arrays (ref: the ``_pending`` marker): while a K-step chunk
 buffers (:mod:`mxnet_tpu_torch.scan`) a hybridized call returns arrays
-whose values a later function will produce. Such an array carries
-``_pending``, (its step, node, output); its tensor is already of the
-right shape, dtype and device, so ``shape`` and the like read without
-waiting, but any read of its values (``tensor()``, ``asnumpy``,
+whose values a later function will produce, and ``nd.Custom`` returns
+arrays whose values an op on the native dependency engine will write
+(:class:`mxnet_tpu_torch.engine.EngineGate`). Such an array carries
+``_pending``, (its step or gate, slot, meta); its tensor is already of
+the right shape, dtype and device, so ``shape`` and the like read
+without waiting, but any read of its values (``tensor()``, ``asnumpy``,
 ``wait_to_read``, an op that takes it, an in-place write) forces the
-step first.
+step, or waits for the engine op and re-raises its error, first. An
+in-place write to an array that a pending engine op still reads
+(``_read_pins``) waits for that op first (write after read).
+
+Under ``MXNET_ENGINE_TYPE=NaiveEngine`` every registry op's output and
+every new array goes through ``engine().on_dispatch``, which
+synchronises the card's stream.
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ from .. import autograd
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, context_of, current_context
 from ..ops import Operator, _note, get_op
+from .. import engine as _engine
+from ..symbol import layout_opt as _layout_opt
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "to_tensor",
            "host_tensor", "host_numpy", "host_copies", "concatenate",
@@ -51,7 +61,7 @@ class NDArray:
     """A device-resident array."""
 
     __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "_pending",
-                 "__weakref__")
+                 "_read_pins", "__weakref__")
 
     # higher than numpy's so ndarray.__add__(NDArray) defers to us
     __array_priority__ = 1000.0
@@ -62,6 +72,7 @@ class NDArray:
         self._grad: Optional["NDArray"] = None
         self._grad_req = "null"
         self._pending = None
+        self._read_pins = None
 
     # -- properties --------------------------------------------------------
     @property
@@ -102,8 +113,9 @@ class NDArray:
     def tensor(self) -> torch.Tensor:
         """The underlying ``torch.Tensor`` (shared, not copied); a
         deferred array's step is forced first."""
-        if self._pending is not None:
-            self._pending[0].force()
+        p = self._pending      # an engine worker may clear it meanwhile
+        if p is not None:
+            p[0].force()
         return self._t
 
     # -- host transfer -----------------------------------------------------
@@ -140,10 +152,9 @@ class NDArray:
         raise ValueError("ambiguous truth value of multi-element NDArray")
 
     def wait_to_read(self):
-        """Block until the values are computed: a no-op on the host, a
-        sync of the array's stream on the card."""
-        if self.tensor().is_cuda:
-            torch.cuda.current_stream(self._t.device).synchronize()
+        """Block until the values are computed (``engine().wait_for_var``):
+        a no-op on the host, a sync of the array's stream on the card."""
+        _engine.engine().wait_for_var(self.tensor())
 
     def __len__(self):
         if not self._t.dim():
@@ -179,8 +190,12 @@ class NDArray:
         """Basic indexing (ints, slices, None, ``...``) gives a view;
         an NDArray, list or numpy array indexes as numpy does (a copy).
         Inside ``autograd.record()`` both are recorded."""
+        t = self.tensor()
+        plan = _layout_opt.active()
+        if plan is not None:
+            plan.consumed("slice", {}, (t,))
         with torch.set_grad_enabled(autograd.is_recording()):
-            return NDArray(self.tensor()[self._index(key)], self._ctx)
+            return NDArray(t[self._index(key)], self._ctx)
 
     def _value(self, value) -> torch.Tensor:
         if isinstance(value, NDArray):
@@ -202,6 +217,8 @@ class NDArray:
         ``__setitem__``): in place, or as a recorded assignment on a
         copy that this array is rebound to inside ``record()``."""
         self.tensor()
+        if self._read_pins:
+            _engine.consume_read_pins(self)
         key = self._index(key)
         if autograd.is_recording() and (self._in_graph or (
                 isinstance(value, NDArray) and value._in_graph)):
@@ -342,6 +359,8 @@ class NDArray:
         r = self._binop(o, op, scalar_op)
         if r is NotImplemented:
             return r
+        if self._read_pins:
+            _engine.consume_read_pins(self)
         if autograd.is_recording() and r._t.requires_grad:
             self._check_writable()
             self._t = r._t
@@ -465,6 +484,10 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
         op = get_op(op)
     _note(op)
     tensors = [to_tensor(x) for x in inputs]
+    plan = _layout_opt.active()
+    if plan is not None:
+        # a hybridized forward's conv-bias elision counts consumers
+        plan.consumed(op.name, attrs, tensors)
     ctx = out_ctx = None
     if "ctx" in attrs:
         # the reference's ctx keyword: an op with inputs runs where they
@@ -497,6 +520,8 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
         out = [o for i, o in enumerate(outs) if i not in op.mutate_aux]
         if len(out) == 1:
             out = out[0]
+    if _engine._NAIVE[0]:
+        _engine.engine().on_dispatch(out)
     if isinstance(out, (tuple, list)):
         return tuple(NDArray(o, out_ctx) for o in out)
     return NDArray(out, out_ctx)
@@ -522,7 +547,10 @@ def array(source_array, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         t = host_tensor(arr)
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
-    return NDArray(ctx.place(t), ctx)
+    t = ctx.place(t)
+    if _engine._NAIVE[0]:
+        _engine.engine().on_dispatch(t)
+    return NDArray(t, ctx)
 
 
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -568,8 +596,10 @@ def _create(name, shape, ctx, dtype) -> NDArray:
     the framework makes for itself (gradients, states, a clip's scale)
     are not op dispatches (``ops.recording`` does not see them)."""
     ctx = Context(ctx or current_context())
-    return NDArray(get_op(name).impl(shape=shape, dtype=dtype,
-                                     _device=ctx.torch_device), ctx)
+    t = get_op(name).impl(shape=shape, dtype=dtype, _device=ctx.torch_device)
+    if _engine._NAIVE[0]:
+        _engine.engine().on_dispatch(t)
+    return NDArray(t, ctx)
 
 
 def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
@@ -587,8 +617,7 @@ def concatenate(arrays, axis=0, always_copy=True) -> NDArray:
 
 
 def waitall():
-    """Wait for all queued work: a synchronise of every card, a no-op
-    on the host (ref: MXNDArrayWaitAll)."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
+    """Wait for all queued work: a synchronise of every card, then the
+    native engine's ops, whose first error not raised yet raises here
+    (ref: MXNDArrayWaitAll)."""
+    _engine.engine().wait_for_all()

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import torch_dtype
 from ..context import context_of
+from ..symbol import layout_opt as _layout_opt
 from . import register
 from . import cuda_dropout
 from . import cuda_norm
@@ -221,6 +222,43 @@ def _from_nc(x, nhwc):
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
+def _s2d_enabled():
+    from ..config import get as _cfg
+    return _cfg("MXNET_CONV_S2D")
+
+
+def _stem_s2d_conv(data, weight):
+    """The 7x7/s2/p3 convolution of NC+HW ``data`` over few channels as a
+    4x4 stride-1 convolution of its 2x2 space-to-depth form (the MLPerf
+    ResNet stem transform; the reference's ``_stem_s2d_conv``): the same
+    sums ``y[i] = sum_p w[p] x[2i+p-3]`` with ``p = 2P+a+3``, in another
+    order. The weight stays OIHW; a channels-last ``data`` gives a
+    channels-last input to the convolution."""
+    O, C = weight.shape[0], weight.shape[1]
+    N, _, H, W = data.shape
+    wp = F.pad(weight, (1, 0, 1, 0))                       # 8x8, idx m+1
+    w2 = wp.reshape(O, C, 4, 2, 4, 2).permute(0, 1, 3, 5, 2, 4)
+    w2 = w2.reshape(O, C * 4, 4, 4)
+    xs = data.reshape(N, C, H // 2, 2, W // 2, 2).permute(0, 1, 3, 5, 2, 4)
+    xs = xs.reshape(N, C * 4, H // 2, W // 2)
+    if data.is_contiguous(memory_format=torch.channels_last) and \
+            not data.is_contiguous():
+        xs = xs.contiguous(memory_format=torch.channels_last)
+        w2 = w2.contiguous(memory_format=torch.channels_last)
+    # the reference pads (2, 1) on each spatial axis: low 2, high 1
+    return F.conv2d(F.pad(xs, (2, 1, 2, 1)), w2)
+
+
+def _s2d_eligible(data, nsp, kernel, stride, pad, dilate, num_group,
+                  cudnn_off):
+    """The reference's eligibility for the space-to-depth stem (data in
+    NC+HW)."""
+    return (nsp == 2 and tuple(kernel) == (7, 7) and stride == (2, 2)
+            and pad == (3, 3) and dilate == (1, 1) and int(num_group) == 1
+            and data.shape[1] <= 4 and data.shape[2] % 2 == 0
+            and data.shape[3] % 2 == 0 and not cudnn_off and _s2d_enabled())
+
+
 @register("Convolution", aliases=["convolution", "Convolution_v1"])
 def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
                 dilate=None, pad=None, num_group=1, no_bias=False,
@@ -228,10 +266,12 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
                 _kernel_layout=None):
     """N-d convolution (ref: convolution.cc). Data NC+spatial (or
     N+spatial+C with layout "NWC"/"NHWC"/"NDHWC"), weight OI+spatial
-    (or spatial+IO with ``_kernel_layout="HWIO"``). The reference's
-    space-to-depth rewrite of the 7x7/s2 stem is a choice for the TPU's
-    matrix unit with the same math; the port leaves the algorithm to
-    cuDNN (see config.py)."""
+    (or spatial+IO with ``_kernel_layout="HWIO"``). Under
+    ``MXNET_CONV_S2D`` the 7x7/s2/p3 stem over at most four channels runs
+    as :func:`_stem_s2d_conv`, in either layout. Inside a hybridized call
+    with ``MXNET_LAYOUT_OPT`` on, a 2-D ungrouped NCHW convolution of
+    tensor-core data runs channels-last and its bias may be elided
+    (symbol/layout_opt.py)."""
     nsp = len(tuple(kernel))
     if nsp not in _CONV:
         raise ValueError("conv supports 1-3 spatial dims")
@@ -241,11 +281,31 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
     nhwc = _channels_last(layout)
     if _kernel_layout == "HWIO":
         weight = weight.movedim(-1, 0).movedim(-1, 1)
-    out = _CONV[nsp](_to_nc(data, nhwc), weight, None, stride, pad, dilate,
-                     int(num_group))
-    if not no_bias and bias is not None:
-        out = out + bias.reshape((1, -1) + (1,) * nsp)
-    return _from_nc(out, nhwc)
+    has_bias = not no_bias and bias is not None
+    plan = _layout_opt.active()
+    step = None if plan is None else \
+        plan.conv(nsp, layout, num_group, has_bias, data.dtype)
+    x = _to_nc(data, nhwc)
+    if step is not None and step.nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
+        weight = weight.contiguous(memory_format=torch.channels_last)
+    if _s2d_eligible(x, nsp, kernel, stride, pad, dilate, num_group,
+                     cudnn_off):
+        out = _stem_s2d_conv(x, weight)
+    else:
+        out = _CONV[nsp](x, weight, None, stride, pad, dilate,
+                         int(num_group))
+    if has_bias:
+        shape = (1, -1) + (1,) * nsp
+        if step is None:
+            out = out + bias.reshape(shape)
+        else:
+            out = _layout_opt.add_bias(out, bias, step,
+                                       (1, out.shape[1]) + (1,) * nsp)
+    out = _from_nc(out, nhwc)
+    if step is not None:
+        plan.produced(step, out)
+    return out
 
 
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,

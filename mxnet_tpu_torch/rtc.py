@@ -41,9 +41,10 @@ default launch is 256 threads a block over ``ceil(n / 256)`` blocks.
 Each launch counts under ``rtc:<kernel name>`` in
 ``cuda_build.launch_counts()``.
 
-The reference hands each output to its engine (``engine().on_dispatch``);
-the port's launch is ordered on PyTorch's stream and has no engine to
-tell until the engine is ported (ROADMAP queue 1, item 10).
+Each output goes to ``engine().on_dispatch``, as the reference hands
+its outputs to its engine: the launch is ordered on PyTorch's stream,
+and under ``MXNET_ENGINE_TYPE=NaiveEngine`` that stream is synchronised
+there, so a faulty launch raises at the call.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from . import engine as _engine
 from .base import MXNetError, torch_dtype
 from .context import context_of
 from .ndarray.ndarray import NDArray, to_tensor
@@ -308,6 +310,9 @@ class CudaKernel:
         else:
             raise MXNetError("kernel %r: no route for device %s"
                              % (self.name, dev))
+        eng = _engine.engine()
+        for o in outs:
+            eng.on_dispatch(o)
         res = [NDArray(o, ctx) for o in outs]
         return res if n_out > 1 else res[0]
 

@@ -724,8 +724,8 @@ class ChunkRunner:
                 with autograd._Scope(True, node.train), \
                         torch.enable_grad():
                     outs = node.cop._run(leaves, node.consts, node.ctx,
-                                         True)
-                node.cop._out_fmt = None
+                                         True, node.key[5])
+                node.cop._out_fmt = node.cop._layout_plan = None
                 with torch.no_grad():
                     for o, x in enumerate(outs):
                         vals[(j, o)] = x
