@@ -438,6 +438,35 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    To run 19 and 20 alone: ``python3 -c "import chip_smoke as cs; line =
    cs.phase_device(); cs.phase_layout(0, line)"``; ``layout_readings(
    range(5), line)`` prints the readings behind ``LAYOUT_LIMIT``.
+21. services — BERT-base (``bert_12_768_12``, dropout 0.1, bf16) with its
+   dense MLM head over ``SERVICES_MASKED`` masked positions, one
+   HybridBlock over token ids, hybridized with ``static_alloc`` with its
+   ``SoftmaxCrossEntropyLoss``, trained by SGD with momentum 0.9 (the
+   fused step) through ``gluon.contrib.estimator.Estimator.fit``: 2
+   epochs of 4 batches of 32 x 128 from a ``DataLoader`` over tokens
+   masked from ``--seed``, a checkpoint an epoch, with
+   ``MXNET_TELEMETRY=1``, ``MXNET_MODELWATCH=1`` and the profiler running
+   with ``profile_device=True``. Checked: ``mx_steps_total`` 8, no program
+   recorded or recaptured by compilewatch after step ``SERVICES_WARM``,
+   one host read in each steady step (``set_sync_debug_mode``, inside
+   ``Trainer.step``, none outside it) and modelwatch's one read a step,
+   the dumped trace (the phase spans, the engine's checkpoint ops, the
+   device events of rows 1-8 by kernel name on the host clock), rows 1-8
+   launched (the wrappers' counts and the graphs' capture records); the
+   same run with every service off (in two fit calls) bit for bit in its
+   losses, parameters and momenta, and the first run's epoch-1
+   checkpoint bit for bit with its epoch-1 parameters. Printed: the phase
+   p50s, ``mx_mfu`` and ``mx_goodput``, the FLOPs of a step beside 6 x
+   parameters x tokens, the graphs' memory and capture seconds, the
+   steady step with the services on against off in turns. Then at
+   ``SERVICES_SMALL_LAYERS`` layers and full width: ``scaled_grad`` named
+   by modelwatch as an exploding layer, ``nan_grad`` under ``skip_step``
+   counted and debited from goodput, a raising guard's crash bundle,
+   ``ckpt_write`` raising at ``wait_checkpoints``, and ``fit(resume=True)``
+   with the newest ``.params`` truncated resuming from the one before, bit
+   for bit with the uninterrupted run (dropout 0). To run it alone:
+   ``python3 -c "import chip_smoke as cs; line = cs.phase_device();
+   cs.phase_build(); cs.phase_services(0, line)"``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -9302,6 +9331,734 @@ def phase_engine(seed, mod, sess, reqs, card_line):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 21. services: telemetry, profiler, compilewatch, modelwatch, checkpoints,
+# through Estimator.fit
+# ---------------------------------------------------------------------------
+# BERT pretraining's masked tokens: max_predictions_per_seq at 128 tokens,
+# the [MASK] id of the uncased BERT-base vocabulary
+SERVICES_MASKED = 20
+SERVICES_MASK_ID = 103
+SERVICES_EPOCHS = 2
+SERVICES_BATCHES = 4                 # batches an epoch
+SERVICES_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+# steps before a step only replays graphs: the eager warm-up, the classic
+# step that arms the fused update, its first (eager) fused step
+SERVICES_WARM = 3
+SERVICES_SMALL_LAYERS = 2
+SERVICES_TURN_STEPS = 4
+SERVICES_TURNS = 3
+# the device-trace names of rows 1-8: the kernels' own names, and the
+# epilogue's template argument for the two bias_fwd_kernel instances
+SERVICES_DEVICE_NAMES = {
+    "layer_norm_fwd": ("layer_norm_fwd_rows", "layer_norm_fwd_chunked"),
+    "layer_norm_bwd": ("layer_norm_bwd_rows", "layer_norm_bwd_chunked"),
+    "selfatt_fwd": ("selfatt_fwd_kernel",),
+    "selfatt_bwd": ("selfatt_bwd_q_kernel", "selfatt_bwd_kv_kernel"),
+    "bias_gelu_fwd": ("bias_gelu_fwd",),
+    "bias_gelu_bwd": ("bias_gelu_bwd_kernel",),
+    "bias_residual_fwd": ("bias_residual_fwd",),
+    "dropout": ("dropout_kernel",),
+}
+SERVICES_PHASES = ("data", "forward", "backward", "fused_step",
+                   "modelwatch")
+
+
+def services_mlm(mx, bert):
+    """BERT with its dense MLM head as one HybridBlock over token ids:
+    ``data`` is (batch, seq + masked) int32, the ids then the masked
+    positions; the hidden states of those positions (a one-hot batch_dot,
+    exact) go through the head's transform, LayerNorm and vocabulary
+    projection (``BERTMLMLoss(mode="dense")``'s parameters, by name);
+    returns the logits (batch, masked, vocab)."""
+    nn = mx.gluon.nn
+    seq, masked, vocab, units = TRAIN_SEQ, SERVICES_MASKED, VOCAB, UNITS
+
+    class ServicesMLM(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self._dtype = "float32"
+            self.bert = bert
+            with self.name_scope():
+                self.transform = nn.Dense(units, flatten=False,
+                                          in_units=units,
+                                          prefix="transform_")
+                self.layer_norm = nn.LayerNorm(in_channels=units)
+                self.head_weight = self.params.get(
+                    "head_weight", shape=(vocab, units))
+                self.head_bias = self.params.get(
+                    "head_bias", shape=(vocab,), init="zeros")
+
+        def cast(self, dtype):
+            super().cast(dtype)
+            self._dtype = dtype
+
+        def hybrid_forward(self, F, data, head_weight, head_bias):
+            ids = F.slice_axis(data, axis=1, begin=0, end=seq)
+            pos = F.slice_axis(data, axis=1, begin=seq, end=seq + masked)
+            out = self.bert(ids, F.zeros_like(ids))
+            hidden = out[0] if isinstance(out, (list, tuple)) else out
+            sel = F.Cast(F.one_hot(pos, depth=seq), dtype=self._dtype)
+            h = self.layer_norm(self.transform(F.batch_dot(sel, hidden)))
+            return F.FullyConnected(h, head_weight, head_bias,
+                                    num_hidden=vocab, flatten=False)
+    return ServicesMLM(prefix="decoder_")
+
+
+def services_data(seed, rows):
+    """Token batches as BERT pretraining masks them, from ``seed``: ids
+    drawn over the vocabulary past the special tokens, ``masked`` sorted
+    positions a row replaced by [MASK]; returns (data (rows, seq +
+    masked) int32, labels (rows, masked) f32: the original ids)."""
+    import numpy as np
+    seq, masked, vocab = TRAIN_SEQ, SERVICES_MASKED, VOCAB
+    rng = np.random.RandomState(seed + 21)
+    ids = rng.randint(1000, vocab, (rows, seq)).astype(np.int32)
+    pos = np.sort(np.stack([rng.choice(np.arange(1, seq), masked,
+                                       replace=False)
+                            for _ in range(rows)]), axis=1).astype(np.int32)
+    labels = np.take_along_axis(ids, pos, axis=1).astype(np.float32)
+    np.put_along_axis(ids, pos, SERVICES_MASK_ID, axis=1)
+    return np.concatenate([ids, pos], axis=1), labels
+
+
+def _build_services(seed, layers=12, dropout=0.1):
+    """bert_12_768_12 (or ``layers`` of it) at full width and the MLM
+    head as ``_build_train`` builds them: initialized on gpu(0), biases,
+    beta and gamma - 1 drawn from the seed, cast to bf16; hybridized with
+    static_alloc, as is the loss."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    mx.random.seed(seed)
+    bert = BERTModel(num_layers=layers, units=UNITS, hidden_size=HIDDEN,
+                     num_heads=HEADS, max_length=512, vocab_size=VOCAB,
+                     dropout=dropout, use_pooler=False,
+                     use_classifier=False, use_decoder=False)
+    net = services_mlm(mx, bert)
+    net.initialize()
+    data, _ = services_data(seed, 2)
+    with torch.no_grad():
+        net(mx.nd.array(data, dtype="int32"))
+    _draw_affine(net, seed)
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True)
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss.hybridize(static_alloc=True)
+    return net, loss
+
+
+class _KeptLoss:
+    """The loss block, keeping each step's per-sample loss (a clone on
+    the card, no host read) and counting the steps."""
+
+    def __init__(self, loss, state=None):
+        self.loss, self.vals, self.state = loss, [], state
+
+    def __call__(self, pred, label):
+        out = self.loss(pred, label)
+        self.vals.append(out.tensor().detach().clone())
+        if self.state is not None:
+            self.state["step"] += 1
+        return out
+
+
+def _tokens_metric(mx):
+    """A metric that reads nothing from the card: the tokens predicted."""
+    class Tokens(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("tokens")
+
+        def update(self, labels, preds):
+            for label in labels:
+                self.sum_metric += label.size
+                self.num_inst += 1
+    return Tokens()
+
+
+def _services_fit(seed, net, loss, epochs, prefix=None, trainer=None,
+                  resume=None, state=None, data=None):
+    """Estimator.fit over SERVICES_BATCHES batches of 32 a epoch from a
+    DataLoader; returns (kept losses, estimator, trainer)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+    data, labels = data or services_data(seed,
+                                         SERVICES_BATCHES * TRAIN_BATCH)
+    loader = mx.gluon.data.DataLoader(
+        mx.gluon.data.ArrayDataset(data, labels), batch_size=TRAIN_BATCH)
+    if trainer is None:
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(SERVICES_SGD))
+    kept = _KeptLoss(loss, state)
+    est = Estimator(net, kept, train_metrics=[_tokens_metric(mx)],
+                    trainer=trainer)
+    est.fit(loader, epochs=epochs, ckpt_prefix=prefix, resume=resume)
+    return kept.vals, est, trainer
+
+
+def _momenta(trainer):
+    """The SGD momenta by parameter index (clones)."""
+    out = {}
+    for i, st in trainer._updater.states.items():
+        if st is not None:
+            out[i] = st.tensor().detach().clone()
+    return out
+
+
+def _bits(t):
+    """``t``'s bits as integers (NaNs and signed zeros compare exactly)."""
+    import torch
+    t = t.detach().contiguous()
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _bits_equal(tag, got, want):
+    """Every tensor of ``got`` bit for bit with ``want``'s (dicts or
+    lists, on one device); returns the count compared."""
+    import torch
+    items = (list(enumerate(want)) if isinstance(want, list)
+             else list(want.items()))
+    if len(got) != len(items):
+        raise SmokeFailure("services: %s: %d arrays against %d"
+                           % (tag, len(got), len(items)))
+    for k, w in items:
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not torch.equal(_bits(g), _bits(w)):
+            raise SmokeFailure("services: %s differs at %s" % (tag, k))
+    return len(items)
+
+
+def _struct_snapshot(net):
+    """Clones of the parameters by structural name (the checkpoint's
+    keys)."""
+    return {n: p.data().tensor().detach().clone()
+            for n, p in net._structural_params().items()}
+
+
+@contextlib.contextmanager
+def _sync_regions(state):
+    """Synchronising CUDA calls on the calling thread under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each recorded as
+    (step, region) from ``state`` (kept by the wrappers of the run)."""
+    import threading
+    import warnings
+    import torch
+    seen = []
+    me = threading.get_ident()
+    real = warnings.showwarning
+
+    def show(message, *a, **kw):
+        if "synchronizing CUDA operation" in str(message):
+            if threading.get_ident() == me:
+                seen.append((state["step"], state["region"]))
+            return
+        return real(message, *a, **kw)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@contextlib.contextmanager
+def _regions(state, trainer):
+    """Mark the run's regions for ``_sync_regions``: inside
+    ``Trainer.step``, inside a checkpoint's save (the states blob and
+    ``save_checkpoint``), else the loop."""
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+
+    def wrap(fn, region):
+        def inner(*a, **kw):
+            prev = state["region"]
+            state["region"] = region
+            try:
+                return fn(*a, **kw)
+            finally:
+                state["region"] = prev
+        return inner
+    with mock.patch.object(trainer, "step", wrap(trainer.step, "step")), \
+            mock.patch.object(trainer, "states_blob",
+                              wrap(trainer.states_blob, "ckpt")), \
+            mock.patch.object(mx.model, "save_checkpoint",
+                              wrap(mx.model.save_checkpoint, "ckpt")):
+        yield
+
+
+def _services_env(on):
+    """MXNET_TELEMETRY and MXNET_MODELWATCH on or off, read anew."""
+    import mxnet_tpu_torch as mx
+    for var in ("MXNET_TELEMETRY", "MXNET_MODELWATCH"):
+        if on:
+            os.environ[var] = "1"
+        else:
+            os.environ.pop(var, None)
+    mx.telemetry.refresh()
+    mx.telemetry.reset()
+    mx.compilewatch.reset()
+    mx.modelwatch.reset()
+
+
+def _device_rows(events):
+    """Device events of rows 1-8 by kernel, and their device ms."""
+    out = {}
+    for e in events:
+        for k, frags in SERVICES_DEVICE_NAMES.items():
+            if any(f in e["name"] for f in frags):
+                n, ms = out.get(k, (0, 0.0))
+                out[k] = (n + 1, ms + e["dur"] / 1e3)
+    return out
+
+
+def _services_main(seed, tmp, card_line):
+    """(a)-(c): the main run with every service on, checked, and its
+    twin with every service off. Returns the kernel launches of the
+    main run (executed: eager and captured launches, less those only
+    recorded into graphs, plus those the replays carry)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    _services_env(True)
+    net, loss = _build_services(seed)
+    params = net.collect_params()
+    n_params = sum(p.data().size for p in params.values())
+    trace = os.path.join(tmp, "services_trace.json")
+    mx.profiler.set_config(filename=trace, profile_device=True)
+    prefix = os.path.join(tmp, "bert")
+    state = {"step": 0, "region": "loop"}
+    by_graph = {}
+    trainer = mx.gluon.Trainer(params, "sgd", dict(SERVICES_SGD))
+    torch.cuda.synchronize()
+    print("[services] bert_12_768_12 (dropout 0.1) + the dense MLM head at "
+          "%d masked positions, %d parameters, bf16, hybridized "
+          "(static_alloc), built from seed %d in %.1f s; SGD momentum 0.9 "
+          "through Estimator.fit, %d epochs of %d batches of %d x %d, "
+          "MXNET_TELEMETRY=1 MXNET_MODELWATCH=1, the profiler on with "
+          "profile_device=True" % (
+              SERVICES_MASKED, n_params, seed, time.perf_counter() - t0,
+              SERVICES_EPOCHS, SERVICES_BATCHES, TRAIN_BATCH, TRAIN_SEQ))
+    warm_programs = {}
+    real_mark = mx.telemetry.mark_step
+
+    def mark(*a, **kw):
+        real_mark(*a, **kw)
+        if state["step"] == SERVICES_WARM:
+            warm_programs["n"] = len(mx.compilewatch.programs())
+    cuda_build.reset_launch_counts()
+    from unittest import mock
+    t_run = time.perf_counter()
+    with _capture_launches(by_graph) as captured, \
+            _replayed_launches(by_graph) as replayed, \
+            mock.patch.object(mx.telemetry, "mark_step", mark), \
+            _regions(state, trainer), _sync_regions(state) as syncs:
+        mx.profiler.set_state("run")
+        try:
+            losses, est, _ = _services_fit(seed, net, loss, SERVICES_EPOCHS,
+                                           prefix=prefix, trainer=trainer,
+                                           state=state)
+        finally:
+            mx.profiler.set_state("stop")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launched = cuda_build.launch_counts()
+    executed = {k: launched[k] - captured.get(k, 0) + replayed.get(k, 0)
+                for k in cuda_build.KERNELS}
+    mx.profiler.dump(reset=True)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    snap = mx.telemetry.snapshot()
+    programs = mx.compilewatch.programs()
+    mw = trainer.modelwatch
+    kept = {"losses": losses, "params": _struct_snapshot(net),
+            "momenta": _momenta(trainer)}
+
+    # (b) the checks on the main run
+    steps = int(snap["counters"].get("mx_steps_total", 0))
+    if steps != SERVICES_EPOCHS * SERVICES_BATCHES:
+        raise SmokeFailure("services: mx_steps_total %s, expected %d"
+                           % (steps, SERVICES_EPOCHS * SERVICES_BATCHES))
+    later = programs[warm_programs.get("n", len(programs)):]
+    recaptures = sum(v for k, v in snap["counters"].items()
+                     if k.startswith("mx_recaptures_total"))
+    print("[services] compilewatch: %d programs (%s), %d recorded after "
+          "step %d, recaptures %d" % (
+              len(programs), ", ".join("%s %s" % (r["fn"], r["kind"])
+                                       for r in programs),
+              len(later), SERVICES_WARM, recaptures))
+    if later or recaptures:
+        raise SmokeFailure("services: programs recorded or recaptured after "
+                           "warm-up: %s" % [(r["fn"], r["kind"])
+                                            for r in later])
+    per_step = collections.Counter(s for s, r in syncs if r == "step")
+    loop = collections.Counter(s for s, r in syncs if r == "loop")
+    ckpt = sum(1 for s, r in syncs if r == "ckpt")
+    steady = range(SERVICES_WARM + 1, steps + 1)
+    print("[services] host reads (synchronising calls on the step's thread) "
+          "by step inside Trainer.step %s, in the loop outside it %s, in "
+          "the checkpoints' saves %d; modelwatch host reads %d over %d "
+          "samples" % (dict(sorted(per_step.items())),
+                       dict(sorted(loop.items())), ckpt, mw.sync_count,
+                       mw.samples))
+    if mw.samples != steps or mw.sync_count != steps or \
+            any(per_step[s] != 1 or loop[s] for s in steady):
+        raise SmokeFailure("services: a sampled steady step did not make "
+                           "exactly one host read")
+
+    # the epoch-1 checkpoint, checked below against the twin's epoch-1
+    # parameters
+    arg1, _ = mx.model.load_params(prefix, 1)
+    man = mx.model.checkpoint_entry(prefix, 2)
+    print("[services] checkpoints: %s, the manifest's epoch 2 entry %s" % (
+        sorted(f for f in os.listdir(tmp) if f.startswith("bert")),
+        {k: v for k, v in man.items() if k not in ("time",)}))
+
+    # the trace
+    names = collections.Counter(e["name"] for e in events)
+    missing = [p for p in SERVICES_PHASES if not names.get("step::" + p)]
+    engine_ops = [n for n in names if n.startswith(
+        "engine::checkpoint_write:")]
+    dev = [e for e in events if str(e.get("cat", "")).startswith("device::")]
+    rows = _device_rows(dev)
+    host = [e for e in events if e.get("ph") == "X" and
+            not str(e.get("cat", "")).startswith("device::")]
+    h0 = min(e["ts"] for e in host)
+    h1 = max(e["ts"] + e["dur"] for e in host)
+    d0 = min(e["ts"] for e in dev) if dev else float("nan")
+    d1 = max(e["ts"] + e["dur"] for e in dev) if dev else float("nan")
+    unaligned = sum(1 for e in dev if e["args"].get("clock"))
+    print("[services] trace: %d events (%d device events, %d on an unaligned "
+          "clock, moved %.1f us for kernel-after-launch), host span %.1f ms, "
+          "device span [%+.1f, %+.1f] ms from the host's start; phases %s; "
+          "engine checkpoint ops %s; rows 1-8 in the device trace (kernels, "
+          "device ms): %s" % (
+              len(events), len(dev), unaligned,
+              mx.profiler.device_clock_shift(), (h1 - h0) / 1e3,
+              (d0 - h0) / 1e3, (d1 - h0) / 1e3,
+              {p: names.get("step::" + p, 0) for p in SERVICES_PHASES},
+              sorted(engine_ops), {k: (n, round(ms, 3))
+                                   for k, (n, ms) in sorted(rows.items())}))
+    # the device events lie inside the host's span: the first kernels
+    # follow the profiler's start, the last end within 100 ms of the
+    # last host event (the queue the host runs ahead by)
+    faults = [what for what, bad in (
+        ("phases %s" % missing, missing),
+        ("the engine's checkpoint ops", len(engine_ops) < 2 * SERVICES_EPOCHS),
+        ("rows %s" % sorted(set(SERVICES_DEVICE_NAMES) - set(rows)),
+         sorted(rows) != sorted(SERVICES_DEVICE_NAMES)),
+        ("the device events on the host clock", unaligned or not (
+            h0 - 5e4 <= d0 and d1 <= h1 + 1e5))) if bad]
+    if faults:
+        raise SmokeFailure("services: the trace lacks %s" % faults)
+    absent = [k for k in SERVICES_DEVICE_NAMES if not executed.get(k)]
+    print("[services] kernel launches of the run (executed: eager, plus "
+          "those the graph replays carry): %s" % {
+              k: v for k, v in executed.items() if v})
+    if absent:
+        raise SmokeFailure("services: the main run launched no %s" % absent)
+
+    # (c) what the services read
+    phases = {mx.telemetry.parse_metric_key(k)[1]["phase"]: v["p50"] * 1e3
+              for k, v in snap["histograms"].items()
+              if k.startswith("mx_step_phase_seconds")}
+    step_p50 = snap["histograms"]["mx_step_seconds"]["p50"] * 1e3
+    by_fn = collections.defaultdict(float)
+    for r in programs:
+        if r["kind"] != "recapture" and r["flops"]:
+            by_fn[r["fn"]] += r["flops"]
+    replay_flops = by_fn["CachedOp.fwd_vjp"] + by_fn["autograd.fused_step"]
+    graph_mb = sum(r["bytes"].get("graph_reserved", 0)
+                   for r in programs) / 1e6
+    graph_alloc = sum(r["bytes"].get("graph_allocated", 0)
+                      for r in programs) / 1e6
+    capture_s = sum(r["stages"].get("capture", 0.0) for r in programs)
+    warmup_s = sum(r["stages"].get("warmup", 0.0) for r in programs)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print("[services] phase p50s (ms, host dispatch): %s; step p50 %.2f ms "
+          "(bucket bound)" % ({k: round(v, 3) for k, v in
+                               sorted(phases.items())}, step_p50))
+    print("[services] mx_mfu %.4f, mx_goodput %.4f (over the run's %d "
+          "steps, warm-up and compile included; peak %.4g FLOP/s for %s)"
+          % (snap["gauges"].get("mx_mfu", float("nan")),
+             snap["gauges"].get("mx_goodput", float("nan")), steps,
+             mx.telemetry.peak_flops(), card_line))
+    print("[services] FLOPs of one steady step (FlopCounterMode over the "
+          "warm-ups: the forward graph %.4g, the fused backward+update "
+          "%.4g) %.4g, against 6 x %d parameters x %d tokens = %.4g "
+          "(ratio %.3f)" % (by_fn["CachedOp.fwd_vjp"],
+                             by_fn["autograd.fused_step"], replay_flops,
+                             n_params, tokens, 6.0 * n_params * tokens,
+                             replay_flops / (6.0 * n_params * tokens)))
+    print("[services] graphs: their captures took %.1f MB more allocated "
+          "and %.1f MB more reserved from the caching allocator, capture "
+          "%.2f s, warm-up %.2f s; the run took %.1f s" % (
+              graph_alloc, graph_mb, capture_s, warmup_s, run_s))
+    if not replay_flops or (DEV == "cuda" and not graph_alloc):
+        raise SmokeFailure("services: compilewatch recorded no FLOPs or no "
+                           "graph memory")
+    return net, loss, trainer, kept, arg1, executed, (replay_flops, n_params)
+
+
+def _services_twin(seed, kept, arg1, card_line):
+    """The same run with every service off, in two fit calls (the epoch-1
+    parameters between them): losses, parameters and momenta bit for bit
+    with the main run, and the main run's epoch-1 checkpoint bit for bit
+    with the epoch-1 parameters."""
+    import torch
+    import mxnet_tpu_torch as mx
+    _services_env(False)
+    net, loss = _build_services(seed)
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "sgd", dict(SERVICES_SGD))
+    l1, _, _ = _services_fit(seed, net, loss, 1, trainer=trainer)
+    epoch1 = _struct_snapshot(net)
+    l2, _, _ = _services_fit(seed, net, loss, 1, trainer=trainer)
+    torch.cuda.synchronize()
+    n = _bits_equal("the losses", l1 + l2, kept["losses"])
+    n += _bits_equal("the parameters", _struct_snapshot(net),
+                     kept["params"])
+    n += _bits_equal("the momenta", _momenta(trainer), kept["momenta"])
+    ckpt = {k: v.tensor().to(epoch1[k].device) for k, v in arg1.items()}
+    m = _bits_equal("the epoch-1 checkpoint", ckpt, epoch1)
+    print("[services] services on against off: %d losses, parameters and "
+          "momenta bit for bit; the epoch-1 checkpoint (written while epoch "
+          "2 updated the weights in place) bit for bit with the epoch-1 "
+          "parameters (%d arrays)" % (n, m))
+    return net, loss, trainer
+
+
+def _services_turns(net, loss, trainer, seed, card_line, step_flops):
+    """The steady step with every service off, with telemetry on, and
+    with telemetry and modelwatch on, in turns (off, telemetry, both,
+    both, telemetry, off), on the host clock around a synchronised card:
+    median ms of SERVICES_TURN_STEPS steps. Returns {arm: ms}."""
+    import torch
+    import mxnet_tpu_torch as mx
+    data, labels = services_data(seed + 1, TRAIN_BATCH)
+    x = mx.nd.array(data, dtype="int32")
+    y = mx.nd.array(labels)
+    mw = mx.modelwatch.ModelWatch()
+    arms = ("off", "telemetry", "telemetry+modelwatch")
+
+    def steps(arm):
+        mx.telemetry.enable(arm != "off")
+        trainer.modelwatch = mw if arm == arms[2] else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVICES_TURN_STEPS):
+            with mx.autograd.record():
+                out = loss(net(x), y)
+            out.backward()
+            trainer.step(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SERVICES_TURN_STEPS
+    for arm in arms:
+        steps(arm)
+    times = {arm: [] for arm in arms}
+    for _ in range(SERVICES_TURNS):
+        for arm in arms + arms[::-1]:
+            times[arm].append(steps(arm))
+    med = {arm: statistics.median(v) for arm, v in times.items()}
+    peak = mx.telemetry.peak_flops()
+    print("[services] steady step (medians of %d turns of %d steps, in "
+          "turns): %s; over off: %s; the step's FlopCounterMode FLOPs over "
+          "its time and the peak (MFU): %s; %s" % (
+              2 * SERVICES_TURNS, SERVICES_TURN_STEPS,
+              ", ".join("%s %.3f ms" % (a, med[a]) for a in arms),
+              ", ".join("%s %+.2f%%" % (a, 100 * (med[a] - med["off"])
+                                        / med["off"]) for a in arms[1:]),
+              ", ".join("%s %.4f" % (a, step_flops / (med[a] / 1e3) / peak)
+                        for a in arms) if peak else "no peak",
+              card_line))
+    mx.telemetry.enable(False)
+    trainer.modelwatch = None
+    return med
+
+
+def _services_small(seed, tmp, card_line):
+    """(d) At SERVICES_SMALL_LAYERS layers and full width: scaled_grad
+    named as an exploding layer, nan_grad under skip_step counted and
+    debited, a raising guard's crash bundle, ckpt_write at the wait, and
+    fit(resume=True) past a truncated newest checkpoint bit for bit with
+    the uninterrupted run (dropout 0 there: a resumed run starts a new
+    random stream)."""
+    from unittest import mock
+    import mxnet_tpu_torch as mx
+    data = services_data(seed, 2 * TRAIN_BATCH)
+    x = mx.nd.array(data[0][:TRAIN_BATCH], dtype="int32")
+    y = mx.nd.array(data[1][:TRAIN_BATCH])
+
+    def trained(guard=None, plant=None, at=None, steps=10, fused="0"):
+        _services_env(True)
+        os.environ["MXNET_TRAINER_FUSED_UPDATE"] = fused
+        try:
+            net, loss = _build_services(seed, SERVICES_SMALL_LAYERS)
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  dict(SERVICES_SGD))
+            if guard is not None:
+                tr.grad_guard = mx.guardrails.GradGuard(nonfinite=guard)
+            marks = []
+            real = mx.telemetry.mark_step
+            with mock.patch.object(
+                    mx.telemetry, "mark_step",
+                    lambda *a, **kw: (marks.append(kw.get("useful", True)),
+                                      real(*a, **kw))[1]):
+                for i in range(steps):
+                    if i == at:
+                        mx.faultinject.set_fault(plant, 1.0, max_fires=1)
+                    with mx.autograd.record():
+                        out = loss(net(x), y)
+                    out.backward()
+                    tr.step(TRAIN_BATCH)
+        finally:
+            mx.faultinject.clear()
+            os.environ.pop("MXNET_TRAINER_FUSED_UPDATE", None)
+        return tr, marks
+
+    # scaled_grad: the last gradient x 1e4 at step 10, after the z-score's
+    # history of 8 samples
+    tr, _ = trained(plant="scaled_grad", at=9)
+    anomalies = [(a["kind"], a["param"], a["step"]) for a in
+                 mx.modelwatch.recent_anomalies()]
+    last = [p.name for p in tr._params if p.grad_req != "null"][-1]
+    dead = [a for a in anomalies if a[0] == "dead"]
+    print("[services] %d layers: scaled_grad at step 10 -> modelwatch's "
+          "exploding layers %s (the last gradient is %s); %d layers named "
+          "dead (their bf16 weights did not move under the SGD update, "
+          "first at step %s)" % (
+              SERVICES_SMALL_LAYERS, [a for a in anomalies
+                                      if a[0] != "dead"], last, len(dead),
+              min([a[2] for a in dead], default=None)))
+    if ("exploding", last, 10) not in anomalies:
+        raise SmokeFailure("services: scaled_grad was not named as an "
+                           "exploding layer")
+    # nan_grad under skip_step
+    tr, marks = trained(guard="skip_step", plant="nan_grad", at=4, steps=6)
+    counters = mx.telemetry.snapshot()["counters"]
+    gp = mx.telemetry.snapshot()["gauges"].get("mx_goodput")
+    got = (counters.get('mx_guard_events_total{kind="skip"}'),
+           counters.get('mx_guard_events_total{kind="nonfinite"}'),
+           counters.get('mx_fault_injections_total{site="nan_grad"}'),
+           marks.count(False), tr.grad_guard.skipped_steps)
+    print("[services] nan_grad at step 5 under skip_step: guard events "
+          "skip %s, nonfinite %s; fault fires %s; steps marked not useful "
+          "%d; skipped %d; mx_goodput %.4f" % (got + (gp,)))
+    if got != (1, 1, 1, 1, 1):
+        raise SmokeFailure("services: the skipped step was not counted and "
+                           "debited")
+    # a raising guard writes a crash bundle
+    bundles = os.path.join(tmp, "bundles")
+    os.makedirs(bundles)
+    os.environ["MXNET_CRASH_BUNDLE_DIR"] = bundles
+    try:
+        trained(guard="raise", plant="nan_grad", at=2, steps=3)
+        raise SmokeFailure("services: the raising guard did not raise")
+    except mx.guardrails.NonFiniteGradientError:
+        pass
+    finally:
+        os.environ.pop("MXNET_CRASH_BUNDLE_DIR", None)
+    found = os.listdir(bundles)
+    files = sorted(os.listdir(os.path.join(bundles, found[0]))) \
+        if len(found) == 1 else []
+    anomaly = json.load(open(os.path.join(bundles, found[0],
+                                          "anomaly.json"))) if files else {}
+    print("[services] the raising guard's crash bundle %s: %s, suspects "
+          "%s" % (found, files, [s["param"] for s in
+                                 anomaly.get("suspects", [])][:2]))
+    if len(files) != 7 or anomaly.get("reason") != "guard_raise":
+        raise SmokeFailure("services: no crash bundle from the raising guard")
+    # ckpt_write surfaces at the wait
+    net, _ = _build_services(seed, SERVICES_SMALL_LAYERS)
+    arg = {n: p.data() for n, p in net.collect_params().items()}
+    mx.faultinject.set_fault("ckpt_write", 1.0, max_fires=1)
+    try:
+        mx.model.save_checkpoint(os.path.join(tmp, "fault"), 1, None, arg,
+                                 {})
+        try:
+            mx.model.wait_checkpoints()
+            raise SmokeFailure("services: ckpt_write did not surface")
+        except mx.base.MXNetError as e:
+            print("[services] ckpt_write surfaced at wait_checkpoints: %s"
+                  % str(e).split("[")[0].strip())
+    finally:
+        mx.faultinject.clear()
+    if any(f.startswith("fault-0001.params") for f in os.listdir(tmp)):
+        raise SmokeFailure("services: a failed write was published")
+    # resume past a truncated newest checkpoint
+    _services_env(True)
+    small = services_data(seed, 2 * TRAIN_BATCH)
+
+    def fit(prefix, epochs, resume=None):
+        net, loss = _build_services(seed, SERVICES_SMALL_LAYERS, dropout=0.0)
+        mx.random.seed(seed)
+        losses, _, tr = _services_fit(seed, net, loss, epochs, prefix=prefix,
+                                      resume=resume, data=small)
+        return losses, _struct_snapshot(net), _momenta(tr)
+    full = fit(os.path.join(tmp, "full"), 3)
+    part = os.path.join(tmp, "part")
+    fit(part, 2)
+    newest = part + "-0002.params"
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    resumed = fit(part, 3, resume=True)
+    n = _bits_equal("the resumed run's losses", resumed[0], full[0][-4:])
+    n += _bits_equal("the resumed run's parameters", resumed[1], full[1])
+    n += _bits_equal("the resumed run's momenta", resumed[2], full[2])
+    print("[services] fit(resume=True) with epoch 2's .params truncated "
+          "resumed from epoch 1: epochs 2-3 bit for bit with the "
+          "uninterrupted run (%d arrays); %s" % (n, card_line))
+
+
+def phase_services(seed, card_line):
+    """21. The runtime services on BERT-base trained through
+    Estimator.fit; returns the kernel launches of the main run and the
+    steady step's times."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    print("[services] %s" % card_line)
+    tmp = tempfile.mkdtemp(prefix="mxt_services_")
+    saved = {v: os.environ.get(v) for v in (
+        "MXNET_TELEMETRY", "MXNET_MODELWATCH")}
+    try:
+        net, loss, trainer, kept, arg1, executed, sizes = _services_main(
+            seed, tmp, card_line)
+        times = _services_turns(net, loss, trainer, seed, card_line,
+                                sizes[0])
+        _free_graphs(net, loss)
+        del net, loss, trainer
+        twin = _services_twin(seed, kept, arg1, card_line)
+        _free_graphs(*twin[:2])
+        del twin, kept, arg1
+        torch.cuda.empty_cache()
+        _services_small(seed, tmp, card_line)
+    finally:
+        mx.profiler.set_config(profile_device=False)
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+        mx.telemetry.refresh()
+        mx.telemetry.reset()
+        mx.compilewatch.reset()
+        mx.model.wait_checkpoints()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[services] phase 21 took %.1f s; %s"
+          % (time.perf_counter() - t0, card_line))
+    return executed, times
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9414,10 +10171,12 @@ def main(argv=None):
         layout_counts = phase_layout(args.seed, card_line)
         engine_counts = phase_engine(args.seed, rtc_mod, sess, reqs,
                                      card_line)
+        services_counts, _ = phase_services(args.seed, card_line)
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
             r["launches_per_engine_run"] = engine_counts.get(k, 0)
+            r["launches_per_services_run"] = services_counts.get(k, 0)
         for r in rows:
             r["launches_per_fed_run"] = fed_counts.get(
                 r.get("kernel", r["name"]), 0)

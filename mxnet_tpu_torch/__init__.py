@@ -29,6 +29,13 @@ clip_global_norm``. The fifteenth brings the ImageNet input path:
 ``recordio``, ``io`` (``ImageRecordIter`` on the native decode/augment
 pipeline of ``csrc/io.cc``, built with g++ at first use), ``image`` and
 the record datasets, and ``python -m mxnet_tpu_torch.tools.im2rec``.
+The twentieth brings the runtime services: ``telemetry`` (the metrics
+registry, step phases, MFU and goodput, the heartbeat, crash bundles),
+``profiler`` (chrome traces with the card's kernels from
+``torch.profiler``), ``compilewatch`` (every captured graph as a
+program), ``modelwatch`` (per-layer training dynamics in the guard's one
+host read), ``model`` (asynchronous crash-safe checkpoints),
+``gluon.contrib.estimator``, ``monitor`` and ``callback``.
 
 Usage mirrors the reference::
 
@@ -68,6 +75,8 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from .base import MXNetError
+from . import profiler
+from . import telemetry
 from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 from . import ndarray
 from .ndarray import waitall
@@ -93,4 +102,13 @@ from . import native
 from . import engine
 from . import io
 from . import image
+from . import compilewatch
+from . import modelwatch
+from . import model
+from . import monitor
+from . import callback
 from .interop import params_from_numpy
+
+# a raising guard, an engine op error or a watchdog writes a crash
+# bundle once MXNET_CRASH_BUNDLE_DIR is set
+telemetry.install_crash_bundler()

@@ -64,6 +64,13 @@ gradient. The flag, and ``MXNET_CONV_S2D`` beside it, are read at each
 call and are part of the signature, so flipping one selects other
 graphs; :meth:`CachedOp.layout_plan` gives a signature's decisions. The
 passes run on the CPU too, as the reference's do.
+
+With telemetry on, :mod:`mxnet_tpu_torch.compilewatch` records each
+signature as a program (``CachedOp.forward``/``CachedOp.fwd_vjp``, its
+node-by-node backward ``CachedOp.bwd``, a tape plan
+``autograd.fused_backward``/``autograd.fused_step``): the warm-up's
+seconds and FLOPs, the capture's seconds and memory, one hit a later
+call.
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ from .base import MXNetError
 from .config import get as _cfg
 from .context import Context
 from . import autograd
+from . import compilewatch as _cw
 from . import engine as _engine
 from . import ops as _ops
 from . import random as _random
@@ -370,6 +378,8 @@ class _Entry:
         self.needs_bwd = False
         self.runners: Dict[tuple, "_Runner"] = {}
         self.readers: "weakref.WeakSet" = weakref.WeakSet()
+        self.prog = None       # compilewatch (Watch, record, signature)
+        self.bwd_prog = (None, None)
 
     @property
     def cop(self) -> "CachedOp":
@@ -394,9 +404,11 @@ class _Entry:
                     src, self.recording and t.requires_grad))
         self.ptrs = cop._param_ptrs(tensors)
         fwd = torch.cuda.CUDAGraph()
-        self.outs = _capture(
+        w, rec, _ = self.prog or (None, None, None)
+        self.outs = _cw.timed(w, rec, "capture", lambda: _capture(
             fwd, "CachedOp %s forward" % cop.name,
-            lambda: cop._run(self.leaves, consts, ctx, True, self.layout))
+            lambda: cop._run(self.leaves, consts, ctx, True, self.layout)),
+            memory=True)
         if self.recording:
             self.gins = [None] * len(self.leaves)
             self.needs_bwd = any(o.requires_grad for o in self.outs) and \
@@ -413,10 +425,16 @@ class _Entry:
         self.gouts = [torch.zeros_like(o) if o.requires_grad else None
                       for o in self.outs]
         bwd = torch.cuda.CUDAGraph()
-        self.gins = _capture(bwd, "CachedOp %s backward" % self.name,
-                             lambda: rec.grads(self.gouts),
-                             pool=self.graph.pool())
+        w = brec = None
+        if self.prog is not None and _cw.enabled():
+            w = self.cop._watch(None, True)
+            brec = w.lookup(self.prog[2]) or w.miss(self.prog[2])
+        self.gins = _cw.timed(w, brec, "capture", lambda: _capture(
+            bwd, "CachedOp %s backward" % self.name,
+            lambda: rec.grads(self.gouts), pool=self.graph.pool()),
+            memory=True)
         self.bwd = bwd
+        self.bwd_prog = (w, brec)
 
     def replay(self, tensors, train) -> List[torch.Tensor]:
         cop = self.cop
@@ -450,6 +468,9 @@ class _Entry:
                     buf.copy_(g)
             self.bwd.replay()
             _REPLAYS["backward"] += 1
+            w, brec = self.bwd_prog
+            if brec is not None:
+                w.hit(brec)
             return [None if g is None else g.clone() for g in self.gins]
 
 
@@ -506,6 +527,8 @@ class CachedOp:
         self._layout_plan = None
         self._warm: set = set()
         self._last_key = None
+        self._watches: Dict[tuple, "_cw.Watch"] = {}
+        self._progs: Dict[tuple, tuple] = {}   # key -> (Watch, record, sig)
         self._lock = threading.Lock()
         self._finalizer = weakref.finalize(self, _release_entries,
                                            self._entries)
@@ -523,6 +546,51 @@ class CachedOp:
 
     def _param_ptrs(self, tensors):
         return tuple(t.data_ptr() for t in tensors[self.n_data:])
+
+    def _watch(self, train, recording) -> "_cw.Watch":
+        """The compilewatch site of calls in mode ``train`` (None: the
+        node-by-node backward), recording or not, named as the
+        reference names its programs."""
+        w = self._watches.get((train, recording))
+        if w is None:
+            names = list(self.input_names) + ["static"]
+            if train is None:
+                w = _cw.Watch("CachedOp.bwd", "cached_op", names,
+                              "cop%d" % self.uid)
+            elif recording:
+                w = _cw.Watch("CachedOp.fwd_vjp", "cached_op", names,
+                              "cop%d" % self.uid)
+            else:
+                w = _cw.Watch("CachedOp.forward", "cached_op", names,
+                              "cop%d/%s" % (self.uid,
+                                            "train" if train else "eval"))
+            self._watches[(train, recording)] = w
+        return w
+
+    def _program(self, key, tensors):
+        """compilewatch's (Watch, record, signature) of the call with
+        signature ``key``, and whether the signature is new; (None,
+        False) with telemetry off."""
+        if not _cw.enabled():
+            return None, False
+        prog = self._progs.get(key)      # the key holds the signature
+        if prog is not None:
+            prog[0].hit(prog[1])
+            return prog, False
+        train, recording = key[0], key[1]
+        w = self._watch(train, recording)
+        sig = tuple(_cw.tensor_sig(t) for t in tensors) + (_cw.value_sig(
+            (train, key[2], key[3], key[5], key[6]),
+            "train=%d casts=%s layout=%d s2d=%d"
+            % (train, key[2], key[5], key[6])),)
+        rec = w.lookup(sig)
+        new = rec is None
+        if new:
+            rec = w.miss(sig)
+        else:
+            w.hit(rec)
+        prog = self._progs[key] = (w, rec, sig)
+        return prog, new
 
     def layout_plan(self, key=None) -> Optional[List[tuple]]:
         """``(nhwc, bias_elided)`` of each Convolution call, in call
@@ -615,13 +683,19 @@ class CachedOp:
                _layout_opt.layout_opt_enabled(), _cfg("MXNET_CONV_S2D"))
         call = (self, key, consts, ctx) if recording else None
         with self._lock:
+            prog, new = self._program(key, tensors)
             entry = self._instance(key, recording)
+            if prog is not None:
+                entry.prog = prog
             if not tensors[0].is_cuda:
-                outs = self._eager(tensors, consts, ctx, recording, entry,
-                                   call)
+                w, rec, _ = prog if new else (None, None, None)
+                outs = _cw.timed(w, rec, "warmup", lambda: self._eager(
+                    tensors, consts, ctx, recording, entry, call),
+                    flops=True)
             else:
                 outs = self._call_card(entry, key, tensors, consts, ctx,
-                                       recording, train, call)
+                                       recording, train, call,
+                                       prog if new else None)
             if self._out_fmt is not None:
                 self._out_fmts[key] = self._out_fmt
                 self._out_fmt = None
@@ -633,11 +707,13 @@ class CachedOp:
         return _format(fmt, [NDArray(t, ctx) for t in outs])
 
     def _call_card(self, entry, key, tensors, consts, ctx, recording,
-                   train, call=None):
+                   train, call=None, new_prog=None):
         if key not in self._warm:
+            w, rec, _ = new_prog or (None, None, None)
             with _on_side_stream(tensors[0].device):
-                outs = self._eager(tensors, consts, ctx, recording, entry,
-                                   call)
+                outs = _cw.timed(w, rec, "warmup", lambda: self._eager(
+                    tensors, consts, ctx, recording, entry, call),
+                    flops=True)
             self._warm.add(key)
             if not recording:
                 entry.capture(tensors, consts, ctx)
@@ -647,6 +723,8 @@ class CachedOp:
             # a parameter's storage moved: every graph of this op is stale
             _release_entries(self._entries)
             entry = self._instance(key, recording)
+            entry.prog = self._program(key, tensors)[0] if \
+                _cw.enabled() else None
         if entry.graph is None:
             entry.capture(tensors, consts, ctx)
         outs = entry.replay(tensors, train)
@@ -760,6 +838,33 @@ class _Runner:
         self.warm = False
         self.closed = False
         self.cots = self.keep = None
+        self.watch = self.rec = None
+
+    def _program(self, plan, update):
+        """compilewatch's (Watch, record) of this runner, the record new
+        on its first run; None with telemetry off."""
+        if not _cw.enabled():
+            return None
+        if self.watch is None:
+            n = len(plan.recs)
+            if update is None:
+                self.watch = _cw.Watch(
+                    "autograd.fused_backward", "autograd.backward",
+                    instance="tape[%d nodes]" % n)
+            else:
+                self.watch = _cw.Watch(
+                    "autograd.fused_step", "trainer.step",
+                    instance="tape[%d nodes]+update" % n)
+        if self.rec is None:
+            sig = tuple(_cw.tensor_sig(c) for c in plan.cots) + \
+                tuple(_cw.tensor_sig(v._t) for v in plan.leaves)
+            self.watch._arg_names = \
+                ["head_grad%d" % i for i in range(len(plan.cots))] + \
+                ["leaf%d" % i for i in range(len(plan.leaves))]
+            self.rec = self.watch.miss(sig)
+            return self.watch, self.rec, True
+        self.watch.hit(self.rec)
+        return self.watch, self.rec, False
 
     def close(self):
         """An instance it replays over was released: never run again."""
@@ -769,8 +874,10 @@ class _Runner:
     def run(self, plan, update):
         for r in plan.recs:
             r.check()
+        w, rec, new = self._program(plan, update) or (None, None, False)
         if not self.static or not self.warm:
-            _tape_fn(plan, plan.cots, update)
+            _cw.timed(w, rec if new else None, "warmup",
+                      lambda: _tape_fn(plan, plan.cots, update), flops=True)
             self.warm = True
             return
         if self.graph is None:
@@ -779,9 +886,9 @@ class _Runner:
             self.keep = (plan.leaves,
                          [v._grad.tensor() for v in plan.leaves], update)
             graph = torch.cuda.CUDAGraph()
-            _capture(graph, "backward of %d hybridized call(s)"
-                     % len(plan.recs),
-                     lambda: _tape_fn(plan, self.cots, update))
+            _cw.timed(w, rec, "capture", lambda: _capture(
+                graph, "backward of %d hybridized call(s)" % len(plan.recs),
+                lambda: _tape_fn(plan, self.cots, update)), memory=True)
             self.graph = graph     # a capture that raised leaves none
         else:
             with torch.no_grad():

@@ -148,8 +148,61 @@ define("MXNET_GUARD_COMM_VOTE", bool, False,
        "Pre-allreduce finiteness vote of the dist kvstore; on, the "
        "Trainer raises (ROADMAP.md queue 1, item 11).")
 define("MXNET_MODELWATCH", bool, False,
-       "Training-dynamics statistics; on, the Trainer raises (ROADMAP.md "
-       "queue 1, item 13).")
+       "Training-dynamics observability (modelwatch.py; needs "
+       "MXNET_TELEMETRY=1): per-layer gradient, parameter and update-ratio "
+       "gauges (mx_layer_*), a rolling z-score that names an exploding or "
+       "dead layer through the guard event stream, computed by extending "
+       "the guard's one reduction, so a watched step still costs one host "
+       "read.")
+define("MXNET_MODELWATCH_EVERY", int, 1,
+       "Sample the modelwatch statistics every N optimizer steps (1 = every "
+       "step); the other steps run the plain guard reduction.")
+define("MXNET_MODELWATCH_ZWARN", float, 6.0,
+       "Rolling z-score threshold of modelwatch's exploding-layer detector "
+       "(0 disables detection; the gauges still export).")
+define("MXNET_NOISE_SCALE", bool, True,
+       "With MXNET_MODELWATCH on a data-parallel step of two or more "
+       "replicas: the gradient noise scale from the per-replica norms. One "
+       "device has no such estimate, so the gauge stays absent.")
+define("MXNET_TELEMETRY", bool, False,
+       "Master switch of the telemetry registry (telemetry.py): engine op "
+       "spans and latency histograms, the per-step phase breakdown, guard, "
+       "fault and checkpoint counters, compile accounting. The read is "
+       "cached: call telemetry.refresh() after changing it.")
+define("MXNET_TELEMETRY_HEARTBEAT", float, 0.0,
+       "Period in seconds of the heartbeat line on the "
+       "'mxnet_tpu_torch.telemetry' logger (0 disables; needs "
+       "MXNET_TELEMETRY=1).")
+define("MXNET_COMPILE_WARN_N", int, 5,
+       "Recompile-storm guard (compilewatch.py; needs MXNET_TELEMETRY=1): "
+       "once one watched program site takes more than N new signatures "
+       "after its first, warn with the signature diffs (0 disables).")
+define("MXNET_COMPILE_STRICT", bool, False,
+       "Raise MXNetError instead of warning past MXNET_COMPILE_WARN_N.")
+define("MXNET_STRAGGLER_WARN", float, 0.0,
+       "Fleet straggler threshold as relative per-step skew; one process "
+       "is a fleet of one rank, so it never fires without a process group "
+       "(ROADMAP.md queue 1, item 11). 0 disables.")
+define("MXNET_FLEET_SNAPSHOT_PERIOD", int, 0,
+       "Merge the fleet view every N optimizer steps from mark_step (0 "
+       "disables).")
+define("MXNET_PEAK_FLOPS", float, 0.0,
+       "Peak FLOP/s the mx_mfu gauge divides by. 0 = the card's published "
+       "bf16 dense rate by torch.cuda.get_device_name(); on a device not "
+       "in that table mx_mfu is not exported.")
+define("MXNET_CRASH_BUNDLE_DIR", str, "",
+       "Directory for crash postmortem bundles (telemetry.crash_bundle): a "
+       "raising guard, an engine op error or a watchdog writes the "
+       "modelwatch ring, the snapshot, the chrome trace, the compilewatch "
+       "table and the environment into one atomically published "
+       "subdirectory. Empty disables.")
+define("MXNET_CKPT_KEEP", int, 0,
+       "Checkpoint retention window per prefix (model.save_checkpoint): "
+       "keep the newest N manifest entries and delete the pruned files (0 "
+       "keeps all; save_checkpoint's max_keep overrides).")
+define("MXNET_ELASTIC", bool, False,
+       "Elastic resharding in Estimator.fit; on, fit raises (ROADMAP.md "
+       "queue 1, item 11).")
 define("MXNET_CHUNKED_CE", bool, True,
        "BERTMLMLoss(mode='auto') runs the chunked LM-head cross entropy "
        "(_contrib_chunked_lm_head_ce: an online softmax over vocab "

@@ -71,6 +71,13 @@ class Context:
             out = out.pin_memory()
         return out
 
+    def memory_info(self) -> dict:
+        """Live tracked-NDArray footprint on this context: ``{"bytes",
+        "count"}`` (counted while MXNET_TELEMETRY is on; see
+        ``telemetry.memory_snapshot``)."""
+        from . import telemetry
+        return telemetry.ndarray_live(str(self))
+
     def __enter__(self):
         stack = getattr(Context._default, "stack", None)
         if stack is None:

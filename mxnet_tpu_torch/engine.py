@@ -31,20 +31,29 @@ this module keeps is the reference's surface over that:
   pending op still reads waits for that reader first (write after
   read).
 
-The reference's engine metrics and spans, its race-detector hook and
-``push_async(collective=...)`` come with the modules that own them
-(ROADMAP.md queue 1, items 13, 16 and 11).
+With telemetry on or the profiler running, each native op is timed from
+its push to its start and from its start to its end: two chrome-trace
+events (``engine::<label> (queued)`` and ``engine::<label>``), and with
+telemetry on ``mx_engine_ops_total{label}``, ``mx_engine_pending_ops``,
+``mx_engine_queue_seconds{label}``, ``mx_engine_op_seconds{label}`` and
+``mx_engine_op_errors_total{label}`` (the label cut at its first ':').
+The reference's race-detector hook and ``push_async(collective=...)``
+come with the modules that own them (ROADMAP.md queue 1, items 16 and
+11).
 """
 from __future__ import annotations
 
 import ctypes
 import sys
 import threading
+import time
 import weakref
 
 import torch
 
 from .base import MXNetError
+from . import profiler
+from . import telemetry
 
 __all__ = ["Engine", "engine", "NativeDependencyEngine", "native_engine",
            "native_wait_all", "native_drain", "push_gated", "EngineGate",
@@ -55,6 +64,39 @@ __all__ = ["Engine", "engine", "NativeDependencyEngine", "native_engine",
 def _cfg(name):
     from .config import get
     return get(name)
+
+
+def _tele_live() -> bool:
+    """Whether ops are timed: telemetry on or the profiler running."""
+    return telemetry.enabled() or profiler.state() == "run"
+
+
+def _metric_label(label: str) -> str:
+    """An op's histogram label: its label up to the first ':' (labels
+    carry instance detail, 'checkpoint_write:run-0003.params')."""
+    return label.split(":", 1)[0]
+
+
+def _record_op_done(label, site, t_queued, t_run, failed, ginc):
+    """One op's queued and running spans, and with telemetry on its
+    latency histograms and error counter; ``ginc`` says whether its push
+    raised the pending gauge (the decrement pairs with that)."""
+    t_done = time.perf_counter()
+    if ginc:
+        telemetry.gauge("mx_engine_pending_ops").dec()
+    pargs = {"site": site}
+    profiler.record_event("engine::%s (queued)" % label, "engine",
+                          t_queued * 1e6, (t_run - t_queued) * 1e6, pargs)
+    profiler.record_event("engine::%s" % label, "engine", t_run * 1e6,
+                          (t_done - t_run) * 1e6, dict(pargs, failed=failed))
+    if telemetry.enabled():
+        ml = _metric_label(label)
+        telemetry.histogram("mx_engine_queue_seconds",
+                            label=ml).observe(t_run - t_queued)
+        telemetry.histogram("mx_engine_op_seconds",
+                            label=ml).observe(t_done - t_run)
+        if failed:
+            telemetry.counter("mx_engine_op_errors_total", label=ml).inc()
 
 
 def _enqueue_site() -> str:
@@ -97,7 +139,8 @@ class NativeDependencyEngine:
         # op's token: no libffi closure is freed while a worker thread
         # may still be in its native epilogue
         self._fns = {}
-        self._meta = {}        # token -> (label, site, reads, writes)
+        # token -> (label, site, reads, writes, t_queued, ginc)
+        self._meta = {}
         self._var_errors = {}  # var -> error record
         self._live_lock = threading.Lock()
         self._next = 1         # ctypes maps a NULL ctx to None: no token 0
@@ -105,14 +148,17 @@ class NativeDependencyEngine:
         def _dispatch(ctx_token, err_out, err_cap):
             with self._live_lock:
                 fn = self._fns.pop(ctx_token, None)
-                label, site, reads, writes = self._meta.get(
-                    ctx_token, ("<unlabeled>", "<unknown>", (), ()))
+                label, site, reads, writes, t_queued, ginc = \
+                    self._meta.get(ctx_token, ("<unlabeled>", "<unknown>",
+                                               (), (), None, False))
                 upstream = None
                 for rv in reads:
                     rec = self._var_errors.get(rv)
                     if rec is not None:
                         upstream = rec
                         break
+            t_run = time.perf_counter() if t_queued is not None \
+                else None
             rc = 0
             err_text = None
             if upstream is not None:
@@ -155,6 +201,12 @@ class NativeDependencyEngine:
                         pass
             with self._live_lock:
                 self._meta.pop(ctx_token, None)
+            if t_run is not None:
+                try:
+                    _record_op_done(label, site, t_queued, t_run,
+                                    bool(rc), ginc)
+                except Exception:  # noqa: BLE001 - never poison the op
+                    pass
             if rc:
                 try:
                     msg = (err_text or "engine op failed") \
@@ -203,12 +255,21 @@ class NativeDependencyEngine:
                 faultinject.maybe_fail(
                     "engine_op", msg="injected fault: engine_op %r" % label)
                 real_fn()
+        t_queued = None
+        ginc = False
+        if _tele_live():
+            t_queued = time.perf_counter()
+            if telemetry.enabled():
+                ml = _metric_label(label)
+                telemetry.counter("mx_engine_ops_total", label=ml).inc()
+                telemetry.gauge("mx_engine_pending_ops").inc()
+                ginc = True
         with self._live_lock:
             token = self._next
             self._next += 1
             self._fns[token] = fn
             self._meta[token] = (label, site, tuple(read_vars),
-                                 tuple(write_vars))
+                                 tuple(write_vars), t_queued, ginc)
         r = (ctypes.c_uint64 * max(1, len(read_vars)))(*read_vars)
         w = (ctypes.c_uint64 * max(1, len(write_vars)))(*write_vars)
         rc = self._lib.MXEnginePushAsync(
@@ -218,6 +279,8 @@ class NativeDependencyEngine:
             with self._live_lock:
                 self._fns.pop(token, None)
                 self._meta.pop(token, None)
+            if ginc:
+                telemetry.gauge("mx_engine_pending_ops").dec()
             raise MXNetError(self._lib.MXGetLastError().decode(
                 "utf-8", "replace"))
 
@@ -246,7 +309,7 @@ class NativeDependencyEngine:
         """``[(label, site, reads, writes)]`` of the ops not completed
         yet (the watchdog's report)."""
         with self._live_lock:
-            return list(self._meta.values())
+            return [m[:4] for m in self._meta.values()]
 
     def _blocking_wait(self, call, what):
         """Run a blocking C wait, under the watchdog when

@@ -10,7 +10,7 @@ probabilities replay deterministically. Tests arm sites with
 :func:`set_fault`, which takes precedence over the environment.
 
 Every site of the reference is registered, so one spec drives both
-packages; in the port two of them fire so far:
+packages; in the port three of them fire so far:
 
 ``nan_grad``     the grad guard's entry point poisons the first gradient
                  with NaN (``guardrails.inject_grad_faults``; inside a
@@ -18,11 +18,13 @@ packages; in the port two of them fire so far:
                  buffered, selects NaN in the captured graph, scan.py).
 ``scaled_grad``  the last gradient is multiplied by 1e4 at the same
                  points: finite but out of distribution.
+``ckpt_write``   a checkpoint write (``model.save_checkpoint``) is cut
+                 to half its bytes and fails; the error surfaces at
+                 ``wait_checkpoints``, and no ``.params`` is published.
 
-The others (``ckpt_write``, ``dl_worker``, ``rendezvous``, ``kv_hang``,
-the serving and elastic sites ...) come with the modules that own them
-(ROADMAP.md queue 1). Unlike the reference, a fire increments no
-telemetry counter: the port has no telemetry module yet.
+The others (``dl_worker``, ``rendezvous``, ``kv_hang``, the serving and
+elastic sites ...) come with the modules that own them (ROADMAP.md queue
+1). Every fire counts in ``mx_fault_injections_total{site}``.
 """
 from __future__ import annotations
 
@@ -126,6 +128,11 @@ def should_fail(site: str) -> bool:
         if st["prob"] < 1.0 and _rng().random() >= st["prob"]:
             return False
         st["fires"] += 1
+    try:                      # outside _LOCK: telemetry must not nest
+        from . import telemetry
+        telemetry.fault_event(site)
+    except Exception:  # noqa: BLE001 - a counter never stops a fault
+        pass
     return True
 
 

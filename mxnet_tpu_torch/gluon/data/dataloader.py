@@ -21,9 +21,11 @@ Batches land on the context current when the iteration starts (the card
 by default). With ``MXNET_PREFETCH_DEPTH`` above 0 (the default is 2),
 batches are made on the host and up to that many ahead of the consumer
 are staged onto that context, onto a card by non-blocking copies from
-pinned memory, so their upload overlaps the steps before them. The
-reference's telemetry spans around each batch wait for ``telemetry.py``
-(ROADMAP queue 1, item 13).
+pinned memory, so their upload overlaps the steps before them. Each
+wait of the consumer for its next batch is a ``dataloader::next`` span
+(``mx_dataloader_batch_seconds``), each read-ahead batch a
+``dataloader::prefetch`` span, as in the reference; the end of the epoch
+is not a batch and records nothing.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import torch
 from ... import config
 from ... import faultinject
 from ... import ndarray as nd
+from ... import telemetry
 from ...context import Context, cpu, current_context
 from ...ndarray import NDArray
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
@@ -527,8 +530,20 @@ class DataLoader:
         pin = ctx.device_type == "gpu"
         depth = max(0, int(config.get("MXNET_PREFETCH_DEPTH")))
         if depth == 0:
-            yield from self._iter_batches(ctx, pin)
-            return
+            it = self._iter_batches(ctx, pin)
+            try:
+                while True:
+                    with telemetry.span(
+                            "dataloader::next", "io",
+                            hist="mx_dataloader_batch_seconds") as sp:
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            sp.cancel()
+                            return
+                    yield batch
+            finally:
+                it.close()
         # read-ahead: batches made on the host, up to `depth` of them
         # staged onto the loader's context beyond the one being consumed;
         # the refill runs after each yield, while the consumer computes
@@ -538,16 +553,24 @@ class DataLoader:
         try:
             while True:
                 while not exhausted and len(ahead) < depth:
-                    try:
-                        ahead.append(_stage(next(it), ctx))
-                    except StopIteration:
-                        exhausted = True
-                    except Exception as e:  # raised after the batches before
-                        exhausted, error = True, e
-                if not ahead:
-                    if error is not None:
-                        raise error
-                    return
-                yield ahead.popleft()
+                    with telemetry.span("dataloader::prefetch", "io") as sp:
+                        try:
+                            ahead.append(_stage(next(it), ctx))
+                        except StopIteration:
+                            sp.cancel()
+                            exhausted = True
+                        except Exception as e:  # raised after the batches
+                            sp.cancel()         # before it
+                            exhausted, error = True, e
+                with telemetry.span("dataloader::next", "io",
+                                    hist="mx_dataloader_batch_seconds") \
+                        as sp:
+                    if not ahead:
+                        sp.cancel()
+                        if error is not None:
+                            raise error
+                        return
+                    batch = ahead.popleft()
+                yield batch
         finally:
             it.close()

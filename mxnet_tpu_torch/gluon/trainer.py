@@ -36,7 +36,17 @@ armed Trainer pushes each stashed step to its chunk runner, which
 retires K of them at once. What this slice does not port raises
 ``NotImplementedError`` naming its ROADMAP.md item: a kvstore, several
 contexts, gradient compression, ``update_on_kvstore``, ZeRO, the kv
-finite vote, modelwatch. Under AMP (``contrib.amp.init_trainer``) the
+finite vote.
+
+With telemetry on (:mod:`mxnet_tpu_torch.telemetry`) ``step`` times its
+phases as the reference's does (``fused_step``; or ``allreduce``,
+``guard`` or ``modelwatch``, and ``optimizer``) and marks each step,
+``useful=False`` for a step the guard skipped. With ``MXNET_MODELWATCH``
+(``modelwatch``, from the environment on first use) a sampled step's
+per-layer statistics come from the guard's reduction extended, in the
+one host read the guard makes: on the classic path before the update
+(its update norms ride the next sampled read), on the fused step and at
+a K-step chunk's boundary after it. Under AMP (``contrib.amp.init_trainer``) the
 Trainer carries the loss scaler, and ``amp.scale_loss`` folds
 ``1 / loss_scale`` into the scale that ``step`` applies.
 """
@@ -48,6 +58,7 @@ from typing import List
 from .. import autograd
 from .. import optimizer as opt_mod
 from .. import scan as scan_mod
+from .. import telemetry
 from ..config import get as _cfg
 from .parameter import Parameter, ParameterDict
 
@@ -66,8 +77,6 @@ def _check_features():
         raise _not_ported("ZeRO (MXNET_ZERO)", 11)
     if _cfg("MXNET_GUARD_COMM_VOTE"):
         raise _not_ported("the kv finite vote (MXNET_GUARD_COMM_VOTE)", 11)
-    if _cfg("MXNET_MODELWATCH"):
-        raise _not_ported("modelwatch (MXNET_MODELWATCH)", 13)
 
 
 class Trainer:
@@ -100,6 +109,8 @@ class Trainer:
         self._fused_structural_bail = False
         self._grad_guard = None        # guardrails.GradGuard (lazy)
         self._guard_resolved = False
+        self._modelwatch = None        # modelwatch.ModelWatch (lazy)
+        self._mw_resolved = False
         self._scan = None              # MXNET_SCAN_STEPS chunk runner
         self._scan_warned = False
 
@@ -150,6 +161,53 @@ class Trainer:
         self._grad_guard = guard
         self._guard_resolved = True
 
+    @property
+    def modelwatch(self):
+        """The training-dynamics collector applied each step
+        (modelwatch.ModelWatch), made from MXNET_MODELWATCH_* on first
+        use; None when the layer is off. Assign to install one."""
+        if self._modelwatch is None and not self._mw_resolved:
+            from .. import modelwatch as mw_mod
+            self._modelwatch = mw_mod.from_env()
+            self._mw_resolved = True
+        return self._modelwatch
+
+    @modelwatch.setter
+    def modelwatch(self, watch):
+        self._modelwatch = watch
+        self._mw_resolved = True
+
+    def _trainable_named(self):
+        """(name, weight) of each parameter with a gradient, in the
+        guard's order: the weights of modelwatch's reduction."""
+        return [(p.name, p.list_data()[0]) for p in self._params
+                if p.grad_req != "null" and p._data is not None]
+
+    def _mw_pre_update(self):
+        """The weights before an update that a graph writes (the fused
+        step, a chunk), copied on a sampled step; None otherwise."""
+        mw = self._modelwatch
+        if mw is None or not mw.sampling:
+            return None
+        return mw.note_pre_update(self._trainable_named())
+
+    def _mw_boundary(self, caps, rescale):
+        """modelwatch after an update a graph made: the gradients it
+        wrote, the weights before it and the update norms, in one read
+        (gradients read without draining anything)."""
+        if caps is None:
+            return
+        mw = self._modelwatch
+        with telemetry.phase("modelwatch"):
+            unorm = mw.note_post_update(caps, defer=False)
+            named = [(p.name, next(iter(p._grad.values())))
+                     for p in self._params
+                     if p.grad_req != "null" and p._data is not None]
+            from ..ndarray import NDArray
+            mw.step_report(named, [(n, NDArray(old, arr.context))
+                                   for n, old, arr in caps],
+                           rescale=rescale, update_now=unorm)
+
     def _guard_grads(self):
         """(name, gradient) of each parameter with a gradient, in the
         Trainer's order (one context: the arrays the guard writes)."""
@@ -181,22 +239,53 @@ class Trainer:
                 "MXNET_SCAN_STEPS=%d requested but this Trainer is not "
                 "scan-eligible (not fused-update eligible) — running per "
                 "step", scan_mod.steps())
+        mw = self.modelwatch
+        if mw is not None:
+            mw.begin_step(batch_size, 1)
         if self._fused_armed:
             pending = autograd.take_pending_step(self)
-            if pending is not None and self._consume_pending(pending):
+            done = self._consume_pending(pending) if pending is not None \
+                else False
+            if done:
                 self._rearm_fused_update()
+                if done == "fused":
+                    telemetry.mark_step()   # a chunk marks its own steps
                 return
             self._fused_armed = False
             autograd.disarm_fused_update(self)
+        with telemetry.phase("allreduce"):
+            self.allreduce_grads()
         guard = self.grad_guard
-        if guard is not None and guard.enabled:
-            # rescale_grad carries 1 / batch_size: the guard clips the
-            # norm the update sees
-            if not guard.check(self._guard_grads(),
-                               rescale=self._optimizer.rescale_grad):
+        guard_on = guard is not None and guard.enabled
+        mw_on = mw is not None and mw.sampling
+        if guard_on or mw_on:
+            with telemetry.phase("guard" if guard_on else "modelwatch"):
+                named = self._guard_grads()
+                # rescale_grad carries 1 / batch_size: the guard clips
+                # the norm the update sees
+                rescale = self._optimizer.rescale_grad
+                proceed = True
+                if mw_on:
+                    # one extended reduction and one read serve the
+                    # layer statistics and the guard's verdict
+                    report = mw.step_report(named, self._trainable_named(),
+                                            rescale=rescale)
+                    if guard_on:
+                        proceed = guard.check(named, rescale=rescale,
+                                              report=report)
+                else:
+                    proceed = guard.check(named, rescale=rescale)
+            if not proceed:
+                telemetry.mark_step(useful=False)
                 return          # a skipped step (counted by the guard)
-        self._update()
+        with telemetry.phase("optimizer"):
+            caps = mw.note_pre_update(self._trainable_named()) \
+                if mw_on else None
+            self._update()
+            if caps:
+                mw.note_post_update(caps)
         self._rearm_fused_update()
+        telemetry.mark_step()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update alone, without the guard (ref: trainer.py ::
@@ -206,11 +295,12 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
 
-    def _consume_pending(self, pending) -> bool:
-        """Run a stashed step with its update; True when done. Checked
-        again now: the flag, the optimizer or the guard may have changed
-        since the backward was stashed. False leaves the gradients
-        written for the classic path."""
+    def _consume_pending(self, pending):
+        """Run a stashed step with its update: ``"fused"`` when it ran,
+        ``"scan"`` when the chunk runner took it (the chunk marks its
+        steps). Checked again now: the flag, the optimizer or the guard
+        may have changed since the backward was stashed. False leaves
+        the gradients written for the classic path."""
         eligible = self._fused_update_eligible()
         guard = self.grad_guard
         guard_on = guard is not None and guard.enabled
@@ -223,10 +313,13 @@ class Trainer:
                 # recurs every step: stop deferring for nothing
                 self._fused_structural_bail = True
             elif runner is not None and runner.push(pending, prep):
-                return True
+                return "scan"
             elif not guard_on:
-                self._consume_plan(pending, prep)
-                return True
+                caps = self._mw_pre_update()
+                with telemetry.phase("fused_step"):
+                    self._consume_plan(pending, prep)
+                self._mw_boundary(caps, self._optimizer.rescale_grad)
+                return "fused"
             else:
                 # the guard must see this step: its counters advance
                 # again in the classic update

@@ -14,9 +14,9 @@
   (``MXNET_GUARD_LOSS_SPIKE``, ``MXNET_GUARD_LOSS_WINDOW``), and drives an
   attached AMP loss scaler's backoff and growth.
 * Every decision is an event (``nonfinite``, ``skip``, ``zero``,
-  ``clip``, ``loss_spike``) sent to the :func:`on_event` subscribers. The
-  reference also counts them in its telemetry registry, which the port
-  does not have yet (ROADMAP.md queue 1, item 13).
+  ``clip``, ``loss_spike``) sent to the :func:`on_event` subscribers and
+  counted in the telemetry registry (``mx_guard_events_total{kind}``),
+  so a decision survives with no subscriber listening.
 
 ``inject_grad_faults`` is where the ``nan_grad`` and ``scaled_grad``
 fault sites fire (:mod:`mxnet_tpu_torch.faultinject`).
@@ -62,10 +62,16 @@ def on_event(callback: Callable) -> Callable[[], None]:
 
 def emit(kind: str, **info) -> dict:
     """Send a guard event to every subscriber (a subscriber's error is
-    swallowed: observing must not stop the step loop)."""
+    swallowed: observing must not stop the step loop) and count it in
+    ``mx_guard_events_total{kind}``."""
     event = dict(info)
     event["kind"] = kind
     event["time"] = time.time()
+    try:
+        from . import telemetry
+        telemetry.guard_event(kind)
+    except Exception:  # noqa: BLE001 - observers never stop the loop
+        pass
     with _LISTENER_LOCK:
         listeners = list(_LISTENERS)
     for cb in listeners:

@@ -13,8 +13,9 @@ consumer's current stream waits on that upload's event; a staging slot
 is reused only once its event has completed. The cast, mean and std
 normalisation and the NHWC to NCHW change then run as torch ops on the
 consumer's stream (no Pallas kernel stands behind them in the
-reference). The reference's telemetry spans around ``next`` wait for
-``telemetry.py`` (ROADMAP queue 1, item 13).
+reference). Each batch an iterator's ``__next__`` returns is an
+``io::<Iter>.next`` span (``mx_dataiter_batch_seconds{iter}``); the
+exhausted probe at the end is not.
 """
 from __future__ import annotations
 
@@ -86,7 +87,15 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
-        return self.next()
+        from .. import telemetry
+        with telemetry.span("io::%s.next" % type(self).__name__, "io",
+                            hist="mx_dataiter_batch_seconds",
+                            iter=type(self).__name__) as sp:
+            try:
+                return self.next()
+            except StopIteration:
+                sp.cancel()     # the exhausted probe is not a batch
+                raise
 
     def iter_next(self):
         raise NotImplementedError

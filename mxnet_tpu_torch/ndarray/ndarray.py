@@ -36,10 +36,16 @@ in-place write to an array that a pending engine op still reads
 Under ``MXNET_ENGINE_TYPE=NaiveEngine`` every registry op's output and
 every new array goes through ``engine().on_dispatch``, which
 synchronises the card's stream.
+
+With telemetry on, every array made counts its tensor's storage in the
+live-bytes totals of its context (``telemetry.ndarray_live``) until it
+is collected; arrays that share a storage (a detach, a view, a graph's
+alias) count its bytes once.
 """
 from __future__ import annotations
 
 import numbers
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -50,7 +56,11 @@ from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, context_of, current_context
 from ..ops import Operator, _note, get_op
 from .. import engine as _engine
+from .. import telemetry as _telemetry
 from ..symbol import layout_opt as _layout_opt
+
+# the cached telemetry gate, read once an array
+_TSTATE = _telemetry._STATE
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "to_tensor",
            "host_tensor", "host_numpy", "host_copies", "concatenate",
@@ -61,7 +71,7 @@ class NDArray:
     """A device-resident array."""
 
     __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "_pending",
-                 "_read_pins", "__weakref__")
+                 "_read_pins", "_mem", "__weakref__")
 
     # higher than numpy's so ndarray.__add__(NDArray) defers to us
     __array_priority__ = 1000.0
@@ -73,6 +83,29 @@ class NDArray:
         self._grad_req = "null"
         self._pending = None
         self._read_pins = None
+        self._mem = None
+        if _TSTATE.on or (_TSTATE.on is None and _telemetry.enabled()):
+            self._mem_track()
+
+    def _mem_track(self):
+        """Count this array's storage in the live-bytes totals until the
+        array is collected (or rebound: :meth:`_rebind`)."""
+        try:
+            st = self._t.untyped_storage()
+            box = _telemetry._ndarray_track(str(self._ctx), st.data_ptr(),
+                                            st.nbytes())
+        except Exception:
+            return
+        self._mem = weakref.finalize(self, _telemetry._ndarray_release, box)
+
+    def _rebind(self, t: torch.Tensor):
+        """Point the array at another tensor, its accounting moved."""
+        self._t = t
+        fin = self._mem
+        if fin is not None:
+            fin()
+            self._mem = None
+            self._mem_track()
 
     # -- properties --------------------------------------------------------
     @property
@@ -225,7 +258,7 @@ class NDArray:
             self._check_writable()
             out = self._t.clone()
             out[key] = self._value(value)
-            self._t = out
+            self._rebind(out)
             return
         with torch.no_grad():
             self._t[key] = self._value(value)
@@ -363,14 +396,14 @@ class NDArray:
             _engine.consume_read_pins(self)
         if autograd.is_recording() and r._t.requires_grad:
             self._check_writable()
-            self._t = r._t
+            self._rebind(r._t)
         elif r._t.shape == self._t.shape and r._t.dtype == self._t.dtype:
             with torch.no_grad():
                 self._t.copy_(r._t)
         else:
             # promoted or broadcast past this array: rebound, as the
             # reference's write rebinds its buffer to the result
-            self._t = r._t
+            self._rebind(r._t)
         return self
 
     def __iadd__(self, o): return self._iop(o, "broadcast_add", "_plus_scalar")

@@ -639,33 +639,37 @@ def multi_sgd_mom_update(*arrays, lrs, wds, momentum=0.0, rescale_grad=1.0,
     return tuple(ws + ms)
 
 
-def _l2(a):
-    return a.float().square().sum().sqrt()
+def _l2s(arrays):
+    """Each array's L2 norm, summed in f32: one multi-tensor reduction
+    (a few launches for any number of arrays)."""
+    return torch._foreach_norm(list(arrays), 2, dtype=torch.float32)
 
 
 @register("multi_l2_norm")
 def multi_l2_norm(*arrays, num_arrays=1):
     """(num_arrays,) f32: each array's L2 norm."""
-    return torch.stack([_l2(a) for a in arrays])
+    return torch.stack(_l2s(arrays))
 
 
 @register("multi_finite_norm")
 def multi_finite_norm(*arrays, num_arrays=1, num_weights=0):
     """f32 [finite_0, ..., norm_0, ...] over the gradients (the inputs
-    but the last ``num_weights``), then the weights' L2 norms."""
-    grads = arrays[:len(arrays) - num_weights]
-    weights = arrays[len(arrays) - num_weights:]
-    flags = [torch.isfinite(a.float()).all().float() for a in grads]
-    norms = [_l2(a) for a in grads] + [_l2(w) for w in weights]
-    return torch.cat([torch.stack(flags), torch.stack(norms)])
+    but the last ``num_weights``), then the weights' L2 norms. A
+    gradient is finite when the norm of 0 * it is 0: the product is 0
+    for every finite element and NaN for an inf or a NaN, and cannot
+    overflow."""
+    grads = list(arrays[:len(arrays) - num_weights])
+    weights = list(arrays[len(arrays) - num_weights:])
+    zeros = torch.stack(_l2s(torch._foreach_mul(grads, 0.0)))
+    return torch.cat([(zeros == 0).float(), torch.stack(_l2s(grads + weights))])
 
 
 @register("multi_update_norm")
 def multi_update_norm(*arrays, num_arrays=1):
     """arrays = [old0, new0, old1, new1, ...]; (pairs,) f32: the L2 norm
     of each new - old."""
-    return torch.stack([_l2(arrays[2 * i + 1] - arrays[2 * i])
-                        for i in range(len(arrays) // 2)])
+    return torch.stack(_l2s(torch._foreach_sub(list(arrays[1::2]),
+                                               list(arrays[0::2]))))
 
 
 @register("_contrib_multi_lars")

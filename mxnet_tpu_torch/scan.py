@@ -75,6 +75,8 @@ import torch
 
 from . import autograd
 from . import cached_op
+from . import compilewatch as _cw
+from . import telemetry
 from .base import MXNetError
 
 log = logging.getLogger("mxnet_tpu_torch.scan")
@@ -308,6 +310,7 @@ class ChunkRunner:
         self._guard_bufs = None
         self._graphs: Dict[tuple, _ChunkGraph] = {}
         self._draining = False
+        self._watch = None         # compilewatch site of the chunks
         _RUNNERS.add(self)
         cached_op._DEFER[0] = _on_call
         autograd._SCAN_STASH[0] = _on_backward
@@ -602,6 +605,7 @@ class ChunkRunner:
                         tr._consume_plan(autograd._PendingStep(plan, tr),
                                          prep)
                         self.flushed_steps += 1
+                    telemetry.mark_step(n=len(steps))
             cur = self.cur
             if cur is not None and cur.state == "open":
                 self._materialize(cur, upto=cur.cursor)
@@ -637,12 +641,16 @@ class ChunkRunner:
         def chunk():
             self._chunk(kk, guard_on, inject, prep, staged, grads)
         key = (self.template.sig, kk, guard_on, inject, prep.key)
-        self._run(key, chunk, (prep, staged, grads), device)
+        caps = tr._mw_pre_update()
+        with telemetry.phase("fused_step"):
+            self._run(key, chunk, (prep, staged, grads), device)
         for step in steps:
             step.fill(lambda pos, k=step.k: self._out[pos][k].clone())
         self.retired_chunks += 1
         self._force_streak = 0
         if not guard_on:
+            tr._mw_boundary(caps, prep.rescale)
+            telemetry.mark_step(n=kk)
             return
         # the chunk's one host read: K verdicts replayed through the
         # guard, so its counters and events are the per-step path's
@@ -654,6 +662,8 @@ class ChunkRunner:
             proceed, _, _ = guard.evaluate(names, flags, norm,
                                            rescale=p.rescale)
             applied += bool(proceed)
+        tr._mw_boundary(caps, prep.rescale)
+        telemetry.mark_step(n=kk, skipped=kk - applied)
         if applied < kk:
             # a skipped step advances no counter, as per step
             base = prep.base_counts
@@ -673,11 +683,33 @@ class ChunkRunner:
                 torch.zeros((1,), dtype=torch.int64, device=device),
                 torch.zeros((self.k, 2), dtype=torch.bool, device=device))
 
+    def _program(self, key):
+        """compilewatch's (Watch, record, new) of chunk ``key``; None
+        with telemetry off."""
+        if not _cw.enabled():
+            return None
+        if self._watch is None:
+            self._watch = _cw.Watch(
+                "scan.fused_chunk", "trainer.step",
+                ["template", "steps", "guard", "inject", "update"],
+                "tape[%d nodes]x%d steps" % (len(self.template.nodes),
+                                             self.k))
+        text = ("#%x" % (hash(key[0]) & 0xffffff), "K=%d" % key[1],
+                "guard=%d" % key[2], "inject=%d" % key[3],
+                "#%x" % (hash(key[4]) & 0xffffff))
+        sig = tuple(_cw.value_sig(v, t) for v, t in zip(key, text))
+        rec = self._watch.lookup(sig)
+        if rec is not None:
+            self._watch.hit(rec)
+            return self._watch, rec, False
+        return self._watch, self._watch.miss(sig), True
+
     def _run(self, key, fn, keep, device) -> None:
         """The chunk function: eagerly on the CPU and the first time on
         the card, then captured once and replayed."""
+        w, rec, new = self._program(key) or (None, None, False)
         if device.type != "cuda":
-            fn()
+            _cw.timed(w, rec if new else None, "warmup", fn, flops=True)
             return
         g = self._graphs.get(key)
         if g is None:
@@ -685,14 +717,15 @@ class ChunkRunner:
                 self._graphs.clear()
             g = self._graphs[key] = _ChunkGraph()
         if not g.warm:
-            fn()
+            _cw.timed(w, rec if new else None, "warmup", fn, flops=True)
             g.warm = True
             return
         if g.graph is None:
             torch.cuda.synchronize()
             graph = torch.cuda.CUDAGraph()
-            cached_op._capture(graph, "MXNET_SCAN_STEPS chunk of %d steps"
-                               % key[1], fn)
+            _cw.timed(w, rec, "capture", lambda: cached_op._capture(
+                graph, "MXNET_SCAN_STEPS chunk of %d steps" % key[1], fn),
+                memory=True)
             g.graph = graph     # a capture that raised leaves none
             g.keep = (keep, [a for a in self.template.leaves],
                       dict(self._in), dict(self._out), list(self._cot),

@@ -396,12 +396,13 @@ def test_trainer_refuses_what_is_not_ported(kwargs, match):
         pt.gluon.Trainer(_dense().collect_params(), "sgd", **kwargs)
 
 
-# K-step scan (item 7) and the grad guard (item 13) are ported: with
-# them turned on the step runs, and the same ids now check that it does
+# K-step scan (item 7), the grad guard and modelwatch (item 13) are
+# ported: with them turned on the step runs, and the same ids now check
+# that it does
 @pytest.mark.parametrize("var,value,match", [
     ("MXNET_ZERO", "1", "item 11"), ("MXNET_SCAN_STEPS", "4", None),
     ("MXNET_GUARD_NONFINITE", "skip_step", None),
-    ("MXNET_MODELWATCH", "1", "item 13")], ids=[
+    ("MXNET_MODELWATCH", "1", None)], ids=[
     "MXNET_ZERO-1-item 11", "MXNET_SCAN_STEPS-4-item 7",
     "MXNET_GUARD_NONFINITE-skip_step-item 13",
     "MXNET_MODELWATCH-1-item 13"])
@@ -411,13 +412,25 @@ def test_trainer_step_refuses_features_turned_on(monkeypatch, var, value,
     tr = pt.gluon.Trainer(d.collect_params(), "sgd")
     monkeypatch.setenv(var, value)
     if match is None:
-        with pt.autograd.record():
-            out = d(pt.nd.ones((1, 3), ctx=pt.cpu()))
-        out.backward()
-        tr.step(1)
+        if var == "MXNET_MODELWATCH":       # modelwatch rides telemetry
+            monkeypatch.setenv("MXNET_TELEMETRY", "1")
+            pt.telemetry.refresh()
+        try:
+            with pt.autograd.record():
+                out = d(pt.nd.ones((1, 3), ctx=pt.cpu()))
+            out.backward()
+            tr.step(1)
+        finally:
+            monkeypatch.delenv("MXNET_TELEMETRY", raising=False)
+            pt.telemetry.refresh()
+            pt.telemetry.reset()
+            pt.modelwatch.reset()
         if var == "MXNET_GUARD_NONFINITE":
             assert tr.grad_guard.nonfinite == value
             assert tr.grad_guard.steps == 1
+        if var == "MXNET_MODELWATCH":
+            assert tr.modelwatch.samples == 1
+            assert tr.modelwatch.sync_count == 1
         return
     with pytest.raises(NotImplementedError, match=match):
         tr.step(1)

@@ -2463,3 +2463,201 @@ def test_naive_engine_syncs_and_spares_captures(card):
         eng.set_naive(False)
     assert float(y.sum().asscalar()) == pytest.approx(
         float(x.sum().asscalar()) * 2, rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the runtime services on the card: telemetry, compilewatch, modelwatch,
+# checkpoints, the profiler's device trace
+# ---------------------------------------------------------------------------
+def card_gen():
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.fixture
+def services(card, monkeypatch):
+    """MXNET_TELEMETRY and MXNET_MODELWATCH on, the registries empty;
+    everything off again after."""
+    import mxnet_tpu_torch as mx
+    monkeypatch.setenv("MXNET_TELEMETRY", "1")
+    monkeypatch.setenv("MXNET_MODELWATCH", "1")
+    for mod in (mx.telemetry, mx.compilewatch, mx.modelwatch):
+        getattr(mod, "refresh", lambda: None)()
+        mod.reset()
+    yield mx
+    monkeypatch.delenv("MXNET_TELEMETRY")
+    monkeypatch.delenv("MXNET_MODELWATCH")
+    mx.telemetry.refresh()
+    mx.telemetry.reset()
+    mx.compilewatch.reset()
+    mx.modelwatch.reset()
+    mx.autograd.disarm_fused_update()
+    mx.autograd.flush_pending_step()
+
+
+def _services_steps(mx, steps, guard=None):
+    """The small BERT hybridized, trained by SGD with momentum; returns
+    (the trainer, the compilewatch record counts after each step)."""
+    net, mlm, params, batch = _small_bert(mx, 0.1)
+    for block in (net, mlm):
+        block.hybridize(static_alloc=True)
+    tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.01,
+                                          "momentum": 0.9})
+    if guard is not None:
+        tr.grad_guard = mx.guardrails.GradGuard(nonfinite=guard)
+    ids, tok, lab = batch
+    programs = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            seq = net(ids, tok)
+            seq = seq if isinstance(seq, mx.nd.NDArray) else seq[0]
+            loss = mlm(seq, lab)
+        loss.backward()
+        tr.step(4)
+        programs.append(len(mx.compilewatch.programs()))
+    return tr, programs
+
+
+def test_services_compilewatch_records_the_captures(services):
+    """Each program carries its warm-up and capture stages, the graph's
+    memory and the FLOPs of a run; after the third step nothing is
+    recorded, and each replay adds its FLOPs to mx_executed_flops_total."""
+    mx = services
+    tr, programs = _services_steps(mx, 6)
+    assert programs[2:] == [programs[2]] * 4
+    recs = {r["fn"]: r for r in mx.compilewatch.programs()}
+    assert set(recs) == {"CachedOp.fwd_vjp", "autograd.fused_backward",
+                         "autograd.fused_step"}
+    for fn in ("CachedOp.fwd_vjp", "autograd.fused_step"):
+        r = recs[fn]
+        assert set(r["stages"]) == {"warmup", "capture"}, r
+        assert r["captures"] == 1 and r["flops"] > 0
+        assert set(r["bytes"]) == {"graph_reserved", "graph_allocated"}
+    # the forward's graph keeps its residuals in its pool; the fused
+    # step's may fit in memory the allocator already holds
+    assert recs["CachedOp.fwd_vjp"]["bytes"]["graph_allocated"] > 0
+    snap = mx.telemetry.snapshot()
+    assert not any(k.startswith("mx_recaptures_total")
+                   for k in snap["counters"])
+    per_step = sum(r["flops"] for r in mx.compilewatch.programs()
+                   if r["fn"] in ("CachedOp.fwd_vjp", "autograd.fused_step"))
+    executed = mx.telemetry.counter("mx_executed_flops_total").get()
+    assert executed >= 5 * per_step
+    assert tr.modelwatch.samples == 6
+
+
+def test_services_one_host_read_a_sampled_step(services):
+    """Guard and modelwatch on: a steady step warns of one synchronising
+    call, the modelwatch read the guard's verdict comes from."""
+    import warnings
+    mx = services
+    net, mlm, params, batch = _small_bert(mx, 0.1)
+    for block in (net, mlm):
+        block.hybridize(static_alloc=True)
+    tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.01,
+                                          "momentum": 0.9})
+    tr.grad_guard = mx.guardrails.GradGuard(nonfinite="skip_step")
+    ids, tok, lab = batch
+    counts = []
+    for step in range(5):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with mx.autograd.record():
+                    seq = net(ids, tok)
+                    seq = seq if isinstance(seq, mx.nd.NDArray) else seq[0]
+                    loss = mlm(seq, lab)
+                loss.backward()
+                tr.step(4)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts.append(sum("synchronizing CUDA operation" in str(w.message)
+                          for w in caught))
+    assert counts[2:] == [1, 1, 1], counts
+    assert tr.modelwatch.sync_count == 5 and tr.grad_guard.sync_count == 5
+
+
+def test_services_checkpoint_snapshot_on_the_card(services, tmp_path):
+    """A checkpoint holds the weights of the step it was saved at, while
+    later in-place updates run before its write lands."""
+    import threading
+    mx = services
+    net = mx.gluon.nn.Dense(256, in_units=512)
+    net.initialize()
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.5, "momentum": 0.9})
+    x = mx.nd.NDArray(torch.randn(64, 512, generator=card_gen(),
+                                  device="cuda"))
+
+    def step():
+        with mx.autograd.record():
+            loss = (net(x) ** 2).sum()
+        loss.backward()
+        tr.step(64)
+    step()
+    want = {n: p.data().tensor().clone()
+            for n, p in net.collect_params().items()}
+    eng = mx.engine.native_engine()
+    release = threading.Event()
+    eng.push_async(lambda: release.wait(30),
+                   write_vars=(mx.model._ckpt_var(eng),), label="hold")
+    prefix = str(tmp_path / "card")
+    mx.model.save_checkpoint(prefix, 1, None,
+                             {n: p.data() for n, p in
+                              net.collect_params().items()}, {})
+    for _ in range(3):
+        step()
+    release.set()
+    arg, _ = mx.model.load_params(prefix, 1)
+    for n, w in want.items():
+        assert torch.equal(arg[n].tensor(), w.cpu()), n
+        assert not torch.equal(net.collect_params()[n].data().tensor(), w)
+
+
+def test_services_profiler_merges_the_device_trace(services, tmp_path):
+    """profile_device=True: the card's kernels join the dump under a pid
+    of their own, on the host clock: each kernel starts after the host
+    span that launched it began."""
+    import json
+    import os
+    mx = services
+    x = mx.nd.NDArray(torch.randn(256, 768, generator=card_gen(),
+                                  device="cuda", dtype=torch.bfloat16))
+    g = mx.nd.NDArray(torch.ones(768, device="cuda", dtype=torch.bfloat16))
+    b = mx.nd.NDArray(torch.zeros(768, device="cuda", dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    mx.profiler.set_config(filename=str(tmp_path / "t.json"),
+                           profile_device=True)
+    try:
+        mx.profiler.set_state("run")
+        with mx.telemetry.span("region", "user"):
+            y = mx.nd.LayerNorm(x, g, b)
+        torch.cuda.synchronize()
+        mx.profiler.set_state("stop")
+    finally:
+        mx.profiler.set_config(profile_device=False)
+    mx.profiler.dump(reset=True)
+    events = json.load(open(str(tmp_path / "t.json")))["traceEvents"]
+    region = [e for e in events if e["name"] == "region"][0]
+    dev = [e for e in events if e["cat"] == "device::kernel"
+           and "layer_norm_fwd" in e["name"]]
+    assert dev and y.shape == (256, 768)
+    assert all(e["pid"] == os.getpid() + 1 for e in dev)
+    assert all("clock" not in e["args"] for e in dev)
+    assert region["ts"] <= dev[0]["ts"] <= region["ts"] + 1e6
+
+
+def test_services_live_bytes_on_the_card(services):
+    import gc
+    mx = services
+    gc.collect()
+    base = mx.gpu(0).memory_info()
+    a = mx.nd.NDArray(torch.zeros(1024, 256, device="cuda"))
+    views = [a.detach() for _ in range(5)]
+    got = mx.gpu(0).memory_info()
+    assert got["bytes"] == base["bytes"] + 1024 * 256 * 4
+    assert got["count"] == base["count"] + 1
+    del a, views
+    gc.collect()
+    assert mx.gpu(0).memory_info() == base

@@ -6,10 +6,11 @@ the reference's (flags, counters, events, exceptions exactly; norms and
 values within f32 tolerance), and the fault registry's spec parser and
 seeded draw against the reference's.
 
-The reference's engine, comm-deadline, kv, monitor and estimator tests
-wait for the modules they test (ROADMAP.md queue 1, items 10, 11 and
-13). Guard events reach the ``on_event`` subscribers only: the port has
-no telemetry registry yet (ROADMAP.md queue 3).
+The reference's comm-deadline and kv tests wait for the modules they
+test (ROADMAP.md queue 1, item 11); its monitor and estimator contracts
+are held in ``test_torch_monitor_profiler.py`` and
+``test_torch_estimator.py``. Guard events reach the ``on_event``
+subscribers and the telemetry registry's ``mx_guard_events_total``.
 """
 import numpy as np
 import pytest
@@ -393,21 +394,43 @@ def test_skip_step_bit_identical_to_manual_skip():
                                    atol=1e-6)
 
 
-def test_guard_events_reach_subscribers_only():
-    """Guard events go to on_event subscribers; the port has no
-    telemetry module for them to count in (ROADMAP.md queue 3)."""
-    seen = []
-    unsub = pt.guardrails.on_event(seen.append)
-    try:
-        ev = pt.guardrails.emit("skip", params=["w"], step=3)
-        pt.guardrails.on_event(lambda e: 1 / 0)   # a failing subscriber
-        pt.guardrails.emit("clip", norm=2.0)
-    finally:
-        unsub()
-        pt.guardrails._LISTENERS.clear()
-    assert [e["kind"] for e in seen] == ["skip", "clip"]
-    assert seen[0] is ev and ev["step"] == 3 and "time" in ev
-    assert not hasattr(pt, "telemetry")
+def test_guard_events_reach_subscribers_and_the_counter(monkeypatch):
+    """Guard events go to on_event subscribers and, with telemetry on,
+    count in mx_guard_events_total{kind}, as the reference's do."""
+    monkeypatch.setenv("MXNET_TELEMETRY", "1")
+    counts = []
+    for lib in LIBS:
+        lib.telemetry.refresh()
+        lib.telemetry.reset()
+        seen = []
+        unsub = lib.guardrails.on_event(seen.append)
+        bad = lib.guardrails.on_event(lambda e: 1 / 0)  # failing subscriber
+        try:
+            ev = lib.guardrails.emit("skip", params=["w"], step=3)
+            lib.guardrails.emit("clip", norm=2.0)
+            lib.guardrails.emit("skip", params=["v"], step=4)
+        finally:
+            unsub()
+            bad()
+        assert [e["kind"] for e in seen] == ["skip", "clip", "skip"]
+        assert seen[0] is ev and ev["step"] == 3 and "time" in ev
+        counts.append({k: v for k, v in
+                       lib.telemetry.snapshot()["counters"].items()
+                       if k.startswith("mx_guard_events_total")})
+        monkeypatch.delenv("MXNET_TELEMETRY")
+        lib.telemetry.refresh()
+        lib.guardrails.emit("skip")              # off: counts nothing
+        assert lib.telemetry.counter("mx_guard_events_total",
+                                     kind="skip").get() == 2
+        monkeypatch.setenv("MXNET_TELEMETRY", "1")
+        lib.telemetry.refresh()
+        lib.telemetry.reset()
+    assert counts[1] == counts[0] == {
+        'mx_guard_events_total{kind="skip"}': 2,
+        'mx_guard_events_total{kind="clip"}': 1}
+    monkeypatch.delenv("MXNET_TELEMETRY")
+    for lib in LIBS:
+        lib.telemetry.refresh()
 
 
 # -- the fault registry -------------------------------------------------------
