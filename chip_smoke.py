@@ -467,6 +467,39 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    for bit with the uninterrupted run (dropout 0). To run it alone:
    ``python3 -c "import chip_smoke as cs; line = cs.phase_device();
    cs.phase_build(); cs.phase_services(0, line)"``.
+22. serving stack — BERT-base (``bert_12_768_12``, bf16, drawn as phase 4
+   draws it) behind the rest of serving. (a) ``SERVING_REQUESTS``
+   requests from ``--seed`` (1-2 rows, lengths 16-128; the first one a
+   sequence rung) through a ``serve.Scheduler`` at ``inflight`` 2 (a
+   bucket's first batch, its capture, on the Scheduler's thread, the
+   others on the native engine) for two tenants, ``free`` (weight 1,
+   ``deadline_ms`` 200) and ``paid`` (weight 4), over a session with one
+   batch bucket (``SERVING_BUCKETS``), the clients closed-loop: every
+   served output bit for bit with ``sess.infer`` of the same request (the
+   decoder output's own rows), rows 1, 3, 5 and 7 launched in the run
+   (the wrappers' counts, the launches the replayed graphs carried),
+   ``slo_report``, the heartbeat line, the bucket table, the forward
+   against the output's host copy. (b) The weights published with
+   ``model.save_checkpoint``; a ``ReplicaManager`` spawns
+   ``SERVING_REPLICAS`` replica processes on the card
+   (``chip_smoke:serving_replica``: each loads the checkpoint and
+   captures its buckets before its lease, so a kernel that does not build
+   fails its join) and ``SERVING_FLEET_REQUESTS`` requests go through a
+   ``Router`` with ``MXNET_TRACE=1`` at sample rate 1, one replica
+   SIGKILLed midway: every request completes once, its outputs and its
+   own columns of the batch's decoder output within ``SLICE_RATIO`` of
+   the plain path (phase 4's yardstick: its f32 twin) and bit for bit
+   with the single-process session's; each replica's launches (its
+   lease's ``mx_serve_kernel_launches`` gauges) nonzero; one assembled
+   trace's critical path. (c) ``SERVING_FRONTEND`` 1-row requests through
+   the HTTP ``Frontend`` equal the Router's answers, which equal the
+   session's bit for bit; ``/metrics`` carries
+   the replicas' series, ``/v1/trace/<id>`` the request's trace, an
+   unknown id 404. Printed beside the card's line: latency p50/p99 per
+   tenant through the Scheduler and the Router, the Router's wire cost a
+   hop, where a routed request's time goes, the Frontend's cost a
+   request. To run it alone: ``python3 -c "import chip_smoke as cs; line
+   = cs.phase_device(); cs.phase_build(); cs.phase_serving(0, line)"``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -9973,7 +10006,10 @@ def _services_small(seed, tmp, card_line):
     print("[services] the raising guard's crash bundle %s: %s, suspects "
           "%s" % (found, files, [s["param"] for s in
                                  anomaly.get("suspects", [])][:2]))
-    if len(files) != 7 or anomaly.get("reason") != "guard_raise":
+    if files != ["anomaly.json", "env.txt", "heartbeat.txt",
+                 "modelwatch.jsonl", "programs.json", "telemetry.json",
+                 "trace.json", "traces.json"] \
+            or anomaly.get("reason") != "guard_raise":
         raise SmokeFailure("services: no crash bundle from the raising guard")
     # ckpt_write surfaces at the wait
     net, _ = _build_services(seed, SERVICES_SMALL_LAYERS)
@@ -10057,6 +10093,607 @@ def phase_services(seed, card_line):
     print("[services] phase 21 took %.1f s; %s"
           % (time.perf_counter() - t0, card_line))
     return executed, times
+
+
+# ---------------------------------------------------------------------------
+# 22. the serving stack: Scheduler, replica processes behind a Router,
+# the HTTP Frontend
+# ---------------------------------------------------------------------------
+SERVING_REQUESTS = 64
+SERVING_FLEET_REQUESTS = 32
+SERVING_FRONTEND = (16, 12, 16)      # lengths of the Frontend's requests
+SERVING_BUCKETS = "8;16,32,64,128"   # one batch bucket: a batch and a
+#                                      direct infer run the same graph
+SERVING_RUNGS = (16, 32, 64, 128)
+SERVING_CLIENTS = 4
+SERVING_REPLICAS = 2
+SERVING_HB = 0.5            # lease period; a lease lives SERVING_MISS_K of
+SERVING_MISS_K = 8          # them: the KV server lives in this process,
+#                             whose JSON work (the Frontend) holds the GIL
+SERVING_TENANTS = ({"name": "free", "weight": 1.0, "deadline_ms": 200.0},
+                   {"name": "paid", "weight": 4.0})
+_REPLICA_PATCHES = []
+
+
+def serving_net(seed):
+    """BERT-base as phase 4 draws it (bf16) on the card, with its example
+    request ((8, 128) ids and token types on the card)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    rng = np.random.RandomState(seed)
+    ex = [rng.randint(0, 30522, (8, 128)).astype(np.int32),
+          rng.randint(0, 2, (8, 128)).astype(np.int32)]
+    mx.random.seed(seed)
+    # a fixed prefix: a replica process, whose prefix counters start at
+    # 0, must find this process's parameter names in the checkpoint
+    net = bert_12_768_12(dropout=0.0, prefix="serving_bert_")
+    net.initialize(ctx=mx.gpu(0))
+    ids, tok = (mx.nd.array(a, ctx=mx.gpu(0)) for a in ex)
+    with torch.no_grad():
+        net(ids, tok)
+    _draw_affine(net, seed)
+    net.cast("bfloat16")
+    return net, ids, tok
+
+
+def _serving_session(net, ids, tok):
+    return net.serve_session(ids, tok, seq_axis=1, max_batch=8, max_seq=128,
+                             buckets=SERVING_BUCKETS)
+
+
+def _serving_tenants():
+    from mxnet_tpu_torch.serve import TenantConfig
+    return [TenantConfig(**t) for t in SERVING_TENANTS]
+
+
+def _counting_scheduler(sess, replayed, tenants):
+    """A Scheduler whose load snapshot (published in the replica's lease
+    every heartbeat) also sets ``mx_serve_kernel_launches{kernel,kind}``:
+    the wrappers' counts and the launches the replayed graphs carried."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.serve import Scheduler
+
+    class CountingScheduler(Scheduler):
+        def stats(self):
+            for k, v in cuda_build.launch_counts().items():
+                telemetry.gauge("mx_serve_kernel_launches", kernel=k,
+                                kind="wrapper").set(v)
+            for k in SERVE_KERNELS:
+                telemetry.gauge("mx_serve_kernel_launches", kernel=k,
+                                kind="replayed").set(replayed.get(k, 0))
+            return super().stats()
+    return CountingScheduler(sess, tenants=tenants, inflight=2)
+
+
+def serving_replica(spec):
+    """The factory of one phase-22 replica process (spawned by
+    ``ReplicaManager`` as ``chip_smoke:serving_replica``): BERT-base with
+    the published weights, its buckets captured before the lease (a
+    kernel that does not build fails the join), served by a counting
+    Scheduler at ``inflight`` 2."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.serve import tenancy
+    net, ids, tok = serving_net(int(spec["seed"]))
+    loaded = mx.model.load_latest_checkpoint(spec["ckpt_prefix"])
+    if loaded is None:
+        raise SmokeFailure("replica %s: no checkpoint at %s"
+                           % (spec.get("replica_id"), spec["ckpt_prefix"]))
+    arg, _, _ = loaded
+    for name, p in net.collect_params().items():
+        p.set_data(arg[name])
+    sess = _serving_session(net, ids, tok)
+    by_graph = {}
+    stack = contextlib.ExitStack()
+    stack.enter_context(_capture_launches(by_graph))
+    replayed = stack.enter_context(_replayed_launches(by_graph))
+    _REPLICA_PATCHES.append(stack)       # for the life of the process
+    sess.warmup()
+    torch.cuda.synchronize()
+    missing = [k for k in SERVE_KERNELS
+               if not cuda_build.launch_counts().get(k)]
+    if missing:
+        raise SmokeFailure("replica %s: warm-up launched no %s"
+                           % (spec.get("replica_id"), missing))
+    tenants = [tenancy.TenantConfig(**t) for t in spec.get("tenants", ())]
+    return _counting_scheduler(sess, replayed, tenants)
+
+
+def _serving_requests(seed, n, salt):
+    """``n`` requests from ``seed``: (ids, token types, tenant), 1-2 rows,
+    lengths 16-128; the first len(SERVING_RUNGS) one a rung each."""
+    import numpy as np
+    rng = np.random.RandomState(seed * 1000 + salt)
+    out = []
+    for i in range(n):
+        rows = int(rng.randint(1, 3))
+        seq = (SERVING_RUNGS[i] if i < len(SERVING_RUNGS)
+               else int(rng.randint(16, 129)))
+        tenant = ("paid" if i < len(SERVING_RUNGS) or rng.rand() < 0.5
+                  else "free")
+        out.append((rng.randint(0, 30522, (rows, seq)).astype(np.int32),
+                    rng.randint(0, 2, (rows, seq)).astype(np.int32), tenant))
+    return out
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q)) \
+        if xs else float("nan")
+
+
+def _closed_loop(reqs, clients, submit):
+    """Drive ``reqs[i]`` through ``submit(i) -> (outputs or exception)``
+    from ``clients`` threads, each sending its next request when its last
+    completes; returns {i: (outputs or exception, seconds)}."""
+    import threading
+    out = {}
+    lock = threading.Lock()
+    todo = list(range(len(reqs)))
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop(0)
+            t0 = time.perf_counter()
+            try:
+                res = submit(i)
+            except Exception as e:      # noqa: BLE001 - sorted out below
+                res = e
+            with lock:
+                out[i] = (res, time.perf_counter() - t0)
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def _own_columns(batch_out, want):
+    """The columns of a batch's decoder output (seq, batch, vocab) that
+    are bit for bit the request's own ``want`` (seq, rows, vocab: its
+    direct infer's), at whatever offset the batch put them; None if no
+    offset holds them."""
+    import numpy as np
+    seq, rows = want.shape[:2]
+    for off in range(batch_out.shape[1] - rows + 1):
+        got = batch_out[:seq, off:off + rows]
+        if np.array_equal(got, want):
+            return np.array(got)
+    return None
+
+
+def _serving_scheduler(net, ids, tok, seed, card_line):
+    """(a) The Scheduler in this process; returns (wrapper counts,
+    replayed counts, session)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.serve import OverloadError, Scheduler, tenancy
+    reqs = _serving_requests(seed, SERVING_REQUESTS, 1)
+    sess = _serving_session(net, ids, tok)
+    cuda_build.reset_launch_counts()
+    by_graph = {}
+    t0 = time.perf_counter()
+    with _capture_launches(by_graph), \
+            _replayed_launches(by_graph) as replayed:
+        sched = Scheduler(sess, tenants=_serving_tenants(), inflight=2)
+        try:
+            rung = len(SERVING_RUNGS)
+            warm = [sched.submit(a, b, tenant=t) for a, b, t in reqs[:rung]]
+            results = {i: (f.result(300), float("nan"))
+                       for i, f in enumerate(warm)}
+            rest = _closed_loop(
+                reqs[rung:], SERVING_CLIENTS,
+                lambda i: sched.submit(*reqs[rung + i][:2],
+                                       tenant=reqs[rung + i][2]).result(120))
+            results.update({rung + i: v for i, v in rest.items()})
+        finally:
+            sched.close()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_build.launch_counts()
+    replayed = dict(replayed)
+    print("[serving] scheduler: %d requests in %.2f s (inflight 2, %d "
+          "closed-loop clients after one request a rung); launches through "
+          "the wrappers %s; carried by the replayed graphs %s"
+          % (len(reqs), wall, SERVING_CLIENTS,
+             {k: counts[k] for k in SERVE_KERNELS},
+             {k: replayed.get(k, 0) for k in SERVE_KERNELS}))
+    missing = [k for k in SERVE_KERNELS if not counts[k]
+               or not replayed.get(k)]
+    if missing:
+        raise SmokeFailure("the Scheduler's run launched no %s" % missing)
+    if len(results) != len(reqs):
+        raise SmokeFailure("the Scheduler completed %d of %d requests"
+                           % (len(results), len(reqs)))
+    lat = {"free": [], "paid": []}
+    sheds = 0
+    for i, (res, secs) in sorted(results.items()):
+        a, b, tenant = reqs[i]
+        if isinstance(res, OverloadError) and tenant == "free" \
+                and res.code == "timeout":
+            sheds += 1
+            continue
+        if isinstance(res, Exception):
+            raise SmokeFailure("scheduler request %d (%s) failed: %r"
+                               % (i, tenant, res))
+        if secs == secs:
+            lat[tenant].append(secs * 1e3)
+        direct = sess.infer(a, b)
+        same = all(np.array_equal(g, w) for g, w in zip(res[:3], direct[:3]))
+        rows, seq = a.shape
+        if not same or _own_columns(res[3], direct[3][:seq, :rows]) is None:
+            raise SmokeFailure("scheduler request %d %s: not bit for bit "
+                               "with sess.infer" % (i, a.shape))
+    print("[serving] scheduler: %d outputs bit for bit with sess.infer of "
+          "the same request (the decoder output's own rows); %d free "
+          "requests shed past their 200 ms deadline"
+          % (len(results) - sheds, sheds))
+    for tenant, xs in sorted(lat.items()):
+        print("[serving] scheduler latency %s: p50 %.2f ms p99 %.2f ms over "
+              "%d closed-loop requests; %s" % (tenant, _pct(xs, 50),
+                                                _pct(xs, 99), len(xs),
+                                                card_line))
+    print("[serving] slo_report:\n%s" % tenancy.render_slo_report(
+        tenants=_serving_tenants()))
+    print("[serving] %s" % mx.telemetry.heartbeat_line())
+    print("[serving] buckets: %s" % sess.bucket_table())
+    # where a 8 x 128 request's time goes: the replayed forward against
+    # the decoder output's host copy (session.py's asnumpy)
+    staged = [sess._pad_to(torch.as_tensor(x.asnumpy()), (8, 128), t).to(DEV)
+              for x, t in zip((ids, tok), sess._templates)]
+    fwd, copy = [], []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = sess._forward(staged)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for o in outs:
+            mx.nd.NDArray(o, mx.gpu(0)).asnumpy()
+        t3 = time.perf_counter()
+        fwd.append((t2 - t1) * 1e3)
+        copy.append((t3 - t2) * 1e3)
+    print("[serving] an (8, 128) request: replayed forward %.2f ms, the "
+          "outputs' host copy %.2f ms (decoder (128, 8, 30522) f32 of it), "
+          "medians of 7; %s" % (_pct(fwd, 50), _pct(copy, 50), card_line))
+    return counts, replayed, sess
+
+
+def _serving_fleet(net, sess, seed, tmp, card_line):
+    """(b) Replica processes behind a Router, one SIGKILLed midway;
+    returns (router, manager, per-replica counts)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op, telemetry, tracing
+    from mxnet_tpu_torch.serve import ReplicaManager, Router
+    reqs = _serving_requests(seed, SERVING_FLEET_REQUESTS, 2)
+    prefix = os.path.join(tmp, "bert")
+    t0 = time.perf_counter()
+    mx.model.save_checkpoint(prefix, 0, None, {
+        k: p.data() for k, p in net.collect_params().items()}, {}, sync=True)
+    print("[serving] weights published in %.1f s"
+          % (time.perf_counter() - t0))
+    def answers():
+        # the three encoder outputs and the request's own columns of the
+        # decoder output (seq, batch, vocab)
+        out = []
+        for a, b, _ in reqs:
+            o = sess.infer(a, b)
+            rows, seq = a.shape
+            out.append(list(o[:3]) + [np.array(o[3][:seq, :rows])])
+        return out
+
+    # the single-process answers, and phase 4's yardstick for them
+    direct = answers()
+    with cached_op.eager(), _plain_kernels():
+        plain = answers()
+        net.cast("float32")
+        anchor = answers()
+        net.cast("bfloat16")
+    spec = {"ckpt_prefix": prefix, "seed": seed,
+            "tenants": list(SERVING_TENANTS),
+            "env": {"MXNET_TELEMETRY": "1", "MXNET_TRACE": "1",
+                    "MXNET_TRACE_SAMPLE": "1.0"}}
+    t0 = time.perf_counter()
+    mgr = ReplicaManager(n=SERVING_REPLICAS,
+                         factory="chip_smoke:serving_replica", spec=spec,
+                         heartbeat_s=SERVING_HB, miss_k=SERVING_MISS_K)
+    router = None
+    try:
+        mgr.start(timeout=300)
+        print("[serving] %d replica processes live in %.1f s (each: "
+              "BERT-base built, checkpoint loaded, %d buckets captured)"
+              % (SERVING_REPLICAS, time.perf_counter() - t0,
+                 len(SERVING_RUNGS)))
+        router = Router(kv=mgr.kv, tenants=_serving_tenants(),
+                        heartbeat_s=SERVING_HB, miss_k=SERVING_MISS_K,
+                        retries=2)
+        router.refresh()
+
+        def payloads():
+            router.refresh()
+            return dict(router.replica_payloads())
+
+        futs = {}
+        killed = []
+
+        def submit(i):
+            a, b, _ = reqs[i]
+            fut = router.submit(a, b, tenant="paid")
+            futs[i] = fut
+            return [np.asarray(o) for o in fut.result(120)]
+
+        def killer():
+            t_dead = time.time() + 120
+            while time.time() < t_dead:
+                p = payloads()
+                if len(futs) >= SERVING_FLEET_REQUESTS // 3 and all(
+                        p.get(r, {}).get("served", 0) >= 1
+                        for r in ("r0", "r1")):
+                    mgr.kill("r0")
+                    killed.append(len(futs))
+                    return
+                time.sleep(0.05)
+        import threading
+        kt = threading.Thread(target=killer)
+        fo0 = sum(v for k, v in telemetry.snapshot()["counters"].items()
+                  if k.startswith(("mx_fleet_failovers_total",
+                                   "mx_fleet_retries_total")))
+        t0 = time.perf_counter()
+        kt.start()
+        results = _closed_loop(reqs, SERVING_CLIENTS, submit)
+        kt.join(timeout=130)
+        wall = time.perf_counter() - t0
+        retried = sum(v for k, v in telemetry.snapshot()["counters"].items()
+                      if k.startswith(("mx_fleet_failovers_total",
+                                       "mx_fleet_retries_total"))) - fo0
+        if not killed:
+            raise SmokeFailure("the fleet: replica r0 was never killed")
+        errors = {i: r for i, (r, _) in results.items()
+                  if isinstance(r, Exception)}
+        if errors or len(results) != len(reqs):
+            raise SmokeFailure("the fleet lost requests: %d of %d completed, "
+                               "errors %s" % (len(results) - len(errors),
+                                              len(reqs), errors))
+        by = {}
+        for fut in futs.values():
+            by[fut.replica] = by.get(fut.replica, 0) + 1
+        print("[serving] fleet: %d requests, r0 SIGKILLed after %d were "
+              "sent; every request completed once (served by %s; %d "
+              "retries and failovers) in %.2f s"
+              % (len(reqs), killed[0], by, retried, wall))
+        ratios, apart = [], 0.0
+        for i, (res, _) in sorted(results.items()):
+            # the request's own columns of its batch's decoder output,
+            # picked after the timed loop
+            res[3] = _own_columns(res[3], direct[i][3])
+            if res[3] is None:
+                raise SmokeFailure(
+                    "fleet request %d: no columns of its batch's decoder "
+                    "output are bit for bit its own" % i)
+            for j in range(4):
+                apart = max(apart, float(np.abs(
+                    res[j].astype(np.float64) - direct[i][j]).max()))
+                ratios.append(_slice_check(
+                    "fleet", "fleet request %d output %d" % (i, j), res[j],
+                    plain[i][j], anchor[i][j], quiet=True))
+        print("[serving] fleet: largest ratio to the plain path %.3g over %d "
+              "outputs, the request's own decoder columns among them (limit "
+              "%g); max |replica - this process's session| %.3g"
+              % (max(r for r, _ in ratios), len(ratios), SLICE_RATIO, apart))
+        if any(f for _, f in ratios):
+            raise SmokeFailure("fleet outputs differ from the plain path by "
+                               "more than %g times bf16's own error"
+                               % SLICE_RATIO)
+        if apart:
+            raise SmokeFailure("fleet outputs are not bit for bit this "
+                               "process's session's (the same graphs)")
+        lat = [secs * 1e3 for _, secs in results.values()]
+        print("[serving] router latency paid: p50 %.2f ms p99 %.2f ms over "
+              "%d closed-loop requests (%d clients, a SIGKILL among them); "
+              "%s" % (_pct(lat, 50), _pct(lat, 99), len(lat),
+                      SERVING_CLIENTS, card_line))
+        # where a routed request's time goes, from the assembled traces
+        phases, shown = {}, False
+        for i, fut in sorted(futs.items()):
+            t_dead = time.time() + 10
+            bd = router.explain(fut.id)
+            while (bd is None or not bd["complete"]) and \
+                    time.time() < t_dead:
+                time.sleep(0.02)
+                bd = router.explain(fut.id)
+            if bd is None:
+                raise SmokeFailure("no assembled trace for request %d" % i)
+            for ph, us in bd["phases"]:
+                phases.setdefault(ph, []).append(us / 1e3)
+            if not shown and fut.replica == "r1":
+                print("[serving] %s" % tracing.render_critical_path(
+                    bd, bd["trace_id"]))
+                shown = True
+        print("[serving] a routed request's time by phase (medians over %d "
+              "traces, ms): %s; the Router's wire cost a hop %.3f ms; %s"
+              % (len(futs), {k: round(_pct(v, 50), 3)
+                             for k, v in sorted(phases.items())},
+                 _pct(phases.get("wire", []), 50), card_line))
+        # each replica's own launches, from its lease
+        time.sleep(2 * SERVING_HB)
+        counts = {}
+        for rid, payload in payloads().items():
+            gauges = (payload.get("tele") or {}).get("gauges") or {}
+            c = {"wrapper": {}, "replayed": {}}
+            for key, v in gauges.items():
+                name, labels = telemetry.parse_metric_key(key)
+                if name == "mx_serve_kernel_launches":
+                    c[labels["kind"]][labels["kernel"]] = int(v)
+            counts[rid] = c
+            print("[serving] replica %s (pid %s, served %s): launches "
+                  "through the wrappers %s, carried by replayed graphs %s"
+                  % (rid, payload.get("pid"), payload.get("served"),
+                     {k: c["wrapper"].get(k, 0) for k in SERVE_KERNELS},
+                     c["replayed"]))
+            if any(not c["replayed"].get(k) or not c["wrapper"].get(k)
+                   for k in SERVE_KERNELS):
+                raise SmokeFailure("replica %s reports no launch of a "
+                                   "serving kernel" % rid)
+        if sorted(counts) != ["r%d" % i for i in range(SERVING_REPLICAS)]:
+            raise SmokeFailure("launch counts from replicas %s"
+                               % sorted(counts))
+        return router, mgr, counts
+    except BaseException:
+        if router is not None:
+            router.close()
+        mgr.stop(timeout=10)
+        raise
+
+
+def _http(addr, method, path, body=None, headers=None):
+    import http.client
+    import json as _json
+    conn = http.client.HTTPConnection(*addr, timeout=120)
+    try:
+        hdrs = {"Content-Type": "application/json"}
+        hdrs.update(headers or {})
+        conn.request(method, path, None if body is None
+                     else _json.dumps(body), hdrs)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _serving_frontend(router, sess, seed, card_line):
+    """(c) The HTTP Frontend on the Router; the Router's answers are this
+    process's session's, bit for bit."""
+    import json as _json
+    import numpy as np
+    from mxnet_tpu_torch.serve import Frontend
+    rng = np.random.RandomState(seed * 1000 + 3)
+    fe = Frontend(router).serve_in_thread()
+    try:
+        fe_ms, rt_ms = [], []
+        trace_id = None
+        for k, seq in enumerate(SERVING_FRONTEND):
+            ids = rng.randint(0, 30522, (1, seq)).astype(np.int32)
+            tok = rng.randint(0, 2, (1, seq)).astype(np.int32)
+            t0 = time.perf_counter()
+            want = router.infer(ids, tok, tenant="paid")
+            rt_ms.append((time.perf_counter() - t0) * 1e3)
+            direct = sess.infer(ids, tok)
+            if not all(np.array_equal(np.asarray(w), d)
+                       for w, d in zip(want[:3], direct[:3])) \
+                    or _own_columns(np.asarray(want[3]),
+                                    direct[3][:seq, :1]) is None:
+                raise SmokeFailure("Frontend request %d: the Router's "
+                                   "answer is not the session's" % k)
+            stream = k == len(SERVING_FRONTEND) - 1
+            t0 = time.perf_counter()
+            status, hdrs, raw = _http(fe.addr, "POST", "/v1/infer", {
+                "inputs": [ids.tolist(), tok.tolist()], "dtype": "int32",
+                "tenant": "paid", "stream": stream})
+            body = (_json.loads(raw.decode().strip().splitlines()[0])
+                    if stream else _json.loads(raw))
+            fe_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise SmokeFailure("Frontend /v1/infer: %d %s"
+                                   % (status, raw[:200]))
+            got = [np.asarray(o, np.float32) for o in body["outputs"]]
+            if len(got) != len(want) or not all(
+                    np.array_equal(g, w) for g, w in zip(got, want)):
+                raise SmokeFailure("Frontend request %d: outputs differ "
+                                   "from the Router's" % k)
+            trace_id = body.get("trace_id") or trace_id
+        status, _, raw = _http(fe.addr, "GET", "/metrics")
+        text = raw.decode()
+        if status != 200 or 'replica="r1"' not in text \
+                or "mx_fleet_requests_total" not in text:
+            raise SmokeFailure("Frontend /metrics lacks the replicas' "
+                               "series")
+        status, _, raw = _http(fe.addr, "GET", "/v1/trace/%s" % trace_id)
+        doc = _json.loads(raw)
+        if status != 200 or not doc.get("spans") \
+                or doc["critical_path"]["dominant"] == "none":
+            raise SmokeFailure("Frontend /v1/trace/%s: %d" % (trace_id,
+                                                              status))
+        status, _, _ = _http(fe.addr, "GET", "/v1/trace/unknown0")
+        if status != 404:
+            raise SmokeFailure("an unknown trace answered %d" % status)
+        status, _, raw = _http(fe.addr, "GET", "/v1/health")
+        print("[serving] frontend: %d requests (1 row, lengths %s, the last "
+              "streamed) equal the Router's answers, which are this process's "
+              "session's bit for bit; /metrics carries "
+              "replica= series; /v1/trace/%s %d spans, unknown id 404; "
+              "/v1/health %s" % (len(SERVING_FRONTEND), SERVING_FRONTEND,
+                                 trace_id, len(doc["spans"]),
+                                 raw.decode().strip()))
+        print("[serving] frontend cost a request: %.2f ms through HTTP "
+              "against %.2f ms through Router.infer (medians of %d; JSON of "
+              "the (16, 8, 30522) decoder output included); %s"
+              % (_pct(fe_ms, 50), _pct(rt_ms, 50), len(fe_ms), card_line))
+    finally:
+        fe.stop()
+
+
+def phase_serving(seed, card_line):
+    """22. The serving stack on BERT-base: Scheduler, replica processes
+    behind a Router, the Frontend; returns (the Scheduler run's wrapper
+    launches, {replica: its launches})."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    print("[serving] %s" % card_line)
+    tmp = tempfile.mkdtemp(prefix="mxt_serving_")
+    saved = {v: os.environ.get(v) for v in (
+        "MXNET_TELEMETRY", "MXNET_TRACE", "MXNET_TRACE_SAMPLE")}
+    router = mgr = None
+    try:
+        os.environ["MXNET_TELEMETRY"] = "1"
+        mx.telemetry.refresh()
+        mx.telemetry.reset()
+        net, ids, tok = serving_net(seed)
+        counts, replayed, sess = _serving_scheduler(net, ids, tok, seed,
+                                                    card_line)
+        os.environ["MXNET_TRACE"] = "1"
+        os.environ["MXNET_TRACE_SAMPLE"] = "1.0"
+        mx.telemetry.refresh()
+        router, mgr, replica_counts = _serving_fleet(net, sess, seed, tmp,
+                                                     card_line)
+        _serving_frontend(router, sess, seed, card_line)
+        _free_graphs(net)
+        del net, sess
+        torch.cuda.empty_cache()
+    finally:
+        if router is not None:
+            router.close()
+        if mgr is not None:
+            mgr.stop(timeout=20)
+            if any(mgr.alive().values()):
+                raise SmokeFailure("replica processes outlived the phase")
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+        mx.telemetry.refresh()
+        mx.telemetry.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[serving] phase 22 took %.1f s; %s"
+          % (time.perf_counter() - t0, card_line))
+    total = {k: counts.get(k, 0) for k in counts}
+    return total, {rid: c["replayed"] for rid, c in replica_counts.items()}, \
+        replayed
 
 
 def main(argv=None):
@@ -10172,11 +10809,17 @@ def main(argv=None):
         engine_counts = phase_engine(args.seed, rtc_mod, sess, reqs,
                                      card_line)
         services_counts, _ = phase_services(args.seed, card_line)
+        serving_counts, replica_counts, serving_replayed = phase_serving(
+            args.seed, card_line)
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
             r["launches_per_engine_run"] = engine_counts.get(k, 0)
             r["launches_per_services_run"] = services_counts.get(k, 0)
+            r["launches_per_serving_run"] = serving_counts.get(k, 0)
+            r["replayed_per_serving_run"] = serving_replayed.get(k, 0)
+            r["replayed_per_replica"] = {
+                rid: c.get(k, 0) for rid, c in sorted(replica_counts.items())}
         for r in rows:
             r["launches_per_fed_run"] = fed_counts.get(
                 r.get("kernel", r["name"]), 0)

@@ -87,6 +87,7 @@ from . import random
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from .optimizer import Optimizer
 from . import lr_scheduler
 from . import gluon
 from . import serve
@@ -94,6 +95,7 @@ from . import operator
 from . import rtc
 from . import metric
 from . import guardrails
+from .guardrails import GradGuard
 from . import faultinject
 from . import scan
 from . import contrib
@@ -105,7 +107,10 @@ from . import image
 from . import compilewatch
 from . import modelwatch
 from . import model
+from .model import (save_checkpoint, load_checkpoint,
+                    load_latest_checkpoint, wait_checkpoints)
 from . import monitor
+from .monitor import Monitor
 from . import callback
 from .interop import params_from_numpy
 

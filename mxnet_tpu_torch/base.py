@@ -9,18 +9,47 @@ import ml_dtypes
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "np_dtype", "Registry"]
+__all__ = ["MXNetError", "torch_dtype", "np_dtype", "Registry", "getenv",
+           "env_bool", "env_int", "string_types"]
+
+string_types = (str,)
 
 
 class MXNetError(RuntimeError):
     """Framework error type (ref: include/mxnet/base.h :: dmlc::Error)."""
 
 
+def getenv(name: str, default: Any = None) -> Any:
+    """A raw environment read (ref: dmlc::GetEnv); declared variables
+    are read through :func:`mxnet_tpu_torch.config.get`."""
+    from .config import getenv_raw
+    return getenv_raw(name, default)
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    from .config import getenv_raw
+    v = getenv_raw(name)
+    if v is None:
+        return default
+    return v not in ("0", "false", "False", "")
+
+
+def env_int(name: str, default: int = 0) -> int:
+    from .config import getenv_raw
+    v = getenv_raw(name)
+    if v is None:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
+
+
 _BY_NAME = {
     "float32": torch.float32, "float16": torch.float16,
     "bfloat16": torch.bfloat16, "float64": torch.float64,
     "int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
-    "uint8": torch.uint8, "bool": torch.bool,
+    "uint8": torch.uint8, "uint32": torch.uint32, "bool": torch.bool,
 }
 
 

@@ -60,7 +60,7 @@ from . import telemetry
 __all__ = ["Watch", "enabled", "programs", "report", "recompile_log",
            "cache_counts", "cache_entries", "reset", "render_report",
            "compile_seconds_total", "count_flops", "tensor_sig",
-           "value_sig", "timed"]
+           "value_sig", "timed", "note_external_compile"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.compilewatch")
 
@@ -72,6 +72,13 @@ _WATCHED: "weakref.WeakSet[Watch]" = weakref.WeakSet()
 _PROG_LOCK = threading.Lock()
 _PROGRAMS: "collections.deque[dict]" = collections.deque(maxlen=10000)
 _COMPILE_SECONDS = [0.0]   # running total, debited from goodput
+
+
+def note_external_compile(seconds: float):
+    """Add compile time spent outside the watched sites to the goodput
+    debit total."""
+    with _PROG_LOCK:
+        _COMPILE_SECONDS[0] += max(0.0, float(seconds))
 
 
 def enabled() -> bool:

@@ -23,7 +23,8 @@ import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
-__all__ = ["Var", "VARS", "define", "get"]
+__all__ = ["Var", "VARS", "define", "get", "getenv_raw", "setenv",
+           "describe"]
 
 _FALSY = ("0", "false", "off", "no", "")
 
@@ -65,6 +66,34 @@ def get(name: str):
     return var.parse(os.environ.get(name))
 
 
+def getenv_raw(name: str, default=None):
+    """A raw read of an undeclared variable (``mx.util.getenv``)."""
+    return os.environ.get(name, default)
+
+
+def setenv(name: str, value: str):
+    """``mx.util.setenv``."""
+    os.environ[name] = value
+
+
+def apply_overrides(env: Optional[Dict[str, str]]) -> None:
+    """Write ``env`` into the environment: a spawned serving replica
+    applies its spec's overrides (fault sites, tracing) before anything
+    reads them."""
+    for k, v in (env or {}).items():
+        os.environ[str(k)] = str(v)
+
+
+def describe() -> str:
+    """A markdown table of every declared variable."""
+    rows = ["| variable | type | default | description |",
+            "|---|---|---|---|"]
+    for v in sorted(VARS.values(), key=lambda v: v.name):
+        rows.append("| `%s` | %s | `%r` | %s |"
+                    % (v.name, v.type.__name__, v.default, v.doc))
+    return "\n".join(rows)
+
+
 define("MXNET_ENGINE_TYPE", str, "",
        "'NaiveEngine' runs every op synchronously: a native-engine push "
        "executes at the push, and every registry op and new array on the "
@@ -97,6 +126,70 @@ define("MXNET_SERVE_BUCKETS", str, "",
        "Shape-bucket ladder for InferenceSession (serve/bucketing.py): "
        "'b1,b2,...' batch buckets, optionally ';s1,s2,...' sequence "
        "buckets. Empty = a power-of-two ladder up to max_batch/max_seq.")
+define("MXNET_SERVE_MAX_WAIT_MS", float, 5.0,
+       "Continuous-batching assembly deadline in milliseconds "
+       "(serve/scheduler.py): once the first request of a batch waits, "
+       "the scheduler admits more for at most this long before it "
+       "dispatches the batch. 0 dispatches at once.")
+define("MXNET_SERVE_INFLIGHT", int, 2,
+       "Serve batches in flight on the dependency engine at once "
+       "(serve/scheduler.py); assembly blocks past this, so backpressure "
+       "lands in the tenant queues. At 1 batches run on the batcher's "
+       "thread, bypassing the engine.")
+define("MXNET_SERVE_DRAIN_S", float, 5.0,
+       "Graceful-drain deadline in seconds for Scheduler.close(): queued "
+       "requests are served for this long, the rest fail with "
+       "OverloadError(code='drain').")
+define("MXNET_SERVE_FLEET_KV", str, "",
+       "Fleet coordination KV address 'host:port' (serve/fleet.py): "
+       "replicas publish liveness leases there and routers watch them; a "
+       "dist.KVServer, started by ReplicaManager. Empty: an in-process "
+       "store (single-process use).")
+define("MXNET_SERVE_FLEET_HEARTBEAT_S", float, 0.5,
+       "Replica lease period in seconds: each replica re-publishes its "
+       "lease and health snapshot at this period, and routers poll the "
+       "lease directory at the same period.")
+define("MXNET_SERVE_FLEET_MISS_K", int, 3,
+       "A replica whose lease is older than MISS_K * HEARTBEAT_S is dead: "
+       "no new work lands on it and its in-flight requests are "
+       "resubmitted.")
+define("MXNET_SERVE_FLEET_RETRIES", int, 2,
+       "Retries of a routed request on a different replica: transport "
+       "failures and dead replicas retry only idempotent requests, typed "
+       "overload/drain sheds always; never past the deadline.")
+define("MXNET_SERVE_FLEET_BREAKER_FAILS", int, 3,
+       "Consecutive failures before a replica's circuit breaker opens.")
+define("MXNET_SERVE_FLEET_BREAKER_MS", float, 200.0,
+       "Base open time of the circuit breaker in milliseconds; doubles "
+       "on each re-open (capped at 64x) before a half-open probe.")
+define("MXNET_SERVE_FLEET_CONC", int, 16,
+       "Router.submit's driving threads (Router.infer drives on the "
+       "caller's thread).")
+define("MXNET_SERVE_FLEET_TIMEOUT_S", float, 30.0,
+       "Deadline in seconds of a routed request whose tenant declares no "
+       "deadline_ms; retries and hedges all charge against it.")
+define("MXNET_SERVE_HEDGE_MS", float, 0.0,
+       "Hedged-request delay in milliseconds (Router): an idempotent "
+       "request still running after this long is duplicated on another "
+       "replica, the first completion wins and the other is counted in "
+       "mx_fleet_hedges_total. 0: off; negative: the fleet's observed "
+       "p99.")
+define("MXNET_TRACE", bool, False,
+       "Distributed request tracing (tracing.py): a TraceContext minted "
+       "at the serving edge rides the wire into each replica, so router "
+       "attempts, scheduler queue/batch spans and engine execute spans "
+       "assemble into one trace per sampled request. Read once and "
+       "cached: call tracing.refresh() (or telemetry.refresh()) after a "
+       "change. Off, wire frames carry no trace bytes.")
+define("MXNET_TRACE_SAMPLE", float, 0.01,
+       "Head-sampling rate in [0, 1]: decided once where a trace is "
+       "minted and carried in the context; replicas never re-decide.")
+define("MXNET_TRACE_RING", int, 2048,
+       "Per-process bound on buffered spans; overflow evicts the oldest "
+       "and counts it (the heartbeat's trace= dropped).")
+define("MXNET_TRACE_EXEMPLARS", int, 4,
+       "The N slowest assembled traces each TraceStore keeps whole, for "
+       "telemetry.crash_bundle()'s traces.json; 0 keeps none.")
 define("MXNET_OPTIMIZER_AGGREGATION_SIZE", int, 4096,
        "Multi-tensor update width (the optimizer's aggregate_num): "
        "update_multi takes its parameters in chunks of this many, one "

@@ -15,7 +15,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
-           "context_of", "num_gpus"]
+           "context_of", "num_gpus", "device"]
 
 
 class Context:
@@ -114,6 +114,11 @@ def current_context() -> Context:
     if stack:
         return stack[-1]
     return gpu(0)
+
+
+def device(dev=None) -> Context:
+    """``dev``, or the current context."""
+    return dev if dev is not None else current_context()
 
 
 def context_of(device: torch.device) -> Context:

@@ -37,6 +37,8 @@ events (``engine::<label> (queued)`` and ``engine::<label>``), and with
 telemetry on ``mx_engine_ops_total{label}``, ``mx_engine_pending_ops``,
 ``mx_engine_queue_seconds{label}``, ``mx_engine_op_seconds{label}`` and
 ``mx_engine_op_errors_total{label}`` (the label cut at its first ':').
+``push_async(on_done=...)`` runs a completion hook on the worker thread
+after the op (the serve scheduler's in-flight accounting rides on it).
 The reference's race-detector hook and ``push_async(collective=...)``
 come with the modules that own them (ROADMAP.md queue 1, items 16 and
 11).
@@ -148,9 +150,9 @@ class NativeDependencyEngine:
         def _dispatch(ctx_token, err_out, err_cap):
             with self._live_lock:
                 fn = self._fns.pop(ctx_token, None)
-                label, site, reads, writes, t_queued, ginc = \
+                label, site, reads, writes, t_queued, ginc, on_done = \
                     self._meta.get(ctx_token, ("<unlabeled>", "<unknown>",
-                                               (), (), None, False))
+                                               (), (), None, False, None))
                 upstream = None
                 for rv in reads:
                     rec = self._var_errors.get(rv)
@@ -176,7 +178,11 @@ class NativeDependencyEngine:
                     if fn is None:
                         raise MXNetError("engine: unknown op token %r"
                                          % (ctx_token,))
-                    fn()
+                    _EXEC_TLS.in_op = True
+                    try:
+                        fn()
+                    finally:
+                        _EXEC_TLS.in_op = False
                     if writes:
                         # a successful write is fresh data: later readers
                         # of a recovered var are not failed
@@ -207,6 +213,13 @@ class NativeDependencyEngine:
                                     bool(rc), ginc)
                 except Exception:  # noqa: BLE001 - never poison the op
                     pass
+            if on_done is not None:
+                # after the op's own bookkeeping, on the worker thread; a
+                # failing hook never poisons the op's result
+                try:
+                    on_done(bool(rc))
+                except Exception:  # noqa: BLE001
+                    pass
             if rc:
                 try:
                     msg = (err_text or "engine op failed") \
@@ -235,11 +248,19 @@ class NativeDependencyEngine:
                 self._var_errors.pop(var, None)
         return ok
 
-    def push_async(self, fn, read_vars=(), write_vars=(), label=None):
+    def push_async(self, fn, read_vars=(), write_vars=(), label=None,
+                   on_done=None, collective=None):
         """Schedule ``fn()`` once its read and write dependencies clear.
         ``label`` (default: the callable's name) names the op in errors
         and in the watchdog's report. A raised exception poisons the
-        written vars and re-raises at the wait."""
+        written vars and re-raises at the wait. ``on_done(failed)``, if
+        given, runs on the worker thread after the op, whether it failed
+        or not; its exceptions are swallowed. ``collective`` (a
+        multi-device program's descriptor) is refused."""
+        if collective is not None:
+            raise NotImplementedError(
+                "push_async(collective=...) is not ported yet (ROADMAP.md "
+                "queue 1, item 11)")
         if label is None:
             label = getattr(fn, "__name__", None) or "<unlabeled>"
         site = _enqueue_site()
@@ -269,7 +290,7 @@ class NativeDependencyEngine:
             self._next += 1
             self._fns[token] = fn
             self._meta[token] = (label, site, tuple(read_vars),
-                                 tuple(write_vars), t_queued, ginc)
+                                 tuple(write_vars), t_queued, ginc, on_done)
         r = (ctypes.c_uint64 * max(1, len(read_vars)))(*read_vars)
         w = (ctypes.c_uint64 * max(1, len(write_vars)))(*write_vars)
         rc = self._lib.MXEnginePushAsync(
@@ -484,7 +505,13 @@ def native_wait_all():
 def native_drain():
     """Wait for every op of the native engine, raising nothing (a CUDA
     graph capture starts with no worker running); errors stay for the
-    waits that touch them."""
+    waits that touch them. An engine op would wait for itself: on a
+    worker thread this raises MXNetError (a capture belongs outside the
+    engine's ops)."""
+    if getattr(_EXEC_TLS, "in_op", False):
+        raise MXNetError("engine: an engine op cannot drain the engine "
+                         "(it would wait for itself); capture outside the "
+                         "engine's ops")
     if _NATIVE is not None and _NATIVE._h:
         _NATIVE._blocking_wait(
             lambda: _NATIVE._lib.MXEngineWaitForAll(_NATIVE._h), "all")

@@ -10,7 +10,9 @@ probabilities replay deterministically. Tests arm sites with
 :func:`set_fault`, which takes precedence over the environment.
 
 Every site of the reference is registered, so one spec drives both
-packages; in the port three of them fire so far:
+packages. In the port these fire so far, with ``engine_op`` and
+``engine_dep_drop`` (``engine.py``) and ``dl_worker`` and
+``dl_worker_respawn`` (the DataLoader's workers):
 
 ``nan_grad``     the grad guard's entry point poisons the first gradient
                  with NaN (``guardrails.inject_grad_faults``; inside a
@@ -21,10 +23,23 @@ packages; in the port three of them fire so far:
 ``ckpt_write``   a checkpoint write (``model.save_checkpoint``) is cut
                  to half its bytes and fails; the error surfaces at
                  ``wait_checkpoints``, and no ``.params`` is published.
+``replica_crash`` a serving replica dies after the compute and before
+                 its reply (a process replica exits hard; an in-process
+                 one drops its connections and stops renewing its
+                 lease): the router detects the death and resubmits the
+                 request to another replica exactly once
+                 (``serve/fleet.py``).
+``replica_slow`` a serving replica sleeps before it replies: a hedged
+                 request wins on another replica, and the per-replica
+                 p99 table names the slow one.
+``kv_flap``      one fleet-KV operation raises ConnectionError
+                 (``dist.KV``): the router keeps its last-known-good
+                 routing table instead of ejecting the fleet.
 
-The others (``dl_worker``, ``rendezvous``, ``kv_hang``, the serving and
-elastic sites ...) come with the modules that own them (ROADMAP.md queue
-1). Every fire counts in ``mx_fault_injections_total{site}``.
+The others (``rendezvous``, ``barrier``, ``kv_hang``,
+``engine_collective_overlap``, ``slice_preempt``, ``reshard_fail``) come
+with the modules that own them (ROADMAP.md queue 1). Every fire
+counts in ``mx_fault_injections_total{site}``.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from ..block import HybridBlock
 from .. import nn
 
 __all__ = ["BERTEncoder", "BERTModel", "BERTMLMLoss", "bert_12_768_12",
+           "bert_24_1024_16",
            "PositionwiseFFN", "BERTEncoderCell"]
 
 
@@ -223,5 +224,12 @@ def bert_12_768_12(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
     """BERT-base: 12 layers, 768 units, 3072 hidden, 12 heads."""
     return BERTModel(num_layers=12, units=768, hidden_size=3072,
                      num_heads=12, max_length=max_length,
+                     vocab_size=vocab_size, dropout=dropout, **kwargs)
+
+
+def bert_24_1024_16(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
+    """BERT-large: 24 layers, 1024 units, 4096 hidden, 16 heads."""
+    return BERTModel(num_layers=24, units=1024, hidden_size=4096,
+                     num_heads=16, max_length=max_length,
                      vocab_size=vocab_size, dropout=dropout, **kwargs)
 

@@ -36,7 +36,9 @@ from .. import ndarray as nd
 from ..ndarray import NDArray, array, zeros
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
-           "ParameterDict"]
+           "ParameterDict", "tensor_types"]
+
+tensor_types = (NDArray,)
 
 
 class DeferredInitializationError(MXNetError):

@@ -20,7 +20,7 @@ from .. import ndarray as nd
 from ..ndarray import NDArray
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
-           "shape_is_known"]
+           "shape_is_known", "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -91,3 +91,13 @@ def shape_is_known(shape):
     if shape is None:
         return False
     return all(s > 0 for s in shape)
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Refused, as the reference refuses it: nothing is fetched over the
+    network; place the files locally."""
+    from ..base import MXNetError
+    raise MXNetError(
+        "download() requires network access, which is unavailable in this "
+        "environment; place files locally instead")

@@ -20,7 +20,7 @@ from . import random as _random
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
            "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
-           "Mixed", "create", "register"]
+           "Mixed", "create", "register", "InitDesc"]
 
 _REG: Dict[str, type] = {}
 
@@ -32,6 +32,17 @@ def register(cls=None, *, name: Optional[str] = None):
         _REG[(name or c.__name__).lower()] = c
         return c
     return _reg(cls) if cls is not None else _reg
+
+
+class InitDesc(str):
+    """A parameter's name with its attributes, as initializers receive
+    it (ref: InitDesc)."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
 
 
 class Initializer:

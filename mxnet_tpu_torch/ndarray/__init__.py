@@ -26,16 +26,19 @@ import struct
 
 import numpy as np
 import torch
+import torch.utils.dlpack
 
 from ..base import MXNetError
 from ..context import Context, current_context
-from .ndarray import (NDArray, array, concatenate, host_copies, host_numpy,
-                      host_tensor, invoke, ones, waitall, zeros)
+from .ndarray import (NDArray, array, concatenate, empty, host_copies,
+                      host_numpy, host_tensor, invoke, ones, waitall, zeros)
 from ..ops import F as _F
 
 __all__ = ["NDArray", "array", "zeros", "ones", "invoke", "host_tensor",
            "concatenate", "waitall", "stack_list", "moveaxis", "maximum",
-           "minimum", "save", "load", "full", "arange", "linspace", "eye"]
+           "minimum", "save", "load", "full", "arange", "linspace", "eye",
+           "empty", "to_dlpack_for_read", "to_dlpack_for_write",
+           "from_dlpack"]
 
 _LIST_MAGIC = 0x112          # kMXAPINDArrayListMagic
 _ND_MAGIC_V2 = 0xF993FAC9    # NDARRAY_V2_MAGIC (dense, with stype)
@@ -236,3 +239,23 @@ image = _ImageNamespace()
 
 def __getattr__(name):
     return getattr(_F, name)
+
+
+# -- DLPack exchange (ref: MXNDArrayToDLPack / MXNDArrayFromDLPack) ---------
+def to_dlpack_for_read(data: NDArray):
+    """A DLPack capsule sharing ``data``'s memory."""
+    return torch.utils.dlpack.to_dlpack(data.tensor().detach())
+
+
+def to_dlpack_for_write(data: NDArray):
+    """A DLPack capsule sharing ``data``'s memory; writes through it are
+    seen by ``data``."""
+    return torch.utils.dlpack.to_dlpack(data.tensor().detach())
+
+
+def from_dlpack(capsule) -> NDArray:
+    """An NDArray over a DLPack capsule, or any object with
+    ``__dlpack__`` (numpy, torch, ...), sharing its memory."""
+    t = torch.utils.dlpack.from_dlpack(capsule)
+    from ..context import context_of
+    return NDArray(t, context_of(t.device))

@@ -62,9 +62,9 @@ from ..symbol import layout_opt as _layout_opt
 # the cached telemetry gate, read once an array
 _TSTATE = _telemetry._STATE
 
-__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "to_tensor",
-           "host_tensor", "host_numpy", "host_copies", "concatenate",
-           "waitall"]
+__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "empty",
+           "to_tensor", "host_tensor", "host_numpy", "host_copies",
+           "concatenate", "waitall"]
 
 
 class NDArray:
@@ -643,6 +643,12 @@ def zeros(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
 def ones(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
     """The ``_ones`` op (``F.ones``) with MXNet's positional order."""
     return _create("_ones", shape, ctx, dtype)
+
+
+def empty(shape, ctx: Optional[Context] = None, dtype="float32") -> NDArray:
+    """An array of ``shape``; its values are zeros, as the reference's
+    are."""
+    return _create("_zeros", shape, ctx, dtype)
 
 
 def concatenate(arrays, axis=0, always_copy=True) -> NDArray:

@@ -4,7 +4,8 @@
 MXNet semantics kept: ``elemwise_*`` requires identical shapes;
 ``broadcast_*`` applies numpy broadcasting; a scalar operand takes the
 array's dtype before the op, as in the reference; a comparison returns
-0/1 in its first input's dtype; ``mod`` is the floored modulo (numpy's). The unary family is the reference's table, one torch call
+0/1 in its first input's dtype; ``mod`` is the floored modulo (numpy's), an integer modulo by zero 0.
+The unary family is the reference's table, one torch call
 each (``gamma`` as ``exp(lgamma)`` and ``logical_not`` in the input's
 dtype, as the reference computes them).
 """
@@ -16,10 +17,34 @@ from ..base import torch_dtype
 from . import register
 
 
+def float_in(x):
+    """``x`` as f32 where it holds integers or booleans, else ``x``: the
+    ops that the reference promotes (softmax, hypot, ...) compute there
+    in f32 and return f32."""
+    if x.is_floating_point() or x.is_complex():
+        return x
+    return x.to(torch.float32)
+
+
+def mod(lhs, rhs):
+    """The floored modulo; an integer modulo by zero answers 0, as
+    ``jnp.mod`` does, with no host read (torch raises on the CPU)."""
+    if lhs.is_floating_point() or rhs.is_floating_point():
+        return torch.remainder(lhs, rhs)
+    zero = rhs == 0
+    safe = torch.where(zero, torch.ones_like(rhs), rhs)
+    out = torch.remainder(lhs, safe)
+    return torch.where(zero, torch.zeros_like(out), out)
+
+
+def hypot(lhs, rhs):
+    return torch.hypot(float_in(lhs), float_in(rhs))
+
+
 _BINARY = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
-           "div": torch.div, "mod": torch.remainder, "power": torch.pow,
+           "div": torch.div, "mod": mod, "power": torch.pow,
            "maximum": torch.maximum, "minimum": torch.minimum,
-           "hypot": torch.hypot}
+           "hypot": hypot}
 _BINARY_CMP = {"equal": torch.eq, "not_equal": torch.ne,
                "greater": torch.gt, "greater_equal": torch.ge,
                "lesser": torch.lt, "lesser_equal": torch.le,
@@ -69,8 +94,8 @@ for _n, _f, _r in [
         ("_rdiv_scalar", torch.div, True),
         ("_power_scalar", torch.pow, False),
         ("_rpower_scalar", torch.pow, True),
-        ("_mod_scalar", torch.remainder, False),
-        ("_rmod_scalar", torch.remainder, True),
+        ("_mod_scalar", mod, False),
+        ("_rmod_scalar", mod, True),
         ("_maximum_scalar", torch.maximum, False),
         ("_minimum_scalar", torch.minimum, False)]:
     register(_n)(_make_scalar(_n, _f, _r))
@@ -115,8 +140,9 @@ _UNARY = {
     "rsqrt": torch.rsqrt,
     "relu": torch.relu, "sigmoid": torch.sigmoid,
     "softsign": lambda x: x / (1 + torch.abs(x)),
-    "softrelu": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
-    "log_sigmoid": torch.nn.functional.logsigmoid,
+    "softrelu": lambda x: torch.logaddexp(float_in(x),
+                                          torch.zeros_like(float_in(x))),
+    "log_sigmoid": lambda x: torch.nn.functional.logsigmoid(float_in(x)),
     "digamma": torch.digamma,
 }
 

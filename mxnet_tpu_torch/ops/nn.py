@@ -39,6 +39,7 @@ from ..symbol import layout_opt as _layout_opt
 from . import register
 from . import cuda_dropout
 from . import cuda_norm
+from .elemwise import float_in
 
 
 @register("FullyConnected", aliases=["fully_connected"])
@@ -138,6 +139,7 @@ def softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
             use_length=False):
     """Softmax over ``axis``; with ``use_length`` the steps at or past
     each row's ``length`` are left out and come back 0."""
+    data = float_in(data)
     x = data if temperature in (None, 1.0) else data / temperature
     if use_length and length is not None:
         mask = _length_mask(data, length, axis)
@@ -158,6 +160,7 @@ def log_softmax(data, length=None, *, axis=-1, temperature=None, dtype=None,
     past each row's ``length`` are left out of the sum and come back 0,
     as MXNet's SoftmaxWithLength writes them (the reference's
     log_softmax takes no length)."""
+    data = float_in(data)
     x = data if temperature in (None, 1.0) else data / temperature
     if use_length and length is not None:
         mask = _length_mask(data, length, axis)
@@ -534,6 +537,7 @@ def group_norm(data, gamma, beta, *, num_groups=1, eps=1e-5):
 def softmin(data, *, axis=-1, temperature=None, dtype=None):
     """softmax(-data / temperature) over ``axis`` (MXNet 1.x's
     temperature; the reference ignores it)."""
+    data = float_in(data)
     x = -data if temperature in (None, 1.0) else -data / temperature
     out = torch.softmax(x, dim=int(axis))
     return out.to(torch_dtype(dtype)) if dtype else out
@@ -597,7 +601,7 @@ def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
     """Softmax with the cross-entropy gradient of its own (ref:
     softmax_output.cc): over the last axis, or axis 1 with
     ``multi_output``."""
-    return _SoftmaxOutputFn.apply(data, label, 1 if multi_output else -1,
+    return _SoftmaxOutputFn.apply(float_in(data), label, 1 if multi_output else -1,
                                   float(grad_scale), bool(use_ignore),
                                   float(ignore_label), normalization)
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import register
+from .elemwise import float_in
 from .reduce_ops import norm
 
 _F32 = np.float32
@@ -642,7 +643,8 @@ def multi_sgd_mom_update(*arrays, lrs, wds, momentum=0.0, rescale_grad=1.0,
 def _l2s(arrays):
     """Each array's L2 norm, summed in f32: one multi-tensor reduction
     (a few launches for any number of arrays)."""
-    return torch._foreach_norm(list(arrays), 2, dtype=torch.float32)
+    return torch._foreach_norm([float_in(a) for a in arrays], 2,
+                               dtype=torch.float32)
 
 
 @register("multi_l2_norm")
@@ -660,6 +662,7 @@ def multi_finite_norm(*arrays, num_arrays=1, num_weights=0):
     overflow."""
     grads = list(arrays[:len(arrays) - num_weights])
     weights = list(arrays[len(arrays) - num_weights:])
+    grads = [float_in(g) for g in grads]
     zeros = torch.stack(_l2s(torch._foreach_mul(grads, 0.0)))
     return torch.cat([(zeros == 0).float(), torch.stack(_l2s(grads + weights))])
 
@@ -668,8 +671,8 @@ def multi_finite_norm(*arrays, num_arrays=1, num_weights=0):
 def multi_update_norm(*arrays, num_arrays=1):
     """arrays = [old0, new0, old1, new1, ...]; (pairs,) f32: the L2 norm
     of each new - old."""
-    return torch.stack(_l2s(torch._foreach_sub(list(arrays[1::2]),
-                                               list(arrays[0::2]))))
+    arrays = [float_in(a) for a in arrays]
+    return torch.stack(_l2s(torch._foreach_sub(arrays[1::2], arrays[0::2])))
 
 
 @register("_contrib_multi_lars")

@@ -8,7 +8,10 @@ returns shape ``(1,)``, not a 0-d scalar, and ``exclude=True`` reduces
 over every axis but the given ones. ``argmax``/``argmin`` and the
 indices of ``topk``/``argsort`` are float32 unless asked otherwise;
 sorts are stable, and a descending sort is the ascending one reversed,
-as the reference computes it.
+as the reference computes it; ``topk`` puts the lowest index first
+among equal values, as ``lax.top_k`` does. Integer sums and products
+keep the reference's dtype (int32, or uint32 for unsigned data), and
+the mean of integers is f32.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..base import torch_dtype
 from . import register
+from .elemwise import float_in
 
 
 def _axes(data, axis, exclude):
@@ -26,6 +30,25 @@ def _axes(data, axis, exclude):
     if exclude:
         ax = tuple(i for i in range(data.dim()) if i not in ax)
     return ax
+
+
+_UNSIGNED = (torch.uint8, torch.bool)
+
+
+def _int_acc(fn):
+    """``fn`` over integer data accumulated in int64 and returned as
+    ``jnp``'s accumulator dtype: int32, or uint32 for unsigned data."""
+    def run(data, *a, **kw):
+        if data.is_floating_point() or data.is_complex():
+            return fn(data, *a, **kw)
+        out_dtype = torch.uint32 if data.dtype == torch.uint8 \
+            else torch.int32
+        return fn(data.to(torch.int64), *a, **kw).to(out_dtype)
+    return run
+
+
+def _mean(data, *a, **kw):
+    return torch.mean(float_in(data), *a, **kw)
 
 
 def _make_reduce(opname, fn):
@@ -55,11 +78,17 @@ def _nanprod(data, dim=None, keepdim=False):
                  dim, keepdim)
 
 
-register("sum", aliases=["sum_axis"])(_make_reduce("sum", torch.sum))
-register("mean", aliases=["mean_axis"])(_make_reduce("mean", torch.mean))
-register("prod")(_make_reduce("prod", _prod))
-register("nansum")(_make_reduce("nansum", torch.nansum))
-register("nanprod")(_make_reduce("nanprod", _nanprod))
+def _nansum(data, dim=None, keepdim=False):
+    if not data.is_floating_point():
+        return torch.sum(data, dim=dim, keepdim=keepdim)
+    return torch.nansum(data, dim=dim, keepdim=keepdim)
+
+
+register("sum", aliases=["sum_axis"])(_make_reduce("sum", _int_acc(torch.sum)))
+register("mean", aliases=["mean_axis"])(_make_reduce("mean", _mean))
+register("prod")(_make_reduce("prod", _int_acc(_prod)))
+register("nansum")(_make_reduce("nansum", _int_acc(_nansum)))
+register("nanprod")(_make_reduce("nanprod", _int_acc(_nanprod)))
 register("max", aliases=["max_axis"])(_make_reduce("max", torch.amax))
 register("min", aliases=["min_axis"])(_make_reduce("min", torch.amin))
 
@@ -98,10 +127,12 @@ def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
     if axis is None:
         data, axis = data.reshape(-1), -1
     ax = int(axis) % data.dim()
-    vals, idx = torch.topk(data.movedim(ax, -1), int(k), dim=-1,
-                           largest=not is_ascend, sorted=True)
-    vals = vals.movedim(-1, ax)
-    idx = idx.movedim(-1, ax).to(torch_dtype(dtype))
+    # a stable sort sliced to k: ties keep the lowest index first, as
+    # lax.top_k does (torch.topk orders ties otherwise)
+    vals, idx = torch.sort(data.movedim(ax, -1), dim=-1,
+                           descending=not is_ascend, stable=True)
+    vals = vals[..., :int(k)].movedim(-1, ax)
+    idx = idx[..., :int(k)].movedim(-1, ax).to(torch_dtype(dtype))
     if ret_typ == "value":
         return vals
     if ret_typ == "indices":
@@ -134,12 +165,17 @@ def norm(data, *, ord=2, axis=None, keepdims=False):
     """L1 or L2 norm over ``axis`` (all axes by default): squares in the
     data's dtype, the sum taken in f32 and rounded to the data's dtype,
     the root in it (jnp.linalg.norm's rounding); a full reduction
-    returns (1,)."""
+    returns (1,). The L1 norm of integers is an integer sum; their L2
+    norm is computed in f32 (the reference squares uint8 in uint8 and
+    wraps)."""
     ax = _axes(data, axis, False)
     kw = {} if ax is None else {"dim": ax, "keepdim": bool(keepdims)}
-    if ord == 1:
+    if ord == 1 and not data.is_floating_point():
+        out = _int_acc(torch.sum)(data.abs(), **kw)
+    elif ord == 1:
         out = data.abs().sum(dtype=torch.float32, **kw).to(data.dtype)
     elif ord == 2:
+        data = float_in(data)
         out = torch.sqrt((data * data).sum(dtype=torch.float32, **kw)
                          .to(data.dtype))
     else:

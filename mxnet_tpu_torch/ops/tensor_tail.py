@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import register, _ALIASES
-from .elemwise import _cbrt, _make_binary, _make_scalar, div_exact
+from .elemwise import (_cbrt, _make_binary, _make_scalar, div_exact,
+                       float_in, hypot, mod)
 
 
 # ---------------------------------------------------------------------------
@@ -37,8 +38,7 @@ def add_n(*args, num_args=None):
 # same-shape binaries and the scalar tail
 # ---------------------------------------------------------------------------
 for _n, _f in [("_maximum", torch.maximum), ("_minimum", torch.minimum),
-               ("_power", torch.pow), ("_hypot", torch.hypot),
-               ("_mod", torch.remainder)]:
+               ("_power", torch.pow), ("_hypot", hypot), ("_mod", mod)]:
     register(_n)(_make_binary(_n, _f, same_shape=True))
 
 for _n, _f in [("_equal", torch.eq), ("_not_equal", torch.ne),
@@ -49,7 +49,7 @@ for _n, _f in [("_equal", torch.eq), ("_not_equal", torch.ne),
                ("_logical_xor", torch.logical_xor)]:
     register(_n)(_make_binary(_n, _f, cmp=True, same_shape=True))
 
-register("_hypot_scalar")(_make_scalar("_hypot_scalar", torch.hypot))
+register("_hypot_scalar")(_make_scalar("_hypot_scalar", hypot))
 for _n, _f in [("_logical_and_scalar", torch.logical_and),
                ("_logical_or_scalar", torch.logical_or),
                ("_logical_xor_scalar", torch.logical_xor)]:
@@ -203,6 +203,7 @@ def moments(data, *, axes=None, keepdims=False):
     """(mean, variance) over ``axes`` (ref: nn/moments.cc)."""
     ax = tuple(int(a) for a in axes) if axes is not None \
         else tuple(range(data.dim()))
+    data = float_in(data)
     mean = data.mean(dim=ax, keepdim=True)
     var = torch.square(data - mean).mean(dim=ax, keepdim=True)
     if not keepdims:
@@ -249,7 +250,7 @@ def masked_log_softmax(data, mask, *, axis=-1, temperature=1.0):
 def softmax_activation(data, *, mode="instance"):
     """softmax over the last axis, or over axis 1 with mode='channel'
     (ref: nn/softmax_activation.cc)."""
-    return torch.softmax(data, dim=1 if mode == "channel" else -1)
+    return torch.softmax(float_in(data), dim=1 if mode == "channel" else -1)
 
 
 @register("SVMOutput")

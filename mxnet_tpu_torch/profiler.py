@@ -41,7 +41,8 @@ from typing import List, Optional
 
 __all__ = ["set_config", "set_state", "state", "dump", "dumps", "pause",
            "resume", "Task", "Frame", "Event", "Counter", "Marker", "scope",
-           "record_event", "device_events", "device_clock_shift"]
+           "record_event", "record_external", "device_events",
+           "device_clock_shift"]
 
 _CONFIG = {
     "filename": "profile.json",
@@ -168,6 +169,22 @@ def record_event(name: str, category: str, ts_us: float, dur_us: float,
             "ts": ts_us, "dur": dur_us, "pid": os.getpid(),
             "tid": threading.get_ident() % 100000,
             "args": args or {}})
+
+
+def record_external(event: dict):
+    """Append one chrome event formed elsewhere (the assembled request
+    traces of ``tracing.TraceStore``, on the wall clock), so one dump
+    carries local events and cross-process traces side by side. Missing
+    fields are defaulted; nothing else is rewritten."""
+    if _STATE != "run":
+        return
+    ev = dict(event)
+    ev.setdefault("ph", "X")
+    ev.setdefault("pid", os.getpid())
+    ev.setdefault("tid", threading.get_ident() % 100000)
+    ev.setdefault("args", {})
+    with _LOCK:
+        _EVENTS.append(ev)
 
 
 def device_clock_shift() -> float:

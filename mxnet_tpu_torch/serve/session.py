@@ -26,13 +26,27 @@ replayed. The graph reads the parameters in place, so weights are live:
 a ``set_data`` is seen by the next request. The forward that resolves
 deferred shapes and the unpad probes run eagerly. Outputs are numpy
 arrays; a bfloat16 output comes back as float32 holding the same values
-(numpy has no bfloat16). The reference's mesh-sharded serving,
-scheduler, telemetry and compile accounting are later work (ROADMAP.md
-queue 1).
+(numpy has no bfloat16).
+
+One request runs at a time on a session (``_exec_lock``, held from the
+staging copy to the outputs' host copy), so the continuous-batching
+:class:`~.scheduler.Scheduler` may call :meth:`infer` from several engine
+workers: a captured graph's static buffers are never shared by two
+requests. A bucket's capture drains the native engine first, so it
+never runs inside an engine op: the Scheduler serves a cold bucket's
+batch on its own thread. With telemetry on, a miss counts in
+``mx_serve_bucket_miss_total{bucket}``, a warm bucket's forward (staging,
+replay and host copy) is timed into ``mx_serve_batch_seconds{bucket}``
+(a cold bucket's span, its capture, is cancelled: compilewatch records
+the capture as a program), and under a sampled ambient
+:class:`~mxnet_tpu_torch.tracing.TraceContext` the forward is a
+``serve::forward`` span of the request's trace. The reference's
+mesh-sharded serving waits with multi-GPU (ROADMAP.md queue 1, item 11).
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as onp
@@ -42,7 +56,10 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..ndarray import NDArray, host_tensor
 from .. import cached_op as _cached_op
+from .. import engine as _engine
 from .. import ops as _ops
+from .. import telemetry
+from .. import tracing
 from .bucketing import BucketLadder
 
 __all__ = ["InferenceSession"]
@@ -118,6 +135,7 @@ class InferenceSession:
         self._out_scales = self._detect_out_axes()
 
         self._lock = threading.Lock()
+        self._exec_lock = threading.Lock()
         self._warm: set = set()
         self._stats: Dict[Tuple[int, ...], list] = {}  # bucket -> [hit, miss]
         self._closed = False
@@ -239,20 +257,60 @@ class InferenceSession:
         bucket, beyond = self.ladder.bucket_for(b, s)
         with self._lock:
             # a miss is a bucket the warmup did not cover, or any
-            # request beyond the ladder
-            miss = (bucket not in self._warm) or beyond
+            # request beyond the ladder; warm flips only after the first
+            # run returns, so a concurrent caller of a cold bucket is
+            # cold too
+            warm = bucket in self._warm
+            miss = (not warm) or beyond
             st = self._stats.setdefault(bucket, [0, 0])
             if not _warming:
                 st[1 if miss else 0] += 1
+                if miss:
+                    telemetry.count_event("mx_serve_bucket_miss_total",
+                                          bucket=_bucket_key(bucket))
 
-        dev = self._ctx.torch_device
-        staged = [self._pad_to(h, bucket, t).to(dev)
-                  for h, t in zip(hosts, self._templates)]
-        outs = [NDArray(o, self._ctx).asnumpy()
-                for o in self._forward(staged)]
+        tctx = tracing.current() if tracing.active() else None
+        t0w = time.time() if tctx is not None else 0.0
+        if not warm and self._ctx.device_type == "gpu":
+            # the capture drains the engine under the lock; an engine op
+            # of this session waiting for the lock would never finish
+            _engine.native_drain()
+        with self._exec_lock, telemetry.span(
+                "serve::forward", "serve", hist="mx_serve_batch_seconds",
+                bucket=_bucket_key(bucket)) as sp:
+            if not warm:
+                # a cold bucket's time is its capture: compilewatch has
+                # it; the batch histogram is about serving
+                sp.cancel()
+            outs = [NDArray(o, self._ctx).asnumpy()
+                    for o in self._run(hosts, bucket)]
+        if tctx is not None:
+            tracing.record_span("serve::forward", "serve", t0w, time.time(),
+                                ctx=tctx,
+                                args={"bucket": _bucket_key(bucket),
+                                      "warm": bool(warm)})
         with self._lock:
             self._warm.add(bucket)
         return self._unpad(outs, bucket, b, s)
+
+    def _run(self, hosts, bucket) -> List[torch.Tensor]:
+        """Stage a request padded to ``bucket`` on the device and run the
+        forward; on the card a warm bucket waits for nothing from the
+        host here (the staging copies leave pinned memory)."""
+        dev = self._ctx.torch_device
+        staged = [self._pad_to(h, bucket, t) for h, t in
+                  zip(hosts, self._templates)]
+        if dev.type == "cuda":
+            staged = [x.pin_memory().to(dev, non_blocking=True)
+                      for x in staged]
+        return self._forward(staged)
+
+    def _is_warm(self, b: int, s: Optional[int]) -> bool:
+        """Whether a request of ``b`` rows and length ``s`` finds its
+        bucket captured."""
+        bucket, _ = self.ladder.bucket_for(b, s)
+        with self._lock:
+            return bucket in self._warm
 
     def _unpad(self, outs, bucket, b, s):
         sliced = []

@@ -34,10 +34,12 @@ device that table does not know (the CPU included) ``mx_mfu`` is not
 exported: the reference falls back to a TPU's rate there.
 
 The fleet view is one rank's: the port has no process group yet, and a
-gather across ranks raises (ROADMAP.md queue 1, item 11). The
-reference's communication, distributed-tracing and performance-record
-modules, which its :func:`refresh` and :func:`reset` also reach, come
-with items 11, 14 and 15.
+gather across ranks raises (ROADMAP.md queue 1, item 11). :func:`refresh`
+and :func:`reset` reach the distributed tracing of :mod:`.tracing` too;
+the reference's communication and performance-record modules, which
+they also reach there, come with items 11 and 15. The heartbeat gains a
+``serve=`` section once the process serves and a ``trace=`` section
+once it traces.
 """
 from __future__ import annotations
 
@@ -110,6 +112,11 @@ def refresh():
     _STATE.on = None
     _stop_heartbeat()
     _PEAK[0] = None
+    try:
+        from . import tracing
+        tracing.refresh()
+    except Exception:
+        pass
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +288,11 @@ def reset():
         _BUNDLE["written"] = 0
         if _BUNDLE["recent"] is not None:
             _BUNDLE["recent"].clear()
+    try:
+        from . import tracing
+        tracing.reset()
+    except Exception:
+        pass
 
 
 # ---------------------------------------------------------------------------
@@ -880,6 +892,39 @@ def heartbeat_line() -> str:
         line += (" fleet=nw:%d,skew:%.1f%%,slowest:r%d,phase:%s"
                  % (fleet["nw"], fleet["skew"] * 100, fleet["slowest"],
                     fleet["phase"]))
+    # serving: request totals by outcome, live queue depth, the worst
+    # tenant p99 and the bucket misses, once the process serves
+    serve_reqs = serve_shed = qdepth = bucket_miss = serve_p99 = 0.0
+    with _REG_LOCK:
+        for m in _METRICS.values():
+            if m.name == "mx_serve_requests_total":
+                serve_reqs += m.get()
+                if dict(m.labels).get("code") in ("overload", "timeout",
+                                                  "drain"):
+                    serve_shed += m.get()
+            elif m.name == "mx_serve_queue_depth":
+                qdepth += m.get()
+            elif m.name == "mx_serve_bucket_miss_total":
+                bucket_miss += m.get()
+            elif m.name == "mx_serve_latency_seconds":
+                serve_p99 = max(serve_p99, m.percentile(99))
+    if serve_reqs:
+        line += (" serve=reqs:%d,shed:%d,qdepth:%d,p99:%.1fms,"
+                 "bucket_miss:%d"
+                 % (int(serve_reqs), int(serve_shed), int(qdepth),
+                    serve_p99 * 1e3, int(bucket_miss)))
+    # distributed tracing: sampled requests, recorded spans, dropped
+    # spans (a ring overflow is counted) and exemplars, once it traces
+    try:
+        from . import tracing
+        ts = tracing.stats()
+        if ts["sampled"] or ts["recorded"] or ts["dropped"]:
+            line += (" trace=sampled:%d,spans:%d,dropped:%d,"
+                     "exemplars:%d"
+                     % (ts["sampled"], ts["recorded"], ts["dropped"],
+                        ts["exemplars"]))
+    except Exception:
+        pass
     return line
 
 
@@ -990,8 +1035,9 @@ def crash_bundle(reason: str = "manual", trigger: Optional[dict] = None,
     per-layer vectors), ``anomaly.json`` (the trigger, modelwatch's
     suspects, the recent guard events), ``telemetry.json``,
     ``trace.json`` (the chrome trace the profiler holds),
-    ``programs.json`` (compilewatch), ``heartbeat.txt`` and ``env.txt``.
-    Never raises."""
+    ``programs.json`` (compilewatch), ``traces.json`` (the tracing
+    stats and the slowest assembled request traces of every live
+    ``TraceStore``), ``heartbeat.txt`` and ``env.txt``. Never raises."""
     tmp = None
     try:
         root = dirpath or _bundle_dir()
@@ -1050,6 +1096,15 @@ def crash_bundle(reason: str = "manual", trigger: Optional[dict] = None,
             progs = {"report": [], "programs": []}
         with open(_os.path.join(tmp, "programs.json"), "w") as f:
             _json.dump(progs, f, indent=1, default=str)
+
+        try:
+            from . import tracing as _trc
+            traces = {"stats": _trc.stats(),
+                      "exemplars": _trc.exemplar_dump()}
+        except Exception:
+            traces = {"stats": {}, "exemplars": []}
+        with open(_os.path.join(tmp, "traces.json"), "w") as f:
+            _json.dump(traces, f, indent=1, default=str)
 
         with open(_os.path.join(tmp, "heartbeat.txt"), "w") as f:
             for entry in ring:

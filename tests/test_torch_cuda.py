@@ -2661,3 +2661,127 @@ def test_services_live_bytes_on_the_card(services):
     del a, views
     gc.collect()
     assert mx.gpu(0).memory_info() == base
+
+
+# ---------------------------------------------------------------------------
+# the repaired ops inside captured graphs, and the Scheduler on the card
+# ---------------------------------------------------------------------------
+def _open_faults_block(mx):
+    class Ops(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x, xi, yi, xu):
+            return (F.topk(x, k=3, ret_typ="indices"),
+                    F.topk(x, k=3, is_ascend=True, ret_typ="value"),
+                    F.topk(xi, k=2, ret_typ="indices", dtype="int32"),
+                    F.broadcast_mod(xi, yi), F._mod_scalar(xi, scalar=0),
+                    F._rmod_scalar(yi, scalar=5), F.broadcast_mod(xu, xu),
+                    F.sum(xi, axis=1), F.sum(xu), F.mean(xi, axis=1),
+                    F.mean(xu))
+    return Ops()
+
+
+def test_open_faults_repaired_inside_a_captured_graph(card):
+    """topk's tie order, integer modulo by zero and the integer
+    reductions on the card, the third call a replay of the graph the
+    second captured: equal to the port's CPU path, the dtypes kept."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    rs = np.random.RandomState(0)
+    x = np.array([[2, 2, 2, 1, 5, 5], [4, 4, 4, 4, 4, 4]], np.float32)
+    xi = rs.randint(-5, 5, (2, 6)).astype(np.int32)
+    xi[1] = 4                       # an int32 row of ties
+    yi = rs.randint(0, 3, (2, 6)).astype(np.int32)
+    xu = rs.randint(0, 4, (2, 6)).astype(np.uint8)
+    outs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        blk = _open_faults_block(mx)
+        blk.hybridize(static_alloc=True, static_shape=True)
+        args = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in (x, xi, yi, xu)]
+        cached_op.reset_replay_counts()
+        for _ in range(3):
+            res = [o.asnumpy() for o in blk(*args)]
+        outs[ctx.device_type] = res
+        if ctx.device_type == "gpu":
+            assert cached_op.replay_counts()["forward"] >= 1
+    for c, g in zip(outs["cpu"], outs["gpu"]):
+        assert c.dtype == g.dtype
+        np.testing.assert_array_equal(g, c)
+    np.testing.assert_array_equal(outs["gpu"][0], [[4, 5, 0], [0, 1, 2]])
+    np.testing.assert_array_equal(outs["gpu"][2][1], [0, 1])
+    assert outs["gpu"][7].dtype == np.int32
+    assert outs["gpu"][8].dtype == np.uint32
+    assert outs["gpu"][9].dtype == np.float32
+
+
+def test_scheduler_on_the_card_reads_nothing_inside_a_replay(card,
+                                                            monkeypatch):
+    """A small BERT served on the card through a Scheduler at inflight 2
+    (its warm batches on the native engine, a bucket's first batch, its
+    capture, on the batcher's thread): from the staging copies through
+    the replay up to the outputs' host copy, a warm batch waits on the
+    card from the host nowhere (torch's sync debug mode turns a
+    synchronising call there into an error), and each output, the
+    decoder's own columns included, equals the session's direct infer
+    bit for bit (one batch bucket: the same graph)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.serve import Scheduler, TenantConfig
+    mx.random.seed(0)
+    net = BERTModel(num_layers=2, units=64, hidden_size=128, num_heads=4,
+                    max_length=64, vocab_size=100, dropout=0.0)
+    net.initialize(ctx=mx.gpu(0))
+    rs = np.random.RandomState(1)
+    ids = mx.nd.array(rs.randint(0, 100, (4, 16)), ctx=mx.gpu(0))
+    tok = mx.nd.array(rs.randint(0, 2, (4, 16)), ctx=mx.gpu(0))
+    net(ids, tok)
+    net.cast("bfloat16")
+    sess = net.serve_session(ids, tok, seq_axis=1, max_batch=4, max_seq=32,
+                             buckets="4;16,32")
+    real = sess._run
+    strict, errors = [], []
+
+    def strict_run(hosts, bucket):
+        if bucket not in sess._warm:
+            return real(hosts, bucket)      # the capture
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(hosts, bucket)
+        except RuntimeError as e:
+            errors.append(e)
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+            strict.append(bucket)
+
+    monkeypatch.setattr(sess, "_run", strict_run)
+    pushed = []
+    eng = engine.native_engine()
+    real_push = eng.push_async
+
+    def counting_push(fn, *a, **kw):
+        pushed.append(kw.get("label"))
+        return real_push(fn, *a, **kw)
+
+    monkeypatch.setattr(eng, "push_async", counting_push)
+    sched = Scheduler(sess, max_wait_ms=1, inflight=2, tenants=[
+        TenantConfig("free", weight=1), TenantConfig("paid", weight=4)])
+    reqs = [(rs.randint(0, 100, (int(rs.randint(1, 3)), int(L))),
+             rs.randint(0, 2, (1, 1))) for L in rs.randint(4, 33, 24)]
+    reqs = [(a.astype(np.int32), np.zeros_like(a, np.int32)) for a, _ in reqs]
+    try:
+        futs = [sched.submit(a, b, tenant="paid" if i % 2 else "free")
+                for i, (a, b) in enumerate(reqs)]
+        outs = [f.result(120) for f in futs]
+    finally:
+        sched.close()
+    assert not errors and strict
+    assert pushed and set(pushed) == {"serve.batch"}
+    for (a, b), got in zip(reqs, outs):
+        want = sess.infer(a, b)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g, w)
+        rows, seq = a.shape
+        own = want[3][:seq, :rows]
+        assert any(np.array_equal(got[3][:seq, off:off + rows], own)
+                   for off in range(got[3].shape[1] - rows + 1))

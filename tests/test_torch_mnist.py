@@ -19,6 +19,7 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as pt
 
 import chip_smoke as cs
+from test_torch_gluon_surface import _xavier_from
 
 STEPS = 3
 
@@ -101,6 +102,12 @@ def _train(lib, ctx, net, X, y, steps=STEPS):
 
 @pytest.fixture(scope="module")
 def slice_data():
+    return _slice_data(0)
+
+
+def _slice_data(seed):
+    """The data, and the reference's MLP with weights drawn from a
+    RandomState of ``seed``."""
     X, y, _, _ = cs.mnist_synthetic(600)
     _register_reference_relu()
     cs.register_rtc_relu(pt, pt.rtc.CudaModule(cs.RTC_SOURCE,
@@ -108,12 +115,23 @@ def slice_data():
     ref = _reference_mlp()
     ref.initialize(mx.initializer.Xavier())
     ref(mx.nd.array(X[:1]))
+    _xavier_from(np.random.RandomState(seed), ref)
     init = {n: p.data().asnumpy() for n, p in ref.collect_params().items()}
     return X, y, ref, init
 
 
 def test_custom_op_mlp_matches_reference_custom_op_mlp(slice_data):
-    X, y, ref, init = slice_data
+    _check_mlp(*slice_data)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_custom_op_mlp_matches_reference_at_seeds(seed):
+    """Seeds 1-4 of the reference's weights, at the tolerances of seed
+    0."""
+    _check_mlp(*_slice_data(seed))
+
+
+def _check_mlp(X, y, ref, init):
     port = cs.mnist_mlp(pt, True)
     pt.params_from_numpy(port, init, ctx=pt.cpu())   # the reference's names
     assert sorted(init) == sorted(port.collect_params().keys()) == [

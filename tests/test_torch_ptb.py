@@ -21,6 +21,7 @@ import pytest
 import mxnet_tpu as mx
 import mxnet_tpu_torch as pt
 from chip_smoke import ptb_model, ptb_step
+from test_torch_gluon_surface import _xavier_from
 
 VOCAB, UNITS, BPTT, BATCH, STEPS = 50, 16, 10, 4, 8
 # the clip cut with the width: at 0.05 every step clips (the gradient of
@@ -67,18 +68,26 @@ def _port_config_unset():
         yield
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference_run(seed):
+    """The reference's weights, drawn from a RandomState of ``seed`` (not
+    from the reference's global generator, whose state depends on what
+    ran before in the process), and its training run."""
     mp = pytest.MonkeyPatch()
     mp.setattr(mx.nd, "minimum", mx.nd.broadcast_minimum, raising=False)
     try:
         net = ptb_model(mx, VOCAB, UNITS, dropout=0.0)
         net.initialize(mx.initializer.Xavier(), ctx=mx.cpu())
+        _xavier_from(np.random.RandomState(seed), net)
         arrays = {n: p.data().asnumpy()
                   for n, p in net.collect_params().items()}
-        yield arrays, _train(mx, mx.cpu(), net)
+        return arrays, _train(mx, mx.cpu(), net)
     finally:
         mp.undo()
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return _reference_run(0)
 
 
 def test_decoder_is_tied_in_both_packages():
@@ -95,13 +104,28 @@ def test_decoder_is_tied_in_both_packages():
 @pytest.mark.parametrize("hybridize", [False, True],
                          ids=["eager", "hybridized"])
 def test_ptb_training_matches_reference(reference, hybridize):
+    _check_against(reference, hybridize)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_ptb_training_matches_reference_at_seeds(seed):
+    """Seeds 1-4 of the reference's weights, the port eager and
+    hybridized, at the same tolerances as seed 0. At some seeds the
+    gradient norm falls under the clip in the last steps, so these
+    require the clip reached, not reached at every step."""
+    ref = _reference_run(seed)
+    for hybridize in (False, True):
+        _check_against(ref, hybridize, every_step_clips=False)
+
+
+def _check_against(reference, hybridize, every_step_clips=True):
     arrays, (r_losses, r_norms, r_params, r_hidden) = reference
     net = ptb_model(pt, VOCAB, UNITS, dropout=0.0)
     pt.params_from_numpy(net, arrays, ctx=pt.cpu())
     losses, norms, params, hidden = _train(pt, pt.cpu(), net, hybridize)
     np.testing.assert_allclose(losses, r_losses, rtol=LOSS_RTOL)
     np.testing.assert_allclose(norms, r_norms, rtol=LOSS_RTOL)
-    assert min(norms) > CLIP
+    assert (min(norms) if every_step_clips else max(norms)) > CLIP
     assert losses[-1] < losses[0]
     assert sorted(params) == sorted(r_params)
     for n in params:

@@ -15,6 +15,7 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as pt
 from mxnet_tpu_torch.gluon import rnn
 from mxnet_tpu_torch.ops.rnn_ops import rnn_param_size
+from test_torch_gluon_surface import _xavier_from
 
 RTOL, ATOL = 1e-4, 1e-5
 CPU = pt.cpu()
@@ -235,10 +236,24 @@ def test_rnn_layer_matches_reference(name, hybridize):
     """Each package's layer on the same named weights, the port's eager
     and hybridized (the reference's own hybridized layer cannot return
     its states: its symbol tracer refuses a list among the outputs)."""
+    _check_layer(name, hybridize, 0)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_rnn_layer_matches_reference_at_seeds(seed):
+    """Seeds 1-4 of the reference's weights, every layer eager and
+    hybridized, at the tolerances of seed 0."""
+    for name in sorted(CONFIGS):
+        for hybridize in (False, True):
+            _check_layer(name, hybridize, seed)
+
+
+def _check_layer(name, hybridize, seed):
     mode, bi, L, layout = CONFIGS[name]
     D = 2 if bi else 1
     ref = _layer(mx, mode, bi, L, layout)
     ref.initialize(mx.initializer.Xavier(), ctx=mx.cpu())
+    _xavier_from(np.random.RandomState(seed), ref)
     arrays = {n: p.data().asnumpy() for n, p in ref.collect_params().items()}
     port = _layer(pt, mode, bi, L, layout)
     pt.params_from_numpy(port, arrays, ctx=CPU)
@@ -283,6 +298,18 @@ def _cell(lib, kind):
 def test_rnn_cell_unroll_matches_reference(kind):
     """``unroll`` (NTC, merged) of each cell on the same named weights:
     outputs, final states and every gradient."""
+    _check_cell(kind, 0)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_rnn_cell_unroll_matches_reference_at_seeds(seed):
+    """Seeds 1-4 of the reference's weights, every cell, at the
+    tolerances of seed 0."""
+    for kind in CELLS:
+        _check_cell(kind, seed)
+
+
+def _check_cell(kind, seed):
     x = _randn((N, T, H), 10)
     g = _randn((N, T, 2 * H if kind == "bidirectional" else H), 11)
     res = []
@@ -290,6 +317,7 @@ def test_rnn_cell_unroll_matches_reference(kind):
         cell = _cell(lib, kind)
         if lib is mx:
             cell.initialize(mx.initializer.Xavier(), ctx=ctx)
+            _xavier_from(np.random.RandomState(seed), cell)
             arrays = {n: p.data().asnumpy()
                       for n, p in cell.collect_params().items()}
         else:

@@ -574,8 +574,8 @@ def test_guard_raise_writes_a_crash_bundle(tmp_path, monkeypatch):
     assert len(bundles) == 1 and "guard_raise" in bundles[0]
     files = set(os.listdir(tmp_path / bundles[0]))
     assert files == {"modelwatch.jsonl", "anomaly.json", "telemetry.json",
-                     "trace.json", "programs.json", "heartbeat.txt",
-                     "env.txt"}
+                     "trace.json", "programs.json", "traces.json",
+                     "heartbeat.txt", "env.txt"}
     anomaly = json.loads((tmp_path / bundles[0] / "anomaly.json")
                          .read_text())
     assert anomaly["reason"] == "guard_raise"
