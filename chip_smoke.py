@@ -501,6 +501,35 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    request. To run it alone: ``python3 -c "import chip_smoke as cs; line
    = cs.phase_device(); cs.phase_build(); cs.phase_serving(0, line)"``.
 
+23. data parallel — training through the kvstore, each part's ranks
+   started by ``python -m mxnet_tpu_torch.tools.launch`` running
+   ``dp_worker``. (a) Two ranks of ``bert_12_768_12`` with the dense
+   MLM head of phase 21 (f32 parameters under bf16 AMP: the attention
+   kernel takes 16-bit data; TF32 off), both on the one card, so the
+   group is gloo (NCCL refuses two ranks on one card), ``Trainer(...,
+   kvstore="dist_sync")``, SGD with momentum, ``DP_ROWS`` x 128 a rank,
+   a warm-up and ``DP_STEPS`` steps, at dropout 0 and again at 0.1: the
+   ranks begin and end bit for bit equal (parameters and momenta), rows
+   1-7 launched on each rank (row 8 too at dropout 0.1), the
+   cross-process all-reduce in commwatch's report (bytes, algbw, busbw,
+   exposed seconds), the steps timed; rank 0 then trains one process on
+   the concatenated batch without a kvstore, and the change of the
+   dropout-0 run's parameters must lie within ``DP_TOL`` of it (relative
+   L2); a control with the cross-process sum planted away must fail
+   both checks. (d) In the same group, with ``MXNET_GUARD_COMM_VOTE=1`` and
+   ``nan_grad`` armed on rank 1 only, both ranks raise
+   NonFiniteGradientError naming rank 1. (b) One rank on NCCL: the same
+   model through ``dist_sync``, ``p3store_dist`` (slices of
+   ``DP_P3_BOUND`` elements) and no kvstore, all three bit for bit. (c)
+   In this process, 2 layers at full width in f32 over ``[gpu(0),
+   cpu(0)]`` with ``kvstore="device"``: the replicas equal and within
+   ``DP_CTX_TOL`` of the one-context run on the concatenated batch; on
+   two cards also ``[gpu(0), gpu(1)]`` through the grouped NCCL reduce,
+   else a line says it did not run. To run it alone: ``python3 -c
+   "import chip_smoke as cs; line = cs.phase_device(); cs.phase_build();
+   cs.phase_dp(0, line)"``; ``dp_readings(range(5), line)`` prints the
+   readings behind ``DP_TOL``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -10696,6 +10725,483 @@ def phase_serving(seed, card_line):
         replayed
 
 
+# ---------------------------------------------------------------------------
+# 23. data parallel through the kvstore: two ranks on the card over gloo,
+# NCCL at world size 1 with the P3 store, a process's contexts, the vote
+# ---------------------------------------------------------------------------
+DP_ROWS = 8                # rows a rank (and a context): 8 x seq 128
+DP_STEPS = 3               # timed steps, after one warm-up
+DP_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+DP_DROPOUT = 0.1
+DP_SMALL_LAYERS = 2        # part (c)'s depth at full width
+# P3's slice bound in elements: BERT-base's word embedding (30522 x 768)
+# takes 23 slices, each FFN weight 3
+DP_P3_BOUND = 1 << 20
+# (a) against the one-process run on the concatenated batch: the relative
+# L2 distance of the parameters' change over the 4 steps. Under bf16 AMP
+# every weight gradient leaves its matmul rounded to bf16, once for each
+# rank's half of the batch against once for the whole. On an H100 the
+# distance read 0.0087, 0.0111, 0.0098, 0.0099 and 0.0112 for seeds 0-4
+# (dp_readings); the limit is twice the largest. The control (the
+# cross-process sum planted away, each rank on its own half) must land
+# beyond it, its ranks apart
+DP_TOL = 0.0224
+# (c) in f32 with TF32 off, a sum over rows in another order: the
+# replicas against the one-context run, relative L2 of the change
+DP_CTX_TOL = 1e-4
+DP_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+              "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+              "bias_residual_fwd")
+DP_TIMEOUT = 400           # seconds a launch may take, the build included
+DP_LAYERS = 12
+# what each launched rank runs (from the checkout's root)
+DP_WORKER = "import chip_smoke as cs, sys; sys.exit(cs.dp_worker())"
+
+
+def _dp_model(seed, layers, dropout, ctx=None):
+    """BERT-base's widths at ``layers`` layers with the dense MLM head
+    over ``SERVICES_MASKED`` masked positions (``services_mlm``), f32,
+    eager: initialized on ``ctx`` (default gpu(0)), biases, beta and
+    gamma - 1 drawn from the seed, the same in every process."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    mx.random.seed(seed)
+    bert = BERTModel(num_layers=layers, units=UNITS, hidden_size=HIDDEN,
+                     num_heads=HEADS, max_length=512, vocab_size=VOCAB,
+                     dropout=dropout, use_pooler=False,
+                     use_classifier=False, use_decoder=False)
+    net = services_mlm(mx, bert)
+    net.initialize(ctx=ctx)
+    first = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+    data, _ = services_data(seed, 2)
+    with torch.no_grad():
+        net(mx.nd.array(data, dtype="int32", ctx=first))
+    _draw_affine(net, seed)
+    return net
+
+
+def _dp_batch(seed, step):
+    """The global batch of one step: (2 * DP_ROWS, seq + masked) ids and
+    positions, (2 * DP_ROWS, masked) labels."""
+    return services_data(seed * 1000 + step, 2 * DP_ROWS)
+
+
+def _dp_snapshot(net, trainer=None):
+    """Clones of every parameter (and momentum) in f32, by position (a
+    second model's names carry other counters)."""
+    out = {"p%04d" % i: p.data().tensor().detach().float().clone()
+           for i, p in enumerate(net.collect_params().values())}
+    if trainer is not None:
+        for i, st in sorted(trainer._updater.states.items(),
+                            key=lambda kv: str(kv[0])):
+            if st is not None:
+                out["mom:%s" % i] = st.tensor().detach().float().clone()
+    return out
+
+
+def _dp_digest(snap):
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(snap):
+        h.update(k.encode())
+        h.update(_bits(snap[k]).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_train(net, trainer, seed, rows, total, ctxs=None, steps=None):
+    """1 + DP_STEPS SGD steps (``steps`` to override): this process takes
+    ``rows`` of each global batch (split over ``ctxs`` when given),
+    ``trainer.step(total)``; returns each step's wall time in ms (the
+    card synchronised around it)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ctxs = ctxs or [mx.gpu(0) if DEV == "cuda" else mx.cpu()]
+    times = []
+    for s in range(1 + DP_STEPS if steps is None else steps):
+        data, labels = _dp_batch(seed, s)
+        data, labels = data[rows], labels[rows]
+        per = len(data) // len(ctxs)
+        parts = [(mx.nd.array(data[i * per:(i + 1) * per], dtype="int32",
+                              ctx=c),
+                  mx.nd.array(labels[i * per:(i + 1) * per], ctx=c))
+                 for i, c in enumerate(ctxs)]
+        mx.random.seed(seed + 100 + s)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            losses = [loss_fn(net(d), lab).sum() for d, lab in parts]
+        for loss in losses:
+            loss.backward()
+        trainer.step(total)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _dp_comm():
+    import mxnet_tpu_torch as mx
+    return [{k: r[k] for k in ("op", "axis", "ops", "bytes", "seconds",
+                               "algbw", "busbw", "exposed_s")}
+            for r in mx.commwatch.report()]
+
+
+def _dp_rel(snap, base, ref):
+    """The relative L2 distance of ``snap``'s change from ``base`` to
+    ``ref``'s, over every parameter."""
+    num = den = 0.0
+    for k, r in ref.items():
+        if k.startswith("mom:"):
+            continue
+        d = (snap[k] - base[k]).double()
+        e = (r - base[k]).double()
+        num += float(((d - e) ** 2).sum())
+        den += float((e ** 2).sum())
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def _dp_run(mx, seed, kv, rows, total, dropout, snap0=False):
+    """One data-parallel run of the 12-layer model: launches counted from
+    0 over the run, the bits of the parameters and momenta after it."""
+    from mxnet_tpu_torch.ops import cuda_build
+    net = _dp_model(seed, DP_LAYERS, dropout)
+    base = _dp_snapshot(net) if snap0 else None
+    init = _dp_digest(_dp_snapshot(net))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(DP_SGD),
+                               kvstore=kv)
+    mx.telemetry.reset()
+    cuda_build.reset_launch_counts()
+    times = _dp_train(net, trainer, seed, rows, total)
+    counts = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    snap = _dp_snapshot(net, trainer)
+    run = {"init": init, "final": _dp_digest(snap), "launches": counts,
+           "step_ms": times, "comm": _dp_comm(),
+           "kv": getattr(trainer._kvstore, "type", None)}
+    return run, net, trainer, snap, base
+
+
+def _dp_gloo(mx, seed):
+    """(a) and (d): this rank of two sharing the card over gloo."""
+    import torch
+    from mxnet_tpu_torch.guardrails import NonFiniteGradientError
+    kv = mx.kvstore.create("dist_sync")
+    rank, nw = kv.rank, kv.num_workers
+    out = {"rank": rank, "nw": nw, "backend": kv.backend,
+           "device": torch.cuda.current_device() if DEV == "cuda" else -1}
+    rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
+    keep = None
+    for dropout in (0.0, DP_DROPOUT):
+        run, net, trainer, snap, base = _dp_run(
+            mx, seed, kv, rows, nw * DP_ROWS, dropout,
+            snap0=(dropout == 0 and rank == 0))
+        out["dropout %g" % dropout] = run
+        if base is not None:
+            keep = (base, snap)
+        else:
+            del snap
+    # (d) the finite vote: nan_grad armed on rank 1 only
+    os.environ["MXNET_GUARD_COMM_VOTE"] = "1"
+    if rank == 1:
+        mx.faultinject.set_fault("nan_grad", 1.0, max_fires=1)
+    try:
+        _dp_train(net, trainer, seed, rows, nw * DP_ROWS, steps=1)
+        out["vote"] = None
+    except NonFiniteGradientError as e:
+        out["vote"] = str(e)
+    finally:
+        os.environ.pop("MXNET_GUARD_COMM_VOTE", None)
+        mx.faultinject.reset()
+    del net, trainer
+    # the control: the same run with the cross-process sum planted away
+    # (each rank keeps its own gradients) must fail both checks
+    from mxnet_tpu_torch.kvstore import dist as kvdist
+    real = kvdist._GlobalReducer.allreduce
+    kvdist._GlobalReducer.allreduce = lambda self, ts: [t.clone()
+                                                         for t in ts]
+    try:
+        run, net, trainer, fault, _ = _dp_run(mx, seed, kv, rows,
+                                              nw * DP_ROWS, 0.0)
+    finally:
+        kvdist._GlobalReducer.allreduce = real
+    out["control"] = run["final"]
+    del net, trainer
+    kv.barrier()
+    if rank == 0:
+        # the one-process run on the concatenated batch, no kvstore
+        net = _dp_model(seed, DP_LAYERS, 0.0)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(DP_SGD))
+        out["one_init"] = _dp_digest(_dp_snapshot(net))
+        out["one_step_ms"] = _dp_train(net, trainer, seed,
+                                       slice(0, nw * DP_ROWS),
+                                       nw * DP_ROWS)
+        one = _dp_snapshot(net)
+        out["rel_l2"] = _dp_rel(keep[1], keep[0], one)
+        out["control_rel_l2"] = _dp_rel(fault, keep[0], one)
+    return out
+
+
+def _dp_nccl(mx, seed):
+    """(b): one rank on NCCL; dist_sync, p3store_dist and no kvstore on
+    the same rows."""
+    kv = mx.kvstore.create("dist_sync")
+    out = {"rank": kv.rank, "nw": kv.num_workers, "backend": kv.backend}
+    rows = slice(0, DP_ROWS)
+    out["dist_sync"] = _dp_run(mx, seed, kv, rows, DP_ROWS, 0.0)[0]
+    os.environ["MXNET_KVSTORE_BIGARRAY_BOUND"] = str(DP_P3_BOUND)
+    p3 = mx.kvstore.create("p3store_dist")
+    out["p3store_dist"] = _dp_run(mx, seed, p3, rows, DP_ROWS, 0.0)[0]
+    out["none"] = _dp_run(mx, seed, None, rows, DP_ROWS, 0.0)[0]
+    return out
+
+
+def dp_worker():
+    """One rank of phase 23, started by ``python -m
+    mxnet_tpu_torch.tools.launch``: ``MXT_DP_CASE`` ``gloo`` (parts a and
+    d) or ``nccl`` (part b), ``MXT_DP_SEED``; writes its findings to
+    ``MXT_DP_OUT/<case>-<rank>.json``. f32 parameters under bf16 AMP (the
+    attention kernel takes 16-bit data), TF32 off."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    case = os.environ["MXT_DP_CASE"]
+    seed = int(os.environ["MXT_DP_SEED"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    amp.init(target_dtype="bfloat16")
+    res = (_dp_gloo if case == "gloo" else _dp_nccl)(mx, seed)
+    with open(os.path.join(os.environ["MXT_DP_OUT"], "%s-%d.json"
+                           % (case, res["rank"])), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _dp_launch(case, n, seed, tmp):
+    """Run ``n`` ranks of ``dp_worker`` through the port's launcher from
+    the checkout's root; every process is stopped at the end."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXT_DP_CASE=case, MXT_DP_SEED=str(seed),
+               MXT_DP_OUT=tmp, MXNET_TELEMETRY="1", MXNET_COMMWATCH="1")
+    for var in ("MXNET_GUARD_COMM_VOTE", "MXNET_FAULT_INJECT",
+                "MXNET_KVSTORE_BIGARRAY_BOUND", "MXNET_DIST_CPU_DEVICES"):
+        env.pop(var, None)
+    log = os.path.join(tmp, "%s.log" % case)
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+             str(n), sys.executable, "-c", DP_WORKER],
+            cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise SmokeFailure("dp: the %s launch of %d rank(s) ended with %s:"
+                           "\n%s" % (case, n, rc, text[-6000:]))
+    out = {}
+    for r in range(n):
+        with open(os.path.join(tmp, "%s-%d.json" % (case, r))) as f:
+            out[r] = json.load(f)
+    return out, time.perf_counter() - t0
+
+
+def _dp_launch_check(tag, run, want):
+    miss = [k for k in want if not run["launches"].get(k)]
+    if miss:
+        raise SmokeFailure("dp: %s launched no %s (%s)"
+                           % (tag, miss, run["launches"]))
+
+
+def _dp_print_run(tag, run, card_line):
+    med = statistics.median(run["step_ms"][1:])
+    print("[dp] %s: launches %s; step %.1f ms (median of %d after a "
+          "warm-up of %.1f ms); %s" % (tag, run["launches"], med,
+                                       len(run["step_ms"]) - 1,
+                                       run["step_ms"][0], card_line))
+    for r in run["comm"]:
+        print("[dp] %s: commwatch %s %s: %d ops, %.1f MB, %.4f s, algbw "
+              "%.2f GB/s, busbw %.2f GB/s, exposed %.4f s (%.1f ms a step)"
+              % (tag, r["op"], r["axis"], r["ops"], r["bytes"] / 1e6,
+                 r["seconds"], r["algbw"] / 1e9, r["busbw"] / 1e9,
+                 r["exposed_s"], r["exposed_s"] / max(1, r["ops"]) * 1e3))
+
+
+def _dp_contexts(seed, card_line):
+    """(c): one process, a replica on gpu(0) and one on cpu(0) through
+    kvstore 'device' (and gpu(0), gpu(1) through 'nccl' on two cards),
+    against the one-context run on the concatenated batch."""
+    import torch
+    import mxnet_tpu_torch as mx
+    gpu = mx.gpu(0) if DEV == "cuda" else mx.cpu(1)
+    sets = [("device", [gpu, mx.cpu(0)])]
+    if DEV == "cuda" and torch.cuda.device_count() >= 2:
+        sets.append(("nccl", [mx.gpu(0), mx.gpu(1)]))
+    with _no_tf32():
+        one = _dp_model(seed, DP_SMALL_LAYERS, 0.0, ctx=[gpu])
+        base = _dp_snapshot(one)
+        trainer = mx.gluon.Trainer(one.collect_params(), "sgd",
+                                   dict(DP_SGD))
+        _dp_train(one, trainer, seed, slice(0, 2 * DP_ROWS), 2 * DP_ROWS,
+                  ctxs=[gpu])
+        ref = _dp_snapshot(one)
+        del one, trainer
+        for name, ctxs in sets:
+            net = _dp_model(seed, DP_SMALL_LAYERS, 0.0, ctx=ctxs)
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(DP_SGD), kvstore=name)
+            times = _dp_train(net, trainer, seed, slice(0, 2 * DP_ROWS),
+                              2 * DP_ROWS, ctxs=ctxs)
+            reps = [{"p%04d" % i: p.data(c).tensor().detach().float()
+                     .to(gpu.torch_device)
+                     for i, p in enumerate(net.collect_params().values())}
+                    for c in ctxs]
+            same = all(torch.equal(_bits(reps[0][n]), _bits(reps[1][n]))
+                       for n in reps[0])
+            apart = _dp_rel(reps[1], base, reps[0])
+            rel = _dp_rel(reps[0], base, ref)
+            print("[dp] (c) %s over %s, %d layers at full width, f32, "
+                  "TF32 off, %d steps of %d rows a context: replicas %s "
+                  "(relative L2 apart %.3g), against the one-context run "
+                  "on the concatenated batch %.3g (limit %g); step %.1f ms;"
+                  " %s" % (name, [str(c) for c in ctxs], DP_SMALL_LAYERS,
+                           len(times), DP_ROWS,
+                           "bit for bit equal" if same else "not bit-equal",
+                           apart, rel, DP_CTX_TOL,
+                           statistics.median(times[1:]), card_line))
+            if trainer._kvstore is None or trainer._kvstore.type != name:
+                raise SmokeFailure("dp: (c) ran without its kvstore")
+            if not rel <= DP_CTX_TOL or not apart <= DP_CTX_TOL:
+                raise SmokeFailure("dp: (c) %s: %.3g from the one-context "
+                                   "run, replicas %.3g apart (limit %g)"
+                                   % (name, rel, apart, DP_CTX_TOL))
+            del net, trainer, reps
+    if len(sets) == 1:
+        print("[dp] (c) the grouped NCCL reduce across cards ([gpu(0), "
+              "gpu(1)] through kvstore 'nccl') did not run: this machine "
+              "has %d CUDA device(s) and it needs two"
+              % (torch.cuda.device_count() if DEV == "cuda" else 0))
+
+
+def dp_readings(seeds, card_line):
+    """(a)'s distance from the one-process run at each seed, the
+    readings behind ``DP_TOL``."""
+    import shutil
+    import tempfile
+    out = {}
+    for seed in seeds:
+        tmp = tempfile.mkdtemp(prefix="mxt_dp_")
+        try:
+            out[seed] = _dp_launch("gloo", 2, seed, tmp)[0][0]["rel_l2"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("[dp] readings: seed %d: relative L2 of the change from the "
+              "one-process run %.4g; %s" % (seed, out[seed], card_line))
+    return out
+
+
+def phase_dp(seed, card_line):
+    """23. Data-parallel training through the kvstore; returns rank 0's
+    kernel launches in the two-rank run with dropout."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    print("[dp] %s" % card_line)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mxt_dp_")
+    try:
+        gloo, secs = _dp_launch("gloo", 2, seed, tmp)
+        print("[dp] (a) 2 ranks of bert_12_768_12 (f32 parameters under "
+              "bf16 AMP, TF32 off, SGD momentum 0.9) on cuda:%s, %d rows x "
+              "seq %d a rank, kvstore dist_sync: backends %s, launched and "
+              "run in %.1f s" % (" and cuda:".join(
+                  str(gloo[r]["device"]) for r in (0, 1)), DP_ROWS,
+                  TRAIN_SEQ, [gloo[r]["backend"] for r in (0, 1)], secs))
+        if [gloo[r]["backend"] for r in (0, 1)] != ["gloo", "gloo"] and \
+                torch.cuda.device_count() < 2:
+            raise SmokeFailure("dp: two ranks on one card must take gloo")
+        for key in ("dropout 0", "dropout %g" % DP_DROPOUT):
+            runs = [gloo[r][key] for r in (0, 1)]
+            for r, run in enumerate(runs):
+                _dp_print_run("(a) %s rank %d" % (key, r), run, card_line)
+                _dp_launch_check("(a) %s rank %d" % (key, r), run,
+                                 DP_KERNELS + (("dropout",) if key !=
+                                               "dropout 0" else ()))
+                if not any(c["axis"] == "kv.dcn" and c["bytes"] > 0
+                           for c in run["comm"]):
+                    raise SmokeFailure("dp: (a) %s rank %d recorded no "
+                                       "cross-process all-reduce" % (key, r))
+            if runs[0]["init"] != runs[1]["init"]:
+                raise SmokeFailure("dp: (a) %s: the ranks began apart" % key)
+            if runs[0]["final"] != runs[1]["final"]:
+                raise SmokeFailure("dp: (a) %s: the ranks' parameters and "
+                                   "momenta are not bit for bit equal" % key)
+            print("[dp] (a) %s: both ranks' parameters and momenta bit for "
+                  "bit equal after %d steps" % (key, len(runs[0]["step_ms"])))
+        one = gloo[0]
+        if one["one_init"] != gloo[0]["dropout 0"]["init"]:
+            raise SmokeFailure("dp: the one-process run began elsewhere")
+        print("[dp] (a) against one process on the concatenated %d x %d "
+              "batch without a kvstore: relative L2 of the change %.3g "
+              "(limit %.3g); its step %.1f ms (median), the ranks' %.1f and "
+              "%.1f ms; %s"
+              % (2 * DP_ROWS, TRAIN_SEQ, one["rel_l2"], DP_TOL,
+                 statistics.median(one["one_step_ms"][1:]),
+                 statistics.median(gloo[0]["dropout 0"]["step_ms"][1:]),
+                 statistics.median(gloo[1]["dropout 0"]["step_ms"][1:]),
+                 card_line))
+        if not one["rel_l2"] <= DP_TOL:
+            raise SmokeFailure("dp: (a) %.3g from the one-process run "
+                               "(limit %g)" % (one["rel_l2"], DP_TOL))
+        print("[dp] (a) control, the cross-process sum planted away: the "
+              "ranks %s, relative L2 %.3g from the one-process run"
+              % ("bit for bit" if gloo[0]["control"] == gloo[1]["control"]
+                 else "apart", one["control_rel_l2"]))
+        if gloo[0]["control"] == gloo[1]["control"] or \
+                not one["control_rel_l2"] > DP_TOL:
+            raise SmokeFailure("dp: (a) the control was not caught")
+        for r in (0, 1):
+            vote = gloo[r]["vote"] or ""
+            print("[dp] (d) rank %d with MXNET_GUARD_COMM_VOTE=1, nan_grad "
+                  "armed on rank 1: %s" % (r, vote or "no error"))
+            if "originating rank(s) [1]" not in vote:
+                raise SmokeFailure("dp: (d) rank %d did not name rank 1" % r)
+
+        nccl, secs = _dp_launch("nccl", 1, seed, tmp)
+        b = nccl[0]
+        print("[dp] (b) 1 rank, backend %s, %d rows x seq %d, launched and "
+              "run in %.1f s" % (b["backend"], DP_ROWS, TRAIN_SEQ, secs))
+        if DEV == "cuda" and b["backend"] != "nccl":
+            raise SmokeFailure("dp: one rank on a card must take NCCL")
+        for key in ("dist_sync", "p3store_dist", "none"):
+            _dp_print_run("(b) %s" % key, b[key], card_line)
+            _dp_launch_check("(b) %s" % key, b[key], DP_KERNELS)
+        for key in ("p3store_dist", "none"):
+            if b[key]["final"] != b["dist_sync"]["final"]:
+                raise SmokeFailure("dp: (b) %s is not bit for bit equal to "
+                                   "dist_sync" % key)
+        print("[dp] (b) p3store_dist (MXNET_KVSTORE_BIGARRAY_BOUND=%d) and "
+              "the run without a kvstore bit for bit equal to dist_sync on "
+              "NCCL" % DP_P3_BOUND)
+        _dp_contexts(seed, card_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[dp] phase 23 took %.1f s; %s" % (time.perf_counter() - t0,
+                                            card_line))
+    return gloo[0]["dropout %g" % DP_DROPOUT]["launches"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10811,12 +11317,14 @@ def main(argv=None):
         services_counts, _ = phase_services(args.seed, card_line)
         serving_counts, replica_counts, serving_replayed = phase_serving(
             args.seed, card_line)
+        dp_counts = phase_dp(args.seed, card_line)
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
             r["launches_per_engine_run"] = engine_counts.get(k, 0)
             r["launches_per_services_run"] = services_counts.get(k, 0)
             r["launches_per_serving_run"] = serving_counts.get(k, 0)
+            r["launches_per_dp_run"] = dp_counts.get(k, 0)
             r["replayed_per_serving_run"] = serving_replayed.get(k, 0)
             r["replayed_per_replica"] = {
                 rid: c.get(k, 0) for rid, c in sorted(replica_counts.items())}

@@ -35,7 +35,13 @@ registry, step phases, MFU and goodput, the heartbeat, crash bundles),
 ``torch.profiler``), ``compilewatch`` (every captured graph as a
 program), ``modelwatch`` (per-layer training dynamics in the guard's one
 host read), ``model`` (asynchronous crash-safe checkpoints),
-``gluon.contrib.estimator``, ``monitor`` and ``callback``.
+``gluon.contrib.estimator``, ``monitor`` and ``callback``. The
+twenty-second trains data-parallel through ``kvstore``: ``local``,
+``device`` and ``nccl`` across a process's contexts, ``dist_sync``,
+``dist_async``, ``p3store_dist`` and ``horovod`` across processes
+launched by ``python -m mxnet_tpu_torch.tools.launch`` (``dist``'s
+process group on NCCL or gloo), with ``commwatch``'s accounting of
+every reduce.
 
 Usage mirrors the reference::
 
@@ -89,6 +95,9 @@ from . import initializer as init
 from . import optimizer
 from .optimizer import Optimizer
 from . import lr_scheduler
+from . import kvstore
+from . import kvstore as kv
+from .kvstore import KVStore
 from . import gluon
 from . import serve
 from . import operator
@@ -105,6 +114,7 @@ from . import engine
 from . import io
 from . import image
 from . import compilewatch
+from . import commwatch
 from . import modelwatch
 from . import model
 from .model import (save_checkpoint, load_checkpoint,
@@ -112,6 +122,7 @@ from .model import (save_checkpoint, load_checkpoint,
 from . import monitor
 from .monitor import Monitor
 from . import callback
+from . import dist
 from .interop import params_from_numpy
 
 # a raising guard, an engine op error or a watchdog writes a crash

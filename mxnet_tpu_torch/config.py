@@ -216,6 +216,46 @@ define("MXNET_SCAN_STEPS", int, 1,
 define("MXNET_ZERO", bool, False,
        "ZeRO weight-update sharding; on, the Trainer raises (ROADMAP.md "
        "queue 1, item 11).")
+define("MXNET_DIST_INIT_TIMEOUT", float, 300.0,
+       "Overall deadline in seconds of the dist.initialize() rendezvous: "
+       "failed attempts retry with exponential backoff until it elapses, "
+       "then MXNetError.")
+define("MXNET_DIST_INIT_BACKOFF", float, 1.0,
+       "First rendezvous retry backoff in seconds; doubles an attempt, "
+       "capped at 30 s.")
+define("MXNET_DIST_INIT_RETRIES", int, 0,
+       "Most rendezvous attempts of dist.initialize() (0: unlimited until "
+       "MXNET_DIST_INIT_TIMEOUT).")
+define("MXNET_BARRIER_TIMEOUT", float, 600.0,
+       "dist.barrier() watchdog in seconds: MXNetError naming this rank "
+       "instead of waiting forever on a dead one (0 disables).")
+define("MXNET_KVSTORE_TIMEOUT", float, 0.0,
+       "Per-call deadline in seconds of the dist kvstore's push, pull and "
+       "pushpull collectives: a timed-out call is retried "
+       "(MXNET_KVSTORE_RETRIES), then raises MXNetError naming the call "
+       "and the rank (0 disables).")
+define("MXNET_KVSTORE_RETRIES", int, 1,
+       "Retries of a timed-out dist kvstore call before MXNetError.")
+define("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1 << 19,
+       "Arrays larger than this many elements are cut into row slices "
+       "pushed tail first by the P3 store (kvstore/dist.py "
+       "P3StoreDist).")
+define("MXNET_COMMWATCH", bool, True,
+       "Collective-communication accounting (commwatch.py; needs "
+       "MXNET_TELEMETRY=1): every kvstore reduce records its op, axis, "
+       "participants and payload bytes into the mx_comm_* counters and "
+       "histograms, with algorithm and bus bandwidth and the exposed "
+       "seconds. Off, nothing is recorded.")
+define("DMLC_ROLE", str, "worker",
+       "Process role in a launched job; only 'worker' exists here.")
+define("DMLC_PS_ROOT_URI", str, "127.0.0.1",
+       "Rendezvous host: rank 0 serves the process group's store there.")
+define("DMLC_PS_ROOT_PORT", int, 9091, "Rendezvous port.")
+define("DMLC_NUM_WORKER", int, 1, "World size.")
+define("DMLC_NUM_SERVER", int, 0,
+       "Server count, accepted for launcher parity; must be 0 (there are "
+       "no parameter-server processes).")
+define("DMLC_WORKER_ID", int, 0, "This worker's rank.")
 define("MXNET_FAULT_INJECT", str, "",
        "Fault-injection spec 'site:prob[:max_fires],...' (e.g. "
        "'nan_grad:1:1'); the sites are listed in faultinject.py.")
@@ -238,8 +278,12 @@ define("MXNET_GUARD_LOSS_SPIKE", float, 0.0,
 define("MXNET_GUARD_LOSS_WINDOW", int, 50,
        "Rolling window (observations) of the loss-spike detector.")
 define("MXNET_GUARD_COMM_VOTE", bool, False,
-       "Pre-allreduce finiteness vote of the dist kvstore; on, the "
-       "Trainer raises (ROADMAP.md queue 1, item 11).")
+       "Pre-allreduce finiteness vote of the dist kvstore "
+       "(kvstore/dist.py): each rank's all-finite bit rides a one-hot "
+       "all-reduce before the gradients', so a non-finite gradient raises "
+       "NonFiniteGradientError on every rank naming the rank(s) it came "
+       "from, before it reaches the global model (one host read and one "
+       "small all-reduce per guarded call).")
 define("MXNET_MODELWATCH", bool, False,
        "Training-dynamics observability (modelwatch.py; needs "
        "MXNET_TELEMETRY=1): per-layer gradient, parameter and update-ratio "
@@ -273,9 +317,12 @@ define("MXNET_COMPILE_WARN_N", int, 5,
 define("MXNET_COMPILE_STRICT", bool, False,
        "Raise MXNetError instead of warning past MXNET_COMPILE_WARN_N.")
 define("MXNET_STRAGGLER_WARN", float, 0.0,
-       "Fleet straggler threshold as relative per-step skew; one process "
-       "is a fleet of one rank, so it never fires without a process group "
-       "(ROADMAP.md queue 1, item 11). 0 disables.")
+       "Fleet straggler threshold as relative per-step skew ((slowest - "
+       "median) / median over the ranks' mean step time): when "
+       "telemetry.fleet_snapshot() merges a view whose skew exceeds it, "
+       "it warns naming the slowest rank and whether communication or "
+       "compute makes it slow, and counts mx_straggler_events_total"
+       "{rank,phase}. 0 disables.")
 define("MXNET_FLEET_SNAPSHOT_PERIOD", int, 0,
        "Merge the fleet view every N optimizer steps from mark_step (0 "
        "disables).")

@@ -1,21 +1,51 @@
-"""The serving fleet's coordination: a small key-value store over TCP
-and TTL'd liveness leases on it (counterpart of the fleet half of
-``mxnet_tpu/dist.py``).
+"""The process group and the fleet's coordination (counterpart of
+``mxnet_tpu/dist.py``; ref: 3rdparty/ps-lite's ``DMLC_*`` rendezvous and
+tools/launch.py's role assignment).
+
+The process group. Every process is a worker; the reference's
+environment contract is kept, so launch scripts port unchanged::
+
+    DMLC_PS_ROOT_URI / DMLC_PS_ROOT_PORT   the rendezvous address
+    DMLC_NUM_WORKER                        the number of processes
+    DMLC_WORKER_ID                         this process's rank
+    DMLC_ROLE                              must be 'worker'
+    MXNET_DIST_CPU_DEVICES=N               N CPU contexts a process
+
+:func:`initialize` (called by ``kvstore.create("dist_*")``) meets the
+other ranks on a ``torch.distributed.TCPStore`` that rank 0 serves at
+the rendezvous address, retrying with exponential backoff under
+``MXNET_DIST_INIT_TIMEOUT`` (``MXNET_DIST_INIT_BACKOFF``,
+``MXNET_DIST_INIT_RETRIES``; the ``rendezvous`` fault site), and then
+opens the ``torch.distributed`` group on that store. The store is also
+the group's small key-value service: :func:`allgather_floats` (the fleet
+view's transport) and :func:`fleet_kv`'s third source ride it.
+:func:`barrier` runs under the ``MXNET_BARRIER_TIMEOUT`` watchdog (the
+``barrier`` fault site).
+
+The backend is decided once, after the store meets and before the group
+opens. Every rank publishes its host name, its CUDA device count and
+whether its contexts are CPU ones (``MXNET_DIST_CPU_DEVICES``, or no
+CUDA). A rank's card is its index among its host's ranks modulo the
+host's device count. The group is NCCL when every rank's contexts are
+CUDA ones and no host has more ranks than cards; otherwise it is gloo
+(CPU contexts, or ranks sharing a card, which NCCL refuses). This is
+the port's counterpart of XLA picking the transport from the mesh;
+:func:`backend` reads the choice. An NCCL failure raises: nothing retries
+on gloo.
+
+The fleet's coordination: a small key-value store over TCP and TTL'd
+liveness leases on it (the fleet half of the reference module).
 
 - :class:`LocalKV` (in-process), :class:`KVServer` (a stdlib TCP front
   on one, newline-delimited JSON) and :class:`TcpKV` (its client) share
-  the coordination service's client interface; :class:`KV` wraps any of
-  them with the ``kv_flap`` fault site, and :func:`fleet_kv` picks one.
+  the coordination service's client interface, as does the process
+  group's store (:class:`StoreKV`); :class:`KV` wraps any of them with
+  the ``kv_flap`` fault site, and :func:`fleet_kv` picks one.
 - :func:`lease_publish`, :func:`lease_read`, :func:`lease_list`,
   :class:`Lease` (background renewal) and :class:`KVWatcher` (a polled
   lease directory): the replicas' liveness and the routers' view.
 - :func:`retry_delay` and :func:`call_with_deadline`: the backoff and
   the watchdog the rendezvous and the kvstore use.
-
-The process group itself (the ``DMLC_*`` rendezvous, :func:`initialize`,
-:func:`allgather_floats`, :func:`barrier`) waits with multi-GPU
-(ROADMAP.md queue 1, item 11): those raise. Without a process group this
-process is rank 0 of 1.
 """
 from __future__ import annotations
 
@@ -24,43 +54,323 @@ from typing import Optional
 
 from .base import MXNetError
 
-__all__ = ["LocalKV", "KVServer", "TcpKV", "KV", "fleet_kv",
+__all__ = ["LocalKV", "KVServer", "TcpKV", "StoreKV", "KV", "fleet_kv",
            "lease_publish", "lease_read", "lease_list", "Lease",
            "KVWatcher", "retry_delay", "call_with_deadline", "rank",
            "num_workers", "is_initialized", "initialize",
-           "allgather_floats", "barrier"]
+           "allgather_floats", "barrier", "backend", "local_contexts"]
 
 
-def _not_ported(what):
-    return NotImplementedError("%s is not ported yet (ROADMAP.md queue 1, "
-                               "item 11)" % what)
+class _Group:
+    """This process's membership of the process group."""
+
+    def __init__(self):
+        self.initialized = False
+        self.rank = 0
+        self.size = 1
+        self.backend = None
+        self.store = None
+        self.card = 0
+        self.cpu_devices = 0
+        self.wedged = False     # a collective timed out: no clean teardown
+
+
+_PG = _Group()
+
+
+def _env(name: str, *alts: str, default: Optional[str] = None) -> Optional[str]:
+    from .config import getenv_raw
+    for n in (name,) + alts:
+        v = getenv_raw(n)
+        if v is not None:
+            return v
+    return default
 
 
 def is_initialized() -> bool:
-    return False
+    return _PG.initialized
 
 
 def rank() -> int:
-    return 0
+    return _PG.rank if _PG.initialized else 0
 
 
 def num_workers() -> int:
-    return 1
+    return _PG.size if _PG.initialized else 1
 
 
-def initialize(*args, **kwargs):
-    """The ``DMLC_*`` rendezvous: refused."""
-    raise _not_ported("dist.initialize (the process-group rendezvous)")
+def backend() -> Optional[str]:
+    """The group's ``torch.distributed`` backend (``"nccl"`` or
+    ``"gloo"``), None before :func:`initialize`."""
+    return _PG.backend if _PG.initialized else None
 
 
-def allgather_floats(*args, **kwargs):
-    """A gather across the process group: refused."""
-    raise _not_ported("dist.allgather_floats")
+def local_contexts():
+    """This process's contexts in the group: ``MXNET_DIST_CPU_DEVICES``
+    CPU ones, else its card (the counterpart of ``jax.local_devices()``
+    in the reference's workers)."""
+    from .context import cpu, gpu
+    ndev = int(_env("MXNET_DIST_CPU_DEVICES", default="0") or 0)
+    if ndev:
+        return [cpu(i) for i in range(ndev)]
+    return [gpu(_PG.card)]
 
 
-def barrier(*args, **kwargs):
-    """A barrier across the process group: refused."""
-    raise _not_ported("dist.barrier")
+def _store_timeout(seconds: float):
+    import datetime
+    return datetime.timedelta(seconds=max(1.0, float(seconds)))
+
+
+def _tcp_store(host: str, port: int, size: int, rank_: int,
+               seconds: float):
+    """One rendezvous attempt: rank 0 serves the store, the others
+    connect to it (bounded by ``seconds``)."""
+    import torch.distributed as tdist
+    return tdist.TCPStore(host, int(port), size, rank_ == 0,
+                          timeout=_store_timeout(seconds),
+                          wait_for_workers=False)
+
+
+def _decide_backend(store, rank_: int, size: int):
+    """The backend rule (module docstring): returns (backend, card)."""
+    import socket
+    import torch
+    cpu_mode = bool(int(_env("MXNET_DIST_CPU_DEVICES", default="0") or 0))
+    ncuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    store.set("mx/rdv/%d" % rank_, "%s|%d|%d" % (
+        socket.gethostname(), ncuda, 1 if cpu_mode or not ncuda else 0))
+    infos = []
+    for r in range(size):
+        host, n, cpu = store.get("mx/rdv/%d" % r).decode().rsplit("|", 2)
+        infos.append((host, int(n), cpu == "1"))
+    me = infos[rank_][0]
+    local_index = sum(1 for r in range(rank_) if infos[r][0] == me)
+    card = local_index % ncuda if ncuda else 0
+    per_host = {}
+    for host, n, _ in infos:
+        per_host.setdefault(host, [0, n])[0] += 1
+    nccl = all(not cpu for _, _, cpu in infos) and \
+        all(count <= n for count, n in per_host.values())
+    return ("nccl" if nccl else "gloo"), card
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               timeout: Optional[float] = None) -> None:
+    """Join the process group (idempotent). The arguments default to the
+    ``DMLC_*`` contract; a failed rendezvous retries with exponential
+    backoff until ``timeout`` (default ``MXNET_DIST_INIT_TIMEOUT``) and
+    then raises MXNetError."""
+    if _PG.initialized:
+        return
+    role = _env("DMLC_ROLE", default="worker")
+    if role != "worker":
+        raise RuntimeError(
+            "DMLC_ROLE=%r: there are no server or scheduler processes; "
+            "launch every process as a worker (mxnet_tpu_torch.tools."
+            "launch does this)" % role)
+    if coordinator_address is None:
+        uri = _env("DMLC_PS_ROOT_URI", "MXNET_COORDINATOR_URI")
+        port = _env("DMLC_PS_ROOT_PORT", "MXNET_COORDINATOR_PORT",
+                    default="9091")
+        if uri is None:
+            raise RuntimeError(
+                "multi-process init needs DMLC_PS_ROOT_URI/"
+                "DMLC_PS_ROOT_PORT (or pass coordinator_address)")
+        coordinator_address = "%s:%s" % (uri, port)
+    if num_processes is None:
+        num_processes = int(_env("DMLC_NUM_WORKER", "MXNET_NUM_WORKER",
+                                 default="1"))
+    if process_id is None:
+        pid = _env("DMLC_WORKER_ID", "MXNET_WORKER_ID")
+        if pid is None:
+            raise RuntimeError("multi-process init needs DMLC_WORKER_ID")
+        process_id = int(pid)
+    if not 0 <= process_id < num_processes:
+        # a misassigned rank fails before the rendezvous, which would
+        # otherwise wait its whole deadline for a rank that cannot exist
+        raise MXNetError(
+            "invalid worker rank: DMLC_WORKER_ID=%d must be in "
+            "[0, DMLC_NUM_WORKER=%d) — check the launcher's "
+            "assignment" % (process_id, num_processes))
+    host, _, port = coordinator_address.rpartition(":")
+
+    from . import faultinject
+    from .config import get as _cfg
+    import logging
+    import time
+    deadline = _cfg("MXNET_DIST_INIT_TIMEOUT") if timeout is None \
+        else float(timeout)
+    backoff = max(0.0, _cfg("MXNET_DIST_INIT_BACKOFF"))
+    max_attempts = _cfg("MXNET_DIST_INIT_RETRIES")   # 0: unlimited
+    start = time.monotonic()
+    attempt = 0
+    while True:
+        attempt += 1
+        remaining = deadline - (time.monotonic() - start)
+        try:
+            faultinject.maybe_fail(
+                "rendezvous", RuntimeError,
+                "injected fault: rendezvous attempt refused")
+            store = _tcp_store(host, int(port), num_processes, process_id,
+                               max(1.0, remaining))
+            break
+        except Exception as e:
+            elapsed = time.monotonic() - start
+            out_of_time = elapsed >= deadline
+            out_of_tries = max_attempts > 0 and attempt >= max_attempts
+            if out_of_time or out_of_tries:
+                raise MXNetError(
+                    "dist.initialize: rendezvous at %s failed after %d "
+                    "attempt(s) over %.1fs (deadline %.1fs, retry budget "
+                    "%s) as rank %d/%d — last error: %s: %s"
+                    % (coordinator_address, attempt, elapsed, deadline,
+                       max_attempts or "unlimited", process_id,
+                       num_processes, type(e).__name__, e)) from e
+            delay = retry_delay(attempt, backoff,
+                                remaining=deadline - elapsed)
+            logging.warning(
+                "dist.initialize: rendezvous attempt %d at %s failed "
+                "(%s: %s); retrying in %.1fs (%.1fs of %.1fs deadline "
+                "left)", attempt, coordinator_address, type(e).__name__,
+                e, delay, deadline - elapsed, deadline)
+            time.sleep(delay)
+    import torch
+    import torch.distributed as tdist
+    name, card = _decide_backend(store, process_id, num_processes)
+    if name == "nccl":
+        torch.cuda.set_device(card)
+    tdist.init_process_group(
+        name, store=store, rank=process_id, world_size=num_processes,
+        timeout=_store_timeout(max(deadline, 60.0)))
+    _PG.store, _PG.backend, _PG.card = store, name, card
+    _PG.rank, _PG.size = process_id, num_processes
+    _PG.cpu_devices = int(_env("MXNET_DIST_CPU_DEVICES", default="0") or 0)
+    _PG.initialized = True
+    import atexit
+    atexit.register(_teardown)
+
+
+def _teardown():
+    """Close the group at exit, unless a collective was abandoned (its
+    thread still blocks inside the transport)."""
+    if not _PG.initialized or _PG.wedged:
+        return
+    try:
+        import torch.distributed as tdist
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    except Exception:
+        pass
+
+
+def _coord_client():
+    """The group's store, as the coordination-service client interface
+    (:class:`StoreKV`); None outside a group."""
+    if not _PG.initialized or _PG.store is None:
+        return None
+    return StoreKV(_PG.store)
+
+
+_AGF_GEN: dict = {}           # tag -> call generation (collective calls
+_AGF_LOCK = threading.Lock()  # happen in lockstep, so counters agree)
+
+
+def allgather_floats(vec, tag: str = "stats",
+                     timeout: Optional[float] = None):
+    """One small float vector from every process: an (num_workers,
+    len(vec)) numpy array, row r rank r's vector. The fleet view's
+    transport. It rides the group's store (each rank publishes its row
+    under a per-call generation key, then waits for every peer's), not
+    a collective, so a dead rank surfaces as a timeout. The exchange
+    runs under the kvstore deadline (``MXNET_KVSTORE_TIMEOUT``, 60 s when
+    unset). Every rank calls it with the same ``tag`` sequence. One
+    process: the vector as one row."""
+    import numpy as np
+    arr = np.asarray(vec, np.float32).reshape(-1)
+    if not _PG.initialized or num_workers() <= 1:
+        return arr.reshape(1, -1)
+    if timeout is None:
+        from .config import get as _cfg
+        timeout = _cfg("MXNET_KVSTORE_TIMEOUT")
+    if not timeout or timeout <= 0:
+        timeout = 60.0
+    with _AGF_LOCK:
+        gen = _AGF_GEN[tag] = _AGF_GEN.get(tag, 0) + 1
+    me, nw = rank(), num_workers()
+    prefix = "mx/agf/%s/%d" % (tag, gen)
+    store = _PG.store
+
+    def _exchange():
+        # an idempotent publish: a retried attempt sets the same key
+        store.set("%s/%d" % (prefix, me),
+                  ",".join("%.17g" % v for v in arr))
+        keys = ["%s/%d" % (prefix, r) for r in range(nw)]
+        store.wait(keys, _store_timeout(timeout))
+        return np.asarray([[float(v) for v in
+                            store.get(k).decode().split(",")]
+                           for k in keys], np.float32)
+
+    return call_with_deadline(_exchange, timeout + 5.0,
+                              "allgather_floats(%s)" % tag)
+
+
+def barrier(tag: str = "mx", timeout: Optional[float] = None) -> None:
+    """Block until every process reaches the barrier (ref: kvstore
+    barrier). A watchdog (``timeout``, default ``MXNET_BARRIER_TIMEOUT``;
+    0 disables) raises MXNetError naming this rank and the tag instead of
+    waiting forever when a rank never arrives, and a transport error is
+    raised as MXNetError too. A failed barrier ends the group: restart
+    the job from its last checkpoint."""
+    from . import faultinject
+    hang = faultinject.should_fail("barrier")
+    if not _PG.initialized and not hang:
+        return
+    if timeout is None:
+        from .config import get as _cfg
+        timeout = _cfg("MXNET_BARRIER_TIMEOUT")
+
+    def _sync():
+        if hang:
+            threading.Event().wait()   # a lost rank: never completes
+            return
+        import torch.distributed as tdist
+        if _PG.backend == "nccl":
+            tdist.barrier(device_ids=[_PG.card])
+        else:
+            tdist.barrier()
+
+    done = threading.Event()
+    errs = []
+
+    def _run():
+        try:
+            _sync()
+        except BaseException as e:   # surfaced on the caller's thread
+            errs.append(e)
+        finally:
+            done.set()
+
+    r, n = rank(), num_workers()
+    if not timeout or timeout <= 0:
+        _run()
+    else:
+        t = threading.Thread(target=_run, daemon=True,
+                             name="mx-barrier-%s" % tag)
+        t.start()
+        if not done.wait(timeout):
+            _PG.wedged = True
+            raise MXNetError(
+                "barrier %r timed out after %.1fs on rank %d: one of the "
+                "other %d rank(s) never arrived (dead or preempted "
+                "worker; raise MXNET_BARRIER_TIMEOUT if the job is "
+                "legitimately slow)" % (tag, timeout, r, max(0, n - 1)))
+    if errs:
+        _PG.wedged = True
+        raise MXNetError("barrier %r failed on rank %d/%d: %s: %s"
+                         % (tag, r, n, type(errs[0]).__name__,
+                            errs[0])) from errs[0]
 
 
 def retry_delay(attempt: int, base: float, cap: float = 30.0,
@@ -142,6 +452,7 @@ def call_with_deadline(fn, timeout: Optional[float], tag: str,
         pass
     from . import telemetry
     telemetry.count_event("mx_kvstore_deadline_hits_total", call=tag)
+    _PG.wedged = True
     raise MXNetError(
         "kvstore %s timed out on rank %d/%d: %d attempt(s) of %.1fs "
         "each never completed — a peer rank is dead or the transport "
@@ -326,6 +637,52 @@ class TcpKV:
             setattr(self, attr, None)
 
 
+class StoreKV:
+    """The process group's store (a ``torch.distributed`` Store) under
+    the coordination service's client interface. The store cannot list
+    its keys, so every key set through here is also recorded in an
+    index (a counter and one entry a key) that ``key_value_dir_get``
+    walks."""
+
+    _INDEX = "mx/kvdir"
+
+    def __init__(self, store):
+        self._store = store
+        self._lock = threading.Lock()
+
+    def _has(self, key: str) -> bool:
+        return self._store.check([key])
+
+    def key_value_set(self, key: str, value: str,
+                      allow_overwrite: bool = False) -> None:
+        with self._lock:
+            new = not self._has(key)
+            if not new and not allow_overwrite:
+                raise MXNetError("key already exists: %r" % key)
+            self._store.set(key, str(value))
+            if new:
+                n = self._store.add(self._INDEX + "/n", 1)
+                self._store.set("%s/%d" % (self._INDEX, n - 1), key)
+
+    def key_value_try_get(self, key: str) -> str:
+        if not self._has(key):
+            raise KeyError(key)
+        return self._store.get(key).decode()
+
+    def key_value_delete(self, key: str) -> None:
+        self._store.delete_key(key)
+
+    def key_value_dir_get(self, prefix: str):
+        n = self._store.add(self._INDEX + "/n", 0)
+        names = {self._store.get("%s/%d" % (self._INDEX, i)).decode()
+                 for i in range(n)}
+        out = []
+        for k in sorted(names):
+            if k.startswith(prefix) and self._has(k):
+                out.append((k, self._store.get(k).decode()))
+        return out
+
+
 class KV:
     """One fleet-KV handle over any client of the coordination-service
     shape (``key_value_set``/``try_get``/``delete``/``dir_get``): a
@@ -378,14 +735,17 @@ class KV:
 
 def fleet_kv(address: Optional[str] = None) -> KV:
     """The fleet KV handle: ``address`` (or ``MXNET_SERVE_FLEET_KV``)
-    gives a :class:`TcpKV`; else a fresh in-process :class:`LocalKV`
-    (single-process use: every component sharing the handle shares the
-    store). The reference's third source, the process group's
-    coordination service, waits with the rendezvous (item 11)."""
+    gives a :class:`TcpKV`; else the process group's store when this
+    process is in one (:class:`StoreKV`); else a fresh in-process
+    :class:`LocalKV` (single-process use: every component sharing the
+    handle shares the store)."""
     from .config import get as _cfg
     addr = address if address is not None else _cfg("MXNET_SERVE_FLEET_KV")
     if addr:
         return KV(TcpKV(addr))
+    client = _coord_client()
+    if client is not None:
+        return KV(client)
     return KV(LocalKV())
 
 

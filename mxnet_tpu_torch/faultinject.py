@@ -18,8 +18,20 @@ packages. In the port these fire so far, with ``engine_op`` and
                  with NaN (``guardrails.inject_grad_faults``; inside a
                  K-step chunk the same draw, made when the step is
                  buffered, selects NaN in the captured graph, scan.py).
+                 A Trainer with a kvstore draws it before the reduce, on
+                 its first replica, so the dist store's finite vote sees
+                 the rank it came from.
 ``scaled_grad``  the last gradient is multiplied by 1e4 at the same
                  points: finite but out of distribution.
+``rendezvous``   one ``dist.initialize`` rendezvous attempt fails: the
+                 retry with backoff runs, under
+                 ``MXNET_DIST_INIT_TIMEOUT``.
+``barrier``      ``dist.barrier`` never completes (a lost rank): its
+                 watchdog (``MXNET_BARRIER_TIMEOUT``) raises MXNetError.
+``kv_hang``      one dist kvstore call hangs: the per-call deadline
+                 (``MXNET_KVSTORE_TIMEOUT``) trips and the bounded retry
+                 runs (``kvstore/dist.py`` through
+                 ``dist.call_with_deadline``).
 ``ckpt_write``   a checkpoint write (``model.save_checkpoint``) is cut
                  to half its bytes and fails; the error surfaces at
                  ``wait_checkpoints``, and no ``.params`` is published.
@@ -36,9 +48,9 @@ packages. In the port these fire so far, with ``engine_op`` and
                  (``dist.KV``): the router keeps its last-known-good
                  routing table instead of ejecting the fleet.
 
-The others (``rendezvous``, ``barrier``, ``kv_hang``,
-``engine_collective_overlap``, ``slice_preempt``, ``reshard_fail``) come
-with the modules that own them (ROADMAP.md queue 1). Every fire
+The others (``engine_collective_overlap``, ``slice_preempt``,
+``reshard_fail``) come with the modules that own them (ROADMAP.md queue
+1, item 11). Every fire
 counts in ``mx_fault_injections_total{site}``.
 """
 from __future__ import annotations

@@ -1,14 +1,28 @@
-"""Gluon Trainer, the single-device path (counterpart of
-``mxnet_tpu/gluon/trainer.py``; ref: python/mxnet/gluon/trainer.py).
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``; ref:
+python/mxnet/gluon/trainer.py).
 
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
-``scale / batch_size`` and applies one update to every parameter whose
-``grad_req`` is not ``'null'``: through one ``update_multi`` call when
-the optimizer's ``aggregate_num`` (``MXNET_OPTIMIZER_AGGREGATION_SIZE``)
-is above 1 and there is more than one parameter, else through the
-one-tensor ``update`` of each, as in the reference. With one context
-there is nothing to reduce, as in the reference, which then runs no
-kvstore either.
+``scale / batch_size``, sums the gradients through the kvstore, and
+applies one update to every parameter whose ``grad_req`` is not
+``'null'``: through one ``update_multi`` call a context when the
+optimizer's ``aggregate_num`` (``MXNET_OPTIMIZER_AGGREGATION_SIZE``) is
+above 1 and there is more than one parameter, else through the
+one-tensor ``update`` of each, as in the reference.
+
+The kvstore (``kvstore``: a name or a ``KVStore``) is made at the first
+step. With one context and ``local``, ``device`` or ``nccl`` there is
+nothing to reduce and no store, as in the reference. Otherwise every
+gradient of the step goes through one ``pushpull_list`` (the grouped
+reduce; across processes for ``dist_*`` and ``p3store_dist``) inside the
+``allreduce`` phase, and each context's replica is updated by its own
+updater, the optimizer's counters rewound between contexts so every
+replica takes the same step. With ``update_on_kvstore=True`` the
+optimizer runs on the store instead, as in MXNet 1.x: the gradients are
+pushed, the store updates its weights, and every replica pulls them. A
+kvstore or several contexts turn the fused SGD step and K-step scan
+off, so no backward is deferred past the reduce. Under
+``MXNET_GUARD_COMM_VOTE`` a dist store votes on the gradients'
+finiteness before it sums them (:mod:`mxnet_tpu_torch.kvstore.dist`).
 
 ``save_states``/``states_blob`` write the updater's states blob (a
 pickle of ``{index: state}``, the reference's format) and
@@ -34,9 +48,8 @@ pass does; an enabled guard disarms the fused update, except a
 chunk carries (:mod:`mxnet_tpu_torch.scan`). Under K-step scan the
 armed Trainer pushes each stashed step to its chunk runner, which
 retires K of them at once. What this slice does not port raises
-``NotImplementedError`` naming its ROADMAP.md item: a kvstore, several
-contexts, gradient compression, ``update_on_kvstore``, ZeRO, the kv
-finite vote.
+``NotImplementedError`` naming its ROADMAP.md item: gradient
+compression and ZeRO.
 
 With telemetry on (:mod:`mxnet_tpu_torch.telemetry`) ``step`` times its
 phases as the reference's does (``fused_step``; or ``allreduce``,
@@ -71,12 +84,14 @@ def _not_ported(what, item):
 
 
 def _check_features():
-    """Raise for the reference's Trainer features this slice leaves out,
+    """Raise for the reference's Trainer features the port leaves out,
     where the environment turns them on."""
     if _cfg("MXNET_ZERO"):
         raise _not_ported("ZeRO (MXNET_ZERO)", 11)
-    if _cfg("MXNET_GUARD_COMM_VOTE"):
-        raise _not_ported("the kv finite vote (MXNET_GUARD_COMM_VOTE)", 11)
+
+
+# the in-process stores that one context does not need
+_LOCAL_STORES = (None, "local", "device", "nccl")
 
 
 class Trainer:
@@ -87,24 +102,27 @@ class Trainer:
             params = [params[key] for key in sorted(list(params.keys()))]
         if not isinstance(params, (list, tuple)):
             raise ValueError("params must be a list/tuple/ParameterDict")
-        if not (kvstore is None or kvstore in ("device", "local")):
-            raise _not_ported("kvstore %r" % (kvstore,), 11)
         if compression_params:
             raise _not_ported("gradient compression", 11)
-        if update_on_kvstore:
-            raise _not_ported("update_on_kvstore", 11)
         self._params: List[Parameter] = []
         for param in params:
             if not isinstance(param, Parameter):
                 raise ValueError("invalid parameter %r" % param)
             self._params.append(param)
+        self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
         # set by contrib.amp.init_trainer; amp.scale_loss folds
         # 1 / loss_scale into _scale
         self._amp_loss_scaler = None
         self._amp_original_scale = self._scale
-        self._updater = opt_mod.get_updater(self._optimizer)
+        # one updater a context, sharing the optimizer (more are added
+        # when the contexts are known: _init_kvstore)
+        self._updaters = [opt_mod.get_updater(self._optimizer)]
+        self._kvstore_type = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._kvstore = None
+        self._kv_initialized = False
         self._fused_armed = False      # MXNET_TRAINER_FUSED_UPDATE state
         self._fused_structural_bail = False
         self._grad_guard = None        # guardrails.GradGuard (lazy)
@@ -127,6 +145,67 @@ class Trainer:
                                              **optimizer_params)
 
     @property
+    def _updater(self):
+        """The first context's updater (the one a single context uses)."""
+        return self._updaters[0]
+
+    def _check_contexts(self):
+        """The contexts every parameter shares (initialized or waiting
+        for deferred initialization); ValueError when two differ (ref:
+        trainer.py :: _check_contexts)."""
+        contexts = None
+        for param in self._params:
+            if param._data is not None:
+                ctx = param.list_ctx()
+            else:
+                deferred = getattr(param, "_deferred_init", None)
+                ctx = list(deferred[1]) if deferred else []
+            if contexts is not None and ctx and contexts != ctx:
+                raise ValueError(
+                    "All Parameters must be initialized on the same set of "
+                    "contexts, but Parameter %s is on %s while previous "
+                    "params are on %s" % (param.name, str(ctx),
+                                          str(contexts)))
+            if ctx:
+                contexts = ctx
+        return contexts or []
+
+    def _init_kvstore(self):
+        """The store, made at the first step (ref: trainer.py ::
+        _init_kvstore): none for one context and an in-process name;
+        else the named store (or the given one), every parameter's first
+        replica its initial value, and with ``update_on_kvstore`` the
+        optimizer on it."""
+        from .. import kvstore as kvs_mod
+        self._contexts = self._check_contexts()
+        while len(self._updaters) < max(1, len(self._contexts)):
+            self._updaters.append(opt_mod.get_updater(self._optimizer))
+        kv = self._kvstore_type
+        if kv is None or (len(self._contexts) <= 1 and
+                          isinstance(kv, str) and kv in _LOCAL_STORES):
+            self._kvstore = None
+            self._update_on_kvstore = False
+        else:
+            kv = kvs_mod.create(kv) if isinstance(kv, str) else kv
+            self._kvstore = kv
+            if self._update_on_kvstore is None:
+                self._update_on_kvstore = False
+            if self._update_on_kvstore and not kv.is_capable("optimizer"):
+                raise ValueError("update_on_kvstore=True needs a kvstore "
+                                 "that runs the optimizer (%s does not)"
+                                 % getattr(kv, "type", kv))
+            for i, param in enumerate(self._params):
+                if param._data is not None:
+                    kv.init(i, param.data(self._contexts[0]))
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+        self._kv_initialized = True
+
+    def _ensure_kvstore(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
+
+    @property
     def learning_rate(self):
         if self._optimizer.lr_scheduler:
             return self._optimizer._get_lr(0)
@@ -140,8 +219,38 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def allreduce_grads(self):
-        """Nothing to reduce on one context."""
-        self._check_contexts()
+        """Sum every gradient across the contexts (and processes) through
+        the kvstore; nothing to do without one."""
+        self._ensure_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        """One ``pushpull_list`` of every gradient (ref: trainer.py ::
+        _allreduce_grads); with ``update_on_kvstore``, each gradient
+        pushed (the store updates its weight) and the weights pulled into
+        every replica. With a store the ``nan_grad``/``scaled_grad``
+        fault sites fire here, before the sum, on this process's first
+        replica (a dist store's vote must see them)."""
+        kv = self._kvstore
+        if kv is None:
+            return
+        from .. import guardrails
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null" and p._data is not None]
+        guardrails.inject_grad_faults([(p.name, p.list_grad()[0])
+                                       for _, p in live])
+        if not self._update_on_kvstore and hasattr(kv, "pushpull_list"):
+            if live:
+                kv.pushpull_list([i for i, _ in live],
+                                 [p.list_grad() for _, p in live])
+            return
+        for i, param in live:
+            grads = param.list_grad()
+            kv.push(i, grads, priority=-i)
+            if self._update_on_kvstore:
+                kv.pull(i, param.list_data(), priority=-i)
+            else:
+                kv.pull(i, grads, priority=-i)
 
     @property
     def grad_guard(self):
@@ -209,10 +318,21 @@ class Trainer:
                            rescale=rescale, update_now=unorm)
 
     def _guard_grads(self):
-        """(name, gradient) of each parameter with a gradient, in the
-        Trainer's order (one context: the arrays the guard writes)."""
+        """(name, first replica's gradient) of each parameter with a
+        gradient, in the Trainer's order: after the reduce the replicas
+        are equal, so one is checked."""
         return [(p.name, p.grad()) for p in self._params
                 if p.grad_req != "null" and p._data is not None]
+
+    def _guard_action(self):
+        """Every replica's gradient, parameter by parameter, for the
+        guard's zero and clip to reach them all; None for one context
+        (the checked arrays are the written ones)."""
+        if len(self._contexts) <= 1:
+            return None
+        return [g for p in self._params
+                if p.grad_req != "null" and p._data is not None
+                for g in p.list_grad()]
 
     def _guard_arrays(self):
         """The names and gradient tensors of :meth:`_guard_grads`, read
@@ -228,7 +348,7 @@ class Trainer:
         trainer.py :: step). An armed Trainer runs the stashed backward
         with the update appended, or pushes it to its K-step runner."""
         _check_features()
-        self._check_contexts()
+        self._ensure_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         if self._scan is None and not self._scan_warned and \
                 scan_mod.steps() > 1 and not self._fused_update_eligible():
@@ -254,7 +374,16 @@ class Trainer:
             self._fused_armed = False
             autograd.disarm_fused_update(self)
         with telemetry.phase("allreduce"):
-            self.allreduce_grads()
+            from .. import commwatch
+            # the gradient sync blocks the step's thread: its collective
+            # time is exposed
+            with commwatch.exposed_region():
+                self._allreduce_grads()
+        if self._update_on_kvstore:
+            # the store updated the weights and every replica pulled them
+            self._rearm_fused_update()
+            telemetry.mark_step()
+            return
         guard = self.grad_guard
         guard_on = guard is not None and guard.enabled
         mw_on = mw is not None and mw.sampling
@@ -271,10 +400,12 @@ class Trainer:
                     report = mw.step_report(named, self._trainable_named(),
                                             rescale=rescale)
                     if guard_on:
-                        proceed = guard.check(named, rescale=rescale,
+                        proceed = guard.check(named, self._guard_action(),
+                                              rescale=rescale,
                                               report=report)
                 else:
-                    proceed = guard.check(named, rescale=rescale)
+                    proceed = guard.check(named, self._guard_action(),
+                                          rescale=rescale)
             if not proceed:
                 telemetry.mark_step(useful=False)
                 return          # a skipped step (counted by the guard)
@@ -291,7 +422,10 @@ class Trainer:
         """The update alone, without the guard (ref: trainer.py ::
         update); a stashed backward runs first, without the update."""
         _check_features()
-        self._check_contexts()
+        self._ensure_kvstore()
+        if self._update_on_kvstore:
+            raise ValueError("update() when update_on_kvstore=True: the "
+                             "store updates the weights in step()")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
 
@@ -363,12 +497,15 @@ class Trainer:
         """The reference's ladder on the port's terms: the flag (and the
         fused backward it rides on), no structural bail, no guard but a
         chunk-compatible one, exactly SGD, no masters, an aggregation
-        width above 1, every grad_req write or null; one context and no
-        kvstore hold by construction."""
+        width above 1, every grad_req write or null, one context and no
+        kvstore (a deferred backward must not reach a reduce)."""
         if not (_cfg("MXNET_TRAINER_FUSED_UPDATE") and
                 _cfg("MXNET_FUSED_BACKWARD")):
             return False
         if self._fused_structural_bail:
+            return False
+        if self._kvstore is not None or self._update_on_kvstore or \
+                len(self._contexts) > 1 or not self._kv_initialized:
             return False
         guard = self.grad_guard
         if guard is not None and guard.enabled and \
@@ -417,25 +554,34 @@ class Trainer:
         if self._scan is not None:
             self._scan.flush()
 
-    def _check_contexts(self):
-        ctxs = {tuple(p.list_ctx()) for p in self._params
-                if p._data is not None}
-        if any(len(c) > 1 for c in ctxs) or len(ctxs) > 1:
-            raise _not_ported("training on several contexts", 11)
-
-    def _items(self):
-        return [(i, p.grad(), p.data()) for i, p in enumerate(self._params)
-                if p.grad_req != "null" and p._data is not None]
-
     def _update(self):
-        items = self._items()
-        if self._optimizer.aggregate_num > 1 and len(items) > 1:
-            self._updater.update_multi([i for i, _, _ in items],
-                                       [g for _, g, _ in items],
-                                       [w for _, _, w in items])
-        else:
-            for i, grad, arr in items:
-                self._updater(i, grad, arr)
+        """Each context's replicas through its own updater. The updaters
+        share the optimizer, so its counters are rewound between
+        contexts: every replica updates from the same step count, and the
+        step advances it once (ref: trainer.py :: _update)."""
+        per_dev = [[] for _ in self._updaters]
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or p._data is None:
+                continue
+            for d, (arr, grad) in enumerate(zip(p.list_data(),
+                                                p.list_grad())):
+                per_dev[d].append((i, grad, arr))
+        opt = self._optimizer
+        multi = len(self._updaters) > 1
+        if multi:
+            base_counts = dict(opt._index_update_count)
+            base_num = opt.num_update
+        for d, (upd, items) in enumerate(zip(self._updaters, per_dev)):
+            if multi and d > 0:
+                opt._index_update_count = dict(base_counts)
+                opt.num_update = base_num
+            if opt.aggregate_num > 1 and len(items) > 1:
+                upd.update_multi([i for i, _, _ in items],
+                                 [g for _, g, _ in items],
+                                 [w for _, _, w in items])
+            else:
+                for i, grad, arr in items:
+                    upd(i, grad, arr)
 
     # ------------------------------------------------------------------
     # the optimizer's states (ref: trainer.py :: save_states ...)
@@ -449,8 +595,9 @@ class Trainer:
         """The updater's states, pickled as ``{index: state}`` without the
         optimizer (``get_states(dump_optimizer=False)``); a buffered
         chunk drains first, so the checkpoint lands between chunks."""
+        self._ensure_kvstore()
         self._scan_flush()
-        return self._updater.get_states(dump_optimizer=False)
+        return self._state_updaters()[0].get_states(dump_optimizer=False)
 
     def load_states(self, fname):
         """Read a states file written by either package."""
@@ -464,11 +611,27 @@ class Trainer:
         reference does on a path without quantization. The optimizer
         stays this Trainer's. A buffered chunk drains first (its steps
         must not replay over the loaded states)."""
+        self._ensure_kvstore()
         self._scan_flush()
-        obj = opt_mod.loads_states(states)
-        if isinstance(obj, dict) and obj.get("__mx_quant__"):
-            obj = opt_mod.loads_states(obj["updater"])
-        elif isinstance(obj, dict) and obj.get("__mx_zero_quant__"):
-            obj = obj["states"]
-        self._updater.load_state_dict(obj)
-        self._updater.optimizer = self._optimizer
+        for updater in self._state_updaters():
+            # each its own copy of the states: the update places it
+            updater.load_state_dict(_states_dict(states))
+            updater.optimizer = self._optimizer
+
+    def _state_updaters(self):
+        """The updaters that hold the optimizer's states: the store's
+        with ``update_on_kvstore``, else one a context."""
+        if self._update_on_kvstore:
+            return [self._kvstore._updater]
+        return self._updaters
+
+
+def _states_dict(states: bytes):
+    """A states blob's ``{index: state}``, unwrapped from the reference's
+    quantized-sync wrappers (their residuals dropped)."""
+    obj = opt_mod.loads_states(states)
+    if isinstance(obj, dict) and obj.get("__mx_quant__"):
+        obj = opt_mod.loads_states(obj["updater"])
+    elif isinstance(obj, dict) and obj.get("__mx_zero_quant__"):
+        obj = obj["states"]
+    return obj

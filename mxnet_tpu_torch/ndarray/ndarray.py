@@ -555,6 +555,13 @@ def invoke(op: Union[str, Operator], inputs: Sequence, attrs: dict):
             out = out[0]
     if _engine._NAIVE[0]:
         _engine.engine().on_dispatch(out)
+    if out_ctx is None:
+        # every CPU context is the one host device: the outputs keep the
+        # context of the first CPU input (a cpu(1) replica stays cpu(1))
+        first = next((x for x in inputs if isinstance(x, NDArray)), None)
+        if first is not None and first._ctx.device_type == "cpu" and \
+                first._ctx.device_id:
+            out_ctx = first._ctx
     if isinstance(out, (tuple, list)):
         return tuple(NDArray(o, out_ctx) for o in out)
     return NDArray(out, out_ctx)

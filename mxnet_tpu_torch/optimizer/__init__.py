@@ -346,10 +346,12 @@ class SGD(Optimizer):
 
     def staged_for(self, prep, rows=1):
         """The staged tensors of each of ``prep``'s chunks, ``rows``
-        steps deep; they live as long as the optimizer."""
+        steps deep, on the chunk's device (the updaters of several
+        contexts share the optimizer); they live as long as the
+        optimizer."""
         out = []
         for gkey, _, arrays, _, kw, rdtype in prep.calls:
-            sk = (gkey, rows)
+            sk = (gkey, rows, arrays[0].device)
             staged = self._staged.get(sk)
             if staged is None:
                 staged = self._staged[sk] = _Staged(

@@ -33,13 +33,15 @@ published bf16 dense rate by ``torch.cuda.get_device_name()``. On a
 device that table does not know (the CPU included) ``mx_mfu`` is not
 exported: the reference falls back to a TPU's rate there.
 
-The fleet view is one rank's: the port has no process group yet, and a
-gather across ranks raises (ROADMAP.md queue 1, item 11). :func:`refresh`
-and :func:`reset` reach the distributed tracing of :mod:`.tracing` too;
-the reference's communication and performance-record modules, which
-they also reach there, come with items 11 and 15. The heartbeat gains a
-``serve=`` section once the process serves and a ``trace=`` section
-once it traces.
+The fleet view (:func:`fleet_snapshot`) gathers every rank's compact
+statistics over the process group (``dist.allgather_floats``, under the
+kvstore deadline) and names the slowest rank and whether communication
+or compute makes it slow; one process is a fleet of one rank.
+:func:`refresh` and :func:`reset` reach :mod:`.commwatch` and the
+distributed tracing of :mod:`.tracing` too; the reference's
+performance-record module, which they also reach there, comes with item
+15. The heartbeat gains a ``serve=`` section once the process serves and
+a ``trace=`` section once it traces.
 """
 from __future__ import annotations
 
@@ -112,6 +114,11 @@ def refresh():
     _STATE.on = None
     _stop_heartbeat()
     _PEAK[0] = None
+    try:
+        from . import commwatch
+        commwatch.refresh()
+    except Exception:
+        pass
     try:
         from . import tracing
         tracing.refresh()
@@ -288,6 +295,11 @@ def reset():
         _BUNDLE["written"] = 0
         if _BUNDLE["recent"] is not None:
             _BUNDLE["recent"].clear()
+    try:
+        from . import commwatch
+        commwatch.reset()
+    except Exception:
+        pass
     try:
         from . import tracing
         tracing.reset()
@@ -486,7 +498,9 @@ def _maybe_fleet_tick(step_count: int, prev_count: int = None):
 
 
 # ---------------------------------------------------------------------------
-# the fleet view: one rank here (ROADMAP.md queue 1, item 11)
+# the fleet view: every rank's compact statistics gathered over the process
+# group (dist.allgather_floats, under the kvstore deadline) and merged the
+# same way on every rank, with the slowest rank named
 # ---------------------------------------------------------------------------
 FLEET_FIELDS = ("steps", "step_mean", "step_p50", "step_p99",
                 "comm_seconds", "exposed_comm_seconds", "comm_bytes",
@@ -498,8 +512,7 @@ _FLEET = {"last": None}
 
 
 def local_fleet_stats() -> dict:
-    """This rank's row of the fleet view, read from the registry (the
-    communication fields stay 0: nothing communicates yet)."""
+    """This rank's row of the fleet view, read from the registry."""
     st = _METRICS.get(("mx_step_seconds", ()))
     with _STEP_LOCK:
         steps = _STEP["count"]
@@ -509,6 +522,14 @@ def local_fleet_stats() -> dict:
         out["step_mean"] = st.sum / st.count
         out["step_p50"] = st.percentile(50)
         out["step_p99"] = st.percentile(99)
+    try:
+        from . import commwatch
+        tot = commwatch.comm_totals()
+        out["comm_seconds"] = tot["seconds"]
+        out["exposed_comm_seconds"] = tot["exposed_seconds"]
+        out["comm_bytes"] = tot["bytes"]
+    except Exception:
+        pass
     with _REG_LOCK:
         for m in _METRICS.values():
             if m.name == "mx_guard_events_total":
@@ -526,39 +547,71 @@ def local_fleet_stats() -> dict:
     return out
 
 
-def _world_size() -> int:
-    try:
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_world_size()
-    except Exception:
-        pass
-    return 1
+def _attribute_phase(ranks: list, slowest: int) -> str:
+    """Why the slowest rank is slow: ``comm`` when its exposed
+    communication share of the step clearly exceeds the fleet's median
+    share, else ``compute``."""
+    def share(r):
+        busy = r["steps"] * r["step_mean"]
+        return r["exposed_comm_seconds"] / busy if busy > 0 else 0.0
+
+    shares = sorted(share(r) for r in ranks)
+    med = shares[(len(shares) - 1) // 2]    # the lower median, as for skew
+    s = share(ranks[slowest])
+    return "comm" if s > max(0.02, 1.5 * med) else "compute"
 
 
 def fleet_snapshot(timeout: Optional[float] = None) -> dict:
-    """The fleet view, with the reference's schema: ``{"nw", "rank",
-    "ranks", "slowest", "skew", "phase", "step_mean_median"}`` and the
-    ``mx_fleet_*`` gauges. One process is a fleet of one rank; under a
-    process group of several the gather raises (ROADMAP.md queue 1, item
-    11)."""
+    """Publish this rank's statistics and merge the fleet view: a
+    collective, every rank calls it (``MXNET_FLEET_SNAPSHOT_PERIOD`` from
+    ``mark_step``, or explicitly). Returns ``{"nw", "rank", "ranks",
+    "slowest", "skew", "phase", "step_mean_median"}`` and sets the
+    ``mx_fleet_ranks``, ``mx_fleet_step_skew`` and
+    ``mx_fleet_slowest_rank`` gauges. With ``MXNET_STRAGGLER_WARN`` above
+    0 a skew past it warns naming the slowest rank and its phase and
+    counts ``mx_straggler_events_total{rank,phase}``."""
     if not enabled():
         return {}
-    if _world_size() > 1:
-        from .base import MXNetError
-        raise MXNetError("telemetry.fleet_snapshot: gathering the fleet "
-                         "view across ranks is not ported yet (ROADMAP.md "
-                         "queue 1, item 11)")
+    from . import dist as dist_mod
     local = local_fleet_stats()
-    ranks = [dict(local)]
-    med = ranks[0]["step_mean"]
-    view = {"nw": 1, "rank": 0, "ranks": ranks, "slowest": 0, "skew": 0.0,
-            "phase": "compute", "step_mean_median": med}
-    gauge("mx_fleet_ranks").set(1)
-    gauge("mx_fleet_step_skew").set(0.0)
-    gauge("mx_fleet_slowest_rank").set(0)
+    mat = dist_mod.allgather_floats([local[k] for k in FLEET_FIELDS],
+                                    tag="fleet-snapshot", timeout=timeout)
+    ranks = [dict(zip(FLEET_FIELDS, (float(v) for v in row)))
+             for row in mat]
+    means = [r["step_mean"] for r in ranks]
+    slowest = max(range(len(means)), key=lambda i: means[i])
+    # the LOWER median: with two ranks the upper one is the straggler
+    # itself, which would read every skew as zero
+    med = sorted(means)[(len(means) - 1) // 2]
+    skew = (means[slowest] - med) / med if med > 0 else 0.0
+    phase_name = _attribute_phase(ranks, slowest)
+    view = {"nw": len(ranks), "rank": dist_mod.rank(), "ranks": ranks,
+            "slowest": slowest, "skew": skew, "phase": phase_name,
+            "step_mean_median": med}
+    gauge("mx_fleet_ranks").set(len(ranks))
+    gauge("mx_fleet_step_skew").set(skew)
+    gauge("mx_fleet_slowest_rank").set(slowest)
     with _FLEET_LOCK:
         _FLEET["last"] = view
+    try:
+        from .config import get as _cfg
+        thr = float(_cfg("MXNET_STRAGGLER_WARN"))
+    except Exception:
+        thr = 0.0
+    if thr > 0 and skew > thr and len(ranks) > 1:
+        counter("mx_straggler_events_total", rank=str(slowest),
+                phase=phase_name).inc()
+        _LOG.warning(
+            "straggler: rank %d runs %.1f%% slower than the fleet "
+            "median (%.1fms vs %.1fms a step over %d steps): %s-bound "
+            "(exposed comm %.1fms a step vs median %.1fms; "
+            "MXNET_STRAGGLER_WARN=%g)",
+            slowest, skew * 100, means[slowest] * 1e3, med * 1e3,
+            int(ranks[slowest]["steps"]), phase_name,
+            (ranks[slowest]["exposed_comm_seconds"]
+             / max(1.0, ranks[slowest]["steps"])) * 1e3,
+            sorted((r["exposed_comm_seconds"] / max(1.0, r["steps"]))
+                   for r in ranks)[len(ranks) // 2] * 1e3, thr)
     return view
 
 

@@ -388,12 +388,48 @@ def _dense():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"kvstore": "dist_sync"}, "item 11"),
-    ({"compression_params": {"type": "2bit"}}, "item 11"),
-    ({"update_on_kvstore": True}, "item 11")])
+    ({"compression_params": {"type": "2bit"}}, "item 11")])
 def test_trainer_refuses_what_is_not_ported(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         pt.gluon.Trainer(_dense().collect_params(), "sgd", **kwargs)
+
+
+def test_trainer_dist_sync_joins_the_group_at_its_first_step(monkeypatch):
+    """``kvstore="dist_sync"`` is accepted and its store made at the first
+    step, which joins the process group through the DMLC_* rendezvous:
+    without that environment it says what is missing."""
+    for var in ("DMLC_PS_ROOT_URI", "MXNET_COORDINATOR_URI"):
+        monkeypatch.delenv(var, raising=False)
+    d = _dense()
+    trainer = pt.gluon.Trainer(d.collect_params(), "sgd",
+                               kvstore="dist_sync")
+    assert trainer._kvstore is None and not pt.dist.is_initialized()
+    with pt.autograd.record():
+        loss = d(pt.nd.ones((1, 3), ctx=pt.cpu())).sum()
+    loss.backward()
+    with pytest.raises(RuntimeError, match="DMLC_PS_ROOT_URI"):
+        trainer.step(1)
+    assert not pt.dist.is_initialized()
+
+
+def test_trainer_update_on_kvstore_one_context_updates_locally():
+    """``update_on_kvstore=True`` is accepted; with one context there is
+    no store, so the Trainer updates in place, as the reference does."""
+    a, b = _dense(), _dense()
+    b.weight.set_data(a.weight.data())
+    b.bias.set_data(a.bias.data())
+    trainers = [pt.gluon.Trainer(a.collect_params(), "sgd",
+                                 update_on_kvstore=True),
+                pt.gluon.Trainer(b.collect_params(), "sgd")]
+    for net, tr in zip((a, b), trainers):
+        with pt.autograd.record():
+            loss = net(pt.nd.ones((2, 3), ctx=pt.cpu())).sum()
+        loss.backward()
+        tr.step(2)
+    assert trainers[0]._kvstore is None
+    assert trainers[0]._update_on_kvstore is False
+    np.testing.assert_array_equal(a.weight.data().asnumpy(),
+                                  b.weight.data().asnumpy())
 
 
 # K-step scan (item 7), the grad guard and modelwatch (item 13) are

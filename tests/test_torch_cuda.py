@@ -2785,3 +2785,73 @@ def test_scheduler_on_the_card_reads_nothing_inside_a_replay(card,
         own = want[3][:seq, :rows]
         assert any(np.array_equal(got[3][:seq, off:off + rows], own)
                    for off in range(got[3].shape[1] - rows + 1))
+
+
+# ---------------------------------------------------------------------------
+# the kvstore on the card (tests/test_torch_kvstore.py and
+# tests/test_torch_dist.py hold the rest on the CPU)
+# ---------------------------------------------------------------------------
+def test_kvstore_on_cuda_tensors_in_one_process(card):
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(0)
+    a, b = (rs.randn(64, 33).astype(np.float32) for _ in range(2))
+    ctxs = [mx.gpu(0), mx.cpu(0)]
+    kv = mx.kvstore.create("device")
+    kv.init("w", mx.nd.zeros((64, 33), ctx=ctxs[0]))
+    vals = [mx.nd.array(a, ctx=ctxs[0]), mx.nd.array(b, ctx=ctxs[1])]
+    kv.pushpull_list(["w"], [vals])
+    out = mx.nd.zeros((64, 33), ctx=mx.cpu())
+    kv.pull("w", out=out)
+    for got in (vals[0], vals[1], out):
+        np.testing.assert_array_equal(got.asnumpy(), a + b)
+    assert vals[0].tensor().is_cuda and not vals[1].tensor().is_cuda
+    if torch.cuda.device_count() >= 2:
+        kv = mx.kvstore.create("nccl")
+        vals = [mx.nd.array(a, ctx=mx.gpu(0)), mx.nd.array(b, ctx=mx.gpu(1))]
+        kv.init("w", vals[0])
+        kv.pushpull_list(["w"], [vals])
+        for got in vals:
+            np.testing.assert_array_equal(got.asnumpy(), a + b)
+
+
+def _card_launch(n):
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, TEST_CASE="card")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", str(n),
+         sys.executable, os.path.join(root, "tests", "torch_dist_worker.py")],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail("the launch timed out")
+    assert proc.returncode == 0, (out, err[-3000:])
+    res = [json.loads(line[7:]) for line in out.splitlines()
+           if line.startswith("RESULT ")]
+    return sorted(res, key=lambda r: r["rank"])
+
+
+def test_dist_sync_world_size_1_on_nccl(card):
+    (r,) = _card_launch(1)
+    assert (r["nw"], r["backend"], r["ctx"]) == (1, "nccl", "gpu(0)")
+    assert r["device"] == "cuda:0" and r["sum_err"] == 0.0
+
+
+def test_dist_sync_two_ranks_sharing_the_card_on_gloo(card):
+    """Two ranks on one card: NCCL refuses them, so the group is gloo
+    (with two cards each rank takes its own, on NCCL)."""
+    res = _card_launch(2)
+    two = torch.cuda.device_count() >= 2
+    assert [r["backend"] for r in res] == ["nccl" if two else "gloo"] * 2
+    assert [r["device"] for r in res] == (["cuda:0", "cuda:1"] if two
+                                          else ["cuda:0", "cuda:0"])
+    assert all(r["sum_err"] == 0.0 for r in res)
+    assert res[0]["digest"] == res[1]["digest"]

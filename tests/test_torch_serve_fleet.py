@@ -213,12 +213,21 @@ def test_consume_kv_notice_tombstone_dedup():
         local.key_value_try_get("k")
 
 
-def test_process_group_waits_with_multi_gpu():
+def test_process_group_waits_with_multi_gpu(monkeypatch):
+    """Outside a process group (tests/test_torch_dist.py opens real
+    ones) this process is rank 0 of 1: the gather is its own row, the
+    barrier returns, the fleet KV is in-process, and joining a group
+    without the DMLC_* environment says what is missing."""
+    for var in ("DMLC_PS_ROOT_URI", "MXNET_COORDINATOR_URI"):
+        monkeypatch.delenv(var, raising=False)
     assert (dist.rank(), dist.num_workers(), dist.is_initialized()) == \
         (0, 1, False)
-    for fn in (dist.initialize, dist.allgather_floats, dist.barrier):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn()
+    assert dist.allgather_floats([2.0]).tolist() == [[2.0]]
+    assert dist.barrier() is None
+    assert isinstance(dist.fleet_kv("").client, dist.LocalKV)
+    with pytest.raises(RuntimeError, match="DMLC_PS_ROOT_URI"):
+        dist.initialize()
+    assert not dist.is_initialized()
     assert dist.retry_delay(3, 0.1) == pytest.approx(0.4)
     assert dist.call_with_deadline(lambda: 5, 1.0, "t") == 5
 

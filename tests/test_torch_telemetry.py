@@ -511,9 +511,35 @@ def test_fleet_snapshot_one_rank_schema_matches_reference():
 
 
 def test_fleet_gather_across_ranks_raises(monkeypatch):
-    monkeypatch.setattr(pt.telemetry, "_world_size", lambda: 2)
-    with pytest.raises(MXNetError, match="item 11"):
-        pt.telemetry.fleet_snapshot()
+    """Across ranks nothing raises: the gathered rows merge into the
+    reference's view of the same rows (the slowest rank, the lower-median
+    skew, the phase), and a skew past MXNET_STRAGGLER_WARN counts a
+    straggler event naming the rank; tests/test_torch_dist.py gathers
+    the rows from two real ranks."""
+    rows = np.zeros((3, len(pt.telemetry.FLEET_FIELDS)), np.float32)
+    f = pt.telemetry.FLEET_FIELDS
+    rows[:, f.index("steps")] = 10
+    rows[:, f.index("step_mean")] = [0.1, 0.3, 0.11]
+    rows[1, f.index("exposed_comm_seconds")] = 2.0
+    monkeypatch.setenv("MXNET_STRAGGLER_WARN", "0.5")
+
+    def run(lib):
+        monkeypatch.setattr(lib.dist, "allgather_floats",
+                            lambda vec, tag=None, timeout=None: rows)
+        view = lib.telemetry.fleet_snapshot()
+        snap = lib.telemetry.snapshot()
+        return ({k: view[k] for k in ("nw", "slowest", "phase")},
+                view["skew"], view["step_mean_median"],
+                {k: v for k, v in snap["counters"].items()
+                 if k.startswith("mx_straggler")},
+                snap["gauges"]['mx_fleet_slowest_rank'])
+    ref, got = _both(run)
+    assert got[0] == ref[0] == {"nw": 3, "slowest": 1, "phase": "comm"}
+    assert got[1] == pytest.approx(ref[1]) and got[2] == pytest.approx(
+        ref[2])
+    assert got[3] == ref[3] == {
+        'mx_straggler_events_total{phase="comm",rank="1"}': 1.0}
+    assert got[4] == ref[4] == 1
 
 
 # ---------------------------------------------------------------------------
