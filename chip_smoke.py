@@ -529,6 +529,47 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    "import chip_smoke as cs; line = cs.phase_device(); cs.phase_build();
    cs.phase_dp(0, line)"``; ``dp_readings(range(5), line)`` prints the
    readings behind ``DP_TOL``.
+24. the sharded step — ``parallel.ShardedTrainStep`` on the card. (a)
+   ``tools/bert_bench.py``'s pinned configuration: BERT-base without
+   pooler, classifier and decoder, the chunked ``BERTMLMLoss`` head
+   (bert_bench's mean), LAMB lr 1e-3 wd 0.01, ``dtype="bfloat16"``, 3
+   inputs replicated, 32 x 128 on ``make_mesh(MeshConfig(dp=1),
+   devices=[gpu(0)])``: at dropout 0, against the plain versions, the
+   first step's gradients (SGD at lr 1) within ``SHARD_TOL["bert_grads"]``
+   and ``SHARD_PARITY_STEPS`` captured LAMB steps' change within
+   ``SHARD_TOL["bert"]`` (relative L2), a control with every LayerNorm
+   kernel's output ``SHARD_FAULT`` times its own caught by the first; at
+   dropout 0.1 the main run (the counts from 0: the
+   warm-up, the capture, ``SHARD_STEPS`` timed replays): the step's
+   median (CUDA events), host reads in a steady step (0), the graph's
+   MB, rows 1-8's launches in the one-step graph and over the run; at lr
+   0 three steps whose losses differ (the masks move on each replay);
+   ``save_states``, 2 steps, ``load_states``, 2 steps bit for bit. (b)
+   ``bench.py``'s headline: ``resnet50_v1``, SGD lr 0.1 momentum 0.9,
+   bf16, 128 x 224^2 resident, the layout pass on. On bench.py's uniform
+   batch and on phase 11's normal one, the first update (eager, before
+   the weights go channels-last) against ``MXNET_LAYOUT_OPT=0``: the
+   loss bit for bit, exactly the ``SHARD_BIASES`` conv biases still,
+   the change within ``SHARD_TOL["resnet"]``, printed beside its
+   witness (the pass off on the same batch in reverse sample order) by
+   kind and by stage. The hoisted step against a twin that converts its
+   weights in every step, under deterministic cuDNN: 3 steps (eager,
+   capture, replay) bit for bit, no conversion in the hoisted capture,
+   and the twin's profiled replay running exactly its conversions'
+   number of copy kernels more. The
+   step's median; no port kernel launched. (c) Two processes sharing
+   the card over gloo (``shard_worker`` through the port's launcher), a
+   mesh across them, BERT at ``SHARD_TWO_LAYERS`` layers and full width,
+   LAMB in bf16, ``SHARD_TWO_ROWS`` x 128 a rank, the sum of the
+   per-position losses: the step split around the cross-process reduce,
+   both ranks bit for bit, within ``SHARD_TOL["two"]`` of one process on
+   the joined batch, the all-reduce in commwatch's report (bytes,
+   GB/s); in the same launch, a control (a fresh step with the
+   cross-process sum planted away) caught. Alone: ``python3 -c "import
+   chip_smoke as cs; line = cs.phase_device(); cs.phase_build();
+   cs.phase_sharded(0, line)"``;
+   ``shard_readings(range(5), line)`` prints the readings behind
+   ``SHARD_TOL``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -10849,12 +10890,12 @@ def _dp_comm():
             for r in mx.commwatch.report()]
 
 
-def _dp_rel(snap, base, ref):
+def _dp_rel(snap, base, ref, skip=()):
     """The relative L2 distance of ``snap``'s change from ``base`` to
-    ``ref``'s, over every parameter."""
+    ``ref``'s, over every parameter but ``skip``."""
     num = den = 0.0
     for k, r in ref.items():
-        if k.startswith("mom:"):
+        if k.startswith("mom:") or k in skip:
             continue
         d = (snap[k] - base[k]).double()
         e = (r - base[k]).double()
@@ -11202,6 +11243,870 @@ def phase_dp(seed, card_line):
     return gloo[0]["dropout %g" % DP_DROPOUT]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# 24. the SPMD sharded step: bert_bench's BERT-base and bench.py's
+# ResNet-50 through parallel.ShardedTrainStep, two processes on one mesh
+# ---------------------------------------------------------------------------
+SHARD_STEPS = 10           # timed steps after the warm-up and the capture
+SHARD_PARITY_STEPS = 3     # kernels against plain versions, dropout 0
+SHARD_DROPOUT = 0.1
+SHARD_LAMB = {"lr": 1e-3, "wd": 0.01}
+SHARD_RESNET_SGD = {"lr": 0.1, "momentum": 0.9}
+# (b)'s batches: bench.py's uniform one, phase 11's normal one
+SHARD_RESNET_KINDS = ("uniform", "normal")
+SHARD_BIASES = 32          # resnet50_v1's conv biases, each before a BN
+SHARD_TWO_LAYERS = 2       # part (c)'s depth at full width
+SHARD_TWO_ROWS = 8         # rows a rank in (c)
+SHARD_TWO_STEPS = 3
+# (a)'s control: every LayerNorm kernel's output this many times its own
+SHARD_FAULT = 1.02
+# the relative L2 distances: (a) the kernels against their plain
+# versions, of the first step's gradients (bert_grads) and of the change
+# over SHARD_PARITY_STEPS LAMB steps (bert); (b) the first loss and
+# update with the layout pass on against off, on each batch; (c) two
+# ranks against one process on the joined batch. Each limit is twice the
+# largest of shard_readings(range(5), line) on an H100 80GB HBM3 at 700
+# W: (a) gradients 0.0102, 0.0124, 0.0097, 0.0105, 0.0116 (the control,
+# LayerNorm x1.02, read 0.204-0.245; LAMB's change under it 0.140-0.153,
+# under this limit: LAMB's first steps are nearly sign(g)); LAMB 0.0775,
+# 0.0839, 0.0806, 0.0750, 0.0804; (b) uniform: the loss 0 at every
+# seed, the update 0.0446, 0.0357, 0.0732, 0.0524, 0.0774; normal: the
+# loss 5.9e-5, 1.0e-3, 1.9e-4, 0, 0, the update 0.0288, 0.635, 0.660,
+# 0.0301, 0.0300. The first update of this net at its initialization
+# amplifies a change of the forward at the level of bf16's rounding:
+# the pass off on the same batch reversed (its sums in another order)
+# read up to 1.19 (normal, seed 4, where it moved the loss 9.8e-4), and
+# every bf16 update, the pass on or off, is 1.35-1.40 from the f32 one
+# (TF32 off); two unrelated updates read about 1.41, so the normal
+# batch's limit holds little (ROADMAP queue 3). (c) 0.0339, 0.0341,
+# 0.0346, 0.0339, 0.0336; its control, each rank on its own rows,
+# 0.671-0.690.
+SHARD_TOL = {"bert": 0.168, "bert_grads": 0.0247,
+             "resnet": {"uniform": {"loss": 0.0, "update": 0.155},
+                        "normal": {"loss": 0.00204, "update": 1.32}},
+             "two": 0.0691}
+SHARD_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+                 "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+                 "bias_residual_fwd", "dropout")
+SHARD_TIMEOUT = 300        # seconds the two-rank launch may take
+SHARD_WORKER = ("import chip_smoke as cs, sys; "
+                "sys.exit(cs.shard_worker())")
+
+
+class _ShardLoss:
+    """bert_bench's adapter of the parametric MLM head to the step's
+    (outputs, labels): the head's per-position losses, their mean
+    (``reduce="mean"``, bert_bench's) or their sum."""
+
+    def __init__(self, blk, reduce="mean"):
+        self._blk, self._reduce = blk, reduce
+
+    def collect_params(self):
+        return self._blk.collect_params()
+
+    def __call__(self, outputs, labels):
+        seq = outputs[0] if isinstance(outputs, (list, tuple)) else outputs
+        per = self._blk(seq, labels)
+        return [per.mean() if self._reduce == "mean" else per.sum()]
+
+
+def _shard_bert(seed, dropout, layers=12, mesh=None, reduce="mean",
+                specs=None, **kw):
+    """bert_bench's pinned configuration at ``layers`` layers (full
+    width): BERTModel without pooler, classifier and decoder, the chunked
+    BERTMLMLoss head, biases, beta and gamma - 1 drawn from the seed
+    (``_draw_affine``), LAMB in bf16 over ``mesh`` (default dp=1 on
+    gpu(0)), 3 data inputs replicated (``specs`` to override)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMLoss, BERTModel
+    from mxnet_tpu_torch.parallel import (MeshConfig, P, ShardedTrainStep,
+                                          make_mesh)
+    ctx = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+    mx.random.seed(seed)
+    net = BERTModel(num_layers=layers, units=UNITS, hidden_size=HIDDEN,
+                    num_heads=HEADS, max_length=512, vocab_size=VOCAB,
+                    dropout=dropout, use_pooler=False, use_classifier=False,
+                    use_decoder=False, prefix="bert_")
+    net.initialize(ctx=ctx)
+    head = BERTMLMLoss(vocab_size=VOCAB, units=UNITS, mode="chunked",
+                       prefix="decoder_")
+    head.initialize(ctx=ctx)
+    ids = mx.nd.array(np.zeros((2, TRAIN_SEQ), np.int32), dtype="int32",
+                      ctx=ctx)
+    with torch.no_grad():
+        net(ids, ids)
+    _draw_affine(net, seed)
+    _draw_affine(head, seed + 1)
+    if mesh is None:
+        mesh = make_mesh(MeshConfig(dp=1), devices=[ctx])
+    opts = dict(optimizer="lamb", dtype="bfloat16", n_data_inputs=3,
+                data_specs=specs or [P(), P(), P()], seed=seed,
+                **SHARD_LAMB)
+    opts.update(kw)
+    step = ShardedTrainStep(net, _ShardLoss(head, reduce), mesh, **opts)
+    return net, head, step
+
+
+def _shard_batch(seed, rows, lo=0, hi=None):
+    """Token ids over the vocabulary past the special tokens, token types
+    0, MLM labels on every position (int32), rows ``lo:hi`` of ``rows``."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(seed + 24)
+    ids = rng.randint(1000, VOCAB, (rows, TRAIN_SEQ)).astype(np.int32)
+    labels = rng.randint(1000, VOCAB, (rows, TRAIN_SEQ)).astype(np.int32)
+    hi = rows if hi is None else hi
+    ctx = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+    return [mx.nd.array(a[lo:hi], dtype="int32", ctx=ctx)
+            for a in (ids, np.zeros_like(ids), labels)]
+
+
+def _shard_params(step):
+    """The step's masters by position (another model's names carry other
+    counters)."""
+    return {"p%04d" % i: v.tensor()
+            for i, v in enumerate(step.params.values())}
+
+
+def _shard_digest(step):
+    return _dp_digest(_shard_params(step))
+
+
+def _sync():
+    if DEV == "cuda":
+        import torch
+        torch.cuda.synchronize()
+
+
+def _planted_layer_norm(scale):
+    """(a)'s control: every LayerNorm forward kernel's output ``scale``
+    times what it computes (the backward left as it is)."""
+    from unittest import mock
+    from mxnet_tpu_torch.ops import cuda_norm
+    real = cuda_norm.layer_norm_cuda
+    return mock.patch.object(
+        cuda_norm, "layer_norm_cuda",
+        lambda x, g, b, eps: real(x, g, b, eps) * scale)
+
+
+def _scope(kind):
+    """The kernels as they are (``kernels``), their plain versions
+    (``plain``) or the planted fault (``fault``: SHARD_FAULT, or
+    ``fault@<scale>``)."""
+    if kind == "plain":
+        return _plain_kernels()
+    if kind.startswith("fault"):
+        return _planted_layer_norm(float(kind.split("@")[1]) if "@" in kind
+                                   else SHARD_FAULT)
+    return contextlib.nullcontext()
+
+
+def _clone_params(step):
+    return {k: v.clone() for k, v in _shard_params(step).items()}
+
+
+def _shard_parity(seed, kinds, lamb_kinds):
+    """(a) at dropout 0, from the same weights and batch under each of
+    ``kinds`` (:func:`_scope`): the first step's gradients (SGD at lr 1,
+    no momentum or weight decay, the loss the sum over the positions:
+    each master moves by minus its gradient) and, for ``lamb_kinds``,
+    SHARD_PARITY_STEPS captured LAMB steps. Returns the masters before
+    and, by kind, after each: ``(base, lamb, gbase, grads)``."""
+    batch = _shard_batch(seed, TRAIN_BATCH)
+    lamb, grads = {}, {}
+    for kind in kinds:
+        with _scope(kind):
+            if kind in lamb_kinds:
+                _, _, step = _shard_bert(seed, 0.0)
+                base = _clone_params(step)
+                for _ in range(SHARD_PARITY_STEPS):
+                    step.step(*batch)
+                lamb[kind] = _clone_params(step)
+                del step
+                _free_cuda()
+            _, _, step = _shard_bert(seed, 0.0, reduce="sum",
+                                     optimizer="sgd", lr=1.0, momentum=0.0,
+                                     wd=0.0)
+            gbase = _clone_params(step)
+            step.step(*batch)
+            grads[kind] = _clone_params(step)
+        del step
+        _free_cuda()
+    return base, lamb, gbase, grads
+
+
+def _shard_parity_readings(seed, kinds, lamb_kinds=None):
+    """The relative L2 distance from the plain versions of each kind's
+    first gradients and (for ``lamb_kinds``, default all) LAMB change."""
+    lamb_kinds = kinds if lamb_kinds is None else lamb_kinds
+    base, lamb, gbase, grads = _shard_parity(seed, kinds, lamb_kinds)
+    out = {}
+    for kind in kinds:
+        if kind != "plain":
+            out[kind] = {"grads": _dp_rel(grads[kind], gbase, grads["plain"])}
+            if kind in lamb_kinds:
+                out[kind]["lamb"] = _dp_rel(lamb[kind], base, lamb["plain"])
+    return out
+
+
+def _free_cuda():
+    import gc
+    gc.collect()
+    if DEV == "cuda":
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _resnet_shard(seed, hoist=True, layout=True, dtype="bfloat16"):
+    """bench.py's headline step: resnet50_v1 (MSRAPrelu), SGD lr 0.1
+    momentum 0.9, in ``dtype``, on dp=1; with ``hoist`` False the conv
+    weights stay in their stored layout (the conversions stay in the
+    step). Returns the net and the step."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.parallel import (MeshConfig, P, ShardedTrainStep,
+                                          make_mesh)
+    ctx = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+    mx.random.seed(seed)
+    net = resnet50_v1(prefix="resnet50_")
+    net.initialize(init=mx.init.MSRAPrelu(), ctx=ctx)
+    with torch.no_grad():
+        net(mx.nd.zeros((1, 3, RESNET_SIDE, RESNET_SIDE), ctx=ctx))
+    with _env_flag("MXNET_LAYOUT_OPT", "1" if layout else "0"):
+        step = ShardedTrainStep(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            make_mesh(MeshConfig(dp=1), devices=[ctx]), dtype=dtype,
+            data_specs=[P(), P()], **SHARD_RESNET_SGD)
+    if not hoist:
+        step._hoisted = True
+    return net, step
+
+
+def _resnet_masters(step):
+    """The step's f32 masters by name, copied."""
+    return {k: v.tensor().clone() for k, v in step.params.items()}
+
+
+def _resnet_states(step):
+    return {k: [s.tensor().clone() for s in v]
+            for k, v in step.states.items()}
+
+
+def _conv_biases(net):
+    """The names of ``net``'s conv biases: in resnet50_v1 each feeds one
+    training BatchNorm, so the pass elides every one."""
+    from mxnet_tpu_torch.gluon import nn
+    out, todo = set(), [net]
+    while todo:
+        blk = todo.pop()
+        if isinstance(blk, nn.Conv2D) and blk.bias is not None:
+            out.add(blk.bias.name)
+        todo.extend(blk._children.values())
+    return out
+
+
+def _replay_kernels(fn):
+    """The device kernels one call of ``fn`` runs (torch.profiler), or
+    None when the profiler sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def _step_ms(step, batch, n):
+    """Each of ``n`` steps' device time, ms (CUDA events)."""
+    import torch
+    out = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step.step(*batch)
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def _shard_resnet_batch(seed, kind="uniform"):
+    """bench.py's resident batch (``uniform``: [0, 1) images) or phase
+    11's (``normal``: N(0, 1), :func:`_resnet_batch`), in bf16, labels
+    over the 1000 classes, drawn on the card from ``seed``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    if kind == "normal":
+        return _resnet_batch(seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 24)
+    x = torch.rand(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE, generator=g,
+                   device=DEV)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device=DEV)
+    return mx.nd.NDArray(x.to(torch.bfloat16)), mx.nd.NDArray(y.float())
+
+
+def _rel_by(snap, base, ref, key):
+    """:func:`_dp_rel` within each group ``key(name)`` (None: left out)."""
+    num, den = collections.Counter(), collections.Counter()
+    for k, r in ref.items():
+        g = key(k)
+        if g is None:
+            continue
+        d = (snap[k] - base[k]).double()
+        e = (r - base[k]).double()
+        num[g] += float(((d - e) ** 2).sum())
+        den[g] += float((e ** 2).sum())
+    return {g: (num[g] / den[g]) ** 0.5 if den[g] else None for g in den}
+
+
+def _resnet_pass(seed, kind, keep=False, f32=False):
+    """The first update (an eager step: the weights go channels-last
+    after it) of fresh steps on the ``kind`` batch: the pass on, off, and
+    off on the same batch with its samples in reverse order (the same
+    function, its sums in another order: the witness of what rounding
+    alone moves); with ``f32``, also off in f32 with TF32 off. Returns
+    the readings and, with ``keep``, the pass-on step."""
+    import torch
+    import mxnet_tpu_torch as mx
+    x, y = _shard_resnet_batch(seed, kind)
+    flip = [mx.nd.NDArray(torch.flip(a.tensor(), [0])) for a in (x, y)]
+    runs = [("on", True, (x, y), "bfloat16"), ("off", False, (x, y),
+                                                 "bfloat16"),
+            ("order", False, flip, "bfloat16")]
+    if f32:
+        runs.append(("f32", False, (mx.nd.NDArray(x.tensor().float()), y),
+                     None))
+    snaps, loss, base, kept = {}, {}, None, None
+    for name, layout, b, dt in runs:
+        with (_no_tf32() if dt is None else contextlib.nullcontext()):
+            net, step = _resnet_shard(seed, layout=layout, dtype=dt)
+            b0 = _resnet_masters(step)
+            loss[name] = float(step.step(*b).asnumpy())
+            snaps[name] = _resnet_masters(step)
+        if base is None:
+            base, biases = b0, _conv_biases(net)
+            hoisted = set(step._param_transforms)
+            frozen = {k for k in base if torch.equal(snaps[name][k], b0[k])}
+            kept = step if keep else None
+        elif _dp_digest(b0) != _dp_digest(base):
+            raise SmokeFailure("sharded: (b) the %s run started from other "
+                               "weights" % name)
+        del net, step, b0
+        _free_cuda()
+
+    def group(k):
+        if k in biases:
+            return None
+        if k in hoisted:
+            return "hoisted"
+        if k.endswith(("_gamma", "_beta")):
+            return "bn"
+        return "head" if "dense" in k else "1x1"
+
+    def stage(k):
+        if k in biases:
+            return None
+        for part in k.split("_"):
+            if part.startswith("stage"):
+                return part
+        return "head" if "dense" in k else "stem"
+    rd = {"loss": abs(loss["on"] - loss["off"]) / abs(loss["off"]),
+          "pass": _dp_rel(snaps["on"], base, snaps["off"], skip=biases),
+          "order": _dp_rel(snaps["order"], base, snaps["off"], skip=biases),
+          "losses": [loss["on"], loss["off"], loss["order"]],
+          "params": len(base), "biases": len(biases),
+          "frozen": len(frozen), "frozen_are_biases": frozen == biases,
+          "hoisted": len(hoisted)}
+    for name, key in (("group", group), ("stage", stage)):
+        rd[name] = {
+            "pass": _rel_by(snaps["on"], base, snaps["off"], key),
+            "order": _rel_by(snaps["order"], base, snaps["off"], key)}
+    if f32:
+        rd["f32"] = {w: _dp_rel(snaps[w], base, snaps["f32"], skip=biases)
+                     for w in ("on", "off")}
+        rd["f32_stage"] = {w: _rel_by(snaps[w], base, snaps["f32"], stage)
+                           for w in ("on", "off")}
+    return rd, kept
+
+
+def _short(d):
+    return json.dumps(d, default=lambda v: round(v, 4))
+
+
+def _hoist_pair(seed, card_line):
+    """The hoisted weights against a twin that converts them in every
+    step (the pass on in both), under deterministic cuDNN on phase 11's
+    normal batch: 3 steps (eager, the capture, a replay) bit for bit, then
+    one profiled replay each."""
+    import torch
+    batch = _shard_resnet_batch(seed, "normal")
+    got = {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for hoist in (True, False):
+            _, step = _resnet_shard(seed, hoist=hoist)
+            for _ in range(3):
+                step.step(*batch)
+            _sync()
+            got[hoist] = {
+                "form": step.form, "hoisted": len(step._param_transforms),
+                "conversions": step.stats["weight_conversions"],
+                "params": _dp_digest(_resnet_masters(step)),
+                "states": _dp_digest({"%s:%d" % (k, i): s for k, v in
+                                      _resnet_states(step).items()
+                                      for i, s in enumerate(v)}),
+                "kernels": _replay_kernels(lambda: step.step(*batch))}
+            del step
+            _free_cuda()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    h, t = got[True], got[False]
+    same = h["params"] == t["params"] and h["states"] == t["states"]
+    copies = {k: (None if g["kernels"] is None else
+                  sum("copy" in n for n in g["kernels"]))
+              for k, g in got.items()}
+    print("[sharded] (b) the hoisted weights against the twin that converts "
+          "them in every step (deterministic cuDNN, phase 11's normal "
+          "batch, 3 steps: eager, the capture, a replay): forms %s / %s; "
+          "%d / %d weights stored channels-last; weight conversions in the "
+          "capture %s / %s; parameters and momenta %s; a profiled replay "
+          "runs %s / %s kernels, %s / %s of them copies; %s"
+          % (h["form"], t["form"], h["hoisted"], t["hoisted"],
+             h["conversions"], t["conversions"],
+             "bit for bit" if same else "APART",
+             len(h["kernels"]) if h["kernels"] else "not measured",
+             len(t["kernels"]) if t["kernels"] else "not measured",
+             copies[True], copies[False], card_line))
+    if h["kernels"] and t["kernels"]:
+        more = collections.Counter(t["kernels"])
+        more.subtract(collections.Counter(h["kernels"]))
+        print("[sharded] (b) kernels by name, the twin's replay against the "
+              "hoisted one's: more %s; fewer %s" % (
+                  [(n[:90], c) for n, c in more.most_common(4) if c > 0],
+                  [(n[:90], -c) for n, c in sorted(
+                      more.items(), key=lambda kv: kv[1])[:4] if c < 0]))
+    if h["form"] != "captured" or t["form"] != "captured":
+        raise SmokeFailure("sharded: (b) a step ran %s / %s" % (
+            h["form"], t["form"]))
+    if h["conversions"] != 0 or not t["conversions"]:
+        raise SmokeFailure("sharded: (b) weight conversions in the captures "
+                           "%s (hoisted) / %s (twin): want 0 / more" % (
+                               h["conversions"], t["conversions"]))
+    if not same:
+        raise SmokeFailure("sharded: (b) the hoisted step is not bit for bit "
+                           "its twin after 3 steps")
+    if None in copies.values():
+        raise SmokeFailure("sharded: (b) the profiler saw no kernel in a "
+                           "replay")
+    if copies[False] - copies[True] != t["conversions"]:
+        raise SmokeFailure("sharded: (b) the twin's replay runs %d copies "
+                           "more than the hoisted one's, not its %d weight "
+                           "conversions" % (copies[False] - copies[True],
+                                            t["conversions"]))
+    return t["conversions"]
+
+
+def _shard_resnet(seed, card_line, readings=False):
+    """(b): returns the readings of the pass on against off on each
+    batch of SHARD_RESNET_KINDS (:func:`_resnet_pass`)."""
+    out = {}
+    first = None
+    for kind in SHARD_RESNET_KINDS:
+        rd, kept = _resnet_pass(seed, kind, keep=kind == "uniform"
+                                and not readings, f32=readings)
+        first = first or kept
+        out[kind] = rd
+        lim = SHARD_TOL["resnet"][kind]
+        print("[sharded] (b) %s batch, the first update with the pass on "
+              "against off: losses %s (on, off, off on the reversed batch), "
+              "relative difference %.3g (limit %s); relative L2 of the "
+              "change %.4g (limit %s), of the witness (off on the reversed "
+              "batch) %.4g; by kind %s; by stage %s%s; %d of %d parameters "
+              "still with the pass on, %s the %d conv biases; %d weights "
+              "hoisted after it; %s"
+              % (kind, rd["losses"], rd["loss"], lim["loss"], rd["pass"],
+                 lim["update"], rd["order"],
+                 _short(rd["group"]), _short(rd["stage"]),
+                 "; against f32 (TF32 off) %s, by stage %s" % (
+                     _short(rd["f32"]), _short(rd["f32_stage"]))
+                 if readings else "", rd["frozen"], rd["params"],
+                 "exactly" if rd["frozen_are_biases"] else "NOT",
+                 rd["biases"], rd["hoisted"], card_line))
+    if readings:
+        return out
+    for kind, rd in out.items():
+        lim = SHARD_TOL["resnet"][kind]
+        if not rd["loss"] <= lim["loss"]:
+            raise SmokeFailure("sharded: (b) %s: the first loss %.3g from the "
+                               "pass-off run (limit %g)" % (kind, rd["loss"],
+                                                            lim["loss"]))
+        if not rd["frozen_are_biases"] or rd["biases"] != SHARD_BIASES:
+            raise SmokeFailure("sharded: (b) %s: %d parameters still, want "
+                               "exactly the %d conv biases (%d found)" % (
+                                   kind, rd["frozen"], SHARD_BIASES,
+                                   rd["biases"]))
+        if not rd["pass"] <= lim["update"]:
+            raise SmokeFailure("sharded: (b) %s: the update %.3g from the "
+                               "pass-off run (limit %g)" % (
+                                   kind, rd["pass"], lim["update"]))
+    conversions = _hoist_pair(seed, card_line)
+    batch = _shard_resnet_batch(seed, "uniform")
+    step = first
+    step.step(*batch)       # the capture
+    if step.form != "captured" or step.stats["weight_conversions"] != 0:
+        raise SmokeFailure("sharded: (b) the step ran %s with %s weight "
+                           "conversions in its capture" % (
+                               step.form, step.stats["weight_conversions"]))
+    hoisted = len(step._param_transforms)
+    times = _step_ms(step, batch, SHARD_STEPS)
+    from mxnet_tpu_torch.ops import cuda_build
+    cuda_build.reset_launch_counts()
+    step.step(*batch)
+    _sync()
+    port = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    del step, first
+    _free_cuda()
+    print("[sharded] (b) resnet50_v1, batch %d at %d^2, bf16, SGD lr %g "
+          "momentum %g, dp=1, bench.py's uniform batch, the layout pass on: "
+          "%d conv weights stored channels-last; the capture made 0 weight "
+          "conversions (the twin without the hoisting: %d); step %.2f ms "
+          "(median of %d, CUDA events), %.0f images/s; form captured; the "
+          "port's kernels launched in a step: %s (no port kernel is on "
+          "ResNet-50's path: cuDNN, cuBLAS and PyTorch's elementwise "
+          "kernels); %s"
+          % (RESNET_BATCH, RESNET_SIDE, SHARD_RESNET_SGD["lr"],
+             SHARD_RESNET_SGD["momentum"], hoisted, conversions,
+             statistics.median(times), len(times),
+             RESNET_BATCH / statistics.median(times) * 1e3, port or "none",
+             card_line))
+    return out
+
+
+def shard_worker():
+    """One rank of phase 24 (c), started by ``python -m
+    mxnet_tpu_torch.tools.launch``: a mesh over both processes (their
+    card: each process's gpu), BERT at SHARD_TWO_LAYERS layers and full
+    width, LAMB in bf16, SHARD_TWO_ROWS x 128 a rank, the loss the sum of
+    the per-position losses; then the control, a fresh step with the
+    cross-process sum planted away; ``MXT_SH_SEED``; writes
+    ``MXT_SH_OUT/<rank>.json``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist
+    from mxnet_tpu_torch.parallel import P, _spmd, make_mesh
+    seed = int(os.environ["MXT_SH_SEED"])
+    dist.initialize()
+    rank, nw = dist.rank(), dist.num_workers()
+    mesh = make_mesh()
+    rows = nw * SHARD_TWO_ROWS
+    lo = rank * SHARD_TWO_ROWS
+    out = {"rank": rank, "nw": nw, "backend": dist.backend(),
+           "mesh": [[d.process_index, str(d.context)]
+                    for d in mesh.devices.flat]}
+    got, bases = {}, {}
+    for name in ("run", "control"):
+        if name == "control":
+            _spmd._world_all_reduce = lambda t: None
+        _, _, step = _shard_bert(seed, 0.0, SHARD_TWO_LAYERS, mesh=mesh,
+                                 reduce="sum", specs=[P("dp")] * 3)
+        bases[name] = _clone_params(step)
+        times, losses = [], []
+        for s in range(SHARD_TWO_STEPS):
+            batch = _shard_batch(seed + s, rows, lo, lo + SHARD_TWO_ROWS)
+            _sync()
+            t0 = time.perf_counter()
+            losses.append(float(step.step(*batch).asnumpy()))
+            _sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got[name] = _clone_params(step)
+        out[name] = {
+            "form": step.form, "losses": [repr(v) for v in losses],
+            "step_ms": times, "digest": _dp_digest(got[name]),
+            "reduce_ms": (None if step.stats["reduce_s"] is None
+                          else step.stats["reduce_s"] * 1e3),
+            "grad_mb": sum(v.numel() * 4 for v in got[name].values()) / 1e6}
+        if name == "run":
+            out["comm"] = [{k: r[k] for k in ("op", "axis", "ops", "bytes",
+                                              "seconds", "algbw", "busbw")}
+                           for r in mx.commwatch.report()]
+        del step
+        _free_cuda()
+    if rank == 0:
+        # one process on the joined batch
+        _, _, one = _shard_bert(seed, 0.0, SHARD_TWO_LAYERS, reduce="sum")
+        for s in range(SHARD_TWO_STEPS):
+            one.step(*_shard_batch(seed + s, rows))
+        for name in ("run", "control"):
+            out[name]["rel_l2"] = _dp_rel(got[name], bases[name],
+                                          _shard_params(one))
+        out["one_form"] = one.form
+    with open(os.path.join(os.environ["MXT_SH_OUT"], "%d.json" % rank),
+              "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _shard_launch(seed, tmp):
+    """The two ranks of (c) through the port's launcher from the
+    checkout's root; every process is stopped at the end."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXT_SH_SEED=str(seed), MXT_SH_OUT=tmp,
+               MXNET_TELEMETRY="1", MXNET_COMMWATCH="1")
+    for var in ("MXNET_FAULT_INJECT", "MXNET_DIST_CPU_DEVICES"):
+        env.pop(var, None)
+    log = os.path.join(tmp, "launch.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+             sys.executable, "-c", SHARD_WORKER],
+            cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=SHARD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise SmokeFailure("sharded: the two-rank launch ended with %s:\n%s"
+                           % (rc, text[-6000:]))
+    out = {}
+    for r in (0, 1):
+        with open(os.path.join(tmp, "%d.json" % r)) as f:
+            out[r] = json.load(f)
+    return out, time.perf_counter() - t0
+
+
+def _shard_two(seed, card_line, readings=False):
+    """(c): returns the distances of the run and of the control from the
+    one-process run."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mxt_sh_")
+    try:
+        out, secs = _shard_launch(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = out[0]["run"], out[1]["run"]
+    c0, c1 = out[0]["control"], out[1]["control"]
+    if readings:
+        return r0["rel_l2"], c0["rel_l2"]
+    print("[sharded] (c) 2 ranks on one mesh %s, backend %s, BERT at %d "
+          "layers and full width, LAMB in bf16, %d x %d a rank, %d steps: "
+          "form %s (the one-process run %s); launched and run, with the "
+          "control, in %.1f s; step %.1f / %.1f ms (rank 0 / 1, median, "
+          "host clock); %s"
+          % (out[0]["mesh"], out[0]["backend"], SHARD_TWO_LAYERS,
+             SHARD_TWO_ROWS, TRAIN_SEQ, SHARD_TWO_STEPS, r0["form"],
+             out[0]["one_form"], secs, statistics.median(r0["step_ms"][1:]),
+             statistics.median(r1["step_ms"][1:]), card_line))
+    if r0["form"] != "split" or r1["form"] != "split":
+        raise SmokeFailure("sharded: (c) the step ran %s, not split around "
+                           "the cross-process reduce" % r0["form"])
+    for o in (out[0], out[1]):
+        r = o["run"]
+        print("[sharded] (c) rank %d: the cross-process all-reduce of the "
+              "step's %.1f MB of f32 gradients took %.1f ms (the last step, "
+              "host clock: gloo blocks), %.2f GB/s"
+              % (o["rank"], r["grad_mb"], r["reduce_ms"],
+                 r["grad_mb"] / r["reduce_ms"]))
+        for c in o["comm"]:
+            print("[sharded] (c) rank %d commwatch %s %s: %d ops, %.1f MB, "
+                  "%.4f s, algbw %.2f GB/s, busbw %.2f GB/s (program-"
+                  "effective: the payload over each whole step, the first "
+                  "one eager)"
+                  % (o["rank"], c["op"], c["axis"], c["ops"],
+                     c["bytes"] / 1e6, c["seconds"], c["algbw"] / 1e9,
+                     c["busbw"] / 1e9))
+        if not any(c["op"] == "allreduce" and c["axis"] == "dp"
+                   and c["bytes"] > 0 and c["algbw"] > 0
+                   for c in o["comm"]):
+            raise SmokeFailure("sharded: (c) rank %d recorded no "
+                               "cross-process all-reduce" % o["rank"])
+    if r0["digest"] != r1["digest"] or r0["losses"] != r1["losses"]:
+        raise SmokeFailure("sharded: (c) the ranks' parameters are not bit "
+                           "for bit equal")
+    print("[sharded] (c) both ranks' parameters bit for bit equal; against "
+          "one process on the joined %d x %d batch: relative L2 of the "
+          "change %.3g (limit %s); the control (the cross-process sum "
+          "planted away): ranks %s, %.3g from the one-process run"
+          % (2 * SHARD_TWO_ROWS, TRAIN_SEQ, r0["rel_l2"], SHARD_TOL["two"],
+             "bit for bit" if c0["digest"] == c1["digest"] else "apart",
+             c0["rel_l2"]))
+    if not r0["rel_l2"] <= SHARD_TOL["two"]:
+        raise SmokeFailure("sharded: (c) %.3g from the one-process run "
+                           "(limit %g)" % (r0["rel_l2"], SHARD_TOL["two"]))
+    if c0["digest"] == c1["digest"] or not c0["rel_l2"] > SHARD_TOL["two"]:
+        raise SmokeFailure("sharded: (c) the control was not caught")
+    return r0["rel_l2"]
+
+
+def shard_readings(seeds, card_line):
+    """The readings behind SHARD_TOL at ``seeds``: (a) kernels against
+    plain versions (LAMB's change and the first gradients) and the
+    planted fault against them, (b) the pass on against off on both
+    batches with their witness and the f32 distances, (c) two ranks
+    against one process, and the control."""
+    worst = collections.defaultdict(float)
+    for seed in seeds:
+        res = _shard_resnet(seed, card_line, readings=True)
+        par = _shard_parity_readings(seed, ("kernels", "plain", "fault",
+                                            "fault@1.05"))
+        two, ctl = _shard_two(seed, card_line, readings=True)
+        got = {"bert": par["kernels"]["lamb"],
+               "bert_grads": par["kernels"]["grads"],
+               "two": two, "two_control": ctl}
+        for kind in ("fault", "fault@1.05"):
+            got[kind + "_lamb"] = par[kind]["lamb"]
+            got[kind + "_grads"] = par[kind]["grads"]
+        for kind, rd in res.items():
+            got["resnet_%s" % kind] = rd["pass"]
+            got["resnet_%s_order" % kind] = rd["order"]
+            got["resnet_%s_loss" % kind] = rd["loss"]
+        for k, v in got.items():
+            worst[k] = max(worst[k], v)
+        print("[sharded] readings: seed %d: %s; %s"
+              % (seed, json.dumps(got), card_line))
+    print("[sharded] readings: largest %s, 2x %s"
+          % (json.dumps(worst),
+             json.dumps({k: 2 * v for k, v in worst.items()})))
+    return worst
+
+
+def phase_sharded(seed, card_line):
+    """24. ShardedTrainStep on the card; returns (the wrappers' launches
+    in the main run, the launches one captured step carries)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    print("[sharded] %s" % card_line)
+    _free_cuda()
+    par = _shard_parity_readings(seed, ("kernels", "plain", "fault"),
+                                 ("kernels", "plain"))
+    rel, grads = par["kernels"]["lamb"], par["kernels"]["grads"]
+    print("[sharded] (a) bert_12_768_12 at dropout 0 against the plain "
+          "versions: the first step's gradients %.4g (limit %s), %d "
+          "captured LAMB steps' change %.4g (limit %s); the control (every "
+          "LayerNorm kernel's output x%g): gradients %.4g"
+          % (grads, SHARD_TOL["bert_grads"], SHARD_PARITY_STEPS, rel,
+             SHARD_TOL["bert"], SHARD_FAULT, par["fault"]["grads"]))
+    if not grads <= SHARD_TOL["bert_grads"]:
+        raise SmokeFailure("sharded: (a) the gradients %.3g from the plain "
+                           "versions' (limit %g)" % (grads,
+                                                     SHARD_TOL["bert_grads"]))
+    if not rel <= SHARD_TOL["bert"]:
+        raise SmokeFailure("sharded: (a) kernels %.3g from their plain "
+                           "versions (limit %g)" % (rel, SHARD_TOL["bert"]))
+    if not par["fault"]["grads"] > SHARD_TOL["bert_grads"]:
+        raise SmokeFailure("sharded: (a) the planted LayerNorm fault was not "
+                           "caught (%.3g)" % par["fault"]["grads"])
+    # the main run: counts from 0 over the warm-up, the capture and the
+    # timed replays
+    batch = _shard_batch(seed, TRAIN_BATCH)
+    by_graph = {}
+    cuda_build.reset_launch_counts()
+    _, _, step = _shard_bert(seed, SHARD_DROPOUT)
+    loss0 = float(step.step(*batch).asnumpy())
+    reserved = torch.cuda.memory_reserved()
+    with _capture_launches(by_graph) as per_step:
+        _, held = _graph_mb(lambda: step.step(*batch))
+    pool_mb = (torch.cuda.memory_reserved() - reserved) / 1e6
+    times = _step_ms(step, batch, SHARD_STEPS)
+    _sync()
+    counts = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    per_step = {k: v for k, v in per_step.items() if v}
+    state = {"step": 0, "region": "step"}
+    with _sync_regions(state) as seen:
+        step.step(*batch)
+        _sync_free = len(seen)
+    missing = [k for k in SHARD_KERNELS if not counts.get(k)]
+    print("[sharded] (a) bert_12_768_12 (bert_bench's configuration: the "
+          "chunked BERTMLMLoss head, LAMB lr %g wd %g, bf16, 3 inputs "
+          "replicated) at %d x %d on dp=1 over gpu(0), dropout %g: form %s; "
+          "first loss %.4f; step %.2f ms (median of %d, CUDA events); host "
+          "reads in a steady step %d; the capture reserved %.1f MB more for "
+          "its pool (allocated +%.1f MB after it, peak +%.1f MB while "
+          "capturing); launches a step (rows 1-8, in the captured "
+          "graph) %s; the wrappers' launches over the run %s; %s"
+          % (SHARD_LAMB["lr"], SHARD_LAMB["wd"], TRAIN_BATCH, TRAIN_SEQ,
+             SHARD_DROPOUT, step.form, loss0, statistics.median(times),
+             len(times), _sync_free, pool_mb, held[0], held[1], per_step,
+             counts,
+             card_line))
+    if step.form != "captured":
+        raise SmokeFailure("sharded: (a) the step ran %s" % step.form)
+    if missing or any(not per_step.get(k) for k in SHARD_KERNELS):
+        raise SmokeFailure("sharded: (a) the step launched no %s (run %s, "
+                           "graph %s)" % (missing, counts, per_step))
+    if _sync_free:
+        raise SmokeFailure("sharded: (a) a steady step read the card %d "
+                           "time(s)" % _sync_free)
+    if not np.isfinite(loss0):
+        raise SmokeFailure("sharded: (a) the loss is not finite")
+    # the random stream: two replays at lr 0 draw other masks
+    step._hp["lr"] = 0.0
+    step._build()
+    frozen = [float(step.step(*batch).asnumpy()) for _ in range(3)]
+    print("[sharded] (a) lr 0, dropout %g: losses %s (the first eager, "
+          "then the capture's replay and a replay)" % (SHARD_DROPOUT,
+                                                       frozen))
+    if len(set(frozen)) != 3 or not all(np.isfinite(frozen)):
+        raise SmokeFailure("sharded: (a) the dropout masks did not move "
+                           "between steps: %s" % frozen)
+    # save_states, 2 steps, load_states, 2 steps: bit for bit
+    step._hp["lr"] = SHARD_LAMB["lr"]
+    step._build()
+    for _ in range(2):
+        step.step(*batch)
+    tmp = tempfile.mkdtemp(prefix="mxt_sh_")
+    try:
+        path = os.path.join(tmp, "states.npz")
+        ts = time.perf_counter()
+        step.save_states(path)
+        save_s = time.perf_counter() - ts
+        ref = [repr(float(step.step(*batch).asnumpy())) for _ in range(2)]
+        ref_digest = _shard_digest(step)
+        ts = time.perf_counter()
+        step.load_states(path)
+        load_s = time.perf_counter() - ts
+        got = [repr(float(step.step(*batch).asnumpy())) for _ in range(2)]
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = got == ref and _shard_digest(step) == ref_digest
+    print("[sharded] (a) save_states (%.0f MB, %.1f s), 2 steps, load_states "
+          "(%.1f s), 2 steps: losses %s against %s, parameters %s"
+          % (size / 1e6, save_s, load_s, got, ref,
+             "bit for bit" if same else "APART"))
+    if not same:
+        raise SmokeFailure("sharded: (a) the resumed steps are not bit for "
+                           "bit the uninterrupted ones")
+    del step
+    _free_cuda()
+    _shard_resnet(seed, card_line)
+    _shard_two(seed, card_line)
+    print("[sharded] phase 24 took %.1f s; %s" % (time.perf_counter() - t0,
+                                                 card_line))
+    return counts, per_step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11318,6 +12223,7 @@ def main(argv=None):
         serving_counts, replica_counts, serving_replayed = phase_serving(
             args.seed, card_line)
         dp_counts = phase_dp(args.seed, card_line)
+        sharded_counts, sharded_step = phase_sharded(args.seed, card_line)
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
@@ -11325,6 +12231,8 @@ def main(argv=None):
             r["launches_per_services_run"] = services_counts.get(k, 0)
             r["launches_per_serving_run"] = serving_counts.get(k, 0)
             r["launches_per_dp_run"] = dp_counts.get(k, 0)
+            r["launches_per_sharded_run"] = sharded_counts.get(k, 0)
+            r["launches_per_sharded_step"] = sharded_step.get(k, 0)
             r["replayed_per_serving_run"] = serving_replayed.get(k, 0)
             r["replayed_per_replica"] = {
                 rid: c.get(k, 0) for rid, c in sorted(replica_counts.items())}

@@ -41,7 +41,9 @@ twenty-second trains data-parallel through ``kvstore``: ``local``,
 ``dist_async``, ``p3store_dist`` and ``horovod`` across processes
 launched by ``python -m mxnet_tpu_torch.tools.launch`` (``dist``'s
 process group on NCCL or gloo), with ``commwatch``'s accounting of
-every reduce.
+every reduce. The twenty-third brings ``parallel``: meshes, the
+collectives and ``shard_map``, and the SPMD ``ShardedTrainStep`` (one
+captured program a step, global-batch BatchNorm, sharded parameters).
 
 Usage mirrors the reference::
 
@@ -123,6 +125,7 @@ from . import monitor
 from .monitor import Monitor
 from . import callback
 from . import dist
+from . import parallel
 from .interop import params_from_numpy
 
 # a raising guard, an engine op error or a watchdog writes a crash

@@ -25,13 +25,26 @@ chrome-trace events. :func:`report` aggregates them per (op, axis,
 dtype) and :func:`comm_totals` feeds the fleet view.
 
 The axes: ``kv`` for the in-process reduce across a process's contexts,
-``kv.dcn`` for the dist store's reduce across processes. The reference's
-other half (collectives traced inside compiled sharded programs,
-``traced_collective``, ``register_program``, ``program_watch``) comes
-with the sharded step (ROADMAP.md queue 1, item 11).
+``kv.dcn`` for the dist store's reduce across processes, and the mesh
+axes (``dp``, ``tp``, ``dcn+dp``, ...) for the collectives of
+:mod:`mxnet_tpu_torch.parallel`.
+
+The program half. The reference harvests the collectives of a compiled
+sharded program from its HLO. The port's sharded step runs its
+collectives itself (:mod:`mxnet_tpu_torch.parallel`), and each one calls
+:func:`traced_collective`: inside a :class:`program_watch` the records
+become that program's inventory (op, axis, dtype, bytes, participants),
+charged on each later run of the program; outside one they count once.
+:func:`register_program` stores an inventory and the program's FLOPs
+under a key (the step re-registers after ``telemetry.reset()``),
+:class:`program_watch` charges them per run, timing the run to its
+completion, and :func:`program_flops`, :func:`has_program` and
+:func:`program_execs` read them back. The reference's HLO parsers have no
+counterpart.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -40,8 +53,9 @@ from . import profiler
 from . import telemetry
 
 __all__ = ["enabled", "refresh", "record", "comm_span", "exposed_region",
-           "report", "report_key", "comm_totals", "reset",
-           "render_report", "wire_dtype_label", "BUS_FACTORS"]
+           "traced_collective", "register_program", "program_watch",
+           "program_execs", "report", "report_key", "comm_totals",
+           "reset", "render_report", "wire_dtype_label", "BUS_FACTORS"]
 
 # the telemetry gate object: one attribute load on the hot path
 _TSTATE = telemetry._STATE
@@ -232,6 +246,193 @@ class comm_span:
         return False
 
 
+# ---------------------------------------------------------------------------
+# the program half: collectives recorded by the sharded step's own runs
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def bound_collector(collector: Optional[list]):
+    """Inside the scope this thread's :func:`traced_collective` records go
+    to ``collector`` (a program's inventory being harvested; the SPMD
+    runtime binds its device threads to the watch of the thread that
+    started them)."""
+    prev = getattr(_TL, "collector", None)
+    _TL.collector = collector
+    try:
+        yield
+    finally:
+        _TL.collector = prev
+
+
+def current_collector() -> Optional[list]:
+    return getattr(_TL, "collector", None)
+
+
+def _payload_bytes(x) -> int:
+    """Bytes of a tensor, NDArray or numpy array (4 for a scalar)."""
+    if hasattr(x, "tensor"):
+        x = x.tensor()
+    if hasattr(x, "element_size"):
+        return int(x.numel() * x.element_size())
+    if hasattr(x, "nbytes"):
+        return int(x.nbytes)
+    return 4
+
+
+def traced_collective(op: str, axis, x, participants: int, count: int = 1,
+                      nbytes: Optional[int] = None,
+                      dtype: Optional[str] = None):
+    """Record one collective: inside a :class:`program_watch` it joins
+    that program's inventory (charged per run); otherwise it counts once.
+    ``nbytes`` overrides the payload of ``x`` (an all-gather's message
+    size is its total output); ``dtype`` labels a 1-byte wire payload."""
+    if not enabled():
+        return
+    try:
+        if nbytes is None:
+            nbytes = _payload_bytes(x)
+        rec = {"op": op, "axis": _axis_label(axis), "bytes": int(nbytes),
+               "participants": int(participants), "count": int(count),
+               "dtype": dtype}
+        collector = getattr(_TL, "collector", None)
+        if collector is not None:
+            collector.append(rec)
+        else:
+            record(op, rec["axis"], rec["bytes"], rec["participants"],
+                   count=rec["count"], dtype=dtype)
+    except Exception:
+        pass
+
+
+# program key -> {"label", "collectives": [rec], "flops", "execs"}
+_PROG_LOCK = threading.Lock()
+_PROG_INV: Dict[object, dict] = {}
+
+
+def register_program(key, label: str, compiled=None, mesh=None,
+                     flops: Optional[float] = None,
+                     collectives: Optional[List[dict]] = None):
+    """Register a program's collective inventory and FLOPs under ``key``:
+    a later :class:`program_watch` on the key charges both once per run.
+    ``compiled`` and ``mesh`` are the reference's arguments (its HLO
+    source) and are not read. Never raises."""
+    try:
+        if not enabled():
+            return
+        with _PROG_LOCK:
+            _PROG_INV[key] = {"label": label,
+                              "collectives": [dict(c) for c in
+                                              (collectives or [])],
+                              "flops": flops, "execs": 0,
+                              "fixed": collectives is not None}
+    except Exception:
+        pass
+
+
+def program_inventory(key) -> Optional[Tuple[List[dict], Optional[float]]]:
+    """``(collectives, flops)`` registered under ``key``, or None."""
+    with _PROG_LOCK:
+        inv = _PROG_INV.get(key)
+        if inv is None:
+            return None
+        return [dict(c) for c in inv["collectives"]], inv["flops"]
+
+
+class program_watch:
+    """Wrap one run of a program.
+
+    - A first run's :func:`traced_collective` records become the
+      program's inventory (keyed by ``key``), unless one was registered.
+    - Every exit charges the inventory: per-collective op and byte
+      counters, and the program-effective bandwidth (payload over the
+      run's wall time, a lower bound: the wall includes the compute
+      around the collectives); and the program's FLOPs into
+      ``mx_executed_flops_total`` (the MFU numerator). ``flops`` set on
+      the watch before it exits gives a program without FLOPs its
+      count. The caller makes the run complete inside the watch (a
+      synchronize on the card), so the wall is not its enqueue time.
+    """
+
+    __slots__ = ("key", "label", "exposed", "flops", "_t0", "_live",
+                 "_outer")
+
+    def __init__(self, key, label: Optional[str] = None,
+                 exposed: bool = False):
+        self.key = key
+        self.label = label or str(key)
+        self.exposed = bool(exposed)
+        self.flops = None
+
+    def __enter__(self):
+        self._live = enabled()
+        if not self._live:
+            return self
+        self._outer = getattr(_TL, "collector", None)
+        _TL.collector = []
+        self._t0 = time.perf_counter()
+        return self
+
+    @property
+    def collector(self) -> Optional[list]:
+        """The list this run's records go to (None when off)."""
+        return getattr(_TL, "collector", None) if self._live else None
+
+    def __exit__(self, exc_type, *exc):
+        if not self._live:
+            return False
+        try:
+            dt = time.perf_counter() - self._t0
+            traced = getattr(_TL, "collector", None) or []
+            _TL.collector = self._outer
+            if exc_type is not None:
+                return False
+            with _PROG_LOCK:
+                inv = _PROG_INV.get(self.key)
+                if inv is None:
+                    inv = _PROG_INV[self.key] = {
+                        "label": self.label, "collectives": [],
+                        "flops": None, "execs": 0, "fixed": False}
+                if traced and not inv["fixed"] and not inv["collectives"]:
+                    inv["collectives"] = [dict(c) for c in traced]
+                inv["fixed"] = True
+                if inv["flops"] is None and self.flops:
+                    inv["flops"] = float(self.flops)
+                inv["execs"] += 1
+                colls = list(inv["collectives"])
+                flops = inv["flops"]
+            total_bytes = sum(c["bytes"] * c["count"] for c in colls)
+            for c in colls:
+                secs = (dt * (c["bytes"] * c["count"]) / total_bytes
+                        if total_bytes and dt > 0 else None)
+                record(c["op"], c["axis"], c["bytes"], c["participants"],
+                       seconds=secs, exposed=self.exposed,
+                       count=c["count"], dtype=c.get("dtype"))
+            if flops:
+                telemetry.counter("mx_executed_flops_total").inc(flops)
+        except Exception:
+            pass
+        return False
+
+
+def program_flops(key) -> Optional[float]:
+    with _PROG_LOCK:
+        inv = _PROG_INV.get(key)
+        return inv["flops"] if inv else None
+
+
+def has_program(key) -> bool:
+    """Whether ``key`` has a registered inventory (a step re-registers
+    after ``telemetry.reset()`` cleared them)."""
+    with _PROG_LOCK:
+        return key in _PROG_INV
+
+
+def program_execs(key) -> int:
+    """Runs charged to ``key``'s inventory so far (0 for unknown keys)."""
+    with _PROG_LOCK:
+        inv = _PROG_INV.get(key)
+        return int(inv["execs"]) if inv else 0
+
+
 def report() -> List[dict]:
     """Per-(op, axis, dtype) rows from the registry: ops, bytes, bus
     bytes, measured seconds, mean algbw and busbw, exposed and
@@ -319,6 +520,7 @@ def render_report(rows: Optional[List[dict]] = None) -> str:
 
 
 def reset():
-    """Nothing of its own to drop: the series live in the telemetry
-    registry and clear with ``telemetry.reset()`` (the reference drops
-    its program inventories here)."""
+    """Drop the program inventories (the metric series live in the
+    telemetry registry and clear with ``telemetry.reset()``)."""
+    with _PROG_LOCK:
+        _PROG_INV.clear()

@@ -117,6 +117,12 @@ define("MXNET_LAYOUT_OPT", bool, True,
        "outputs leave contiguous NCHW, and a conv bias whose only consumer "
        "is a BatchNorm gets a gradient of exactly zero. Read when a call "
        "selects its graph, and part of the signature.")
+define("MXNET_SHARDED_AUTO_LAYOUT", bool, True,
+       "Accepted, and changes nothing on the card: the reference lets XLA "
+       "pick ShardedTrainStep's parameter layouts when every mesh device is "
+       "a TPU. The port's counterpart is the layout pass's hoisted weights "
+       "(parallel/sharded.py): a conv weight used only channels-last is "
+       "stored channels-last.")
 define("MXNET_CONV_S2D", bool, True,
        "Rewrite 7x7/s2/p3 convolutions over at most 4 channels (the "
        "ResNet stem) as 4x4 stride-1 convolutions of the 2x2 "

@@ -2,14 +2,14 @@
 ref: python/mxnet/gluon/contrib/nn/basic_layers.py :: SyncBatchNorm,
 HybridConcurrent, Identity).
 
-``SyncBatchNorm`` is ``BatchNorm`` on one device: the statistics of the
-batch the card holds. Statistics gathered across cards need the
-multi-card path (ROADMAP.md queue 1, item 11), so ``num_devices`` above
-1 raises.
+``SyncBatchNorm`` is ``BatchNorm``, as in the reference: outside a
+sharded step it normalizes over the batch its device holds; inside
+``parallel.ShardedTrainStep`` every BatchNorm, this one included, takes
+its statistics over the whole batch the step's replicas split
+(``ops/nn.py`` ``_BNTrainFn``).
 """
 from __future__ import annotations
 
-from ...base import MXNetError
 from ..block import HybridBlock
 from .. import nn as _nn
 
@@ -17,8 +17,9 @@ __all__ = ["SyncBatchNorm", "HybridConcurrent", "Concurrent", "Identity"]
 
 
 class SyncBatchNorm(_nn.BatchNorm):
-    """Cross-device batch normalization on one device (ref: contrib
-    SyncBatchNorm): ``BatchNorm`` over axis 1."""
+    """Cross-device batch normalization (ref: contrib SyncBatchNorm):
+    ``BatchNorm`` over axis 1, whose statistics span the replicas of a
+    sharded step; ``num_devices`` is kept and not read."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
@@ -26,11 +27,6 @@ class SyncBatchNorm(_nn.BatchNorm):
                  gamma_initializer="ones",
                  running_mean_initializer="zeros",
                  running_variance_initializer="ones", **kwargs):
-        if num_devices is not None and num_devices > 1:
-            raise MXNetError(
-                "SyncBatchNorm(num_devices=%d): statistics across cards "
-                "need the multi-card path (ROADMAP.md queue 1, item 11); "
-                "the port normalizes over one device" % num_devices)
         super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
                          center=center, scale=scale,
                          use_global_stats=use_global_stats,

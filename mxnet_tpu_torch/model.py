@@ -29,9 +29,11 @@ corrupt or missing file. ``states_blob`` is written beside it as
 (``max_keep``, ``MXNET_CKPT_KEEP``) prunes both. The ``ckpt_write`` fault
 site cuts the temp file to half and fails the write.
 
-What waits for later items raises: a ``symbol`` other than None and
-:func:`load_checkpoint`'s symbol (ROADMAP.md queue 1, item 16), a
-``sharding`` section (item 11).
+A ``sharding`` section rides the manifest entry
+(:func:`checkpoint_sharding`); building one (``reshard.sharding_manifest``)
+waits with ``parallel/reshard.py`` (ROADMAP.md queue 1, item 11). What
+waits for later items raises: a ``symbol`` other than None and
+:func:`load_checkpoint`'s symbol (item 16).
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ from .context import cpu
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_params",
            "load_latest_checkpoint", "wait_checkpoints", "checkpoint_entry",
-           "load_checkpoint_states", "BatchEndParam"]
+           "load_checkpoint_states", "checkpoint_sharding",
+           "BatchEndParam"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -140,7 +143,7 @@ def _write_manifest(prefix, man):
 
 
 # the reference's manifest version: v2 entries may carry a "states"
-# sidecar (and a "sharding" section, which the port does not write)
+# sidecar and a "sharding" section
 _MANIFEST_VERSION = 2
 
 
@@ -197,11 +200,12 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
     (keys ``arg:<name>``/``aux:<name>``, the reference's format) crash
     safely, with its manifest entry; ``states_blob`` (bytes) goes to
     ``<prefix>-<epoch>.states`` beside it. ``max_keep`` bounds the
-    retention window (default ``MXNET_CKPT_KEEP``; 0 keeps all)."""
+    retention window (default ``MXNET_CKPT_KEEP``; 0 keeps all).
+    ``sharding`` (the logical-sharding section, a JSON-able dict) rides
+    the manifest entry, as in the reference (:func:`checkpoint_sharding`
+    reads it back)."""
     if symbol is not None:
         raise _not_ported("save_checkpoint with a symbol", 16)
-    if sharding is not None:
-        raise _not_ported("save_checkpoint's sharding section", 11)
     named = {("arg:%s" % k): v for k, v in arg_params.items()}
     named.update({("aux:%s" % k): v for k, v in aux_params.items()})
     snap, events = _snapshot(named)
@@ -218,6 +222,8 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
         tmp = "%s.tmp.%d" % (param_name, os.getpid())
         stmp = "%s.tmp.%d" % (states_name, os.getpid())
         extra = {}
+        if sharding is not None:
+            extra["sharding"] = sharding
         try:
             with telemetry.span("checkpoint::write", "checkpoint",
                                 hist="mx_checkpoint_write_seconds"):
@@ -374,6 +380,13 @@ def checkpoint_entry(prefix, epoch):
         if isinstance(c, dict) and c.get("epoch") == epoch:
             return c
     return None
+
+
+def checkpoint_sharding(prefix, epoch):
+    """The logical-sharding section of one checkpoint's manifest entry,
+    or None (none written: a replicated layout of unknown topology)."""
+    entry = checkpoint_entry(prefix, epoch)
+    return entry.get("sharding") if entry else None
 
 
 def load_checkpoint_states(prefix, epoch):

@@ -289,6 +289,8 @@ def convolution(data, weight, bias=None, *, kernel, num_filter, stride=None,
     step = None if plan is None else \
         plan.conv(nsp, layout, num_group, has_bias, data.dtype)
     x = _to_nc(data, nhwc)
+    if step is not None:
+        plan.conv_weight(weight, step)
     if step is not None and step.nhwc:
         x = x.contiguous(memory_format=torch.channels_last)
         weight = weight.contiguous(memory_format=torch.channels_last)
@@ -416,10 +418,17 @@ class _BNTrainFn(torch.autograd.Function):
     backward (``_bn_train_fn``): statistics in one pass shifted by the
     moving mean, in f32 (f64 for f64 data, as MXNet's), ``out = x *
     scale + shift`` with the per-channel vectors rounded to x's dtype
-    first, and ``dx = a·dy + b_c·x + c_c``."""
+    first, and ``dx = a·dy + b_c·x + c_c``. With ``across``, the reducer of
+    a sharded step whose batch is split over several devices
+    (:func:`_batch_reducer`, held for the backward, which may run on
+    another thread), the statistics are the whole batch's: the sums of
+    the shifted data, of its squares and the counts are summed over the
+    step's batch axes, and so are dy's and dy*x's sums in the backward
+    for dx; dgamma and dbeta stay this replica's (the step sums the
+    gradients)."""
 
     @staticmethod
-    def forward(ctx, x, g, b, shift, ax, eps):
+    def forward(ctx, x, g, b, shift, ax, eps, across):
         red = tuple(i for i in range(x.dim()) if i != ax)
         bc = _bcast(ax, x.dim())
         acc = torch.promote_types(x.dtype, torch.float32)
@@ -428,6 +437,10 @@ class _BNTrainFn(torch.autograd.Function):
         n = x.numel() // max(x.shape[ax], 1)
         s1 = d.sum(dim=red)
         s2 = (d * d).sum(dim=red)
+        if across is not None:
+            c = s1.numel()
+            tot = across(torch.cat([s1, s2, d.new_full((1,), float(n))]))
+            s1, s2, n = tot[:c], tot[c:2 * c], tot[2 * c]
         dmean = s1 / n
         var = torch.clamp_min(s2 / n - dmean * dmean, 0.0)
         mean = dmean + sh
@@ -435,7 +448,7 @@ class _BNTrainFn(torch.autograd.Function):
         scale = inv * g.to(acc)
         out = _bn_apply(x, bc(scale), bc(b.to(acc) - mean * scale))
         ctx.save_for_backward(x, g, mean, inv)
-        ctx.ax, ctx.n = ax, n
+        ctx.ax, ctx.n, ctx.across = ax, n, across
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -452,13 +465,40 @@ class _BNTrainFn(torch.autograd.Function):
         # sum(dy * (x - mean)) = sum(dy*x) - mean * sum(dy)
         dy_xmu = dyx_sum - mean * dyf_sum
         dgamma = dy_xmu * inv
+        all_dy, all_dy_xmu = dyf_sum, dy_xmu
+        if ctx.across is not None:
+            c = dyf_sum.numel()
+            tot = ctx.across(torch.cat([dyf_sum, dyx_sum]))
+            all_dy = tot[:c]
+            all_dy_xmu = tot[c:] - mean * all_dy
         a = g.to(acc) * inv
-        b_c = -a * inv * inv * dy_xmu / n
-        c_c = -a * dyf_sum / n - b_c * mean
+        b_c = -a * inv * inv * all_dy_xmu / n
+        c_c = -a * all_dy / n - b_c * mean
         dx = (dy * bc(a).to(dy.dtype) + x * bc(b_c).to(x.dtype)
               + bc(c_c).to(x.dtype)).to(x.dtype)
         return (dx, dgamma.to(g.dtype), dyf_sum.to(g.dtype), None, None,
-                None)
+                None, None)
+
+
+# Where a training BatchNorm finds its cross-device reducer: a function
+# that returns None, or ``across(t)``, the sum of ``t`` over the devices of
+# the sharded step's batch that runs on this thread. The sharded step's
+# runtime registers it (``parallel/_spmd.py``,
+# :func:`set_batch_reducer_source`); this layer knows nothing of it.
+_BATCH_REDUCER_SOURCE = None
+
+
+def set_batch_reducer_source(source):
+    """Register ``source() -> None or across`` for :func:`_batch_reducer`."""
+    global _BATCH_REDUCER_SOURCE
+    _BATCH_REDUCER_SOURCE = source
+
+
+def _batch_reducer():
+    """The reducer of the sharded step's batch on this thread, when that
+    batch is split over more than one device, else None."""
+    src = _BATCH_REDUCER_SOURCE
+    return None if src is None else src()
 
 
 def _bn_apply(x, scale, shift):
@@ -483,14 +523,18 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *,
                output_mean_var=False, axis=1, cudnn_off=False, _train=False):
     """Batch normalization (ref: batch_norm.cc). Returns (out,
     new_moving_mean, new_moving_var); ``invoke`` writes the moving
-    statistics back into their inputs (FMutateInputs). The inference
+    statistics back into their inputs (FMutateInputs). Training inside a
+    sharded step whose batch is split over several devices, the
+    statistics are the whole batch's (:class:`_BNTrainFn` with the
+    step's reducer), as BatchNorm inside the reference's sharded program
+    sees them. The inference
     form rounds its output to the data's dtype, where the reference
     promotes a bf16 input to f32 (ROADMAP.md queue 3)."""
     ax = int(axis) % data.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _train and not use_global_stats:
         out, mean, var = _BNTrainFn.apply(data, g, beta, moving_mean.detach(),
-                                          ax, float(eps))
+                                          ax, float(eps), _batch_reducer())
         new_mean = moving_mean * momentum \
             + mean.to(moving_mean.dtype) * (1 - momentum)
         new_var = moving_var * momentum \

@@ -14,9 +14,15 @@ dropout kernels' counter hash, so a captured CUDA graph that draws seeds
 advances the counter on each replay and every replay gets new ones;
 ``seed()`` resets the counter in place, so captured graphs see the
 reset too. On the CPU the seeds come from the context's generator.
+
+:func:`stream` overrides both on the calling thread: inside it, draws
+on a context of the stream's device type come from the stream's own
+generator and counter (a sharded step's replica carries its own,
+``parallel/sharded.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional
 
@@ -24,7 +30,7 @@ import torch
 
 from .context import Context, current_context
 
-__all__ = ["seed", "generator", "seeds", "uniform", "normal", "randint",
+__all__ = ["seed", "generator", "seeds", "stream", "uniform", "normal", "randint",
            "randn", "exponential", "poisson", "gamma", "shuffle",
            "multinomial"]
 
@@ -66,10 +72,37 @@ def seed(seed_state: int, ctx: Optional[Context] = None):
                 counter.fill_(_base(c))
 
 
+_OVR = threading.local()
+
+
+@contextlib.contextmanager
+def stream(gen: torch.Generator, counter: Optional[torch.Tensor] = None):
+    """Inside the scope, on this thread, a context of ``gen``'s device
+    type draws from ``gen`` (and, on a card, its seeds from ``counter``,
+    an int64 tensor of one element advanced in place)."""
+    prev = getattr(_OVR, "src", None)
+    _OVR.src = (gen, counter)
+    try:
+        yield
+    finally:
+        _OVR.src = prev
+
+
+def _override(ctx: Context):
+    src = getattr(_OVR, "src", None)
+    if src is None:
+        return None
+    kind = "cuda" if ctx.device_type == "gpu" else "cpu"
+    return src if src[0].device.type == kind else None
+
+
 def generator(ctx: Optional[Context] = None) -> torch.Generator:
     """The generator of ``ctx`` (created from the current seed on first
     use; draws advance it)."""
     ctx = Context(ctx or current_context())
+    src = _override(ctx)
+    if src is not None:
+        return src[0]
     with _lock:
         g = _gens.get(ctx)
         if g is None:
@@ -91,8 +124,9 @@ def seeds(n: int, ctx: Optional[Context] = None) -> torch.Tensor:
                              generator=generator(ctx), dtype=torch.int32,
                              device=dev)
     from .ops.cuda_dropout import hash_bits
+    src = _override(ctx)
     with _lock:
-        counter = _counters.get(ctx)
+        counter = src[1] if src is not None else _counters.get(ctx)
         if counter is None:
             counter = torch.full((1,), _base(ctx), dtype=torch.int64,
                                  device=dev)

@@ -27,10 +27,15 @@ structured Dropout's ``axes`` and PReLU's gamma keep their meaning,
 Pooling follows its input, and the reference's ``_FOLLOW`` and ``_JOIN``
 ops keep the format torch gives them. A grouped convolution takes its
 input as it comes. Every output of the call leaves contiguous NCHW.
-Parameter storage is not touched: the reference's CachedOp path keeps
-its weight transposes inside the graph because the Trainer owns the
-parameters (``_hoist_weight_transposes`` belongs to ``ShardedTrainStep``,
-which the port does not have yet).
+Parameter storage is not touched on the CachedOp path: the reference
+keeps its weight transposes inside that graph because the Trainer owns
+the parameters. The sharded step owns its parameters, and there the
+reference's ``_hoist_weight_transposes`` has its counterpart: a plan
+tracks the tensors a step feeds as parameters (:meth:`LayoutPlan.track`),
+and a parameter whose every use is a convolution that ran channels-last
+(:meth:`LayoutPlan.hoistable`) is stored channels-last by the step
+(``parallel/sharded.py``), so the per-step weight conversion goes
+(:attr:`LayoutPlan.weight_conversions` counts those that remain).
 
 :func:`elide_conv_bias_into_bn` — a convolution's bias whose output has
 exactly one consumer, a BatchNorm with ``axis == 1`` and
@@ -110,6 +115,10 @@ class LayoutPlan:
         self.elide = False
         self.convs: List[ConvStep] = []
         self._watch = {}      # id(conv output) -> (step, output)
+        # id(tracked tensor) -> (tensor, [consumer op names], [nhwc of
+        # each convolution that took it as its weight])
+        self._tracked = {}
+        self.weight_conversions = 0
 
     def rows(self) -> List[tuple]:
         """``(nhwc, bias_elided)`` of each conv call, in order."""
@@ -131,9 +140,37 @@ class LayoutPlan:
         if step.eligible:
             self._watch[id(out)] = (step, out)
 
+    def track(self, t: torch.Tensor):
+        """Note every op that takes ``t`` (a sharded step's parameter)."""
+        self._tracked[id(t)] = (t, [], [])
+
+    def conv_weight(self, weight: torch.Tensor, step: ConvStep):
+        """A convolution took ``weight``: whether it ran channels-last,
+        and a conversion counted where the weight was not stored so."""
+        hit = self._tracked.get(id(weight))
+        if hit is not None and hit[0] is weight:
+            hit[2].append(step.nhwc)
+        if step.nhwc and not weight.is_contiguous(
+                memory_format=torch.channels_last):
+            self.weight_conversions += 1
+
+    def hoistable(self, t: torch.Tensor) -> bool:
+        """Whether every use of the tracked ``t`` was a convolution that
+        ran channels-last."""
+        hit = self._tracked.get(id(t))
+        if hit is None or hit[0] is not t or not hit[1]:
+            return False
+        return all(n == "Convolution" for n in hit[1]) and \
+            len(hit[2]) == len(hit[1]) and all(hit[2])
+
     def consumed(self, op_name: str, attrs: dict, tensors):
         """A registry op took ``tensors``: note it as a consumer of each
-        watched conv output among them."""
+        watched conv output and tracked tensor among them."""
+        if self._tracked:
+            for t in tensors:
+                hit = self._tracked.get(id(t))
+                if hit is not None and hit[0] is t:
+                    hit[1].append(op_name)
         if not self._watch:
             return
         for t in tensors:

@@ -11,6 +11,8 @@ version differ only in the order of f32 sums; for a sum over rows
 (dgamma, dbeta, db) the absolute part is 1e-5 of the largest sum; bf16
 and f16 within 1e-2 (abs + rel) or one ulp of the output.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -2855,3 +2857,86 @@ def test_dist_sync_two_ranks_sharing_the_card_on_gloo(card):
                                           else ["cuda:0", "cuda:0"])
     assert all(r["sum_err"] == 0.0 for r in res)
     assert res[0]["digest"] == res[1]["digest"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded step (parallel/sharded.py): one captured program a step
+# ---------------------------------------------------------------------------
+def _sharded_mlp(dropout=0.0, **kw):
+    """A two-layer MLP (a Dropout between) trained by ShardedTrainStep on
+    dp=1 over gpu(0), LAMB in bf16; its step and a batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import (MeshConfig, P, ShardedTrainStep,
+                                          make_mesh)
+    nn = mx.gluon.nn
+    mx.random.seed(0)
+    net = nn.HybridSequential(prefix="shc_")
+    net.add(nn.Dense(256, activation="relu", in_units=128, prefix="shc0_"))
+    if dropout:
+        net.add(nn.Dropout(dropout))
+    net.add(nn.Dense(16, in_units=256, prefix="shc1_"))
+    net.initialize(ctx=mx.gpu(0))
+    opts = dict(optimizer="lamb", lr=1e-3, dtype="bfloat16",
+                data_specs=[P(), P()], seed=3)
+    opts.update(kw)
+    step = ShardedTrainStep(net, mx.gluon.loss.L2Loss(),
+                            make_mesh(MeshConfig(dp=1), devices=[mx.gpu(0)]),
+                            **opts)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(64, 128, generator=g, device="cuda")
+    y = torch.randn(64, 16, generator=g, device="cuda")
+    return step, (mx.nd.NDArray(x), mx.nd.NDArray(y))
+
+
+def _sharded_bits(step):
+    return {k: v.tensor().view(torch.int32).clone()
+            for k, v in step.params.items()}
+
+
+def test_sharded_step_captured_equals_eager(card):
+    """Four steps captured (the first eager, the second the capture)
+    and four eager (``cached_op.eager()``): losses and masters bit for
+    bit; the step records its form."""
+    from mxnet_tpu_torch import cached_op
+    runs = []
+    for eager in (False, True):
+        step, batch = _sharded_mlp()
+        scope = cached_op.eager() if eager else contextlib.nullcontext()
+        with scope:
+            losses = [step.step(*batch).tensor().item() for _ in range(4)]
+        runs.append((losses, _sharded_bits(step), step.form))
+    assert runs[0][2] == "captured" and runs[1][2] == "eager"
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[1][1].items():
+        assert torch.equal(runs[0][1][k], v), k
+
+
+def test_sharded_step_dropout_draws_anew_in_replays(card):
+    step, batch = _sharded_mlp(dropout=0.5, lr=0.0)
+    losses = [step.step(*batch).tensor().item() for _ in range(4)]
+    assert step.form == "captured" and len(set(losses)) == 4
+
+
+def test_sharded_step_split_update_equals_fused(card):
+    a, batch = _sharded_mlp()
+    b, _ = _sharded_mlp(split_update=True)
+    la = [a.step(*batch).tensor().item() for _ in range(3)]
+    lb = [b.step(*batch).tensor().item() for _ in range(3)]
+    assert b.form == "split" and la == lb
+    for k, v in _sharded_bits(a).items():
+        assert torch.equal(_sharded_bits(b)[k], v), k
+
+
+def test_sharded_step_resumes_bit_for_bit_on_the_card(card, tmp_path):
+    step, batch = _sharded_mlp(dropout=0.3)
+    for _ in range(3):
+        step.step(*batch)
+    path = str(tmp_path / "st.npz")
+    step.save_states(path)
+    ref = [step.step(*batch).tensor().item() for _ in range(2)]
+    bits = _sharded_bits(step)
+    step.load_states(path)
+    got = [step.step(*batch).tensor().item() for _ in range(2)]
+    assert got == ref
+    for k, v in bits.items():
+        assert torch.equal(_sharded_bits(step)[k], v), k

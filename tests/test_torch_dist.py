@@ -38,6 +38,11 @@ def launch(nworkers, command, env=None, cpu_devices=2, timeout=60):
     process of that session is killed and the test fails."""
     full = dict(os.environ)
     full.pop("MXNET_FAULT_INJECT", None)
+    # a reference test that fails between setting MXNET_ZERO* and its
+    # cleanup leaves them in this worker's environment: the ranks train
+    # without ZeRO
+    for var in [v for v in full if v.startswith("MXNET_ZERO")]:
+        del full[var]
     # the workers' arrays are tiny: one thread each keeps them off the
     # cores of the tests running beside them
     full["OMP_NUM_THREADS"] = "1"

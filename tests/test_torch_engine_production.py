@@ -14,6 +14,7 @@ Values: f32 products of small integers, exact in both packages
 (compared with ``assert_array_equal``). Timings are bounds with wide
 margins: a 0.4 s callback must leave the call in under 0.2 s.
 """
+import threading
 import time
 
 import numpy as np
@@ -27,6 +28,9 @@ import mxnet_tpu_torch.operator as port_op
 
 LIBS = ((mx, ref_op, mx.cpu()), (pt, port_op, pt.cpu()))
 SIDE = []     # what the "side_effect" ops saw, in order
+# "held_square" waits for this event: the test sets it once it has seen
+# the call return with the op still pending
+HOLD = threading.Event()
 
 
 def _register(op_mod):
@@ -41,6 +45,19 @@ def _register(op_mod):
 
         def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
             self.assign(in_grad[0], req[0], out_grad[0] * 2 * in_data[0])
+
+    class HeldSquare(SlowSquare):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            assert HOLD.wait(30.0), "the test never released the op"
+            self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+    @op_mod.register("eng_held_square")
+    class HeldSquareProp(op_mod.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=True)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return HeldSquare(0.0)
 
     @op_mod.register("eng_slow_square")
     class SlowSquareProp(op_mod.CustomOpProp):
@@ -228,12 +245,14 @@ def test_custom_op_gated_input_mutation_ordering():
 # ---------------------------------------------------------------------------
 class _Hybrid(pt.gluon.HybridBlock):
     def hybrid_forward(self, F, x):
-        return F.Custom(x, op_type="eng_slow_square", delay="0.0")
+        return F.Custom(x, op_type="eng_held_square")
 
 
 def test_engine_path_equals_inline_path():
     """The gated call (returned at once) and the inline one (inside a
-    hybridized call) give the same values and gradients bit for bit."""
+    hybridized call) give the same values and gradients bit for bit.
+    The op waits for ``HOLD``: the gated call is seen pending before the
+    op may run, and the inline one runs with ``HOLD`` already set."""
     rng = np.random.RandomState(0)
     x = rng.randn(4, 5).astype(np.float32)
     runs = []
@@ -241,11 +260,15 @@ def test_engine_path_equals_inline_path():
         blk = _Hybrid()
         if hybrid:
             blk.hybridize()
+            HOLD.set()
+        else:
+            HOLD.clear()
         xa = pt.nd.array(x, ctx=pt.cpu())
         xa.attach_grad()
         with pt.autograd.record():
             y = blk(xa)
             gated = y._pending is not None
+            HOLD.set()
             loss = (y * y).sum()
         loss.backward()
         assert gated != hybrid

@@ -222,11 +222,14 @@ def test_snapshot_holds_the_step_it_was_taken_at(tmp_path):
 
 
 def test_symbol_and_sharding_wait_for_their_items(tmp_path):
+    """The symbol still waits for item 16; the sharding section is
+    written (reshard.py, which makes one, waits for item 11)."""
     with pytest.raises(NotImplementedError, match="item 16"):
         pt.model.save_checkpoint(str(tmp_path / "r"), 1, object(), {}, {})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.model.save_checkpoint(str(tmp_path / "r"), 1, None, {}, {},
-                                 sharding={"x": 1})
+    pt.model.save_checkpoint(str(tmp_path / "r"), 1, None, {}, {},
+                             sharding={"x": 1})
+    pt.model.wait_checkpoints()
+    assert pt.model.checkpoint_sharding(str(tmp_path / "r"), 1) == {"x": 1}
     with pytest.raises(NotImplementedError, match="item 16"):
         pt.model.load_checkpoint(str(tmp_path / "r"), 1)
     assert pt.model.BatchEndParam._fields == mx.model.BatchEndParam._fields
@@ -245,3 +248,26 @@ def test_checkpoint_write_span_and_engine_op(tmp_path):
     assert snap["histograms"]["mx_checkpoint_write_seconds"]["count"] == 1
     assert snap["counters"][
         'mx_engine_ops_total{label="checkpoint_write"}'] == 1
+
+
+def test_save_checkpoint_sharding_section_as_the_reference(tmp_path):
+    """The same section in both packages' v2 manifest entries, and
+    ``checkpoint_sharding`` reads the same back; none written reads
+    None."""
+    section = {"version": 1, "mesh": {"dp": 4, "tp": 2},
+               "params": {"dense0_weight": ["tp", None],
+                          "dense0_bias": [None]}}
+    entries = []
+    for lib in (mx, pt):
+        prefix = str(tmp_path / lib.__name__)
+        arg = {"w": lib.nd.array(np.arange(6, dtype=np.float32), **(
+            {"ctx": pt.cpu()} if lib is pt else {}))}
+        lib.model.save_checkpoint(prefix, 3, None, arg, {}, sharding=section)
+        lib.model.save_checkpoint(prefix, 4, None, arg, {})
+        lib.model.wait_checkpoints()
+        assert lib.model.checkpoint_sharding(prefix, 3) == section
+        assert lib.model.checkpoint_sharding(prefix, 4) is None
+        entries.append({k: v for k, v in
+                        lib.model.checkpoint_entry(prefix, 3).items()
+                        if k not in ("time", "file")})
+    assert entries[0] == entries[1]

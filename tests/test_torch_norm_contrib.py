@@ -207,7 +207,8 @@ def test_hybrid_concurrent_and_identity(hybridize):
 
 def test_sync_batch_norm_is_batch_norm_on_one_device():
     """Training mode: output, gradients and moving statistics as the
-    reference's SyncBatchNorm; more than one device raises."""
+    reference's SyncBatchNorm; with more devices, outside a sharded
+    step, it is the same BatchNorm."""
     x = _rs(9).randn(4, 3, 5, 5).astype(np.float32) * 3 + 1
     res = []
     for lib, ctx in LIBS:
@@ -225,8 +226,19 @@ def test_sync_batch_norm_is_batch_norm_on_one_device():
                     bn.running_var.data().asnumpy()])
     for p, r in zip(res[1], res[0]):
         np.testing.assert_allclose(p, r, rtol=1e-4, atol=1e-4)
-    with pytest.raises(pt.MXNetError, match="item 11"):
-        pt.gluon.contrib.nn.SyncBatchNorm(num_devices=4)
+    bn4 = pt.gluon.contrib.nn.SyncBatchNorm(in_channels=3, momentum=0.8,
+                                           num_devices=4, prefix="sbn4_")
+    bn4.initialize(ctx=pt.cpu())
+    xa = pt.nd.array(x, ctx=pt.cpu())
+    xa.attach_grad()
+    with pt.autograd.record():
+        y = bn4(xa)
+        loss = (y * y * y).sum()
+    loss.backward()
+    for p, r in zip([y.asnumpy(), xa.grad.asnumpy(),
+                     bn4.running_mean.data().asnumpy(),
+                     bn4.running_var.data().asnumpy()], res[1]):
+        np.testing.assert_array_equal(p, r)
 
 
 # ---------------------------------------------------------------------------

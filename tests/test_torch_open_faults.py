@@ -132,9 +132,6 @@ _EXCEPTIONS = {
          "tpu": "TPU-specific (the port has gpu)",
          "num_tpus": "TPU-specific (the port has num_gpus)"},
     ".autograd": {"get_symbol": "item 16 (symbol)"},
-    ".commwatch": {n: "item 11 (the sharded step's collectives)" for n in (
-        "traced_collective", "register_program", "program_watch",
-        "program_execs")},
     ".compilewatch": {"WatchedJit": "JAX-specific (the port watches "
                                     "capture sites, Watch)",
                       "watched_jit": "JAX-specific"},
