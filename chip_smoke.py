@@ -11283,8 +11283,19 @@ SHARD_FAULT = 1.02
 # 0.671-0.690.
 SHARD_TOL = {"bert": 0.168, "bert_grads": 0.0247,
              "resnet": {"uniform": {"loss": 0.0, "update": 0.155},
-                        "normal": {"loss": 0.00204, "update": 1.32}},
+                        "normal": {"loss": 0.00204, "update": 1.32},
+                        "trained": {"loss": 0.000228, "update": 0.000584}},
              "two": 0.0691}
+# (b) on phase 11's normal batch from weights past their initialization:
+# SHARD_TRAINED_STEPS SGD steps with the pass off on batches of their own,
+# then one update with the pass on against off. On an H100 80GB HBM3 at
+# 700 W (shard_trained_readings) the loss read 7.2e-5, 3.8e-5, 1.1e-4,
+# 3.7e-5, 3.8e-5 and the update 3.5e-5, 2.9e-4, 1.5e-4, 2.7e-4, 6.6e-6
+# at seeds 0-4 (the witness, the batch reversed, 1.8e-7 to 4.2e-6); each
+# limit ("trained") is twice the largest. At the initialization the same
+# comparison read up to 0.660 (the first update amplifies any rounding
+# change of the forward there); past it the conditioning is gone
+SHARD_TRAINED_STEPS = 20
 SHARD_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
                  "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
                  "bias_residual_fwd", "dropout")
@@ -11760,6 +11771,7 @@ def _shard_resnet(seed, card_line, readings=False):
             raise SmokeFailure("sharded: (b) %s: the update %.3g from the "
                                "pass-off run (limit %g)" % (
                                    kind, rd["pass"], lim["update"]))
+    _shard_trained(seed, card_line)
     conversions = _hoist_pair(seed, card_line)
     batch = _shard_resnet_batch(seed, "uniform")
     step = first
@@ -11791,6 +11803,83 @@ def _shard_resnet(seed, card_line, readings=False):
              RESNET_BATCH / statistics.median(times) * 1e3, port or "none",
              card_line))
     return out
+
+
+def _resnet_trained_pass(seed, tmp):
+    """(b) from weights past their initialization: SHARD_TRAINED_STEPS
+    SGD steps with the pass off on normal batches of their own, saved;
+    then one update on phase 11's normal batch from that state with the
+    pass on, off, and off on the batch reversed (the witness). Returns
+    the readings."""
+    import torch
+    import mxnet_tpu_torch as mx
+    net, step = _resnet_shard(seed, layout=False)
+    for s in range(SHARD_TRAINED_STEPS):
+        step.step(*_shard_resnet_batch(seed * 1000 + 500 + s, "normal"))
+    path = os.path.join(tmp, "trained.npz")
+    step.save_states(path)
+    biases = _conv_biases(net)
+    del net, step
+    _free_cuda()
+    x, y = _shard_resnet_batch(seed, "normal")
+    flip = [mx.nd.NDArray(torch.flip(a.tensor(), [0])) for a in (x, y)]
+    snaps, loss, base = {}, {}, None
+    for name, layout, b in (("on", True, (x, y)), ("off", False, (x, y)),
+                            ("order", False, flip)):
+        net, step = _resnet_shard(seed, layout=layout)
+        step.load_states(path)
+        b0 = _resnet_masters(step)
+        loss[name] = float(step.step(*b).asnumpy())
+        snaps[name] = _resnet_masters(step)
+        if base is None:
+            base = b0
+        elif _dp_digest(b0) != _dp_digest(base):
+            raise SmokeFailure("sharded: (b) the trained %s run started from "
+                               "other weights" % name)
+        del net, step, b0
+        _free_cuda()
+    return {"loss": abs(loss["on"] - loss["off"]) / abs(loss["off"]),
+            "pass": _dp_rel(snaps["on"], base, snaps["off"], skip=biases),
+            "order": _dp_rel(snaps["order"], base, snaps["off"],
+                             skip=biases),
+            "losses": [loss["on"], loss["off"], loss["order"]]}
+
+
+def _shard_trained(seed, card_line, readings=False):
+    """(b)'s trained comparison: prints it, holds it to its limits."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mxt_rt_")
+    try:
+        rd = _resnet_trained_pass(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lim = SHARD_TOL["resnet"]["trained"]
+    print("[sharded] (b) normal batch from weights past their "
+          "initialization (%d SGD steps with the pass off), one update "
+          "with the pass on against off: losses %s (on, off, off on the "
+          "reversed batch), relative difference %.3g (limit %s); relative L2 "
+          "of the change %.4g (limit %s), of the witness %.4g; %s"
+          % (SHARD_TRAINED_STEPS, rd["losses"], rd["loss"], lim["loss"],
+             rd["pass"], lim["update"], rd["order"], card_line))
+    if readings:
+        return rd
+    if not rd["loss"] <= lim["loss"]:
+        raise SmokeFailure("sharded: (b) trained: the loss %.3g from the "
+                           "pass-off run (limit %g)" % (rd["loss"],
+                                                        lim["loss"]))
+    if not rd["pass"] <= lim["update"]:
+        raise SmokeFailure("sharded: (b) trained: the update %.3g from the "
+                           "pass-off run (limit %g)" % (rd["pass"],
+                                                        lim["update"]))
+    return rd
+
+
+def shard_trained_readings(seeds, card_line):
+    """The trained comparison at each seed (the readings behind
+    SHARD_TOL["resnet"]["trained"])."""
+    return {seed: _shard_trained(seed, card_line, readings=True)
+            for seed in seeds}
 
 
 def shard_worker():
@@ -12106,11 +12195,663 @@ def phase_sharded(seed, card_line):
                                                  card_line))
     return counts, per_step
 
+# ---------------------------------------------------------------------------
+# 25. ZeRO weight-update sharding, the quantized wire and elastic
+# resharding: BERT-base trained by a Trainer over a card replica and a host
+# replica ([gpu(0), cpu(0)]: a machine with one card holds only one, and ZeRO
+# needs two distinct replica devices in one process)
+# ---------------------------------------------------------------------------
+ZERO_ROWS = 1              # rows a replica: 1 x seq 128
+ZERO_STEPS = 2             # steps after the first
+ZERO_LAYERS = 12
+ZERO_ADAM = {"learning_rate": 1e-4}
+# (a) ZeRO against the same run with MXNET_ZERO=0, relative L2 of the
+# parameters' change over the steps (and of the Adam moments): the two
+# paths sum the replicas' gradients in the same order on the card, but the
+# replicated path updates the card replica on the card where ZeRO updates
+# half of every parameter on the host, whose roundings of Adam's square
+# root and quotient differ in the last bit. On an H100 80GB HBM3 at 700 W
+# the change read 5.03e-08, 4.95e-08, 4.97e-08, 5.12e-08, 5.16e-08 and the
+# moments 8.9e-14, 1.5e-11, 0, 0, 1.6e-11 at seeds 0-4 (zero_readings);
+# the limit is twice the largest. The control (the reduce-scatter's sum
+# planted away: each fragment updated from its owner's own half of the
+# batch) read 0.808-0.882
+ZERO_TOL = 1.04e-07
+ZERO_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+                "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+                "bias_residual_fwd")
+ZERO_QUANT_BLOCK = 256
+ZERO_QUANT_STEPS = 1       # (b): the identity's steps
+# (c) 2 layers at full width, SGD momentum, ZeRO over 4 contexts, a fit
+# of 2 epochs of 2 batches; the slice_preempt site fires at step 3
+ELASTIC_LAYERS = 2
+ELASTIC_ROWS = 1           # rows a context before the move (4 a batch)
+ELASTIC_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+ELASTIC_BLOCK = 1 << 20    # MXNET_ELASTIC_BLOCK: a move of many blocks
+ELASTIC_SLACK = 1 << 20    # bytes beside the bound (the transition check)
+
+
+def _zero_ctxs():
+    import mxnet_tpu_torch as mx
+    return [mx.gpu(0) if DEV == "cuda" else mx.cpu(1), mx.cpu(0)]
+
+
+def _zero_parts(mx, seed, step, ctxs, rows):
+    data, labels = _dp_batch(seed, step)
+    data, labels = data[:rows * len(ctxs)], labels[:rows * len(ctxs)]
+    return [(mx.nd.array(data[i * rows:(i + 1) * rows], dtype="int32",
+                         ctx=c),
+             mx.nd.array(labels[i * rows:(i + 1) * rows], ctx=c))
+            for i, c in enumerate(ctxs)]
+
+
+def _zero_step(mx, net, trainer, seed, s, ctxs, rows=ZERO_ROWS):
+    """One step of ``rows`` a replica (the global batch's first rows);
+    returns its wall ms, the card synchronised around it (the host
+    replica runs in the step, so the host clock)."""
+    import torch
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    parts = _zero_parts(mx, seed, s, ctxs, rows)
+    mx.random.seed(seed + 100 + s)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        losses = [loss_fn(net(d), lab).sum() for d, lab in parts]
+    for loss in losses:
+        loss.backward()
+    trainer.step(rows * len(ctxs))
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _zero_trainer(mx, seed, zero, layers=ZERO_LAYERS, ctxs=None):
+    ctxs = ctxs or _zero_ctxs()
+    with _env_flag("MXNET_ZERO", "1" if zero else "0"):
+        net = _dp_model(seed, layers, 0.0, ctx=ctxs)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   dict(ZERO_ADAM), kvstore="device")
+    return net, trainer, ctxs
+
+
+def _zero_snap(net, trainer, ctx):
+    """The parameters on ``ctx`` and the Adam moments, f32 on the card,
+    by position (the moments gathered from a ZeRO engine's fragments)."""
+    from mxnet_tpu_torch.gluon import zero as zero_mod
+    dev = _zero_ctxs()[0].torch_device
+    out = {"p%04d" % i: p.data(ctx).tensor().detach().float().to(dev)
+           for i, p in enumerate(net.collect_params().values())}
+    if isinstance(trainer._zero, zero_mod.ZeroEngine):
+        states = trainer._zero.gather_states()
+    else:
+        states = trainer._updaters[0].states
+    for i, st in sorted(states.items()):
+        for j, s in enumerate(st):
+            out["mom:%d:%04d" % (j, i)] = \
+                s.tensor().detach().float().to(dev)
+    return out
+
+
+def _rel_moments(a, b):
+    num = den = 0.0
+    for k, v in b.items():
+        if not k.startswith("mom:"):
+            continue
+        num += float(((a[k] - v).double() ** 2).sum())
+        den += float((v.double() ** 2).sum())
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def _zero_main(mx, seed, card_line, readings=False):
+    """(a): the ZeRO Trainer and the replicated one from the same
+    weights, a step each in turn; returns (the readings, the card
+    replica's launches in one ZeRO step)."""
+    import torch
+    from mxnet_tpu_torch.gluon import zero as zero_mod
+    from mxnet_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    netz, trz, ctxs = _zero_trainer(mx, seed, True)
+    netr, trr, _ = _zero_trainer(mx, seed, False)
+    build_s = time.perf_counter() - t0
+    base = _dp_snapshot(netz)
+    if _dp_digest(base) != _dp_digest(_dp_snapshot(netr)):
+        raise SmokeFailure("zero: (a) the two runs began apart")
+    mx.telemetry.reset()
+    mx.commwatch.reset()
+    times = {"zero": [], "replicated": []}
+    counts, step_counts = {}, {}
+    for s in range(1 + ZERO_STEPS):
+        cuda_build.reset_launch_counts()
+        with _env_flag("MXNET_ZERO", "1"):
+            times["zero"].append(_zero_step(mx, netz, trz, seed, s, ctxs))
+        step_counts = {k: v for k, v in cuda_build.launch_counts().items()
+                       if v}
+        for k, v in step_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        if not isinstance(trz._zero, zero_mod.ZeroEngine):
+            raise SmokeFailure("zero: (a) the Trainer did not shard: %r"
+                               % (trz._zero,))
+        for p in netz.collect_params().values():
+            a, b = (p.data(c).tensor() for c in ctxs)
+            if not torch.equal(_bits(a.cpu()), _bits(b.cpu())):
+                raise SmokeFailure("zero: (a) the replicas of %s are apart "
+                                   "after step %d" % (p.name, s))
+        with _env_flag("MXNET_ZERO", "0"):
+            times["replicated"].append(_zero_step(mx, netr, trr, seed, s,
+                                                  ctxs))
+    if trr._zero is not False or trr._kvstore is None or \
+            trr._kvstore.type != "device":
+        raise SmokeFailure("zero: (a) the replicated run was not the "
+                           "device kvstore's")
+    sz, sr = _zero_snap(netz, trz, ctxs[0]), _zero_snap(netr, trr, ctxs[0])
+    rel = _dp_rel(sz, base, sr)
+    rel_m = _rel_moments(sz, sr)
+    bz, br = trz.optimizer_state_bytes(), trr.optimizer_state_bytes()
+    eng = trz._zero
+    per_ctx = eng.state_bytes_per_replica()
+    missing = [k for k in ZERO_KERNELS if not counts.get(k)]
+    print("[zero] (a) bert_12_768_12 + dense MLM head, f32 parameters under "
+          "bf16 AMP, dropout 0, Adam lr %g, MXNET_ZERO=1 over %s, %d x %d a "
+          "replica, %d steps: engine %s, %d fragments in %d group(s); the "
+          "replicas bit for bit after every step; against MXNET_ZERO=0 (the "
+          "device kvstore) from the same weights: relative L2 of the change "
+          "%.3g, of the Adam moments %.3g (limit %g); optimizer state %d "
+          "bytes (%d a context) against %d replicated (ratio %.4f); built in "
+          "%.1f s"
+          % (ZERO_ADAM["learning_rate"], [str(c) for c in ctxs], ZERO_ROWS,
+             TRAIN_SEQ, 1 + ZERO_STEPS, type(eng).__name__, len(eng._items),
+             len(eng._groups), rel, rel_m, ZERO_TOL, bz, per_ctx, br,
+             bz / br, build_s))
+    print("[zero] (a) ms a step, in turns (median of the %d after the "
+          "first; host clock, the card synchronised): ZeRO %.1f, replicated "
+          "%.1f; the card replica's launches in one ZeRO step %s, over the "
+          "run %s; %s"
+          % (ZERO_STEPS, statistics.median(times["zero"][1:]),
+             statistics.median(times["replicated"][1:]), step_counts,
+             counts, card_line))
+    out = {"rel": rel, "rel_moments": rel_m, "ratio": bz / br,
+           "zero_ms": statistics.median(times["zero"][1:]),
+           "replicated_ms": statistics.median(times["replicated"][1:]),
+           "wire": _wire_bytes()}
+    del sr
+    _free_cuda()
+    # the control: the reduce-scatter's sum planted away
+    from mxnet_tpu_torch.parallel import collectives as coll
+    real = coll.hierarchical_reduce_scatter
+
+    def local(x, ici_axis="dp", dcn_axis=None, scatter_axis=0):
+        n = coll.axis_size(ici_axis)
+        k = x.shape[scatter_axis] // n
+        return x.narrow(scatter_axis, coll._axis_index(ici_axis) * k,
+                        k).clone()
+    coll.hierarchical_reduce_scatter = local
+    try:
+        netc, trc, _ = _zero_trainer(mx, seed, True)
+        with _env_flag("MXNET_ZERO", "1"):
+            for s in range(1 + ZERO_STEPS):
+                _zero_step(mx, netc, trc, seed, s, ctxs)
+    finally:
+        coll.hierarchical_reduce_scatter = real
+    sc = _zero_snap(netc, trc, ctxs[0])
+    out["control"] = _dp_rel(sc, base, sz)
+    print("[zero] (a) control, the reduce-scatter's sum planted away (each "
+          "fragment updated from its owner's half of the batch): relative "
+          "L2 of the change %.3g from the ZeRO run (must exceed %g)"
+          % (out["control"], ZERO_TOL))
+    del netc, trc, sc
+    _free_cuda()
+    runs = (netz, trz, netr, trr)
+    if readings:
+        return out, step_counts, runs
+    if missing and DEV == "cuda":
+        raise SmokeFailure("zero: (a) the card replica launched no %s (%s)"
+                           % (missing, counts))
+    if not rel <= ZERO_TOL or not rel_m <= ZERO_TOL:
+        raise SmokeFailure("zero: (a) %.3g (moments %.3g) from the "
+                           "replicated run (limit %g)" % (rel, rel_m,
+                                                          ZERO_TOL))
+    if not out["control"] > ZERO_TOL:
+        raise SmokeFailure("zero: (a) the planted reduce-scatter fault was "
+                           "not caught (%.3g)" % out["control"])
+    if not bz <= 0.5 * br * 1.01:
+        raise SmokeFailure("zero: (a) the sharded state is %d bytes against "
+                           "%d replicated" % (bz, br))
+    return out, step_counts, runs
+
+
+def zero_readings(seeds, card_line):
+    """(a)'s distances at each seed (the readings behind ZERO_TOL)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    amp.init(target_dtype="bfloat16")
+    try:
+        for seed in seeds:
+            out, _, _ = _zero_main(mx, seed, card_line, readings=True)
+            out.pop("wire")
+            print("[zero] readings: seed %d: %s; %s"
+                  % (seed, json.dumps(out), card_line))
+            _free_cuda()
+    finally:
+        amp.reset()
+
+
+def _quant_rows_card(seed, eng):
+    """quantize_rows on the card bit for bit with its CPU run, int8 and
+    fp8, on BERT-base's largest gradient (the word embedding) in the
+    ZeRO layout: (N, its fragment length)."""
+    import torch
+    from mxnet_tpu_torch.parallel import quantize as qz
+    n, C = eng._n, max(it.frag for it in eng._items)
+    g = torch.Generator(device="cpu").manual_seed(seed + 25)
+    x = (torch.randn(n, C, generator=g) *
+         torch.logspace(-4, 1, n * C // 4096 + 1).repeat_interleave(4096)
+         [:n * C].reshape(n, C))
+    out = {}
+    for mode in ("int8", "fp8"):
+        cfg = qz.QuantConfig(mode=mode, block=ZERO_QUANT_BLOCK)
+        qc, sc, ec = qz.quantize_rows(x, cfg)
+        qg, sg, eg = qz.quantize_rows(x.to(DEV), cfg)
+        same = torch.equal(_bits(qc.view(torch.uint8)),
+                           _bits(qg.view(torch.uint8).cpu())) and \
+            torch.equal(_bits(sc), _bits(sg.cpu())) and \
+            torch.equal(_bits(ec), _bits(eg.cpu()))
+        out[mode] = same
+        if not same:
+            raise SmokeFailure("zero: (b) quantize_rows %s on the card is not "
+                               "bit for bit its CPU run" % mode)
+    return (n, C), out
+
+
+def _wire_bytes():
+    import mxnet_tpu_torch as mx
+    by = collections.Counter()
+    for r in mx.commwatch.report():
+        by[(r["op"], r.get("dtype") or "f32")] += r["bytes"]
+    return dict(by)
+
+
+def _quant_steps(mx, net, trainer, seed, lo, ctxs, zero, before=None,
+                 after=None):
+    """Steps lo .. lo + ZERO_QUANT_STEPS of (a)'s run (its batches), with
+    ``before(grads)`` on the replicas' local gradients and ``after()``
+    around each."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for s in range(lo, lo + ZERO_QUANT_STEPS):
+        parts = _zero_parts(mx, seed, s, ctxs, ZERO_ROWS)
+        with mx.autograd.record():
+            losses = [loss_fn(net(d), lab).sum() for d, lab in parts]
+        for loss in losses:
+            loss.backward()
+        if before is not None:
+            before()
+        with _env_flag("MXNET_ZERO", "1" if zero else "0"):
+            trainer.step(ZERO_ROWS * len(ctxs))
+        if after is not None:
+            after()
+
+
+def _quant_identity_kv(mx, seed, ctxs, net, tr, lo):
+    """(a)'s replicated run continued on the int8 wire of the device
+    kvstore: over the steps, the outputs plus the residuals' sum equal
+    the true sums plus the first residuals (zero), relative to
+    max(|true|, 1); returns that error and the wire bytes."""
+    import torch
+    dev = ctxs[0].torch_device
+    # the store's keys are the Trainer's parameter indices
+    live = [(i, p) for i, p in enumerate(tr._params)
+            if p.grad_req != "null"]
+    acc = {}
+
+    def before():
+        true = [sum(g.tensor().double().to(dev) for g in p.list_grad())
+                for _, p in live]
+        acc["true"] = true if "true" not in acc else \
+            [a + b for a, b in zip(acc["true"], true)]
+
+    def after():
+        outs = [p.list_grad()[0].tensor().double().to(dev)
+                for _, p in live]
+        acc["out"] = outs if "out" not in acc else \
+            [a + b for a, b in zip(acc["out"], outs)]
+    mx.telemetry.reset()
+    mx.commwatch.reset()
+    _quant_steps(mx, net, tr, seed, lo, ctxs, False, before, after)
+    res = tr._kvstore.quant_residuals_export()
+    worst = 0.0
+    for j, (i, p) in enumerate(live):
+        t = acc["true"][j]
+        r = torch.from_numpy(res[str(i)]).double().to(dev).reshape(t.shape)
+        err = ((acc["out"][j] + r - t).abs() / t.abs().clamp_min(1.0)).max()
+        worst = max(worst, float(err))
+    return worst, _wire_bytes()
+
+
+def _quant_identity_zero(mx, seed, ctxs, net, tr, lo):
+    """(a)'s ZeRO run continued on the int8 wire: the scattered shards
+    (captured at the engine's reduce) plus the replica-summed residual
+    equal the true sums plus the first residual (zero) over the steps;
+    returns that error and the wire bytes."""
+    import torch
+    dev = ctxs[0].torch_device
+    mx.telemetry.reset()
+    mx.commwatch.reset()
+    eng = tr._zero
+    # the engine takes the wire (zero residuals) at its next step's check;
+    # taken here, the identity starts from those zeros
+    if not eng._check_rebuild() or eng._quant is None:
+        raise SmokeFailure("zero: (b) the engine did not take the wire")
+    n, g0 = eng._n, eng._groups[0]
+    shards = {}
+    real = eng._reduce
+
+    def rec(p, grads, key):
+        sh, gres = real(p, grads, key)
+        shards[p] = sh[0].double().to(dev)
+        return sh, gres
+
+    def gmat(grads):
+        cols = []
+        for it in g0.items:
+            flat = grads[it.pos].reshape(-1).double().to(dev)
+            pad = torch.zeros(it.frag * n, dtype=torch.float64, device=dev)
+            pad[:it.size] = flat
+            cols.append(pad.reshape(n, it.frag))
+        return torch.cat(cols, dim=1)
+
+    def res_sum():
+        return sum(eng._gres[0][p].double().to(dev).reshape(n, g0.C)
+                   for p in range(n))
+    res0 = res_sum()
+    tot = {"sh": torch.zeros((n, g0.C), dtype=torch.float64, device=dev)}
+    tot["true"] = torch.zeros_like(tot["sh"])
+
+    def before():
+        grads, _ = eng._tensors()
+        tot["true"] += sum(gmat(g) for g in grads)
+
+    def after():
+        for p in range(n):
+            tot["sh"][eng._owner[p]] += shards[p]
+    eng._reduce = rec
+    try:
+        _quant_steps(mx, net, tr, seed, lo, ctxs, True, before, after)
+    finally:
+        eng._reduce = real
+    err = float(((tot["sh"] + res_sum() - tot["true"] - res0).abs()
+                 / tot["true"].abs().clamp_min(1.0)).max())
+    return err, _wire_bytes()
+
+
+def _zero_quant(mx, seed, card_line, runs, f32_wire):
+    """(b): quantize_rows on the card; (a)'s two runs continued on the
+    int8 wire, ZeRO and the device kvstore."""
+    netz, trz, netr, trr = runs
+    shape, _ = _quant_rows_card(seed, trz._zero)
+    print("[zero] (b) quantize_rows on the card bit for bit with its CPU "
+          "run, int8 and fp8, block %d, on the word embedding's %s "
+          "gradient fragments (q, scales and the carried error)"
+          % (ZERO_QUANT_BLOCK, list(shape)))
+    ctxs = _zero_ctxs()
+    lo = 1 + ZERO_STEPS
+    with _env_flag("MXNET_KVSTORE_QUANTIZE", "int8"), \
+            _env_flag("MXNET_KVSTORE_QUANTIZE_BLOCK",
+                      str(ZERO_QUANT_BLOCK)):
+        err_z, wire_z = _quant_identity_zero(mx, seed, ctxs, netz, trz, lo)
+        err_kv, wire_kv = _quant_identity_kv(mx, seed, ctxs, netr, trr, lo)
+    print("[zero] (b) (a)'s runs continued with MXNET_KVSTORE_QUANTIZE=int8, "
+          "%d steps each: the error-feedback identity (outputs + residuals "
+          "against the true sums + the first residuals), largest error "
+          "relative to max(|sum|, 1): ZeRO %.3g, device kvstore %.3g (limit "
+          "1e-5); wire bytes by (op, dtype) over the steps: ZeRO %s, "
+          "kvstore %s; the f32 ZeRO run's over (a)'s %d steps %s; %s"
+          % (ZERO_QUANT_STEPS, err_z, err_kv, wire_z, wire_kv,
+             1 + ZERO_STEPS, f32_wire, card_line))
+    for tag, err, wire in (("ZeRO", err_z, wire_z),
+                           ("kvstore", err_kv, wire_kv)):
+        if not err <= 1e-5:
+            raise SmokeFailure("zero: (b) %s: the error-feedback identity "
+                               "is off by %.3g" % (tag, err))
+        if not any(d == "int8" and b > 0 for (op, d), b in wire.items()):
+            raise SmokeFailure("zero: (b) %s recorded no int8 payload: %s"
+                               % (tag, wire))
+    return {"zero": err_z, "kv": err_kv}
+
+
+def _elastic_est(mx, seed, ctxs):
+    """BERT at ELASTIC_LAYERS layers, full width, ZeRO with SGD momentum,
+    an Estimator over ``ctxs``."""
+    with _env_flag("MXNET_ZERO", "1"):
+        net = _dp_model(seed, ELASTIC_LAYERS, 0.0, ctx=ctxs)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", dict(ELASTIC_SGD),
+                          kvstore="device")
+    est = mx.gluon.contrib.estimator.Estimator(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        train_metrics=[mx.metric.Loss()], trainer=tr, context=list(ctxs))
+    return net, tr, est
+
+
+def _elastic_loader(mx, seed, lo, hi):
+    """Batches of 4 * ELASTIC_ROWS rows: the global batches of steps
+    lo..hi-1 (each step's own rows, as _dp_batch draws them)."""
+    import numpy as np
+    rows = 4 * ELASTIC_ROWS
+    data, labels = [], []
+    for s in range(lo, hi):
+        d, lab = _dp_batch(seed + 50, s)
+        data.append(d[:rows])
+        labels.append(lab[:rows])
+    return mx.gluon.data.DataLoader(
+        mx.gluon.data.ArrayDataset(np.concatenate(data),
+                                   np.concatenate(labels)), batch_size=rows)
+
+
+def _elastic_digest(net, tr):
+    """The digest of the parameters (replica 0) and the optimizer state
+    gathered to the replicated layout."""
+    snap = _dp_snapshot(net)
+    from mxnet_tpu_torch.gluon import zero as zero_mod
+    states = tr._zero.gather_states() if isinstance(
+        tr._zero, zero_mod.ZeroEngine) else tr._updaters[0].states
+    for i, st in sorted(states.items()):
+        if st is not None:
+            snap["mom:%s" % i] = st.tensor().detach().float().clone()
+    return _dp_digest(snap)
+
+
+def _elastic_run(mx, seed, ctxs, kind, tmp):
+    """The fit with MXNET_ELASTIC=1: 2 epochs of 2 batches over ``ctxs``,
+    slice_preempt at step 3 (poll every 3 steps), ``reshard_fail`` armed
+    for ``kind`` "restored". Returns (net, trainer, the transition's
+    outcome and seconds, the card's peak growth over the state move and
+    its bound, blocks moved)."""
+    import torch
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.gluon import zero as zero_mod
+    net, tr, est = _elastic_est(mx, seed, ctxs)
+    seen = {"base": _dp_snapshot(net)}
+    real_move = zero_mod.ZeroEngine.reshard_from
+    real_tr = elastic.run_transition
+
+    def move(self, old, blk_bytes=None):
+        dev = torch.device(DEV)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+        real_move(self, old, blk_bytes=blk_bytes)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+            seen["growth"] = torch.cuda.max_memory_allocated(dev) - before
+        seen["bound"] = self._groups[0].C * 4 + ELASTIC_BLOCK + ELASTIC_SLACK
+        seen["shard"] = self._groups[0].C * 4
+
+    def transition(trainer, survivors, restore=None):
+        # the state the transition starts from: the live control's start
+        seen["state"] = ({k: p.data().copy() for k, p in
+                          net._structural_params().items()},
+                         trainer.states_blob())
+        t0 = time.perf_counter()
+        seen["outcome"] = real_tr(trainer, survivors, restore)
+        seen["seconds"] = time.perf_counter() - t0
+        seen["post"] = _elastic_digest(net, trainer)
+        return seen["outcome"]
+    zero_mod.ZeroEngine.reshard_from = move
+    elastic.run_transition = transition
+    mx.telemetry.reset()
+    try:
+        with _env_flag("MXNET_ZERO", "1"), _env_flag("MXNET_ELASTIC", "1"), \
+                _env_flag("MXNET_ELASTIC_POLL", "3"), \
+                _env_flag("MXNET_ELASTIC_BLOCK", str(ELASTIC_BLOCK)):
+            mx.faultinject.set_fault("slice_preempt", 1.0, 1)
+            if kind == "restored":
+                mx.faultinject.set_fault("reshard_fail", 1.0)
+            est.fit(_elastic_loader(mx, seed, 0, 2), epochs=2,
+                    ckpt_prefix=os.path.join(tmp, kind))
+    finally:
+        zero_mod.ZeroEngine.reshard_from = real_move
+        elastic.run_transition = real_tr
+        mx.faultinject.clear()
+        elastic.clear()
+    snap = mx.telemetry.snapshot()["counters"]
+    seen["blocks"] = snap.get('mx_reshard_blocks_total{kind="zero.state"}',
+                              0)
+    return net, tr, seen
+
+
+def _elastic_control(mx, seed, ctxs, kind, tmp, seen):
+    """The run the transition must equal: a fresh Trainer on [gpu(0),
+    cpu(0)] resumed from the state it started from (the live move's: the
+    parameters and the gathered states at step 3; the restore's: the
+    epoch-1 checkpoint's files), then step 4."""
+    with _env_flag("MXNET_ZERO", "1"):
+        net2, tr2, est2 = _elastic_est(mx, seed, ctxs[:2])
+        if kind == "live":
+            params, blob = seen["state"]
+        else:
+            from mxnet_tpu_torch import model
+            prefix = os.path.join(tmp, kind)
+            saved = mx.nd.load("%s-0001.params" % prefix)
+            params = {k[4:]: v for k, v in saved.items()
+                      if k.startswith("arg:")}
+            blob = model.load_checkpoint_states(prefix, 1)
+        est2._restore_arg_params(params)
+        tr2.load_states_blob(blob)
+        post = _elastic_digest(net2, tr2)
+        est2.fit(_elastic_loader(mx, seed, 1, 2), epochs=1)
+    return net2, tr2, post
+
+
+def _zero_elastic(mx, seed, card_line):
+    """(c): Estimator.fit with MXNET_ELASTIC=1 over 4 contexts, preempted
+    to [gpu(0), cpu(0)], live and restored."""
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.gluon import zero as zero_mod
+    ctxs = _zero_ctxs() + ([mx.cpu(1), mx.cpu(2)] if DEV == "cuda"
+                           else [mx.cpu(2), mx.cpu(3)])
+    tmp = tempfile.mkdtemp(prefix="mxt_el_")
+    out = {}
+    try:
+        for kind in ("live", "restored"):
+            net, tr, seen = _elastic_run(mx, seed, ctxs, kind, tmp)
+            got = _dp_snapshot(net)
+            base = seen["base"]
+            on = tr._contexts
+            sharded = isinstance(tr._zero, zero_mod.ZeroEngine)
+            del net, tr
+            _free_cuda()
+            net2, tr2, post = _elastic_control(mx, seed, ctxs, kind, tmp,
+                                               seen)
+            want = _dp_snapshot(net2)
+            same = _dp_digest(got) == _dp_digest(want) and \
+                seen.get("post") == post
+            apart = [k for k in sorted(want) if not torch.equal(
+                _bits(got[k]), _bits(want[k]))]
+            print("[zero] (c) %s: the state after the transition %s the "
+                  "control's before its last step; the final parameters "
+                  "apart: %d of %d (%s), relative L2 of the run's change "
+                  "%.3g" % (kind, "equals" if seen.get("post") == post
+                            else "DIFFERS from", len(apart), len(want),
+                            apart[:4], _dp_rel(got, base, want)))
+            del net2, tr2
+            _free_cuda()
+            print("[zero] (c) %s: bert at %d layers, full width, SGD "
+                  "momentum %g, ZeRO over %s through Estimator.fit with "
+                  "MXNET_ELASTIC=1, slice_preempt at step 3: transition %r "
+                  "in %.3f s onto %s (ZeRO: %s); the run bit for bit with "
+                  "the control resumed on the survivors: %s%s; %s"
+                  % (kind, ELASTIC_LAYERS, ELASTIC_SGD["momentum"],
+                     [str(c) for c in ctxs], seen.get("outcome"),
+                     seen.get("seconds", float("nan")),
+                     [str(c) for c in on], sharded, same,
+                     "; the card's peak growth over the state move %d bytes"
+                     " (the destination shard %d + one block %d + slack %d "
+                     "= %d), %d blocks" % (
+                         seen.get("growth", -1), seen["shard"],
+                         ELASTIC_BLOCK, ELASTIC_SLACK, seen["bound"],
+                         seen["blocks"]) if kind == "live" else "",
+                     card_line))
+            out[kind] = dict(seen, same=same)
+            if seen.get("outcome") != kind:
+                raise SmokeFailure("zero: (c) the transition was %r, want %r"
+                                   % (seen.get("outcome"), kind))
+            if on != ctxs[:2] or not sharded:
+                raise SmokeFailure("zero: (c) %s: the run ended on %s (ZeRO "
+                                   "%s)" % (kind, on, sharded))
+            if not same:
+                raise SmokeFailure("zero: (c) %s: the run is not bit for bit "
+                                   "the control" % kind)
+            if kind == "live":
+                if DEV == "cuda" and not seen["growth"] <= seen["bound"]:
+                    raise SmokeFailure(
+                        "zero: (c) the card grew %d bytes over the move "
+                        "(bound %d)" % (seen["growth"], seen["bound"]))
+                if not seen["blocks"] > 1:
+                    raise SmokeFailure("zero: (c) the move took %d block(s)"
+                                       % seen["blocks"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_zero(seed, card_line):
+    """25. ZeRO, the quantized wire and elastic resharding over a card
+    replica and a host replica; returns the card replica's launches in
+    one ZeRO step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    t0 = time.perf_counter()
+    print("[zero] %s" % card_line)
+    _free_cuda()
+    amp.init(target_dtype="bfloat16")
+    try:
+        # commwatch's records (the wire bytes) ride telemetry
+        with _env_flag("MXNET_TELEMETRY", "1"):
+            mx.telemetry.refresh()
+            mx.telemetry.reset()
+            mx.commwatch.reset()
+            out, step_counts, runs = _zero_main(mx, seed, card_line)
+            t_a = time.perf_counter() - t0
+            _zero_quant(mx, seed, card_line, runs, out["wire"])
+            del runs
+            _free_cuda()
+            t_b = time.perf_counter() - t0 - t_a
+            _zero_elastic(mx, seed, card_line)
+    finally:
+        amp.reset()
+        mx.telemetry.refresh()
+    print("[zero] phase 25 took %.1f s: (a) %.1f, (b) %.1f, (c) %.1f; %s"
+          % (time.perf_counter() - t0, t_a, t_b,
+             time.perf_counter() - t0 - t_a - t_b, card_line))
+    return step_counts
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=20,
+    ap.add_argument("--reps", type=int, default=10,
                     help="calls per timing trial")
     ap.add_argument("--train-steps", type=int, default=10,
                     help="LAMB steps on one fixed batch")
@@ -12131,10 +12872,18 @@ def main(argv=None):
     try:
         card_line = phase_device()
         card = torch.cuda.get_device_name(0)
+        t_start = time.perf_counter()
+
+        def stamp(what):
+            # the script runs under a time limit: where it goes, by phase
+            print("[time] %s done at %.1f s" % (what,
+                                                time.perf_counter() - t_start))
         phase_build()
+        stamp("build")
         errs = phase_parity(args.seed)
         errs.update(phase_parity_train(args.seed))
         phase_parity_attention(args.seed)
+        stamp("phase parity")
         errs["dual_bwd"] = phase_parity_resnet(args.seed)
         from mxnet_tpu_torch import cached_op
         from mxnet_tpu_torch.ops import cuda_build
@@ -12142,17 +12891,21 @@ def main(argv=None):
         # its compiled twin
         with cached_op.eager():
             counts, n_fwd, sess, reqs, net = phase_slice(args.seed)
+            stamp("phase 4 (slice)")
         train_counts, tnet, mlm, params, batch = phase_train(
             args.seed, args.train_steps)
         amp_errs = phase_parity_amp(args.seed)
         amp_counts = phase_amp(args.seed)
         phase_amp_fp16(args.seed)
+        stamp("phase 5 (amp)")
         stage_counts, stages = phase_stages(args.seed)
         resnet_counts, resnet_step = phase_resnet(args.seed,
                                                   args.resnet_steps)
+        stamp("phase 6-7 (stages, resnet)")
         rtc_mod, rtc_mod2, rtc_errs, rtc_counts = phase_rtc(args.seed)
         mnist_counts, mnist_step_counts, mnist_nets, mnist_loss, \
             mnist_batch = phase_mnist(args.seed, rtc_mod, args.mnist_epochs)
+        stamp("phase 8-9 (rtc, mnist)")
         with cached_op.eager():
             rows = phase_times(args.seed, args.reps, counts, n_fwd, errs,
                                sess, reqs, net, card)
@@ -12181,12 +12934,14 @@ def main(argv=None):
             phase_profile(net)
         _attention_share(_profile("one training step (batch %d x seq %d, "
                                   "LAMB)" % (TRAIN_BATCH, TRAIN_SEQ), step))
+        stamp("phase 10 (times, profile)")
         compiled = phase_compiled_serve(sess, reqs, net)
         compiled.update(phase_compiled_bert(args.seed))
         compiled.update(phase_compiled_resnet(args.seed))
         ptb_counts, ptb_row = phase_ptb(args.seed, args.ptb_steps, card,
                                         args.reps)
         compiled.update(phase_compiled_ptb(args.seed))
+        stamp("phase 11-12 (compiled, ptb)")
         rows.append(ptb_row)
         cuda_build.reset_launch_counts()
         phase_resume(args.seed, card_line)
@@ -12196,6 +12951,7 @@ def main(argv=None):
             k: v for k, v in resume_counts.items() if v})
         if missing:
             raise SmokeFailure("phase 13 launched no %s" % missing)
+        stamp("phase 13 (resume)")
         scan_capture, scan_counts = phase_scan(args.seed, card_line)
         compiled.update(scan_capture)
         print("[scan] kernel launches through the wrappers in phase 14's "
@@ -12204,26 +12960,39 @@ def main(argv=None):
         missing = [k for k in SCAN_KERNELS if not scan_capture["scan"].get(k)]
         if missing:
             raise SmokeFailure("phase 14 captured no %s" % missing)
+        stamp("phase 14 (scan)")
         vision_counts, vision_capture, family_counts, vision_row = \
             phase_vision(args.seed, args.reps, card, card_line)
         compiled.update(vision_capture)
         rows.append(vision_row)
+        stamp("phase 15 (vision)")
         fed_counts = phase_imagenet(args.seed, card_line)
+        stamp("phase 16 (imagenet)")
         random_counts = phase_random(args.seed, card_line)
+        stamp("phase 17 (random)")
         cuda_build.reset_launch_counts()
-        phase_ops_tail(args.seed, card_line, args.reps)
+        # its timings take 5 calls (its own default) where the kernels'
+        # take --reps: the tail's slow calls (box_nms, CTC) would spend
+        # ~40 s of the script's time limit on 20
+        phase_ops_tail(args.seed, card_line)
         tail_counts = cuda_build.launch_counts()
         print("[ops_tail] kernel launches in phase 18: %s (no port kernel "
               "is on its path)" % {k: v for k, v in tail_counts.items()
                                     if v})
         layout_counts = phase_layout(args.seed, card_line)
+        stamp("phase 19 (layout)")
         engine_counts = phase_engine(args.seed, rtc_mod, sess, reqs,
                                      card_line)
         services_counts, _ = phase_services(args.seed, card_line)
+        stamp("phase 21 (services)")
         serving_counts, replica_counts, serving_replayed = phase_serving(
             args.seed, card_line)
         dp_counts = phase_dp(args.seed, card_line)
+        stamp("phase 23 (dp)")
         sharded_counts, sharded_step = phase_sharded(args.seed, card_line)
+        stamp("phase 24 (sharded)")
+        zero_step = phase_zero(args.seed, card_line)
+        stamp("phase 25 (zero)")
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
@@ -12233,6 +13002,7 @@ def main(argv=None):
             r["launches_per_dp_run"] = dp_counts.get(k, 0)
             r["launches_per_sharded_run"] = sharded_counts.get(k, 0)
             r["launches_per_sharded_step"] = sharded_step.get(k, 0)
+            r["launches_per_zero_step"] = zero_step.get(k, 0)
             r["replayed_per_serving_run"] = serving_replayed.get(k, 0)
             r["replayed_per_replica"] = {
                 rid: c.get(k, 0) for rid, c in sorted(replica_counts.items())}

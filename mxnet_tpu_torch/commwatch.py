@@ -24,10 +24,13 @@ Everything is gated on ``MXNET_COMMWATCH`` (on by default) and
 chrome-trace events. :func:`report` aggregates them per (op, axis,
 dtype) and :func:`comm_totals` feeds the fleet view.
 
-The axes: ``kv`` for the in-process reduce across a process's contexts,
-``kv.dcn`` for the dist store's reduce across processes, and the mesh
-axes (``dp``, ``tp``, ``dcn+dp``, ...) for the collectives of
-:mod:`mxnet_tpu_torch.parallel`.
+The axes: ``kv`` for the in-process reduce across a process's contexts
+(and the quantized grouped reduce's mesh), ``kv.dcn`` for the dist
+store's reduce across processes, and the mesh axes (``dp``, ``tp``,
+``dcn+dp``, ...) for the collectives of :mod:`mxnet_tpu_torch.parallel`
+and the ZeRO step's. The quantized wire (``parallel/quantize.py``)
+records its payloads at their true size with the ``dtype`` label
+``int8`` or ``fp8``, and its f32 scales beside them.
 
 The program half. The reference harvests the collectives of a compiled
 sharded program from its HLO. The port's sharded step runs its

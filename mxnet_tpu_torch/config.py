@@ -220,8 +220,24 @@ define("MXNET_SCAN_STEPS", int, 1,
        "them as one function: on the card one captured graph of K "
        "forwards, backwards and SGD updates. Bit for bit with K = 1.")
 define("MXNET_ZERO", bool, False,
-       "ZeRO weight-update sharding; on, the Trainer raises (ROADMAP.md "
-       "queue 1, item 11).")
+       "ZeRO weight-update sharding for the data-parallel Trainer "
+       "(gluon/zero.py): the gradients are reduce-scattered over the "
+       "replica contexts, each replica keeps a 1/N fragment of every "
+       "parameter's optimizer state (allocated sharded, never whole) and "
+       "updates only that fragment, and the new weights are all-gathered "
+       "back. Engages when the Trainer is eligible (2 or more distinct "
+       "replica contexts, an in-process kvstore, dense grad_req='write' "
+       "parameters, SGD with or without momentum, or Adam); otherwise the "
+       "replicated path runs, after one warning naming the reason.")
+define("MXNET_ZERO_DCN", int, 0,
+       "With MXNET_ZERO: treat the replicas as a dcn x ici hierarchy of "
+       "this many slices (must divide the replica count; 0 or 1 is "
+       "flat). The reduce-scatter runs RS(ici) then RS(dcn), the "
+       "all-gather AG(dcn) then AG(ici), and fragment ownership follows "
+       "the permutation (p % n_ici) * n_dcn + p // n_ici.")
+define("MXNET_ZERO_MIN_SIZE", int, 0,
+       "With MXNET_ZERO: stay replicated when the trained parameters hold "
+       "fewer elements than this; 0 shards whenever eligible.")
 define("MXNET_DIST_INIT_TIMEOUT", float, 300.0,
        "Overall deadline in seconds of the dist.initialize() rendezvous: "
        "failed attempts retry with exponential backoff until it elapses, "
@@ -242,6 +258,26 @@ define("MXNET_KVSTORE_TIMEOUT", float, 0.0,
        "and the rank (0 disables).")
 define("MXNET_KVSTORE_RETRIES", int, 1,
        "Retries of a timed-out dist kvstore call before MXNetError.")
+define("MXNET_KVSTORE_QUANTIZE", str, "off",
+       "Quantized gradient wire (parallel/quantize.py): 'int8' or 'fp8' "
+       "sends each replica's gradient blockwise quantized (one f32 absmax "
+       "scale per MXNET_KVSTORE_QUANTIZE_BLOCK elements), sums the "
+       "received blocks in f32 on each shard's owner and all-gathers the "
+       "re-quantized sum; every quantize site's rounding error is carried "
+       "into the next step (error feedback). Wired through the kvstore's "
+       "grouped reduce and ZeRO's reduce-scatter and all-gather; 'off' "
+       "keeps every path the plain f32 one.")
+define("MXNET_KVSTORE_QUANTIZE_TIER", str, "dcn",
+       "Which hops of a staged dcn x ici quantized sync carry the 1-byte "
+       "payload: 'dcn' only the cross-slice hop, 'all' every hop. A flat "
+       "sync is quantized under either.")
+define("MXNET_KVSTORE_QUANTIZE_BLOCK", int, 256,
+       "Elements per absmax scale block of MXNET_KVSTORE_QUANTIZE; a "
+       "non-finite gradient poisons only its own block.")
+define("MXNET_KVSTORE_QUANTIZE_STOCHASTIC", bool, False,
+       "Stochastic rounding for the int8 quantizer (the dither drawn from "
+       "a generator on each replica's device, seeded a step); fp8 rounds "
+       "to nearest even.")
 define("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1 << 19,
        "Arrays larger than this many elements are cut into row slices "
        "pushed tail first by the P3 store (kvstore/dist.py "
@@ -347,8 +383,27 @@ define("MXNET_CKPT_KEEP", int, 0,
        "keep the newest N manifest entries and delete the pruned files (0 "
        "keeps all; save_checkpoint's max_keep overrides).")
 define("MXNET_ELASTIC", bool, False,
-       "Elastic resharding in Estimator.fit; on, fit raises (ROADMAP.md "
-       "queue 1, item 11).")
+       "Elastic training (elastic.py): Estimator.fit polls for a "
+       "preemption notice (elastic.request_preemption, the slice_preempt "
+       "fault site, SIGTERM with MXNET_ELASTIC_SIGTERM, or the notice key "
+       "mx/elastic/preempt on the process group's store) and moves the "
+       "live run onto the surviving contexts through Trainer.reshard_to "
+       "(parallel/reshard.py); a failed move, or fewer survivors than "
+       "MXNET_ELASTIC_MIN_DEVICES, restores the newest checkpoint "
+       "instead.")
+define("MXNET_ELASTIC_POLL", int, 1,
+       "With MXNET_ELASTIC: poll for a preemption notice every this many "
+       "Trainer steps.")
+define("MXNET_ELASTIC_BLOCK", int, 4 << 20,
+       "Staged block in bytes of parallel/reshard.py's moves: no device "
+       "holds more than its destination shard plus one block in flight.")
+define("MXNET_ELASTIC_MIN_DEVICES", int, 1,
+       "With MXNET_ELASTIC: the smallest survivor set a live reshard "
+       "targets; fewer survivors restore the newest checkpoint.")
+define("MXNET_ELASTIC_SIGTERM", bool, False,
+       "With MXNET_ELASTIC: install a SIGTERM handler that raises the "
+       "preemption notice (the front half of the contexts survives). Off "
+       "by default, so importing the library never takes the signal.")
 define("MXNET_CHUNKED_CE", bool, True,
        "BERTMLMLoss(mode='auto') runs the chunked LM-head cross entropy "
        "(_contrib_chunked_lm_head_ce: an online softmax over vocab "

@@ -47,11 +47,19 @@ packages. In the port these fire so far, with ``engine_op`` and
 ``kv_flap``      one fleet-KV operation raises ConnectionError
                  (``dist.KV``): the router keeps its last-known-good
                  routing table instead of ejecting the fleet.
+``slice_preempt`` an elastic poll (``elastic.poll_survivors``) sees a
+                 preemption notice that keeps the front half of the
+                 contexts: ``Estimator.fit`` under ``MXNET_ELASTIC``
+                 moves the live run onto them.
+``reshard_fail`` a live transition fails at its entry
+                 (``Trainer.reshard_to``, ``reshard.reshard_fragments``,
+                 ``reshard.redistribute``; not the restore's own
+                 ``place_from_host``): the transition degrades to the
+                 newest checkpoint.
 
-The others (``engine_collective_overlap``, ``slice_preempt``,
-``reshard_fail``) come with the modules that own them (ROADMAP.md queue
-1, item 11). Every fire
-counts in ``mx_fault_injections_total{site}``.
+``engine_collective_overlap`` comes with the engine's collective pushes
+(ROADMAP.md queue 1, item 11). Every fire counts in
+``mx_fault_injections_total{site}``.
 """
 from __future__ import annotations
 

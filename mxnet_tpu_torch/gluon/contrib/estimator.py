@@ -12,8 +12,15 @@ the newest valid checkpoint, the epochs it holds skipped. Guard events
 fired during ``fit`` are kept in ``guard_events`` and passed to
 ``on_guard_event``.
 
-``MXNET_ELASTIC`` (resharding a live run onto the devices left) raises
-(ROADMAP.md queue 1, item 11).
+With ``MXNET_ELASTIC`` (and a trainer) the step loop polls for a
+preemption notice every ``MXNET_ELASTIC_POLL`` steps (:mod:`...elastic`)
+and moves the live run onto the surviving contexts
+(``Trainer.reshard_to``), or, when that fails or too few survive,
+restores the newest checkpoint under ``ckpt_prefix`` onto them
+(:meth:`Estimator._elastic_restore`). Survivor specs index into the
+fit's full context list, so a later notice can grow back. A checkpoint
+carries the logical-sharding section of ``reshard.sharding_manifest``
+beside the optimizer-state sidecar.
 """
 from __future__ import annotations
 
@@ -76,11 +83,47 @@ class Estimator:
         return epoch
 
     def _ckpt_extras(self):
-        """The optimizer-state sidecar of a checkpoint (none without a
+        """The manifest extras of one checkpoint: the logical-sharding
+        section and the optimizer-state sidecar (none without a
         trainer)."""
         if self.trainer is None:
             return {}
-        return {"states_blob": self.trainer.states_blob()}
+        from ...parallel import reshard as reshard_mod
+        return {"sharding": reshard_mod.sharding_manifest(self.trainer),
+                "states_blob": self.trainer.states_blob()}
+
+    def _elastic_restore(self, survivors, prefix):
+        """The degradation of a failed (or too small) live transition:
+        the trainer reset onto the survivors and the newest valid
+        checkpoint restored into it (the parameters and the state
+        sidecar, which loads onto any topology). Raises when there is no
+        valid checkpoint: nothing is left to continue from."""
+        from ... import model as model_mod
+        from ... import optimizer as opt_mod
+        found = model_mod.load_latest_checkpoint(prefix)
+        if found is None:
+            raise MXNetError(
+                "elastic degradation: no valid checkpoint under %r to "
+                "restore from" % prefix)
+        arg_params, _aux, epoch = found
+        tr = self.trainer
+        if tr is not None:
+            for p in tr._params:
+                if p._data is not None:
+                    p.reset_ctx(list(survivors))
+            tr._contexts = list(survivors)
+            tr._updaters = [opt_mod.get_updater(tr._optimizer)
+                            for _ in survivors]
+            tr._kvstore = None
+            tr._kv_initialized = False
+            tr._zero = None
+            tr._zero_bailed = False
+        self._restore_arg_params(arg_params)
+        if tr is not None:
+            blob = model_mod.load_checkpoint_states(prefix, epoch)
+            if blob is not None:
+                tr.load_states_blob(blob)
+        return epoch
 
     # ------------------------------------------------------------------
     def fit(self, train_data, epochs=1, batch_fn=None, ckpt_prefix=None,
@@ -91,11 +134,19 @@ class Estimator:
         from ... import config as config_mod
         from ... import guardrails
         from ... import model as model_mod
-        if config_mod.get("MXNET_ELASTIC") and self.trainer is not None:
-            raise NotImplementedError(
-                "Estimator.fit: MXNET_ELASTIC is not ported yet (ROADMAP.md "
-                "queue 1, item 11)")
         ctxs = self.context or [current_context()]
+        full_ctxs = list(ctxs)          # elastic specs index into this
+        elastic_on = bool(config_mod.get("MXNET_ELASTIC")) \
+            and self.trainer is not None
+        if elastic_on:
+            from ... import elastic as elastic_mod
+            poll_every = max(1, int(config_mod.get("MXNET_ELASTIC_POLL")))
+            if config_mod.get("MXNET_ELASTIC_SIGTERM"):
+                elastic_mod.install_sigterm_handler()
+            if getattr(self.trainer, "_contexts", None):
+                # an earlier fit (or restore) may have left the trainer
+                # on a survivor set: step on that one
+                ctxs = list(self.trainer._contexts)
         start_epoch = 0
         if resume:
             resume_prefix = resume if isinstance(resume, str) \
@@ -112,6 +163,7 @@ class Estimator:
         unsub = guardrails.on_event(_collect)
         guard = getattr(self.trainer, "grad_guard", None)
         _end = object()
+        step_i = 0
         try:
             for epoch in range(start_epoch, epochs):
                 for m in self.train_metrics:
@@ -143,6 +195,21 @@ class Estimator:
                         for l in losses:
                             l.backward()
                     self.trainer.step(data.shape[0])
+                    if elastic_on:
+                        step_i += 1
+                        if step_i % poll_every == 0:
+                            survivors = elastic_mod.poll_survivors(
+                                full_ctxs)
+                            if survivors is not None and \
+                                    list(survivors) != \
+                                    list(self.trainer._contexts):
+                                restore = (
+                                    lambda s: self._elastic_restore(
+                                        s, ckpt_prefix)) \
+                                    if ckpt_prefix else None
+                                elastic_mod.run_transition(
+                                    self.trainer, survivors, restore)
+                                ctxs = list(self.trainer._contexts)
                     if guard is not None and guard.spike_enabled:
                         # opt-in (MXNET_GUARD_LOSS_SPIKE): one host read
                         # of the replicas' mean loss a batch

@@ -47,9 +47,21 @@ pass does; an enabled guard disarms the fused update, except a
 ``skip_step`` guard under ``MXNET_SCAN_STEPS`` above 1, which the K-step
 chunk carries (:mod:`mxnet_tpu_torch.scan`). Under K-step scan the
 armed Trainer pushes each stashed step to its chunk runner, which
-retires K of them at once. What this slice does not port raises
-``NotImplementedError`` naming its ROADMAP.md item: gradient
-compression and ZeRO.
+retires K of them at once. A Trainer over several contexts never
+arms the fused update, so ``MXNET_SCAN_STEPS`` leaves its per-step path
+unchanged (K = 8 is K = 1 bit for bit).
+
+With ``MXNET_ZERO=1`` an eligible Trainer over two or more contexts
+shards its update (:mod:`.zero`): the gradients are reduce-scattered,
+each replica updates its 1/N fragment against sharded optimizer state
+and the new weights are all-gathered; a Trainer that is not eligible
+warns once with the reason and stays replicated. ``compression_params``
+(MXNet 1.x's gradient compression) hands the kvstore
+``set_gradient_compression``, which puts the gradients on the int8
+quantized wire with error feedback (:mod:`..parallel.quantize`);
+``MXNET_KVSTORE_QUANTIZE`` does so for the kvstore and ZeRO.
+``reshard_to(contexts)`` moves a live Trainer onto another set of
+contexts (``elastic.py``).
 
 With telemetry on (:mod:`mxnet_tpu_torch.telemetry`) ``step`` times its
 phases as the reference's does (``fused_step``; or ``allreduce``,
@@ -78,18 +90,6 @@ from .parameter import Parameter, ParameterDict
 __all__ = ["Trainer"]
 
 
-def _not_ported(what, item):
-    return NotImplementedError("Trainer: %s is not ported yet (ROADMAP.md "
-                               "queue 1, item %d)" % (what, item))
-
-
-def _check_features():
-    """Raise for the reference's Trainer features the port leaves out,
-    where the environment turns them on."""
-    if _cfg("MXNET_ZERO"):
-        raise _not_ported("ZeRO (MXNET_ZERO)", 11)
-
-
 # the in-process stores that one context does not need
 _LOCAL_STORES = (None, "local", "device", "nccl")
 
@@ -102,8 +102,7 @@ class Trainer:
             params = [params[key] for key in sorted(list(params.keys()))]
         if not isinstance(params, (list, tuple)):
             raise ValueError("params must be a list/tuple/ParameterDict")
-        if compression_params:
-            raise _not_ported("gradient compression", 11)
+        self._compression_params = compression_params
         self._params: List[Parameter] = []
         for param in params:
             if not isinstance(param, Parameter):
@@ -131,6 +130,9 @@ class Trainer:
         self._mw_resolved = False
         self._scan = None              # MXNET_SCAN_STEPS chunk runner
         self._scan_warned = False
+        # the ZeRO engine: None unresolved, False off, else a ZeroEngine
+        self._zero = None
+        self._zero_bailed = False
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -188,6 +190,9 @@ class Trainer:
         else:
             kv = kvs_mod.create(kv) if isinstance(kv, str) else kv
             self._kvstore = kv
+            if self._compression_params and \
+                    hasattr(kv, "set_gradient_compression"):
+                kv.set_gradient_compression(self._compression_params)
             if self._update_on_kvstore is None:
                 self._update_on_kvstore = False
             if self._update_on_kvstore and not kv.is_capable("optimizer"):
@@ -346,8 +351,8 @@ class Trainer:
         """One update of every parameter, gradients scaled by
         1 / batch_size inside the update, after the guard's pass (ref:
         trainer.py :: step). An armed Trainer runs the stashed backward
-        with the update appended, or pushes it to its K-step runner."""
-        _check_features()
+        with the update appended, or pushes it to its K-step runner; a
+        ZeRO Trainer runs its sharded step."""
         self._ensure_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         if self._scan is None and not self._scan_warned and \
@@ -373,6 +378,8 @@ class Trainer:
                 return
             self._fused_armed = False
             autograd.disarm_fused_update(self)
+        if self._zero_step():
+            return
         with telemetry.phase("allreduce"):
             from .. import commwatch
             # the gradient sync blocks the step's thread: its collective
@@ -421,7 +428,6 @@ class Trainer:
     def update(self, batch_size, ignore_stale_grad=False):
         """The update alone, without the guard (ref: trainer.py ::
         update); a stashed backward runs first, without the update."""
-        _check_features()
         self._ensure_kvstore()
         if self._update_on_kvstore:
             raise ValueError("update() when update_on_kvstore=True: the "
@@ -554,6 +560,81 @@ class Trainer:
         if self._scan is not None:
             self._scan.flush()
 
+    # ------------------------------------------------------------------
+    # ZeRO weight-update sharding (MXNET_ZERO; gluon/zero.py)
+    # ------------------------------------------------------------------
+    def _zero_engine(self):
+        """This Trainer's ZeRO engine, or None. Resolved at the first
+        step with the kvstore up: MXNET_ZERO off is a cheap no that is
+        asked again; on but not eligible warns once with the ladder's
+        reason and stays replicated for good."""
+        if self._zero_bailed:
+            return None
+        if not self._zero:
+            if not _cfg("MXNET_ZERO"):
+                self._zero = False
+                return None
+            from ..base import MXNetError
+            from . import zero as zero_mod
+            ok, reason = zero_mod.eligibility(self)
+            if not ok:
+                logging.getLogger("mxnet_tpu_torch.zero").warning(
+                    "MXNET_ZERO=1 but the Trainer is not eligible for "
+                    "weight-update sharding: %s — using the replicated "
+                    "update path", reason)
+                telemetry.counter("mx_zero_fallbacks_total",
+                                  kind="ineligible").inc()
+                self._zero = False
+                self._zero_bailed = True
+                return None
+            try:
+                self._zero = zero_mod.ZeroEngine(self)
+            except MXNetError:
+                self._zero = False
+                self._zero_bailed = True
+                raise
+        return self._zero or None
+
+    def _zero_step(self) -> bool:
+        """The sharded step when this Trainer is sharded: True when it
+        ran (or the guard skipped it). A structural change (BAIL) hands
+        the state to the replicated updaters, warns once and returns
+        False: the replicated path takes this step and the later ones."""
+        engine = self._zero_engine()
+        if engine is None:
+            return False
+        from . import zero as zero_mod
+        status = engine.run_step()
+        if status == zero_mod.DONE:
+            telemetry.mark_step()
+            return True
+        if status == zero_mod.SKIPPED:
+            telemetry.mark_step(useful=False)
+            return True
+        engine.dissolve_into(self._updaters, self._contexts)
+        self._zero = False
+        self._zero_bailed = True
+        telemetry.counter("mx_zero_fallbacks_total", kind="bail").inc()
+        logging.getLogger("mxnet_tpu_torch.zero").warning(
+            "MXNET_ZERO: structural change mid-training — sharded "
+            "optimizer state handed back to the replicated path")
+        return False
+
+    def optimizer_state_bytes(self) -> int:
+        """The optimizer-state bytes across every replica: the fragments'
+        total under ZeRO (about 1/N of the replicated), else every
+        updater's whole states."""
+        from . import zero as zero_mod
+        if isinstance(self._zero, zero_mod.ZeroEngine):
+            return self._zero.state_bytes_total()
+        total = 0
+        for upd in self._state_updaters():
+            for state in upd.states.values():
+                for arr in opt_mod._arrays_of(state, []):
+                    t = arr.tensor()
+                    total += t.numel() * t.element_size()
+        return total
+
     def _update(self):
         """Each context's replicas through its own updater. The updaters
         share the optimizer, so its counters are rewound between
@@ -594,10 +675,26 @@ class Trainer:
     def states_blob(self) -> bytes:
         """The updater's states, pickled as ``{index: state}`` without the
         optimizer (``get_states(dump_optimizer=False)``); a buffered
-        chunk drains first, so the checkpoint lands between chunks."""
+        chunk drains first, so the checkpoint lands between chunks.
+        Under ZeRO the fragments are gathered to the same replicated
+        layout (:meth:`.zero.ZeroEngine.serialized_states`). With the
+        kvstore's quantized wire the residuals are carried state: the
+        blob becomes the reference's wrapper
+        ``{"__mx_quant__": 1, "updater": blob, "kv_residual": {...}}``."""
         self._ensure_kvstore()
         self._scan_flush()
-        return self._state_updaters()[0].get_states(dump_optimizer=False)
+        from . import zero as zero_mod
+        if isinstance(self._zero, zero_mod.ZeroEngine):
+            return self._zero.serialized_states()
+        blob = self._state_updaters()[0].get_states(dump_optimizer=False)
+        kv = self._kvstore
+        if kv is not None and getattr(kv, "_quant_state", None):
+            res = kv.quant_residuals_export()
+            if res:
+                import pickle
+                blob = pickle.dumps({"__mx_quant__": 1, "updater": blob,
+                                     "kv_residual": res})
+        return blob
 
     def load_states(self, fname):
         """Read a states file written by either package."""
@@ -605,18 +702,99 @@ class Trainer:
             self.load_states_blob(f.read())
 
     def load_states_blob(self, states: bytes):
-        """Load a states blob. A blob the reference wrapped with its
-        quantized-sync residuals (``__mx_quant__``, ``__mx_zero_quant__``)
-        loads as its plain states and the residuals are dropped, as the
-        reference does on a path without quantization. The optimizer
-        stays this Trainer's. A buffered chunk drains first (its steps
-        must not replay over the loaded states)."""
+        """Load a states blob of any topology. Under ZeRO it is
+        re-sliced onto this Trainer's fragments. A blob wrapped with the
+        quantized wire's residuals (``__mx_quant__``,
+        ``__mx_zero_quant__``) hands them to a kvstore that quantizes
+        too (the ZeRO weight residual has no replicated counterpart and
+        is dropped); the optimizer stays this Trainer's. A buffered chunk
+        drains first (its steps must not replay over the loaded
+        states)."""
         self._ensure_kvstore()
         self._scan_flush()
+        engine = self._zero_engine()
+        if engine is not None:
+            engine.load_serialized_states(states)
+            return
+        residual = _states_residual(states)
+        kv = self._kvstore
+        if residual is not None and kv is not None and \
+                hasattr(kv, "quant_residuals_restore"):
+            kv.quant_residuals_restore(residual)
         for updater in self._state_updaters():
             # each its own copy of the states: the update places it
             updater.load_state_dict(_states_dict(states))
             updater.optimizer = self._optimizer
+
+    # ------------------------------------------------------------------
+    def reshard_to(self, contexts, blk_bytes=None):
+        """Move this live Trainer onto another set of contexts, in place
+        (ref: trainer.py :: reshard_to):
+
+        1. drain the engine's work and the pending checkpoint writes,
+           and a buffered K-step chunk;
+        2. rebind every parameter onto ``contexts`` (``reset_ctx``: the
+           replicas are equal after a step);
+        3. rebuild the replicated updaters' states from replica 0's;
+        4. drop the kvstore, which the next step makes anew;
+        5. under ZeRO, build the engine for the new contexts and move
+           the state fragments (and the quantized wire's residuals)
+           device to device through :mod:`..parallel.reshard` in staged
+           blocks; a set that cannot shard (one survivor) takes the
+           state into the replicated updaters.
+
+        Raises on failure (the ``reshard_fail`` site, a plan mismatch):
+        ``elastic.run_transition`` then restores the newest
+        checkpoint."""
+        from .. import engine as engine_mod
+        from .. import faultinject
+        from .. import model as model_mod
+        from ..parallel.reshard import ReshardError
+        from . import zero as zero_mod
+        contexts = list(contexts)
+        if not contexts:
+            raise ValueError("reshard_to: empty context list")
+        # the live transition's entry: a replicated move reaches no
+        # reshard primitive, so the site fires here too
+        faultinject.maybe_fail("reshard_fail", ReshardError)
+        engine_mod.native_wait_all()
+        model_mod.wait_checkpoints()
+        self._scan_flush()
+        if self._fused_armed:
+            autograd.disarm_fused_update(self)
+            self._fused_armed = False
+        old_zero = self._zero \
+            if isinstance(self._zero, zero_mod.ZeroEngine) else None
+        for param in self._params:
+            if param._data is not None:
+                param.reset_ctx(contexts)
+        self._contexts = contexts
+        src = self._updaters[0] if self._updaters else None
+        self._updaters = [opt_mod.get_updater(self._optimizer)
+                          for _ in contexts]
+        if src is not None and src.states:
+            for upd, ctx in zip(self._updaters, contexts):
+                for i, st in src.states.items():
+                    upd.states[i] = opt_mod._place(st, ctx)
+        self._kvstore = None
+        self._kv_initialized = False
+        if old_zero is not None:
+            self._zero = None
+            self._zero_bailed = False
+            self._init_kvstore()
+            from .. import config as _config
+            ok, _why = zero_mod.eligibility(self) \
+                if _config.get("MXNET_ZERO") else (False, None)
+            if ok:
+                engine = zero_mod.ZeroEngine(self)
+                engine.reshard_from(old_zero, blk_bytes=blk_bytes)
+                self._zero = engine
+            else:
+                # a set that cannot shard: the moments carry over into
+                # the replicated updaters
+                old_zero.dissolve_into(self._updaters, contexts)
+                self._zero = False
+                self._zero_bailed = True
 
     def _state_updaters(self):
         """The updaters that hold the optimizer's states: the store's
@@ -627,11 +805,26 @@ class Trainer:
 
 
 def _states_dict(states: bytes):
-    """A states blob's ``{index: state}``, unwrapped from the reference's
-    quantized-sync wrappers (their residuals dropped)."""
+    """A states blob's ``{index: state}``, unwrapped from the quantized
+    wire's wrappers."""
     obj = opt_mod.loads_states(states)
     if isinstance(obj, dict) and obj.get("__mx_quant__"):
         obj = opt_mod.loads_states(obj["updater"])
     elif isinstance(obj, dict) and obj.get("__mx_zero_quant__"):
         obj = obj["states"]
+    if isinstance(obj, tuple) and len(obj) == 2:
+        obj = obj[0]            # the dump_optimizer=True form
     return obj
+
+
+def _states_residual(states: bytes):
+    """The kvstore-path residuals a wrapped blob carries, by store key
+    (the ZeRO blob's parameter-space gradient residual has the same
+    meaning), or None."""
+    obj = opt_mod.loads_states(states)
+    if isinstance(obj, dict) and obj.get("__mx_quant__"):
+        return obj.get("kv_residual") or {}
+    if isinstance(obj, dict) and obj.get("__mx_zero_quant__"):
+        return {str(k): v for k, v in
+                (obj.get("grad_residual") or {}).items()}
+    return None

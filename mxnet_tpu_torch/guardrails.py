@@ -83,10 +83,16 @@ def emit(kind: str, **info) -> dict:
 
 
 def _active_quantize() -> Optional[str]:
-    """The gradient-quantization mode a nonfinite event names: none until
-    the kvstore's quantized sync is ported (ROADMAP.md queue 1, item
-    11)."""
-    return None
+    """The quantized wire's mode ('int8'/'fp8') a nonfinite event names,
+    or None: the guard checks the dequantized sum, and a block whose
+    scale is not finite dequantizes to NaN, so an event under the wire
+    tells a bad scale from a model's own blow-up
+    (:func:`~.parallel.quantize.active_mode`)."""
+    try:
+        from .parallel import quantize as qz
+        return qz.active_mode()
+    except Exception:
+        return None
 
 
 def inject_grad_faults(named_grads) -> None:

@@ -20,10 +20,17 @@ How a key's replicas are summed (the reference's ``_reduce`` and
 
 A reduced value is committed on the store entry's context, written into
 the entry's own tensor, so no store entry aliases a caller's gradient.
-Gradient compression (``set_gradient_compression``,
-``MXNET_KVSTORE_QUANTIZE``) waits for the quantized collectives
-(ROADMAP.md queue 1, item 11) and ``row_sparse_pull`` for the sparse
-arrays (item 16): both raise.
+
+The quantized wire (``MXNET_KVSTORE_QUANTIZE``, or
+``set_gradient_compression``, which routes every compression type to
+int8): ``pushpull_list`` sums the float keys whose replicas lie on
+distinct contexts through :func:`~..parallel.quantize.quantized_allreduce`
+over a mesh of those contexts, one flat buffer a device set, with an
+error-feedback residual a device (the carried rounding error, added into
+the next step's input). ``quant_residuals_export`` sums them by key for a
+checkpoint and ``quant_residuals_restore`` splits them back at the next
+reduce. ``row_sparse_pull`` waits for the sparse arrays (ROADMAP.md queue
+1, item 16) and raises.
 """
 from __future__ import annotations
 
@@ -41,6 +48,16 @@ __all__ = ["KVStore", "KVStoreBase", "create"]
 
 def _normalize(key):
     return str(key)
+
+
+# set_gradient_compression's deprecation warning, once a process
+_COMPRESSION_WARNED = False
+
+
+def _quantizable(t: torch.Tensor) -> bool:
+    """Float payloads of at most 32 bits ride the quantized wire (f64
+    would lose range; integer gradients are exact by contract)."""
+    return t.dtype.is_floating_point and torch.finfo(t.dtype).bits <= 32
 
 
 def _not_ported(what, item):
@@ -156,19 +173,64 @@ class KVStore(KVStoreBase):
         self._updater: Optional[Callable] = None
         self._optimizer = None
         self._reducer = _CollectiveReducer()
+        self._compression = None          # (type, threshold)
+        self._quant_state: Dict = {}      # (keys, contexts) -> residuals
+        self._quant_restore: Dict = {}    # key -> numpy residual
+        self._quant_step = 0              # stochastic-rounding seed clock
 
     # ------------------------------------------------------------------
     def set_gradient_compression(self, compression_params):
-        """Gradient compression rides the quantized collectives in the
-        reference: refused."""
-        raise _not_ported("gradient compression (set_gradient_compression, "
-                          "MXNET_KVSTORE_QUANTIZE)", 11)
+        """MXNet 1.x's gradient compression (ref:
+        src/kvstore/gradient_compression.cc). Every type is served by the
+        int8 quantized wire with error feedback
+        (:mod:`..parallel.quantize`), as in the reference: the legacy
+        ``threshold`` is accepted and ignored, with one FutureWarning a
+        process. ``MXNET_KVSTORE_QUANTIZE`` is the native spelling."""
+        ctype = compression_params.get("type", "2bit")
+        if ctype not in ("1bit", "2bit"):
+            raise MXNetError("unsupported compression type %r" % ctype)
+        global _COMPRESSION_WARNED
+        if not _COMPRESSION_WARNED:
+            _COMPRESSION_WARNED = True
+            import warnings
+            warnings.warn(
+                "set_gradient_compression(type=%r) now rides the int8 "
+                "quantized collectives with error feedback "
+                "(MXNET_KVSTORE_QUANTIZE); the legacy threshold parameter "
+                "is ignored" % ctype, FutureWarning, stacklevel=2)
+        self._compression = (ctype,
+                             float(compression_params.get("threshold", 0.5)))
 
-    def _check_quantize(self):
-        from ..base import getenv
-        if (getenv("MXNET_KVSTORE_QUANTIZE", "") or "").lower() not in (
-                "", "0", "off", "none", "false"):
-            raise _not_ported("MXNET_KVSTORE_QUANTIZE", 11)
+    def _quant_cfg(self):
+        """The wire's configuration: the environment's, or int8 when
+        set_gradient_compression asked for it; None for the f32 wire."""
+        from ..parallel import quantize as qz
+        cfg = qz.from_env()
+        if cfg is None and self._compression is not None:
+            cfg = qz.QuantConfig()
+        return cfg
+
+    def quant_residuals_export(self) -> Dict[str, Any]:
+        """``{store key: residual}`` (flat numpy): each key's residuals
+        summed over the devices (the carry conserves the sum)."""
+        import numpy as np
+        out: Dict[str, Any] = {}
+        for ent in self._quant_state.values():
+            total = None
+            for r in ent["res"]:
+                a = r.detach().cpu().numpy().astype(np.float32)
+                total = a if total is None else total + a
+            off = 0
+            for k, size in zip(ent["keys"], ent["sizes"]):
+                out[k] = total[off:off + size].copy()
+                off += size
+        return out
+
+    def quant_residuals_restore(self, residuals: Dict[str, Any]):
+        """Queue checkpointed residuals for the next grouped reduce (the
+        group's layout is known only then)."""
+        self._quant_state.clear()
+        self._quant_restore = dict(residuals or {})
 
     @property
     def type(self) -> str:
@@ -209,7 +271,6 @@ class KVStore(KVStoreBase):
                     dt.copy_(t)
 
     def push(self, key, value, priority=0):
-        self._check_quantize()
         keys, values = self._key_value(key, value)
         for k, v in zip(keys, values):
             vals = v if isinstance(v, (list, tuple)) else [v]
@@ -242,7 +303,6 @@ class KVStore(KVStoreBase):
     def pushpull(self, key, value, out=None, priority=0):
         """Sum then broadcast (ref: KVStoreBase.pushpull); the store is
         not written."""
-        self._check_quantize()
         keys, values = self._key_value(key, value)
         _, outs = self._key_value(key, out if out is not None else value)
         for k, v, o in zip(keys, values, outs):
@@ -290,16 +350,24 @@ class KVStore(KVStoreBase):
         """Sum many keys at once: the keys whose replicas lie on distinct
         CUDA devices in one grouped reduce per device set, the others
         key by key on their first replica's context. Results go into
-        ``outs`` (default ``values``) and into the store."""
-        self._check_quantize()
+        ``outs`` (default ``values``) and into the store. With the
+        quantized wire on, the float keys whose replicas lie on distinct
+        contexts go through one quantized all-reduce a context set
+        instead."""
         keys = [_normalize(k) for k in keys]
         outs = values if outs is None else outs
         vlists = [v if isinstance(v, (list, tuple)) else [v] for v in values]
         olists = [o if isinstance(o, (list, tuple)) else [o] for o in outs]
+        cfg = self._quant_cfg()
         by_sig: Dict[tuple, list] = OrderedDict()
+        by_ctx: Dict[tuple, list] = OrderedDict()
         for i, vals in enumerate(vlists):
             ts = [v.tensor() for v in vals]
-            if _distinct_cuda(ts):
+            ctxs = tuple(v.context for v in vals)
+            if cfg is not None and len(vals) > 1 and \
+                    len(set(ctxs)) == len(ctxs) and _quantizable(ts[0]):
+                by_ctx.setdefault(ctxs, []).append(i)
+            elif _distinct_cuda(ts):
                 by_sig.setdefault(tuple(t.device for t in ts), []).append(i)
             else:
                 red = self._reduce(vals, vals[0].context, key=keys[i])
@@ -310,7 +378,78 @@ class KVStore(KVStoreBase):
                 [[v.tensor() for v in vlists[i]] for i in idx])
             for i, reps in zip(idx, results):
                 self._place(olists[i], keys[i], reps)
+        for ctxs, idx in by_ctx.items():
+            results = self._quant_reduce(
+                ctxs, [[v.tensor() for v in vlists[i]] for i in idx],
+                [keys[i] for i in idx], cfg)
+            for i, reps in zip(idx, results):
+                self._place(olists[i], keys[i], reps)
         return None
+
+    def _quant_reduce(self, ctxs, groups, keys, cfg):
+        """The quantized grouped all-reduce of ``groups`` (per key, one
+        replica a context of ``ctxs``): each context's keys concatenated
+        into one flat f32 buffer, its residual added, the quantized
+        all-reduce run over a mesh of the contexts (one thread a
+        context), the new residual kept and the sums split back. Returns
+        the per-key lists of per-context sums, in the keys' dtypes."""
+        import numpy as np
+        from .. import commwatch
+        from ..parallel import _spmd
+        from ..parallel import quantize as qz
+        from ..parallel.mesh import contexts_mesh
+        qz.note_active(cfg)
+        n = len(ctxs)
+        sizes = [g[0].numel() for g in groups]
+        S = int(sum(sizes))
+        rkey = (tuple(keys), ctxs)
+        ent = self._quant_state.get(rkey)
+        if ent is None:
+            base = np.zeros(S, np.float32)
+            off = 0
+            for k, size in zip(keys, sizes):
+                pend = self._quant_restore.pop(k, None)
+                if pend is not None:
+                    # a checkpoint holds the sum over the devices: split
+                    # back evenly, so the round trip keeps the sum
+                    base[off:off + size] = np.asarray(
+                        pend, np.float32).reshape(-1) / n
+                off += size
+            ent = {"res": [torch.from_numpy(base).to(c.torch_device)
+                           for c in ctxs],
+                   "keys": tuple(keys), "sizes": tuple(sizes)}
+            self._quant_state[rkey] = ent
+        seed = None
+        if cfg.stochastic and cfg.mode == "int8":
+            self._quant_step += 1
+            seed = self._quant_step
+        mesh = contexts_mesh(ctxs, ("kv",))
+
+        def body(m):
+            p = m.pos
+            with torch.no_grad():
+                flat = torch.cat([g[p].detach().reshape(-1).float()
+                                  for g in groups]) \
+                    if len(groups) > 1 else \
+                    groups[0][p].detach().reshape(-1).float()
+                out, new_res = qz.quantized_allreduce(
+                    flat, "kv", None, cfg, residual=ent["res"][p],
+                    key=seed)
+                ent["res"][p] = new_res
+                res, off = [], 0
+                for g, size in zip(groups, sizes):
+                    res.append(out[off:off + size].reshape(g[p].shape)
+                               .to(g[p].dtype))
+                    off += size
+                return res
+        with commwatch.program_watch(("kv.quant", ctxs, tuple(sizes)),
+                                     "kv.quant_reduce", exposed=True):
+            run = _spmd.Run(mesh, collector=commwatch.current_collector())
+            per_dev = run.execute(body)
+            if commwatch.enabled():
+                _synchronize([t for r in per_dev for t in r])
+        return [[per_dev[p][k] for p in range(n)]
+                for k in range(len(groups))]
 
     def _place(self, dsts, key, reps):
         """Write a grouped reduce's per-device results: each destination

@@ -91,6 +91,16 @@ class KVStoreDist(KVStore):
         self._global = _GlobalReducer()
         self._vote_suppressed = False
 
+    def _check_quantize(self):
+        """The quantized wire across processes (MXNET_KVSTORE_QUANTIZE,
+        set_gradient_compression on a dist store) is not ported: the
+        in-process stores and ZeRO carry it."""
+        if self._quant_cfg() is not None:
+            raise NotImplementedError(
+                "kvstore %s: the quantized wire across processes is not "
+                "ported yet (ROADMAP.md queue 1, item 11); the in-process "
+                "stores and MXNET_ZERO run it" % self._type)
+
     @property
     def rank(self) -> int:
         return dist_mod.rank()

@@ -30,10 +30,12 @@ corrupt or missing file. ``states_blob`` is written beside it as
 site cuts the temp file to half and fails the write.
 
 A ``sharding`` section rides the manifest entry
-(:func:`checkpoint_sharding`); building one (``reshard.sharding_manifest``)
-waits with ``parallel/reshard.py`` (ROADMAP.md queue 1, item 11). What
-waits for later items raises: a ``symbol`` other than None and
-:func:`load_checkpoint`'s symbol (item 16).
+(:func:`checkpoint_sharding`): the logical layout
+``parallel.reshard.sharding_manifest`` builds from a Trainer (its
+contexts, mesh axes and, under ZeRO, each parameter's fragment geometry
+and the ownership permutation), which ``Estimator.fit`` writes with
+every checkpoint. What waits for later items raises: a ``symbol`` other
+than None and :func:`load_checkpoint`'s symbol (item 16).
 """
 from __future__ import annotations
 

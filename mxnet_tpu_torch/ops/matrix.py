@@ -244,11 +244,13 @@ def _fill_value(dtype):
 
 class _GatherRows(torch.autograd.Function):
     """``weight.index_select(0, idx)`` whose backward adds the rows'
-    gradients with ``index_put_(accumulate=True)``, which sorts the ids
-    and adds each table row's contributions in one order, the same from
-    run to run (``index_select``'s own backward, ``index_add_``, adds
-    them with atomics on the card, and ``F.embedding``'s does too past a
-    few thousand ids)."""
+    gradients in one order, the same from run to run: on the card with
+    ``index_put_(accumulate=True)``, which sorts the ids
+    (``index_select``'s own backward, ``index_add_``, adds them with
+    atomics there, and ``F.embedding``'s does too past a few thousand
+    ids); on the CPU with ``index_add_``, which adds them in the ids'
+    order (the CPU's ``index_put_`` adds them with atomics over its
+    threads)."""
 
     @staticmethod
     def forward(ctx, weight, idx):
@@ -261,7 +263,10 @@ class _GatherRows(torch.autograd.Function):
         idx, = ctx.saved_tensors
         dw = torch.zeros(ctx.weight_shape, dtype=grad.dtype,
                          device=grad.device)
-        dw.index_put_((idx,), grad, accumulate=True)
+        if grad.device.type == "cpu":
+            dw.index_add_(0, idx, grad)
+        else:
+            dw.index_put_((idx,), grad, accumulate=True)
         return dw, None
 
 

@@ -61,7 +61,7 @@ from ..ops import reduce_ops as _reduce
 
 __all__ = ["Optimizer", "SGD", "NAG", "LAMB", "Adam", "AdamW", "RMSProp",
            "Ftrl", "SignSGD", "AdaGrad", "create", "register", "Updater",
-           "get_updater"]
+           "get_updater", "ZeroHyper"]
 
 _REG: Dict[str, type] = {}
 
@@ -146,6 +146,30 @@ class Optimizer:
     def update_multi(self, indices, weights, grads, states):
         for i, w, g, s in zip(indices, weights, grads, states):
             self.update_multi_precision(i, w, g, s)
+
+    # ------------------------------------------------------------------
+    # ZeRO weight-update sharding (gluon/zero.py)
+    # ------------------------------------------------------------------
+    def zero_fragment_update(self, aggregate=False):
+        """The fragment form of this optimizer for ZeRO, or None when its
+        update is not elementwise (LAMB's layer norms, AdamW, master
+        weights): the Trainer then stays replicated.
+
+        Returns ``(num_states, hyper_key, fn)``: ``num_states`` state
+        tensors a parameter (allocated sharded by the engine),
+        ``hyper_key`` the static hyperparameters ``fn`` holds, and
+        ``fn(w, g, states, hp) -> (new_w, new_states)`` the update of
+        one 1-D fragment, ``hp`` a :class:`ZeroHyper`. ``aggregate``
+        picks the multi-tensor ops the replicated Trainer's
+        ``update_multi`` runs (so the two paths take the same steps bit
+        for bit), else the one-tensor ops of :meth:`update`."""
+        return None
+
+    def zero_hyperparams(self, index):
+        """Per-parameter (lr, wd) of one ZeRO step, taken after
+        :meth:`_update_count` advanced the counter; Adam folds its bias
+        correction into lr."""
+        return self._get_lr(index), self._get_wd(index)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -279,6 +303,41 @@ class SGD(Optimizer):
             else:
                 nw = _ops.sgd_update(w, g, **kwargs)
             _write(weight, nw)
+
+    def zero_fragment_update(self, aggregate=False):
+        """SGD's fragment form: sgd_update or sgd_mom_update (with
+        ``aggregate``, the preloaded multi-tensor ops, lr and wd f32
+        device scalars and the rescale in the gradient's dtype) on the
+        owned slice."""
+        if self.multi_precision:
+            return None
+        clip = self._clip()
+        momentum = float(self.momentum)
+        mom = momentum != 0.0
+        if aggregate:
+            op = _ops.preloaded_multi_sgd_mom_update if mom else \
+                _ops.preloaded_multi_sgd_update
+            kw = dict(clip_gradient=clip, num_weights=1)
+            if mom:
+                kw["momentum"] = momentum
+
+            def fn(w, g, states, hp):
+                outs = op(w, g, *states, hp.lr_t[None], hp.wd_t[None],
+                          rescale_grad=hp.rescale_t, **kw)
+                if not mom:
+                    return outs, ()
+                return outs[0], (outs[1],)
+            return int(mom), ("sgd_multi", momentum, clip), fn
+
+        def fn(w, g, states, hp):
+            kwargs = dict(lr=hp.lr, wd=hp.wd, rescale_grad=hp.rescale,
+                          clip_gradient=clip)
+            if mom:
+                nw, nm = _ops.sgd_mom_update(w, g, states[0],
+                                             momentum=momentum, **kwargs)
+                return nw, (nm,)
+            return _ops.sgd_update(w, g, **kwargs), ()
+        return int(mom), ("sgd", momentum, clip), fn
 
     def update_multi(self, indices, weights, grads, states):
         """One preloaded_multi_(mp_)sgd_* call for each group of
@@ -497,6 +556,36 @@ class Adam(Optimizer):
             _write(mean, nm)
             _write(var, nv)
             _write(weight, nw)
+
+    def zero_fragment_update(self, aggregate=False):
+        """Adam's fragment form: adam_update (with ``aggregate``,
+        multi_adam_update) on the owned slice, the bias correction folded
+        into lr by :meth:`zero_hyperparams`."""
+        if self.multi_precision:
+            return None
+        hp = dict(beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                  clip_gradient=self._clip())
+        key = ("adam_multi" if aggregate else "adam", self.beta1,
+               self.beta2, self.epsilon, self._clip())
+        if aggregate:
+            def fn(w, g, states, h):
+                outs = _ops.multi_adam_update(
+                    w, g, states[0], states[1], learning_rates=[h.lr],
+                    wds=[h.wd], rescale_grad=h.rescale, num_tensors=1, **hp)
+                return outs[0], (outs[1], outs[2])
+            return 2, key, fn
+
+        def fn(w, g, states, h):
+            nw, nm, nv = _ops.adam_update(w, g, states[0], states[1],
+                                          lr=h.lr, wd=h.wd,
+                                          rescale_grad=h.rescale, **hp)
+            return nw, (nm, nv)
+        return 2, key, fn
+
+    def zero_hyperparams(self, index):
+        t = self._index_update_count[index]
+        return (_bias_fold(self.beta1, self.beta2)(self._get_lr(index), t),
+                self._get_wd(index))
 
     def update_multi(self, indices, weights, grads, states):
         hp = dict(beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
@@ -869,6 +958,20 @@ def _place(state, ctx):
     if isinstance(state, (tuple, list)):
         return tuple(_place(s, ctx) for s in state)
     return state
+
+
+class ZeroHyper:
+    """One fragment's hyperparameters in a ZeRO step: ``lr``, ``wd`` and
+    ``rescale`` as host floats, and ``lr_t``, ``wd_t`` (f32) and
+    ``rescale_t`` (the gradient's dtype) as 0-d tensors on the
+    fragment's device, for the ops that read them there."""
+
+    __slots__ = ("lr", "wd", "rescale", "lr_t", "wd_t", "rescale_t")
+
+    def __init__(self, lr, wd, rescale, lr_t=None, wd_t=None,
+                 rescale_t=None):
+        self.lr, self.wd, self.rescale = lr, wd, rescale
+        self.lr_t, self.wd_t, self.rescale_t = lr_t, wd_t, rescale_t
 
 
 class Updater:

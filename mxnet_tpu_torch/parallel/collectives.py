@@ -13,8 +13,10 @@ forms keep the reference's order and padding.
 
 Each call is recorded into :mod:`mxnet_tpu_torch.commwatch` once
 (:func:`_watch`: op, axis, bytes, participants), as the reference
-records each traced call. The quantized wire (``parallel/quantize.py``)
-is not ported: ``quant=`` raises.
+records each traced call. ``quant=`` (a
+:class:`~.quantize.QuantConfig`) puts a hierarchical all-reduce on the
+quantized wire of :mod:`.quantize`, its payload recorded at its 1-byte
+dtype.
 """
 from __future__ import annotations
 
@@ -26,8 +28,7 @@ import torch
 from ..base import MXNetError
 from . import _spmd
 
-# once-per-process warning of a quantized sync without error feedback:
-# the quantized wire is not ported, so it never fires
+# once-per-process warning of a quantized sync without error feedback
 _LOSSY_SYNC_WARNED = False
 
 __all__ = ["allreduce_sum", "allreduce_mean", "allgather", "reduce_scatter",
@@ -35,13 +36,6 @@ __all__ = ["allreduce_sum", "allreduce_mean", "allgather", "reduce_scatter",
            "hierarchical_allreduce", "hierarchical_grad_sync",
            "hierarchical_reduce_scatter", "hierarchical_allgather",
            "pad_to_multiple", "shard_owner_index", "shard_map"]
-
-
-def _quant_refused():
-    return NotImplementedError(
-        "the quantized collectives (parallel/quantize.py, "
-        "MXNET_KVSTORE_QUANTIZE) are not ported yet (ROADMAP.md queue 1, "
-        "item 11, its next slice)")
 
 
 def _member(what: str) -> "_spmd.Member":
@@ -240,9 +234,27 @@ def hierarchical_allreduce(x, ici_axis: str = "dp", dcn_axis: str = "dcn",
     """All-reduce staged for the process hierarchy: reduce-scatter over
     ``ici_axis``, all-reduce the 1/n_ici shard over ``dcn_axis``,
     all-gather over ``ici_axis``. ``x.shape[scatter_axis]`` must divide
-    by the ici axis size."""
+    by the ici axis size.
+
+    ``quant`` (a QuantConfig) runs the quantized all-reduce of
+    :mod:`.quantize` instead, on a flat 1-D ``x``: the hops
+    ``quant.tier`` selects carry the 1-byte payload. With ``residual``
+    (f32, shaped like ``x``) the rounding error is carried and
+    ``(out, new_residual)`` comes back."""
     if quant is not None:
-        raise _quant_refused()
+        t, wrap = _unwrap(x)
+        if t.dim() != 1 or scatter_axis != 0:
+            raise ValueError("quantized hierarchical_allreduce needs a "
+                             "flat 1-D buffer (got shape %r, "
+                             "scatter_axis=%d)" % (tuple(t.shape),
+                                                   scatter_axis))
+        from . import quantize as qz
+        res = None if residual is None else _unwrap(residual)[0]
+        out, new_res = qz.quantized_allreduce(t, ici_axis, dcn_axis, quant,
+                                              residual=res)
+        if residual is not None:
+            return wrap(out), wrap(new_res)
+        return wrap(out)
     shard = reduce_scatter(x, ici_axis, scatter_axis=scatter_axis)
     shard = allreduce_sum(shard, dcn_axis)
     return allgather(shard, ici_axis, axis=scatter_axis)
@@ -278,10 +290,27 @@ def hierarchical_grad_sync(grads, ici_axis: str = "dp",
     leaves flattened into one buffer, padded to a multiple of the ici
     axis size, reduce_scatter(ici) -> allreduce(dcn) -> allgather(ici),
     and unpacked. A ``residual`` tree (f32) is flushed into this exact
-    sync and comes back as zeros (``(synced, zeros)``). ``quant`` (the
-    quantized wire) is not ported and raises."""
-    if quant is not None:
-        raise _quant_refused()
+    sync and comes back as zeros (``(synced, zeros)``).
+
+    ``quant`` (a QuantConfig, or ``"env"`` for the environment's) puts
+    the float buffers of at most 32 bits on the quantized wire; with a
+    ``residual`` the rounding error is carried (``(synced,
+    new_residual)``), without one it is dropped, with one warning a
+    process. The default is off whatever the environment says: a caller
+    without a residual would lose each call's error."""
+    if quant == "env":
+        from . import quantize as qz
+        quant = qz.from_env()
+    if quant is not None and residual is None:
+        global _LOSSY_SYNC_WARNED
+        if not _LOSSY_SYNC_WARNED:
+            _LOSSY_SYNC_WARNED = True
+            import logging
+            logging.getLogger("mxnet_tpu_torch.parallel").warning(
+                "hierarchical_grad_sync: quantized wire WITHOUT an "
+                "error-feedback residual; each call's rounding error is "
+                "dropped. Fine for a one-shot sync; pass residual= in a "
+                "training loop.")
     leaves = _tree_leaves(grads)
     if not leaves:
         return (grads, residual) if residual is not None else grads
@@ -300,18 +329,37 @@ def hierarchical_grad_sync(grads, ici_axis: str = "dp",
     new_res = [None] * len(ts)
     for dt, idxs in by_dtype.items():
         flat = torch.cat([ts[i].reshape(-1) for i in idxs])
-        if res_ts is not None and dt.is_floating_point:
-            rflat = torch.cat([res_ts[i].reshape(-1).float() for i in idxs])
-            flat = (flat.float() + rflat).to(dt)
         flat = pad_to_multiple(flat, n_ici)
-        flat = hierarchical_allreduce(flat, ici_axis, dcn_axis)
+        quantizable = quant is not None and dt.is_floating_point and \
+            torch.finfo(dt).bits <= 32
+        rflat = None
+        if res_ts is not None and dt.is_floating_point:
+            rflat = pad_to_multiple(torch.cat(
+                [res_ts[i].reshape(-1).float() for i in idxs]), n_ici)
+        rnew = None
+        if quantizable:
+            synced, rnew = hierarchical_allreduce(
+                flat, ici_axis, dcn_axis, quant=quant,
+                residual=rflat if rflat is not None
+                else torch.zeros(flat.shape, dtype=torch.float32,
+                                 device=flat.device))
+            flat = synced.to(dt)
+        else:
+            if rflat is not None:
+                # quantize resolved off while the caller carries a
+                # residual: flush it into this sync, return zeros
+                flat = (flat.float() + rflat).to(dt)
+            flat = hierarchical_allreduce(flat, ici_axis, dcn_axis)
         off = 0
         for i in idxs:
             n = ts[i].numel()
             out[i] = pairs[i][1](flat[off:off + n].reshape(ts[i].shape))
             if res_ts is not None:
-                new_res[i] = pairs[i][1](torch.zeros(
-                    ts[i].shape, dtype=torch.float32, device=ts[i].device))
+                new_res[i] = pairs[i][1](
+                    rnew[off:off + n].reshape(ts[i].shape)
+                    if rnew is not None else torch.zeros(
+                        ts[i].shape, dtype=torch.float32,
+                        device=ts[i].device))
             off += n
     synced = _tree_fill(grads, iter(out))
     if residual is not None:

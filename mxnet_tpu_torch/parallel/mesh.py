@@ -211,6 +211,19 @@ def _as_devices(devices) -> List[Device]:
     return out
 
 
+def contexts_mesh(contexts: Sequence, axis_names: Sequence[str] = ("dp",),
+                  shape: Optional[Sequence[int]] = None) -> Mesh:
+    """A mesh over this process's ``contexts`` in their order, reshaped
+    to ``shape`` (default: one axis) with ``axis_names``: the mesh the
+    ZeRO engine, the kvstore's quantized reduce and the reshard's
+    transition check run their replicas on."""
+    devs = np.empty(len(contexts), dtype=object)
+    for i, d in enumerate(_as_devices(contexts)):
+        devs[i] = d
+    return Mesh(devs.reshape(tuple(shape) if shape else (len(contexts),)),
+                axis_names)
+
+
 def make_mesh(config: Optional[MeshConfig] = None,
               devices: Optional[Sequence] = None,
               axis_sizes: Optional[Dict[str, int]] = None) -> Mesh:

@@ -24,6 +24,13 @@ prepared on the host (counters advanced, lrs and wds taken, as the
 per-step path takes them), and the K-th push retires the chunk. The
 deferred arrays then take their values from the output slots.
 
+Several devices: a Trainer over two or more contexts (replicated or
+ZeRO, ``gluon/zero.py``) never arms the fused update, so it never
+enters a chunk either; ``MXNET_SCAN_STEPS`` above 1 leaves its per-step
+path as it is (K = 8 is K = 1 bit for bit), after one warning a
+Trainer. A chunk over several devices in one captured graph needs
+several cards in one process (ROADMAP.md queue 1, item 11).
+
 Correctness contract: while a chunk buffers no parameter changes, and
 anything that would observe intermediate state drains it first, so the
 chunk is bit for bit the K per-step fused steps it replaces:

@@ -64,7 +64,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "span", "phase", "counter",
            "memory_snapshot", "memory_diff", "ndarray_live",
            "parse_metric_key", "debit_stall", "peak_flops",
            "local_fleet_stats", "fleet_snapshot", "fleet_last",
-           "FLEET_FIELDS", "crash_bundle", "install_crash_bundler"]
+           "FLEET_FIELDS", "crash_bundle", "install_crash_bundler",
+           "zero_shard_state"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.telemetry")
 
@@ -642,6 +643,25 @@ def guard_event(kind: str):
 def fault_event(site: str):
     """One fault fire -> ``mx_fault_injections_total{site}``."""
     count_event("mx_fault_injections_total", site=site)
+
+
+def zero_shard_state(ctx_key: str, shard_bytes: float, fragments: int,
+                     replicated_bytes: float):
+    """The ZeRO engine's gauges for one replica context
+    (gluon/zero.py): ``mx_zero_state_bytes{ctx}`` the optimizer-state
+    fragment it allocates, ``mx_zero_state_fragments{ctx}`` the
+    parameter fragments it owns and ``mx_zero_state_saved_bytes{ctx}``
+    what the replicated path would hold there beyond that. Never
+    raises."""
+    try:
+        if not enabled():
+            return
+        gauge("mx_zero_state_bytes", ctx=ctx_key).set(shard_bytes)
+        gauge("mx_zero_state_fragments", ctx=ctx_key).set(fragments)
+        gauge("mx_zero_state_saved_bytes", ctx=ctx_key).set(
+            max(0.0, replicated_bytes - shard_bytes))
+    except Exception:
+        pass
 
 
 def checkpoint_event(ok: bool):

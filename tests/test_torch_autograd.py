@@ -389,9 +389,23 @@ def _dense():
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"compression_params": {"type": "2bit"}}, "item 11")])
-def test_trainer_refuses_what_is_not_ported(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        pt.gluon.Trainer(_dense().collect_params(), "sgd", **kwargs)
+def test_trainer_refuses_what_is_not_ported(kwargs, match, monkeypatch):
+    """Gradient compression (item 11) is ported: the Trainer takes
+    ``compression_params`` and hands them to its kvstore at the first
+    step, which routes them to the int8 quantized wire; with one context
+    there is no store, as in the reference."""
+    tr = pt.gluon.Trainer(_dense().collect_params(), "sgd", **kwargs)
+    assert tr._compression_params == kwargs["compression_params"]
+    net = pt.gluon.nn.Dense(2, in_units=3, prefix="c_")
+    net.initialize(ctx=[pt.cpu(0), pt.cpu(1)])
+    tr = pt.gluon.Trainer(net.collect_params(), "sgd", **kwargs)
+    monkeypatch.setattr(pt.kvstore, "_COMPRESSION_WARNED", False)
+    with pytest.warns(FutureWarning, match="int8"):
+        pt.kvstore.KVStore().set_gradient_compression(
+            kwargs["compression_params"])
+    tr._init_kvstore()
+    assert tr._kvstore._compression[0] == "2bit"
+    assert tr._kvstore._quant_cfg().mode == "int8"
 
 
 def test_trainer_dist_sync_joins_the_group_at_its_first_step(monkeypatch):
@@ -436,7 +450,7 @@ def test_trainer_update_on_kvstore_one_context_updates_locally():
 # ported: with them turned on the step runs, and the same ids now check
 # that it does
 @pytest.mark.parametrize("var,value,match", [
-    ("MXNET_ZERO", "1", "item 11"), ("MXNET_SCAN_STEPS", "4", None),
+    ("MXNET_ZERO", "1", None), ("MXNET_SCAN_STEPS", "4", None),
     ("MXNET_GUARD_NONFINITE", "skip_step", None),
     ("MXNET_MODELWATCH", "1", None)], ids=[
     "MXNET_ZERO-1-item 11", "MXNET_SCAN_STEPS-4-item 7",
@@ -467,6 +481,10 @@ def test_trainer_step_refuses_features_turned_on(monkeypatch, var, value,
         if var == "MXNET_MODELWATCH":
             assert tr.modelwatch.samples == 1
             assert tr.modelwatch.sync_count == 1
+        if var == "MXNET_ZERO":
+            # item 11 is ported: one context is not eligible, so the
+            # Trainer warns and stays replicated
+            assert tr._zero is False and tr._zero_bailed
         return
     with pytest.raises(NotImplementedError, match=match):
         tr.step(1)

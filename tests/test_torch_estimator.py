@@ -109,9 +109,20 @@ def test_guard_events_are_collected(tmp_path):
 
 
 def test_elastic_waits_for_item_11(tmp_path, monkeypatch):
+    """MXNET_ELASTIC is ported (item 11): with no notice the polling fit
+    trains the same bits as a fit without it, and its checkpoints carry
+    the sharding section (tests/test_torch_elastic.py drives the
+    transitions)."""
+    plain = fit_mlp(pt, _dir(tmp_path, pt, "pl"), epochs=1)
     monkeypatch.setenv("MXNET_ELASTIC", "1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit_mlp(pt, _dir(tmp_path, pt, "el"), epochs=1)
+    d = _dir(tmp_path, pt, "el")
+    el = fit_mlp(pt, d, epochs=1)
+    for a, b in zip(el[0], plain[0]):
+        assert a.tobytes() == b.tobytes()
+    for k in plain[1]:
+        assert el[1][k].tobytes() == plain[1][k].tobytes()
+    sec = pt.model.checkpoint_sharding(os.path.join(d, "run"), 1)
+    assert sec["layout"] == "replicated" and sec["n_devices"] == 1
 
 
 def test_callbacks_match_reference(tmp_path, caplog):

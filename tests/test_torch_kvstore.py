@@ -2,7 +2,8 @@
 (``mxnet_tpu_torch/kvstore/``, ``gluon/trainer.py``) against the
 reference's ``tests/test_kvstore.py``, case by case on the same numpy
 inputs, where the reference is green (its two gradient-compression cases
-are red; compression stays refused here).
+are red; the port's compression, the quantized wire, is held in
+tests/test_torch_quantize.py).
 
 The port's CPU contexts are one host device, so its replicas on
 ``cpu(0)``, ``cpu(1)``, ... take the ordered sum on the store's context,
@@ -477,18 +478,37 @@ def test_horovod_needs_its_package(monkeypatch):
 # ---------------------------------------------------------------------------
 # what stays refused
 # ---------------------------------------------------------------------------
-def test_gradient_compression_refused():
+def test_gradient_compression_refused(monkeypatch):
+    """Gradient compression is ported (item 11): every type routes to
+    the int8 quantized wire with error feedback, with the reference's
+    warning (once a process); an unknown type raises as the reference's
+    does."""
+    monkeypatch.setattr(pkv, "_COMPRESSION_WARNED", False)
     kv = pt.kvstore.create("local")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.warns(FutureWarning, match="int8 quantized"):
         kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    assert kv._quant_cfg() == pt.parallel.quantize.QuantConfig()
+    with pytest.raises(pt.MXNetError, match="unsupported compression"):
+        kv.set_gradient_compression({"type": "3bit"})
 
 
 def test_quantized_sync_refused(monkeypatch):
+    """MXNET_KVSTORE_QUANTIZE=int8 is ported (item 11): one replica has
+    nothing on the wire and is its own sum; two replicas on distinct
+    contexts sum through the quantized wire (values on the int8 grid
+    come through exactly)."""
     monkeypatch.setenv("MXNET_KVSTORE_QUANTIZE", "int8")
     kv = pt.kvstore.create("device")
     kv.init("w", pt.nd.zeros((2,), ctx=CPU))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        kv.pushpull_list(["w"], [[pt.nd.ones((2,), ctx=CPU)]])
+    one = pt.nd.ones((2,), ctx=CPU)
+    kv.pushpull_list(["w"], [[one]])
+    np.testing.assert_array_equal(one.asnumpy(), [1, 1])
+    reps = [pt.nd.array(np.array([1.0, -127.0], np.float32),
+                        ctx=pt.cpu(i)) for i in range(2)]
+    kv.pushpull_list(["w"], [reps])
+    for r in reps:
+        np.testing.assert_array_equal(r.asnumpy(), [2.0, -254.0])
+    assert kv._quant_state
 
 
 def test_row_sparse_pull_refused():

@@ -222,14 +222,23 @@ def test_snapshot_holds_the_step_it_was_taken_at(tmp_path):
 
 
 def test_symbol_and_sharding_wait_for_their_items(tmp_path):
-    """The symbol still waits for item 16; the sharding section is
-    written (reshard.py, which makes one, waits for item 11)."""
+    """The symbol still waits for item 16; the sharding section is built
+    by reshard.sharding_manifest (item 11, ported) from a Trainer and
+    read back as written."""
     with pytest.raises(NotImplementedError, match="item 16"):
         pt.model.save_checkpoint(str(tmp_path / "r"), 1, object(), {}, {})
+    net = pt.gluon.nn.Dense(3, in_units=5, prefix="sh_")
+    net.initialize(ctx=[pt.cpu(0), pt.cpu(1)])
+    tr = pt.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.1})
+    tr._init_kvstore()
+    section = pt.parallel.reshard.sharding_manifest(tr)
+    assert section["layout"] == "replicated"
+    assert section["contexts"] == ["cpu(0)", "cpu(1)"]
     pt.model.save_checkpoint(str(tmp_path / "r"), 1, None, {}, {},
-                             sharding={"x": 1})
+                             sharding=section)
     pt.model.wait_checkpoints()
-    assert pt.model.checkpoint_sharding(str(tmp_path / "r"), 1) == {"x": 1}
+    assert pt.model.checkpoint_sharding(str(tmp_path / "r"), 1) == section
     with pytest.raises(NotImplementedError, match="item 16"):
         pt.model.load_checkpoint(str(tmp_path / "r"), 1)
     assert pt.model.BatchEndParam._fields == mx.model.BatchEndParam._fields

@@ -240,11 +240,21 @@ def test_hierarchical_grad_sync_pytree_padding():
         np.testing.assert_allclose(res[1][k], want, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(res[1][k], res[0][k], rtol=1e-6,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.parallel.shard_map(
-            lambda v: pcoll.hierarchical_grad_sync({"a": v}, quant=object()),
-            mesh=pmesh(dcn=2, dp=4), in_specs=ppar.P(("dcn", "dp")),
-            out_specs=ppar.P(("dcn", "dp")))(X8)
+    # the quantized wire (item 11, ported): within int8's grid of the
+    # sum, and the carried residual closes the gap exactly in f32 terms
+    cfg = pt.parallel.quantize.QuantConfig(mode="int8", block=8,
+                                           tier="all")
+    qf = pt.parallel.shard_map(
+        lambda v: tuple(t["a"][None] for t in pcoll.hierarchical_grad_sync(
+            {"a": v[0]}, quant=cfg,
+            residual={"a": pt.nd.zeros(v[0].shape, ctx=v.context)})),
+        mesh=pmesh(dcn=2, dp=4), in_specs=ppar.P(("dcn", "dp")),
+        out_specs=ppar.P(("dcn", "dp")))
+    out, resid = [_np(t) for t in qf(X8)]
+    want = X8.sum(axis=0)
+    np.testing.assert_allclose(out[0], want, atol=np.abs(X8).max() * 0.1)
+    np.testing.assert_allclose(out[0] + resid.sum(axis=0), want,
+                               rtol=1e-5, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

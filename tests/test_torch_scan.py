@@ -498,14 +498,50 @@ def test_scan_off_by_default(monkeypatch):
 
 
 def test_replicated_and_zero_paths_fall_back(monkeypatch):
-    """The reference's multi-device scan test (red in the reference):
-    in the port ZeRO and several contexts wait for ROADMAP.md queue 1,
-    item 11, so MXNET_ZERO beside MXNET_SCAN_STEPS raises naming it."""
-    monkeypatch.setenv("MXNET_SCAN_STEPS", "8")
-    monkeypatch.setenv("MXNET_ZERO", "1")
-    net, lf, tr = _build(pt, "z_")
-    with pt.autograd.record():
-        loss = lf(net(_arr(pt, _X[0])), _arr(pt, _Y[0]))
-    loss.backward()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tr.step(4)
+    """The reference's multi-device scan test: a Trainer over several
+    contexts (replicated or MXNET_ZERO) never arms the fused update, so
+    K > 1 runs its per-step path unchanged and K = 8 equals K = 1 bit
+    for bit; the ZeRO run shards (item 11, ported), and both equal the
+    reference's replicated run within its tolerance."""
+    w = [np.random.RandomState(3).randn(*s).astype(np.float32) * 0.3
+         for s in ((8, 6), (8,), (3, 8), (3,))]
+
+    def run(k, prefix, zero, lib=pt):
+        monkeypatch.setenv("MXNET_SCAN_STEPS", str(k))
+        monkeypatch.setenv("MXNET_ZERO", "1" if zero else "0")
+        nn = ref_nn if lib is mx else port_nn
+        cs = [lib.cpu(i) for i in range(2)]
+        net = nn.HybridSequential(prefix=prefix)
+        with net.name_scope():
+            net.add(nn.Dense(8, activation="relu", in_units=6))
+            net.add(nn.Dense(3, in_units=8))
+        net.initialize(ctx=cs)
+        for p, a in zip(net.collect_params().values(), w):
+            p.set_data(_arr(lib, a))
+        net.hybridize(static_alloc=True, static_shape=True)
+        lf = lib.gluon.loss.L2Loss()
+        tr = lib.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9})
+        for i in range(5):
+            xs = lib.gluon.utils.split_and_load(_arr(lib, _X[i]), cs)
+            ys = lib.gluon.utils.split_and_load(_arr(lib, _Y[i]), cs)
+            with lib.autograd.record():
+                ls = [lf(net(x), y) for x, y in zip(xs, ys)]
+            lib.autograd.backward(ls)
+            tr.step(4)
+        assert tr._scan is None          # never entered the scan path
+        if lib is pt:
+            from mxnet_tpu_torch.gluon import zero as zero_mod
+            assert isinstance(tr._zero, zero_mod.ZeroEngine) == zero
+        return {k2.replace(prefix, ""): p.data(cs[0]).asnumpy()
+                for k2, p in net.collect_params().items()}
+
+    ref = run(1, "rr_", False, lib=mx)
+    for zero in (False, True):
+        tag = "z" if zero else "r"
+        p1 = run(1, "m1%s_" % tag, zero)
+        p8 = run(8, "m8%s_" % tag, zero)
+        for name in p1:
+            assert p1[name].tobytes() == p8[name].tobytes(), name
+            np.testing.assert_allclose(p1[name], ref[name], rtol=1e-5,
+                                       atol=1e-6)
