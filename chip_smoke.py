@@ -570,6 +570,34 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    cs.phase_sharded(0, line)"``;
    ``shard_readings(range(5), line)`` prints the readings behind
    ``SHARD_TOL``.
+25. ZeRO, the quantized wire and elastic resharding over ``[gpu(0),
+   cpu(0)]`` (``phase_zero``); after (a), one more step of its
+   replicated Trainer (``NOISE_ROWS`` rows a replica, the first shared,
+   modelwatch on) gives phase 26 (e)'s noise scale.
+26. the rest of multi-GPU over ``[gpu(0), cpu(0)]`` (``phase_multi``),
+   f32 with TF32 off, each reading beside its limit: (a) ring attention,
+   causal and not, and Ulysses attention at B ``MULTI_B``, T
+   ``MULTI_T`` (half a device), 12 heads of 64 over ``sp=2``, the output
+   and the q, k, v gradients against the card alone; (b)
+   ``make_moe_layer`` at d 768, d_hidden 3072, ``ep=2``,
+   ``MOE_TOKENS`` tokens a device, against the dense per-token expert,
+   and at capacity ``MOE_CAP`` the dropped rows zero and as many as the
+   host counts; (c) ``make_pipeline_step`` with ``pp=2``, a
+   ``BERTEncoderCell`` a stage, ``PIPE_MICRO`` microbatches of
+   ``PIPE_MB``, ``PIPE_STEPS`` SGD steps against the two layers in
+   sequence on the card, the card stage's launches; (d) BERT-base
+   without decoder served over the mesh on ``mp`` (the FFN weights
+   split, the request split by ``data_spec``) against the unsharded
+   session on the card, ``refresh_weights`` after halving the weights,
+   a Scheduler at in-flight 2 pushing with the collective descriptor
+   while ``engine_collective_overlap`` strips its lock; (e) phase 25's
+   noise scale, gauge and suggested batch against the formula over its
+   noise step's replica gradients read on the host, rtol
+   ``NOISE_RTOL``; (f) phase 23's two ranks:
+   int8 ``dist_sync`` against the in-process device store over the
+   same values, and its wire bytes. Alone (without (e) and (f)):
+   ``python3 -c "import chip_smoke as cs; line = cs.phase_device();
+   cs.phase_build(); cs.phase_multi(0, line, None, None)"``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -10969,6 +10997,7 @@ def _dp_gloo(mx, seed):
         kvdist._GlobalReducer.allreduce = real
     out["control"] = run["final"]
     del net, trainer
+    out["quant"] = _dp_quant(mx, seed, rank, nw)
     kv.barrier()
     if rank == 0:
         # the one-process run on the concatenated batch, no kvstore
@@ -10983,6 +11012,52 @@ def _dp_gloo(mx, seed):
         out["rel_l2"] = _dp_rel(keep[1], keep[0], one)
         out["control_rel_l2"] = _dp_rel(fault, keep[0], one)
     return out
+
+
+def _dp_quant(mx, seed, rank, nw):
+    """Phase 26 (f), in this rank of phase 23's gloo pair: an FFN's
+    ffn_1 weight and biases through int8 ``dist_sync`` (one replica a
+    rank), against the in-process device store over ``[gpu(0), cpu(0)]``
+    on every rank's values (the rank's result against replica ``rank``'s),
+    and the wire's bytes on kv.dcn."""
+    import numpy as np
+    ctx = _zero_ctxs()[0]
+    local = _zero_ctxs()[:nw]
+    keys = ["quant%d" % i for i in range(len(DP_QUANT_SHAPES))]
+
+    def values(r):
+        rng = np.random.RandomState(seed * 10 + r)
+        return [rng.randn(*shape).astype(np.float32)
+                for shape in DP_QUANT_SHAPES]
+    with _env_flag("MXNET_KVSTORE_QUANTIZE", "int8"):
+        kv = mx.kvstore.create("dist_sync")
+        mine = [mx.nd.array(a, ctx=ctx) for a in values(rank)]
+        kv.init(keys, [a.copy() for a in mine])
+        mx.telemetry.reset()
+        kv.pushpull_list(keys, [[a] for a in mine])
+        wire = {}
+        for r in mx.commwatch.report():
+            if r["axis"] == "kv.dcn":
+                wire[r["dtype"]] = wire.get(r["dtype"], 0) + r["bytes"]
+        ref = mx.kvstore.create("device")
+        every = [values(r) for r in range(nw)]
+        reps = [[mx.nd.array(every[r][i], ctx=c) for r, c in enumerate(local)]
+                for i in range(len(keys))]
+        ref.init(keys, [v[0].copy() for v in reps])
+        ref.pushpull_list(keys, reps)
+    got = [a.asnumpy() for a in mine]
+    want = [v[rank].asnumpy() for v in reps]
+    exact = [sum(e[i].astype(np.float64) for e in every)
+             for i in range(len(keys))]
+    return {"shapes": [list(sh) for sh in DP_QUANT_SHAPES],
+            "ctxs": [str(c) for c in local],
+            "bitwise": all(np.array_equal(g, w) for g, w in zip(got, want)),
+            "max_abs": max(float(np.abs(g - w).max())
+                           for g, w in zip(got, want)),
+            "scale": max(float(np.abs(w).max()) for w in want),
+            "exact": max(float(np.abs(g - e).max())
+                         for g, e in zip(got, exact)),
+            "wire": wire}
 
 
 def _dp_nccl(mx, seed):
@@ -11240,7 +11315,8 @@ def phase_dp(seed, card_line):
         shutil.rmtree(tmp, ignore_errors=True)
     print("[dp] phase 23 took %.1f s; %s" % (time.perf_counter() - t0,
                                             card_line))
-    return gloo[0]["dropout %g" % DP_DROPOUT]["launches"]
+    return (gloo[0]["dropout %g" % DP_DROPOUT]["launches"],
+            {r: gloo[r]["quant"] for r in (0, 1)})
 
 
 # ---------------------------------------------------------------------------
@@ -12222,6 +12298,8 @@ ZERO_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
                 "bias_residual_fwd")
 ZERO_QUANT_BLOCK = 256
 ZERO_QUANT_STEPS = 1       # (b): the identity's steps
+NOISE_ROWS = 2             # (a)'s noise step: rows a replica, one shared
+NOISE_BATCH = 999          # ... drawn as _dp_batch's step 999
 # (c) 2 layers at full width, SGD momentum, ZeRO over 4 contexts, a fit
 # of 2 epochs of 2 batches; the slice_preempt site fires at step 3
 ELASTIC_LAYERS = 2
@@ -12245,10 +12323,12 @@ def _zero_parts(mx, seed, step, ctxs, rows):
             for i, c in enumerate(ctxs)]
 
 
-def _zero_step(mx, net, trainer, seed, s, ctxs, rows=ZERO_ROWS):
+def _zero_step(mx, net, trainer, seed, s, ctxs, rows=ZERO_ROWS,
+               before_step=None):
     """One step of ``rows`` a replica (the global batch's first rows);
     returns its wall ms, the card synchronised around it (the host
-    replica runs in the step, so the host clock)."""
+    replica runs in the step, so the host clock). ``before_step`` runs
+    between the backward and the update."""
     import torch
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     parts = _zero_parts(mx, seed, s, ctxs, rows)
@@ -12260,6 +12340,8 @@ def _zero_step(mx, net, trainer, seed, s, ctxs, rows=ZERO_ROWS):
         losses = [loss_fn(net(d), lab).sum() for d, lab in parts]
     for loss in losses:
         loss.backward()
+    if before_step is not None:
+        before_step()
     trainer.step(rows * len(ctxs))
     if DEV == "cuda":
         torch.cuda.synchronize()
@@ -12376,6 +12458,7 @@ def _zero_main(mx, seed, card_line, readings=False):
            "wire": _wire_bytes()}
     del sr
     _free_cuda()
+    out["noise"] = _noise_step(mx, netr, trr, seed, ctxs)
     # the control: the reduce-scatter's sum planted away
     from mxnet_tpu_torch.parallel import collectives as coll
     real = coll.hierarchical_reduce_scatter
@@ -12418,6 +12501,55 @@ def _zero_main(mx, seed, card_line, readings=False):
         raise SmokeFailure("zero: (a) the sharded state is %d bytes against "
                            "%d replicated" % (bz, br))
     return out, step_counts, runs
+
+
+def _noise_parts(mx, seed, ctxs):
+    """The noise step's batch: ``NOISE_ROWS`` rows a replica, the first
+    the same row on every replica. At two replicas |G|^2's estimate is
+    the dot product of their gradients; at random weights and labels,
+    rows drawn apart give one as often negative (the noise scale then
+    undefined), a row in common one that stands clear of zero."""
+    data, labels = _dp_batch(seed, NOISE_BATCH)
+    k = NOISE_ROWS - 1
+    parts = []
+    for i, c in enumerate(ctxs):
+        idx = [0] + list(range(1 + i * k, 1 + (i + 1) * k))
+        parts.append((mx.nd.array(data[idx], dtype="int32", ctx=c),
+                      mx.nd.array(labels[idx], ctx=c)))
+    return parts
+
+
+def _noise_step(mx, net, trainer, seed, ctxs):
+    """One step of (a)'s replicated Trainer with modelwatch on from it
+    (a fresh watch, so the step is its first sample): its noise scale,
+    gauge and suggested batch, with the host's formula over the
+    replicas' gradients read before the all-reduce (phase 26 (e))."""
+    from mxnet_tpu_torch import modelwatch as mw_mod
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    parts = _noise_parts(mx, seed, ctxs)
+    batch = NOISE_ROWS * len(ctxs)
+    with _env_flag("MXNET_MODELWATCH", "1"):
+        trainer.modelwatch = mw_mod.from_env()
+    with mx.autograd.record():
+        losses = [loss_fn(net(d), lab).sum() for d, lab in parts]
+    for loss in losses:
+        loss.backward()
+    grads = [[p.list_grad()[r].asnumpy().astype("float64")
+              for p in trainer._params
+              if p.grad_req != "null" and p._data is not None]
+             for r in range(len(ctxs))]
+    with _env_flag("MXNET_ZERO", "0"):
+        trainer.step(batch)
+    mw = trainer.modelwatch
+    out = {"ctxs": [str(c) for c in ctxs], "nrep": len(ctxs),
+           "batch": batch, "scale": mw.noise_scale,
+           "suggested": mw.suggested_batch(),
+           "gauge": mx.telemetry.snapshot()["gauges"].get(
+               "mx_grad_noise_scale"),
+           "s": mw._noise_ema["s"], "g2": mw._noise_ema["g2"],
+           "expect": _noise_expect(grads, batch)}
+    trainer.modelwatch = None
+    return out
 
 
 def zero_readings(seeds, card_line):
@@ -12819,7 +12951,7 @@ def _zero_elastic(mx, seed, card_line):
 def phase_zero(seed, card_line):
     """25. ZeRO, the quantized wire and elastic resharding over a card
     replica and a host replica; returns the card replica's launches in
-    one ZeRO step."""
+    one ZeRO step and the replicated run's noise-scale reading."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.contrib import amp
     t0 = time.perf_counter()
@@ -12845,7 +12977,618 @@ def phase_zero(seed, card_line):
     print("[zero] phase 25 took %.1f s: (a) %.1f, (b) %.1f, (c) %.1f; %s"
           % (time.perf_counter() - t0, t_a, t_b,
              time.perf_counter() - t0 - t_a - t_b, card_line))
-    return step_counts
+    return step_counts, out["noise"]
+
+
+# ---------------------------------------------------------------------------
+# 26. the rest of multi-GPU over a card and the host: ring and Ulysses
+# attention, MoE, the pipeline schedule, mesh-sharded serving; the noise
+# scale (read from phase 25) and the quantized dist wire (phase 23's ranks)
+# ---------------------------------------------------------------------------
+MULTI_B, MULTI_T = 2, 1024       # (a): batch, global sequence (512 a shard)
+# relative L2 from the card alone, f32 with TF32 off: the host half
+# differs only in the order of its f32 sums. Each limit is twice the
+# largest reading of multi_readings over seeds 0-4 on an H100 (attention
+# 6.83e-7 over its 12 outputs and gradients, MoE 6.33e-7, the pipeline's
+# losses 1.19e-7 and change 6.30e-6, the served outputs 7.77e-6, the
+# classifier's two logits the largest); the ring without its rotation
+# (the control) reads about 1
+MULTI_TOL = {"attention": 1.4e-6, "moe": 1.3e-6, "pipe_loss": 2.4e-7,
+             "pipe": 1.3e-5, "serve": 1.6e-5}
+MOE_TOKENS = 256                 # (b): tokens a device; capacity for all
+MOE_CAP = 32                     # (b): the capacity that drops tokens
+PIPE_MICRO = 4                   # (c): microbatches of
+PIPE_MB = (2, 128)               # (c): (batch, seq) a microbatch
+PIPE_STEPS = 2
+PIPE_LR = 0.1
+SHARDED_SERVE = (8, 128)         # (d): one request, split 4 + 4
+SHARDED_SERVE_RULES = ((r".*ffn_1_weight", ("mp", None)),
+                       (r".*ffn_2_weight", ("mp", None)))
+NOISE_RTOL = 1e-4                # (e): against the host's formula
+# (f): the dist wire's sum against the in-process device store's over the
+# same values, relative to the sum's largest magnitude (one rounding of
+# the card's and the host's arithmetic apart at most)
+QUANT_DIST_TOL = 1e-6
+DP_QUANT_SHAPES = ((HIDDEN, UNITS), (HIDDEN,), (UNITS,))  # an FFN's ffn_1
+MULTI_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "bias_gelu_fwd",
+                 "bias_gelu_bwd", "bias_residual_fwd")
+
+
+def _multi_dev():
+    return _zero_ctxs()[0].torch_device
+
+
+def _causal_attention(q, k, v):
+    """Plain causal softmax attention on one device ([B, T, H, D])."""
+    import math
+    import torch
+    t = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+
+
+def _multi_attention(seed, ctxs, counted, card_line):
+    """(a) ring attention, causal and not, and Ulysses at BERT-base's
+    head shape over ``sp=2``: the output and the q, k, v gradients
+    (each device differentiating its block) against the card alone."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.parallel.mesh import contexts_mesh
+    mesh = contexts_mesh(ctxs, ("sp",))
+    dev = _multi_dev()
+    rng = np.random.RandomState(seed + 26)
+    shape = (MULTI_B, MULTI_T, HEADS, HEAD_DIM)
+    q, k, v, cot = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                    for _ in range(4))
+    spec = par.P(None, "sp", None, None)
+    worst = 0.0
+    for name, fn, causal in (("ring", par.ring_attention, False),
+                             ("ring causal", par.ring_attention, True),
+                             ("ulysses", par.ulysses_attention, False)):
+        def body(a, b, c, g, fn=fn, causal=causal):
+            ts = [x.tensor().detach().requires_grad_(True) for x in (a, b, c)]
+            kw = {"causal": True} if causal else {}
+            with torch.enable_grad():
+                o = fn(*ts, "sp", **kw)
+                grads = torch.autograd.grad(o, ts, g.tensor())
+            return [o.detach()] + list(grads)
+        f = par.shard_map(body, mesh=mesh, in_specs=(spec,) * 4,
+                          out_specs=[spec] * 4)
+        t0 = time.perf_counter()
+        got = counted(lambda: [x.tensor().to(dev) for x in f(q, k, v, cot)])
+        _sync()
+        secs = time.perf_counter() - t0
+        qq, kk, vv = (x.to(dev).requires_grad_(True) for x in (q, k, v))
+        with torch.enable_grad():
+            ref = _causal_attention(qq, kk, vv) if causal else \
+                par.local_attention(qq, kk, vv)
+            grads = torch.autograd.grad(ref, [qq, kk, vv], cot.to(dev))
+        rels = [_rel(a, b) for a, b in zip(got, [ref.detach()] + list(grads))]
+        worst = max(worst, max(rels))
+        print("[multi] (a) %s attention, B %d, T %d (%d a shard), %d x %d, "
+              "sp=2 over %s, f32: relative L2 from the card alone: output "
+              "%.3g, dq %.3g, dk %.3g, dv %.3g (limit %g); %.2f s; %s"
+              % (name, MULTI_B, MULTI_T, MULTI_T // 2, HEADS, HEAD_DIM,
+                 [str(c) for c in ctxs], rels[0], rels[1], rels[2], rels[3],
+                 MULTI_TOL["attention"], secs, card_line))
+        if not max(rels) <= MULTI_TOL["attention"]:
+            raise SmokeFailure("multi: (a) %s attention %s from the card "
+                               "alone (limit %g)"
+                               % (name, rels, MULTI_TOL["attention"]))
+        if name == "ring":
+            want = ref.detach()
+        del got, ref, grads, qq, kk, vv
+    # the control: the K/V blocks never leave their device
+    from mxnet_tpu_torch.parallel import ring_attention_mod as ra
+    real = ra._coll._permute
+    ra._coll._permute = lambda m, t, *a, **kw: t.clone()
+    try:
+        bad = par.shard_map(lambda a, b, c: par.ring_attention(a, b, c, "sp"),
+                            mesh=mesh, in_specs=(spec,) * 3,
+                            out_specs=spec)(q, k, v).tensor().to(dev)
+    finally:
+        ra._coll._permute = real
+    rel_bad = _rel(bad, want)
+    print("[multi] (a) control, the ring without its rotation: the output "
+          "%.3g from the card alone (must exceed %g)"
+          % (rel_bad, MULTI_TOL["attention"]))
+    if not rel_bad > MULTI_TOL["attention"]:
+        raise SmokeFailure("multi: (a) the control was not caught")
+    return worst
+
+
+def _host_routing(x, wg, ctxs, cap):
+    """The tokens each device drops at capacity ``cap``, counted on the
+    host from the gate logits each device computes for its block."""
+    import numpy as np
+    n = x.shape[0] // len(ctxs)
+    drops = []
+    for i, c in enumerate(ctxs):
+        dv = c.torch_device
+        logits = (x[i * n:(i + 1) * n].to(dv) @ wg.to(dv)).cpu().numpy()
+        e = logits.argmax(-1)
+        seen = {}
+        for t, j in enumerate(e):
+            seen[j] = seen.get(j, 0) + 1
+            if seen[j] > cap:
+                drops.append(i * n + t)
+    return np.array(drops, np.int64)
+
+
+def _multi_moe(seed, ctxs, counted, card_line):
+    """(b) make_moe_layer at BERT-base's FFN width over ``ep=2``: with
+    capacity for every token against the dense per-token expert on the
+    card; at MOE_CAP the dropped tokens are zero rows, as many as the
+    host counts, the kept ones the full-capacity rows."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.parallel.mesh import contexts_mesh
+    mesh = contexts_mesh(ctxs, ("ep",))
+    dev = _multi_dev()
+    x = torch.from_numpy(np.random.RandomState(seed + 27).randn(
+        MOE_TOKENS * len(ctxs), UNITS).astype(np.float32))
+    apply_fn, params = par.make_moe_layer(mesh, UNITS, HIDDEN,
+                                          capacity=MOE_TOKENS, seed=seed)
+    t0 = time.perf_counter()
+    got = counted(lambda: apply_fn(params, x).tensor().to(dev))
+    _sync()
+    secs = time.perf_counter() - t0
+    w1, w2, wg = (params[k].to(dev) for k in ("w1", "w2", "wg"))
+    xd = x.to(dev)
+    probs = torch.softmax(xd @ wg, -1)
+    e = probs.argmax(-1)
+    want = torch.zeros_like(xd)
+    for j in range(len(ctxs)):
+        idx = (e == j).nonzero()[:, 0]
+        want[idx] = (torch.relu(xd[idx] @ w1[j]) @ w2[j]) * probs[idx, j:j + 1]
+    rel = _rel(got, want)
+    apply32, _ = par.make_moe_layer(mesh, UNITS, HIDDEN, capacity=MOE_CAP,
+                                    seed=seed)
+    got32 = counted(lambda: apply32(params, x).tensor().to(dev))
+    zero = (got32.abs().amax(-1) == 0).nonzero()[:, 0].cpu().numpy()
+    drops = _host_routing(x, params["wg"], ctxs, MOE_CAP)
+    keep = torch.ones(len(x), dtype=torch.bool, device=dev)
+    keep[torch.from_numpy(drops).to(dev)] = False
+    rel_kept = _rel(got32[keep], got[keep])
+    print("[multi] (b) make_moe_layer d %d, d_hidden %d, ep=2 over %s, %d "
+          "tokens a device, f32: capacity %d (every token) against the "
+          "dense per-token expert on the card: relative L2 %.3g (limit %g), "
+          "%.2f s; capacity %d: %d zero rows, the host counts %d dropped "
+          "(%s), the kept rows %.3g from the full-capacity run (limit %g); "
+          "%s" % (UNITS, HIDDEN, [str(c) for c in ctxs], MOE_TOKENS,
+                  MOE_TOKENS, rel, MULTI_TOL["moe"], secs, MOE_CAP, len(zero),
+                  len(drops), "the same tokens" if np.array_equal(
+                      np.sort(zero), np.sort(drops)) else "OTHER tokens",
+                  rel_kept, MULTI_TOL["moe"], card_line))
+    if not rel <= MULTI_TOL["moe"]:
+        raise SmokeFailure("multi: (b) the MoE layer %.3g from the dense "
+                           "experts (limit %g)" % (rel, MULTI_TOL["moe"]))
+    if not len(drops) or not np.array_equal(np.sort(zero), np.sort(drops)):
+        raise SmokeFailure("multi: (b) capacity %d zeroed %d rows, the host "
+                           "counts %d dropped" % (MOE_CAP, len(zero),
+                                                  len(drops)))
+    if not rel_kept <= MULTI_TOL["moe"]:
+        raise SmokeFailure("multi: (b) the kept rows %.3g from the full-"
+                           "capacity run (limit %g)"
+                           % (rel_kept, MULTI_TOL["moe"]))
+    return max(rel, rel_kept)
+
+
+def _pipe_cells(mx, seed, ctx):
+    """Two BERT-base encoder layers (dropout 0) on ``ctx``, drawn from
+    ``seed``, and their parameters by name without the layer's prefix."""
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTEncoderCell
+    cells, arrays = [], []
+    b, s = PIPE_MB
+    for layer in range(2):
+        mx.random.seed(seed + 40 + layer)
+        prefix = "pipe%d_" % layer
+        cell = BERTEncoderCell(UNITS, HIDDEN, HEADS, dropout=0.0,
+                               prefix=prefix)
+        cell.initialize(ctx=ctx)
+        with torch.no_grad():
+            cell(mx.nd.zeros((s, b, UNITS), ctx=ctx))
+        _draw_affine(cell, seed + layer)
+        cells.append(cell)
+        arrays.append({n[len(prefix):]: p.data().asnumpy()
+                       for n, p in cell.collect_params().items()})
+    return cells, arrays
+
+
+def _multi_pipeline(mx, seed, ctxs, counted, card_line):
+    """(c) make_pipeline_step with pp=2, a BERT-base encoder layer a
+    stage: the losses and the weights after PIPE_STEPS SGD steps against
+    the same two layers run in sequence on the card; the card stage's
+    launches."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import cached_op, parallel as par
+    from mxnet_tpu_torch.gluon.parameter import substitute
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.parallel.mesh import contexts_mesh
+    dev = _multi_dev()
+    cells, arrays = _pipe_cells(mx, seed, ctxs[0])
+    tmpl = {n[len("pipe0_"):]: p
+            for n, p in cells[0].collect_params().items()}
+    names = sorted(tmpl)
+
+    def stage_fn(p, x):
+        ctx = mx.gpu(x.device.index) if x.is_cuda else mx.cpu(0)
+        mapping = {tmpl[n]: NDArray(p[n], ctx) for n in names}
+        with ctx, cached_op.eager(), substitute(mapping), \
+                mx.autograd.record(train_mode=True):
+            return cells[0](NDArray(x, ctx)).tensor()
+
+    def loss_fn(out, lab):
+        return ((out - lab) ** 2).mean()
+    # BERTEncoderCell reads (seq, batch, units)
+    b, s = PIPE_MB
+    rng = np.random.RandomState(seed + 41)
+    xm = torch.from_numpy(rng.randn(PIPE_MICRO, s, b, UNITS)
+                          .astype(np.float32))
+    lab = torch.from_numpy(rng.randn(PIPE_MICRO, s, b, UNITS)
+                           .astype(np.float32))
+    stacked = {n: torch.from_numpy(np.stack([a[n] for a in arrays]))
+               for n in names}
+    step = par.make_pipeline_step(stage_fn, contexts_mesh(ctxs, ("pp",)),
+                                  PIPE_MICRO, loss_fn, lr=PIPE_LR)
+    params, losses, stage_counts = stacked, [], {}
+    t0 = time.perf_counter()
+    for _ in range(PIPE_STEPS):
+        cuda_build.reset_launch_counts()
+        params, loss = counted(lambda: step(params, xm, lab))
+        losses.append(float(loss))
+        for kname, v in cuda_build.launch_counts().items():
+            if v:
+                stage_counts[kname] = stage_counts.get(kname, 0) + v
+    _sync()
+    secs = time.perf_counter() - t0
+    # the same layers in sequence on the card
+    seq = [{n: torch.from_numpy(a[n]).to(dev) for n in names} for a in arrays]
+    xd, ld = xm.to(dev), lab.to(dev)
+    seq_losses = []
+    for _ in range(PIPE_STEPS):
+        leaves = [{n: t.detach().requires_grad_(True) for n, t in p.items()}
+                  for p in seq]
+        with torch.enable_grad():
+            ys = []
+            for mb in range(PIPE_MICRO):
+                h = xd[mb]
+                for layer in range(2):
+                    h = stage_fn(leaves[layer], h)
+                ys.append(h)
+            loss = loss_fn(torch.stack(ys), ld)
+            flat = [lv[n] for lv in leaves for n in names]
+            grads = torch.autograd.grad(loss, flat)
+        seq_losses.append(float(loss.detach()))
+        it = iter(grads)
+        with torch.no_grad():
+            seq = [{n: lv[n].detach() - PIPE_LR * next(it) for n in names}
+                   for lv in leaves]
+    base = {"%s:%d" % (n, i): stacked[n][i].to(dev)
+            for n in names for i in range(2)}
+    pipe = {"%s:%d" % (n, i): params[n][i].to(dev)
+            for n in names for i in range(2)}
+    ref = {"%s:%d" % (n, i): seq[i][n] for n in names for i in range(2)}
+    rel = _dp_rel(pipe, base, ref)
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, seq_losses))
+    print("[multi] (c) make_pipeline_step pp=2 over %s, a BERTEncoderCell "
+          "(%d units, %d heads, FFN %d, dropout 0) a stage, %d microbatches "
+          "of batch %d x seq %d, %d SGD steps (lr %g), f32: losses %s "
+          "against %s in "
+          "sequence on the card (largest relative difference %.3g, limit "
+          "%g); relative L2 of the change %.3g (limit %g); %.2f s; the card "
+          "stage's launches %s; %s"
+          % ([str(c) for c in ctxs], UNITS, HEADS, HIDDEN, PIPE_MICRO,
+             b, s, PIPE_STEPS, PIPE_LR, losses, seq_losses, rel_loss,
+             MULTI_TOL["pipe_loss"], rel, MULTI_TOL["pipe"], secs,
+             stage_counts, card_line))
+    if not rel_loss <= MULTI_TOL["pipe_loss"] or \
+            not rel <= MULTI_TOL["pipe"]:
+        raise SmokeFailure("multi: (c) the pipeline's losses %.3g and "
+                           "update %.3g from the sequence" % (rel_loss, rel))
+    if DEV == "cuda" and not stage_counts.get("layer_norm_bwd"):
+        raise SmokeFailure("multi: (c) the card stage launched no LayerNorm "
+                           "backward (%s)" % stage_counts)
+    return stage_counts
+
+
+def _multi_serving(mx, seed, ctxs, counted, card_line):
+    """(d) BERT-base (no decoder) served over a mesh of the card and the
+    host: the FFN weights split on ``mp``, the request split by
+    ``data_spec``; against the unsharded session on the card, after a
+    refresh of halved weights, and through a Scheduler pushing with the
+    collective tag while engine_collective_overlap strips its lock."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import engine as engine_mod, faultinject
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_12_768_12
+    from mxnet_tpu_torch.parallel import P
+    from mxnet_tpu_torch.parallel.mesh import contexts_mesh
+    from mxnet_tpu_torch.serve import Scheduler
+    b, s = SHARDED_SERVE
+    rng = np.random.RandomState(seed + 28)
+    ids = rng.randint(0, VOCAB, (b, s)).astype(np.int32)
+    tok = rng.randint(0, 2, (b, s)).astype(np.int32)
+    mx.random.seed(seed)
+    net = bert_12_768_12(dropout=0.0, use_decoder=False, prefix="mesh_bert_")
+    net.initialize(ctx=ctxs[0])
+    eids, etok = (mx.nd.array(a, dtype="int32", ctx=ctxs[0])
+                  for a in (ids, tok))
+    with torch.no_grad():
+        net(eids, etok)
+    _draw_affine(net, seed)
+    ref = net.serve_session(eids, etok, seq_axis=1, max_batch=b, max_seq=s,
+                            buckets=SERVING_BUCKETS)
+    mesh = contexts_mesh(ctxs, ("mp",))
+    rules = [(pat, P(*spec)) for pat, spec in SHARDED_SERVE_RULES]
+    t0 = time.perf_counter()
+    sess = net.serve_session(eids, etok, seq_axis=1, max_batch=b,
+                             max_seq=s, buckets=SERVING_BUCKETS, mesh=mesh,
+                             param_specs=rules, data_spec=P("mp"))
+    build_s = time.perf_counter() - t0
+    matched = sum(1 for sp in sess._specs.values() if tuple(sp))
+    want = ref.infer(ids, tok)
+    t0 = time.perf_counter()
+    got = counted(lambda: sess.infer(ids, tok))
+    secs = time.perf_counter() - t0
+    rels = [_rel(torch.from_numpy(g), torch.from_numpy(w))
+            for g, w in zip(got, want)]
+    with torch.no_grad():
+        for p in net.collect_params().values():
+            p.set_data(p.data() * 0.5)
+    sess.refresh_weights()
+    got2 = counted(lambda: sess.infer(ids, tok))
+    moved = min(_rel(torch.from_numpy(a), torch.from_numpy(c))
+                for a, c in zip(got2, got))
+    want2 = ref.infer(ids, tok)
+    rels2 = [_rel(torch.from_numpy(g), torch.from_numpy(w))
+             for g, w in zip(got2, want2)]
+    print("[multi] (d) bert_12_768_12 (no decoder, dropout 0, f32) served "
+          "at %s over mesh %s on 'mp': %d weights matched by param_specs "
+          "(rules %s; checked, each weight held whole on each device), the "
+          "request split by data_spec P('mp'); built in %.1f s, a request "
+          "%.2f s; relative L2 from the unsharded session on the card: %s "
+          "(limit %g); after halving every weight and refresh_weights: "
+          "outputs moved by at least %.3g (must exceed 0.01), %s from the "
+          "card session (limit %g); %s"
+          % (SHARDED_SERVE, [str(c) for c in ctxs], matched,
+             [r[0] for r in SHARDED_SERVE_RULES], build_s, secs,
+             ["%.3g" % r for r in rels], MULTI_TOL["serve"], moved,
+             ["%.3g" % r for r in rels2], MULTI_TOL["serve"], card_line))
+    if not max(rels + rels2) <= MULTI_TOL["serve"]:
+        raise SmokeFailure("multi: (d) the mesh session %s / %s from the "
+                           "card session" % (rels, rels2))
+    if not moved > 0.01:
+        raise SmokeFailure("multi: (d) the refresh moved the outputs by "
+                           "%.3g" % moved)
+    # the Scheduler at in-flight 2: warm batches go to the engine with the
+    # session's descriptor, whose lock the fault site strips
+    eng = engine_mod.native_engine()
+    before = len(eng.collective_pushes())
+    faultinject.set_fault("engine_collective_overlap", 1.0)
+    sched = Scheduler(sess, max_wait_ms=1, inflight=2)
+    halves = [(ids[i:i + 2], tok[i:i + 2]) for i in range(0, b, 2)]
+    try:
+        futs = [sched.submit(i, t) for i, t in halves]
+        outs = counted(lambda: [f.result(timeout=300) for f in futs])
+    finally:
+        sched.close()
+        fires = faultinject.fires("engine_collective_overlap")
+        faultinject.reset()
+    pushes = [d for label, d in eng.collective_pushes()[before:]
+              if label == "serve.batch"]
+    tag = sess.collective_tag()
+    rel_s = max(_rel(torch.from_numpy(o[j]), torch.from_numpy(w[2 * i:2 * i
+                                                                 + 2]))
+                for i, o in enumerate(outs) for j, w in enumerate(got2))
+    print("[multi] (d) Scheduler at in-flight 2: %d requests of 2 rows, %d "
+          "engine pushes with the collective descriptor (program %r), "
+          "engine_collective_overlap fired %d times, the recorded locks %s "
+          "(the session's is %d); rows %.3g from the direct requests "
+          "(limit %g)" % (len(halves), len(pushes), tag["program"], fires,
+                          sorted({d["lock"] for d in pushes}, key=str),
+                          tag["lock"], rel_s, MULTI_TOL["serve"]))
+    if not pushes or fires < len(pushes) or \
+            any(d["lock"] is not None or d["program"] != tag["program"]
+                for d in pushes):
+        raise SmokeFailure("multi: (d) the collective pushes %s (fires %d)"
+                           % (pushes, fires))
+    if not rel_s <= MULTI_TOL["serve"]:
+        raise SmokeFailure("multi: (d) the scheduled rows %.3g from the "
+                           "direct ones" % rel_s)
+    return max(rels + rels2 + [rel_s])
+
+
+def _noise_expect(per_replica, batch):
+    """B_simple's estimates and scale from the replicas' gradients read
+    on the host (float64, each norm rounded to f32 as the reduction
+    gives it); the scale None where either estimate is not positive."""
+    import numpy as np
+    nrep = len(per_replica)
+    B = float(batch)
+    b = B / nrep
+    small_sq = sum(float(np.float32(np.linalg.norm(g))) ** 2
+                   for rep in per_replica for g in rep)
+    big_sq = sum(float(np.float32(np.linalg.norm(
+        sum(rep[i] for rep in per_replica)))) ** 2
+        for i in range(len(per_replica[0])))
+    g_small = (small_sq / nrep) / (b * b)
+    g_big = big_sq / (B * B)
+    s = (g_small - g_big) / (1.0 / b - 1.0 / B)
+    g2 = (B * g_big - b * g_small) / (B - b)
+    return {"s": s, "g2": g2,
+            "scale": s / g2 if s > 0 and g2 > 0 else None}
+
+
+def _multi_noise(noise, card_line):
+    """(e) the noise scale of phase 25's noise step (its replicated
+    Trainer, a row shared by the replicas) against the formula over that
+    step's replicas' gradients read on the host: the two estimates and
+    the scale within NOISE_RTOL, the gauge and the suggested batch the
+    scale's."""
+    exp = noise["expect"]
+    want = exp["scale"]
+    got = noise["scale"]
+    errs = {"S": abs(noise["s"] / exp["s"] - 1),
+            "|G|^2": abs(noise["g2"] / exp["g2"] - 1),
+            "scale": abs(got / want - 1) if got is not None and want
+            else float("inf")}
+    print("[multi] (e) phase 25's replicated Trainer over %s (%d replicas, "
+          "batch %d, one row shared), MXNET_MODELWATCH=1, its first "
+          "sampled step: noise_scale %s, suggested batch %s, gauge %s; the "
+          "host's formula over the replicas' gradients: %s; S %.6g against "
+          "%.6g, |G|^2 %.6g against %.6g; relative errors %s (limit %g); %s"
+          % (noise["ctxs"], noise["nrep"], noise["batch"], got,
+             noise["suggested"], noise["gauge"], want, noise["s"], exp["s"],
+             noise["g2"], exp["g2"],
+             ", ".join("%s %.3g" % kv for kv in errs.items()), NOISE_RTOL,
+             card_line))
+    if want is None:
+        raise SmokeFailure("multi: (e) the host's formula gives no noise "
+                           "scale (S %.6g, |G|^2 %.6g)" % (exp["s"],
+                                                          exp["g2"]))
+    if not max(errs.values()) <= NOISE_RTOL:
+        raise SmokeFailure("multi: (e) the noise scale %s against %s (%s)"
+                           % (got, want, errs))
+    if noise["gauge"] != got or noise["suggested"] != max(1, round(got)):
+        raise SmokeFailure("multi: (e) the gauge %s and suggested batch %s "
+                           "against the noise scale %s"
+                           % (noise["gauge"], noise["suggested"], got))
+
+
+def _multi_quant(quant, card_line):
+    """(f) phase 23's two ranks: int8 dist_sync against the in-process
+    device store over [gpu(0), cpu(0)] on the same values, and its wire
+    bytes on kv.dcn."""
+    from mxnet_tpu_torch.parallel import quantize as qz
+    block = qz.QuantConfig().block
+    for r in sorted(quant):
+        q = quant[r]
+        ratio = (q["wire"]["int8"] + q["wire"]["f32"]) / \
+            (4.0 * q["wire"]["int8"])
+        print("[multi] (f) rank %d of 2 sharing the card over gloo, "
+              "MXNET_KVSTORE_QUANTIZE=int8 dist_sync on %s: against the "
+              "in-process device store over %s on every rank's values: %s, "
+              "largest difference %.3g of the sum's magnitude %.4g (limit "
+              "%g); the exact sum %.3g away (int8's grid); wire on kv.dcn: "
+              "%d int8 + %d f32 bytes, %.4f of an f32 wire (%.4f expected); "
+              "%s" % (r, q["shapes"], q["ctxs"],
+                      "bit for bit" if q["bitwise"] else "not bit for bit",
+                      q["max_abs"] / q["scale"], q["scale"], QUANT_DIST_TOL,
+                      q["exact"], q["wire"]["int8"], q["wire"]["f32"], ratio,
+                      0.25 + 1.0 / block, card_line))
+        if not q["max_abs"] <= QUANT_DIST_TOL * q["scale"]:
+            raise SmokeFailure("multi: (f) rank %d's dist wire %.3g from "
+                               "the device store's" % (r, q["max_abs"]))
+        if not abs(ratio - (0.25 + 1.0 / block)) < 1e-6:
+            raise SmokeFailure("multi: (f) rank %d's wire is %.4f of f32"
+                               % (r, ratio))
+
+
+def multi_readings(seeds, card_line):
+    """(a)-(d)'s readings at each seed with the limits lifted but
+    attention's, which (a)'s planted control must exceed: the readings
+    behind MULTI_TOL."""
+    global MULTI_TOL
+    keep = MULTI_TOL
+    MULTI_TOL = {k: v if k == "attention" else float("inf")
+                 for k, v in keep.items()}
+    try:
+        for seed in seeds:
+            phase_multi(seed, card_line, None, None)
+    finally:
+        MULTI_TOL = keep
+
+
+def noise_readings(seeds, card_line):
+    """(e)'s reading at each seed: phase 25 (a)'s replicated run alone
+    (its AMP, its telemetry), then its noise step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    amp.init(target_dtype="bfloat16")
+    try:
+        with _env_flag("MXNET_TELEMETRY", "1"):
+            mx.telemetry.refresh()
+            for seed in seeds:
+                mx.telemetry.reset()
+                net, tr, ctxs = _zero_trainer(mx, seed, False)
+                with _env_flag("MXNET_ZERO", "0"):
+                    for s in range(1 + ZERO_STEPS):
+                        _zero_step(mx, net, tr, seed, s, ctxs)
+                try:
+                    _multi_noise(_noise_step(mx, net, tr, seed, ctxs),
+                                 card_line)
+                except SmokeFailure as e:
+                    print("[multi] (e) seed %d: %s" % (seed, e))
+                del net, tr
+                _free_cuda()
+    finally:
+        amp.reset()
+        mx.telemetry.refresh()
+
+
+def phase_multi(seed, card_line, noise, quant):
+    """26. The rest of multi-GPU over ``[gpu(0), cpu(0)]``: ring and
+    Ulysses attention, MoE, the pipeline, mesh-sharded serving; then the
+    noise scale of phase 25 and the quantized dist wire of phase 23.
+    Returns the card's kernel launches in (a)-(d)'s mesh runs."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    print("[multi] %s" % card_line)
+    _free_cuda()
+    ctxs = _zero_ctxs()
+    counts = {}
+
+    def counted(fn):
+        # the mesh run only: the card-alone references are not counted
+        cuda_build.reset_launch_counts()
+        out = fn()
+        for k, v in cuda_build.launch_counts().items():
+            if v:
+                counts[k] = counts.get(k, 0) + v
+        return out
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    times = {}
+    try:
+        for part, fn in (("a", lambda: _multi_attention(seed, ctxs, counted,
+                                                        card_line)),
+                         ("b", lambda: _multi_moe(seed, ctxs, counted,
+                                                  card_line)),
+                         ("c", lambda: _multi_pipeline(mx, seed, ctxs,
+                                                       counted, card_line)),
+                         ("d", lambda: _multi_serving(mx, seed, ctxs,
+                                                      counted, card_line))):
+            t1 = time.perf_counter()
+            fn()
+            _free_cuda()
+            times[part] = time.perf_counter() - t1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    if noise is not None:
+        _multi_noise(noise, card_line)
+    if quant is not None:
+        _multi_quant(quant, card_line)
+    missing = [k for k in MULTI_KERNELS if not counts.get(k)]
+    print("[multi] the card's launches in (a)-(d)'s mesh runs: %s" % counts)
+    if missing and DEV == "cuda":
+        raise SmokeFailure("multi: the mesh runs launched no %s" % missing)
+    print("[multi] phase 26 took %.1f s: %s; %s"
+          % (time.perf_counter() - t0, ", ".join(
+              "(%s) %.1f" % kv for kv in sorted(times.items())), card_line))
+    return counts
 
 
 def main(argv=None):
@@ -12987,12 +13730,14 @@ def main(argv=None):
         stamp("phase 21 (services)")
         serving_counts, replica_counts, serving_replayed = phase_serving(
             args.seed, card_line)
-        dp_counts = phase_dp(args.seed, card_line)
+        dp_counts, dp_quant = phase_dp(args.seed, card_line)
         stamp("phase 23 (dp)")
         sharded_counts, sharded_step = phase_sharded(args.seed, card_line)
         stamp("phase 24 (sharded)")
-        zero_step = phase_zero(args.seed, card_line)
+        zero_step, noise = phase_zero(args.seed, card_line)
         stamp("phase 25 (zero)")
+        multi_counts = phase_multi(args.seed, card_line, noise, dp_quant)
+        stamp("phase 26 (multi)")
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
@@ -13003,6 +13748,7 @@ def main(argv=None):
             r["launches_per_sharded_run"] = sharded_counts.get(k, 0)
             r["launches_per_sharded_step"] = sharded_step.get(k, 0)
             r["launches_per_zero_step"] = zero_step.get(k, 0)
+            r["launches_per_multi_run"] = multi_counts.get(k, 0)
             r["replayed_per_serving_run"] = serving_replayed.get(k, 0)
             r["replayed_per_replica"] = {
                 rid: c.get(k, 0) for rid, c in sorted(replica_counts.items())}

@@ -39,12 +39,16 @@ telemetry on ``mx_engine_ops_total{label}``, ``mx_engine_pending_ops``,
 ``mx_engine_op_errors_total{label}`` (the label cut at its first ':').
 ``push_async(on_done=...)`` runs a completion hook on the worker thread
 after the op (the serve scheduler's in-flight accounting rides on it).
-The reference's race-detector hook and ``push_async(collective=...)``
-come with the modules that own them (ROADMAP.md queue 1, items 16 and
-11).
+``push_async(collective=...)`` keeps a multi-device program's
+descriptor (``{"program", "lock"}``) in the op's record
+(:meth:`NativeDependencyEngine.collective_pushes`); the
+``engine_collective_overlap`` fault site strips the lock from it. Its
+reader, the reference's race-detector hook, comes with ``staticcheck/``
+(ROADMAP.md queue 1, item 16).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import sys
 import threading
@@ -141,8 +145,11 @@ class NativeDependencyEngine:
         # op's token: no libffi closure is freed while a worker thread
         # may still be in its native epilogue
         self._fns = {}
-        # token -> (label, site, reads, writes, t_queued, ginc)
+        # token -> (label, site, reads, writes, t_queued, ginc, on_done,
+        # collective)
         self._meta = {}
+        # (label, descriptor) of the latest collective pushes
+        self._collectives = collections.deque(maxlen=256)
         self._var_errors = {}  # var -> error record
         self._live_lock = threading.Lock()
         self._next = 1         # ctypes maps a NULL ctx to None: no token 0
@@ -150,9 +157,10 @@ class NativeDependencyEngine:
         def _dispatch(ctx_token, err_out, err_cap):
             with self._live_lock:
                 fn = self._fns.pop(ctx_token, None)
-                label, site, reads, writes, t_queued, ginc, on_done = \
+                label, site, reads, writes, t_queued, ginc, on_done, _ = \
                     self._meta.get(ctx_token, ("<unlabeled>", "<unknown>",
-                                               (), (), None, False, None))
+                                               (), (), None, False, None,
+                                               None))
                 upstream = None
                 for rv in reads:
                     rec = self._var_errors.get(rv)
@@ -255,12 +263,12 @@ class NativeDependencyEngine:
         and in the watchdog's report. A raised exception poisons the
         written vars and re-raises at the wait. ``on_done(failed)``, if
         given, runs on the worker thread after the op, whether it failed
-        or not; its exceptions are swallowed. ``collective`` (a
-        multi-device program's descriptor) is refused."""
-        if collective is not None:
-            raise NotImplementedError(
-                "push_async(collective=...) is not ported yet (ROADMAP.md "
-                "queue 1, item 11)")
+        or not; its exceptions are swallowed. ``collective`` declares
+        that ``fn`` runs a multi-device program: ``{"program": label,
+        "lock": id of the serializing lock the caller holds around it, or
+        None}``. It is kept in the op's record (:meth:`pending_ops`,
+        :meth:`collective_pushes`) for the collective-interleave check,
+        and changes nothing of the op's execution."""
         if label is None:
             label = getattr(fn, "__name__", None) or "<unlabeled>"
         site = _enqueue_site()
@@ -270,6 +278,14 @@ class NativeDependencyEngine:
                 # drop one declared read edge: the op still runs, its
                 # order against that producer left to chance
                 read_vars = tuple(read_vars)[1:]
+            if collective is not None \
+                    and collective.get("lock") is not None \
+                    and faultinject.should_fail(
+                        "engine_collective_overlap"):
+                # strip the serializing-lock sanction from the record:
+                # the execution stays under its lock, but the checker
+                # sees two multi-device programs with no shared lock
+                collective = dict(collective, lock=None)
             real_fn = fn
 
             def fn(real_fn=real_fn, label=label):
@@ -290,7 +306,10 @@ class NativeDependencyEngine:
             self._next += 1
             self._fns[token] = fn
             self._meta[token] = (label, site, tuple(read_vars),
-                                 tuple(write_vars), t_queued, ginc, on_done)
+                                 tuple(write_vars), t_queued, ginc, on_done,
+                                 collective)
+            if collective is not None:
+                self._collectives.append((label, dict(collective)))
         r = (ctypes.c_uint64 * max(1, len(read_vars)))(*read_vars)
         w = (ctypes.c_uint64 * max(1, len(write_vars)))(*write_vars)
         rc = self._lib.MXEnginePushAsync(
@@ -325,6 +344,13 @@ class NativeDependencyEngine:
         except Exception:
             new = MXNetError("%s: %s %s" % (type(exc).__name__, exc, ctx))
         raise new from exc
+
+    def collective_pushes(self):
+        """``[(label, descriptor)]`` of the latest pushes that declared a
+        ``collective`` (at most 256, oldest first), as recorded: what the
+        collective-interleave check reads."""
+        with self._live_lock:
+            return [(label, dict(d)) for label, d in self._collectives]
 
     def pending_ops(self):
         """``[(label, site, reads, writes)]`` of the ops not completed

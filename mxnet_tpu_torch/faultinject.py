@@ -57,9 +57,13 @@ packages. In the port these fire so far, with ``engine_op`` and
                  ``place_from_host``): the transition degrades to the
                  newest checkpoint.
 
-``engine_collective_overlap`` comes with the engine's collective pushes
-(ROADMAP.md queue 1, item 11). Every fire counts in
-``mx_fault_injections_total{site}``.
+``engine_collective_overlap`` a push with a ``collective`` descriptor
+                 that names a serializing lock is recorded without it
+                 (``engine.py``; the execution stays under the lock):
+                 the collective-interleave check must then name both
+                 programs of two such pushes in flight.
+
+Every fire counts in ``mx_fault_injections_total{site}``.
 """
 from __future__ import annotations
 

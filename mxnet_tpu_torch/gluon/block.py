@@ -408,7 +408,8 @@ class HybridBlock(Block):
         """Open an :class:`mxnet_tpu_torch.serve.InferenceSession` over
         this block: padded shape buckets, eval mode, weights read live.
         Keyword args pass through (``max_batch``, ``seq_axis``,
-        ``max_seq``, ``buckets``, ``ctx``)."""
+        ``max_seq``, ``buckets``, ``ctx``, and ``mesh``/``param_specs``/
+        ``data_spec`` for mesh-sharded serving)."""
         from ..serve import InferenceSession
         return InferenceSession(
             self, example_inputs=example_inputs or None, **kwargs)

@@ -347,6 +347,16 @@ class Trainer:
         return ([p.name for p in live],
                 [next(iter(p._grad.values())).tensor() for p in live])
 
+    def _per_replica_grads(self):
+        """One gradient list a replica, each on its replica's device."""
+        out = [[] for _ in self._contexts]
+        for p in self._params:
+            if p.grad_req == "null" or p._data is None:
+                continue
+            for r, g in enumerate(p.list_grad()):
+                out[r].append(g)
+        return out
+
     def step(self, batch_size, ignore_stale_grad=False):
         """One update of every parameter, gradients scaled by
         1 / batch_size inside the update, after the guard's pass (ref:
@@ -366,7 +376,7 @@ class Trainer:
                 "step", scan_mod.steps())
         mw = self.modelwatch
         if mw is not None:
-            mw.begin_step(batch_size, 1)
+            mw.begin_step(batch_size, len(self._contexts))
         if self._fused_armed:
             pending = autograd.take_pending_step(self)
             done = self._consume_pending(pending) if pending is not None \
@@ -378,6 +388,11 @@ class Trainer:
                 return
             self._fused_armed = False
             autograd.disarm_fused_update(self)
+        if mw is not None and mw.want_noise():
+            # the replicas' own gradients before the sync overwrites
+            # them: the noise scale's small-batch estimate (staged on the
+            # card, read with the step's report, ZeRO's too)
+            mw.collect_replica_norms(self._per_replica_grads())
         if self._zero_step():
             return
         with telemetry.phase("allreduce"):

@@ -552,10 +552,13 @@ class ZeroEngine:
         pend, self._mw_pending = self._mw_pending, None
         if pend is None or mw is None:
             return
-        kind, names, handle, rescale = pend
+        kind, names, handle, rescale, small = pend
         if kind != "full":
             return
-        vec = handle.cpu().numpy().astype(np.float64)
+        # the replicas' staged norms (the noise scale's) ride the read
+        vec = torch.cat([handle.float().reshape(-1)]
+                        + [v.to(handle.device).float() for v in small]) \
+            .cpu().numpy().astype(np.float64)
         mw.sync_count += 1
         F = len(names)
         # [bad(F), gsq(F), psq(F), usq(F)]
@@ -563,8 +566,9 @@ class ZeroEngine:
         gnorms = [self._norm32(v) for v in vec[F:2 * F]]
         pnorms = [self._norm32(v) for v in vec[2 * F:3 * F]]
         unorms = [self._norm32(v) for v in vec[3 * F:4 * F]]
-        mw.publish(names, gnorms, pnorms, unorms, names, rescale=rescale,
-                   flags=flags, same_step_update=True)
+        small_sq = float(np.sum(np.square(vec[4 * F:]))) if small else None
+        mw.publish(names, gnorms, pnorms, unorms, names, small_sq,
+                   rescale=rescale, flags=flags, same_step_update=True)
 
     def run_step(self, ignore_stale_grad: bool = False) -> str:
         """One sharded step: DONE, SKIPPED (the guard skipped it) or BAIL
@@ -609,8 +613,10 @@ class ZeroEngine:
                     self._sync_done(watching)
             if mw_on:
                 # this step's full report, read at the next sampled step
+                small, mw._small = mw._small, []
                 self._mw_pending = ("full", list(self._names), outs[0],
-                                    float(trainer._optimizer.rescale_grad))
+                                    float(trainer._optimizer.rescale_grad),
+                                    small)
             return DONE
 
         # guarded: the reduce-scatter and the report, the verdict on the
@@ -635,6 +641,10 @@ class ZeroEngine:
         parts = [red[0][1].float()]
         if pend is not None:
             parts.append(pend[2].to(parts[0].device).float())
+        small = []
+        if mw_on:
+            small, mw._small = mw._small, []
+            parts.extend(v.to(parts[0].device).float() for v in small)
         # the step's one host read: the report (and the deferred update
         # norms of the previous sampled step)
         vec = torch.cat(parts).cpu().numpy().astype(np.float64)
@@ -645,11 +655,14 @@ class ZeroEngine:
             gnorms = [self._norm32(v) for v in vec[F:2 * F]]
             pnorms = [self._norm32(v) for v in vec[2 * F:3 * F]]
             unames = unorms = None
+            off = 3 * F
             if pend is not None:
                 unames = pend[1]
-                unorms = [self._norm32(v) for v in vec[3 * F:]]
+                unorms = [self._norm32(v) for v in vec[off:off + len(unames)]]
+                off += len(unames)
+            small_sq = float(np.sum(np.square(vec[off:]))) if small else None
             mw.sync_count += 1
-            mw.publish(self._names, gnorms, pnorms, unorms, unames,
+            mw.publish(self._names, gnorms, pnorms, unorms, unames, small_sq,
                        rescale=trainer._optimizer.rescale_grad, flags=flags)
         with telemetry.phase("guard"):
             proceed, bad, clip_scale = guard.evaluate(
@@ -681,7 +694,7 @@ class ZeroEngine:
                 self._sync_done(watching)
         if mw_on:
             self._mw_pending = ("usq", list(self._names), outs[0],
-                                float(trainer._optimizer.rescale_grad))
+                                float(trainer._optimizer.rescale_grad), [])
         return DONE
 
     # ------------------------------------------------------------------

@@ -397,7 +397,6 @@ class KVStore(KVStoreBase):
         from .. import commwatch
         from ..parallel import _spmd
         from ..parallel import quantize as qz
-        from ..parallel.mesh import contexts_mesh
         qz.note_active(cfg)
         n = len(ctxs)
         sizes = [g[0].numel() for g in groups]
@@ -423,7 +422,7 @@ class KVStore(KVStoreBase):
         if cfg.stochastic and cfg.mode == "int8":
             self._quant_step += 1
             seed = self._quant_step
-        mesh = contexts_mesh(ctxs, ("kv",))
+        mesh, axis = self._quant_mesh(ctxs)
 
         def body(m):
             p = m.pos
@@ -433,7 +432,7 @@ class KVStore(KVStoreBase):
                     if len(groups) > 1 else \
                     groups[0][p].detach().reshape(-1).float()
                 out, new_res = qz.quantized_allreduce(
-                    flat, "kv", None, cfg, residual=ent["res"][p],
+                    flat, axis, None, cfg, residual=ent["res"][p],
                     key=seed)
                 ent["res"][p] = new_res
                 res, off = [], 0
@@ -450,6 +449,12 @@ class KVStore(KVStoreBase):
                 _synchronize([t for r in per_dev for t in r])
         return [[per_dev[p][k] for p in range(n)]
                 for k in range(len(groups))]
+
+    def _quant_mesh(self, ctxs):
+        """``(mesh, axis)`` the quantized reduce runs over: the replica
+        contexts on one axis, ``kv`` (its commwatch label)."""
+        from ..parallel.mesh import contexts_mesh
+        return contexts_mesh(ctxs, ("kv",)), "kv"
 
     def _place(self, dsts, key, reps):
         """Write a grouped reduce's per-device results: each destination

@@ -21,6 +21,17 @@ Modes, all the same synchronous all-reduce:
   elements are cut into row slices, each its own collective, the last
   parameters first (ref: p3store_dist.h).
 
+The quantized wire (``MXNET_KVSTORE_QUANTIZE``, or
+``set_gradient_compression``): the float keys of at most 32 bits go
+through the in-process stores' quantized reduce
+(:func:`~..parallel.quantize.quantized_allreduce`, error feedback a
+device) over a mesh of every process's replica contexts in rank order,
+on one axis ``kv.dcn`` (its commwatch label; ``kv`` with one process),
+the cross-process part of each exchange over the process group
+(``parallel/_spmd.py``). One process's sums are those of the
+in-process store over the same contexts. The other keys keep the f32
+all-reduce.
+
 The comms watchdogs: every verb runs under ``MXNET_KVSTORE_TIMEOUT``
 with ``MXNET_KVSTORE_RETRIES`` retries (``dist.call_with_deadline``, the
 ``kv_hang`` fault site), counts ``mx_kvstore_calls_total{verb}`` and
@@ -39,7 +50,8 @@ import torch
 from .. import dist as dist_mod
 from ..base import MXNetError  # noqa: F401  (the reference's names)
 from ..ndarray import NDArray  # noqa: F401
-from . import KVStore, _group_bytes, _nbytes, _normalize, _synchronize
+from . import (KVStore, _group_bytes, _nbytes, _normalize, _quantizable,
+               _synchronize)
 from .base import KVStoreBase
 
 __all__ = ["KVStoreDist", "P3StoreDist"]
@@ -91,15 +103,38 @@ class KVStoreDist(KVStore):
         self._global = _GlobalReducer()
         self._vote_suppressed = False
 
-    def _check_quantize(self):
-        """The quantized wire across processes (MXNET_KVSTORE_QUANTIZE,
-        set_gradient_compression on a dist store) is not ported: the
-        in-process stores and ZeRO carry it."""
-        if self._quant_cfg() is not None:
-            raise NotImplementedError(
-                "kvstore %s: the quantized wire across processes is not "
-                "ported yet (ROADMAP.md queue 1, item 11); the in-process "
-                "stores and MXNET_ZERO run it" % self._type)
+    def _quant_mesh(self, ctxs):
+        """Every process's replica contexts in rank order (each process
+        holds the same contexts), on one axis: ``kv.dcn`` across
+        processes."""
+        import numpy as np
+        from ..parallel.mesh import Device, Mesh
+        nw, n = self.num_workers, len(ctxs)
+        devs = np.empty(nw * n, dtype=object)
+        for r in range(nw):
+            for i, c in enumerate(ctxs):
+                devs[r * n + i] = Device(r * n + i, r, c)
+        axis = "kv.dcn" if nw > 1 else "kv"
+        return Mesh(devs, (axis,)), axis
+
+    def _quantized(self, ts) -> bool:
+        return self._quant_cfg() is not None and _quantizable(ts[0])
+
+    def _group_sum(self, key, ts, ctxs, dev) -> torch.Tensor:
+        """The group's sum of one key's local replicas ``ts`` (on
+        ``ctxs``) on ``dev``: over the quantized wire when it is on and
+        the payload is a float of at most 32 bits, else the local sum
+        and one all-reduce."""
+        if key is not None and self._quantized(ts) and \
+                len(set(ctxs)) == len(ctxs):
+            reps = self._quant_reduce(tuple(ctxs), [ts], [key],
+                                      self._quant_cfg())[0]
+            for r in reps:
+                if r.device == dev:
+                    return r
+            return reps[0].to(dev)
+        return self._global.allreduce(
+            [KVStore._reduce_tensors(self, ts, dev)])[0]
 
     @property
     def rank(self) -> int:
@@ -240,18 +275,38 @@ class KVStoreDist(KVStore):
 
     def _pushpull_list(self, keys, values, outs=None):
         """Each key's local sum on its first replica's context, then one
-        coalesced all-reduce for every key."""
-        self._check_quantize()
+        coalesced all-reduce for every key; with the quantized wire on,
+        the quantizable keys in one quantized reduce a context set."""
         keys = [_normalize(k) for k in keys]
         outs = values if outs is None else outs
         vlists = [v if isinstance(v, (list, tuple)) else [v] for v in values]
         olists = [o if isinstance(o, (list, tuple)) else [o] for o in outs]
+        plain, by_ctx = [], OrderedDict()
+        for i, vals in enumerate(vlists):
+            ctxs = tuple(v.context for v in vals)
+            if self._quantized([v.tensor() for v in vals]) and \
+                    len(set(ctxs)) == len(ctxs):
+                by_ctx.setdefault(ctxs, []).append(i)
+            else:
+                plain.append(i)
+        for ctxs, idx in by_ctx.items():
+            results = self._quant_reduce(
+                ctxs, [[v.tensor() for v in vlists[i]] for i in idx],
+                [keys[i] for i in idx], self._quant_cfg())
+            for i, reps in zip(idx, results):
+                self._place(olists[i], keys[i], reps)
+        if not plain:
+            return
         locs = [KVStore._reduce_tensors(
-            self, [v.tensor().detach() for v in vals],
-            vals[0].context.torch_device) for vals in vlists]
-        for k, dsts, red in zip(keys, olists, self._global.allreduce(locs)):
-            self._write(dsts, red)
-            self._commit(k, red)
+            self, [v.tensor().detach() for v in vlists[i]],
+            vlists[i][0].context.torch_device) for i in plain]
+        for i, red in zip(plain, self._global.allreduce(locs)):
+            self._write(olists[i], red)
+            self._commit(keys[i], red)
+
+    def _reduce(self, vals, ctx, key=None) -> torch.Tensor:
+        return self._group_sum(key, [v.tensor().detach() for v in vals],
+                               [v.context for v in vals], ctx.torch_device)
 
     def _reduce_tensors(self, ts, dev) -> torch.Tensor:
         # every push is a collective across the group: the local sum,
@@ -303,14 +358,15 @@ class P3StoreDist(KVStoreDist):
             chunk_rows = max(1, self._bigarray_bound // per_row)
             srcs = [v.tensor().detach() for v in vals]
             dev = vals[0].context.torch_device
+            ctxs = [v.context for v in vals]
             for s in range(0, rows, chunk_rows):
                 e = min(rows, s + chunk_rows)
                 ck = "%s_p3_%d" % (k, s)
                 chunk = [t[s:e] for t in srcs]
                 self._record_bytes("pushpull", ck, chunk)
 
-                def _do(chunk=chunk, s=s, e=e):
-                    red = self._reduce_tensors(chunk, dev)
+                def _do(chunk=chunk, s=s, e=e, ck=ck):
+                    red = self._group_sum(ck, chunk, ctxs, dev)
                     with torch.no_grad():
                         for d in dsts:
                             d.tensor()[s:e].copy_(red)

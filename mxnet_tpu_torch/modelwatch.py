@@ -32,8 +32,14 @@ Detection: a rolling per-layer z-score names an *exploding* layer
 one (update ratio near 0 for ``DEAD_PATIENCE`` samples), as a
 ``layer_anomaly`` guard event, counted in
 ``mx_modelwatch_anomalies_total{kind,param}``. The gradient noise scale
-needs two data-parallel replicas or more; on one device it stays absent,
-as in the reference.
+(B_simple, arxiv 1812.06162) needs two data-parallel replicas or more:
+before the all-reduce the Trainer stages each replica's per-layer
+gradient norms on the first replica's device
+(:meth:`ModelWatch.collect_replica_norms`, no host read), the step's one
+read carries them, and :meth:`ModelWatch._noise` folds them with the
+reduced gradient's norms into ``mx_grad_noise_scale`` and
+:meth:`ModelWatch.suggested_batch` (the heartbeat's ``noise_scale=`` and
+``suggest_batch=``). On one device it stays absent, as in the reference.
 
 Gauges: ``mx_layer_grad_norm{param}``, ``mx_layer_param_norm{param}``,
 ``mx_layer_update_ratio{param}``, ``mx_block_grad_norm{block}``,
@@ -204,6 +210,8 @@ class ModelWatch:
         self._streak: set = set()
         self._pending_update = None       # (names, (n,) norm tensor)
         self._last_pnorms: Dict[str, float] = {}
+        self._small = []                  # per-replica (p,) norm tensors
+        self._noise_ema = {"s": 0.0, "g2": 0.0, "n": 0}
         self.noise_scale: Optional[float] = None
 
     # ------------------------------------------------------------------
@@ -216,12 +224,33 @@ class ModelWatch:
         self.steps += 1
         self._batch = int(batch_size)
         self._nrep = max(1, int(nreplicas))
+        self._small = []
         return self.sampling
 
     def want_noise(self) -> bool:
         """Replicas give a small-batch estimate only when there are two
         or more; one device has none."""
         return self.noise and self.sampling and self._nrep >= 2
+
+    def collect_replica_norms(self, per_replica_grads) -> None:
+        """Before the all-reduce: ``per_replica_grads`` is one list of
+        gradient NDArrays a replica, each on its replica's device. One
+        ``multi_l2_norm`` a replica, the ``(p,)`` vectors staged on the
+        first replica's device for the step's read; nothing is read
+        here."""
+        if not self.want_noise():
+            return
+        from .ndarray import invoke
+        pieces = []
+        for grads_r in per_replica_grads:
+            if not grads_r:
+                continue
+            vec = invoke("multi_l2_norm", list(grads_r),
+                         {"num_arrays": len(grads_r)}).tensor()
+            dev = pieces[0].device if pieces else vec.device
+            pieces.append(vec if vec.device == dev
+                          else vec.to(dev, non_blocking=True))
+        self._small = pieces
 
     def step_report(self, named_grads, named_params,
                     rescale: float = 1.0,
@@ -257,6 +286,8 @@ class ModelWatch:
             pend, self._pending_update = self._pending_update, None
         if pend is not None:
             pieces.append(pend[1])
+        small, self._small = self._small, []
+        pieces.extend(small)
         with torch.no_grad():
             packed = torch.cat([p.detach().float().reshape(-1)
                                 for p in pieces]) \
@@ -268,11 +299,15 @@ class ModelWatch:
         gnorms = [_f32(v) for v in vec[n:2 * n]]
         pnorms = [_f32(v) for v in vec[2 * n:2 * n + k]]
         unames, unorms = None, None
+        off = 2 * n + k
         if pend is not None:
             unames = pend[0]
-            unorms = [_f32(v) for v in vec[2 * n + k:]]
+            unorms = [_f32(v) for v in vec[off:off + len(unames)]]
+            off += len(unames)
+        # the replicas' squared gradient norms, summed
+        small_sq = float(np.sum(np.square(vec[off:]))) if small else None
         norm = float(np.sqrt(np.sum(np.square(vec[n:2 * n]))))
-        self.publish(names, gnorms, pnorms, unorms, unames,
+        self.publish(names, gnorms, pnorms, unorms, unames, small_sq,
                      rescale=rescale, flags=flags,
                      same_step_update=same_step)
         return flags, norm
@@ -319,13 +354,14 @@ class ModelWatch:
     # publication
     # ------------------------------------------------------------------
     def publish(self, names, gnorms, pnorms, unorms=None, unames=None,
-                rescale: float = 1.0, flags=None,
+                small_sq=None, rescale: float = 1.0, flags=None,
                 same_step_update: bool = False):
-        """One sample into gauges, anomaly events, the ring entry and the
-        listeners. ``gnorms``/``pnorms`` are the raw float32 norms (before
-        the rescale); ``unorms`` with ``unames`` the update norms, paired
-        with the previous sample's weight norms unless
-        ``same_step_update``."""
+        """One sample into gauges, anomaly events, the noise scale, the
+        ring entry and the listeners. ``gnorms``/``pnorms`` are the raw
+        float32 norms (before the rescale); ``unorms`` with ``unames`` the
+        update norms, paired with the previous sample's weight norms
+        unless ``same_step_update``; ``small_sq`` the replicas' squared
+        gradient norms, summed."""
         self.samples += 1
         scale = abs(float(rescale))
         eff = [g * scale for g in gnorms]
@@ -337,6 +373,7 @@ class ModelWatch:
         if unames:
             anomalies = anomalies + self.observe_ratio_health(
                 unames, ratios, u_pnorms)
+        self.noise_scale = self._noise(small_sq, gnorms)
         if tele_on:
             self._gauges(names, eff, pnorms, unames, unorms, ratios,
                          u_pnorms)
@@ -505,6 +542,41 @@ class ModelWatch:
                           for k, v in info.items()
                           if isinstance(v, (int, float))))
         return rec
+
+    # ------------------------------------------------------------------
+    # the gradient noise scale (B_simple, arxiv 1812.06162)
+    # ------------------------------------------------------------------
+    def _noise(self, small_sq, gnorms) -> Optional[float]:
+        """B_simple from the small- and large-batch squared norms:
+        |G_small|^2 the replicas' average at batch b, |G_big|^2 the
+        reduced gradient's at B = nrep * b. The gradients are sums over
+        the samples (the rescale carries 1 / batch), so both are brought
+        to the per-sample mean before the unbiased estimates, each
+        smoothed by its own EMA (the paper's recipe)."""
+        if small_sq is None or self._nrep < 2 or self._batch <= 0:
+            return self.noise_scale
+        b = self._batch / self._nrep
+        B = float(self._batch)
+        if b <= 0 or B <= b:
+            return self.noise_scale
+        big_sq = sum(float(g) * float(g) for g in gnorms)
+        if not (math.isfinite(small_sq) and math.isfinite(big_sq)):
+            return self.noise_scale
+        g_small = (small_sq / self._nrep) / (b * b)
+        g_big = big_sq / (B * B)
+        g2_est = (B * g_big - b * g_small) / (B - b)
+        s_est = (g_small - g_big) / (1.0 / b - 1.0 / B)
+        ema = self._noise_ema
+        alpha = 0.9
+        if ema["n"] == 0:
+            ema["s"], ema["g2"] = s_est, g2_est
+        else:
+            ema["s"] = alpha * ema["s"] + (1 - alpha) * s_est
+            ema["g2"] = alpha * ema["g2"] + (1 - alpha) * g2_est
+        ema["n"] += 1
+        if ema["g2"] > 0 and ema["s"] > 0:
+            return ema["s"] / ema["g2"]
+        return self.noise_scale
 
     def suggested_batch(self) -> Optional[int]:
         if self.noise_scale is None or not math.isfinite(self.noise_scale):

@@ -641,10 +641,16 @@ def multi_sgd_mom_update(*arrays, lrs, wds, momentum=0.0, rescale_grad=1.0,
 
 
 def _l2s(arrays):
-    """Each array's L2 norm, summed in f32: one multi-tensor reduction
-    (a few launches for any number of arrays)."""
-    return torch._foreach_norm([float_in(a) for a in arrays], 2,
-                               dtype=torch.float32)
+    """Each array's L2 norm as f32: on the card one multi-tensor
+    reduction (a few launches for any number of arrays); on the CPU each
+    accumulated in f64 and rounded (the CPU's f32 norm adds along each
+    row in f32 and drifts on tens of millions of elements, where a
+    replica's gradient noise needs its norms to a few ulps)."""
+    ts = [float_in(a) for a in arrays]
+    if ts and ts[0].device.type == "cpu":
+        return [torch.linalg.vector_norm(t, dtype=torch.float64).float()
+                for t in ts]
+    return torch._foreach_norm(ts, 2, dtype=torch.float32)
 
 
 @register("multi_l2_norm")

@@ -22,6 +22,15 @@ A group that spans some but not all of the processes is refused.
 
 A run's failure (an exception in one device's thread) wakes the others,
 which raise too; :meth:`Run.execute` raises the first.
+
+A backward exchange (the differentiable ``ring_permute`` and
+``all_to_all`` of :mod:`.collectives`) is keyed by the sequence number
+of its forward exchange instead of taking the next one: autograd may
+walk two independent chains in another order on another device, and a
+keyed exchange can never pair one chain's cotangent with the other's
+(crossed orders stop at the timeout instead). Gradients are taken
+inside the run, on every device (a backward after :meth:`Run.execute`
+returned would wait for devices that no longer run).
 """
 from __future__ import annotations
 
@@ -107,8 +116,9 @@ class Run:
                         for i, d in enumerate(local)]
         self.collector = collector
         self._cond = threading.Condition()
-        self._slots: Dict[int, dict] = {}
+        self._slots: Dict[object, dict] = {}
         self._failed: Optional[BaseException] = None
+        self.done = False
 
     # ------------------------------------------------------------------
     def axis_size(self, axis) -> int:
@@ -148,7 +158,10 @@ class Run:
         results in local order. One local device runs in the calling
         thread."""
         if len(self.members) == 1:
-            return [self._run_one(self.members[0], fn, setup)]
+            try:
+                return [self._run_one(self.members[0], fn, setup)]
+            finally:
+                self.done = True
         out = [None] * len(self.members)
         errs: List[Optional[BaseException]] = [None] * len(self.members)
         from .. import commwatch
@@ -167,6 +180,7 @@ class Run:
             t.start()
         for t in threads:
             t.join()
+        self.done = True
         real = [e for e in errs if e is not None
                 and not isinstance(e, _Aborted)]
         if real:
@@ -194,12 +208,13 @@ class Run:
 
     # ------------------------------------------------------------------
     def exchange(self, m: Member, kind: str, axes, value: torch.Tensor,
-                 watch: Optional[tuple] = None):
+                 watch: Optional[tuple] = None, key=None):
         """The ``kind`` exchange (``sum`` or ``gather``) of ``value``
         over ``axes`` for member ``m``: the group's sum on m's device,
         or the list of the group's values in group order. ``watch`` is
-        ``(op, nbytes, dtype_label[, count])``, recorded into commwatch once for
-        the collective."""
+        ``(op, nbytes, dtype_label[, count])``, recorded into commwatch
+        once for the collective. ``key`` (a backward exchange's) pairs
+        the members by that key instead of by their call order."""
         axes = axes_of(axes)
         for a in axes:
             if a not in self.names:
@@ -208,9 +223,17 @@ class Run:
         if len(self.members) == 1:
             res = self._resolve({0: (kind, axes, value)}, watch)
             return res[0]
+        if key is not None and self.done:
+            raise MXNetError(
+                "a backward exchange after its run ended: take gradients "
+                "through mesh collectives inside shard_map's function, on "
+                "every device")
         with self._cond:
-            seq = m.seq
-            m.seq += 1
+            if key is None:
+                seq = m.seq
+                m.seq += 1
+            else:
+                seq = ("key",) + tuple(key)
             if self._failed is not None:
                 raise _Aborted("another device's run failed: %s"
                                % self._failed)
@@ -232,12 +255,12 @@ class Run:
                 if slot["out"] is None:
                     if self._failed is None:
                         self._failed = MXNetError(
-                            "collective %d (%s over %s) timed out after "
+                            "collective %s (%s over %s) timed out after "
                             "%g s waiting for the other devices"
                             % (seq, kind, axes, WAIT_SECONDS))
                         self._cond.notify_all()
                     if not ok or self._failed is not None:
-                        raise _Aborted("collective %d stopped: %s"
+                        raise _Aborted("collective %s stopped: %s"
                                        % (seq, self._failed))
             res = slot["out"][m.pos]
             slot["left"] -= 1
@@ -334,9 +357,13 @@ def _world_gather(vals, devs, rank) -> List[torch.Tensor]:
         raise MXNetError("a gather across processes needs the same number "
                          "of the group's devices in each process")
     local = torch.stack([v.detach() for v in vals])
+    dtype = local.dtype
+    if dtype.itemsize == 1 and dtype.is_floating_point:
+        # an fp8 payload crosses as its bytes (gloo has no fp8)
+        local = local.view(torch.uint8)
     bufs = [torch.empty_like(local) for _ in range(nproc)]
     tdist.all_gather(bufs, local.contiguous())
-    return [b[i] for b in bufs for i in range(per)]
+    return [b.view(dtype)[i] for b in bufs for i in range(per)]
 
 
 def batch_group_size() -> int:

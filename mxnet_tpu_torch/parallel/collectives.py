@@ -9,7 +9,10 @@ group: the devices whose mesh coordinates differ only along the named
 axis (or tuple of axes, ordered row-major in the order given). Each
 collective takes and returns an NDArray (or a torch tensor) on the
 calling device; ``ring_permute``, ``all_to_all`` and the ``hierarchical_*``
-forms keep the reference's order and padding.
+forms keep the reference's order and padding. ``ring_permute`` and
+``all_to_all`` are differentiable (the pipeline's and MoE's gradients
+run through them), their backward exchanges keyed as :mod:`._spmd`
+says.
 
 Each call is recorded into :mod:`mxnet_tpu_torch.commwatch` once
 (:func:`_watch`: op, axis, bytes, participants), as the reference
@@ -72,6 +75,22 @@ def _watch(op: str, t: torch.Tensor, n: int, nbytes: Optional[int] = None,
     """The commwatch record of one collective of ``t`` over ``n``
     devices (``nbytes`` overrides the payload)."""
     return (op, _nbytes(t) if nbytes is None else nbytes, _label(t), count)
+
+
+def traced(watch, axis_name, n: int):
+    """Record ``watch`` (a :func:`_watch` tuple) once for this run, from
+    its first local device, without an exchange: the charge of a loop
+    whose exchanges run unrecorded (the reference records its scan
+    body's collectives once, charged for every tick)."""
+    m = _member("traced")
+    if m.pos != 0 or n <= 1:
+        return
+    from .. import commwatch
+    op, nbytes, label, count = watch
+    axes = _spmd.axes_of(axis_name)
+    commwatch.traced_collective(op, axes if len(axes) > 1 else axes[0],
+                                None, n, count=count, nbytes=nbytes,
+                                dtype=label)
 
 
 def axis_size(axis_name) -> int:
@@ -137,16 +156,89 @@ def reduce_scatter(x, axis_name, scatter_axis: int = 0):
     return wrap(total.narrow(scatter_axis, i * k, k).clone())
 
 
+def _differentiable(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _permute(m, t, axis_name, shift, watch=None, key=None):
+    n = m.axis_size(axis_name)
+    vals = m.run.exchange(m, "gather", axis_name, t.detach(), watch,
+                          key=key)
+    j = m.axis_index(axis_name)
+    return vals[(j - shift) % n].clone()
+
+
+class _RingPermute(torch.autograd.Function):
+    """:func:`ring_permute` on the tape: the backward sends the
+    cotangent back by ``-shift``. The member is captured at forward (a
+    card's backward runs on autograd's device thread, where no member is
+    bound), and the backward exchange is keyed by the forward's sequence
+    number (:mod:`._spmd`)."""
+
+    @staticmethod
+    def forward(ctx, t, m, axis_name, shift, watch):
+        ctx.m, ctx.axis, ctx.shift = m, axis_name, shift
+        ctx.seq = m.seq
+        return _permute(m, t, axis_name, shift, watch)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.m
+        return (_permute(m, g.contiguous(), ctx.axis, -ctx.shift,
+                         key=("ring_permute", ctx.seq)),
+                None, None, None, None)
+
+
 def ring_permute(x, axis_name, shift: int = 1, *, watch_count: int = 1):
     """Device i's block goes to device (i + shift) mod n (ref: ppermute
-    on the ring). ``watch_count`` charges the record that many runs."""
+    on the ring); differentiable, its backward the permute by
+    ``-shift``. ``watch_count`` charges the record that many runs (0
+    records nothing: the later ticks of a loop whose first tick charged
+    them all, as the reference's scan body is traced once)."""
     m = _member("ring_permute")
     t, wrap = _unwrap(x)
     n = m.axis_size(axis_name)
-    vals = m.run.exchange(m, "gather", axis_name, t,
-                          _watch("ppermute", t, n, count=watch_count))
+    watch = _watch("ppermute", t, n, count=watch_count) if watch_count \
+        else None
+    if _differentiable(t):
+        return wrap(_RingPermute.apply(t, m, axis_name, shift, watch))
+    return wrap(_permute(m, t, axis_name, shift, watch))
+
+
+def _a2a(m, t, axis_name, split_axis, concat_axis, tiled, watch=None,
+         key=None):
+    n = m.axis_size(axis_name)
+    if t.shape[split_axis] % n:
+        raise MXNetError("all_to_all: dimension %d of %s does not divide "
+                         "over %d devices" % (split_axis, tuple(t.shape), n))
+    vals = m.run.exchange(m, "gather", axis_name, t.detach(), watch, key=key)
     j = m.axis_index(axis_name)
-    return wrap(vals[(j - shift) % n].clone())
+    k = t.shape[split_axis] // n
+    chunks = [v.narrow(split_axis, j * k, k) for v in vals]
+    if tiled:
+        return torch.cat(chunks, dim=concat_axis).contiguous()
+    return torch.stack([c.squeeze(split_axis) for c in chunks],
+                       dim=concat_axis).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` on the tape: the backward is the all-to-all
+    with the split and concat axes swapped, keyed as
+    :class:`_RingPermute`'s."""
+
+    @staticmethod
+    def forward(ctx, t, m, axis_name, split_axis, concat_axis, tiled, watch):
+        ctx.m, ctx.axis = m, axis_name
+        ctx.axes = (split_axis, concat_axis, tiled)
+        ctx.seq = m.seq
+        return _a2a(m, t, axis_name, split_axis, concat_axis, tiled, watch)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis, tiled = ctx.axes
+        return (_a2a(ctx.m, g.contiguous(), ctx.axis, concat_axis,
+                     split_axis, tiled, key=("all_to_all", ctx.seq)),
+                None, None, None, None, None, None)
 
 
 def all_to_all(x, axis_name, split_axis: int = 0, concat_axis: int = 0,
@@ -155,22 +247,15 @@ def all_to_all(x, axis_name, split_axis: int = 0, concat_axis: int = 0,
     and sends chunk j to device j; the received chunks, in source order,
     are concatenated along ``concat_axis`` (``tiled``), or, untiled (the
     split axis of size n), stacked on a new ``concat_axis`` with the
-    split axis removed (ref: lax.all_to_all)."""
+    split axis removed (ref: lax.all_to_all). Differentiable: the
+    backward swaps the two axes."""
     m = _member("all_to_all")
     t, wrap = _unwrap(x)
-    n = m.axis_size(axis_name)
-    if t.shape[split_axis] % n:
-        raise MXNetError("all_to_all: dimension %d of %s does not divide "
-                         "over %d devices" % (split_axis, tuple(t.shape), n))
-    vals = m.run.exchange(m, "gather", axis_name, t,
-                          _watch("all_to_all", t, n))
-    j = m.axis_index(axis_name)
-    k = t.shape[split_axis] // n
-    chunks = [v.narrow(split_axis, j * k, k) for v in vals]
-    if tiled:
-        return wrap(torch.cat(chunks, dim=concat_axis).contiguous())
-    return wrap(torch.stack([c.squeeze(split_axis) for c in chunks],
-                            dim=concat_axis).contiguous())
+    watch = _watch("all_to_all", t, m.axis_size(axis_name))
+    if _differentiable(t):
+        return wrap(_AllToAll.apply(t, m, axis_name, split_axis,
+                                    concat_axis, tiled, watch))
+    return wrap(_a2a(m, t, axis_name, split_axis, concat_axis, tiled, watch))
 
 
 def barrier_sum(axis_name):

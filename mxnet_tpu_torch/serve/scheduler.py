@@ -505,9 +505,12 @@ class Scheduler:
         # failed build raises: no synchronous fallback).
         if self._cap_inflight > 1 and session._is_warm(
                 sum(r.n for r in reqs), reqs[0].seq_rung):
+            # a session over several devices declares its program and
+            # its serializing lock (InferenceSession.collective_tag)
             engine_mod.native_engine().push_async(
                 run_guarded, label="serve.batch",
-                on_done=self._on_batch_done)
+                on_done=self._on_batch_done,
+                collective=session.collective_tag())
         else:
             failed = False
             try:

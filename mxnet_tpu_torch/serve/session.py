@@ -40,11 +40,31 @@ replay and host copy) is timed into ``mx_serve_batch_seconds{bucket}``
 (a cold bucket's span, its capture, is cancelled: compilewatch records
 the capture as a program), and under a sampled ambient
 :class:`~mxnet_tpu_torch.tracing.TraceContext` the forward is a
-``serve::forward`` span of the request's trace. The reference's
-mesh-sharded serving waits with multi-GPU (ROADMAP.md queue 1, item 11).
+``serve::forward`` span of the request's trace.
+
+Mesh-sharded serving (``mesh=``, ``param_specs=``, ``data_spec=``)
+runs each request once per mesh device, one thread a device
+(:mod:`..parallel._spmd`), on the request replicated or on its
+``data_spec`` block of the batch axis; the outputs are assembled from
+the devices' blocks. :meth:`refresh_weights` copies every whole
+parameter onto every mesh device, where it stays resident until the
+next refresh: a weight update reaches the session there. Each device
+draws from a generator of its own, reseeded every request from one draw
+of the session's context, so replicated devices draw the same numbers
+(the reference places one key on the mesh). Executions are serialized
+(``_exec_lock``), and :meth:`collective_tag` gives the engine the
+program's descriptor. Where this differs from the reference's pjit
+partitioning: ``param_specs`` (``(regex, P)`` rules, the first match
+wins) is checked against the shapes and the mesh but not applied, every
+device holds every whole weight and runs every product, and a request
+runs no collective; a mesh of several devices runs eagerly, nothing is
+captured; a mesh of one device is the single-device session on it
+(captured, reading the live weights, so it needs no refresh);
+``data_spec`` splits the batch axis only.
 """
 from __future__ import annotations
 
+import re
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -92,13 +112,19 @@ class InferenceSession:
     max_batch / max_seq : int, optional
         Ladder ceiling for the default pow-2 rungs (defaults: the
         example shapes).
+    mesh / param_specs / data_spec
+        Mesh-sharded serving (see the module docstring): a
+        :class:`~mxnet_tpu_torch.parallel.Mesh`, ``(name_regex, P)``
+        rules for the parameters, and the request's spec (``P(axis)`` on
+        the batch axis, or None for replicated requests).
     """
 
     def __init__(self, block, example_inputs: Optional[Sequence] = None,
                  ctx=None, buckets: Optional[str] = None,
                  seq_axis: Optional[int] = None,
                  max_batch: Optional[int] = None,
-                 max_seq: Optional[int] = None):
+                 max_seq: Optional[int] = None,
+                 mesh=None, param_specs=None, data_spec=None):
         from ..gluon.block import HybridBlock
         if not isinstance(block, HybridBlock):
             raise MXNetError(
@@ -112,6 +138,8 @@ class InferenceSession:
             block.hybridize(static_alloc=True, static_shape=True)
         if ctx is None and isinstance(example_inputs[0], NDArray):
             ctx = example_inputs[0].context
+        if mesh is not None and mesh.size == 1 and ctx is None:
+            ctx = mesh.devices.flat[0].context
         self._ctx = Context(ctx or current_context())
         self._block = block
 
@@ -139,6 +167,14 @@ class InferenceSession:
         self._warm: set = set()
         self._stats: Dict[Tuple[int, ...], list] = {}  # bucket -> [hit, miss]
         self._closed = False
+
+        self._mesh = mesh
+        self._param_rules = [(re.compile(pat), spec)
+                             for pat, spec in (param_specs or [])]
+        self._data_spec = data_spec
+        self._weights: Optional[Dict[str, List[torch.Tensor]]] = None
+        if mesh is not None and mesh.size > 1:
+            self._init_mesh()
 
     # ------------------------------------------------------------------
     def _forward(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -271,7 +307,8 @@ class InferenceSession:
 
         tctx = tracing.current() if tracing.active() else None
         t0w = time.time() if tctx is not None else 0.0
-        if not warm and self._ctx.device_type == "gpu":
+        if not warm and self._ctx.device_type == "gpu" \
+                and not self._sharded:
             # the capture drains the engine under the lock; an engine op
             # of this session waiting for the lock would never finish
             _engine.native_drain()
@@ -282,8 +319,9 @@ class InferenceSession:
                 # a cold bucket's time is its capture: compilewatch has
                 # it; the batch histogram is about serving
                 sp.cancel()
+            run = self._run_mesh if self._sharded else self._run
             outs = [NDArray(o, self._ctx).asnumpy()
-                    for o in self._run(hosts, bucket)]
+                    for o in run(hosts, bucket)]
         if tctx is not None:
             tracing.record_span("serve::forward", "serve", t0w, time.time(),
                                 ctx=tctx,
@@ -304,6 +342,158 @@ class InferenceSession:
             staged = [x.pin_memory().to(dev, non_blocking=True)
                       for x in staged]
         return self._forward(staged)
+
+    # ------------------------------------------------------------------
+    # mesh-sharded serving
+    # ------------------------------------------------------------------
+    @property
+    def _sharded(self) -> bool:
+        return self._weights is not None
+
+    def _init_mesh(self):
+        from ..parallel import _spmd
+        mesh = self._mesh
+        self._params = dict(self._block.collect_params().items())
+        self._specs = {n: self._spec_for(n, tuple(p.shape))
+                       for n, p in self._params.items()}
+        ds = self._data_spec
+        if ds is not None and any(a is not None for a in tuple(ds)[1:]):
+            raise MXNetError(
+                "serve: data_spec %r splits an axis other than the batch "
+                "axis; the port's mesh session splits the batch axis only"
+                % (ds,))
+        self._batch_axes = None if ds is None or not tuple(ds) \
+            or tuple(ds)[0] is None else _spmd.axes_of(tuple(ds)[0])
+        run = _spmd.Run(mesh)
+        # the devices the batch splits over
+        self._split = run.axis_size(self._batch_axes) \
+            if self._batch_axes else 1
+        self._gens = []
+        for m in run.members:
+            dev = m.torch_device
+            self._gens.append((torch.Generator(device=dev),
+                               torch.zeros((1,), dtype=torch.int64,
+                                           device=dev)
+                               if dev.type == "cuda" else None))
+        self.refresh_weights()
+
+    def _spec_for(self, name: str, shape):
+        """The first matching rule's spec for parameter ``name``, checked
+        against its shape and the mesh (else replicated)."""
+        from ..parallel import _spmd
+        from ..parallel.mesh import P
+        for pat, spec in self._param_rules:
+            if not pat.match(name):
+                continue
+            entries = tuple(spec)
+            if len(entries) > len(shape):
+                raise MXNetError(
+                    "serve: param_specs rule %r gives %r %d axes, but "
+                    "parameter %r has rank %d"
+                    % (pat.pattern, spec, len(entries), name, len(shape)))
+            for dim, ax in enumerate(entries):
+                if ax is None:
+                    continue
+                n = 1
+                for a in _spmd.axes_of(ax):
+                    if a not in self._mesh.shape:
+                        raise MXNetError(
+                            "serve: param_specs rule %r names mesh axis %r "
+                            "for parameter %r; the mesh has %s"
+                            % (pat.pattern, a, name,
+                               tuple(self._mesh.axis_names)))
+                    n *= self._mesh.shape[a]
+                if shape[dim] % n:
+                    raise MXNetError(
+                        "serve: dimension %d (%d) of parameter %r does not "
+                        "divide over the %d devices of mesh axis %r"
+                        % (dim, shape[dim], name, n, ax))
+            return spec
+        return P()
+
+    def refresh_weights(self):
+        """(Sharded mode) copy each parameter's current value, whole, onto
+        each mesh device. Call after a weight update; a single-device
+        session reads the live parameters on every request and needs
+        none."""
+        if self._mesh is None or self._mesh.size == 1:
+            return
+        from ..parallel import _spmd
+        devs = [m.torch_device for m in _spmd.Run(self._mesh).members]
+        with torch.no_grad():
+            self._weights = {
+                name: [p.data(p.list_ctx()[0]).tensor()
+                       .to(dev, copy=True).contiguous() for dev in devs]
+                for name, p in self._params.items()}
+
+    def _run_mesh(self, hosts, bucket) -> List[torch.Tensor]:
+        """One request on every mesh device: its block of the request
+        (or all of it), the resident weights, the forward; the outputs
+        assembled on the first device."""
+        from .. import commwatch, random as _random
+        from ..gluon.parameter import substitute
+        from ..parallel import _spmd
+        from ..parallel import collectives as coll
+        from ..parallel.mesh import P
+        staged = [self._pad_to(h, bucket, t) for h, t in
+                  zip(hosts, self._templates)]
+        rows = bucket[0]
+        extra = (-rows) % self._split
+        if extra:
+            # the batch splits evenly: zero rows past the bucket
+            staged = [torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
+                      for x in staged]
+        seed = int(torch.randint(0, 1 << 62, (1,), generator=_random
+                                 .generator(Context("cpu", 0))).item())
+        run = _spmd.Run(self._mesh, collector=commwatch.current_collector())
+        spec = P(self._batch_axes) if self._batch_axes else None
+        local_rows = (rows + extra) // self._split
+
+        def body(m):
+            ctx = m.device.context
+            dev = m.torch_device
+            datas = [NDArray(coll.block_of(x, spec, run, m.coords).to(dev),
+                             ctx) for x in staged]
+            mapping = {p: NDArray(self._weights[n][m.pos], ctx)
+                       for n, p in self._params.items()}
+            gen, counter = self._gens[m.pos]
+            gen.manual_seed(seed)
+            if counter is not None:
+                counter.fill_((seed % (1 << 31)) << 32)
+            with ctx, torch.no_grad(), _cached_op.eager(), \
+                    substitute(mapping), _random.stream(gen, counter):
+                out = self._block(*datas)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            return [o.tensor() for o in outs]
+        results = run.execute(body)
+        outs = []
+        for i in range(len(results[0])):
+            blocks = [r[i] for r in results]
+            if spec is None:
+                outs.append(blocks[0])
+                continue
+            if not blocks[0].dim() or blocks[0].shape[0] != local_rows:
+                raise MXNetError(
+                    "serve: output %d has shape %s; with data_spec %r each "
+                    "output's axis 0 must be the batch (%d rows a device)"
+                    % (i, tuple(blocks[0].shape), self._data_spec,
+                       local_rows))
+            outs.append(coll.assemble(blocks, spec, run)[:rows])
+        return outs
+
+    def collective_tag(self) -> Optional[dict]:
+        """The ``engine.push_async(collective=...)`` descriptor of the
+        ops that run this session's requests when they run over several
+        devices (a mesh of more than one), else None: the program, and
+        the identity of the session's serializing exec lock, so two
+        in-flight batches of one session are sanctioned while two
+        multi-device programs with no shared lock are the deadlock
+        shape the collective-interleave check looks for."""
+        if self._mesh is None or self._mesh.size < 2:
+            return None
+        return {"program": "serve %s over %s" % (
+                    self._block.name, dict(self._mesh.shape)),
+                "lock": id(self._exec_lock)}
 
     def _is_warm(self, b: int, s: Optional[int]) -> bool:
         """Whether a request of ``b`` rows and length ``s`` finds its

@@ -2940,3 +2940,84 @@ def test_sharded_step_resumes_bit_for_bit_on_the_card(card, tmp_path):
     assert got == ref
     for k, v in bits.items():
         assert torch.equal(_sharded_bits(step)[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the rest of multi-GPU over a card and the host (chip_smoke.py phase 26)
+# ---------------------------------------------------------------------------
+def _card_host_mesh(axis):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel.mesh import contexts_mesh
+    return contexts_mesh([mx.gpu(0), mx.cpu(0)], (axis,))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_card_and_host(card, no_tf32, causal):
+    """Ring attention over [gpu(0), cpu(0)]: the output and the q, k, v
+    gradients (taken on each device, the card's on autograd's device
+    thread) against one card, f32."""
+    from mxnet_tpu_torch import parallel as par
+    from chip_smoke import _causal_attention
+    shape = (2, 64, 4, 16)
+    q, k, v, cot = (torch.randn(shape, generator=torch.Generator()
+                                .manual_seed(i)) for i in range(4))
+    spec = par.P(None, "sp", None, None)
+
+    def body(a, b, c, g):
+        ts = [x.tensor().detach().requires_grad_(True) for x in (a, b, c)]
+        with torch.enable_grad():
+            o = par.ring_attention(*ts, "sp", causal=causal)
+            grads = torch.autograd.grad(o, ts, g.tensor())
+        return [o.detach()] + list(grads)
+    f = par.shard_map(body, mesh=_card_host_mesh("sp"), in_specs=(spec,) * 4,
+                      out_specs=[spec] * 4)
+    got = [x.tensor().cuda() for x in f(q, k, v, cot)]
+    qq, kk, vv = (x.cuda().requires_grad_(True) for x in (q, k, v))
+    ref = _causal_attention(qq, kk, vv) if causal else \
+        par.local_attention(qq, kk, vv)
+    want = [ref.detach()] + list(torch.autograd.grad(ref, [qq, kk, vv],
+                                                     cot.cuda()))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_pipeline_card_and_host(card, no_tf32):
+    """make_pipeline_step over [gpu(0), cpu(0)]: the stage on the card
+    differentiates through the permute from autograd's device thread;
+    the update equals the two stages in sequence on the card."""
+    from mxnet_tpu_torch import parallel as par
+    g = torch.Generator().manual_seed(3)
+    W = torch.randn(2, 8, 8, generator=g) * 0.3
+    x = torch.randn(3, 4, 8, generator=g)
+    y = torch.randn(3, 4, 8, generator=g)
+    step = par.make_pipeline_step(lambda w, t: torch.tanh(t @ w),
+                                  _card_host_mesh("pp"), 3,
+                                  lambda o, lab: ((o - lab) ** 2).mean(),
+                                  lr=0.1)
+    new, loss = step(W, x, y)
+    Wc = W.cuda().requires_grad_(True)
+    t = torch.tanh(torch.tanh(x.cuda() @ Wc[0]) @ Wc[1])
+    ref = ((t - y.cuda()) ** 2).mean()
+    gw, = torch.autograd.grad(ref, Wc)
+    torch.testing.assert_close(float(loss), float(ref), rtol=1e-5, atol=0)
+    torch.testing.assert_close(new.cuda(), (Wc - 0.1 * gw).detach(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_session_card_and_host(card, no_tf32):
+    """A Dense net served over [gpu(0), cpu(0)] with its weight split
+    and the batch split: the card session's outputs, the collective
+    descriptor."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import P
+    net = mx.gluon.nn.Dense(16, in_units=32, prefix="meshcard_")
+    net.initialize(ctx=mx.gpu(0))
+    x = mx.nd.ones((4, 32), ctx=mx.gpu(0))
+    ref = net.serve_session(x, max_batch=4)
+    sess = net.serve_session(x, max_batch=4, mesh=_card_host_mesh("mp"),
+                             param_specs=[(r".*weight", P("mp", None))],
+                             data_spec=P("mp"))
+    xs = np.random.RandomState(0).rand(3, 32).astype(np.float32)
+    np.testing.assert_allclose(sess.infer(xs), ref.infer(xs), rtol=1e-5,
+                               atol=1e-6)
+    assert sess.collective_tag()["lock"] == id(sess._exec_lock)

@@ -13,9 +13,11 @@ on the concatenated batch (its own equivalence claim), computed here.
 """
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,7 +37,11 @@ DENSE_TOL = dict(rtol=1e-5, atol=1e-6)
 
 def launch(nworkers, command, env=None, cpu_devices=2, timeout=60):
     """Run the launcher in a session of its own; on timeout every
-    process of that session is killed and the test fails."""
+    process of that session is killed and the test fails. Each rank
+    writes its findings into a file of its own (``TEST_RESULT_DIR``,
+    ``torch_dist_worker.emit``): on the shared stdout pipe one rank's
+    line could land inside another's. They come back as ``RESULT``
+    lines after the launch's own output."""
     full = dict(os.environ)
     full.pop("MXNET_FAULT_INJECT", None)
     # a reference test that fails between setting MXNET_ZERO* and its
@@ -47,18 +53,32 @@ def launch(nworkers, command, env=None, cpu_devices=2, timeout=60):
     # cores of the tests running beside them
     full["OMP_NUM_THREADS"] = "1"
     full.update(env or {})
+    folder = tempfile.mkdtemp(prefix="mxt_results_")
+    full["TEST_RESULT_DIR"] = folder
     args = LAUNCH + ["-n", str(nworkers)]
     if cpu_devices:
         args += ["--cpu-devices", str(cpu_devices)]
-    proc = subprocess.Popen(args + command, cwd=ROOT, env=full,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        pytest.fail("launch %s timed out after %ds" % (command, timeout))
+        proc = subprocess.Popen(args + command, cwd=ROOT, env=full,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            pytest.fail("launch %s timed out after %ds" % (command, timeout))
+        lines = []
+        for name in sorted(os.listdir(folder)):
+            if name.endswith(".json"):
+                with open(os.path.join(folder, name)) as f:
+                    lines.append("RESULT " + f.read())
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    if lines:
+        out = out + ("" if not out or out.endswith("\n") else "\n") + \
+            "\n".join(lines) + "\n"
     return proc.returncode, out, err
 
 
@@ -384,3 +404,54 @@ def test_kv_comm_deadline_exhausted_raises(_faults, lib):
 @pytest.mark.parametrize("lib", [mx, pt], ids=["ref", "port"])
 def test_kv_comm_deadline_off_is_passthrough(_faults, lib):
     assert _bare_dist_store(lib)._comm_call("pull", lambda: 41 + 1) == 42
+
+
+# ---------------------------------------------------------------------------
+# the quantized wire across processes
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def quant_run():
+    rc, out, err = launch(2, [sys.executable, WORKER],
+                          env={"TEST_CASE": "quant",
+                               "MXNET_KVSTORE_QUANTIZE": "int8",
+                               "MXNET_TELEMETRY": "1"})
+    assert rc == 0, (out, err[-4000:])
+    res = results(out)
+    assert sorted(res) == [0, 1], (out, err[-4000:])
+    return res
+
+
+def test_quantized_dist_sync_is_the_device_stores_wire(quant_run):
+    """int8 dist_sync over 2 ranks x 2 contexts: bit for bit the
+    in-process device store's quantized reduce over the 4 contexts, two
+    steps (the error-feedback residual carried the same), within int8's
+    grid of the exact sum, the ranks equal."""
+    for r in (0, 1):
+        for st in quant_run[r]["steps"]:
+            assert st["equal"] is True
+            assert 0 < st["err"] < 0.1
+    assert quant_run[0]["digest"] == quant_run[1]["digest"]
+
+
+def test_quantized_dist_wire_bytes(quant_run):
+    """The cross-process exchanges carry int8 payloads on kv.dcn, with
+    one f32 scale a block: about a quarter of an f32 wire."""
+    from mxnet_tpu_torch.parallel import quantize as qz
+    block = qz.QuantConfig().block
+    for r in (0, 1):
+        for st in quant_run[r]["steps"]:
+            wire = st["wire"]
+            assert st["ops"] == ["all_to_all", "allgather"]
+            assert set(wire) == {"int8", "f32"}
+            ratio = (wire["int8"] + wire["f32"]) / (4.0 * wire["int8"])
+            assert abs(ratio - (0.25 + 1.0 / block)) < 1e-9
+
+
+def test_quantized_p3store_dist(quant_run):
+    """p3store_dist cuts the big key into row slices, each its own
+    quantized reduce: equal to the device store's over the same slices,
+    the ranks equal."""
+    for r in (0, 1):
+        assert quant_run[r]["p3_equal"] is True
+    assert quant_run[0]["p3_digest"] == quant_run[1]["p3_digest"]
+

@@ -197,3 +197,100 @@ def test_scan_boundary_report(monkeypatch):
     assert tr.modelwatch.sync_count == 4
     assert all(r is not None for r in ring[-1]["update_ratios"])
     tr._scan_flush()
+
+
+def _noise_run(lib, ctxs, steps=3):
+    """A Dense(4) on 4 replicas through the device kvstore, squared-sum
+    loss a replica; returns the noise scale after each step, the
+    per-replica gradients before the first step's all-reduce and the
+    Trainer."""
+    lib.random.seed(0)
+    net = lib.gluon.nn.Dense(4, in_units=4, prefix="noise_")
+    net.initialize(lib.initializer.Zero(), ctx=ctxs)
+    for p in net.collect_params().values():
+        p.set_data(lib.nd.array(np.full(p.shape, 0.25, np.float32)))
+    tr = lib.gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1}, kvstore="device")
+    rs = np.random.RandomState(3)
+    scales, first = [], None
+    for i in range(steps):
+        x = rs.randn(8, 4).astype(np.float32)
+        y = rs.randn(8, 4).astype(np.float32)
+        xs = lib.gluon.utils.split_and_load(lib.nd.array(x), ctxs)
+        ys = lib.gluon.utils.split_and_load(lib.nd.array(y), ctxs)
+        with lib.autograd.record():
+            losses = [((net(a) - b) ** 2).sum() for a, b in zip(xs, ys)]
+        for loss in losses:
+            loss.backward()
+        if i == 0:
+            first = [[p.list_grad()[r].asnumpy().astype(np.float64)
+                      for p in tr._params] for r in range(len(ctxs))]
+        tr.step(8)
+        scales.append(tr.modelwatch.noise_scale)
+    return scales, first, tr
+
+
+def test_noise_scale_dp4_matches_reference():
+    """B_simple over 4 replicas: the reference's after each of 3 steps
+    (its EMA), within 1e-4; the first against the formula over the
+    replicas' gradients read on the host; the gauge, the suggested
+    batch and the heartbeat's fields."""
+    import math
+    ref, _, _ = _noise_run(mx, [mx.tpu(i) for i in range(4)])
+    with pt.cpu():
+        got, per_replica, tr = _noise_run(pt, [pt.cpu(i) for i in range(4)])
+    assert all(v is not None and math.isfinite(v) and v > 0 for v in got)
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+    nrep, B = 4, 8.0
+    b = B / nrep
+    small_sq = sum(float(np.float32(np.linalg.norm(g))) ** 2
+                   for rep in per_replica for g in rep)
+    summed = [sum(rep[i] for rep in per_replica)
+              for i in range(len(per_replica[0]))]
+    big_sq = sum(float(np.float32(np.linalg.norm(g))) ** 2 for g in summed)
+    g_small = (small_sq / nrep) / (b * b)
+    g_big = big_sq / (B * B)
+    expect = ((g_small - g_big) / (1 / b - 1 / B)) \
+        / ((B * g_big - b * g_small) / (B - b))
+    np.testing.assert_allclose(got[0], expect, rtol=1e-4)
+    mw = tr.modelwatch
+    gauges = pt.telemetry.snapshot()["gauges"]
+    np.testing.assert_allclose(gauges["mx_grad_noise_scale"], mw.noise_scale)
+    assert mw.suggested_batch() == max(1, int(round(mw.noise_scale)))
+    hb = pt.telemetry.heartbeat_line()
+    assert "noise_scale=" in hb and "suggest_batch=" in hb
+    assert pt.modelwatch.ring()[-1]["noise_scale"] == mw.noise_scale
+    # one read a sampled step: the replicas' norms ride it
+    assert mw.sync_count == 3
+
+
+def test_noise_scale_under_zero_matches_the_replicated(monkeypatch):
+    """The ZeRO step stages the same replica norms and publishes its
+    report at the next sampled step: its noise scales are the
+    replicated Trainer's, one step later."""
+    with pt.cpu():
+        rep, _, _ = _noise_run(pt, [pt.cpu(i) for i in range(4)], steps=4)
+        monkeypatch.setenv("MXNET_ZERO", "1")
+        _reset_all()
+        zero, _, tr = _noise_run(pt, [pt.cpu(i) for i in range(4)],
+                                 steps=4)
+    assert tr._zero
+    assert zero[0] is None
+    np.testing.assert_allclose(zero[1:], rep[:-1], rtol=1e-5)
+
+
+def test_replica_norms_are_accurate_on_large_cpu_tensors():
+    """The norms the noise scale folds are the reference's within f32
+    rounding on a BERT-sized gradient (2^24 elements), where an f32
+    running sum drifts."""
+    rng = np.random.RandomState(5)
+    big = (rng.randn(1 << 24) * 1e-3).astype(np.float32)
+    small = rng.randn(37).astype(np.float32)
+    want = [np.linalg.norm(a.astype(np.float64)) for a in (big, small)]
+    port = pt.nd.multi_l2_norm(pt.nd.array(big, ctx=pt.cpu()),
+                               pt.nd.array(small, ctx=pt.cpu()),
+                               num_arrays=2).asnumpy()
+    ref = mx.nd.multi_l2_norm(mx.nd.array(big), mx.nd.array(small),
+                              num_arrays=2).asnumpy()
+    np.testing.assert_allclose(port, want, rtol=2e-7)
+    np.testing.assert_allclose(port, ref, rtol=1e-6)

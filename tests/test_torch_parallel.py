@@ -1,7 +1,7 @@
 """``mxnet_tpu_torch.parallel`` (meshes, the collectives, ``shard_map``
 and ``ShardedTrainStep``) against the reference's ``tests/test_parallel.py``
-case by case (its pipeline and MoE cases excepted: those modules are not
-ported). The reference runs on the 8 virtual CPU devices of
+case by case (its pipeline and MoE cases are held in
+``tests/test_torch_pipeline_moe.py``). The reference runs on the 8 virtual CPU devices of
 ``tests/conftest.py``; the port on ``cpu(0)...cpu(7)`` with the same mesh
 shapes, one thread a device. Inputs come from numpy seeds; the port's
 nets take the reference's initial weights.
@@ -625,11 +625,31 @@ def test_data_parallel_step():
 
 
 def test_unported_layers_name_their_slice():
-    for name in ("moe_apply", "make_moe_layer", "pipeline_apply",
-                 "make_pipeline_step", "local_attention", "ring_attention",
-                 "ulysses_attention"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            getattr(pt.parallel, name)()
+    """The pipeline, MoE and attention layers are ported: each name is
+    its module's function, as in the reference's package, and runs
+    (their parity with the reference: tests/test_torch_pipeline_moe.py
+    and tests/test_torch_ring_attention.py)."""
+    for mod, names in (("moe_mod", ("moe_apply", "make_moe_layer")),
+                       ("pipeline_mod", ("pipeline_apply",
+                                         "make_pipeline_step")),
+                       ("ring_attention_mod", ("local_attention",
+                                               "ring_attention",
+                                               "ulysses_attention"))):
+        assert hasattr(rpar, mod)
+        for name in names:
+            assert getattr(pt.parallel, name) is getattr(
+                getattr(pt.parallel, mod), name)
+            assert callable(getattr(rpar, name))
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(1, 8, 2, 4).astype(np.float32) for _ in range(3))
+    spec = ppar.P(None, "sp", None, None)
+    for fn in (ppar.ring_attention, ppar.ulysses_attention):
+        f = ppar.shard_map(lambda a, b, c: fn(a, b, c, "sp"),
+                           mesh=pmesh(2, sp=2), in_specs=(spec,) * 3,
+                           out_specs=spec)
+        np.testing.assert_allclose(
+            f(q, k, v).asnumpy(),
+            _np(rpar.local_attention(q, k, v)), **TOL)
 
 
 def test_sharded_auto_layout_is_accepted(monkeypatch):

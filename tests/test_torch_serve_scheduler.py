@@ -306,8 +306,14 @@ def test_on_done_accounting_through_the_native_engine():
         eng.wait_for_var(var)
     eng.wait_for_all()
     assert sorted(done) == [("boom", True), ("ok", False)]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.push_async(lambda: None, collective={"program": "x"})
+    # a collective push runs as any other, its descriptor kept
+    ran = []
+    eng.push_async(lambda: ran.append(1), label="coll", write_vars=(var,),
+                   collective={"program": "x", "lock": 7})
+    eng.wait_for_var(var)
+    assert ran == [1]
+    assert eng.collective_pushes()[-1] == ("coll", {"program": "x",
+                                                    "lock": 7})
 
 
 def test_an_engine_op_cannot_drain_its_engine():

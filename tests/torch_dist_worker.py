@@ -6,8 +6,8 @@ Started by ``python -m mxnet_tpu_torch.tools.launch -n 2 --cpu-devices N``
 with the ``DMLC_*`` environment, on gloo over CPU contexts. ``TEST_CASE``
 picks the body: ``main`` runs the kvstore, Trainer, vote, watchdog and
 fleet checks in one group, ``bert`` trains the 2-layer BERT slice. Each
-rank prints its findings as one ``RESULT <json>`` line; the pytest side
-compares the ranks and the reference.
+rank hands its findings to :func:`emit`; the pytest side compares the
+ranks and the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +19,24 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
+
+_EMITTED = [0]
+
+
+def emit(out):
+    """One rank's findings: a file of its own under ``TEST_RESULT_DIR``
+    when that is set (the ranks share one stdout pipe, and two ranks'
+    lines can interleave there), else one ``RESULT <json>`` line."""
+    line = json.dumps(out)
+    folder = os.environ.get("TEST_RESULT_DIR")
+    if not folder:
+        print("RESULT " + line, flush=True)
+        return
+    _EMITTED[0] += 1
+    path = os.path.join(folder, "%d-%d.json" % (os.getpid(), _EMITTED[0]))
+    with open(path + ".tmp", "w") as f:
+        f.write(line)
+    os.replace(path + ".tmp", path)
 
 
 def _digest(arrays):
@@ -213,7 +231,7 @@ def case_main():
     # a dead rank at the barrier: rank 1 leaves, rank 0 must not wait
     # past its deadline
     if rank == 1:
-        print("RESULT " + json.dumps(out), flush=True)
+        emit(out)
         os._exit(0)
     t0 = time.monotonic()
     try:
@@ -222,7 +240,7 @@ def case_main():
     except mx.MXNetError as e:
         out["dead_barrier"] = {"error": str(e),
                                "seconds": time.monotonic() - t0}
-    print("RESULT " + json.dumps(out), flush=True)
+    emit(out)
     os._exit(0)
 
 
@@ -273,11 +291,8 @@ def case_bert():
     got = {n: p.data().asnumpy() for n, p in params.items()}
     np.savez(os.path.join(os.environ["TEST_OUT_DIR"], "rank%d.npz" % rank),
              **got)
-    print("RESULT " + json.dumps({"rank": rank, "nw": nw,
-                                  "backend": kv.backend,
-                                  "digest": _digest(
-                                      [got[k] for k in sorted(got)])}),
-          flush=True)
+    emit({"rank": rank, "nw": nw, "backend": kv.backend,
+          "digest": _digest([got[k] for k in sorted(got)])})
     kv.barrier()
 
 
@@ -294,16 +309,100 @@ def case_card():
     kv.pushpull_list(["w"], [vals])
     net, _ = _dense_steps(mx, kv, ctxs, rank, nw)
     params = [net.weight.data().asnumpy(), net.bias.data().asnumpy()]
-    print("RESULT " + json.dumps({
+    emit({
         "rank": rank, "nw": nw, "backend": kv.backend,
         "ctx": str(ctxs[0]), "device": str(vals[0].tensor().device),
         "sum_err": float(np.abs(vals[0].asnumpy()
                                 - nw * (nw + 1) / 2).max()),
-        "weight": params[0].tolist(), "digest": _digest(params)}),
-        flush=True)
+        "weight": params[0].tolist(), "digest": _digest(params)})
+    kv.barrier()
+
+
+QUANT_SHAPES = {"a": (6, 40), "b": (3, 17), "c": (5,)}
+
+
+def quant_values(gidx, key, shape):
+    """Global replica ``gidx``'s value of ``key`` at one step."""
+    seed = 1000 * gidx + sorted(QUANT_SHAPES).index(key)
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def case_quant():
+    """The quantized wire across processes (MXNET_KVSTORE_QUANTIZE=int8
+    in the environment): dist_sync and p3store_dist against the
+    in-process device store over every rank's contexts, run here on
+    every rank's values, two steps (the residual carried); the wire's
+    bytes by dtype on kv.dcn."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist, nd
+    kv = mx.kvstore.create("dist_sync")
+    rank, nw = kv.rank, kv.num_workers
+    ctxs = dist.local_contexts()
+    n = len(ctxs)
+    keys = sorted(QUANT_SHAPES)
+    allctx = [mx.cpu(i) for i in range(nw * n)]
+    ref = mx.kvstore.create("device")
+
+    def arrays(step, contexts, base):
+        return [[nd.array(quant_values(base + i + 100 * step, k,
+                                       QUANT_SHAPES[k]), ctx=c)
+                 for i, c in enumerate(contexts)] for k in keys]
+    out = {"rank": rank, "steps": []}
+    for step in range(2):
+        vals = arrays(step, ctxs, rank * n)
+        rvals = arrays(step, allctx, 0)
+        if step == 0:
+            kv.init(keys, [v[0] for v in vals])
+            ref.init(keys, [v[0] for v in rvals])
+        mx.telemetry.reset()
+        kv.pushpull_list(keys, vals)
+        rows = [r for r in mx.commwatch.report() if r["axis"] == "kv.dcn"]
+        ref.pushpull_list(keys, rvals)
+        out["steps"].append({
+            "equal": all(np.array_equal(vals[j][i].asnumpy(),
+                                        rvals[j][rank * n + i].asnumpy())
+                         for j in range(len(keys)) for i in range(n)),
+            "err": max(float(np.abs(vals[j][0].asnumpy() - sum(
+                quant_values(g + 100 * step, k, QUANT_SHAPES[k])
+                for g in range(nw * n))).max())
+                for j, k in enumerate(keys)),
+            "wire": {r["dtype"]: r["bytes"] for r in rows},
+            "ops": sorted({r["op"] for r in rows})})
+    out["digest"] = _digest([v.asnumpy() for vs in vals for v in vs])
+
+    # p3store_dist: the big key cut into row slices, each its own
+    # quantized reduce, equal to the device store's over the same slices
+    os.environ["MXNET_KVSTORE_BIGARRAY_BOUND"] = "80"
+    p3 = mx.kvstore.create("p3store_dist")
+    vals = arrays(5, ctxs, rank * n)
+    rvals = arrays(5, allctx, 0)
+    p3.init(keys, [v[0] for v in vals])
+    p3.pushpull_list(keys, vals)
+    rows = QUANT_SHAPES["a"][0]
+    per = 80 // QUANT_SHAPES["a"][1]
+    ja = keys.index("a")
+    for s in range(0, rows, per):
+        ck = "a_p3_%d" % s
+        chunk = [nd.array(v.asnumpy()[s:s + per], ctx=v.context)
+                 for v in rvals[ja]]
+        ref.init(ck, chunk[0])
+        ref.pushpull_list([ck], [chunk])
+        for i in range(n):
+            got = vals[ja][i].asnumpy()[s:s + per]
+            if not np.array_equal(got, chunk[rank * n + i].asnumpy()):
+                out["p3_equal"] = False
+    small = [j for j, k in enumerate(keys) if k != "a"]
+    for j in small:
+        # p3 sends each key on its own: one quantized reduce a key
+        ref.pushpull_list([keys[j] + "_p3"], [rvals[j]])
+    out.setdefault("p3_equal", all(
+        np.array_equal(vals[j][i].asnumpy(), rvals[j][rank * n + i]
+                       .asnumpy()) for j in small for i in range(n)))
+    out["p3_digest"] = _digest([v.asnumpy() for vs in vals for v in vs])
+    emit(out)
     kv.barrier()
 
 
 if __name__ == "__main__":
-    {"main": case_main, "bert": case_bert,
-     "card": case_card}[os.environ["TEST_CASE"]]()
+    {"main": case_main, "bert": case_bert, "card": case_card,
+     "quant": case_quant}[os.environ["TEST_CASE"]]()

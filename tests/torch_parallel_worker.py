@@ -5,19 +5,20 @@ over a mesh that spans the processes (the counterpart of the reference's
 Started by ``python -m mxnet_tpu_torch.tools.launch -n 2 --cpu-devices 2``
 (gloo over CPU contexts). The mesh is ``make_mesh()`` over every
 process's contexts; each process passes its local rows of the global
-batch (row i lives on mesh device i). Each rank prints its losses,
-parameters and commwatch rows as one ``RESULT <json>`` line, and saves
+batch (row i lives on mesh device i). Each rank hands its losses,
+parameters and commwatch rows to ``torch_dist_worker.emit``, and saves
 the step's states into ``PARALLEL_STATES`` (rank 0 writes).
 """
 from __future__ import annotations
 
-import json
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
+from torch_dist_worker import emit  # noqa: E402
 
 STEPS = 3
 
@@ -67,7 +68,7 @@ def main():
                       for k, v in step.params.items()},
            "comm": [{k: r[k] for k in ("op", "axis", "ops", "bytes")}
                     for r in mx.commwatch.report()]}
-    print("RESULT " + json.dumps(out), flush=True)
+    emit(out)
 
 
 if __name__ == "__main__":
