@@ -598,6 +598,29 @@ Phases, in order; any fault ends the run with a non-zero exit and no
    same values, and its wire bytes. Alone (without (e) and (f)):
    ``python3 -c "import chip_smoke as cs; line = cs.phase_device();
    cs.phase_build(); cs.phase_multi(0, line, None, None)"``.
+27. autotune and perfwatch (``phase_autotune``): ``MXNET_AUTOTUNE=
+   measure`` into a fresh ``MXNET_AUTOTUNE_CACHE`` under a temporary
+   directory. Every tunable launch is consulted once through its own
+   wrapper (its candidates timed in paired rounds with CUDA events,
+   uncounted): the LayerNorm forward at BERT-base's served (8 x 128)
+   and trained (32 x 128) rows, its backward, attention at (32, 128) p
+   0.1 through the op's consult, bias+GeLU forward and backward,
+   bias+residual, dropout, ``dual_bwd`` at ResNet-50's stage-1 and
+   stage-4 shapes (``AUTOTUNE_DUAL``) and the CE chunk over the
+   30522-word vocab. For each, the default plan, the tuned plan and
+   both CUDA-event medians of ``AUTOTUNE_REPS`` calls; the tuned plan
+   and an alternative held against the default plan's outputs and the
+   plain version (bit for bit where a row's work is the same on every
+   plan, the summed rows within ``AUTOTUNE_SUM_TOL`` of their largest
+   sum, attention at p 0.1 against the plain version at the same head
+   block, the CE loss within ``HEAD_LOSS_TOL``); the launch counts of
+   that run (reset just before, read just after); the table reloaded
+   from the file in a new lookup without tuning; a bogus entry planted
+   (a warning, the default runs); the timings as one bench-JSON record
+   in a temporary ``MXNET_PERF_DB`` under the card's name, and the
+   trend report's row. Alone: ``python3 -c "import chip_smoke as cs;
+   line = cs.phase_device(); cs.phase_build(); cs.phase_autotune(0,
+   line)"``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -13591,6 +13614,395 @@ def phase_multi(seed, card_line, noise, quant):
     return counts
 
 
+# phase 27: the autotuner and perfwatch. BERT-base's served rows (8 x 128)
+# and trained rows (32 x 128) at 768 units and 12 heads, ResNet-50's
+# stage-1 and stage-4 call shapes for the dual backward, the chunked head
+# at 32 x 128 positions over the 30522-word vocab
+AUTOTUNE_REPS = 5
+AUTOTUNE_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "selfatt_fwd",
+                    "selfatt_bwd", "bias_gelu_fwd", "bias_gelu_bwd",
+                    "bias_residual_fwd", "dropout", "dual_bwd")
+AUTOTUNE_DUAL = ((STAGE_BATCH * 56 * 56, 64, 256), (STAGE_BATCH * 7 * 7,
+                                                    512, 2048))
+# the kernels' rows whose partial sums a tuned plan adds in another
+# order, in f32: within 1e-5 of the largest sum (tests/test_torch_cuda.py)
+AUTOTUNE_SUM_TOL = 1e-5
+
+
+def _tuned_rows(seed, g):
+    """(name, row of the PERF.md table, default plan, tuned plan, an
+    alternative plan, run(plan) -> outputs, plain() -> outputs, how each
+    output is held) of every tunable launch, each consulted once through
+    its wrapper in measure mode (the tuning's own launches uncounted)."""
+    import torch
+    from mxnet_tpu_torch.ops import (contrib_ops, cuda_attention,
+                                     cuda_build, cuda_dropout,
+                                     cuda_epilogue, cuda_fused, cuda_norm)
+    dev = torch.device(DEV)
+    sms = cuda_build.sm_count(dev)
+    bf = torch.bfloat16
+
+    def randn(shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
+    rows = []
+    M, Ms, C, H = TRAIN_BATCH * TRAIN_SEQ, 8 * TRAIN_SEQ, UNITS, HIDDEN
+    eps = 1e-12
+    # 1: the LayerNorm forward, served and trained rows
+    for m in (Ms, M):
+        x, gam, bet = randn((m, C), scale=3.0) + 1, randn((C,)), randn((C,))
+        cuda_norm.layer_norm_cuda(x, gam, bet, eps)       # consults
+        d = cuda_norm.fwd_blocks(m, C, bf, True, sms)
+        rows.append(("layer_norm_fwd (%d, %d)" % (m, C), 1, d,
+                     cuda_norm.fwd_plan(m, C, bf, True, sms, dev), sms,
+                     lambda b, x=x, gam=gam, bet=bet: (
+                         cuda_norm.layer_norm_cuda(x, gam, bet, eps, b),),
+                     lambda x=x, gam=gam, bet=bet: (
+                         cuda_norm.layer_norm_plain(x, gam, bet, eps),),
+                     ("equal",)))
+    # 2: the LayerNorm backward, trained rows
+    # gamma in f32, as under AMP: dgamma and dbeta leave in f32
+    x, dy = randn((M, C), scale=3.0) + 1, randn((M, C))
+    gam = randn((C,), torch.float32)
+    cuda_norm.layer_norm_bwd_cuda(dy, x, gam, eps)
+    rows.append(("layer_norm_bwd (%d, %d)" % (M, C), 2,
+                 cuda_norm.bwd_blocks(M, sms),
+                 cuda_norm.bwd_plan(M, C, bf, sms, dev), sms,
+                 lambda b: cuda_norm.layer_norm_bwd_cuda(dy, x, gam, eps, b),
+                 lambda: cuda_norm.layer_norm_bwd_plain(dy, x, gam, eps),
+                 ("equal", "sum", "sum")))
+    # 3-4: attention at the trained shape, dropout 0.1, through the op:
+    # bbh names the mask's seed blocks only, so nothing consults the
+    # tuner and the op's plan stays selfatt_plan's
+    L, N, p = TRAIN_SEQ, TRAIN_BATCH, 0.1
+    qkv = randn((L, N, HEADS * 3 * HEAD_DIM), scale=2.0)
+    dout = randn((L, N, HEADS * HEAD_DIM))
+    contrib_ops.sdp_selfatt(qkv, heads=HEADS, dropout=p, _train=True)
+    bbh = cuda_attention.selfatt_plan(L, HEADS, N)["bbh"]
+
+    def seeds_of(b):
+        n = cuda_attention.selfatt_plan(L, HEADS, N, b)["n_blocks"]
+        return torch.arange(n, dtype=torch.int32, device=DEV) * 7919 + seed
+
+    def att(b, fn, *more):
+        return (fn(qkv, *more, HEADS, p, seeds_of(b), b),)
+    for name, row, fwd, plain in (
+            ("selfatt_fwd", 3, cuda_attention.selfatt_cuda,
+             cuda_attention.selfatt_plain),
+            ("selfatt_bwd", 4, cuda_attention.selfatt_bwd_cuda,
+             cuda_attention.selfatt_bwd_plain)):
+        more = () if row == 3 else (dout,)
+        # at p > 0 the plan names the mask: the plain version at the
+        # tuned run's own head block
+        rows.append(("%s (L %d, N %d, p %g)" % (name, L, N, p), row,
+                     cuda_attention.selfatt_plan(L, HEADS, N)["bbh"], bbh, 4,
+                     lambda b, fwd=fwd, more=more: att(b, fwd, *more),
+                     lambda b, plain=plain, more=more: att(b, plain, *more),
+                     ("share",)))
+    # 5, 7: the epilogue forwards; 6: the bias+GeLU backward
+    xg, bg, dyg = randn((M, H)), randn((H,)), randn((M, H))
+    xr, br, rr = randn((M, C)), randn((C,)), randn((M, C))
+    cuda_epilogue.bias_gelu_cuda(xg, bg)
+    cuda_epilogue.bias_gelu_bwd_cuda(dyg, xg, bg)
+    cuda_epilogue.bias_residual_cuda(xr, br, rr)
+    for name, row, m, c, run, plain in (
+            ("bias_gelu_fwd", 5, M, H,
+             lambda s: (cuda_epilogue.bias_gelu_cuda(xg, bg, s),),
+             lambda: (cuda_epilogue.bias_gelu_plain(xg, bg),)),
+            ("bias_residual_fwd", 7, M, C,
+             lambda s: (cuda_epilogue.bias_residual_cuda(xr, br, rr, s),),
+             lambda: (cuda_epilogue.bias_residual_plain(xr, br, rr),))):
+        d = cuda_epilogue.fwd_strips(m, c, bf, True, sms)
+        rows.append(("%s (%d, %d)" % (name, m, c), row, d,
+                     cuda_epilogue.fwd_plan(name, m, c, bf, True, sms, dev),
+                     max(1, d // 2), run, plain, ("equal",)))
+    rows.append(("bias_gelu_bwd (%d, %d)" % (M, H), 6,
+                 cuda_epilogue.bwd_scratch_shape(M, H, bf, True, sms)[0],
+                 cuda_epilogue.bwd_plan(M, H, bf, True, sms, dev), 3 * sms,
+                 lambda s: cuda_epilogue.bias_gelu_bwd_cuda(dyg, xg, bg, s),
+                 lambda: cuda_epilogue.bias_gelu_bwd_plain(dyg, xg, bg),
+                 ("equal", "close")))
+    # 8: dropout at the trained rows
+    xd = randn((M, C))
+    sd = torch.tensor([seed], dtype=torch.int32, device=DEV)
+    cuda_dropout.dropout_cuda(xd, 0.1, sd)
+    per_sm = cuda_dropout._per_sm(dev, cuda_build.DTYPE_CODES[bf], True)
+    base = cuda_dropout.launch_plan(xd.numel(), 2, True, sms, per_sm)
+    tuned = cuda_dropout.tuned_launch_plan(xd.numel(), 2, True, sms, per_sm,
+                                           dev)
+    rows.append(("dropout (%d, %d) p 0.1" % (M, C), 8,
+                 {"units": base.units, "blocks": base.blocks},
+                 {"units": tuned.units, "blocks": tuned.blocks},
+                 {"units": 4, "blocks": sms * per_sm[4]},
+                 lambda q: (cuda_dropout.dropout_cuda(xd, 0.1, sd, q),),
+                 lambda: (cuda_dropout.dropout_plain(xd, 0.1, sd),),
+                 ("equal",)))
+    # 9: the dual backward at ResNet-50's stage shapes
+    for m, i, o in AUTOTUNE_DUAL:
+        jg, y, xx = randn((m, o)), randn((m, o)), randn((m, i))
+        w = randn((i, o), scale=i ** -0.5)
+        coef = torch.zeros(8, o, device=DEV)
+        coef[:5] = torch.randn(5, o, generator=g, device=DEV) * 0.1 + 1
+        args = (jg, y, xx, w, coef, "scale_shift")
+        cuda_fused.dual_bwd_cuda(*args)
+        dp = cuda_fused.dual_plan(m, i, o, sms)
+        tp = cuda_fused.tuned_dual_plan(m, i, o, sms, device=dev)
+        rows.append(("dual_bwd (%d, %d, %d)" % (m, i, o), 9,
+                     {"splits_w": dp["splits_w"], "splits_x": dp["splits_x"]},
+                     {"splits_w": tp["splits_w"], "splits_x": tp["splits_x"]},
+                     {"splits_w": 2 * dp["splits_w"],
+                      "splits_x": dp["splits_x"]},
+                     lambda q, args=args: cuda_fused.dual_bwd_cuda(
+                         *args, plan=q)[:2],
+                     lambda args=args: cuda_fused.dual_bwd_plain(*args)[:2],
+                     ("close", "sum")))
+    # the CE chunk: bf16 hidden states over f32 weights, as under AMP
+    hc = randn((M, C))
+    wc = torch.randn((VOCAB, C), generator=g, device=DEV) * 0.02
+    bc = torch.zeros(VOCAB, device=DEV)
+    lab = torch.randint(0, VOCAB, (M,), generator=g, device=DEV)
+    with torch.no_grad():
+        contrib_ops.chunked_lm_head_ce(hc, wc, bc, lab)
+    d = contrib_ops.ce_chunk_size(0, VOCAB)
+    dtypes = (hc.dtype, wc.dtype, bc.dtype)
+
+    def ce(c):
+        with torch.no_grad():
+            return (contrib_ops._ChunkedCE.apply(hc, wc, bc, lab, c),)
+    # no kernel: the chunks against the configured chunk's loss
+    rows.append(("chunked_lm_head_ce (%d, %d, %d)" % (M, C, VOCAB), 0, d,
+                 contrib_ops.ce_chunk_size(0, VOCAB, M, C, 2, dev, dtypes),
+                 1024,
+                 ce, lambda: ce(d), ("ce",)))
+    return rows
+
+
+def _hold_tuned(what, got, ref, how):
+    """Hold a tuned launch's outputs: bit for bit, within the bf16 kernel
+    tolerance, a summed f32 row within AUTOTUNE_SUM_TOL of its largest
+    sum, or the attention's bit-equal share."""
+    for i, (a, r, h) in enumerate(zip(got, ref, how)):
+        tag = "%s [%d]" % (what, i)
+        if h == "equal":
+            if not bool((a == r).all()):
+                raise SmokeFailure("%s: not bit for bit" % tag)
+        elif h == "sum":
+            top = float(r.float().abs().max())
+            _check_close(tag, a, r, AUTOTUNE_SUM_TOL * max(top, 1.0),
+                         AUTOTUNE_SUM_TOL)
+        elif h == "share":
+            _check_close(tag, a, r, KERNEL_ATOL, KERNEL_RTOL,
+                         min_equal=KERNEL_EQUAL)
+        elif h == "ce":
+            _check_close(tag, a, r, HEAD_LOSS_TOL, HEAD_LOSS_TOL)
+        else:
+            _check_close(tag, a, r, KERNEL_ATOL, KERNEL_RTOL)
+
+
+def _consult_cost(autotune, card_line, calls=500):
+    """Host time a LayerNorm launch at BERT-base's served rows spends on
+    its plan: ``blocks`` given (0, the launcher's grid), left to the
+    wrapper with the tuner off (the cached gate), and left to it in
+    ``measure`` mode (a table hit). The best of 3 runs of ``calls``
+    launches on the host's clock, synchronized between runs."""
+    import torch
+    from mxnet_tpu_torch.ops import cuda_norm
+    g = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randn((8 * TRAIN_SEQ, UNITS), generator=g,
+                    device=DEV).to(torch.bfloat16)
+    gam = torch.ones(UNITS, dtype=torch.bfloat16, device=DEV)
+    bet = torch.zeros(UNITS, dtype=torch.bfloat16, device=DEV)
+
+    def per_call(blocks):
+        cuda_norm.layer_norm_cuda(x, gam, bet, 1e-12, blocks)
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                cuda_norm.layer_norm_cuda(x, gam, bet, 1e-12, blocks)
+            runs.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+        return min(runs)
+    given = per_call(0)
+    on = per_call(None)
+    os.environ["MXNET_AUTOTUNE"] = "off"
+    autotune.refresh()
+    try:
+        off = per_call(None)
+    finally:
+        os.environ["MXNET_AUTOTUNE"] = "measure"
+        autotune.refresh()
+    print("[autotune] host us a layer_norm_fwd launch (%d, %d): blocks "
+          "given %.2f, tuner off %.2f, measure mode from the table %.2f "
+          "(best of 3 x %d calls; %s)" % (8 * TRAIN_SEQ, UNITS, given, off,
+                                         on, calls, card_line))
+
+
+def phase_autotune(seed, card_line):
+    """Phase 27: the launch-plan tuner in ``measure`` mode and the
+    perfwatch store, each in a temporary directory. Returns the kernels'
+    launches in the tuned run (counts reset just before, read after)."""
+    import io
+    import logging
+    import re
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import autotune, perfwatch
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.tools import bench_json
+    from mxnet_tpu_torch.tools import perfwatch as perfwatch_cli
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxt_autotune_")
+    cache = os.path.join(tmp, "tune.json")
+    saved = {k: os.environ.get(k) for k in (
+        "MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE", "MXNET_PERF_DB",
+        "MXNET_PERFWATCH")}
+    os.environ.update({"MXNET_AUTOTUNE": "measure",
+                       "MXNET_AUTOTUNE_CACHE": cache,
+                       "MXNET_PERF_DB": os.path.join(tmp, "db"),
+                       "MXNET_PERFWATCH": "1"})
+    perfwatch.refresh()
+    autotune.clear()
+    try:
+        g = torch.Generator(device=DEV).manual_seed(seed + 27)
+        rows = _tuned_rows(seed, g)
+        torch.cuda.synchronize()
+        table = autotune.table()
+        print("[autotune] measure mode: %d table entries in %s (%.1f s)"
+              % (len(table), cache, time.perf_counter() - t0))
+        if any("|selfatt" in k for k in table):
+            raise SmokeFailure("the attention op consulted the tuner: %s"
+                               % [k for k in table if "|selfatt" in k])
+        print("[autotune] rows 3-4: the head block names the mask's seed "
+              "blocks only; not tuned, the op keeps selfatt_plan's")
+        # each row: the default, the tuned plan and an alternative, each
+        # held against the default's outputs and the plain version
+        kernels, counts, ratios = {}, {}, []
+        cuda_build.reset_launch_counts()
+        for what, row, dflt, tuned, alt, run, plain, how in rows:
+            ref_plain = plain(tuned) if row in (3, 4) else plain()
+            base = run(dflt)
+            for tag, plan in (("tuned", tuned), ("alternative", alt)):
+                got = run(plan)
+                if row in (3, 4) and plan != dflt:
+                    # another head block draws another mask
+                    _hold_tuned("%s %s vs plain" % (what, tag), got,
+                                plain(plan), how)
+                    continue
+                _hold_tuned("%s %s vs default" % (what, tag), got, base,
+                            tuple("close" if h == "share" else h
+                                  for h in how))
+                if tag == "tuned":
+                    _hold_tuned("%s %s vs plain" % (what, tag), got,
+                                ref_plain, tuple("close" if h == "equal"
+                                                 else h for h in how))
+        counts = {k: v for k, v in cuda_build.launch_counts().items() if v}
+        for what, row, dflt, tuned, alt, run, plain, how in rows:
+            d_ms = t_ms = _gpu_ms(lambda: run(dflt), AUTOTUNE_REPS)
+            if tuned != dflt:
+                t_ms = _gpu_ms(lambda: run(tuned), AUTOTUNE_REPS)
+            ratios.append(t_ms / d_ms)
+            kernels["_".join(re.findall(r"[a-z0-9_.]+", what))] = {
+                "row": row, "default": dflt, "tuned": tuned,
+                "default_ms": d_ms, "candidate_ms": t_ms}
+            print("[autotune] row %s %-40s default %-34s %.4f ms; tuned "
+                  "%-34s %.4f ms (%s)" % (row or "CE", what, dflt, d_ms,
+                                           tuned, t_ms, card_line))
+        _consult_cost(autotune, card_line)
+        # a new process's lookup answers from the file without tuning
+        autotune.clear()
+        tunes = []
+        real_tune = autotune._tune
+        autotune._tune = lambda *a, **k: tunes.append(a) or real_tune(*a,
+                                                                       **k)
+        try:
+            again = _tuned_rows(seed, torch.Generator(
+                device=DEV).manual_seed(seed + 27))
+        finally:
+            autotune._tune = real_tune
+        if tunes or [r[3] for r in again] != [r[3] for r in rows]:
+            raise SmokeFailure("the reloaded table tuned %d signature(s) "
+                               "or answered other plans" % len(tunes))
+        print("[autotune] reload: %d plans from the file, none tuned again"
+              % len(again))
+        # a bogus entry: warned about, and the default runs
+        from mxnet_tpu_torch.ops import cuda_norm
+        with open(cache) as f:
+            data = json.load(f)
+        key = next(k for k in data if "|layer_norm_fwd|" in k
+                   and "M=%d," % (TRAIN_BATCH * TRAIN_SEQ) in k)
+        data[key] = {"params": {"blocks": -5}, "mode": "measure",
+                     "score": 0.0}
+        with open(cache, "w") as f:
+            json.dump(data, f)
+        autotune.clear()
+        caught = []
+        handler = logging.Handler()
+        handler.emit = lambda r: caught.append(r.getMessage())
+        logging.getLogger("mxnet_tpu_torch.autotune").addHandler(handler)
+        try:
+            what, row, dflt, tuned, alt, run, plain, how = next(
+                r for r in again if r[0].startswith("layer_norm_fwd (%d"
+                                                    % (TRAIN_BATCH
+                                                       * TRAIN_SEQ)))
+            m = TRAIN_BATCH * TRAIN_SEQ
+            bogus = cuda_norm.fwd_plan(m, UNITS, torch.bfloat16, True,
+                                       cuda_build.sm_count(
+                                           torch.device(DEV)),
+                                       torch.device(DEV))
+            # the wrapper's own consult reads the same entry
+            same = torch.equal(run(None)[0], run(dflt)[0])
+        finally:
+            logging.getLogger("mxnet_tpu_torch.autotune").removeHandler(
+                handler)
+        if bogus != dflt or not same or not any("failed validation" in c
+                                                for c in caught):
+            raise SmokeFailure("a bogus table entry gave plan %r (default "
+                               "%r), warnings %r" % (bogus, dflt, caught))
+        print("[autotune] bogus entry %s: warned, the default plan %s runs"
+              % (key, dflt))
+        # the timings as one bench-JSON record, into the store
+        record = {"metric": "autotune_paired_median_ratio",
+                  "value": statistics.median(ratios),
+                  "unit": "tuned/default", "kernels": kernels,
+                  "autotune": "measure",
+                  "autotune_table": {k: v["params"]
+                                     for k, v in table.items()},
+                  "card": card_line}
+        bench_json.emit(record, source="chip_smoke", stream=io.StringIO())
+        card = torch.cuda.get_device_name(0)
+        if record["env"]["device_kind"] != card:
+            raise SmokeFailure("the record's device kind %r is not the "
+                               "card's %r" % (record["env"]["device_kind"],
+                                              card))
+        db = perfwatch.open_db()
+        scan = perfwatch.scan(db)
+        if not scan or not db.records(db.device_kinds()[0],
+                                      record["metric"]):
+            raise SmokeFailure("the store holds no record of the run")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            perfwatch_cli._render([r for r in scan
+                                   if r["metric"] == record["metric"]],
+                                  db.root)
+        for ln in out.getvalue().splitlines():
+            print("[autotune] perf: %s" % ln)
+        print("[autotune] phase 27 took %.1f s; tuned run launches %s"
+              % (time.perf_counter() - t0, counts))
+        return counts
+    finally:
+        autotune.clear()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        perfwatch.refresh()
+        autotune.refresh()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -13738,6 +14150,11 @@ def main(argv=None):
         stamp("phase 25 (zero)")
         multi_counts = phase_multi(args.seed, card_line, noise, dp_quant)
         stamp("phase 26 (multi)")
+        autotune_counts = phase_autotune(args.seed, card_line)
+        missing = [k for k in AUTOTUNE_KERNELS if not autotune_counts.get(k)]
+        if missing:
+            raise SmokeFailure("phase 27 launched no %s" % missing)
+        stamp("phase 27 (autotune)")
         for r in rows:
             k = r.get("kernel", r["name"])
             r["launches_per_layout_run"] = layout_counts.get(k, 0)
@@ -13749,6 +14166,7 @@ def main(argv=None):
             r["launches_per_sharded_step"] = sharded_step.get(k, 0)
             r["launches_per_zero_step"] = zero_step.get(k, 0)
             r["launches_per_multi_run"] = multi_counts.get(k, 0)
+            r["launches_per_autotune_run"] = autotune_counts.get(k, 0)
             r["replayed_per_serving_run"] = serving_replayed.get(k, 0)
             r["replayed_per_replica"] = {
                 rid: c.get(k, 0) for rid, c in sorted(replica_counts.items())}

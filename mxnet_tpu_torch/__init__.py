@@ -126,6 +126,8 @@ from .monitor import Monitor
 from . import callback
 from . import dist
 from . import parallel
+from . import autotune
+from . import perfwatch
 from .interop import params_from_numpy
 
 # a raising guard, an engine op error or a watchdog writes a crash

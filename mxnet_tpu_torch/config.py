@@ -76,6 +76,13 @@ def setenv(name: str, value: str):
     os.environ[name] = value
 
 
+def environ_snapshot(prefixes: tuple) -> Dict[str, str]:
+    """Sorted {name: value} of every environment variable starting with
+    one of ``prefixes``."""
+    return {k: os.environ[k] for k in sorted(os.environ)
+            if k.startswith(prefixes)}
+
+
 def apply_overrides(env: Optional[Dict[str, str]]) -> None:
     """Write ``env`` into the environment: a spawned serving replica
     applies its spec's overrides (fault sites, tracing) before anything
@@ -414,9 +421,51 @@ define("MXNET_CHUNKED_CE_CHUNK", int, 4096,
        "none (the vocab is padded to whole chunks with -1e30 bias "
        "logits).")
 define("MXNET_AUTOTUNE", str, "off",
-       "Kernel auto-tuner mode; 'off' keeps every hand-picked constant "
-       "(the CE chunk above). Anything else raises where a tuned choice "
-       "would be read (ROADMAP.md queue 1, item 15).")
+       "Launch-plan auto-tuner mode (autotune.py): 'off' (default) keeps "
+       "every hand-picked plan — the kernels' grids, the attention head "
+       "block, the CE chunk — exactly as without the tuner, and never "
+       "reads the table; 'cost' picks, for each (card, kernel, shape), the "
+       "candidate plan the card can launch with the lowest roofline "
+       "max(FLOPs / peak rate, bytes / HBM rate) over its analytic "
+       "figures (ties keep the default, listed first); 'measure' "
+       "additionally times the best candidates against the default in "
+       "interleaved paired rounds with CUDA events, and keeps one only "
+       "when its paired-median ratio is below 1. Any other string reads "
+       "as 'off'.")
+define("MXNET_AUTOTUNE_CACHE", str, "",
+       "JSON file persisting the autotune table across processes, keyed "
+       "'card|kernel|shape'. Empty keeps the decisions in the process. An "
+       "entry that fails its kernel's validation (stale or hand-edited) "
+       "is ignored with a warning and the default plan runs.")
+define("MXNET_PERF_DB", str, "",
+       "Root directory of the performance-trajectory store (perfwatch.py): "
+       "one JSONL file per (device kind, metric), published atomically "
+       "(tmp + rename). When set, every bench-JSON record emitted through "
+       "mxnet_tpu_torch/tools/bench_json.py is stored with an environment "
+       "fingerprint; mxnet_tpu_torch/tools/perfwatch.py ingests, reports "
+       "and gates over it. Empty: no store.")
+define("MXNET_PERFWATCH", bool, True,
+       "Switch of the bench-emit ingestion seam (perfwatch.maybe_record): "
+       "recording engages only when this is on and MXNET_PERF_DB names a "
+       "store. The read is cached: call perfwatch.refresh() (or "
+       "telemetry.refresh(), which chains) after changing it.")
+define("MXNET_PERFWATCH_TOL", float, 0.05,
+       "Relative tolerance of perfwatch verdicts: the latest point must "
+       "differ from the rolling-median baseline by more than this "
+       "fraction (and clear the MAD score bar) to read regressed or "
+       "improved.")
+define("MXNET_PERFWATCH_TOL_OVERRIDES", str, "",
+       "Per-metric tolerances, 'metric=tol,metric=tol'; a name matches "
+       "itself and its derived sub-series by prefix, the longest match "
+       "winning over MXNET_PERFWATCH_TOL.")
+define("MXNET_PERFWATCH_MAD_K", float, 3.0,
+       "MAD-score bar of perfwatch verdicts and change points: the "
+       "deviation from the baseline must exceed this many scaled MADs "
+       "(1.4826 x the median absolute deviation of the window).")
+define("MXNET_PERFWATCH_WINDOW", int, 8,
+       "Rolling window of perfwatch baselines: the latest point is judged "
+       "against the median and MAD of up to this many preceding points of "
+       "its (device kind, metric) series.")
 define("MXNET_DATALOADER_RESTARTS", int, 2,
        "Restart budget for dead DataLoader worker processes per epoch "
        "(gluon/data/dataloader.py); once it is spent the loader warns and "

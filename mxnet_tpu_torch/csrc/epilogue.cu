@@ -266,17 +266,26 @@ int64_t bwd_strips(int64_t M, int C, int vec, int sms) {
   return row_strips(M, C, vec, sms, kBwdBlocksPerSm, kBwdRows);
 }
 
-// res: the residual where Epi takes one, else nullptr
+// the most row strips of a grid: at least kRowLanes * held rows a strip
+int64_t most_strips(int64_t M, int held) {
+  return (M + kRowLanes * held - 1) / (kRowLanes * held);
+}
+
+// res: the residual where Epi takes one, else nullptr; strips_in: 0 for
+// the grid from the SM count, else 1 to most_strips row strips
 template <typename T, typename Epi>
 int launch_fwd(const void* x, const void* res, const void* bias,
-               int bias_dtype, void* y, int64_t M, int C, int sms, int shift,
-               cudaStream_t stream) {
+               int bias_dtype, void* y, int64_t M, int C, int sms,
+               int64_t strips_in, int shift, cudaStream_t stream) {
   const bool aligned = aligned16(x) && aligned16(y) &&
                        (!Epi::kResidual || aligned16(res));
   const int vec = aligned ? col_vector(C, sizeof(T)) : 1;
   const int64_t tiles = col_tiles(C, vec);
-  const int64_t strips = row_strips(M, C, vec, sms, kFwdBlocksPerSm,
-                                    kFwdRows);
+  if (strips_in < 0 || strips_in > most_strips(M, kFwdRows))
+    return cudaErrorInvalidValue;
+  const int64_t strips =
+      strips_in ? strips_in
+                : row_strips(M, C, vec, sms, kFwdBlocksPerSm, kFwdRows);
   if (tiles > 65535 || strips > 0x7fffffff) return cudaErrorInvalidValue;
   const int64_t rows = (M + strips - 1) / strips;
   const dim3 grid(static_cast<unsigned>(strips),
@@ -302,7 +311,7 @@ int launch_gelu_bwd(const void* dy, const void* x, const void* bias,
                       ? col_vector(C, sizeof(T))
                       : 1;
   const int64_t tiles = col_tiles(C, vec);
-  if (strips != bwd_strips(M, C, vec, sms) || tiles > 65535 ||
+  if (strips < 1 || strips > most_strips(M, kBwdRows) || tiles > 65535 ||
       strips > 0x7fffffff)
     return cudaErrorInvalidValue;
   const int64_t rows = (M + strips - 1) / strips;
@@ -324,22 +333,22 @@ int launch_gelu_bwd(const void* dy, const void* x, const void* bias,
 
 template <typename Epi>
 int fwd(const void* x, const void* res, const void* bias, void* y, int64_t M,
-        int C, int sms, int dtype, int bias_dtype, int shift,
+        int C, int sms, int64_t strips, int dtype, int bias_dtype, int shift,
         cudaStream_t stream) {
   if (M < 1 || C < 1 || sms < 1) return cudaErrorInvalidValue;
   int rc;
   switch (dtype) {
     case kF32:
       rc = launch_fwd<float, Epi>(x, res, bias, bias_dtype, y, M, C, sms,
-                                  shift, stream);
+                                  strips, shift, stream);
       break;
     case kBF16:
       rc = launch_fwd<__nv_bfloat16, Epi>(x, res, bias, bias_dtype, y, M, C,
-                                          sms, shift, stream);
+                                          sms, strips, shift, stream);
       break;
     case kF16:
       rc = launch_fwd<__half, Epi>(x, res, bias, bias_dtype, y, M, C, sms,
-                                   shift, stream);
+                                   strips, shift, stream);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -392,10 +401,24 @@ MXT_EXPORT int64_t mxt_bias_gelu_bwd_strips(int64_t M, int C, int vec,
   return bwd_strips(M, C, vec, sms);
 }
 
+// Row strips of the two forwards' grid from the SM count (twin:
+// cuda_epilogue.fwd_strips).
+MXT_EXPORT int64_t mxt_bias_fwd_strips(int64_t M, int C, int vec, int sms) {
+  if (M < 1 || C < 1 || vec < 1 || sms < 1) return 0;
+  return row_strips(M, C, vec, sms, kFwdBlocksPerSm, kFwdRows);
+}
+
+// The most row strips a launcher takes for M rows: the forwards' (bwd 0)
+// or the backward's (bwd 1); twin: cuda_epilogue.most_strips.
+MXT_EXPORT int64_t mxt_bias_most_strips(int64_t M, int bwd) {
+  if (M < 1) return 0;
+  return most_strips(M, bwd ? kBwdRows : kFwdRows);
+}
+
 // dy, x, dx: (M, C) contiguous of dtype code `dtype`; bias, db: (C,) of
-// dtype code `bias_dtype`; part: f32 scratch of strips * C, where strips
-// is mxt_bias_gelu_bwd_strips for this call (refused otherwise); sms: the
-// card's SM count.
+// dtype code `bias_dtype`; part: f32 scratch of strips * C, strips from 1
+// to mxt_bias_most_strips(M, 1) (mxt_bias_gelu_bwd_strips by default; any
+// other count is refused); sms: the card's SM count.
 MXT_EXPORT int mxt_bias_gelu_bwd(const void* dy, const void* x,
                                  const void* bias, void* dx, void* part,
                                  int64_t strips, void* db, int64_t M, int C,
@@ -406,11 +429,14 @@ MXT_EXPORT int mxt_bias_gelu_bwd(const void* dy, const void* x,
 }
 
 // x, y: (M, C) contiguous of dtype code `dtype`; bias: (C,) of dtype
-// code `bias_dtype`; sms: the card's SM count.
+// code `bias_dtype`; sms: the card's SM count; strips: 0 for the grid from
+// sms, else the row strips of the grid, 1 to mxt_bias_most_strips(M, 0)
+// (any other count is refused).
 MXT_EXPORT int mxt_bias_gelu_fwd(const void* x, const void* bias, void* y,
                                  int64_t M, int C, int sms, int dtype,
-                                 int bias_dtype, cudaStream_t stream) {
-  return fwd<bias_gelu_fwd>(x, nullptr, bias, y, M, C, sms, dtype,
+                                 int bias_dtype, int64_t strips,
+                                 cudaStream_t stream) {
+  return fwd<bias_gelu_fwd>(x, nullptr, bias, y, M, C, sms, strips, dtype,
                             bias_dtype, 0, stream);
 }
 
@@ -421,7 +447,7 @@ MXT_EXPORT int mxt_bias_gelu_fwd_bias_shift(const void* x, const void* bias,
                                             int sms, int dtype,
                                             int bias_dtype, int shift,
                                             cudaStream_t stream) {
-  return fwd<bias_gelu_fwd>(x, nullptr, bias, y, M, C, sms, dtype,
+  return fwd<bias_gelu_fwd>(x, nullptr, bias, y, M, C, sms, 0, dtype,
                             bias_dtype, shift, stream);
 }
 
@@ -434,13 +460,15 @@ MXT_EXPORT int mxt_bias_gelu_bwd_bias_shift(
 }
 
 // x, r, y: (M, C) contiguous of dtype code `dtype`; bias: (C,) of dtype
-// code `bias_dtype`; sms: the card's SM count.
+// code `bias_dtype`; sms: the card's SM count; strips: as for
+// mxt_bias_gelu_fwd.
 MXT_EXPORT int mxt_bias_residual_fwd(const void* x, const void* bias,
                                      const void* r, void* y, int64_t M,
                                      int C, int sms, int dtype,
-                                     int bias_dtype, cudaStream_t stream) {
-  return fwd<bias_residual_fwd>(x, r, bias, y, M, C, sms, dtype, bias_dtype,
-                                0, stream);
+                                     int bias_dtype, int64_t strips,
+                                     cudaStream_t stream) {
+  return fwd<bias_residual_fwd>(x, r, bias, y, M, C, sms, strips, dtype,
+                                bias_dtype, 0, stream);
 }
 
 // bias + residual with the bias read `shift` columns off: chip_smoke.py's
@@ -449,6 +477,6 @@ MXT_EXPORT int mxt_bias_residual_fwd_bias_shift(
     const void* x, const void* bias, const void* r, void* y, int64_t M,
     int C, int sms, int dtype, int bias_dtype, int shift,
     cudaStream_t stream) {
-  return fwd<bias_residual_fwd>(x, r, bias, y, M, C, sms, dtype, bias_dtype,
-                                shift, stream);
+  return fwd<bias_residual_fwd>(x, r, bias, y, M, C, sms, 0, dtype,
+                                bias_dtype, shift, stream);
 }

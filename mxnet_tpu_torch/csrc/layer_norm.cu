@@ -294,14 +294,23 @@ void launch_fwd_rows(const void* x, const void* gamma, const void* beta,
       M, C, eps, shift);
 }
 
+// blocks: 0 for the grid from the SM count (fwd_blocks), else the grid of
+// the register path, 1 to a block for each kFwdWarps rows; the chunked
+// path's grid is fixed (a block for each kChunkWarps rows)
 template <typename T>
-void launch_fwd(const void* x, const void* gamma, const void* beta,
-                int param_dtype, void* y, int64_t M, int C, float eps,
-                int sms, int shift, cudaStream_t stream) {
+int launch_fwd(const void* x, const void* gamma, const void* beta,
+               int param_dtype, void* y, int64_t M, int C, float eps,
+               int sms, int64_t blocks_in, int shift, cudaStream_t stream) {
   int nv = reg_vectors(C, sizeof(T));
   if (!(aligned16(x) && aligned16(y) && aligned16(gamma) && aligned16(beta)))
     nv = 0;
-  const unsigned blocks = static_cast<unsigned>(fwd_blocks(M, nv, sms));
+  const int64_t dflt = fwd_blocks(M, nv, sms);
+  const int64_t most = nv ? (M + kFwdWarps - 1) / kFwdWarps : dflt;
+  if (blocks_in < 0 || blocks_in > most || blocks_in > 0x7fffffff ||
+      (nv == 0 && blocks_in != 0 && blocks_in != dflt))
+    return cudaErrorInvalidValue;
+  const unsigned blocks =
+      static_cast<unsigned>(blocks_in ? blocks_in : dflt);
   void (*rows)(const void*, const void*, const void*, int, void*, int64_t,
                int, float, unsigned, int, cudaStream_t) = nullptr;
   switch (nv) {
@@ -319,31 +328,33 @@ void launch_fwd(const void* x, const void* gamma, const void* beta,
     layer_norm_fwd_chunked<T><<<blocks, kChunkWarps * 32, 0, stream>>>(
         static_cast<const T*>(x), gamma, beta, param_dtype,
         static_cast<T*>(y), M, C, eps, shift);
+  return cudaSuccess;
 }
 
 int fwd(const void* x, const void* gamma, const void* beta, void* y,
         int64_t M, int C, float eps, int dtype, int param_dtype, int sms,
-        int shift, cudaStream_t stream) {
+        int64_t blocks, int shift, cudaStream_t stream) {
   if (M < 1 || C < 1 || sms < 1 || shift < 0 || shift >= C ||
       (M + kChunkWarps - 1) / kChunkWarps > 0x7fffffff)
     return cudaErrorInvalidValue;
+  int rc;
   switch (dtype) {
     case kF32:
-      launch_fwd<float>(x, gamma, beta, param_dtype, y, M, C, eps, sms,
-                        shift, stream);
+      rc = launch_fwd<float>(x, gamma, beta, param_dtype, y, M, C, eps, sms,
+                             blocks, shift, stream);
       break;
     case kBF16:
-      launch_fwd<__nv_bfloat16>(x, gamma, beta, param_dtype, y, M, C, eps,
-                                sms, shift, stream);
+      rc = launch_fwd<__nv_bfloat16>(x, gamma, beta, param_dtype, y, M, C,
+                                     eps, sms, blocks, shift, stream);
       break;
     case kF16:
-      launch_fwd<__half>(x, gamma, beta, param_dtype, y, M, C, eps, sms,
-                         shift, stream);
+      rc = launch_fwd<__half>(x, gamma, beta, param_dtype, y, M, C, eps, sms,
+                              blocks, shift, stream);
       break;
     default:
       return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return rc != cudaSuccess ? rc : static_cast<int>(cudaGetLastError());
 }
 
 // ---- backward ----------------------------------------------------------
@@ -691,14 +702,17 @@ MXT_EXPORT int mxt_layer_norm_bwd(const void* dy, const void* x,
 }
 
 // x, y: (M, C) contiguous, dtype code `dtype`; gamma, beta: (C,) of
-// dtype code `param_dtype`; sms: the card's SM count.
+// dtype code `param_dtype`; sms: the card's SM count; blocks: 0 for the
+// grid from sms, else the register path's grid, from 1 to a block for
+// each kFwdWarps rows (the chunked path takes only its own grid; any
+// other value is refused).
 MXT_EXPORT int mxt_layer_norm_fwd(const void* x, const void* gamma,
                                   const void* beta, void* y, int64_t M,
                                   int C, float eps, int dtype,
-                                  int param_dtype, int sms,
+                                  int param_dtype, int sms, int64_t blocks,
                                   cudaStream_t stream) {
-  return fwd(x, gamma, beta, y, M, C, eps, dtype, param_dtype, sms, 0,
-             stream);
+  return fwd(x, gamma, beta, y, M, C, eps, dtype, param_dtype, sms, blocks,
+             0, stream);
 }
 
 // The forward with gamma read `shift` columns off (0 < shift < C):
@@ -711,6 +725,6 @@ MXT_EXPORT int mxt_layer_norm_fwd_gamma_shift(const void* x,
                                               int dtype, int param_dtype,
                                               int sms, int shift,
                                               cudaStream_t stream) {
-  return fwd(x, gamma, beta, y, M, C, eps, dtype, param_dtype, sms, shift,
-             stream);
+  return fwd(x, gamma, beta, y, M, C, eps, dtype, param_dtype, sms, 0,
+             shift, stream);
 }

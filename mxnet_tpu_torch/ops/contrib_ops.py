@@ -355,19 +355,75 @@ class _ChunkedCE(torch.autograd.Function):
         return dh.to(h2.dtype), dw, db, None, None
 
 
-def ce_chunk_size(chunk_size, vocab) -> int:
+def ce_chunk_size(chunk_size, vocab, T=None, U=None, esize=4,
+                  device=None, dtypes=None) -> int:
     """The vocab chunk of one call: ``chunk_size``, or with 0
-    ``MXNET_CHUNKED_CE_CHUNK`` (the reference's ``_tuned_ce_chunk``
-    returns it untouched while ``MXNET_AUTOTUNE`` is off), at most the
+    ``MXNET_CHUNKED_CE_CHUNK`` — or, with ``MXNET_AUTOTUNE`` on and the
+    call's (T, U) given, the tuner's chunk (:func:`tuned_ce_chunk`;
+    ``dtypes``: the call's hidden, weight and bias dtypes) — at most the
     vocab."""
     chunk = int(chunk_size)
     if chunk <= 0:
-        if _cfg("MXNET_AUTOTUNE") != "off":
-            raise NotImplementedError(
-                "MXNET_AUTOTUNE=%r: the tuned LM-head chunk is not ported "
-                "yet (ROADMAP.md queue 1, item 15)" % _cfg("MXNET_AUTOTUNE"))
         chunk = int(_cfg("MXNET_CHUNKED_CE_CHUNK"))
+        if T is not None and U is not None:
+            chunk = tuned_ce_chunk(T, U, vocab, esize,
+                                   max(1, min(chunk, vocab)), device,
+                                   dtypes=dtypes)
     return max(1, min(chunk, vocab))
+
+
+def tuned_ce_chunk(T, U, V, esize, default, device=None, probe=None,
+                   dtypes=None):
+    """The tuner's vocab chunk of the chunked LM-head CE (the reference's
+    ``_tuned_ce_chunk``, consulted on both devices; off mode returns
+    ``default`` untouched). The grid is the reference's, the default
+    first: 8192, 4096, 2048 and 1024 up to max(V, 1024). Every chunk does
+    the same products; a chunk trades re-reads of the hidden states (one
+    a chunk, forward and backward) against the live (T, chunk) tile.
+    ``measure`` times the forward on the card only, on random inputs of
+    the call's shapes and ``dtypes`` (hidden, weight, bias; f32 when
+    None); elsewhere it ranks by cost."""
+    from .. import autotune
+
+    def grid():
+        return [{"chunk": c} for c in (8192, 4096, 2048, 1024)
+                if c <= max(V, 1024)]
+
+    def cost(q):
+        n = -(-V // q["chunk"])
+        return (3.0 * 2.0 * T * U * V,
+                (3.0 * n * T * U + 2.0 * V * U) * esize)
+
+    if probe is None:
+        hd, wd, bd = dtypes or (torch.float32,) * 3
+        made = []
+
+        def inputs():
+            # made once, at the first measurement, for every candidate
+            if not made:
+                g = torch.Generator(device=device).manual_seed(0)
+                made.extend((
+                    torch.randn((T, U), generator=g, device=device).to(hd),
+                    (torch.randn((V, U), generator=g, device=device)
+                     * U ** -0.5).to(wd),
+                    torch.zeros((V,), dtype=bd, device=device),
+                    torch.randint(0, V, (T,), generator=g, device=device)))
+            return made
+
+        def probe(q):
+            def build():
+                h, w, b, lab = inputs()
+                return (lambda: _ChunkedCE.apply(h, w, b, lab, q["chunk"]),
+                        ())
+            return build
+
+    out = autotune.tuned_plan(
+        "chunked_lm_head_ce", {"T": T, "U": U, "V": V, "esize": esize},
+        {"chunk": default}, grid,
+        lambda q: isinstance(q.get("chunk"), int)
+        and not isinstance(q["chunk"], bool) and q["chunk"] >= 1,
+        cost=cost, probe=probe, device=device)
+    return out["chunk"]
 
 
 @register("_contrib_chunked_lm_head_ce")
@@ -379,8 +435,10 @@ def chunked_lm_head_ce(hidden, weight, bias, labels, *, chunk_size=0):
     ``MXNET_CHUNKED_CE_CHUNK``. Returns the per-position loss (...,),
     f32."""
     lead = _check_labels("_contrib_chunked_lm_head_ce", hidden, labels)
-    chunk = ce_chunk_size(chunk_size, weight.shape[0])
     h2 = hidden.reshape(-1, hidden.shape[-1])
+    chunk = ce_chunk_size(chunk_size, weight.shape[0], h2.shape[0],
+                          h2.shape[1], hidden.element_size(), hidden.device,
+                          (hidden.dtype, weight.dtype, bias.dtype))
     loss = _ChunkedCE.apply(h2, weight, bias, labels.reshape(-1).long(),
                             chunk)
     return loss.reshape(lead)

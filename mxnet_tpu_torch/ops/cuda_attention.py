@@ -22,6 +22,13 @@ hash of ``pallas_attention.py :: _keep_mask`` over the
 geometry (``selfatt_plan`` / ``_default_block_heads``, without the
 autotuner) so that the same seeds drop the same scores.
 
+The reference's tuner picks its head block (``_tuned_block_heads``), a
+TPU block shape. Here ``bbh`` names the mask's seed blocks only (the
+kernels' grids do not depend on it): every ``bbh`` does the same work,
+at p 0 gives the same output bit for bit, and at p > 0 draws another
+mask. So the port's tuner (``autotune.py``) leaves it alone, and the op
+always takes :func:`selfatt_plan`'s.
+
 Domain (:func:`selfatt_available`): bf16 or f16 input (f32 takes the
 unfused composition, as in the reference, because the kernels compute
 in bf16), 1 <= L <= 1024, any head count. The reference's further limits

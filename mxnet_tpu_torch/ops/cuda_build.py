@@ -54,6 +54,7 @@ from ..base import MXNetError
 __all__ = ["SOURCES", "KERNELS", "build", "build_info", "library",
            "build_source", "load_library", "build_lock", "RTC_PREFIX",
            "launch_counts", "reset_launch_counts", "count_launch",
+           "uncounted",
            "check_launch", "check_cuda_tensor", "sm_count", "stream_of",
            "DTYPE_CODES",
            "apply"]
@@ -93,6 +94,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_info: Dict[str, object] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# per thread: the depth of the uncounted blocks it is in
+_uncounted = threading.local()
 
 
 def source_digest() -> str:
@@ -240,7 +243,10 @@ def check_launch(lib: ctypes.CDLL, rc: int, kernel: str):
 
 def count_launch(kernel: str):
     """One launch of ``kernel``: a name of :data:`KERNELS`, or
-    ``rtc:<name>`` for a user kernel (its entry made here)."""
+    ``rtc:<name>`` for a user kernel (its entry made here). Nothing
+    inside this thread's :func:`uncounted` block."""
+    if getattr(_uncounted, "depth", 0):
+        return
     if kernel.startswith(RTC_PREFIX):
         _launches[kernel] = _launches.get(kernel, 0) + 1
     else:
@@ -258,6 +264,18 @@ def reset_launch_counts():
             del _launches[k]
         else:
             _launches[k] = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """This thread's launches inside the block are not counted (the
+    autotuner's timing runs are not the caller's launches); other
+    threads' launches still are."""
+    _uncounted.depth = getattr(_uncounted, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _uncounted.depth -= 1
 
 
 def check_cuda_tensor(kernel: str, name: str, t: torch.Tensor,

@@ -26,7 +26,12 @@ aligned and one element an access where they are not (``x`` a view at an
 odd offset): :func:`launch_plan` picks the variant and the grid from the
 card's SM count, and the second variant's launches are counted apart in
 ``scalar_launches`` beside the kernel's count in
-``cuda_build.launch_counts()["dropout"]``, which counts both.
+``cuda_build.launch_counts()["dropout"]``, which counts both. With
+``MXNET_AUTOTUNE`` on, :func:`tuned_launch_plan` asks the tuner
+(``autotune.py``) for another (units, blocks) of the same variant, as the
+reference asks it for another row block (``pallas_dropout.py``); the mask
+hashes each element's linear index, so every plan drops the same
+elements.
 """
 from __future__ import annotations
 
@@ -38,12 +43,13 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from .. import autotune as _at
 from ..base import MXNetError
 from . import cuda_build as _cb
 
 __all__ = ["hash_bits", "keep_threshold", "dropout", "dropout_cuda",
            "dropout_plain", "dropout_fn", "dropout_available", "Plan",
-           "launch_plan"]
+           "launch_plan", "tuned_launch_plan"]
 
 KERNEL = "dropout"
 SOURCE = "dropout.cu"
@@ -142,6 +148,41 @@ def launch_plan(n: int, itemsize: int, aligned: bool, sms: int,
     return Plan(aligned, elems, units, max(blocks, 1), pieces)
 
 
+def tuned_launch_plan(n: int, itemsize: int, aligned: bool, sms: int,
+                      per_sm: Mapping[int, int], device=None,
+                      probe=None) -> Plan:
+    """The launch of one call: :func:`launch_plan`'s, or the tuner's
+    (units, blocks). A candidate is feasible when the occupancy
+    calculator keeps a block of its variant resident (``per_sm[units]``,
+    from ``mxt_dropout_blocks_per_sm``) and its grid is at least one block
+    and at most one a thread's worth of accesses; the kernel walks any
+    grid with a stride."""
+    base = launch_plan(n, itemsize, aligned, sms, per_sm)
+    nvec = max(1, min(n, PIECE) // base.elems)
+
+    def full(units):
+        return -(-nvec // (THREADS * units))
+
+    def grid():
+        out = []
+        for units in UNITS:
+            wave = sms * per_sm.get(units, 0)
+            for b in (wave, 2 * wave, full(units)):
+                out.append({"units": units,
+                            "blocks": max(1, min(b, full(units)))})
+        return out
+
+    out = _at.tuned_plan(
+        KERNEL, {"n": n, "esize": itemsize, "aligned": int(aligned)},
+        {"units": base.units, "blocks": base.blocks}, grid,
+        lambda q: q.get("units") in UNITS and per_sm.get(q["units"], 0) >= 1
+        and isinstance(q.get("blocks"), int)
+        and 1 <= q["blocks"] <= min(full(q["units"]), 0x7FFFFFFF),
+        cost=lambda q: (4.0 * n, 2.0 * n * itemsize), probe=probe,
+        device=device)
+    return base._replace(units=out["units"], blocks=out["blocks"])
+
+
 def _lib():
     lib = _cb.library(SOURCE)
     if not hasattr(lib, "_mxt_ready"):
@@ -173,10 +214,12 @@ def _per_sm(device: torch.device, code: int, vector: bool):
     return out
 
 
-def dropout_cuda(x: torch.Tensor, p: float,
-                 seed: torch.Tensor) -> torch.Tensor:
+def dropout_cuda(x: torch.Tensor, p: float, seed: torch.Tensor,
+                 plan=None) -> torch.Tensor:
     """Launch the kernel on a contiguous CUDA ``x``; ``seed`` is one
-    int32 on the same card."""
+    int32 on the same card. ``plan``: {"units", "blocks"} of the launch
+    (None: :func:`tuned_launch_plan` with the tuner on, else
+    :func:`launch_plan`)."""
     _cb.check_cuda_tensor(KERNEL, "x", x, tuple(_cb.DTYPE_CODES))
     _cb.check_cuda_tensor(KERNEL, "seed", seed, (torch.int32,), x.device)
     if seed.numel() != 1 or not 0.0 < p < 1.0:
@@ -187,9 +230,17 @@ def dropout_cuda(x: torch.Tensor, p: float,
     lib = _lib()
     code = _cb.DTYPE_CODES[x.dtype]
     aligned = (x.data_ptr() | y.data_ptr()) % 16 == 0
-    plan = launch_plan(x.numel(), x.element_size(), aligned,
-                       _cb.sm_count(x.device),
-                       _per_sm(x.device, code, aligned))
+    args = (x.numel(), x.element_size(), aligned, _cb.sm_count(x.device),
+            _per_sm(x.device, code, aligned))
+    if plan is None:
+        plan = tuned_launch_plan(
+            *args, device=x.device,
+            probe=lambda q: (lambda: (lambda: dropout_cuda(x, p, seed, q),
+                                      ()))) \
+            if _at.enabled() else launch_plan(*args)
+    else:
+        plan = launch_plan(*args)._replace(units=plan["units"],
+                                           blocks=plan["blocks"])
     with torch.cuda.device(x.device):
         rc = lib.mxt_dropout(x.data_ptr(), y.data_ptr(), seed.data_ptr(),
                              x.numel(), keep_threshold(p), _scale(p), code,

@@ -30,7 +30,17 @@ the card's SM count). Both helpers have C twins in
 shape.
 
 The reference's row-block limits (``_pick_rows``, at least 8 rows) are
-TPU tiling limits, so the kernels serve every row count. A bias (or
+TPU tiling limits, so the kernels serve every row count.
+
+Launch plans: each kernel's grid is its row strips by column tiles, the
+strips from the card's SM count (:func:`fwd_strips`,
+:func:`bwd_scratch_shape`). With ``MXNET_AUTOTUNE`` on,
+:func:`fwd_plan` and :func:`bwd_plan` ask the tuner (``autotune.py``)
+for another strip count, 1 to :func:`most_strips` (the launchers refuse
+any other), where the reference asks it for another row block
+(``pallas_epilogue.py :: _tuned_rows``); the block shape stays compiled.
+The forwards' outputs are bit for bit on any grid; the backward's db sums
+its strips' partial rows in another order. A bias (or
 residual) whose dtype differs from the data's is a numerics reason: the
 reference then runs the composition in the promoted dtype, and so does
 the port.
@@ -42,6 +52,7 @@ import math
 
 import torch
 
+from .. import autotune as _at
 from ..base import MXNetError
 from . import cuda_build as _cb
 
@@ -50,7 +61,8 @@ __all__ = ["gelu_erf", "bias_gelu", "bias_gelu_cuda", "bias_gelu_plain",
            "bias_gelu_fn", "bias_gelu_available", "bias_residual",
            "bias_residual_cuda", "bias_residual_plain", "bias_residual_fn",
            "bias_residual_available", "col_vector", "aligned16",
-           "bwd_scratch_shape"]
+           "bwd_scratch_shape", "fwd_strips", "most_strips", "fwd_plan",
+           "bwd_plan"]
 
 GELU_KERNEL = "bias_gelu_fwd"
 GELU_BWD_KERNEL = "bias_gelu_bwd"
@@ -59,10 +71,13 @@ SOURCE = "epilogue.cu"
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 # the kernels' blocks (csrc/epilogue.cu): _VEC_COLS threads along the
-# row by _ROW_LANES down it; a bias+GeLU backward thread holds _BWD_ROWS
-# rows at a time, _BWD_BLOCKS_PER_SM blocks an SM
+# row by _ROW_LANES down it; a forward thread holds _FWD_ROWS rows at a
+# time, _FWD_BLOCKS_PER_SM blocks an SM, a bias+GeLU backward thread
+# _BWD_ROWS rows, _BWD_BLOCKS_PER_SM blocks an SM
 _VEC_COLS = 64
 _ROW_LANES = 4
+_FWD_ROWS = 2
+_FWD_BLOCKS_PER_SM = 3
 _BWD_ROWS = 2
 _BWD_BLOCKS_PER_SM = 2
 
@@ -123,18 +138,76 @@ def col_vector(C: int, dtype: torch.dtype, aligned: bool = True) -> int:
     return e if aligned and C % e == 0 else 1
 
 
-def bwd_scratch_shape(M: int, C: int, dtype: torch.dtype, aligned: bool,
-                      sms: int):
-    """The backward's f32 scratch, one db partial row per row strip:
-    ``_BWD_BLOCKS_PER_SM`` blocks on each of the card's ``sms`` SMs over
-    the column tiles, at least ``_ROW_LANES * _BWD_ROWS`` rows a strip,
-    no strip empty (``csrc/epilogue.cu :: bwd_strips``)."""
-    vec = col_vector(C, dtype, aligned)
+def _row_strips(M: int, C: int, vec: int, sms: int, per_sm: int,
+                held: int) -> int:
+    """Row strips of a grid: ``per_sm`` blocks on each of ``sms`` SMs over
+    the column tiles, at least ``_ROW_LANES * held`` rows a strip, no
+    strip empty (``csrc/epilogue.cu :: row_strips``)."""
     tiles = -(-(C // vec) // _VEC_COLS)
-    most = -(-M // (_ROW_LANES * _BWD_ROWS))
-    strips = max(1, min(_BWD_BLOCKS_PER_SM * sms // tiles, most))
-    rows = -(-M // strips)
-    return (-(-M // rows), C)
+    s = max(1, min(per_sm * sms // tiles, -(-M // (_ROW_LANES * held))))
+    rows = -(-M // s)
+    return -(-M // rows)
+
+
+def most_strips(M: int, bwd: bool = False) -> int:
+    """The most row strips the forwards' (or the backward's) launcher
+    takes for ``M`` rows (``csrc/epilogue.cu :: most_strips``)."""
+    return -(-M // (_ROW_LANES * (_BWD_ROWS if bwd else _FWD_ROWS)))
+
+
+def fwd_strips(M: int, C: int, dtype: torch.dtype, aligned: bool,
+               sms: int) -> int:
+    """Row strips of the two forwards' grid from the card's ``sms`` SMs
+    (``csrc/epilogue.cu :: launch_fwd``)."""
+    return _row_strips(M, C, col_vector(C, dtype, aligned), sms,
+                       _FWD_BLOCKS_PER_SM, _FWD_ROWS)
+
+
+def bwd_scratch_shape(M: int, C: int, dtype: torch.dtype, aligned: bool,
+                      sms: int, strips=None):
+    """The backward's f32 scratch, one db partial row per row strip
+    (``strips``, else ``_BWD_BLOCKS_PER_SM`` blocks on each of the card's
+    ``sms`` SMs over the column tiles, at least ``_ROW_LANES * _BWD_ROWS``
+    rows a strip, no strip empty: ``csrc/epilogue.cu :: bwd_strips``)."""
+    return (strips or _row_strips(M, C, col_vector(C, dtype, aligned), sms,
+                                  _BWD_BLOCKS_PER_SM, _BWD_ROWS), C)
+
+
+def _plan(kernel, M, C, dtype, aligned, sms, default, per_sm, held, bwd,
+          streams, device, probe):
+    vec = col_vector(C, dtype, aligned)
+    most = most_strips(M, bwd)
+    out = _at.tuned_plan(
+        kernel, {"M": M, "C": C, "esize": dtype.itemsize,
+                 "aligned": int(aligned)}, {"strips": default},
+        lambda: [{"strips": _row_strips(M, C, vec, sms, k, held)}
+                 for k in per_sm],
+        lambda p: isinstance(p.get("strips"), int)
+        and not isinstance(p["strips"], bool) and 1 <= p["strips"] <= most,
+        cost=lambda p: (10.0 * M * C, float(streams * M * C
+                                            * dtype.itemsize)),
+        probe=probe, device=device)
+    return out["strips"]
+
+
+def fwd_plan(kernel: str, M: int, C: int, dtype: torch.dtype,
+             aligned: bool, sms: int, device=None, probe=None) -> int:
+    """Row strips of a forward's grid (``kernel``: ``bias_gelu_fwd`` or
+    ``bias_residual_fwd``) for this call: :func:`fwd_strips`, or the
+    tuner's count."""
+    return _plan(kernel, M, C, dtype, aligned, sms,
+                 fwd_strips(M, C, dtype, aligned, sms), (1, 2, 4, 6),
+                 _FWD_ROWS, False,
+                 3 if kernel == RESIDUAL_KERNEL else 2, device, probe)
+
+
+def bwd_plan(M: int, C: int, dtype: torch.dtype, aligned: bool, sms: int,
+             device=None, probe=None) -> int:
+    """Row strips of the bias+GeLU backward for this call: the default
+    of :func:`bwd_scratch_shape`, or the tuner's count."""
+    return _plan(GELU_BWD_KERNEL, M, C, dtype, aligned, sms,
+                 bwd_scratch_shape(M, C, dtype, aligned, sms)[0],
+                 (1, 3, 4, 6), _BWD_ROWS, True, 3, device, probe)
 
 
 def bias_residual_plain(x: torch.Tensor, bias: torch.Tensor,
@@ -148,10 +221,10 @@ def _lib():
     if not hasattr(lib, "_mxt_ready"):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mxt_bias_gelu_fwd.argtypes = [p, p, p, i64, i32, i32, i32, i32,
-                                          p]
+                                          i64, p]
         lib.mxt_bias_gelu_fwd.restype = ctypes.c_int
         res = [p, p, p, p, i64, i32, i32, i32, i32]
-        lib.mxt_bias_residual_fwd.argtypes = res + [p]
+        lib.mxt_bias_residual_fwd.argtypes = res + [i64, p]
         lib.mxt_bias_residual_fwd.restype = ctypes.c_int
         lib.mxt_bias_residual_fwd_bias_shift.argtypes = res + [i32, p]
         lib.mxt_bias_residual_fwd_bias_shift.restype = ctypes.c_int
@@ -167,6 +240,10 @@ def _lib():
         lib.mxt_bias_col_vector.restype = i32
         lib.mxt_bias_gelu_bwd_strips.argtypes = [i64, i32, i32, i32]
         lib.mxt_bias_gelu_bwd_strips.restype = i64
+        lib.mxt_bias_fwd_strips.argtypes = [i64, i32, i32, i32]
+        lib.mxt_bias_fwd_strips.restype = i64
+        lib.mxt_bias_most_strips.argtypes = [i64, i32]
+        lib.mxt_bias_most_strips.restype = i64
         lib._mxt_ready = True
     return lib
 
@@ -187,25 +264,40 @@ def _check(kernel, x, bias, residual=None):
                                 tuple(x.shape)))
 
 
-def bias_gelu_cuda(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launch the bias+GeLU kernel on contiguous CUDA tensors."""
+def _probe(fn, *args):
+    """The tuner's runner of a plan on this call's tensors."""
+    return lambda plan: (lambda: (lambda: fn(*args, plan["strips"]), ()))
+
+
+def bias_gelu_cuda(x: torch.Tensor, bias: torch.Tensor,
+                   strips=None) -> torch.Tensor:
+    """Launch the bias+GeLU kernel on contiguous CUDA tensors; ``strips``:
+    the grid's row strips (None: :func:`fwd_plan` with the tuner on, else
+    0, the launcher's own grid)."""
     _check(GELU_KERNEL, x, bias)
     C = x.shape[-1]
+    M = x.numel() // C
     y = torch.empty_like(x)
     lib = _lib()
+    sms = _cb.sm_count(x.device)
+    if strips is None:
+        strips = fwd_plan(GELU_KERNEL, M, C, x.dtype, aligned16(x, y), sms,
+                          x.device, _probe(bias_gelu_cuda, x, bias)) \
+            if _at.enabled() else 0
     with torch.cuda.device(x.device):
         rc = lib.mxt_bias_gelu_fwd(
-            x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // C, C,
-            _cb.sm_count(x.device), _cb.DTYPE_CODES[x.dtype],
-            _cb.DTYPE_CODES[bias.dtype], _cb.stream_of(x))
+            x.data_ptr(), bias.data_ptr(), y.data_ptr(), M, C, sms,
+            _cb.DTYPE_CODES[x.dtype], _cb.DTYPE_CODES[bias.dtype],
+            int(strips), _cb.stream_of(x))
     _cb.check_launch(lib, rc, GELU_KERNEL)
     return y
 
 
 def bias_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
-                       bias: torch.Tensor):
+                       bias: torch.Tensor, strips=None):
     """Launch the bias+GeLU backward kernel on contiguous (M, C) CUDA
-    tensors; returns (dx, db)."""
+    tensors; returns (dx, db). ``strips``: the row strips
+    (:func:`bwd_plan` when None)."""
     _check(GELU_BWD_KERNEL, x, bias)
     _cb.check_cuda_tensor(GELU_BWD_KERNEL, "dy", dy, (x.dtype,), x.device)
     if x.dim() != 2 or dy.shape != x.shape:
@@ -215,9 +307,13 @@ def bias_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
     M, C = x.shape
     dx = torch.empty_like(x)
     sms = _cb.sm_count(x.device)
-    part = torch.empty(bwd_scratch_shape(M, C, x.dtype,
-                                         aligned16(dy, x, dx), sms),
-                       dtype=torch.float32, device=x.device)
+    if strips is None:
+        aligned = aligned16(dy, x, dx)
+        strips = bwd_plan(M, C, x.dtype, aligned, sms, x.device,
+                          _probe(bias_gelu_bwd_cuda, dy, x, bias)) \
+            if _at.enabled() else \
+            bwd_scratch_shape(M, C, x.dtype, aligned, sms)[0]
+    part = torch.empty((strips, C), dtype=torch.float32, device=x.device)
     db = torch.empty_like(bias)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -231,18 +327,26 @@ def bias_gelu_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
 
 
 def bias_residual_cuda(x: torch.Tensor, bias: torch.Tensor,
-                       residual: torch.Tensor) -> torch.Tensor:
-    """Launch the bias+residual kernel on contiguous CUDA tensors."""
+                       residual: torch.Tensor, strips=None) -> torch.Tensor:
+    """Launch the bias+residual kernel on contiguous CUDA tensors;
+    ``strips``: the grid's row strips (None: :func:`fwd_plan` with the
+    tuner on, else 0, the launcher's own grid)."""
     _check(RESIDUAL_KERNEL, x, bias, residual)
     C = x.shape[-1]
+    M = x.numel() // C
     y = torch.empty_like(x)
     lib = _lib()
+    sms = _cb.sm_count(x.device)
+    if strips is None:
+        strips = fwd_plan(RESIDUAL_KERNEL, M, C, x.dtype,
+                          aligned16(x, y, residual), sms, x.device,
+                          _probe(bias_residual_cuda, x, bias, residual)) \
+            if _at.enabled() else 0
     with torch.cuda.device(x.device):
         rc = lib.mxt_bias_residual_fwd(
             x.data_ptr(), bias.data_ptr(), residual.data_ptr(), y.data_ptr(),
-            x.numel() // C, C, _cb.sm_count(x.device),
-            _cb.DTYPE_CODES[x.dtype], _cb.DTYPE_CODES[bias.dtype],
-            _cb.stream_of(x))
+            M, C, sms, _cb.DTYPE_CODES[x.dtype],
+            _cb.DTYPE_CODES[bias.dtype], int(strips), _cb.stream_of(x))
     _cb.check_launch(lib, rc, RESIDUAL_KERNEL)
     return y
 

@@ -38,12 +38,14 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import autotune as _at
 from ..base import MXNetError
 from . import cuda_build as _cb
 
 __all__ = ["conv1x1_bn_act", "conv1x1_bn_act_ref", "bottleneck_v1_block",
            "bottleneck_v1_block_ref", "fused_stage", "dual_bwd",
-           "dual_bwd_cuda", "dual_bwd_plain", "MASK_MODES"]
+           "dual_bwd_cuda", "dual_bwd_plain", "MASK_MODES", "dual_plan",
+           "tuned_dual_plan"]
 
 KERNEL = "dual_bwd"
 SOURCE = "dual_bwd.cu"
@@ -117,7 +119,8 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def dual_plan(M, I, O, sms, emit_next=False, aligned=True):
+def dual_plan(M, I, O, sms, emit_next=False, aligned=True, splits_w=None,
+              splits_x=None):
     """How the kernel splits one call over a card of ``sms`` SMs, and the
     scratch it needs:
 
@@ -136,19 +139,27 @@ def dual_plan(M, I, O, sms, emit_next=False, aligned=True):
       (one slice, ``depth_x >= O``, elsewhere);
     - the shapes of the scratch tensors: ``cdy`` (bf16; None when fused),
       ``part_dw``, ``part_dx`` (None for one slice) and ``part_sums``
-      (None without ``emit_next``), all f32 but cdy."""
+      (None without ``emit_next``), all f32 but cdy.
+
+    ``splits_w`` and ``splits_x`` replace the first two choices (the
+    tuner's plans, :func:`tuned_dual_plan`); each is rounded to whole
+    ``_BK`` steps as above."""
     fused = (I <= _FUSE_I and _FUSE_O // 2 < O <= _FUSE_O and not emit_next
              and aligned and I % 8 == 0 and O % 8 == 0)
-    if fused:
+    if splits_w is not None:
+        splits = splits_w
+    elif fused:
         splits = min(_FILL * sms, _cdiv(M, _BK))
     else:
         tiles_w = _cdiv(I, _DW_TILE[0]) * _cdiv(O, _DW_TILE[1])
         splits = max(1, min(_cdiv(_FILL * sms, tiles_w), _cdiv(M, 128)))
     rows_w = _cdiv(_cdiv(M, splits), _BK) * _BK
     tiles_x = _cdiv(M, _DX_TILE[0]) * _cdiv(I, _DX_TILE[1])
-    splits_x = 1
-    if tiles_x < _FILL * sms and not fused:
-        splits_x = max(1, min(_cdiv(_FILL * sms, tiles_x), O // _MIN_SLICE))
+    if splits_x is None:
+        splits_x = 1
+        if tiles_x < _FILL * sms and not fused:
+            splits_x = max(1, min(_cdiv(_FILL * sms, tiles_x),
+                                  O // _MIN_SLICE))
     depth_x = _cdiv(_cdiv(O, splits_x), _BK) * _BK
     splits_x = _cdiv(O, depth_x)
     sum_rows = _EPI_ROWS if splits_x > 1 else _DX_TILE[0]
@@ -160,10 +171,67 @@ def dual_plan(M, I, O, sms, emit_next=False, aligned=True):
             "part_sums": (_cdiv(M, sum_rows), 2, I) if emit_next else None}
 
 
+def tuned_dual_plan(M, I, O, sms, emit_next=False, aligned=True,
+                    device=None, probe=None):
+    """:func:`dual_plan` of one call on the card, its ``splits_w`` and
+    ``splits_x`` the defaults or the tuner's (``autotune.py``). A plan is
+    feasible in the launcher's ranges (``mxt_dual_bwd``'s checks: at
+    least one split, whole ``_BK`` steps, one dx slice on the fused
+    path). The roofline counts the plan's bytes, scratch included, over
+    the share of the card its blocks fill, so it weighs split traffic
+    against idle SMs."""
+    base = dual_plan(M, I, O, sms, emit_next, aligned=aligned)
+    default = {"splits_w": base["splits_w"], "splits_x": base["splits_x"]}
+
+    def grid():
+        sw, sx = default["splits_w"], default["splits_x"]
+        out = [{"splits_w": w, "splits_x": sx}
+               for w in (max(1, sw // 2), 2 * sw)]
+        if not base["fused"]:
+            out += [{"splits_w": sw, "splits_x": x} for x in (1, 2, 4)]
+        return out
+
+    def valid(q):
+        sw, sx = q.get("splits_w"), q.get("splits_x")
+        return (isinstance(sw, int) and isinstance(sx, int)
+                and 1 <= sw <= _cdiv(M, _BK) and 1 <= sx <= _cdiv(O, _BK)
+                and (sx == 1 or not base["fused"]))
+
+    def cost(q):
+        plan = dual_plan(M, I, O, sms, emit_next, aligned=aligned,
+                         splits_w=q["splits_w"], splits_x=q["splits_x"])
+        nbytes = 2.0 * (2 * M * O + 2 * M * I + I * O) + 4.0 * I * O
+        for k in ("cdy", "part_dw", "part_dx", "part_sums"):
+            if plan[k] is not None:
+                n = 1
+                for d in plan[k]:
+                    n *= d
+                nbytes += 2.0 * n * (2 if k == "cdy" else 4)
+        if plan["fused"]:
+            blocks = plan["splits_w"]
+        else:
+            blocks = (_cdiv(M, _DX_TILE[0]) * _cdiv(I, _DX_TILE[1])
+                      * plan["splits_x"] + _cdiv(I, _DW_TILE[0])
+                      * _cdiv(O, _DW_TILE[1]) * plan["splits_w"])
+        util = min(1.0, blocks / float(_FILL * sms))
+        return 4.0 * M * I * O / util, nbytes / util
+
+    q = _at.tuned_plan(KERNEL, {"M": M, "I": I, "O": O,
+                                "emit_next": int(emit_next),
+                                "aligned": int(aligned)}, default, grid,
+                       valid, cost=cost, probe=probe, device=device)
+    if q == default:
+        return base
+    return dual_plan(M, I, O, sms, emit_next, aligned=aligned,
+                     splits_w=q["splits_w"], splits_x=q["splits_x"])
+
+
 def dual_bwd_cuda(jg, y, x, w, coef, mask_mode, mask=None, addend=None,
-                  emit_jg=False, y3p=None, mprev=None):
+                  emit_jg=False, y3p=None, mprev=None, plan=None):
     """Launch the dual-backward kernel on contiguous CUDA tensors (the
-    shapes and types of :func:`dual_bwd_plain`)."""
+    shapes and types of :func:`dual_bwd_plain`). ``plan``: {"splits_w",
+    "splits_x"} of the launch (None: :func:`tuned_dual_plan` with the tuner
+    on, else :func:`dual_plan`)."""
     bf = (torch.bfloat16,)
     f32 = (torch.float32,)
     if mask_mode not in MASK_MODES:
@@ -196,9 +264,19 @@ def dual_bwd_cuda(jg, y, x, w, coef, mask_mode, mask=None, addend=None,
         raise MXNetError("%s: empty operand (M, I, O) = (%d, %d, %d)"
                          % (KERNEL, M, I, O))
     operands = [t for t, _, _ in want.values()]
-    plan = dual_plan(M, I, O, _cb.sm_count(dev), emit_next,
-                     aligned=all(t.data_ptr() % 16 == 0
-                                 for t in operands + [x]))
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands + [x])
+    sms = _cb.sm_count(dev)
+    if plan is None and not _at.enabled():
+        plan = dual_plan(M, I, O, sms, emit_next, aligned=aligned)
+    elif plan is None:
+        args = (jg, y, x, w, coef, mask_mode, mask, addend, emit_jg, y3p,
+                mprev)
+        plan = tuned_dual_plan(
+            M, I, O, sms, emit_next, aligned, dev,
+            lambda q: (lambda: (lambda: dual_bwd_cuda(*args, plan=q), ())))
+    else:
+        plan = dual_plan(M, I, O, sms, emit_next, aligned=aligned,
+                         splits_w=plan["splits_w"], splits_x=plan["splits_x"])
     # held until the launch is queued: a scratch tensor freed earlier
     # could hand its memory to the next one
     scratch = {key: None if plan[key] is None else torch.empty(
@@ -222,8 +300,8 @@ def dual_bwd_cuda(jg, y, x, w, coef, mask_mode, mask=None, addend=None,
             *(ptr(scratch[k]) for k in ("cdy", "part_dw", "part_dx",
                                         "part_sums")), M, I, O,
             MASK_MODES[mask_mode], plan["splits_w"], plan["rows_w"],
-            plan["splits_x"], plan["depth_x"], int(plan["fused"]),
-            _cb.sm_count(dev), _cb.stream_of(x))
+            plan["splits_x"], plan["depth_x"], int(plan["fused"]), sms,
+            _cb.stream_of(x))
     _cb.check_launch(lib, rc, KERNEL)
     return dx, dw, jg_out, sums
 

@@ -18,6 +18,15 @@ to gamma's dtype.
 The reference declines shapes whose row count does not split into
 whole TPU row blocks (``_pick_rows``) or is below 8; those are limits
 of TPU tiling, so the kernel serves every row count.
+
+Launch plans: the forward's grid (:func:`fwd_blocks`) and the backward's
+persistent blocks (:func:`bwd_blocks`) come from the card's SM count;
+with ``MXNET_AUTOTUNE`` on, :func:`fwd_plan` and :func:`bwd_plan` ask the
+tuner (``autotune.py``) for another grid of the same kernels, where the
+reference asks it for another row block (``pallas_norm.py ::
+_tuned_rows``). A row is one warp's either way, so a forward grid leaves
+its output bit for bit; the backward's dgamma and dbeta partial rows are
+summed in another order on another grid.
 """
 from __future__ import annotations
 
@@ -26,12 +35,15 @@ import math
 
 import torch
 
+from .. import autotune as _at
 from ..base import MXNetError
 from . import cuda_build as _cb
+from .cuda_epilogue import aligned16
 
 __all__ = ["layer_norm", "layer_norm_cuda", "layer_norm_plain",
            "layer_norm_bwd", "layer_norm_bwd_cuda", "layer_norm_bwd_plain",
-           "layer_norm_fn", "ln_available", "ln_composition"]
+           "layer_norm_fn", "ln_available", "ln_composition", "fwd_plan",
+           "bwd_plan"]
 
 KERNEL = "layer_norm_fwd"
 BWD_KERNEL = "layer_norm_bwd"
@@ -125,10 +137,54 @@ def fwd_blocks(M: int, C: int, dtype: torch.dtype, aligned: bool,
     return min(-(-M // _FWD_WARPS), _FWD_BLOCKS_PER_SM * sms)
 
 
-def bwd_scratch_shape(M: int, C: int, sms: int):
+def bwd_scratch_shape(M: int, C: int, sms: int, blocks=None):
     """The backward's f32 scratch: one dgamma and one dbeta partial row
-    per block."""
-    return (bwd_blocks(M, sms), 2, C)
+    per block (``blocks``, or :func:`bwd_blocks`)."""
+    return (blocks or bwd_blocks(M, sms), 2, C)
+
+
+def _row_cost(M: int, C: int, esize: int, streams: int):
+    """(FLOPs, bytes) of a LayerNorm launch: the same on every grid."""
+    return lambda plan: (8.0 * M * C, float(streams * M * C * esize))
+
+
+def fwd_plan(M: int, C: int, dtype: torch.dtype, aligned: bool, sms: int,
+             device=None, probe=None) -> int:
+    """Blocks of the forward's grid for this call: :func:`fwd_blocks`, or
+    the tuner's grid. On the register path the launcher takes 1 to
+    ``ceil(M / _FWD_WARPS)`` blocks (a warp a row, with a grid stride);
+    the chunked path's grid is fixed, and not consulted."""
+    default = fwd_blocks(M, C, dtype, aligned, sms)
+    if not reg_vectors(C, dtype, aligned):
+        return default
+    most = -(-M // _FWD_WARPS)
+    out = _at.tuned_plan(
+        KERNEL, {"M": M, "C": C, "esize": dtype.itemsize,
+                 "aligned": int(aligned)}, {"blocks": default},
+        lambda: [{"blocks": min(most, k * sms)} for k in (1, 2, 3, 6, 8)],
+        lambda p: _int_in(p.get("blocks"), 1, most),
+        cost=_row_cost(M, C, dtype.itemsize, 2), probe=probe, device=device)
+    return out["blocks"]
+
+
+def bwd_plan(M: int, C: int, dtype: torch.dtype, sms: int, device=None,
+             probe=None) -> int:
+    """Persistent blocks of the backward for this call:
+    :func:`bwd_blocks`, or the tuner's count, 1 to ``ceil(M /
+    _BWD_WARPS)`` (a warp a row, with a grid stride)."""
+    default = bwd_blocks(M, sms)
+    most = -(-M // _BWD_WARPS)
+    out = _at.tuned_plan(
+        BWD_KERNEL, {"M": M, "C": C, "esize": dtype.itemsize},
+        {"blocks": default},
+        lambda: [{"blocks": min(most, k * sms)} for k in (1, 3, 4, 6)],
+        lambda p: _int_in(p.get("blocks"), 1, most),
+        cost=_row_cost(M, C, dtype.itemsize, 3), probe=probe, device=device)
+    return out["blocks"]
+
+
+def _int_in(v, lo: int, hi: int) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool) and lo <= v <= hi
 
 
 def _lib():
@@ -137,7 +193,7 @@ def _lib():
         p, i32 = ctypes.c_void_p, ctypes.c_int
         fwd = [p, p, p, p, ctypes.c_int64, i32, ctypes.c_float, i32, i32,
                i32]
-        lib.mxt_layer_norm_fwd.argtypes = fwd + [p]
+        lib.mxt_layer_norm_fwd.argtypes = fwd + [ctypes.c_int64, p]
         lib.mxt_layer_norm_fwd.restype = i32
         lib.mxt_layer_norm_fwd_gamma_shift.argtypes = fwd + [i32, p]
         lib.mxt_layer_norm_fwd_gamma_shift.restype = i32
@@ -155,9 +211,12 @@ def _lib():
 
 
 def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
-                    beta: torch.Tensor, eps: float) -> torch.Tensor:
+                    beta: torch.Tensor, eps: float,
+                    blocks=None) -> torch.Tensor:
     """Launch the kernel on (..., C) ``x``; gamma/beta (C,) of any
-    float dtype. Inputs must be contiguous CUDA tensors."""
+    float dtype. Inputs must be contiguous CUDA tensors. ``blocks``: the
+    grid (None: :func:`fwd_plan` with the tuner on, else 0, the
+    launcher's own grid)."""
     dtypes = tuple(_cb.DTYPE_CODES)
     _cb.check_cuda_tensor(KERNEL, "x", x, dtypes)
     for name, p in (("gamma", gamma), ("beta", beta)):
@@ -170,20 +229,39 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     M = x.numel() // C
     y = torch.empty_like(x)
     lib = _lib()
+    sms = _cb.sm_count(x.device)
+    if blocks is None and _at.enabled():
+        aligned = aligned16(x, y, gamma, beta)
+        # the chunked path takes only its own grid
+        if reg_vectors(C, x.dtype, aligned):
+            blocks = fwd_plan(M, C, x.dtype, aligned, sms, x.device,
+                              _fwd_probe(x, gamma, beta, eps))
     with torch.cuda.device(x.device):
         rc = lib.mxt_layer_norm_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             M, C, float(eps), _cb.DTYPE_CODES[x.dtype],
-            _cb.DTYPE_CODES[gamma.dtype], _cb.sm_count(x.device),
+            _cb.DTYPE_CODES[gamma.dtype], sms, int(blocks or 0),
             _cb.stream_of(x))
     _cb.check_launch(lib, rc, KERNEL)
     return y
 
 
+def _fwd_probe(x, gamma, beta, eps):
+    """The tuner's runner of a forward plan on this call's tensors."""
+    return lambda plan: (lambda: (
+        lambda: layer_norm_cuda(x, gamma, beta, eps, plan["blocks"]), ()))
+
+
+def _bwd_probe(dy, x, gamma, eps):
+    return lambda plan: (lambda: (
+        lambda: layer_norm_bwd_cuda(dy, x, gamma, eps, plan["blocks"]), ()))
+
+
 def layer_norm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
-                        gamma: torch.Tensor, eps: float):
+                        gamma: torch.Tensor, eps: float, blocks=None):
     """Launch the backward kernel on (M, C) ``dy`` and ``x``; returns
-    (dx, dgamma, dbeta), the last two in gamma's dtype."""
+    (dx, dgamma, dbeta), the last two in gamma's dtype. ``blocks``: the
+    persistent grid (:func:`bwd_plan` when None)."""
     dtypes = tuple(_cb.DTYPE_CODES)
     _cb.check_cuda_tensor(BWD_KERNEL, "x", x, dtypes)
     _cb.check_cuda_tensor(BWD_KERNEL, "dy", dy, (x.dtype,), x.device)
@@ -195,7 +273,12 @@ def layer_norm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor,
                                          tuple(x.shape), tuple(gamma.shape)))
     M, C = x.shape
     lib = _lib()
-    part = torch.empty(bwd_scratch_shape(M, C, _cb.sm_count(x.device)),
+    sms = _cb.sm_count(x.device)
+    if blocks is None:
+        blocks = bwd_plan(M, C, x.dtype, sms, x.device,
+                          _bwd_probe(dy, x, gamma, eps)) \
+            if _at.enabled() else bwd_blocks(M, sms)
+    part = torch.empty(bwd_scratch_shape(M, C, sms, blocks),
                        dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)

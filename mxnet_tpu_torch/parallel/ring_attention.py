@@ -23,8 +23,6 @@ autograd walks the graph in on each device.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from . import collectives as _coll
@@ -33,7 +31,14 @@ __all__ = ["ring_attention", "ulysses_attention", "local_attention"]
 
 
 def _scale_of(q: torch.Tensor, scale):
-    return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    """``scale``, or the reference's default in q's dtype: sqrt(d) taken
+    in f32, rounded to q's dtype, and its reciprocal taken in q's dtype
+    (in f32 the exact value to within f32 rounding; in bf16 the scale
+    the reference's bf16 logits see)."""
+    if scale is not None:
+        return float(scale)
+    root = torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=torch.float32))
+    return float(1.0 / root.to(q.dtype))
 
 
 def local_attention(q, k, v, scale=None):

@@ -38,10 +38,12 @@ statistics over the process group (``dist.allgather_floats``, under the
 kvstore deadline) and names the slowest rank and whether communication
 or compute makes it slow; one process is a fleet of one rank.
 :func:`refresh` and :func:`reset` reach :mod:`.commwatch` and the
-distributed tracing of :mod:`.tracing` too; the reference's
-performance-record module, which they also reach there, comes with item
-15. The heartbeat gains a ``serve=`` section once the process serves and
-a ``trace=`` section once it traces.
+distributed tracing of :mod:`.tracing` too, and :func:`refresh` drops
+:mod:`.perfwatch`'s cached gate. The heartbeat gains a ``serve=`` section
+once the process serves, a ``trace=`` section once it traces, and a
+``perf=`` section (``mx_perf_ingested_total``,
+``mx_perf_regressions_total``) once perfwatch stores a record or a scan
+confirms a regression; each section only reads the registry.
 """
 from __future__ import annotations
 
@@ -123,6 +125,16 @@ def refresh():
     try:
         from . import tracing
         tracing.refresh()
+    except Exception:
+        pass
+    try:
+        from . import perfwatch
+        perfwatch.refresh()
+    except Exception:
+        pass
+    try:
+        from . import autotune
+        autotune.refresh()
     except Exception:
         pass
 
@@ -998,6 +1010,13 @@ def heartbeat_line() -> str:
                         ts["exemplars"]))
     except Exception:
         pass
+    # the performance trajectory: records ingested into the
+    # MXNET_PERF_DB store and confirmed regressions of the last scan
+    perf_ing = _sum_of("mx_perf_ingested_total")
+    perf_reg = _sum_of("mx_perf_regressions_total")
+    if perf_ing or perf_reg:
+        line += (" perf=ingested:%d,regressions:%d"
+                 % (int(perf_ing), int(perf_reg)))
     return line
 
 

@@ -151,8 +151,47 @@ def test_chunk_size_from_config(monkeypatch):
     assert contrib_ops.ce_chunk_size(0, 30522) == 1000
     monkeypatch.setenv("MXNET_AUTOTUNE", "cost")
     assert contrib_ops.ce_chunk_size(16, 50) == 16
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 15\)"):
-        contrib_ops.ce_chunk_size(0, 50)
+    # cost mode: the op asks the tuner for its chunk, the same chunk the
+    # reference's _tuned_ce_chunk picks on the same grid and peaks from
+    # the same analytic figures (the port has no XLA cost analysis, so the
+    # reference's probe compiles give way to its analytic FLOPs and bytes;
+    # the bytes dominate at these peaks, so no tie decides), and the loss
+    # and gradients stay the reference's at the f32 tolerances
+    from mxnet_tpu import autotune as rat
+    from mxnet_tpu_torch import autotune as pat
+    peaks = (1e15, 1e9)
+    monkeypatch.setattr(rat, "_peaks", lambda *a: peaks)
+    monkeypatch.setattr(pat, "_peaks", lambda *a: peaks)
+    monkeypatch.setattr(rat, "_aot_probe", lambda fn, args: (None,) * 3)
+    rat.clear()
+    pat.clear()
+    try:
+        rng = np.random.RandomState(3)
+        Vb = 5000
+        h = rng.randn(T, U).astype(np.float32)
+        w = (rng.randn(Vb, U) * 0.3).astype(np.float32)
+        b = (rng.randn(Vb) * 0.1).astype(np.float32)
+        lab = rng.randint(0, Vb, (T,)).astype(np.int32)
+        dy = rng.rand(T).astype(np.float32)
+        got = _port(lambda *a: contrib_ops.chunked_lm_head_ce(*a), h, w, b,
+                    lab, dy, "float32", "float32")
+        from mxnet_tpu.ops.contrib_ops import chunked_lm_head_ce as rce
+        ref = _ref(lambda *a: rce(*a), h, w, b, lab, dy, "float32",
+                   "float32")
+        (pk, pv), = [(k, v) for k, v in pat.table().items()
+                     if "chunked_lm_head_ce" in k]
+        (rk, rv), = [(k, v) for k, v in rat.table().items()
+                     if "chunked_lm_head_ce" in k]
+        assert pk == rk == "cpu|chunked_lm_head_ce|T=%d,U=%d,V=%d,esize=4" \
+            % (T, U, Vb)
+        assert pv["params"] == rv["params"] == {"chunk": 4096}
+        assert pv["mode"] == "cost"
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-6, atol=1e-6)
+        for a, r in zip(got[1], ref[1]):
+            np.testing.assert_allclose(a, r, rtol=5e-5, atol=1e-5)
+    finally:
+        rat.clear()
+        pat.clear()
 
 
 def _mlm_pair(mode, chunk_size, seed=4):

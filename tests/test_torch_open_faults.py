@@ -132,6 +132,10 @@ _EXCEPTIONS = {
          "tpu": "TPU-specific (the port has gpu)",
          "num_tpus": "TPU-specific (the port has num_gpus)"},
     ".autograd": {"get_symbol": "item 16 (symbol)"},
+    # the reference tunes TPU row blocks; the port tunes each kernel's
+    # launch plan through tuned_plan
+    ".autotune": {"tuned_rows": "TPU-specific (row blocks; the port's "
+                                "launch plans go through tuned_plan)"},
     ".compilewatch": {"WatchedJit": "JAX-specific (the port watches "
                                     "capture sites, Watch)",
                       "watched_jit": "JAX-specific"},

@@ -156,6 +156,43 @@ def test_port_loads_only_its_own_io_library():
     assert "LOADED []" in proc.stdout
 
 
+def test_tuner_store_and_tools_load_no_jax_or_reference():
+    """The autotuner, the perfwatch store, the bench-JSON schema and the
+    observability tools run without JAX, the reference package or the
+    reference's tools/."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        os.environ["MXNET_AUTOTUNE"] = "cost"
+        import torch
+        from mxnet_tpu_torch import autotune, perfwatch
+        from mxnet_tpu_torch.ops import cuda_norm
+        from mxnet_tpu_torch.tools import (bench_json, compile_micro,
+                                           compile_report, modelwatch_micro,
+                                           perfwatch as cli, telemetry_micro,
+                                           trace_summary)
+        assert cuda_norm.fwd_plan(4096, 768, torch.bfloat16, True, 132) \
+            == cuda_norm.fwd_blocks(4096, 768, torch.bfloat16, True, 132)
+        assert autotune.table()
+        tmp = tempfile.mkdtemp()
+        os.environ["MXNET_PERF_DB"] = tmp
+        perfwatch.refresh()
+        bench_json.emit({"metric": "t_ms", "value": 1.0, "unit": "ms"})
+        assert cli.main(["report", "--gate"]) == 0
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu",
+                                            "tools"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MXNET_")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PERFWATCH_GATE_OK (1 series flat or improved)" in proc.stdout
+    assert "LOADED []" in proc.stdout
+
+
 def test_port_sources_name_no_reference_library():
     """No port source or build file names the reference's native
     libraries."""

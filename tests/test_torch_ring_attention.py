@@ -128,6 +128,84 @@ def test_ulysses_attention_matches_local():
                                **OUT_TOL)
 
 
+# bf16: the largest |port - reference| over seeds 0-4 on _qkv's inputs
+# (t 32, h 4) rounded to bf16, read on the CPU with the default scale taken
+# in q's dtype as the reference takes it: ring attention computes in f32
+# and differs only by f32 summation order; Ulysses and local attention
+# compute in bf16 and differ by one bf16 step of their outputs at most
+# (torch's bf16 softmax rounds once, XLA's after each op; local attention
+# runs on each sp block of the sequence, whose fewer keys give larger
+# outputs and so larger steps). With the exact f32 scale
+# ring attention read 9.77e-4 at d 8 (d 64's scale, 1/8, is exact in
+# bf16); a probe at (2, 32, 4, 8) over sp 4 on unscaled inputs read 1.9e-3
+# (ring) and 9.5e-3 (Ulysses) with it, 2.4e-4 and 3.8e-3 without. Each
+# limit is twice its reading.
+BF16_READINGS = {("ring", 2, 8): 7.63e-6, ("ring", 2, 64): 5.96e-8,
+                 ("ring", 4, 8): 7.63e-6, ("ring", 4, 64): 6.1e-5,
+                 ("ulysses", 2, 8): 9.77e-4, ("ulysses", 2, 64): 9.77e-4,
+                 ("ulysses", 4, 8): 9.77e-4, ("ulysses", 4, 64): 9.77e-4,
+                 ("local", 2, 8): 1.95e-3, ("local", 2, 64): 1.95e-3,
+                 ("local", 4, 8): 1.95e-3, ("local", 4, 64): 1.95e-3}
+
+
+def _ref_sharded_bf16(fn, sp, q, k, v):
+    mesh = Mesh(np.array(jax.devices()[:sp]), ("sp",))
+    spec = JP(None, "sp", None, None)
+    f = rshard_map(lambda a, b, c: fn(a, b, c, axis_name="sp"),
+                   mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)
+    with mesh:
+        args = [jax.device_put(jnp.asarray(a, dtype=jnp.bfloat16),
+                               NamedSharding(mesh, spec)) for a in (q, k, v)]
+        return np.asarray(jax.jit(f)(*args).astype(jnp.float32))
+
+
+def _port_sharded_bf16(fn, sp, q, k, v):
+    f = ppar.shard_map(lambda a, b, c: fn(a, b, c, "sp"), mesh=_pmesh(sp),
+                       in_specs=(SPEC,) * 3, out_specs=SPEC)
+    out = f(*[torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)])
+    assert out.tensor().dtype == torch.bfloat16
+    return out.tensor().float().numpy()
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_default_scale_is_the_references_in_each_dtype(d):
+    from mxnet_tpu_torch.parallel.ring_attention import _scale_of
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float16, torch.float16),
+                     (jnp.float32, torch.float32)):
+        want = float(1.0 / jnp.sqrt(d).astype(jdt))
+        assert _scale_of(torch.zeros(1, d, dtype=tdt), None) == want
+    assert _scale_of(torch.zeros(1, d, dtype=torch.bfloat16), 0.3) == 0.3
+    # f32: the exact value to within f32 rounding
+    assert abs(_scale_of(torch.zeros(1, d), None) - d ** -0.5) < 1e-7
+
+
+@pytest.mark.parametrize("name,sp,d", sorted(BF16_READINGS))
+def test_bf16_matches_the_reference(name, sp, d):
+    limit = 2 * BF16_READINGS[(name, sp, d)]
+    for seed in range(5):
+        q, k, v = _qkv(d=d, seed=seed)
+        if name == "local":
+            # local attention runs on each sp block of the sequence
+            for blk in range(sp):
+                sl = slice(blk * 32 // sp, (blk + 1) * 32 // sp)
+                want = np.asarray(r_local(*[
+                    jnp.asarray(a[:, sl], dtype=jnp.bfloat16)
+                    for a in (q, k, v)]).astype(jnp.float32))
+                got = ppar.local_attention(*[
+                    torch.from_numpy(np.ascontiguousarray(a[:, sl]))
+                    .to(torch.bfloat16) for a in (q, k, v)])
+                assert got.dtype == torch.bfloat16
+                np.testing.assert_allclose(got.float().numpy(), want,
+                                           rtol=0, atol=limit)
+            continue
+        pfn, rfn = {"ring": (ppar.ring_attention, r_ring),
+                    "ulysses": (ppar.ulysses_attention, r_ulysses)}[name]
+        got = _port_sharded_bf16(pfn, sp, q, k, v)
+        want = _ref_sharded_bf16(rfn, sp, q, k, v)
+        np.testing.assert_allclose(got, want, rtol=0, atol=limit)
+
+
 @pytest.mark.parametrize("name,kw", [("ring", {}),
                                      ("ring", {"causal": True}),
                                      ("ulysses", {})])
